@@ -1,0 +1,139 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The sources under ``tenzing_tpu_torch/csrc/`` have a plain C interface.  At
+first use, ``nvcc`` compiles each source for ``sm_90a`` (all started together,
+one process per source) and links them into one shared library under
+``build/tenzing_tpu_torch/`` in the repository checkout; ``ctypes`` loads it,
+with every pointer and the stream passed as ``c_void_p``.  The library's file
+name carries a digest of the sources and flags, so an edited source rebuilds
+and an unchanged one loads the existing build.
+
+Nothing here runs at import time: the CPU tests import every module, and this
+machine may have no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tenzing_tpu_torch"
+SOURCES = ("halo_pack.cu", "halo_unpack.cu", "device_copy.cu")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_c_i64 = ctypes.c_int64
+_c_ptr = ctypes.c_void_p
+# C entry point -> argument types (restype is int: cudaGetLastError())
+SIGNATURES = {
+    "tz_halo_pack": [_c_ptr, _c_ptr] + [_c_i64] * 11 + [_c_ptr],
+    "tz_halo_unpack": [_c_ptr, _c_ptr] + [_c_i64] * 11 + [_c_ptr],
+    "tz_device_copy": [_c_ptr, _c_ptr, _c_i64, _c_ptr],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+# what the last build() did: seconds, whether it compiled, nvcc's -v report
+build_info: Dict[str, object] = {}
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler: ``$NVCC``, ``nvcc`` on PATH, or the toolkit's
+    default location.  Raises when none exists."""
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(set NVCC or put the CUDA toolkit's bin on PATH)")
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(ARCH_FLAGS + COMPILE_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libtenzing_kernels-{_digest()}.so"
+
+
+def build() -> Path:
+    """Compile and link the kernel library if it is not built yet; returns its
+    path.  A file lock serializes concurrent builders."""
+    so = library_path()
+    t0 = time.perf_counter()
+    if so.exists():
+        build_info.update(seconds=0.0, compiled=False, path=str(so))
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if so.exists():
+            build_info.update(seconds=time.perf_counter() - t0,
+                              compiled=False, path=str(so))
+            return so
+        cc = nvcc()
+        work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+        try:
+            procs = []
+            for name in SOURCES:
+                obj = work / (name + ".o")
+                cmd = [cc, *ARCH_FLAGS, *COMPILE_FLAGS, "-c", str(CSRC / name),
+                       "-o", str(obj)]
+                procs.append((name, obj, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+            reports = []
+            failed = []
+            for name, _, p in procs:
+                out, _ = p.communicate()
+                reports.append(f"== {name}\n{out}")
+                if p.returncode != 0:
+                    failed.append(name)
+            if failed:
+                raise RuntimeError(
+                    f"nvcc failed on {failed}:\n" + "\n".join(reports))
+            tmp_so = work / so.name
+            link = subprocess.run(
+                [cc, *ARCH_FLAGS, "-shared", "-o", str(tmp_so),
+                 *[str(obj) for _, obj, _ in procs]],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+            os.replace(tmp_so, so)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    build_info.update(seconds=time.perf_counter() - t0, compiled=True,
+                      path=str(so), ptxas="\n".join(reports))
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        loaded = ctypes.CDLL(str(build()))
+        for fn, argtypes in SIGNATURES.items():
+            f = getattr(loaded, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        _lib = loaded
+    return _lib
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise when a C entry point reported a CUDA error for its launch."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")

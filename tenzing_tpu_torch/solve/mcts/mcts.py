@@ -1,0 +1,196 @@
+"""MCTS search driver.
+
+Counterpart of ``tenzing_tpu/solve/mcts/mcts.py`` (reference
+``tenzing-mcts/include/tenzing/mcts/mcts.hpp`` ``explore``, mcts.hpp:154-327):
+per iteration — select, expand, rollout to a complete schedule,
+``remove_redundant_syncs``, verify, benchmark, backprop — stopping when the
+root is fully visited.  Kept from the reference: decision-path seeds consumed
+as the first iterations, informed (policy) rollouts, the equivalence-keyed
+benchmark cache, the soundness gate, and the multi-fidelity screen/confirm
+split.  The port runs in one process, so the reference's broadcast protocol,
+checkpointing, compile prefetching and fleet sub-tree slicing are absent; a
+measurement that raises is not a search verdict on CUDA (there is no compile
+step that can legitimately fail) and propagates.
+"""
+
+from __future__ import annotations
+
+import random as _random
+from dataclasses import dataclass, field
+from typing import List, Optional, Type
+
+from tenzing_tpu_torch.bench.benchmarker import (
+    BenchOpts,
+    BenchResult,
+    CachingBenchmarker,
+)
+from tenzing_tpu_torch.core.schedule import remove_redundant_syncs
+from tenzing_tpu_torch.core.sequence import Sequence, canonical_key
+from tenzing_tpu_torch.core.state import State
+from tenzing_tpu_torch.solve.mcts.node import Node
+from tenzing_tpu_torch.solve.mcts.strategies import FastMin
+from tenzing_tpu_torch.utils.counters import Counters
+
+
+@dataclass
+class MctsOpts:
+    """reference mcts::Opts (mcts.hpp:42-50)."""
+
+    n_iters: int = 300
+    bench_opts: BenchOpts = field(default_factory=BenchOpts)
+    # multi-fidelity split: when ``screen_opts`` is set, every rollout is
+    # measured at that CHEAP floor (search-time numbers only steer the tree),
+    # and after the loop the ``confirm_topk`` best distinct schedules are
+    # re-measured at the full ``bench_opts`` floor
+    screen_opts: Optional[BenchOpts] = None
+    confirm_topk: int = 6
+    # informed playouts (Node.get_rollout): complete each rollout with this
+    # ``(state, decisions) -> decision`` policy instead of uniform random,
+    # taking a random decision with probability ``rollout_eps`` per step
+    rollout_policy: Optional[object] = None
+    rollout_eps: float = 0.15
+    expand_rollout: bool = False
+    seed: int = 0
+    cache_benchmarks: bool = True
+    # independent soundness gate (verify.ScheduleVerifier): an unsound
+    # rollout is rejected with a penalty backprop and never measured
+    verify: Optional[object] = None
+
+
+@dataclass
+class SimResult:
+    order: Sequence
+    result: BenchResult
+    # which measurement floor produced ``result``: "full" or "screen"
+    fidelity: str = "full"
+
+
+@dataclass
+class MctsResult:
+    sims: List[SimResult] = field(default_factory=list)
+    tree_size: int = 0
+    counters: Optional[Counters] = None
+
+    def best(self) -> Optional[SimResult]:
+        if not self.sims:
+            return None
+        return min(self.sims, key=lambda s: s.result.pct10)
+
+
+def _materialize_seed(root: Node, path) -> tuple:
+    """Walk ``path`` (a decision list from ``solve.local.drive``) down the
+    tree, creating ONLY the matching child per step; returns (deepest matched
+    node, the terminal state reached by applying the FULL path).  Decisions
+    match by content key, so a path recorded on an independent State chain of
+    the same graph lands on the same tree nodes."""
+    node, st = root, root.state
+    matched = True
+    for d in path:
+        st = st.apply(d)
+        if matched:
+            nxt = next(
+                (c for c in node.children
+                 if c.decision is not None and c.decision.key() == d.key()),
+                None,
+            )
+            if nxt is None and not node.expanded_ and not node.is_terminal():
+                # pre-create just this child; expanded_ stays False so the
+                # node's remaining decisions enumerate on first real visit
+                nxt = Node(st, node.strategy, d, node)
+                node.children.append(nxt)
+            if nxt is None:
+                matched = False
+            else:
+                node = nxt
+    return node, st
+
+
+def explore(
+    graph,
+    platform,
+    benchmarker,
+    opts: Optional[MctsOpts] = None,
+    strategy: Optional[Type] = None,
+    seeds=None,
+) -> MctsResult:
+    """Run the MCTS search (reference mcts::explore, mcts.hpp:154-327).
+
+    ``seeds`` (optional): decision paths consumed as the FIRST iterations —
+    each is materialized as a tree path, benchmarked like any rollout and
+    backpropagated, warm-starting the selection statistics."""
+    opts = opts if opts is not None else MctsOpts()
+    strategy = strategy if strategy is not None else FastMin
+    rng = _random.Random(opts.seed)
+    counters = Counters()
+    result = MctsResult(counters=counters)
+    if opts.cache_benchmarks and not isinstance(benchmarker, CachingBenchmarker):
+        benchmarker = CachingBenchmarker(benchmarker)
+    ctx = strategy.Context(seed=opts.seed)
+    root = Node(State(graph), strategy)
+    ctx.root = root
+    seed_iter = iter(seeds if seeds is not None else ())
+    failed_keys: set = set()  # negative cache for unsound schedules
+    ropts = opts.screen_opts if opts.screen_opts is not None else opts.bench_opts
+    fidelity = "screen" if opts.screen_opts is not None else "full"
+    for _ in range(opts.n_iters):
+        path = next(seed_iter, None)
+        if path is not None:
+            with counters.phase("SEED"):
+                endpoint, st = _materialize_seed(root, path)
+                if st.is_terminal():
+                    # benchmarked AS RECORDED (no redundant-sync cleanup)
+                    order = st.sequence
+                else:  # defensive: complete the path
+                    _, order = endpoint.get_rollout(
+                        platform, rng, policy=opts.rollout_policy,
+                        policy_eps=opts.rollout_eps)
+        elif root.fully_visited_:
+            break
+        else:
+            with counters.phase("SELECT"):
+                leaf = root.select(ctx, platform, rng)
+            with counters.phase("EXPAND"):
+                child = leaf.expand(platform, rng)
+            with counters.phase("ROLLOUT"):
+                endpoint, order = child.get_rollout(
+                    platform, rng, opts.expand_rollout,
+                    policy=opts.rollout_policy, policy_eps=opts.rollout_eps)
+            with counters.phase("REDUNDANT_SYNC"):
+                order = remove_redundant_syncs(order)
+        key = canonical_key(order)
+        if key not in failed_keys and opts.verify is not None:
+            if not opts.verify(order).ok:
+                failed_keys.add(key)
+        if key in failed_keys:
+            # backprop a penalty (2x the worst time seen) so the tree learns
+            # to avoid the region; no sim is recorded
+            worst = max((s.result.pct50 for s in result.sims), default=1.0)
+            with counters.phase("BACKPROP"):
+                endpoint.backprop(ctx, BenchResult.from_times([2.0 * worst]))
+            continue
+        with counters.phase("BENCHMARK"):
+            res = benchmarker.benchmark(order, ropts)
+        result.sims.append(SimResult(order=order, result=res,
+                                     fidelity=fidelity))
+        with counters.phase("BACKPROP"):
+            endpoint.backprop(ctx, res)
+    # multi-fidelity confirm: the top-k distinct screened schedules are
+    # re-measured at the full bench_opts floor
+    if opts.screen_opts is not None and result.sims:
+        finals: List[Sequence] = []
+        seen_keys: set = set()
+        for s in sorted(result.sims, key=lambda s: s.result.pct50):
+            k = canonical_key(s.order)
+            if k in seen_keys:
+                continue
+            seen_keys.add(k)
+            finals.append(s.order)
+            if len(finals) >= opts.confirm_topk:
+                break
+        for order in finals:
+            with counters.phase("CONFIRM"):
+                res = benchmarker.benchmark(order, opts.bench_opts)
+            result.sims.append(SimResult(order=order, result=res,
+                                         fidelity="full"))
+    result.tree_size = root.size()
+    return result
