@@ -20,12 +20,42 @@ before the last line:
               its plain version on the card, and to the expected grid; timed
               runs must leave every buffer's ``data_ptr`` unchanged;
 5. driver   — ``tenzing_tpu_torch.bench.driver.run`` at ``halo_n=512`` with a
-              small budget; ``verified`` must be true and each kernel's launch
-              count over this run must be > 0.
+              small budget; ``verified`` must be true and each halo kernel's
+              launch count over this run must be > 0;
+6. attn kernels  — at the full-width attention shapes (batch 4, 8192
+              queries, head dim 128): ``attn_block`` (f32 and bf16 inputs) on a
+              1024-key block from the initial state and from the state after
+              three folds, ``attn_fused`` (f32 and bf16) over all 8192 keys,
+              and a ragged block (1 x 1000 queries): each against its plain
+              PyTorch version on the card, as m, l and acc / l, at
+              ``F32_STATE_TOL`` / ``BF16_STATE_TOL`` (ops/attention_kernels.py);
+              every bf16 row also holds three deliberately faulty plain folds
+              (p left unrounded, V truncated, nothing rounded) against the
+              same plain version and fails if the tolerance accepts any of
+              them; the fused rows hold O = acc / l against the dense float64
+              attention (``F32_O_TOL`` / ``BF16_O_TOL``; the controls' O is
+              reported beside it).  Each row carries the kernel's, the plain
+              version's and (fused) ``scaled_dot_product_attention``'s times
+              and the bound;
+7. attn executor — the naive (all ``.xla``), ``.pallas`` on 2 lanes,
+              ``.pallas_bf16``, ``.fused``, ``.fused_bf16`` and a mixed order
+              at full width through ``StreamExecutor``, each against the same
+              order with plain kernels and against the dense float64 expected
+              O (the same tolerances); timed runs must keep every
+              ``data_ptr``;
+8. attn driver   — ``run`` with ``workload="attn"`` at full width and a small
+              budget: the metric must be ``attn_blockwise_pct50_searched_n8192``,
+              both attention kernels must launch > 0 times, and the result is
+              verified or its winner was demoted with only ``acc``/``O``
+              diverging (bf16 rounding against the f32 naive chain; the
+              demoted schedule's O must then be within ``BF16_O_TOL`` of the
+              expected).
 
-Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.  Without a CUDA device it prints nothing
-and exits 2.  Times are CUDA-event times on the card this runs on.
+Each driver phase sets every kernel's launch count to 0 just before it and
+reads the counts just after.  Then the ``{"kernels": [...]}`` line, the
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without a
+CUDA device it prints nothing and exits 2.  Times are CUDA-event times on the
+card this runs on.
 """
 
 import json
@@ -37,6 +67,15 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores (data sheet)
+PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor cores (data sheet)
+# O against the dense float64 attention: f32 inputs at the reference's f32
+# tolerance (tests/test_ring_attention.py:76); bf16 inputs at twice the
+# error that rounding q/k/v and p gives at this size (PERF.md, PR 2).  The
+# rounding itself dominates there, so the faults the bf16 state tolerance
+# catches do not show in this check: it catches gross ones.
+F32_O_TOL = dict(rtol=2e-4, atol=2e-5)
+BF16_O_TOL = dict(rtol=0.0, atol=1e-3)
 FLUSH_BYTES = 128 << 20  # > the 50 MB L2: each timed launch starts cold
 REPS = 15
 
@@ -92,6 +131,32 @@ class Timer:
 
 def bound_ms(nbytes: int) -> float:
     return nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def attn_bound(nbytes: float, flops: float, bf16: bool):
+    """(bound ms, what bounds it): the larger of the bytes over the memory
+    rate and the operations over the peak rate of their type."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / (PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS) * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def reset_launches():
+    from tenzing_tpu_torch.ops import attention_kernels as ak
+    from tenzing_tpu_torch.ops import halo_kernels as hk
+    from tenzing_tpu_torch.ops import rdma
+
+    for counts in (hk.LAUNCHES, rdma.LAUNCHES, ak.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def all_launches():
+    from tenzing_tpu_torch.ops import attention_kernels as ak
+    from tenzing_tpu_torch.ops import halo_kernels as hk
+    from tenzing_tpu_torch.ops import rdma
+
+    return {**hk.LAUNCHES, **rdma.LAUNCHES, **ak.LAUNCHES}
 
 
 def phase_kernels(torch, device, timer):
@@ -295,6 +360,267 @@ def phase_executor(torch, device):
     return {"setup_s": round(setup_s, 3), "orders": len(rows)}
 
 
+def attn_full_args():
+    from tenzing_tpu_torch.bench.driver import DriverRequest, attn_args
+
+    return attn_args(DriverRequest(workload="attn"))
+
+
+def dense_o(torch, q, k, v, scale):
+    """Softmax attention of (b, n, d) q/k/v in float64 on the card, one batch
+    element at a time (the reference's dense expected O,
+    ring_attention.py:593-598)."""
+    outs = []
+    for i in range(q.shape[0]):
+        qi, ki, vi = (t[i].to(torch.float64) for t in (q, k, v))
+        p = torch.softmax((qi @ ki.T) * scale, dim=-1)
+        outs.append((p @ vi).float())
+        del qi, ki, vi, p
+    return torch.stack(outs)
+
+
+CONTROLS = ("p_unrounded", "v_truncated", "f32")
+
+
+def control_fold(torch, ak, q, k, v, state, scale, bkv, fault):
+    """The plain bf16 fold of q/k/v into ``state`` (in place, ``bkv`` keys at
+    a time) with one deliberate fault, a control that the bf16 tolerance
+    must reject: ``p_unrounded`` keeps p in f32 for p v, ``v_truncated``
+    rounds V toward zero instead of to nearest, ``f32`` rounds nothing."""
+    if fault != "f32":
+        q, k = (t.to(torch.bfloat16).float() for t in (q, k))
+        v = ((v.view(torch.int32) & -65536).view(torch.float32)
+             if fault == "v_truncated" else v.to(torch.bfloat16).float())
+    b, n, d = q.shape
+    for j in range(0, k.shape[1], bkv):
+        kb, vb = k[:, j:j + bkv], v[:, j:j + bkv]
+        work = [torch.empty(shape, device=q.device) for shape, _ in
+                ak.fold_scratch(b, n, kb.shape[1], d).values()]
+        ak.fold_into(q, kb, vb, *state, scale, *work,
+                     bf16_p=fault == "v_truncated")
+
+
+def phase_attn_kernels(torch, device, timer):
+    """Both attention kernels at the full-width shapes against their plain
+    versions, with controls, times and bounds."""
+    import torch.nn.functional as F
+
+    from tenzing_tpu_torch.ops import attention_kernels as ak
+
+    a = attn_full_args()
+    b, n, d, blk = a.batch, a.n_devices * a.seq_local, a.head_dim, a.seq_local
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    q, k, v = (torch.randn(b, n, d, device=device, generator=gen)
+               for _ in range(3))
+    want_o = dense_o(torch, q, k, v, a.scale)
+
+    def init_state(bb, nn):
+        return [torch.zeros(bb, nn, d, device=device),
+                torch.full((bb, nn, d), -1e30, device=device),
+                torch.zeros(bb, nn, d, device=device)]
+
+    mid = init_state(b, n)  # the state after three f32 folds
+    for s in range(3):
+        ak.attn_block_plain(q, k[:, s * blk:(s + 1) * blk],
+                            v[:, s * blk:(s + 1) * blk], *mid, a.scale)
+    cases = []  # (label, kernel, bf16, q, k, v, state, library call)
+    for bf16 in (False, True):
+        tag = "bf16" if bf16 else "f32"
+        cases.append((f"block-{tag}-init", "attn_block", bf16, q,
+                      k[:, :blk], v[:, :blk], init_state(b, n), None))
+        cases.append((f"block-{tag}-after3", "attn_block", bf16, q,
+                      k[:, 3 * blk:4 * blk], v[:, 3 * blk:4 * blk],
+                      [t.clone() for t in mid], None))
+        # the library yardstick: one scaled_dot_product_attention call over
+        # (batch, 1 head, n, d) views, in the inputs' type
+        lq, lk, lv = ((t.to(torch.bfloat16) if bf16 else t).unsqueeze(1)
+                      for t in (q, k, v))
+        cases.append((f"fused-{tag}", "attn_fused", bf16, q, k, v,
+                      init_state(b, n),
+                      lambda lq=lq, lk=lk, lv=lv:
+                      F.scaled_dot_product_attention(lq, lk, lv)))
+        cases.append((f"block-{tag}-ragged", "attn_block", bf16,
+                      q[:1, :1000], k[:1, :blk], v[:1, :blk],
+                      init_state(1, 1000), None))
+    rows, failed = [], []
+    for label, kernel, bf16, cq, ck, cv, st, library in cases:
+        kern = getattr(ak, kernel)
+        plain = getattr(ak, kernel + "_plain")
+        kw = {"bkv": blk} if kernel == "attn_fused" else {}
+        got, want = [t.clone() for t in st], [t.clone() for t in st]
+        kern(cq, ck, cv, *got, a.scale, bf16_inputs=bf16, **kw)
+        plain(cq, ck, cv, *want, a.scale, bf16_inputs=bf16, **kw)
+        torch.cuda.synchronize()
+        tol = ak.BF16_STATE_TOL if bf16 else ak.F32_STATE_TOL
+        o_tol = BF16_O_TOL if bf16 else F32_O_TOL
+        ok, errs = ak.state_check(got, want, tol)
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        nb, nq, nkv = cq.shape[0], cq.shape[1], ck.shape[1]
+        bound, bound_by = attn_bound(ak.fold_bytes(nb, nq, nkv, d),
+                                     ak.attention_flops(nb, nq, nkv, d), bf16)
+        row = {"phase": "attn_kernels", "case": label, "kernel": kernel,
+               "bf16_inputs": bf16, "shape": [nb, nq, nkv, d],
+               "max_abs_err": max(e["max_abs"] for e in errs.values()),
+               "errors": errs, "within_tol": ok, "finite": finite,
+               "tolerance": tol}
+        states = {"kernel": got, "plain": want}
+        if bf16:
+            row["controls"] = {}
+            for fault in CONTROLS:
+                ctl = [t.clone() for t in st]
+                control_fold(torch, ak, cq, ck, cv, ctl, a.scale,
+                             ck.shape[1] if kernel == "attn_block" else blk,
+                             fault)
+                c_ok, c_errs = ak.state_check(ctl, want, tol)
+                row["controls"][fault] = {"errors": c_errs, "within_tol": c_ok}
+                states[fault] = ctl
+            row["controls_rejected"] = not any(
+                c["within_tol"] for c in row["controls"].values())
+        if kernel == "attn_fused":  # from the initial state: O = acc / l
+            row["o_vs_expected"] = {}
+            for who, (acc, _, l) in states.items():
+                o = acc / l
+                row["o_vs_expected"][who] = {
+                    "max_abs": float((o - want_o).abs().max()),
+                    "within_tol": torch.allclose(o, want_o, **o_tol)}
+            row["o_tolerance"] = o_tol
+        del states
+        row.update({
+            "ms": timer.ms(lambda: kern(cq, ck, cv, *got, a.scale,
+                                        bf16_inputs=bf16, **kw)),
+            "plain_ms": timer.ms(lambda: plain(cq, ck, cv, *want, a.scale,
+                                               bf16_inputs=bf16, **kw)),
+            "library_ms": timer.ms(library) if library else None,
+            "bound_ms": bound, "bound_by": bound_by})
+        emit(row)
+        rows.append(row)
+        o_ok = row.get("o_vs_expected", {}).get("kernel", {}).get("within_tol",
+                                                                   True)
+        if not (ok and finite and o_ok and row.get("controls_rejected", True)):
+            failed.append(label)
+        del got, want
+    del q, k, v, mid, cases, want_o
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"attn kernels phase failed on {failed}")
+    return rows
+
+
+def phase_attn_executor(torch, device):
+    """The fixed attention orders through the stream executor at full width,
+    kernels vs plain kernels vs the dense expected O."""
+    from tenzing_tpu_torch.bench.driver import attn_graph
+    from tenzing_tpu_torch.core.platform import Platform
+    from tenzing_tpu_torch.models.ring_attention import (
+        fixed_orders,
+        make_blocked_buffers,
+    )
+    from tenzing_tpu_torch.ops import attention_kernels as ak
+    from tenzing_tpu_torch.runtime.executor import StreamExecutor, buffers_from_numpy
+    from tenzing_tpu_torch.verify import ScheduleVerifier
+
+    a = attn_full_args()
+    t0 = time.time()
+    bufs, _ = make_blocked_buffers(a, seed=0, with_expected=False)
+    tbufs = buffers_from_numpy(bufs, device)
+    del bufs
+    want_o = dense_o(torch, tbufs["Q"], tbufs["K"], tbufs["V"], a.scale)
+    setup_s = time.time() - t0
+    plat = Platform.make_n_lanes(2)
+    kern = StreamExecutor(plat, tbufs, device="cuda")
+    plain = StreamExecutor(plat, tbufs, device="cuda", plain_kernels=True)
+    g = attn_graph(a)
+    rows, failed = [], []
+    for label, order in fixed_orders(g, a.n_devices).items():
+        if not ScheduleVerifier(g)(order).ok:
+            raise AssertionError(f"attn executor phase: {label} is not sound")
+        t0 = time.time()
+        f32 = label in ("naive", "pallas-2l", "fused")
+        tol = ak.F32_STATE_TOL if f32 else ak.BF16_STATE_TOL
+        o_tol = F32_O_TOL if f32 else BF16_O_TOL
+        out_k = kern.run(order)
+        out_p = plain.run(order)
+        names = ("acc", "m_run", "l_run")
+        ok_plain, errs = ak.state_check([out_k[x] for x in names],
+                                        [out_p[x] for x in names], tol)
+        ok_plain = ok_plain and torch.allclose(out_k["O"], out_p["O"],
+                                               **tol["acc/l"])
+        err_o = float((out_k["O"] - want_o).abs().max())
+        ok_want = torch.allclose(out_k["O"], want_o, **o_tol)
+        del out_k, out_p
+        ptrs = {k: v.data_ptr() for k, v in kern.init_bufs.items()}
+        run_n = kern.prepare_n(order)
+        run_n(1)
+        allocs0 = torch.cuda.memory_stats(device)["allocation.all.allocated"]
+        run_n(3)
+        allocs = (torch.cuda.memory_stats(device)["allocation.all.allocated"]
+                  - allocs0)
+        ptrs_ok = ptrs == {k: v.data_ptr() for k, v in kern.init_bufs.items()}
+        row = {"phase": "attn_executor", "order": label, "ops": len(order),
+               "tolerance": tol, "vs_plain": errs, "within_tol_plain": ok_plain,
+               "o_tolerance": o_tol, "o_vs_expected_max_abs_err": err_o,
+               "within_tol_expected": ok_want, "data_ptr_unchanged": ptrs_ok,
+               "allocations_in_3_timed_runs": allocs,
+               "wall_s": round(time.time() - t0, 3)}
+        emit(row)
+        rows.append(row)
+        if not (ok_plain and ok_want and ptrs_ok):
+            failed.append(label)
+    del kern, plain, tbufs
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"attn executor phase failed on {failed}")
+    return want_o, {"setup_s": round(setup_s, 3), "orders": len(rows)}
+
+
+def phase_attn_driver(torch, device, want_o):
+    """The attention search at full width; returns the launch counts."""
+    from tenzing_tpu_torch.bench import driver
+    from tenzing_tpu_torch.core.platform import Platform
+    from tenzing_tpu_torch.models.ring_attention import make_blocked_buffers
+    from tenzing_tpu_torch.runtime.executor import StreamExecutor, buffers_from_numpy
+
+    t0 = time.time()
+    req = driver.DriverRequest(workload="attn", mcts_iters=12, iters=3,
+                               search_iters=2)
+    reset_launches()
+    result = driver.run(req, device="cuda")
+    launches = all_launches()
+    verdict = result.verdict
+    print(result.to_json_line(), flush=True)
+    row = {"phase": "attn_driver", "launches": launches,
+           "verified": verdict.get("verified"),
+           "diverged": verdict.get("diverged"),
+           "demoted_label": verdict.get("demoted_label"),
+           "wall_s": round(time.time() - t0, 3)}
+    if verdict.get("metric") != "attn_blockwise_pct50_searched_n8192":
+        raise AssertionError(f"attn driver metric {verdict.get('metric')!r}")
+    missing = [k for k in ("attn_block", "attn_fused")
+               if launches[k] + launches[k + "_bf16"] <= 0]
+    if missing:
+        raise AssertionError(f"the attn path never launched {missing}")
+    if verdict.get("verified") is not True:
+        diverged = set(verdict.get("diverged") or ())
+        if result.demoted is None or not diverged or not diverged <= {"acc", "O"}:
+            raise AssertionError(f"attn driver result not verified: {verdict}")
+        # the demoted winner: its O against the dense expected, at the bf16
+        # tolerance (the gate compared it with the f32 naive chain)
+        bufs, _ = make_blocked_buffers(driver.attn_args(req), seed=0,
+                                       with_expected=False)
+        ex = StreamExecutor(Platform.make_n_lanes(driver.search_lanes(req)),
+                            buffers_from_numpy(bufs, device))
+        o = ex.run(result.demoted)["O"]
+        row["demoted_o_vs_expected_max_abs_err"] = float((o - want_o).abs().max())
+        row["demoted_o_within_tol"] = torch.allclose(o, want_o, **BF16_O_TOL)
+        del ex, o, bufs
+        if not row["demoted_o_within_tol"]:
+            raise AssertionError(f"the demoted attn winner's O is wrong: {row}")
+    emit(row)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     global _log
     import torch
@@ -304,22 +630,26 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from tenzing_tpu_torch.bench import driver
-    from tenzing_tpu_torch.ops import halo_kernels as hk
-    from tenzing_tpu_torch.ops import kernel_lib, rdma
+    from tenzing_tpu_torch.ops import kernel_lib
 
     os.makedirs(OUT_DIR, exist_ok=True)
     _log = open(os.path.join(OUT_DIR, "chip_smoke.jsonl"), "w")
     t_start = time.time()
     device = torch.device("cuda", 0)
     smi = nvidia_smi()
+    precision = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+                 "float32_matmul_precision": torch.get_float32_matmul_precision()}
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "count": torch.cuda.device_count(),
-          "name": torch.cuda.get_device_name(0)})
+          "name": torch.cuda.get_device_name(0), **precision})
+    if precision != {"allow_tf32": False, "float32_matmul_precision": "highest"}:
+        raise AssertionError(f"float32 matmuls must not use TF32: {precision}")
 
     t0 = time.time()
     kernel_lib.lib()
     emit({"phase": "build", "seconds": round(time.time() - t0, 3),
           "compiled": kernel_lib.build_info.get("compiled"),
+          "sources": list(kernel_lib.SOURCES),
           "library": os.path.relpath(kernel_lib.build_info["path"], REPO)})
     with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
         f.write(str(kernel_lib.build_info.get("ptxas", "(library was cached)")))
@@ -336,11 +666,9 @@ def main() -> int:
 
     t0 = time.time()
     req = driver.DriverRequest(mcts_iters=12, iters=3, search_iters=2)
-    for counts in (hk.LAUNCHES, rdma.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    reset_launches()
     result = driver.run(req, device="cuda")
-    launches = {**hk.LAUNCHES, **rdma.LAUNCHES}
+    launches = all_launches()
     verdict = result.verdict
     print(result.to_json_line(), flush=True)
     emit({"phase": "driver", "launches": launches,
@@ -350,9 +678,20 @@ def main() -> int:
         raise AssertionError(f"driver metric {verdict.get('metric')!r}")
     if verdict.get("verified") is not True:
         raise AssertionError(f"driver result not verified: {verdict}")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in ("halo_pack", "halo_unpack", "device_copy")
+               if launches[k] <= 0]
     if missing:
         raise AssertionError(f"the main path never launched {missing}")
+
+    t0 = time.time()
+    attn_rows = phase_attn_kernels(torch, device, timer)
+    emit({"phase": "attn_kernels", "rows": len(attn_rows),
+          "all_within_tol": True, "wall_s": round(time.time() - t0, 3)})
+    t0 = time.time()
+    want_o, attn_ex = phase_attn_executor(torch, device)
+    emit({"phase": "attn_executor", **attn_ex,
+          "wall_s": round(time.time() - t0, 3)})
+    attn_launches = phase_attn_driver(torch, device, want_o)
 
     # one halo iteration's six faces at the batched blocking, per kernel
     def six_faces(rows, blocking):
@@ -388,6 +727,34 @@ def main() -> int:
             "work": "six faces of one halo iteration, "
                     + ("staging copies" if name == "device_copy"
                        else "batched blocking (one row per block on x)"),
+        })
+    # the attention kernels: the f32 row at the main path's shapes, the bf16
+    # row beside it; launches count both input types
+    for name, case, replaces, work in (
+            ("attn_block", "block-{}-init",
+             "tenzing_tpu/ops/attention_pallas.py:66",
+             "one 1024-key block into the (4, 8192, 128) state"),
+            ("attn_fused", "fused-{}",
+             "tenzing_tpu/ops/attention_pallas.py:165",
+             "all 8192 keys into the (4, 8192, 128) state")):
+        by_case = {r["case"]: r for r in attn_rows}
+        f32, bf16 = by_case[case.format("f32")], by_case[case.format("bf16")]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "tenzing_tpu_torch/csrc/attn_fold.cu",
+            "replaces": replaces,
+            "launches": attn_launches[name] + attn_launches[name + "_bf16"],
+            "max_abs_err": max(r["max_abs_err"] for r in attn_rows
+                               if r["kernel"] == name and not r["bf16_inputs"]),
+            "ms": f32["ms"], "plain_ms": f32["plain_ms"],
+            "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
+            "library_ms": f32["library_ms"],
+            "work": work + ", f32 inputs",
+            "launches_bf16_inputs": attn_launches[name + "_bf16"],
+            "bf16": {key: bf16[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")} | {
+                "max_abs_err": max(r["max_abs_err"] for r in attn_rows
+                                   if r["kernel"] == name and r["bf16_inputs"])},
         })
     emit({"phase": "done", "wall_s": round(time.time() - t_start, 3)})
     _log.close()

@@ -1,8 +1,12 @@
-"""Where one halo iteration's time goes on the card.
+"""Where one iteration's time goes on the card.
 
-``python -m tenzing_tpu_torch.bench.breakdown`` builds the flagship pipeline
-(nQ=3, 512^3 cells, radius 3), runs a few fixed schedules through the stream
-executor, and prints one JSON line per schedule:
+``python -m tenzing_tpu_torch.bench.breakdown [halo|attn ...]`` (default:
+both) builds the workload at its full size — the halo pipeline (nQ=3, 512^3
+cells, radius 3) or blocked attention (batch 4, 8k context in 8 blocks of
+1024, head dim 128) — runs a few fixed schedules through the stream executor
+(halo: naive, greedy host 8 lanes, greedy rdma 2 lanes, alias 8 lanes; attn:
+naive all-``.xla``, the ``.pallas_bf16`` chain, the fused kernel in f32 and
+bf16), and prints one JSON line per schedule:
 
 * ``wall_us`` — host wall time per iteration of ``run_n`` (what the driver's
   metric measures, fence included);
@@ -66,56 +70,10 @@ def _union(spans: List[Tuple[float, float]]) -> float:
     return total
 
 
-def main() -> int:
-    import torch
+def _measure(workload: str, ex, orders) -> None:
+    """One JSON line per order: wall and device-busy time per iteration."""
     from torch.profiler import ProfilerActivity, profile
 
-    from tenzing_tpu_torch.bench.driver import alias_unpack_choice
-    from tenzing_tpu_torch.core.platform import Platform
-    from tenzing_tpu_torch.models.halo import HaloArgs
-    from tenzing_tpu_torch.models.halo_pipeline import (
-        HALO_PHASES,
-        build_graph,
-        greedy_overlap_order,
-        host_buffer_names,
-        make_pipeline_buffers,
-        naive_order,
-    )
-    from tenzing_tpu_torch.runtime.executor import (
-        StreamExecutor,
-        buffers_from_numpy,
-        resolve_device,
-    )
-    from tenzing_tpu_torch.solve.local import drive, phase_policy
-
-    dev = resolve_device()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(smi, flush=True)
-    args = HaloArgs(nq=3, lx=512, ly=512, lz=512, radius=3)
-    bufs, _ = make_pipeline_buffers(args, seed=0, with_expected=False)
-    ex = StreamExecutor(Platform.make_n_lanes(8),
-                        buffers_from_numpy(bufs, dev, host_buffer_names()))
-    del bufs
-
-    def prefer_alias(op_name, choices):
-        if op_name.startswith("xfer_"):
-            return next(c for c in choices if c.endswith(".rdma"))
-        if op_name.startswith("unpack_"):
-            return alias_unpack_choice(op_name, choices)
-        return next(c for c in choices if c.endswith(".xla"))
-
-    plat8 = Platform.make_n_lanes(8)
-    orders = {
-        "naive": naive_order(args, plat8),
-        "greedy-host-8l": greedy_overlap_order(args, plat8, "host"),
-        "greedy-rdma-2l": greedy_overlap_order(args, Platform.make_n_lanes(2),
-                                               "rdma"),
-        "alias-8l": drive(build_graph(args, impl_choice=True, xfer_choice=True),
-                          plat8, phase_policy(plat8, HALO_PHASES,
-                                              prefer_alias))[0],
-    }
     for label, order in orders.items():
         run_n = ex.prepare_n(order)
         run_n(5)
@@ -131,13 +89,90 @@ def main() -> int:
         busy = _union(spans) / ITERS  # us per iteration
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         print(json.dumps({
-            "order": label, "ops": len(order), "wall_us": wall * 1e6,
-            "traced_wall_us": traced_wall * 1e6,
+            "workload": workload, "order": label, "ops": len(order),
+            "wall_us": wall * 1e6, "traced_wall_us": traced_wall * 1e6,
             "device_busy_us": busy if spans else None,
             "idle_share": (1.0 - busy / (traced_wall * 1e6)) if spans else None,
             "device_activities": len(spans),
             "top": {name: us / ITERS for name, us in top},
         }), flush=True)
+
+
+def _halo(dev) -> None:
+    from tenzing_tpu_torch.bench.driver import alias_unpack_choice
+    from tenzing_tpu_torch.core.platform import Platform
+    from tenzing_tpu_torch.models.halo import HaloArgs
+    from tenzing_tpu_torch.models.halo_pipeline import (
+        HALO_PHASES,
+        build_graph,
+        greedy_overlap_order,
+        host_buffer_names,
+        make_pipeline_buffers,
+        naive_order,
+    )
+    from tenzing_tpu_torch.runtime.executor import StreamExecutor, buffers_from_numpy
+    from tenzing_tpu_torch.solve.local import drive, phase_policy
+
+    args = HaloArgs(nq=3, lx=512, ly=512, lz=512, radius=3)
+    bufs, _ = make_pipeline_buffers(args, seed=0, with_expected=False)
+    ex = StreamExecutor(Platform.make_n_lanes(8),
+                        buffers_from_numpy(bufs, dev, host_buffer_names()))
+    del bufs
+
+    def prefer_alias(op_name, choices):
+        if op_name.startswith("xfer_"):
+            return next(c for c in choices if c.endswith(".rdma"))
+        if op_name.startswith("unpack_"):
+            return alias_unpack_choice(op_name, choices)
+        return next(c for c in choices if c.endswith(".xla"))
+
+    plat8 = Platform.make_n_lanes(8)
+    _measure("halo", ex, {
+        "naive": naive_order(args, plat8),
+        "greedy-host-8l": greedy_overlap_order(args, plat8, "host"),
+        "greedy-rdma-2l": greedy_overlap_order(args, Platform.make_n_lanes(2),
+                                               "rdma"),
+        "alias-8l": drive(build_graph(args, impl_choice=True, xfer_choice=True),
+                          plat8, phase_policy(plat8, HALO_PHASES,
+                                              prefer_alias))[0],
+    })
+
+
+def _attn(dev) -> None:
+    from tenzing_tpu_torch.bench.driver import DriverRequest, attn_args, attn_graph
+    from tenzing_tpu_torch.core.platform import Platform
+    from tenzing_tpu_torch.models.ring_attention import (
+        fixed_orders,
+        make_blocked_buffers,
+    )
+    from tenzing_tpu_torch.runtime.executor import StreamExecutor, buffers_from_numpy
+
+    args = attn_args(DriverRequest(workload="attn"))
+    bufs, _ = make_blocked_buffers(args, seed=0, with_expected=False)
+    ex = StreamExecutor(Platform.make_n_lanes(2), buffers_from_numpy(bufs, dev))
+    del bufs
+    orders = fixed_orders(attn_graph(args), args.n_devices)
+    _measure("attn", ex, {label: orders[label] for label in (
+        "naive", "pallas_bf16", "fused", "fused_bf16")})
+
+
+def main(argv=None) -> int:
+    import torch
+
+    from tenzing_tpu_torch.runtime.executor import resolve_device
+
+    workloads = (argv if argv is not None else sys.argv[1:]) or ["halo", "attn"]
+    unknown = set(workloads) - {"halo", "attn"}
+    if unknown:
+        raise SystemExit(f"unknown workload(s) {sorted(unknown)}: halo, attn")
+    dev = resolve_device()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    for w in workloads:
+        (_halo if w == "halo" else _attn)(dev)
+        torch.cuda.empty_cache()
     print(smi, flush=True)
     return 0
 

@@ -1,17 +1,20 @@
-"""The driver: the default halo search end to end on CUDA.
+"""The driver: the halo and blocked-attention searches end to end on CUDA.
 
-Counterpart of the halo path of ``tenzing_tpu/bench/driver.py`` (what
-``python bench.py`` does with no flags).  :func:`run` builds the 3D
-halo-exchange pipeline at the reference size (nQ=3, 512^3 cells, radius 3)
-with the kernel and transfer-engine menus on, then
+Counterpart of the halo and attn paths of ``tenzing_tpu/bench/driver.py``.
+:func:`run` builds the request's workload at the reference size with its menus
+on — the 3D halo exchange (nQ=3, 512^3 cells, radius 3; the default) or, with
+``workload="attn"``, single-device blocked attention at 8k context (batch 4,
+8 K/V blocks of 1024, head dim 128) — then
 
-1. measures the one-lane naive order;
-2. measures the greedy and paired incumbents over
+1. measures the one-lane naive order (halo: the reference's hand-written
+   order; attn: the first decision at every step, the all-``.xla`` chain);
+2. measures the incumbents: for halo the greedy and paired ones over
    ``engine in {host, rdma, mixed, alias}`` on 8 lanes (and the engine-fixed
-   incumbents at 2, 3 and 6 lanes);
-3. runs FastMin MCTS seeded with the incumbents' decision paths, with the
-   alias discipline as rollout policy, at a cheap screen floor and a confirm
-   pass at the search floor;
+   incumbents at 2, 3 and 6 lanes); for attn the bf16 kernel chain and the
+   fused bf16 kernel, both on one lane;
+3. runs FastMin MCTS (halo: seeded with the incumbents' decision paths, with
+   the alias discipline as rollout policy; attn: unseeded, random rollouts) at
+   a cheap screen floor and a confirm pass at the search floor;
 4. ranks the distinct candidates against naive in a paired decorrelated
    screen, then re-measures naive and the top 3 in a longer paired final;
 5. re-runs the winner beside naive from the same initial buffers as an
@@ -24,8 +27,8 @@ with the kernel and transfer-engine menus on, then
 same defaults.  A request that sets a flag this port does not implement yet
 raises :exc:`DriverConfigError` ("... not yet ported"); nothing is silently
 ignored.  Hill-climbs come with a later slice: the default request's
-``climb_budget`` is reported as skipped in the JSON, and any other positive
-value raises.
+``climb_budget`` is reported as skipped in the halo JSON, and any other
+positive value raises (the reference runs no climbs for attn).
 
 Entry point: ``python -m tenzing_tpu_torch.bench`` (``--device cpu`` runs on
 the CPU; the default is the card).
@@ -95,9 +98,11 @@ class DriverRequest:
 @dataclass
 class DriverResult:
     """What :func:`run` returns: the verdict dict whose ``json.dumps`` is the
-    driver JSON line."""
+    driver JSON line, and — when the integrity gate demoted a winner — that
+    schedule (``demoted``, not serialized), so a caller can inspect it."""
 
     verdict: Dict[str, Any] = field(default_factory=dict)
+    demoted: Optional[Any] = None
 
     def to_json_line(self) -> str:
         return json.dumps(self.verdict)
@@ -113,11 +118,14 @@ _UNPORTED = ("dump_csv", "trace_out", "metrics_json", "seed_csv",
 _DEFAULTS = DriverRequest()
 
 
+WORKLOADS = ("halo", "attn")
+
+
 def check_request(req: DriverRequest) -> None:
     """Raise :exc:`DriverConfigError` for a request this slice cannot run."""
-    if req.workload != "halo":
+    if req.workload not in WORKLOADS:
         raise DriverConfigError(
-            f"--workload {req.workload}: not yet ported (halo only)")
+            f"--workload {req.workload}: not yet ported (have {WORKLOADS})")
     for name in _UNPORTED:
         if getattr(req, name) != getattr(_DEFAULTS, name):
             flag = "--" + name.replace("_", "-")
@@ -125,7 +133,8 @@ def check_request(req: DriverRequest) -> None:
     # the default 2 is accepted: CUDA has no compile step to prefetch
     if req.prefetch_compiles not in (0, _DEFAULTS.prefetch_compiles):
         raise DriverConfigError("--prefetch-compiles > 0: not yet ported")
-    if req.climb_budget not in (0, _DEFAULTS.climb_budget):
+    if req.workload == "halo" and \
+            req.climb_budget not in (0, _DEFAULTS.climb_budget):
         raise DriverConfigError("--climb-budget: hill-climbs not yet ported")
     if req.halo_n < 1:
         raise DriverConfigError("--halo-n must be positive")
@@ -143,16 +152,19 @@ def alias_unpack_choice(op_name, choices):
     return next((c for c in choices if c.endswith(want)), None)
 
 
-def metric_for(args) -> str:
+def metric_for(workload: str, args) -> str:
     """The metric name: the reference's, so the two series line up."""
-    return f"halo_iter_pct50_searched_n{4 if args.smoke else args.halo_n}"
+    if workload == "halo":
+        return f"halo_iter_pct50_searched_n{4 if args.smoke else args.halo_n}"
+    n_ctx = 4 * 16 if args.smoke else 8 * 1024
+    return f"attn_blockwise_pct50_searched_n{n_ctx}"
 
 
 def search_lanes(req: DriverRequest) -> int:
-    """8 lanes for full-size halo, 2 for smoke, unless overridden."""
+    """8 lanes for full-size halo, else 2, unless overridden."""
     if req.lanes:
         return req.lanes
-    return 8 if not req.smoke else 2
+    return 8 if req.workload == "halo" and not req.smoke else 2
 
 
 def build_halo(args, device):
@@ -177,7 +189,107 @@ def build_halo(args, device):
     # off for the smoke configuration
     menus = not args.smoke
     g = build_graph(hargs, impl_choice=menus, xfer_choice=menus)
-    return g, tbufs, metric_for(args), hargs
+    return g, tbufs, metric_for("halo", args), hargs
+
+
+def attn_args(args):
+    """The request's attention configuration: the reference's full size (8k
+    context in 8 K/V blocks of 1024, batch 4, head dim 128) or its smoke."""
+    from tenzing_tpu_torch.models.ring_attention import RingAttnArgs
+
+    if args.smoke:
+        return RingAttnArgs(n_devices=4, batch=1, seq_local=16, head_dim=8)
+    return RingAttnArgs(n_devices=8, batch=4, seq_local=1024, head_dim=128)
+
+
+def attn_graph(aargs):
+    """Start -> BlockedAttention (kernel and granularity menus) -> Finish."""
+    from tenzing_tpu_torch.core.graph import Graph
+    from tenzing_tpu_torch.models.ring_attention import BlockedAttention
+
+    g = Graph()
+    op = BlockedAttention(aargs, impl_choice=True, fused_choice=True)
+    g.start_then(op)
+    g.then_finish(op)
+    return g
+
+
+def build_attn(args, device):
+    """(graph, placed buffers, metric, RingAttnArgs) at the request's size;
+    the dense expected O is skipped (make_blocked_buffers(with_expected=False))."""
+    from tenzing_tpu_torch.models.ring_attention import make_blocked_buffers
+    from tenzing_tpu_torch.runtime.executor import buffers_from_numpy
+
+    aargs = attn_args(args)
+    bufs, _ = make_blocked_buffers(aargs, seed=0, with_expected=False)
+    tbufs = buffers_from_numpy(bufs, device)
+    del bufs
+    return attn_graph(aargs), tbufs, metric_for("attn", args), aargs
+
+
+def halo_incumbents(g, plat, hargs, smoke: bool):
+    """(labelled incumbent orders, MCTS seed decision paths, rollout policy)
+    of the halo search: the greedy overlap order for the smoke; at full size
+    the greedy and paired disciplines over the four transfer engines, the
+    engine-fixed ones at 2, 3 and 6 lanes, and the alias discipline as the
+    rollout policy (the reference's, bench/driver.py:1145-1260)."""
+    from tenzing_tpu_torch.core.platform import Platform
+    from tenzing_tpu_torch.models.halo import DIRECTIONS, dir_name
+    from tenzing_tpu_torch.models.halo_pipeline import (
+        HALO_PHASES,
+        greedy_overlap_order,
+        paired_overlap_order,
+        paired_priority,
+    )
+    from tenzing_tpu_torch.solve.local import drive, phase_policy
+
+    if smoke:
+        return [("greedy-overlap", greedy_overlap_order(hargs, plat))], [], None
+    dirs = [dir_name(d) for d in DIRECTIONS]
+
+    def mk_prefer(engine):
+        def prefer(op_name, choices):
+            if op_name.startswith("xfer_"):
+                i = dirs.index(op_name.split("_", 1)[1])
+                want = {"host": ".host", "rdma": ".rdma",
+                        "alias": ".rdma"}.get(
+                    engine, ".rdma" if i % 2 == 0 else ".host")
+                return next((c for c in choices if c.endswith(want)), None)
+            if engine == "alias" and op_name.startswith("unpack_"):
+                hit = alias_unpack_choice(op_name, choices)
+                if hit is not None:
+                    return hit
+            return next((c for c in choices if c.endswith(".xla")), None)
+
+        return prefer
+
+    greedy_seqs, seed_paths = [], []
+    for label, engine, pri in (
+        ("greedy-host-8l", "host", None),
+        ("greedy-rdma-8l", "rdma", None),
+        ("greedy-mixed-8l", "mixed", None),
+        ("greedy-paired-8l", "mixed", paired_priority("mixed")),
+        ("greedy-alias-8l", "alias", None),
+    ):
+        seq, decs = drive(g, plat, phase_policy(
+            plat, HALO_PHASES, mk_prefer(engine), priority=pri))
+        greedy_seqs.append((label, seq))
+        seed_paths.append(decs)
+    for label, engine, nl in (("greedy-rdma-2l", "rdma", 2),
+                              ("greedy-rdma-3l", "rdma", 3),
+                              ("greedy-mixed-6l", "mixed", 6)):
+        greedy_seqs.append((label, greedy_overlap_order(
+            hargs, Platform.make_n_lanes(nl), engine=engine)))
+    greedy_seqs.append(("greedy-paired-6l", paired_overlap_order(
+        hargs, Platform.make_n_lanes(6), engine="mixed")))
+    for label, nl in (("greedy-alias-3l", 3), ("greedy-alias-6l", 6)):
+        plat_a = Platform.make_n_lanes(nl)
+        seq, decs = drive(g, plat_a, phase_policy(
+            plat_a, HALO_PHASES, mk_prefer("alias")))
+        greedy_seqs.append((label, seq))
+        seed_paths.append(decs)
+    rollout_policy = phase_policy(plat, HALO_PHASES, mk_prefer("alias"))
+    return greedy_seqs, seed_paths, rollout_policy
 
 
 def mismatched_outputs(out_a, out_b, tol: float, skip=()) -> List[str]:
@@ -216,7 +328,8 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
     log = lambda m: sys.stderr.write(m + "\n")  # noqa: E731
     if dev.type == "cuda":
         log(f"device: {torch.cuda.get_device_name(dev)}")
-    climbs_skipped = args.climb_budget > 0
+    # the reference runs hill-climbs for halo only (bench/driver.py:1457-1495)
+    climbs_skipped = args.workload == "halo" and args.climb_budget > 0
     if climbs_skipped:
         log(f"hill-climbs (climb_budget={args.climb_budget}): not yet "
             "ported, skipped")
@@ -231,22 +344,17 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
     )
     from tenzing_tpu_torch.core.platform import Platform
     from tenzing_tpu_torch.core.sequence import canonical_key
-    from tenzing_tpu_torch.models.halo import DIRECTIONS, dir_name
-    from tenzing_tpu_torch.models.halo_pipeline import (
-        HALO_PHASES,
-        greedy_overlap_order,
-        naive_order,
-        paired_overlap_order,
-        paired_priority,
-    )
+    from tenzing_tpu_torch.models.halo_pipeline import naive_order
+    from tenzing_tpu_torch.models.ring_attention import fixed_order
     from tenzing_tpu_torch.runtime.executor import StreamExecutor
-    from tenzing_tpu_torch.solve.local import drive, phase_policy
     from tenzing_tpu_torch.solve.mcts import MctsOpts, SimResult, explore
     from tenzing_tpu_torch.solve.mcts.strategies import FastMin
     from tenzing_tpu_torch.utils.numeric import paired_speedup
     from tenzing_tpu_torch.verify import ScheduleVerifier
 
-    g, bufs, metric, hargs = build_halo(args, dev)
+    halo = args.workload == "halo"
+    build = build_halo if halo else build_attn
+    g, bufs, metric, wargs = build(args, dev)
     plat = Platform.make_n_lanes(search_lanes(args))
     if args.smoke:
         args.mcts_iters = min(args.mcts_iters, 12)
@@ -262,7 +370,10 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
     search_opts = BenchOpts(n_iters=max(3, args.search_iters), max_retries=2,
                             target_secs=0.002 if args.smoke else 0.01)
 
-    naive_seq = naive_order(hargs, Platform.make_n_lanes(1))
+    naive_plat = Platform.make_n_lanes(1)
+    # attn: the first decision at every step (reference driver.py:1060-1064)
+    naive_seq = (naive_order(wargs, naive_plat) if halo
+                 else fixed_order(g, naive_plat))
     t0 = time.time()
     naive = bench.benchmark(naive_seq, opts)
     log(f"naive: pct50={naive.pct50*1e6:.1f}us (wall {time.time()-t0:.0f}s)")
@@ -271,53 +382,20 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
     labels: Dict[int, str] = {}
     seed_paths = []
     rollout_policy = None
-    greedy_seqs = []
-    if args.smoke:
-        greedy_seqs.append(("greedy-overlap", greedy_overlap_order(hargs, plat)))
+    if halo:
+        greedy_seqs, seed_paths, rollout_policy = halo_incumbents(
+            g, plat, wargs, args.smoke)
+    elif not args.smoke:
+        # the reference's kernel incumbents (bench/driver.py:1104-1144): the
+        # per-block chain on the bf16 kernel and the fused bf16 kernel, both
+        # on one lane.  A failed launch raises; it is never skipped.
+        greedy_seqs = [
+            ("bf16-kernel", fixed_order(g, naive_plat, ".chain",
+                                        kernel_of=lambda s: ".pallas_bf16")),
+            ("fused-bf16", fixed_order(g, naive_plat, ".fused_bf16")),
+        ]
     else:
-        dirs = [dir_name(d) for d in DIRECTIONS]
-
-        def mk_prefer(engine):
-            def prefer(op_name, choices):
-                if op_name.startswith("xfer_"):
-                    i = dirs.index(op_name.split("_", 1)[1])
-                    want = {"host": ".host", "rdma": ".rdma",
-                            "alias": ".rdma"}.get(
-                        engine, ".rdma" if i % 2 == 0 else ".host")
-                    return next((c for c in choices if c.endswith(want)), None)
-                if engine == "alias" and op_name.startswith("unpack_"):
-                    hit = alias_unpack_choice(op_name, choices)
-                    if hit is not None:
-                        return hit
-                return next((c for c in choices if c.endswith(".xla")), None)
-
-            return prefer
-
-        rollout_policy = phase_policy(plat, HALO_PHASES, mk_prefer("alias"))
-        for label, engine, pri in (
-            ("greedy-host-8l", "host", None),
-            ("greedy-rdma-8l", "rdma", None),
-            ("greedy-mixed-8l", "mixed", None),
-            ("greedy-paired-8l", "mixed", paired_priority("mixed")),
-            ("greedy-alias-8l", "alias", None),
-        ):
-            seq, decs = drive(g, plat, phase_policy(
-                plat, HALO_PHASES, mk_prefer(engine), priority=pri))
-            greedy_seqs.append((label, seq))
-            seed_paths.append(decs)
-        for label, engine, nl in (("greedy-rdma-2l", "rdma", 2),
-                                  ("greedy-rdma-3l", "rdma", 3),
-                                  ("greedy-mixed-6l", "mixed", 6)):
-            greedy_seqs.append((label, greedy_overlap_order(
-                hargs, Platform.make_n_lanes(nl), engine=engine)))
-        greedy_seqs.append(("greedy-paired-6l", paired_overlap_order(
-            hargs, Platform.make_n_lanes(6), engine="mixed")))
-        for label, nl in (("greedy-alias-3l", 3), ("greedy-alias-6l", 6)):
-            plat_a = Platform.make_n_lanes(nl)
-            seq, decs = drive(g, plat_a, phase_policy(
-                plat_a, HALO_PHASES, mk_prefer("alias")))
-            greedy_seqs.append((label, seq))
-            seed_paths.append(decs)
+        greedy_seqs = []
     for label, seq in greedy_seqs:
         t0 = time.time()
         res_i = bench.benchmark(seq, search_opts)
@@ -359,8 +437,12 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         base = labels.get(id(s), "mcts")
         if base != "mcts":
             return base
-        rdma = any(".rdma" in op.desc() for op in s.order.vector())
-        return f"mcts/{'rdma' if rdma else 'host'}"
+        names = [op.desc() for op in s.order.vector()]
+        if halo:
+            return f"mcts/{'rdma' if any('.rdma' in n for n in names) else 'host'}"
+        engine = next((e for e in (".fused_bf16", ".fused")
+                       if any(e in n for n in names)), ".chain")
+        return f"mcts/{engine[1:]}"
 
     # distinct candidates: every incumbent, then the confirmed MCTS pool
     inc_ids = {id(s) for s in incumbents}
@@ -422,9 +504,11 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         f"{'DIVERGE on ' + str(mismatched[:4]) if mismatched else 'agree'}, "
         f"verifier {'ok' if verdict.ok else 'UNSOUND'} "
         f"(wall {time.time()-t0:.0f}s)")
+    demoted = None
     if not verified and vs > 1.0:
         log("integrity gate FAILED — demoting the winner to no-win")
         value_us = (finals[0].pct50 if finals else naive.pct50) * 1e6
+        demoted = winner
         vs, winner = 1.0, None
 
     meta = {
@@ -443,6 +527,8 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         "not_ported": {"climb_budget": args.climb_budget} if climbs_skipped
         else {},
     }
+    if demoted is not None:
+        meta["demoted_label"] = label_of(demoted)
     if not verdict.ok:
         meta["verdict"] = verdict.witness()
     if mismatched:
@@ -453,7 +539,7 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         "unit": "us",
         "vs_baseline": round(vs, 4),
         **meta,
-    })
+    }, demoted=demoted.order if demoted is not None else None)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -27,7 +27,7 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tenzing_tpu_torch"
-SOURCES = ("halo_pack.cu", "halo_unpack.cu", "device_copy.cu")
+SOURCES = ("halo_pack.cu", "halo_unpack.cu", "device_copy.cu", "attn_fold.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -38,6 +38,12 @@ SIGNATURES = {
     "tz_halo_pack": [_c_ptr, _c_ptr] + [_c_i64] * 11 + [_c_ptr],
     "tz_halo_unpack": [_c_ptr, _c_ptr] + [_c_i64] * 11 + [_c_ptr],
     "tz_device_copy": [_c_ptr, _c_ptr, _c_i64, _c_ptr],
+    # q, k, v, acc, m, l; b, n, nkv, (fused: bkv,) d; 8 batch/row strides;
+    # scale; bf16; stream
+    "tz_attn_block": [_c_ptr] * 6 + [_c_i64] * 12
+    + [ctypes.c_float, _c_i64, _c_ptr],
+    "tz_attn_fused": [_c_ptr] * 6 + [_c_i64] * 13
+    + [ctypes.c_float, _c_i64, _c_ptr],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -3,6 +3,7 @@ neither JAX nor any tenzing_tpu module, and the port's smoke driver leaves
 JAX unloaded."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -33,13 +34,15 @@ def test_no_jax_or_reference_imports(path):
         assert top not in ("jax", "jaxlib", "tenzing_tpu"), (path, mod)
 
 
-def test_smoke_driver_leaves_jax_unloaded():
+def _reference_modules_after_smoke(request: str):
+    """Run the port's smoke driver on ``DriverRequest(<request>)`` in a fresh
+    interpreter; returns the jax/tenzing_tpu modules it loaded."""
     code = (
         "import sys, json\n"
         "from tenzing_tpu_torch.bench.driver import DriverRequest, run\n"
-        "r = run(DriverRequest(smoke=True, mcts_iters=2, iters=3, search_iters=2),"
-        " device='cpu')\n"
-        "assert r.verdict['verified'] is True, r.verdict\n"
+        f"r = run(DriverRequest({request}), device='cpu')\n"
+        "assert r.verdict['metric'], r.verdict\n"
+        "print(json.dumps(r.verdict))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tenzing_tpu'))\n"
         "print(json.dumps(bad))\n"
@@ -49,4 +52,18 @@ def test_smoke_driver_leaves_jax_unloaded():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert out.stdout.strip().splitlines()[-1] == "[]"
+    lines = out.stdout.strip().splitlines()
+    return json.loads(lines[-2]), json.loads(lines[-1])
+
+
+def test_smoke_driver_leaves_jax_unloaded():
+    verdict, bad = _reference_modules_after_smoke(
+        "smoke=True, mcts_iters=2, iters=3, search_iters=2")
+    assert verdict["verified"] is True, verdict
+    assert bad == []
+
+
+def test_attn_smoke_driver_leaves_jax_unloaded():
+    _, bad = _reference_modules_after_smoke(
+        "smoke=True, workload='attn', mcts_iters=2, iters=3, search_iters=2")
+    assert bad == []
