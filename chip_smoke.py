@@ -49,10 +49,33 @@ before the last line:
               verified or its winner was demoted with only ``acc``/``O``
               diverging (bf16 rounding against the f32 naive chain; the
               demoted schedule's O must then be within ``BF16_O_TOL`` of the
-              expected).
+              expected);
+9.  moe kernels  — ``ffn_batched`` at the main path's shapes (chunk 0's slot
+              table of the full-width pipeline: 8 experts x 304 slots, d 512,
+              d_ff 2048) and at ragged ones (1 slot, 257 slots, d_ff 520)
+              against its plain version on the card at ``FFN_TOL``; the erf
+              gelu control must be rejected, a second launch must give the
+              same bits; the kernel's, the plain version's and the
+              ``bmm -> gelu -> bmm`` three-call times beside the bound;
+10. moe executor — naive, the four greedy incumbents and two all-``.pallas``
+              completions of the choice graph (f32 and bf16 device-copy
+              staging) at full width on 2 lanes through ``StreamExecutor``: Y
+              against the same order with plain kernels and against the
+              float64 dense expected output (``F32_Y_TOL``, or
+              ``BF16_Y_TOL`` for bf16 staging, which must reject a control
+              with one expert's gate weights dropped); timed runs keep every
+              ``data_ptr`` and allocate nothing;
+11. moe driver   — ``run`` with ``workload="moe"`` at full width and a small
+              budget with climbs: the metric must be
+              ``moe_pipe_pct50_searched_t8192``, ``ffn_batched`` and
+              ``device_copy`` must launch > 0 times, the climb must have
+              spent budget, and the result is verified or its winner was
+              demoted with only Y / Y_c diverging and the demoted schedule's
+              Y within ``BF16_Y_TOL`` of the expected.
 
-Each driver phase sets every kernel's launch count to 0 just before it and
-reads the counts just after.  Then the ``{"kernels": [...]}`` line, the
+The halo and attn driver phases run with ``climb_budget=4`` (the halo climbs
+run; the reference runs none for attn).  Each driver phase sets every
+kernel's launch count to 0 just before it and reads the counts just after.  Then the ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without a
 CUDA device it prints nothing and exits 2.  Times are CUDA-event times on the
 card this runs on.
@@ -76,6 +99,19 @@ PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor cores (data sheet)
 # catches do not show in this check: it catches gross ones.
 F32_O_TOL = dict(rtol=2e-4, atol=2e-5)
 BF16_O_TOL = dict(rtol=0.0, atol=1e-3)
+# Y of the MoE pipeline against the float64 dense expected output.  f32
+# staging: within 8.2e-6 of float64 at full width on an H100 (PERF.md).
+# bf16 staging rounds the dispatched tokens and the expert outputs: there Y
+# read a relative rms error of 2.4e-3 and a largest error of 1.2e-2
+# (PERF.md); the limits sit at about 2x and 2.5x those, and a control with
+# one expert's gate weights dropped (rel rms ~0.38) must fail them.
+F32_Y_TOL = dict(rtol=1e-4, atol=2e-5)
+BF16_Y_TOL = {"rel_rms": 5e-3, "max_abs": 3e-2}
+# Y of one order with kernels against the same order with plain kernels:
+# f32 at the kernel's tolerance; bf16 within one bf16 ulp of the expert
+# outputs (an f32 summation difference can flip an output's rounding)
+F32_PLAIN_Y_TOL = dict(rtol=1e-4, atol=1e-5)
+BF16_PLAIN_Y_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
 FLUSH_BYTES = 128 << 20  # > the 50 MB L2: each timed launch starts cold
 REPS = 15
 
@@ -141,22 +177,26 @@ def attn_bound(nbytes: float, flops: float, bf16: bool):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def reset_launches():
+def _launch_counts():
     from tenzing_tpu_torch.ops import attention_kernels as ak
+    from tenzing_tpu_torch.ops import ffn_kernels as fk
     from tenzing_tpu_torch.ops import halo_kernels as hk
     from tenzing_tpu_torch.ops import rdma
 
-    for counts in (hk.LAUNCHES, rdma.LAUNCHES, ak.LAUNCHES):
+    return (hk.LAUNCHES, rdma.LAUNCHES, ak.LAUNCHES, fk.LAUNCHES)
+
+
+def reset_launches():
+    for counts in _launch_counts():
         for k in counts:
             counts[k] = 0
 
 
 def all_launches():
-    from tenzing_tpu_torch.ops import attention_kernels as ak
-    from tenzing_tpu_torch.ops import halo_kernels as hk
-    from tenzing_tpu_torch.ops import rdma
-
-    return {**hk.LAUNCHES, **rdma.LAUNCHES, **ak.LAUNCHES}
+    out = {}
+    for counts in _launch_counts():
+        out.update(counts)
+    return out
 
 
 def phase_kernels(torch, device, timer):
@@ -276,7 +316,7 @@ def phase_kernels(torch, device, timer):
 
 def phase_executor(torch, device):
     """Whole schedules through the stream executor, kernels vs plain."""
-    from tenzing_tpu_torch.bench.driver import alias_unpack_choice
+    from tenzing_tpu_torch.bench.driver import halo_alias_prefer
     from tenzing_tpu_torch.core.platform import Platform
     from tenzing_tpu_torch.models.halo import HaloArgs
     from tenzing_tpu_torch.models.halo_pipeline import (
@@ -304,13 +344,6 @@ def phase_executor(torch, device):
     plain = StreamExecutor(plat, tbufs, device="cuda", plain_kernels=True)
     choice_g = build_graph(args, impl_choice=True, xfer_choice=True)
 
-    def prefer_alias(op_name, choices):
-        if op_name.startswith("xfer_"):
-            return next(c for c in choices if c.endswith(".rdma"))
-        if op_name.startswith("unpack_"):
-            return alias_unpack_choice(op_name, choices)
-        return next(c for c in choices if c.endswith(".xla"))
-
     def prefer_kernels(op_name, choices):
         if op_name.startswith("xfer_"):
             return next(c for c in choices if c.endswith(".rdma"))
@@ -329,7 +362,7 @@ def phase_executor(torch, device):
         "greedy-mixed-8l": (greedy_overlap_order(args, plat, "mixed"),
                             build_graph(args, engine="mixed")),
         "alias-8l": (drive(choice_g, plat, phase_policy(
-            plat, HALO_PHASES, prefer_alias))[0], choice_g),
+            plat, HALO_PHASES, halo_alias_prefer))[0], choice_g),
         "kernels-8l": (drive(choice_g, plat, phase_policy(
             plat, HALO_PHASES, prefer_kernels))[0], choice_g),
     }
@@ -583,7 +616,7 @@ def phase_attn_driver(torch, device, want_o):
 
     t0 = time.time()
     req = driver.DriverRequest(workload="attn", mcts_iters=12, iters=3,
-                               search_iters=2)
+                               search_iters=2, climb_budget=4)
     reset_launches()
     result = driver.run(req, device="cuda")
     launches = all_launches()
@@ -616,6 +649,264 @@ def phase_attn_driver(torch, device, want_o):
         del ex, o, bufs
         if not row["demoted_o_within_tol"]:
             raise AssertionError(f"the demoted attn winner's O is wrong: {row}")
+    emit(row)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_full():
+    """(MoEPipeArgs, numpy buffers with both staging sets, capacity) of the
+    full-width pipeline (the driver's moe configuration)."""
+    from tenzing_tpu_torch.bench.driver import DriverRequest, moe_args
+    from tenzing_tpu_torch.models.moe_pipeline import make_pipe_buffers
+
+    a = moe_args(DriverRequest(workload="moe"))
+    bufs, _, cap = make_pipe_buffers(a, seed=0, with_expected=False,
+                                     staging="choice")
+    return a, bufs, cap
+
+
+def dense_moe_y(torch, bufs, a):
+    """The dense routed evaluation in float64 on the card (the reference's
+    expected Y, moe_pipeline.py:570-580): every routed token through its
+    expert's tanh-gelu MLP, scaled by its gate weight.  The routing comes from
+    the slot tables (idx_c, w_c), whose gate weights are float32."""
+    w1, w2 = bufs["W1"].double(), bufs["W2"].double()
+    tc = a.chunk_tokens
+    want = torch.zeros(a.tokens, a.d_model, dtype=torch.float64,
+                       device=w1.device)
+    for c in range(a.n_chunks):
+        xc = bufs["X"][c * tc:(c + 1) * tc].double()
+        idx, w = bufs[f"idx_{c}"].long(), bufs[f"w_{c}"].double()
+        for e in range(a.n_experts):
+            real = w[e] > 0
+            rows = idx[e][real]
+            h = xc[rows] @ w1[e]
+            h = 0.5 * h * (1.0 + torch.tanh((2.0 / torch.pi) ** 0.5
+                                            * (h + 0.044715 * h ** 3)))
+            want[c * tc + rows] = w[e][real, None] * (h @ w2[e])
+    return want
+
+
+def y_check(got, want, bf16: bool):
+    """Y against the float64 expected: (ok, errors) at ``BF16_Y_TOL`` (largest
+    error and relative rms error) or ``F32_Y_TOL`` (allclose)."""
+    import torch
+
+    d = got.double() - want
+    errs = {"max_abs": float(d.abs().max()),
+            "rel_rms": float(d.square().mean().sqrt()
+                             / want.square().mean().sqrt())}
+    if bf16:
+        ok = (errs["rel_rms"] <= BF16_Y_TOL["rel_rms"]
+              and errs["max_abs"] <= BF16_Y_TOL["max_abs"])
+    else:
+        ok = bool(torch.allclose(got.double(), want, **F32_Y_TOL))
+    return ok, errs
+
+
+def dropped_expert(bufs, y, a, expert: int = 0):
+    """The control: Y with every token routed to ``expert`` zeroed, as if
+    that expert's gate weights were dropped."""
+    out = y.clone()
+    tc = a.chunk_tokens
+    for c in range(a.n_chunks):
+        w = bufs[f"w_{c}"][expert]
+        out[c * tc + bufs[f"idx_{c}"][expert][w > 0].long()] = 0.0
+    return out
+
+
+def phase_moe_kernels(torch, device, timer):
+    """``ffn_batched`` at the main path's shapes and at ragged ones against
+    its plain version, with the erf control, times and the bound."""
+    import torch.nn.functional as F
+
+    from tenzing_tpu_torch.ops import ffn_kernels as fk
+
+    a, bufs, cap = moe_full()
+    # the main path's launch: chunk 0's slot table through the experts
+    x_tok = torch.from_numpy(bufs["X"][:a.chunk_tokens]).to(device)
+    idx = torch.from_numpy(bufs["idx_0"]).to(device).long().view(-1)
+    x0 = x_tok[idx].view(a.n_experts, cap, a.d_model).contiguous()
+    w1 = torch.from_numpy(bufs["W1"]).to(device)
+    w2 = torch.from_numpy(bufs["W2"]).to(device)
+    del bufs, x_tok
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+
+    def rand_case(e, c, dff):
+        d = a.d_model
+        return (torch.randn(e, c, d, device=device, generator=gen),
+                torch.randn(e, d, dff, device=device, generator=gen) / d ** 0.5,
+                torch.randn(e, dff, d, device=device, generator=gen) / dff ** 0.5)
+
+    cases = [("full", (x0, w1, w2)),
+             ("ragged-c1", rand_case(a.n_experts, 1, a.d_ff)),
+             ("ragged-c257", rand_case(a.n_experts, 257, a.d_ff)),
+             ("ragged-dff520", rand_case(a.n_experts, cap, 520))]
+    rows, failed = [], []
+    for label, (x, cw1, cw2) in cases:
+        e, c, d = x.shape
+        dff = cw1.shape[2]
+        got = fk.ffn_batched(x, cw1, cw2)
+        again = fk.ffn_batched(x, cw1, cw2)
+        want = fk.ffn_batched_plain(x, cw1, cw2)
+        ctl = fk.ffn_batched_plain(x, cw1, cw2, approximate="none")
+        torch.cuda.synchronize()
+        flops, nbytes = fk.ffn_flops(e, c, d, dff), fk.ffn_bytes(e, c, d, dff)
+        bound, bound_by = attn_bound(nbytes, flops, bf16=False)
+        row = {"phase": "moe_kernels", "case": label, "kernel": "ffn_batched",
+               "shape": [e, c, d, dff], "tolerance": fk.FFN_TOL,
+               "max_abs_err": float((got - want).abs().max()),
+               "within_tol": bool(torch.allclose(got, want, **fk.FFN_TOL)),
+               "deterministic": bool(torch.equal(got, again)),
+               "finite": bool(torch.isfinite(got).all()),
+               "erf_control_max_abs_err": float((ctl - want).abs().max()),
+               "erf_control_rejected": not torch.allclose(ctl, want,
+                                                           **fk.FFN_TOL),
+               "y_max_abs": float(want.abs().max()),
+               "flops": flops, "bytes": nbytes,
+               "bound_ms": bound, "bound_by": bound_by}
+        del again, ctl
+        if label == "full":
+            row.update({
+                "ms": timer.ms(lambda: fk.ffn_batched(x, cw1, cw2, out=got)),
+                "plain_ms": timer.ms(lambda: fk.ffn_batched_plain(x, cw1, cw2)),
+                # no single PyTorch call computes the function: three calls
+                "library_calls_ms": timer.ms(lambda: torch.bmm(F.gelu(
+                    torch.bmm(x, cw1), approximate="tanh"), cw2)),
+                "library_calls": "torch.bmm -> gelu(tanh) -> torch.bmm"})
+        emit(row)
+        rows.append(row)
+        if not (row["within_tol"] and row["deterministic"] and row["finite"]
+                and row["erf_control_rejected"]):
+            failed.append(label)
+        del got, want
+    del cases, x0, w1, w2
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"moe kernels phase failed on {failed}")
+    return rows
+
+
+def phase_moe_executor(torch, device):
+    """The fixed moe orders through the stream executor at full width:
+    kernels vs plain kernels vs the float64 expected Y."""
+    from tenzing_tpu_torch.core.platform import Platform
+    from tenzing_tpu_torch.models.moe_pipeline import fixed_orders, host_buffer_names
+    from tenzing_tpu_torch.runtime.executor import StreamExecutor, buffers_from_numpy
+    from tenzing_tpu_torch.verify import ScheduleVerifier
+
+    t0 = time.time()
+    a, bufs, cap = moe_full()
+    tbufs = buffers_from_numpy(bufs, device, host_buffer_names(a, "choice"))
+    del bufs
+    want = dense_moe_y(torch, tbufs, a)
+    setup_s = time.time() - t0
+    plat = Platform.make_n_lanes(2)
+    kern = StreamExecutor(plat, tbufs, device="cuda")
+    plain = StreamExecutor(plat, tbufs, device="cuda", plain_kernels=True)
+    rows, failed = [], []
+    for label, (order, graph) in fixed_orders(a, cap).items():
+        if not ScheduleVerifier(graph)(order).ok:
+            raise AssertionError(f"moe executor phase: {label} is not sound")
+        t0 = time.time()
+        bf16 = "bf16" in label
+        out_k = kern.run(order)
+        out_p = plain.run(order)
+        tol = BF16_PLAIN_Y_TOL if bf16 else F32_PLAIN_Y_TOL
+        ok_plain = all(torch.allclose(out_k[n], out_p[n], **tol)
+                       for n in ["Y"] + [f"Y_{c}" for c in range(a.n_chunks)])
+        err_plain = float((out_k["Y"] - out_p["Y"]).abs().max())
+        ok_want, errs = y_check(out_k["Y"], want, bf16)
+        row = {"phase": "moe_executor", "order": label, "ops": len(order),
+               "bf16_staging": bf16, "plain_tolerance": tol,
+               "vs_plain_max_abs_err": err_plain, "within_tol_plain": ok_plain,
+               "y_tolerance": BF16_Y_TOL if bf16 else F32_Y_TOL,
+               "vs_expected": errs, "within_tol_expected": ok_want}
+        if bf16:  # the tolerance must reject one expert's tokens dropped
+            c_ok, c_errs = y_check(dropped_expert(tbufs, out_k["Y"], a), want,
+                                   True)
+            row["dropped_expert_control"] = {"errors": c_errs,
+                                             "within_tol": c_ok}
+            ok_want = ok_want and not c_ok
+        del out_k, out_p
+        ptrs = {k: v.data_ptr() for k, v in kern.init_bufs.items()}
+        run_n = kern.prepare_n(order)
+        run_n(1)
+        allocs0 = torch.cuda.memory_stats(device)["allocation.all.allocated"]
+        run_n(3)
+        allocs = (torch.cuda.memory_stats(device)["allocation.all.allocated"]
+                  - allocs0)
+        ptrs_ok = ptrs == {k: v.data_ptr() for k, v in kern.init_bufs.items()}
+        timed_ok, _ = y_check(kern.init_bufs["Y"], want, bf16)
+        row.update({"data_ptr_unchanged": ptrs_ok,
+                    "allocations_in_3_timed_runs": allocs,
+                    "timed_runs_within_tol": timed_ok,
+                    "wall_s": round(time.time() - t0, 3)})
+        emit(row)
+        rows.append(row)
+        if not (ok_plain and ok_want and ptrs_ok and allocs == 0 and timed_ok):
+            failed.append(label)
+    del kern, plain, tbufs
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"moe executor phase failed on {failed}")
+    return want, {"setup_s": round(setup_s, 3), "orders": len(rows)}
+
+
+def phase_moe_driver(torch, device, want_y):
+    """The MoE search at full width with climbs; returns the launch counts."""
+    from tenzing_tpu_torch.bench import driver
+    from tenzing_tpu_torch.core.platform import Platform
+    from tenzing_tpu_torch.models.moe_pipeline import (
+        host_buffer_names,
+        make_pipe_buffers,
+    )
+    from tenzing_tpu_torch.runtime.executor import StreamExecutor, buffers_from_numpy
+
+    t0 = time.time()
+    req = driver.DriverRequest(workload="moe", mcts_iters=12, iters=3,
+                               search_iters=2, climb_budget=4)
+    reset_launches()
+    result = driver.run(req, device="cuda")
+    launches = all_launches()
+    verdict = result.verdict
+    print(result.to_json_line(), flush=True)
+    row = {"phase": "moe_driver", "launches": launches,
+           "verified": verdict.get("verified"),
+           "winner_label": verdict.get("winner_label"),
+           "climbs": verdict.get("climbs"),
+           "diverged": verdict.get("diverged"),
+           "demoted_label": verdict.get("demoted_label"),
+           "wall_s": round(time.time() - t0, 3)}
+    if verdict.get("metric") != "moe_pipe_pct50_searched_t8192":
+        raise AssertionError(f"moe driver metric {verdict.get('metric')!r}")
+    missing = [k for k in ("ffn_batched", "device_copy") if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"the moe path never launched {missing}")
+    if not verdict.get("climbs") or verdict["climbs"][0]["spent"] <= 0:
+        raise AssertionError(f"the moe climb did not run: {verdict}")
+    if verdict.get("verified") is not True:
+        diverged = set(verdict.get("diverged") or ())
+        outputs = {"Y"} | {f"Y_{c}" for c in range(4)}
+        if result.demoted is None or not diverged or not diverged <= outputs:
+            raise AssertionError(f"moe driver result not verified: {verdict}")
+        # the demoted winner: its Y against the dense expected, at the bf16
+        # staging tolerance (the gate compared it with the f32 naive chain)
+        a = driver.moe_args(req)
+        bufs, _, _ = make_pipe_buffers(a, seed=0, with_expected=False,
+                                       staging="choice")
+        ex = StreamExecutor(Platform.make_n_lanes(driver.search_lanes(req)),
+                            buffers_from_numpy(bufs, device,
+                                               host_buffer_names(a, "choice")))
+        y = ex.run(result.demoted)["Y"]
+        ok, errs = y_check(y, want_y, True)
+        row["demoted_y_vs_expected"] = errs
+        row["demoted_y_within_tol"] = ok
+        del ex, y, bufs
+        if not ok:
+            raise AssertionError(f"the demoted moe winner's Y is wrong: {row}")
     emit(row)
     torch.cuda.empty_cache()
     return launches
@@ -665,19 +956,23 @@ def main() -> int:
     emit({"phase": "executor", **ex_info, "wall_s": round(time.time() - t0, 3)})
 
     t0 = time.time()
-    req = driver.DriverRequest(mcts_iters=12, iters=3, search_iters=2)
+    req = driver.DriverRequest(mcts_iters=12, iters=3, search_iters=2,
+                               climb_budget=4)
     reset_launches()
     result = driver.run(req, device="cuda")
     launches = all_launches()
     verdict = result.verdict
     print(result.to_json_line(), flush=True)
     emit({"phase": "driver", "launches": launches,
-          "verified": verdict.get("verified"),
+          "verified": verdict.get("verified"), "climbs": verdict.get("climbs"),
           "wall_s": round(time.time() - t0, 3)})
     if verdict.get("metric") != "halo_iter_pct50_searched_n512":
         raise AssertionError(f"driver metric {verdict.get('metric')!r}")
     if verdict.get("verified") is not True:
         raise AssertionError(f"driver result not verified: {verdict}")
+    if not verdict.get("climbs") or not all(c["spent"] > 0
+                                            for c in verdict["climbs"]):
+        raise AssertionError(f"the halo climbs did not run: {verdict}")
     missing = [k for k in ("halo_pack", "halo_unpack", "device_copy")
                if launches[k] <= 0]
     if missing:
@@ -692,6 +987,17 @@ def main() -> int:
     emit({"phase": "attn_executor", **attn_ex,
           "wall_s": round(time.time() - t0, 3)})
     attn_launches = phase_attn_driver(torch, device, want_o)
+
+    t0 = time.time()
+    moe_rows = phase_moe_kernels(torch, device, timer)
+    emit({"phase": "moe_kernels", "rows": len(moe_rows),
+          "all_within_tol": True, "wall_s": round(time.time() - t0, 3)})
+    t0 = time.time()
+    want_y, moe_ex = phase_moe_executor(torch, device)
+    emit({"phase": "moe_executor", **moe_ex,
+          "wall_s": round(time.time() - t0, 3)})
+    moe_launches = phase_moe_driver(torch, device, want_y)
+    del want_y
 
     # one halo iteration's six faces at the batched blocking, per kernel
     def six_faces(rows, blocking):
@@ -719,7 +1025,9 @@ def main() -> int:
         agg = six_faces(rows, blocking)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name],
+            # device_copy also runs on the moe path's .rdma chains
+            "launches": launches[name] + (moe_launches[name]
+                                          if name == "device_copy" else 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": agg["ms"], "plain_ms": agg["plain_ms"],
             "bound_ms": agg["bound_ms"], "bound_by": "bytes",
@@ -728,6 +1036,9 @@ def main() -> int:
                     + ("staging copies" if name == "device_copy"
                        else "batched blocking (one row per block on x)"),
         })
+        if name == "device_copy":
+            kernels[-1]["launches_by_path"] = {"halo": launches[name],
+                                               "moe": moe_launches[name]}
     # the attention kernels: the f32 row at the main path's shapes, the bf16
     # row beside it; launches count both input types
     for name, case, replaces, work in (
@@ -756,6 +1067,23 @@ def main() -> int:
                 "max_abs_err": max(r["max_abs_err"] for r in attn_rows
                                    if r["kernel"] == name and r["bf16_inputs"])},
         })
+    # the expert MLP at the main path's shapes (one chunk's slot table)
+    full = next(r for r in moe_rows if r["case"] == "full")
+    e, c, d, dff = full["shape"]
+    kernels.append({
+        "name": "ffn_batched", "route": "cuda",
+        "source": "tenzing_tpu_torch/csrc/ffn_expert.cu",
+        "replaces": "tenzing_tpu/ops/ffn_pallas.py:101",
+        "launches": moe_launches["ffn_batched"],
+        "max_abs_err": max(r["max_abs_err"] for r in moe_rows),
+        "ms": full["ms"], "plain_ms": full["plain_ms"],
+        "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes it
+        "library_calls_ms": full["library_calls_ms"],
+        "library_calls": full["library_calls"],
+        "work": f"one chunk's expert MLP: {e} experts x {c} slots, d {d}, "
+                f"d_ff {dff}, f32",
+    })
     emit({"phase": "done", "wall_s": round(time.time() - t_start, 3)})
     _log.close()
     print(json.dumps({"kernels": kernels}), flush=True)

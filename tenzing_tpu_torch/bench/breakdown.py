@@ -1,12 +1,16 @@
 """Where one iteration's time goes on the card.
 
-``python -m tenzing_tpu_torch.bench.breakdown [halo|attn ...]`` (default:
-both) builds the workload at its full size — the halo pipeline (nQ=3, 512^3
-cells, radius 3) or blocked attention (batch 4, 8k context in 8 blocks of
-1024, head dim 128) — runs a few fixed schedules through the stream executor
-(halo: naive, greedy host 8 lanes, greedy rdma 2 lanes, alias 8 lanes; attn:
-naive all-``.xla``, the ``.pallas_bf16`` chain, the fused kernel in f32 and
-bf16), and prints one JSON line per schedule:
+``python -m tenzing_tpu_torch.bench.breakdown [halo|attn|moe ...]``
+(default: all three) builds the workload at its full size — the halo
+pipeline (nQ=3, 512^3 cells, radius 3), blocked attention (batch 4, 8k
+context in 8 blocks of 1024, head dim 128) or the MoE pipeline (8 experts,
+8192 tokens, d_model 512, d_ff 2048, 4 chunks) — runs a few fixed schedules
+through the stream executor (halo: naive, greedy host 8 lanes, greedy rdma 2
+lanes, alias 8 lanes; attn: naive all-``.xla``, the ``.pallas_bf16`` chain,
+the fused kernel in f32 and bf16; moe on 2 lanes: naive, greedy overlap,
+greedy bf16 and f32 device copy, and the bf16 device-copy order with every
+expert MLP on the ``ffn_batched`` kernel), and prints one JSON line per
+schedule:
 
 * ``wall_us`` — host wall time per iteration of ``run_n`` (what the driver's
   metric measures, fence included);
@@ -99,7 +103,7 @@ def _measure(workload: str, ex, orders) -> None:
 
 
 def _halo(dev) -> None:
-    from tenzing_tpu_torch.bench.driver import alias_unpack_choice
+    from tenzing_tpu_torch.bench.driver import halo_alias_prefer
     from tenzing_tpu_torch.core.platform import Platform
     from tenzing_tpu_torch.models.halo import HaloArgs
     from tenzing_tpu_torch.models.halo_pipeline import (
@@ -119,13 +123,6 @@ def _halo(dev) -> None:
                         buffers_from_numpy(bufs, dev, host_buffer_names()))
     del bufs
 
-    def prefer_alias(op_name, choices):
-        if op_name.startswith("xfer_"):
-            return next(c for c in choices if c.endswith(".rdma"))
-        if op_name.startswith("unpack_"):
-            return alias_unpack_choice(op_name, choices)
-        return next(c for c in choices if c.endswith(".xla"))
-
     plat8 = Platform.make_n_lanes(8)
     _measure("halo", ex, {
         "naive": naive_order(args, plat8),
@@ -134,7 +131,7 @@ def _halo(dev) -> None:
                                                "rdma"),
         "alias-8l": drive(build_graph(args, impl_choice=True, xfer_choice=True),
                           plat8, phase_policy(plat8, HALO_PHASES,
-                                              prefer_alias))[0],
+                                              halo_alias_prefer))[0],
     })
 
 
@@ -156,22 +153,48 @@ def _attn(dev) -> None:
         "naive", "pallas_bf16", "fused", "fused_bf16")})
 
 
+def _moe(dev) -> None:
+    from tenzing_tpu_torch.bench.driver import DriverRequest, moe_args
+    from tenzing_tpu_torch.core.platform import Platform
+    from tenzing_tpu_torch.models.moe_pipeline import (
+        fixed_orders,
+        host_buffer_names,
+        make_pipe_buffers,
+    )
+    from tenzing_tpu_torch.runtime.executor import StreamExecutor, buffers_from_numpy
+
+    args = moe_args(DriverRequest(workload="moe"))
+    bufs, _, cap = make_pipe_buffers(args, seed=0, with_expected=False,
+                                     staging="choice")
+    ex = StreamExecutor(Platform.make_n_lanes(2), buffers_from_numpy(
+        bufs, dev, host_buffer_names(args, "choice")))
+    del bufs
+    orders = fixed_orders(args, cap)
+    _measure("moe", ex, {label: orders[label][0] for label in (
+        "naive", "greedy-overlap", "greedy-bf16-rdma", "greedy-f32-rdma",
+        "pallas-bf16-rdma")})
+
+
+WORKLOADS = {"halo": _halo, "attn": _attn, "moe": _moe}
+
+
 def main(argv=None) -> int:
     import torch
 
     from tenzing_tpu_torch.runtime.executor import resolve_device
 
-    workloads = (argv if argv is not None else sys.argv[1:]) or ["halo", "attn"]
-    unknown = set(workloads) - {"halo", "attn"}
+    workloads = (argv if argv is not None else sys.argv[1:]) or list(WORKLOADS)
+    unknown = set(workloads) - set(WORKLOADS)
     if unknown:
-        raise SystemExit(f"unknown workload(s) {sorted(unknown)}: halo, attn")
+        raise SystemExit(f"unknown workload(s) {sorted(unknown)}: "
+                         + ", ".join(WORKLOADS))
     dev = resolve_device()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     for w in workloads:
-        (_halo if w == "halo" else _attn)(dev)
+        WORKLOADS[w](dev)
         torch.cuda.empty_cache()
     print(smi, flush=True)
     return 0

@@ -1,34 +1,43 @@
-"""The driver: the halo and blocked-attention searches end to end on CUDA.
+"""The driver: the halo, blocked-attention and MoE searches end to end on CUDA.
 
-Counterpart of the halo and attn paths of ``tenzing_tpu/bench/driver.py``.
+Counterpart of the halo, attn and moe paths of ``tenzing_tpu/bench/driver.py``.
 :func:`run` builds the request's workload at the reference size with its menus
-on — the 3D halo exchange (nQ=3, 512^3 cells, radius 3; the default) or, with
-``workload="attn"``, single-device blocked attention at 8k context (batch 4,
-8 K/V blocks of 1024, head dim 128) — then
+on — the 3D halo exchange (nQ=3, 512^3 cells, radius 3; the default),
+single-device blocked attention at 8k context (``workload="attn"``: batch 4,
+8 K/V blocks of 1024, head dim 128) or the MoE dispatch/combine pipeline
+(``workload="moe"``: 8 experts, 8192 tokens, d_model 512, d_ff 2048, 4
+chunks, with the staging x engine and expert-MLP kernel menus) — then
 
-1. measures the one-lane naive order (halo: the reference's hand-written
-   order; attn: the first decision at every step, the all-``.xla`` chain);
+1. measures the one-lane naive order (halo and moe: each chain completed in
+   turn; attn: the first decision at every step, the all-``.xla`` chain);
 2. measures the incumbents: for halo the greedy and paired ones over
    ``engine in {host, rdma, mixed, alias}`` on 8 lanes (and the engine-fixed
    incumbents at 2, 3 and 6 lanes); for attn the bf16 kernel chain and the
-   fused bf16 kernel, both on one lane;
+   fused bf16 kernel, both on one lane; for moe the greedy overlap order with
+   f32 and bf16 staging, the bf16 and f32 device-copy orders, and (the
+   port's own) the bf16 device-copy order with the expert MLP on the kernel;
 3. runs FastMin MCTS (halo: seeded with the incumbents' decision paths, with
-   the alias discipline as rollout policy; attn: unseeded, random rollouts) at
-   a cheap screen floor and a confirm pass at the search floor;
-4. ranks the distinct candidates against naive in a paired decorrelated
+   the alias discipline as rollout policy; moe: seeded with the bf16-rdma
+   discipline, which is also its rollout policy; attn: unseeded, random
+   rollouts) at a cheap screen floor and a confirm pass at the search floor;
+4. hill-climbs (halo: the alias discipline on 3 and 6 lanes, the budget split
+   4:3; moe: the bf16-rdma discipline over the whole budget), paired, at 10x
+   the search floor; the climbs' candidates and chain tips join the pool;
+5. ranks the distinct candidates against naive in a paired decorrelated
    screen, then re-measures naive and the top 3 in a longer paired final;
-5. re-runs the winner beside naive from the same initial buffers as an
+6. re-runs the winner beside naive from the same initial buffers as an
    integrity gate: outputs must agree and the independent verifier must pass
    it;
-6. returns the JSON line (``metric``, ``value``, ``unit``, ``vs_baseline``,
+7. returns the JSON line (``metric``, ``value``, ``unit``, ``vs_baseline``,
    ``verified``, plus the measurement regime).
 
 :class:`DriverRequest` is a copy of the reference's, field for field, with the
 same defaults.  A request that sets a flag this port does not implement yet
 raises :exc:`DriverConfigError` ("... not yet ported"); nothing is silently
-ignored.  Hill-climbs come with a later slice: the default request's
-``climb_budget`` is reported as skipped in the halo JSON, and any other
-positive value raises (the reference runs no climbs for attn).
+ignored.  What a default request would have done and the port skips is named
+in the JSON's ``not_ported``: at full size the recorded warm starts (the
+experiments/*_search_tpu_r[45]*.csv databases the reference reads), and
+therefore the climb the reference seeds from them.
 
 Entry point: ``python -m tenzing_tpu_torch.bench`` (``--device cpu`` runs on
 the CPU; the default is the card).
@@ -118,7 +127,15 @@ _UNPORTED = ("dump_csv", "trace_out", "metrics_json", "seed_csv",
 _DEFAULTS = DriverRequest()
 
 
-WORKLOADS = ("halo", "attn")
+WORKLOADS = ("halo", "attn", "moe")
+
+# the recorded search databases the reference reads as warm starts on a
+# full-size run (its bench/driver.py:1283-1288)
+RECORDED_WARM_START = {
+    "halo": "experiments/halo_search_tpu_r[45]*.csv",
+    "moe": "experiments/moe_search_tpu_r[45]*.csv",
+    "attn": "experiments/attn_search_tpu_r[45]*.csv",
+}
 
 
 def check_request(req: DriverRequest) -> None:
@@ -133,11 +150,20 @@ def check_request(req: DriverRequest) -> None:
     # the default 2 is accepted: CUDA has no compile step to prefetch
     if req.prefetch_compiles not in (0, _DEFAULTS.prefetch_compiles):
         raise DriverConfigError("--prefetch-compiles > 0: not yet ported")
-    if req.workload == "halo" and \
-            req.climb_budget not in (0, _DEFAULTS.climb_budget):
-        raise DriverConfigError("--climb-budget: hill-climbs not yet ported")
+    if req.climb_budget < 0:
+        raise DriverConfigError("--climb-budget must be >= 0")
     if req.halo_n < 1:
         raise DriverConfigError("--halo-n must be positive")
+
+
+def not_ported_meta(req: DriverRequest) -> Dict[str, Any]:
+    """What the reference would have done for ``req`` that the port skips
+    (the JSON's ``not_ported``): on a full-size run with ``seed_topk > 0``,
+    the recorded warm starts — the glob the reference would have read — and
+    with them the climb it seeds from the best recorded schedule."""
+    if req.smoke or req.seed_topk <= 0:
+        return {}
+    return {"recorded_warm_start": RECORDED_WARM_START[req.workload]}
 
 
 # the per-face aliased-unpack recipe of the reference (its ALIAS_UNPACK):
@@ -152,10 +178,35 @@ def alias_unpack_choice(op_name, choices):
     return next((c for c in choices if c.endswith(want)), None)
 
 
+def halo_alias_prefer(op_name, choices):
+    """The halo climb policy: all-rdma transfers with the aliased-unpack
+    kernel map (the reference's ``halo_alias_prefer``)."""
+    if op_name.startswith("xfer_"):
+        return next((c for c in choices if c.endswith(".rdma")), None)
+    if op_name.startswith("unpack_"):
+        hit = alias_unpack_choice(op_name, choices)
+        if hit is not None:
+            return hit
+    return next((c for c in choices if c.endswith(".xla")), None)
+
+
+def moe_bf16_prefer(op_name, choices):
+    """The moe seed, rollout and climb policy: every chain on bf16 staging
+    through the device-resident copy, the expert MLP on ``.xla`` (the
+    reference's ``moe_bf16_prefer`` / ``moe_seed_prefer``)."""
+    return next(
+        (c for c in choices if c.endswith(".bf16-rdma")),
+        next((c for c in choices if c.endswith(".xla")), None),
+    )
+
+
 def metric_for(workload: str, args) -> str:
     """The metric name: the reference's, so the two series line up."""
     if workload == "halo":
         return f"halo_iter_pct50_searched_n{4 if args.smoke else args.halo_n}"
+    if workload == "moe":
+        t = 32 if args.smoke else args.moe_tokens
+        return f"moe_pipe_pct50_searched_t{t}"
     n_ctx = 4 * 16 if args.smoke else 8 * 1024
     return f"attn_blockwise_pct50_searched_n{n_ctx}"
 
@@ -227,6 +278,124 @@ def build_attn(args, device):
     return attn_graph(aargs), tbufs, metric_for("attn", args), aargs
 
 
+def moe_args(args):
+    """The request's MoE configuration: the reference's ``MoEPipeArgs`` at
+    ``moe_tokens`` (8 experts, d_model 512, d_ff 2048, 4 chunks) or its
+    smoke."""
+    from tenzing_tpu_torch.models.moe_pipeline import MoEPipeArgs
+
+    if args.smoke:
+        return MoEPipeArgs(n_experts=4, tokens=32, d_model=8, d_ff=16,
+                           n_chunks=2)
+    return MoEPipeArgs(tokens=args.moe_tokens)
+
+
+def moe_staging(args) -> str:
+    """The staging menu: both precisions x engines at full size, the f32
+    host chain for the smoke (the reference's choice)."""
+    return "f32" if args.smoke else "choice"
+
+
+def build_moe(args, device):
+    """(graph, placed buffers, metric, (MoEPipeArgs, capacity)) at the
+    request's size: the staging and expert-MLP menus on at full size, off for
+    the smoke (the reference's build_moe, bench/driver.py:354-378)."""
+    from tenzing_tpu_torch.models.moe_pipeline import (
+        build_graph,
+        host_buffer_names,
+        make_pipe_buffers,
+    )
+    from tenzing_tpu_torch.runtime.executor import buffers_from_numpy
+
+    margs, staging = moe_args(args), moe_staging(args)
+    bufs, _, cap = make_pipe_buffers(margs, seed=0, with_expected=False,
+                                     staging=staging)
+    tbufs = buffers_from_numpy(bufs, device,
+                               host_buffer_names(margs, staging=staging))
+    del bufs
+    g = build_graph(margs, cap, impl_choice=not args.smoke, staging=staging)
+    return g, tbufs, metric_for("moe", args), (margs, cap)
+
+
+def moe_kernel_prefer(op_name, choices):
+    """The bf16-rdma discipline with the expert MLP on the ``.pallas``
+    kernel."""
+    want = ".bf16-rdma" if op_name.startswith("chain_") else ".pallas"
+    return next((c for c in choices if c.endswith(want)), None)
+
+
+def moe_incumbents(g, plat, margs, cap, smoke: bool):
+    """(labelled incumbent orders, MCTS seed decision paths, rollout policy)
+    of the moe search: the greedy overlap order, and at full size its bf16
+    staging, bf16 device-copy and f32 device-copy variants; the seed path and
+    the rollout policy follow :func:`moe_bf16_prefer` (the reference's,
+    bench/driver.py:1233-1256 and :1342-1355).
+
+    One incumbent is the port's own: ``greedy-bf16-rdma-pallas``, the
+    bf16-rdma discipline with every expert MLP on the ``ffn_batched`` kernel,
+    driven on the choice graph.  The reference's four are all ``.xla``, and a
+    short search (12 MCTS iterations, a climb budget of 4) does not reach the
+    kernel slot, so without it the kernel would not run on the main path (the
+    attn search has its kernel incumbents for the same reason)."""
+    from tenzing_tpu_torch.models.moe_pipeline import PHASES, greedy_overlap_order
+    from tenzing_tpu_torch.solve.local import drive, phase_policy
+
+    greedy = [("greedy-overlap", greedy_overlap_order(margs, cap, plat))]
+    if smoke:
+        return greedy, [], None
+    greedy += [
+        ("greedy-overlap-bf16",
+         greedy_overlap_order(margs, cap, plat, staging="bf16")),
+        ("greedy-bf16-rdma",
+         greedy_overlap_order(margs, cap, plat, staging="bf16", engine="rdma")),
+        ("greedy-f32-rdma", greedy_overlap_order(margs, cap, plat, engine="rdma")),
+        ("greedy-bf16-rdma-pallas",
+         drive(g, plat, phase_policy(plat, PHASES, moe_kernel_prefer))[0]),
+    ]
+    _, decs = drive(g, plat, phase_policy(plat, PHASES, moe_bf16_prefer))
+    return greedy, [decs], phase_policy(plat, PHASES, moe_bf16_prefer)
+
+
+def climb_configs(args, plat):
+    """The hill-climbs of a full-size run: (platform, phases, prefer,
+    budget) each.  Halo: the alias discipline on 3 and 6 lanes, the budget
+    split 4:3; moe: the bf16-rdma discipline over the whole budget.  The
+    reference also climbs from the best recorded schedule (its ``b_rec``
+    share), which is 0 here: the recorded warm starts are not ported
+    (``not_ported_meta``).  Attn and the smoke run no climbs (reference
+    bench/driver.py:1457-1495)."""
+    from tenzing_tpu_torch.core.platform import Platform
+
+    if args.smoke or args.climb_budget <= 0:
+        return []
+    if args.workload == "halo":
+        from tenzing_tpu_torch.models.halo_pipeline import HALO_PHASES
+
+        rest = args.climb_budget
+        b1 = (rest * 4) // 7
+        return [(Platform.make_n_lanes(3), HALO_PHASES, halo_alias_prefer, b1),
+                (Platform.make_n_lanes(6), HALO_PHASES, halo_alias_prefer,
+                 rest - b1)]
+    if args.workload == "moe":
+        from tenzing_tpu_torch.models.moe_pipeline import PHASES
+
+        return [(plat, PHASES, moe_bf16_prefer, args.climb_budget)]
+    return []
+
+
+def moe_staging_of(seq) -> str:
+    """The staging of a moe schedule's chains, ``<prec>-<engine>``
+    (``bf16-rdma``, ``f32-host``, ...), or ``mixed`` when its chains differ."""
+    names = [op.name() for op in seq.vector()]
+    chains = set()
+    for n in names:
+        if n.startswith("pack"):
+            s, c = n[len("pack"):].split("_", 1)
+            rdma = f"xferd{s}_{c}.rdma" in names
+            chains.add(f"{'bf16' if s else 'f32'}-{'rdma' if rdma else 'host'}")
+    return chains.pop() if len(chains) == 1 else "mixed"
+
+
 def halo_incumbents(g, plat, hargs, smoke: bool):
     """(labelled incumbent orders, MCTS seed decision paths, rollout policy)
     of the halo search: the greedy overlap order for the smoke; at full size
@@ -248,17 +417,15 @@ def halo_incumbents(g, plat, hargs, smoke: bool):
     dirs = [dir_name(d) for d in DIRECTIONS]
 
     def mk_prefer(engine):
+        if engine == "alias":
+            return halo_alias_prefer
+
         def prefer(op_name, choices):
             if op_name.startswith("xfer_"):
                 i = dirs.index(op_name.split("_", 1)[1])
-                want = {"host": ".host", "rdma": ".rdma",
-                        "alias": ".rdma"}.get(
+                want = {"host": ".host", "rdma": ".rdma"}.get(
                     engine, ".rdma" if i % 2 == 0 else ".host")
                 return next((c for c in choices if c.endswith(want)), None)
-            if engine == "alias" and op_name.startswith("unpack_"):
-                hit = alias_unpack_choice(op_name, choices)
-                if hit is not None:
-                    return hit
             return next((c for c in choices if c.endswith(".xla")), None)
 
         return prefer
@@ -288,7 +455,7 @@ def halo_incumbents(g, plat, hargs, smoke: bool):
             plat_a, HALO_PHASES, mk_prefer("alias")))
         greedy_seqs.append((label, seq))
         seed_paths.append(decs)
-    rollout_policy = phase_policy(plat, HALO_PHASES, mk_prefer("alias"))
+    rollout_policy = phase_policy(plat, HALO_PHASES, halo_alias_prefer)
     return greedy_seqs, seed_paths, rollout_policy
 
 
@@ -301,7 +468,10 @@ def mismatched_outputs(out_a, out_b, tol: float, skip=()) -> List[str]:
     engine's transport scratch, which a device-engine schedule never
     touches, so comparing them would fail every winner whose engine differs
     from naive's (the reference's gate compares them and does;
-    ROADMAP.md, Queue 3)."""
+    ROADMAP.md, Queue 3).  For moe it also skips the device-side staging
+    buffers of both staging sets (``transport_buffer_names``): a schedule
+    leaves the set its chains did not pick untouched, and a bf16 set holds
+    rounded copies — transport, not results."""
     import torch
 
     bad = []
@@ -328,13 +498,11 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
     log = lambda m: sys.stderr.write(m + "\n")  # noqa: E731
     if dev.type == "cuda":
         log(f"device: {torch.cuda.get_device_name(dev)}")
-    # the reference runs hill-climbs for halo only (bench/driver.py:1457-1495)
-    climbs_skipped = args.workload == "halo" and args.climb_budget > 0
-    if climbs_skipped:
-        log(f"hill-climbs (climb_budget={args.climb_budget}): not yet "
-            "ported, skipped")
+    not_ported = not_ported_meta(args)
+    for name, what in not_ported.items():
+        log(f"{name} ({what}): not yet ported, skipped")
 
-    from itertools import chain
+    from itertools import chain, zip_longest
 
     from tenzing_tpu_torch.bench.benchmarker import (
         BenchOpts,
@@ -344,16 +512,18 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
     )
     from tenzing_tpu_torch.core.platform import Platform
     from tenzing_tpu_torch.core.sequence import canonical_key
-    from tenzing_tpu_torch.models.halo_pipeline import naive_order
+    from tenzing_tpu_torch.models import halo_pipeline, moe_pipeline
     from tenzing_tpu_torch.models.ring_attention import fixed_order
     from tenzing_tpu_torch.runtime.executor import StreamExecutor
+    from tenzing_tpu_torch.solve.local import LocalOpts, hill_climb
     from tenzing_tpu_torch.solve.mcts import MctsOpts, SimResult, explore
     from tenzing_tpu_torch.solve.mcts.strategies import FastMin
     from tenzing_tpu_torch.utils.numeric import paired_speedup
     from tenzing_tpu_torch.verify import ScheduleVerifier
 
-    halo = args.workload == "halo"
-    build = build_halo if halo else build_attn
+    halo, moe = args.workload == "halo", args.workload == "moe"
+    build = {"halo": build_halo, "attn": build_attn,
+             "moe": build_moe}[args.workload]
     g, bufs, metric, wargs = build(args, dev)
     plat = Platform.make_n_lanes(search_lanes(args))
     if args.smoke:
@@ -371,9 +541,12 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
                             target_secs=0.002 if args.smoke else 0.01)
 
     naive_plat = Platform.make_n_lanes(1)
-    # attn: the first decision at every step (reference driver.py:1060-1064)
-    naive_seq = (naive_order(wargs, naive_plat) if halo
-                 else fixed_order(g, naive_plat))
+    if halo:
+        naive_seq = halo_pipeline.naive_order(wargs, naive_plat)
+    elif moe:
+        naive_seq = moe_pipeline.naive_order(*wargs, naive_plat)
+    else:  # attn: the first decision at every step (reference driver.py:1060-1064)
+        naive_seq = fixed_order(g, naive_plat)
     t0 = time.time()
     naive = bench.benchmark(naive_seq, opts)
     log(f"naive: pct50={naive.pct50*1e6:.1f}us (wall {time.time()-t0:.0f}s)")
@@ -385,6 +558,9 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
     if halo:
         greedy_seqs, seed_paths, rollout_policy = halo_incumbents(
             g, plat, wargs, args.smoke)
+    elif moe:
+        greedy_seqs, seed_paths, rollout_policy = moe_incumbents(
+            g, plat, *wargs, args.smoke)
     elif not args.smoke:
         # the reference's kernel incumbents (bench/driver.py:1104-1144): the
         # per-block chain on the bf16 kernel and the fused bf16 kernel, both
@@ -425,6 +601,33 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         f"{len(confirmed)} confirmed)")
     log(res.counters.report())
     log(f"bench cache: {bench.hits} hits / {bench.misses} misses")
+    sims = list(res.sims)
+
+    # neighborhood search from the workload's best discipline: paired
+    # hill-climbs at 10x the search floor (reference bench/driver.py:1524-1613)
+    climb_opts = dataclasses.replace(search_opts, n_iters=8,
+                                     target_secs=10 * search_opts.target_secs)
+    climbs = []
+    for ci, (cplat, cphases, cprefer, cbudget) in enumerate(
+            climb_configs(args, plat)):
+        t0 = time.time()
+        lres = hill_climb(g, cplat, bench, cphases, prefer=cprefer,
+                          opts=LocalOpts(budget=cbudget, bench_opts=climb_opts,
+                                         seed=2 + ci, paired=True,
+                                         verify=verifier))
+        log(f"hill-climb[{ci}] ({len(cplat.lanes)} lanes): "
+            f"{len(lres.sims)} candidates, {lres.accepted} moves accepted, "
+            f"best pct50={lres.best().result.pct50*1e6:.1f}us "
+            f"(wall {time.time()-t0:.0f}s)")
+        climbs.append({"lanes": len(cplat.lanes), "budget": cbudget,
+                       "spent": lres.spent, "accepted": lres.accepted,
+                       "candidates": len(lres.sims)})
+        for s in lres.sims:
+            labels[id(s)] = "climb"
+        # the accepted chain tip always advances to the paired screen
+        labels[id(lres.final)] = "climb-tip"
+        incumbents.append(lres.final)
+        sims += lres.sims + [lres.final]
 
     def batch_paired(seqs, bopts, seed):
         times = emp.benchmark_batch_times([naive_seq] + list(seqs), bopts,
@@ -434,22 +637,34 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         return results, paired
 
     def label_of(s) -> str:
+        """An incumbent's label; for an MCTS or climb candidate its base
+        with the schedule's transfer engine (halo), staging (moe) or fold
+        granularity (attn)."""
         base = labels.get(id(s), "mcts")
-        if base != "mcts":
+        if base not in ("mcts", "climb", "climb-tip"):
             return base
         names = [op.desc() for op in s.order.vector()]
         if halo:
-            return f"mcts/{'rdma' if any('.rdma' in n for n in names) else 'host'}"
+            return f"{base}/{'rdma' if any('.rdma' in n for n in names) else 'host'}"
+        if moe:
+            return f"{base}/{moe_staging_of(s.order)}"
         engine = next((e for e in (".fused_bf16", ".fused")
                        if any(e in n for n in names)), ".chain")
-        return f"mcts/{engine[1:]}"
+        return f"{base}/{engine[1:]}"
 
-    # distinct candidates: every incumbent, then the confirmed MCTS pool
+    # distinct candidates: every incumbent (climb tips included), then the
+    # climb and confirmed MCTS pools, each sorted within itself and
+    # interleaved (the reference's ranking, bench/driver.py:1660-1698)
     inc_ids = {id(s) for s in incumbents}
-    pool = sorted((s for s in res.sims if id(s) not in inc_ids
-                   and s.fidelity == "full"), key=lambda s: s.result.pct50)
+    others = [s for s in sims if id(s) not in inc_ids and s.fidelity == "full"]
+    pools = {label: sorted((s for s in others
+                            if labels.get(id(s), "mcts") == label),
+                           key=lambda s: s.result.pct50)
+             for label in ("climb", "mcts")}
+    interleaved = [s for pair in zip_longest(pools["climb"], pools["mcts"])
+                   for s in pair if s is not None]
     seen, cands = set(), []
-    for s in chain(incumbents, pool):
+    for s in chain(incumbents, interleaved):
         key = canonical_key(s.order)
         if key not in seen:
             seen.add(key)
@@ -496,8 +711,12 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
     t0 = time.time()
     out_w = ex.run(winner_seq)
     out_n = out_w if winner_seq is naive_seq else ex.run(naive_seq)
-    mismatched = mismatched_outputs(out_n, out_w, args.verify_tol,
-                                    skip=ex.host_names)
+    skip = set(ex.host_names)
+    if moe:  # the staging sets' transport scratch, host and device side
+        staging = moe_staging(args)
+        skip.update(moe_pipeline.host_buffer_names(wargs[0], staging))
+        skip.update(moe_pipeline.transport_buffer_names(wargs[0], staging))
+    mismatched = mismatched_outputs(out_n, out_w, args.verify_tol, skip=skip)
     del out_w, out_n
     verified = bool(verdict.ok and not mismatched)
     log("integrity gate: winner-vs-naive outputs "
@@ -524,8 +743,8 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         "winner_label": label_of(winner) if winner is not None else None,
         "mcts": {"iters": args.mcts_iters, "tree_size": res.tree_size,
                  "sims": len(res.sims), "seeded": len(seed_paths)},
-        "not_ported": {"climb_budget": args.climb_budget} if climbs_skipped
-        else {},
+        "climbs": climbs,
+        "not_ported": not_ported,
     }
     if demoted is not None:
         meta["demoted_label"] = label_of(demoted)

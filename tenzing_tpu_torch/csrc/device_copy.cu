@@ -9,10 +9,11 @@
 // launch on the direction's transfer stream plus an event record, and the
 // wait is that event (runtime/executor.py), so no wait kernel exists.
 //
-// Bound on an H100 SXM: data movement, 2 x n*4 bytes (read once, write once)
-// at 3.35 TB/s.  A grid-stride loop moves 16 bytes per thread per step
-// (float4), with a scalar loop for the n % 4 tail; the caller guarantees
-// 16-byte-aligned pointers.
+// It copies bytes, so one kernel serves every dtype (float32 halo faces,
+// bfloat16 MoE staging buffers).  Bound on an H100 SXM: data movement,
+// 2 x nbytes (read once, write once) at 3.35 TB/s.  A grid-stride loop moves
+// 16 bytes per thread per step (uint4), with a byte loop for the nbytes % 16
+// tail; the caller guarantees 16-byte-aligned pointers.
 //
 // The simple first version: no TMA bulk copy, no cache hints.
 
@@ -24,26 +25,28 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocks = 132 * 16;  // H100 SXM: 132 SMs
 
-__global__ void device_copy_kernel(const float* __restrict__ src,
-                                   float* __restrict__ dst, int64_t n) {
-  const int64_t n4 = n >> 2;
-  const float4* __restrict__ s4 = reinterpret_cast<const float4*>(src);
-  float4* __restrict__ d4 = reinterpret_cast<float4*>(dst);
+__global__ void device_copy_kernel(const unsigned char* __restrict__ src,
+                                   unsigned char* __restrict__ dst,
+                                   int64_t nbytes) {
+  const int64_t n16 = nbytes >> 4;
+  const uint4* __restrict__ s16 = reinterpret_cast<const uint4*>(src);
+  uint4* __restrict__ d16 = reinterpret_cast<uint4*>(dst);
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = tid; i < n4; i += step) d4[i] = s4[i];
-  for (int64_t i = (n4 << 2) + tid; i < n; i += step) dst[i] = src[i];
+  for (int64_t i = tid; i < n16; i += step) d16[i] = s16[i];
+  for (int64_t i = (n16 << 4) + tid; i < nbytes; i += step) dst[i] = src[i];
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
-extern "C" int tz_device_copy(const float* src, float* dst, int64_t n,
+// Copy `nbytes` bytes on `stream`; returns cudaGetLastError() (0 on success).
+extern "C" int tz_device_copy(const void* src, void* dst, int64_t nbytes,
                               void* stream) {
-  int64_t blocks = ((n >> 2) + kThreads - 1) / kThreads;
+  int64_t blocks = ((nbytes >> 4) + kThreads - 1) / kThreads;
   if (blocks < 1) blocks = 1;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   device_copy_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      src, dst, n);
+      static_cast<const unsigned char*>(src), static_cast<unsigned char*>(dst),
+      nbytes);
   return (int)cudaGetLastError();
 }

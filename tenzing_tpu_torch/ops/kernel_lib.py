@@ -27,7 +27,8 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tenzing_tpu_torch"
-SOURCES = ("halo_pack.cu", "halo_unpack.cu", "device_copy.cu", "attn_fold.cu")
+SOURCES = ("halo_pack.cu", "halo_unpack.cu", "device_copy.cu", "attn_fold.cu",
+           "ffn_expert.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -44,6 +45,8 @@ SIGNATURES = {
     + [ctypes.c_float, _c_i64, _c_ptr],
     "tz_attn_fused": [_c_ptr] * 6 + [_c_i64] * 13
     + [ctypes.c_float, _c_i64, _c_ptr],
+    # x, w1, w2, y; e, c, d, dff; stream
+    "tz_ffn_batched": [_c_ptr] * 4 + [_c_i64] * 4 + [_c_ptr],
 }
 
 _lib: Optional[ctypes.CDLL] = None

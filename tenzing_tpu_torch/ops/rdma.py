@@ -33,8 +33,8 @@ def device_copy_plain(src: torch.Tensor, dst: torch.Tensor) -> None:
 
 
 def _check_copy(src: torch.Tensor, dst: torch.Tensor) -> None:
-    if src.dtype != torch.float32 or dst.dtype != torch.float32:
-        raise TypeError(f"device_copy: float32 only (got {src.dtype}, {dst.dtype})")
+    if src.dtype != dst.dtype:
+        raise TypeError(f"device_copy: dtypes differ ({src.dtype}, {dst.dtype})")
     if src.device != dst.device:
         raise ValueError(f"device_copy: src on {src.device}, dst on {dst.device}")
     if src.shape != dst.shape:
@@ -44,7 +44,8 @@ def _check_copy(src: torch.Tensor, dst: torch.Tensor) -> None:
 
 
 def device_copy(src: torch.Tensor, dst: torch.Tensor) -> None:
-    """``dst[:] = src`` on the current stream: the device_copy kernel for CUDA
+    """``dst[:] = src`` on the current stream, for any dtype (the kernel
+    copies ``numel * element_size`` bytes): the device_copy kernel for CUDA
     tensors, the plain version for CPU tensors."""
     _check_copy(src, dst)
     if src.device.type == "cpu":
@@ -55,7 +56,7 @@ def device_copy(src: torch.Tensor, dst: torch.Tensor) -> None:
     if (src.data_ptr() | dst.data_ptr()) % 16:
         raise ValueError("device_copy: pointers must be 16-byte aligned")
     err = kernel_lib.lib().tz_device_copy(
-        src.data_ptr(), dst.data_ptr(), src.numel(),
+        src.data_ptr(), dst.data_ptr(), src.numel() * src.element_size(),
         torch.cuda.current_stream(src.device).cuda_stream)
     kernel_lib.check_launch("device_copy", err)
     LAUNCHES["device_copy"] += 1

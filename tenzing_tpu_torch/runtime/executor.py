@@ -37,7 +37,8 @@ and ops run in sequence order, so outputs stay checkable without a card.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterable, List, Optional
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -62,17 +63,32 @@ def resolve_device(device: Optional[str] = None) -> torch.device:
     return dev
 
 
-def buffers_from_numpy(bufs: Dict[str, np.ndarray], device,
+@dataclass(frozen=True)
+class ZerosSpec:
+    """A zero-filled buffer given by shape and torch dtype name, for a dtype
+    numpy has no type for (``"bfloat16"``: the MoE's half-width staging
+    buffers; the reference builds those with ``ml_dtypes``)."""
+
+    shape: Tuple[int, ...]
+    dtype: str
+
+    def zeros(self) -> torch.Tensor:
+        return torch.zeros(self.shape, dtype=getattr(torch, self.dtype))
+
+
+def buffers_from_numpy(bufs: Dict[str, Union[np.ndarray, ZerosSpec]], device,
                        host_names: Iterable[str] = ()) -> Dict[str, torch.Tensor]:
     """The reference's numpy buffer dict (e.g. ``make_pipeline_buffers``) as
     the port's tensors: ``host_names`` stay in host memory — pinned when the
-    device is CUDA — and the rest move to ``device``.  Counterpart of
+    device is CUDA — and the rest move to ``device``.  A :class:`ZerosSpec`
+    value becomes a zero tensor of its dtype.  Counterpart of
     ``TraceExecutor.place_host_buffers`` (tenzing_tpu/runtime/executor.py:340)."""
     dev = torch.device(device)
     host_names = set(host_names)
     out: Dict[str, torch.Tensor] = {}
     for k, v in bufs.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
+        t = (v.zeros() if isinstance(v, ZerosSpec)
+             else torch.from_numpy(np.ascontiguousarray(v)))
         if k in host_names:
             if dev.type == "cuda":
                 pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)

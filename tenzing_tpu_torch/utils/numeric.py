@@ -2,8 +2,9 @@
 
 Counterpart of ``tenzing_tpu/utils/numeric.py`` (reference
 include/tenzing/numeric.hpp): avg/med/var/stddev, Pearson correlation (MCTS
-strategies), nearest-rank percentiles, and the paired bootstrap speedup the
-driver's verdict is computed with."""
+strategies), nearest-rank percentiles, the paired bootstrap speedup the
+driver's verdict is computed with, and the tanh gelu of the host-side
+expected outputs."""
 
 from __future__ import annotations
 
@@ -44,6 +45,15 @@ def corr(xs: Sequence[float], ys: Sequence[float]) -> float:
     n = len(xs)
     cov = sum((x - mx) * (y - my) for x, y in zip(xs, ys)) / n
     return cov / (sx * sy)
+
+
+def gelu_tanh(x):
+    """tanh-approximate gelu on a numpy array — matches ``jax.nn.gelu``'s
+    default and torch's ``gelu(approximate="tanh")``, so host-side model
+    references agree with the device path (the MoE expected output)."""
+    import numpy as np
+
+    return 0.5 * x * (1.0 + np.tanh(np.sqrt(2.0 / np.pi) * (x + 0.044715 * x**3)))
 
 
 def percentile(sorted_xs: Sequence[float], pct: float) -> float:

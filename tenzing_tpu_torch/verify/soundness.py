@@ -190,23 +190,45 @@ def _resolved_choice(choice: ChoiceOp, names: frozenset) -> Optional[OpBase]:
     such choice to its first compound alternative regardless of what
     actually executed (observed as chunked-count misprojection: a
     ``.chunked.c4`` schedule projected as the ``.c2`` expansion, a false
-    ``missing_op``)."""
+    ``missing_op``).
+
+    An alternative whose ops ALL executed wins over one that merely shares
+    some executed names.  Sibling compounds may share op names: the MoE
+    staging menu's ``chain_c.bf16-host`` and ``chain_c.bf16-rdma`` both hold
+    ``pack16_c``, ``ffn16_c`` and ``combine16_c`` and differ only in the
+    transfer ops.  The reference resolves by the first shared name, so it
+    projects every ``-rdma`` chain onto its ``-host`` sibling and rejects it
+    (``missing_op: spilld16_0``; ROADMAP Queue 3)."""
+
+    def subverts(op: CompoundOp):
+        sub = op.graph()
+        sentinels = (id(sub.start()), id(sub.finish()))
+        return [v for v in sub.vertices() if id(v) not in sentinels]
 
     def mentions(op: OpBase) -> bool:
         if op.name() in names:
             return True
         if isinstance(op, CompoundOp):
-            sub = op.graph()
-            sentinels = (id(sub.start()), id(sub.finish()))
-            return any(mentions(v) for v in sub.vertices()
-                       if id(v) not in sentinels)
+            return any(mentions(v) for v in subverts(op))
         if isinstance(op, ChoiceOp):
             return any(mentions(c) for c in op.choices())
         return False
 
-    for c in choice.choices():
-        if mentions(c):
-            return c
+    def covered(op: OpBase) -> bool:
+        """Every op of this alternative executed (one alternative of each
+        nested choice)."""
+        if op.name() in names:
+            return True
+        if isinstance(op, CompoundOp):
+            return all(covered(v) for v in subverts(op))
+        if isinstance(op, ChoiceOp):
+            return any(covered(c) for c in op.choices())
+        return False
+
+    for test in (covered, mentions):
+        for c in choice.choices():
+            if test(c):
+                return c
     return None
 
 

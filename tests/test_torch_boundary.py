@@ -67,3 +67,10 @@ def test_attn_smoke_driver_leaves_jax_unloaded():
     _, bad = _reference_modules_after_smoke(
         "smoke=True, workload='attn', mcts_iters=2, iters=3, search_iters=2")
     assert bad == []
+
+
+def test_moe_smoke_driver_leaves_jax_unloaded():
+    verdict, bad = _reference_modules_after_smoke(
+        "smoke=True, workload='moe', mcts_iters=2, iters=3, search_iters=2")
+    assert verdict["metric"] == "moe_pipe_pct50_searched_t32", verdict
+    assert bad == []

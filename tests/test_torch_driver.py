@@ -29,7 +29,10 @@ def test_smoke_driver_on_cpu_verified():
     assert line["vs_baseline"] >= 1.0
     assert line["verified"] is True
     assert line["device"]["type"] == "cpu"
-    assert line["not_ported"] == {"climb_budget": 44}
+    # the smoke runs no climbs and reads no recorded warm starts, as in the
+    # reference: nothing is skipped
+    assert line["not_ported"] == {}
+    assert line["climbs"] == []
 
 
 def test_smoke_attn_driver_on_cpu():
@@ -48,7 +51,7 @@ def test_smoke_attn_driver_on_cpu():
         assert res.demoted is not None
 
 
-@pytest.mark.parametrize("workload", ["halo", "attn"])
+@pytest.mark.parametrize("workload", ["halo", "attn", "moe"])
 def test_metric_and_lanes_equal_reference(workload):
     for smoke in (True, False):
         req = driver.DriverRequest(workload=workload, smoke=smoke)
@@ -59,11 +62,11 @@ def test_metric_and_lanes_equal_reference(workload):
 
 
 @pytest.mark.parametrize("override", [
-    dict(workload="moe"), dict(workload="attn", chunk=True), dict(fuse_winner=True), dict(chunk=True),
+    dict(workload="spmv"), dict(workload="attn", chunk=True), dict(fuse_winner=True), dict(chunk=True),
     dict(synth_collectives=True), dict(learn_screen=True),
     dict(checkpoint="ckpt"), dict(inject_faults="flaky:0.1"),
     dict(profile_winner=True), dict(search_workers=2), dict(seed_csv="x.csv"),
-    dict(prefetch_compiles=4), dict(climb_budget=8), dict(dump_csv="out.csv"),
+    dict(prefetch_compiles=4), dict(workload="moe", chunk=True), dict(dump_csv="out.csv"),
 ])
 def test_unported_flags_raise(override):
     with pytest.raises(driver.DriverConfigError, match="not yet ported"):
@@ -89,3 +92,70 @@ def test_cli_prints_one_json_line(capsys):
                         "--iters", "3", "--search-iters", "2"]) == 0
     out = capsys.readouterr().out.strip().splitlines()
     assert len(out) == 1 and json.loads(out[0])["verified"] is True
+
+
+def test_smoke_moe_driver_on_cpu():
+    """The moe search on the CPU: the reference's ``_t32`` metric, verified
+    (the smoke is the f32 host chain with no menus, as in the reference)."""
+    res = driver.run(driver.DriverRequest(workload="moe", **FAST), device="cpu")
+    line = json.loads(res.to_json_line())
+    assert line["metric"] == ref_driver.metric_for(
+        "moe", ref_driver.DriverRequest(workload="moe", smoke=True))
+    assert line["metric"] == "moe_pipe_pct50_searched_t32"
+    assert line["unit"] == "us" and line["value"] > 0
+    assert line["verified"] is True
+    assert line["not_ported"] == {} and line["climbs"] == []
+
+
+@pytest.mark.parametrize("budget", [0, 8, 44])
+def test_climb_budget_is_accepted(budget):
+    for workload in driver.WORKLOADS:
+        driver.check_request(driver.DriverRequest(workload=workload,
+                                                  climb_budget=budget))
+    res = driver.run(driver.DriverRequest(climb_budget=budget, **FAST),
+                     device="cpu")
+    assert res.verdict["verified"] is True
+
+
+@pytest.mark.parametrize("workload", ["halo", "attn", "moe"])
+def test_not_ported_names_the_recorded_warm_start(workload):
+    """A full-size request reports the recorded warm start the reference
+    would have read (its glob matches the committed databases); a smoke or
+    seed_topk=0 request skips nothing."""
+    import glob
+    import os
+
+    req = driver.DriverRequest(workload=workload)
+    driver.check_request(req)
+    meta = driver.not_ported_meta(req)
+    pat = f"experiments/{workload}_search_tpu_r[45]*.csv"
+    assert meta == {"recorded_warm_start": pat}
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert glob.glob(os.path.join(repo, pat))
+    assert driver.not_ported_meta(driver.DriverRequest(workload=workload,
+                                                       smoke=True)) == {}
+    assert driver.not_ported_meta(driver.DriverRequest(workload=workload,
+                                                       seed_topk=0)) == {}
+
+
+def test_moe_labels_name_staging_and_engine():
+    from tenzing_tpu_torch.core.platform import Platform
+    from tenzing_tpu_torch.models import moe_pipeline as pipe
+
+    a = pipe.MoEPipeArgs(n_experts=4, tokens=32, d_model=8, d_ff=16,
+                         n_chunks=2)
+    cap = pipe.make_pipe_buffers(a, seed=0, with_expected=False)[2]
+    plat = Platform.make_n_lanes(2)
+    for st, en in (("f32", "host"), ("bf16", "rdma"), ("f32", "rdma"),
+                   ("bf16", "host")):
+        seq = pipe.greedy_overlap_order(a, cap, plat, staging=st, engine=en)
+        assert driver.moe_staging_of(seq) == f"{st}-{en}"
+    g = pipe.build_graph(a, cap, impl_choice=True, staging="choice")
+    incumbents, seeds, policy = driver.moe_incumbents(g, plat, a, cap, False)
+    assert [label for label, _ in incumbents] == [
+        "greedy-overlap", "greedy-overlap-bf16", "greedy-bf16-rdma",
+        "greedy-f32-rdma", "greedy-bf16-rdma-pallas"]
+    kernel = incumbents[-1][1]
+    assert driver.moe_staging_of(kernel) == "bf16-rdma"
+    assert sum(op.name().endswith(".pallas") for op in kernel.vector()) == 2
+    assert len(seeds) == 1 and policy is not None
