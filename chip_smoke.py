@@ -71,7 +71,41 @@ before the last line:
               ``device_copy`` must launch > 0 times, the climb must have
               spent budget, and the result is verified or its winner was
               demoted with only Y / Y_c diverging and the demoted schedule's
-              Y within ``BF16_Y_TOL`` of the expected.
+              Y within ``BF16_Y_TOL`` of the expected;
+12. spmv kernels — ``ell_spmv`` at the ``--m 8192`` path's ``spmv_remote``
+              shapes (a (8192, 22) slab, x of 4093) and at ragged ones (m not
+              a multiple of a block, w = 1, n = 1, n = 4096, w above a warp)
+              against its plain version at ``ELL_TOL``; a control with one
+              slab column dropped must be rejected, a second launch must give
+              the same bits; the kernel's, the plain version's and cuSPARSE's
+              (``torch.sparse_csr_tensor @ x``) times beside the bound;
+13. spmv executor — naive, the 2-lane overlap order and the all-kernel
+              order at m=8192, naive and the overlap order at m=150000,
+              through ``StreamExecutor``: y against the same order with plain
+              kernels and against the float64 product, ``data_ptr``s kept, no
+              allocation in timed runs;
+14. fused   — every tile count on the pruned menu of the naive and overlap
+              orders at m=150000 (the host exchange: two regions), and the
+              examples' local-exchange graph (one five-member region with a
+              grid-wide barrier), through ``FusedExecutor`` with the
+              ``fused_region`` kernel against the plain region at
+              ``REGION_TOL`` and against the float64 product; a control with
+              one remote slab column dropped must be rejected; each region's
+              kernel, plain and stepped-members times beside the bound;
+15. fused sweep — every structurally valid tile count of the naive
+              order's regions at m=150000 and m=8192: the fused
+              order against plain regions and the float64 product, and each
+              region's kernel time beside its tile's share of the traffic
+              (the rows ``bench/roofline.MIN_TILE_BYTES`` is set from);
+16. spmv driver — ``run`` with ``workload="spmv"`` at m=150000 with
+              ``fuse_winner`` and ``fuse_search_tiles``: verified, the fused
+              program verified with at least one region, ``fused_region``
+              launched > 0 times; then at ``m=8192``: verified, ``ell_spmv``
+              launched > 0 times;
+17. dfs example — ``python -m tenzing_tpu_torch.examples.spmv_dfs`` at
+              ``--matrix-m 150000`` with a cap of 12 schedules: it must measure
+              at least one and print ``best:``, and the count of unique
+              terminals the same enumeration gives is printed beside it.
 
 The halo and attn driver phases run with ``climb_budget=4`` (the halo climbs
 run; the reference runs none for attn).  Each driver phase sets every
@@ -180,10 +214,13 @@ def attn_bound(nbytes: float, flops: float, bf16: bool):
 def _launch_counts():
     from tenzing_tpu_torch.ops import attention_kernels as ak
     from tenzing_tpu_torch.ops import ffn_kernels as fk
+    from tenzing_tpu_torch.ops import fused_region as fr
     from tenzing_tpu_torch.ops import halo_kernels as hk
     from tenzing_tpu_torch.ops import rdma
+    from tenzing_tpu_torch.ops import spmv_kernels as sk
 
-    return (hk.LAUNCHES, rdma.LAUNCHES, ak.LAUNCHES, fk.LAUNCHES)
+    return (hk.LAUNCHES, rdma.LAUNCHES, ak.LAUNCHES, fk.LAUNCHES, sk.LAUNCHES,
+            fr.LAUNCHES)
 
 
 def reset_launches():
@@ -912,6 +949,418 @@ def phase_moe_driver(torch, device, want_y):
     return launches
 
 
+def spmv_setup(torch, device, m: int, exchange: str = "host"):
+    """(graph, placed buffers, float64 expected y on the card) of the spmv
+    iteration at m rows: the driver's graph (``exchange="host"``, kernel
+    menu) or the examples' (``exchange="local"``, no menu)."""
+    import numpy as np
+
+    from tenzing_tpu_torch.bench import driver
+    from tenzing_tpu_torch.core.graph import Graph
+    from tenzing_tpu_torch.models import spmv
+    from tenzing_tpu_torch.runtime.executor import buffers_from_numpy
+
+    if exchange == "host":
+        g, tbufs, _, _ = driver.build_spmv(
+            driver.DriverRequest(workload="spmv", m=m), device)
+    else:
+        bufs, _ = spmv.make_spmv_buffers(m=m, nnz_per_row=10, seed=0)
+        tbufs = buffers_from_numpy(bufs, device)
+        g = Graph()
+        g.start_then(spmv.SpMVCompound())
+        g.then_finish(spmv.SpMVCompound())
+    a = spmv.random_band_matrix(m, max(1, m // 8), 10 * m, seed=0)
+    x = tbufs["x_local"].cpu().numpy().astype(np.float64)
+    rows = np.repeat(np.arange(m), a.row_widths())
+    want = np.bincount(rows, weights=a.vals.astype(np.float64) * x[a.cols],
+                       minlength=m)
+    return g, tbufs, torch.from_numpy(want).to(device)
+
+
+def y_close(torch, got, want, tol) -> bool:
+    return bool(torch.allclose(got.double(), want.double(), **tol))
+
+
+def phase_spmv_kernels(torch, device, timer):
+    """``ell_spmv`` at the main path's shapes and ragged ones against its
+    plain version, with the dropped-column control, the times and the
+    bound."""
+    import numpy as np
+
+    from tenzing_tpu_torch.models import spmv
+    from tenzing_tpu_torch.ops import spmv_kernels as sk
+
+    m = 8192
+    bufs, _ = spmv.make_spmv_buffers(m=m, nnz_per_row=10, seed=0)
+    a = spmv.random_band_matrix(m, m // 8, 10 * m, seed=0)
+    remote = spmv.split_local_remote(a, 0, m // 2).remote
+    x_remote = bufs["x_local"][bufs["send_idx"]]
+    rng = np.random.default_rng(0)
+
+    def rand_case(mm, w, n):
+        return (rng.standard_normal((mm, w)).astype(np.float32),
+                rng.integers(0, n, size=(mm, w)).astype(np.int32),
+                rng.standard_normal(n).astype(np.float32))
+
+    cases = [("m8192-spmv_remote", (bufs["A_rem_vals"], bufs["A_rem_cols"],
+                                    x_remote))]
+    cases += [(f"ragged-m{mm}-w{w}-n{n}", rand_case(mm, w, n)) for mm, w, n in
+              ((1000, 23, 4093), (37, 5, 300), (64, 1, 50), (50, 7, 1),
+               (513, 12, 4096), (9, 40, 128))]
+    rows, failed = [], []
+    for label, arrays in cases:
+        vals, cols, x = (torch.from_numpy(np.ascontiguousarray(t)).to(device)
+                         for t in arrays)
+        mm, w = vals.shape
+        got = sk.ell_spmv(vals, cols, x)
+        again = sk.ell_spmv(vals, cols, x)
+        want = sk.ell_spmv_plain(vals, cols, x)
+        ctl = sk.ell_spmv_plain(vals[:, :-1].contiguous(),
+                                cols[:, :-1].contiguous(), x) if w > 1 else \
+            torch.zeros_like(want)
+        torch.cuda.synchronize()
+        nbytes, flops = sk.ell_bytes(mm, w, x.shape[0]), sk.ell_flops(mm, w)
+        bound, bound_by = attn_bound(nbytes, flops, bf16=False)
+        row = {"phase": "spmv_kernels", "case": label, "kernel": "ell_spmv",
+               "shape": [mm, w, int(x.shape[0])], "tolerance": sk.ELL_TOL,
+               "max_abs_err": float((got - want).abs().max()),
+               "within_tol": bool(torch.allclose(got, want, **sk.ELL_TOL)),
+               "deterministic": bool(torch.equal(got, again)),
+               "finite": bool(torch.isfinite(got).all()),
+               "control_max_abs_err": float((ctl - want).abs().max()),
+               "control_rejected": not torch.allclose(ctl, want, **sk.ELL_TOL),
+               "bytes": nbytes, "flops": flops,
+               "bound_ms": bound, "bound_by": bound_by}
+        if label.startswith("m8192"):
+            # the library yardstick: cuSPARSE SpMV of the same matrix, the
+            # product alone timed
+            csr = torch.sparse_csr_tensor(
+                torch.from_numpy(remote.indptr.astype(np.int64)),
+                torch.from_numpy(remote.cols.astype(np.int64)),
+                torch.from_numpy(remote.vals), size=(remote.m, remote.n)).to(device)
+            lib_y = csr.matmul(x)
+            torch.cuda.synchronize()
+            row.update({
+                "ms": timer.ms(lambda: sk.ell_spmv(vals, cols, x, out=got)),
+                "plain_ms": timer.ms(lambda: sk.ell_spmv_plain(vals, cols, x)),
+                "library_ms": timer.ms(lambda: csr.matmul(x)),
+                "library_call": "torch.sparse_csr_tensor(...).matmul(x) (cuSPARSE)",
+                "library_max_abs_err": float((lib_y - want).abs().max())})
+        emit(row)
+        rows.append(row)
+        if not (row["within_tol"] and row["deterministic"] and row["finite"]
+                and row["control_rejected"]):
+            failed.append(label)
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"spmv kernels phase failed on {failed}")
+    return rows
+
+
+def phase_spmv_executor(torch, device):
+    """The fixed spmv orders through the stream executor at m=8192 and
+    m=150000: kernels vs plain kernels vs the float64 product."""
+    from tenzing_tpu_torch.core.platform import Platform
+    from tenzing_tpu_torch.models.spmv import fixed_orders
+    from tenzing_tpu_torch.ops.spmv_kernels import ELL_TOL
+    from tenzing_tpu_torch.runtime.executor import StreamExecutor
+    from tenzing_tpu_torch.verify import ScheduleVerifier
+
+    rows, failed = [], []
+    for m, labels in ((8192, ("naive", "overlap-2l", "pallas-2l")),
+                      (150_000, ("naive", "overlap-2l"))):
+        g, tbufs, want = spmv_setup(torch, device, m)
+        plat = Platform.make_n_lanes(2)
+        kern = StreamExecutor(plat, tbufs, device="cuda")
+        plain = StreamExecutor(plat, tbufs, device="cuda", plain_kernels=True)
+        orders = fixed_orders(g)
+        for label in labels:
+            order = orders[label]
+            if not ScheduleVerifier(g)(order).ok:
+                raise AssertionError(f"spmv executor phase: {label} is not sound")
+            t0 = time.time()
+            out_k, out_p = kern.run(order), plain.run(order)
+            ok_plain = all(torch.allclose(out_k[n], out_p[n], **ELL_TOL)
+                           for n in ("y", "y_local", "y_remote", "x_remote"))
+            ok_want = y_close(torch, out_k["y"], want, ELL_TOL)
+            err = float((out_k["y"].double() - want).abs().max())
+            del out_k, out_p
+            ptrs = {k: v.data_ptr() for k, v in kern.init_bufs.items()}
+            run_n = kern.prepare_n(order)
+            run_n(1)
+            allocs0 = torch.cuda.memory_stats(device)["allocation.all.allocated"]
+            run_n(3)
+            allocs = (torch.cuda.memory_stats(device)["allocation.all.allocated"]
+                      - allocs0)
+            ptrs_ok = ptrs == {k: v.data_ptr() for k, v in kern.init_bufs.items()}
+            timed_ok = y_close(torch, kern.init_bufs["y"], want, ELL_TOL)
+            row = {"phase": "spmv_executor", "m": m, "order": label,
+                   "ops": len(order), "kernels": sum(
+                       op.name().endswith(".pallas") for op in order.vector()),
+                   "tolerance": ELL_TOL, "within_tol_plain": ok_plain,
+                   "vs_float64_max_abs_err": err, "within_tol_expected": ok_want,
+                   "data_ptr_unchanged": ptrs_ok,
+                   "allocations_in_3_timed_runs": allocs,
+                   "timed_runs_within_tol": timed_ok,
+                   "wall_s": round(time.time() - t0, 3)}
+            emit(row)
+            rows.append(row)
+            if not (ok_plain and ok_want and ptrs_ok and allocs == 0 and timed_ok):
+                failed.append(f"m{m}/{label}")
+        del kern, plain, tbufs
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"spmv executor phase failed on {failed}")
+    return {"orders": len(rows)}
+
+
+def phase_fused(torch, device, timer):
+    """Every tile count on the menu through the ``fused_region`` kernel
+    against the plain region and the float64 product, the dropped-column
+    control, and each region's times beside its bound."""
+    from tenzing_tpu_torch.core.platform import Platform
+    from tenzing_tpu_torch.models.spmv import fixed_orders
+    from tenzing_tpu_torch.ops import fused_region as fr
+    from tenzing_tpu_torch.ops.spmv_kernels import ell_spmv_plain
+    from tenzing_tpu_torch.runtime.executor import StreamExecutor
+    from tenzing_tpu_torch.runtime.fused import (
+        FusedExecutor,
+        FusedRegionOp,
+        region_bytes,
+        partition_regions,
+    )
+    from tenzing_tpu_torch.solve.local import first_decision_order
+
+    m = 150_000
+    rows, failed, timing = [], [], []
+    for exchange in ("host", "local"):
+        g, tbufs, want = spmv_setup(torch, device, m, exchange)
+        plat = Platform.make_n_lanes(2)
+        kern = StreamExecutor(plat, tbufs, device="cuda")
+        plain = StreamExecutor(plat, tbufs, device="cuda", plain_kernels=True)
+        if exchange == "host":
+            orders = {k: v for k, v in fixed_orders(g).items() if k != "pallas-2l"}
+        else:  # the examples' graph: one five-member region, menu [1]
+            orders = {"naive": first_decision_order(g, Platform.make_n_lanes(1))}
+        # the control: y with spmv_remote's last slab column dropped
+        ctl = (ell_spmv_plain(tbufs["A_rem_vals"][:, :-1].contiguous(),
+                              tbufs["A_rem_cols"][:, :-1].contiguous(),
+                              tbufs["x_local"][tbufs["send_idx"].long()])
+               + ell_spmv_plain(tbufs["A_loc_vals"], tbufs["A_loc_cols"],
+                                tbufs["x_local"]))
+        for label, seq in orders.items():
+            menu = FusedExecutor(kern).plan(seq).tile_menu
+            for t in menu:
+                t0 = time.time()
+                fk_ex = FusedExecutor(kern, tiles=t)
+                plan = fk_ex.plan(seq)
+                out_k = fk_ex.run(seq)
+                again = fk_ex.run(seq)["y"]
+                out_p = FusedExecutor(plain, tiles=t).run(seq)
+                names = ("y", "y_local", "y_remote", "x_remote", "send_buf")
+                errs = {n: float((out_k[n] - out_p[n]).abs().max()) for n in names}
+                ok_plain = all(torch.allclose(out_k[n], out_p[n], **fr.REGION_TOL)
+                               for n in names)
+                ok_want = y_close(torch, out_k["y"], want, fr.REGION_TOL)
+                ctl_rejected = not torch.allclose(ctl, out_k["y"], **fr.REGION_TOL)
+                row = {"phase": "fused", "exchange": exchange, "order": label,
+                       "tiles": t, "menu": menu,
+                       "regions": [r.members for r in plan.regions],
+                       "region_tiles": [r.tiles for r in plan.regions],
+                       "tolerance": fr.REGION_TOL, "vs_plain": errs,
+                       "within_tol_plain": ok_plain,
+                       "vs_float64_max_abs_err": float(
+                           (out_k["y"].double() - want).abs().max()),
+                       "within_tol_expected": ok_want,
+                       "deterministic": bool(torch.equal(out_k["y"], again)),
+                       "control_rejected": ctl_rejected,
+                       "wall_s": round(time.time() - t0, 3)}
+                del out_k, out_p, again
+                emit(row)
+                rows.append(row)
+                if not (ok_plain and ok_want and ctl_rejected
+                        and row["deterministic"] and plan.regions):
+                    failed.append(f"{exchange}/{label}/t{t}")
+            if exchange == "host" and label != "naive":
+                continue
+            # each region of the naive order at one tile: kernel, plain
+            # region and the stepped members, beside the bytes bound
+            fex = FusedExecutor(kern, tiles=1)
+            fseq = fex.fused_order(seq)
+            kern.precompile(fseq)
+            kern.precompile(seq)  # the members' own scratch, for stepping
+            segs = [s for k, s in partition_regions(seq.vector(),
+                                                    kern.host_names) if k == "region"]
+            nbytes = {k: v.numel() * v.element_size()
+                      for k, v in kern.init_bufs.items()}
+            bufs, ctx = kern.init_bufs, kern.ctx
+            for op, region in zip([o for o in fseq if isinstance(o, FusedRegionOp)],
+                                  segs):
+                k = op.unbound()
+                members = region.members
+                nb = region_bytes(region, nbytes)
+                trow = {"phase": "fused_timing", "exchange": exchange,
+                        "members": [mm.name() for mm in members], "tiles": 1,
+                        "ms": timer.ms(lambda: k.apply(bufs, ctx)),
+                        "plain_ms": timer.ms(
+                            lambda: fr.region_plain(k.bodies(), bufs, 1)),
+                        "stepped_ms": timer.ms(
+                            lambda: [mm.apply(bufs, ctx) for mm in members]),
+                        "bytes": nb, "bound_ms": bound_ms(nb), "bound_by": "bytes"}
+                emit(trow)
+                timing.append(trow)
+        del kern, plain, tbufs, ctl
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"fused phase failed on {failed}")
+    return rows, timing
+
+
+def phase_fused_sweep(torch, device, timer):
+    """Every structurally valid tile count of the spmv naive order's regions
+    at m=150000 and m=8192: each region's kernel time
+    beside its tile's share of the tiled traffic and its time at one tile,
+    and the fused order against the same order with plain regions.  The
+    pruning floor ``bench/roofline.MIN_TILE_BYTES`` is read from these rows."""
+    from tenzing_tpu_torch.core.platform import Platform
+    from tenzing_tpu_torch.models.spmv import fixed_orders
+    from tenzing_tpu_torch.ops import fused_region as fr
+    from tenzing_tpu_torch.runtime.executor import StreamExecutor
+    from tenzing_tpu_torch.runtime.fused import (
+        FusedExecutor,
+        FusedRegionOp,
+        partition_regions,
+        region_bytes,
+        region_full_bytes,
+        region_tile_counts,
+    )
+
+    rows, failed = [], []
+    for m in (150_000, 8192):
+        g, tbufs, want = spmv_setup(torch, device, m)
+        plat = Platform.make_n_lanes(2)
+        kern = StreamExecutor(plat, tbufs, device="cuda")
+        plain = StreamExecutor(plat, tbufs, device="cuda", plain_kernels=True)
+        seq = fixed_orders(g)["naive"]
+        shapes = {k: tuple(v.shape) for k, v in kern.init_bufs.items()}
+        nbytes = {k: v.numel() * v.element_size() for k, v in kern.init_bufs.items()}
+        regions = [s for k, s in partition_regions(seq.vector(), kern.host_names)
+                   if k == "region"]
+        counts = sorted({t for r in regions for t in region_tile_counts(r, shapes)})
+        at_one, seen = {}, set()
+        for t in counts:
+            fex = FusedExecutor(kern, tiles=t)
+            plan = fex.plan(seq)
+            out_k = fex.run(seq)
+            out_p = FusedExecutor(plain, tiles=t).run(seq)
+            ok = all(torch.allclose(out_k[n], out_p[n], **fr.REGION_TOL)
+                     for n in ("y", "y_local", "y_remote", "x_remote", "send_buf"))
+            ok = ok and y_close(torch, out_k["y"], want, fr.REGION_TOL)
+            del out_k, out_p
+            ops = [o for o in plan.fused_order if isinstance(o, FusedRegionOp)]
+            for k, (op, region, info) in enumerate(zip(ops, regions, plan.regions)):
+                if (k, info.tiles) in seen:  # a region whose menu stops short
+                    continue
+                seen.add((k, info.tiles))
+                ker = op.unbound()
+                tiled = region_bytes(region, nbytes) - region_full_bytes(region, nbytes)
+                ms = timer.ms(lambda: ker.apply(kern.init_bufs, kern.ctx))
+                at_one.setdefault(k, ms)
+                row = {"phase": "fused_sweep", "m": m, "region": k,
+                       "members": info.members, "tiles": info.tiles,
+                       "valid_tiles": info.valid_tiles,
+                       "tile_tiled_bytes": tiled / info.tiles,
+                       "blocks_per_group": ker.table.blocks_per_group,
+                       "ms": ms, "vs_one_tile": ms / at_one[k],
+                       "within_tol": ok}
+                emit(row)
+                rows.append(row)
+            if not ok:
+                failed.append(f"m{m}/t{t}")
+        del kern, plain, tbufs
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"fused sweep failed on {failed}")
+    return rows
+
+
+def phase_spmv_driver(torch, device):
+    """The spmv search at m=150000 with the fused regions, then at m=8192;
+    returns the launch counts of each run."""
+    from tenzing_tpu_torch.bench import driver
+
+    runs = {}
+    for m, flags in ((150_000, dict(fuse_winner=True, fuse_search_tiles=True)),
+                     (8192, {})):
+        t0 = time.time()
+        req = driver.DriverRequest(workload="spmv", m=m, mcts_iters=12, iters=3,
+                                   search_iters=2, **flags)
+        reset_launches()
+        result = driver.run(req, device="cuda")
+        launches = all_launches()
+        verdict = result.verdict
+        print(result.to_json_line(), flush=True)
+        fused = verdict.get("perf", {}).get("fused")
+        row = {"phase": "spmv_driver", "m": m, "launches": launches,
+               "verified": verdict.get("verified"),
+               "winner_label": verdict.get("winner_label"),
+               "vs_baseline": verdict.get("vs_baseline"),
+               "fused": fused, "fuse_search_tiles": verdict.get(
+                   "perf", {}).get("fuse_search_tiles"),
+               "wall_s": round(time.time() - t0, 3)}
+        emit(row)
+        if verdict.get("metric") != f"spmv_iter_pct50_searched_m{m}":
+            raise AssertionError(f"spmv driver metric {verdict.get('metric')!r}")
+        if verdict.get("verified") is not True:
+            raise AssertionError(f"spmv driver result not verified: {verdict}")
+        if flags:
+            if not fused or fused["verified"] is not True or fused["regions"] < 1:
+                raise AssertionError(f"the fused spmv program failed: {fused}")
+            if launches["fused_region"] <= 0:
+                raise AssertionError("the fused spmv path never launched fused_region")
+        elif launches["ell_spmv"] <= 0:
+            raise AssertionError("the m=8192 spmv path never launched ell_spmv")
+        runs[m] = launches
+        torch.cuda.empty_cache()
+    return runs
+
+
+def phase_dfs_example(torch):
+    """The DFS example at the reference's size with a small cap."""
+    import contextlib
+    import io
+
+    from tenzing_tpu_torch.core.graph import Graph
+    from tenzing_tpu_torch.core.platform import Platform
+    from tenzing_tpu_torch.examples import spmv_dfs
+    from tenzing_tpu_torch.models.spmv import SpMVCompound
+    from tenzing_tpu_torch.solve.dfs import enumerate_schedules
+
+    t0 = time.time()
+    cap = 12
+    path = os.path.join(OUT_DIR, "spmv_dfs.csv")
+    err = io.StringIO()
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err):
+        rc = spmv_dfs.main(["--matrix-m", "150000", "--max-seqs", str(cap),
+                            "--benchmark-iters", "10", "--dump-csv", path])
+        # the example's enumeration again (it is deterministic), for its count
+        g = Graph()
+        g.start_then(SpMVCompound())
+        g.then_finish(SpMVCompound())
+        n_terminals = len(enumerate_schedules(g, Platform.make_n_lanes(2), cap))
+    with open(path) as f:
+        n_rows = sum(1 for line in f if line.strip())
+    best = [line for line in err.getvalue().splitlines() if line.startswith("best:")]
+    row = {"phase": "dfs_example", "rc": rc, "schedules_measured": n_rows,
+           "unique_terminals_enumerated": n_terminals, "cap": cap,
+           "best": best[0] if best else None, "wall_s": round(time.time() - t0, 3)}
+    emit(row)
+    if rc != 0 or n_rows < 1 or n_terminals < n_rows or not best:
+        raise AssertionError(f"the dfs example failed: {row}")
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> int:
     global _log
     import torch
@@ -999,6 +1448,25 @@ def main() -> int:
     moe_launches = phase_moe_driver(torch, device, want_y)
     del want_y
 
+    t0 = time.time()
+    spmv_rows = phase_spmv_kernels(torch, device, timer)
+    emit({"phase": "spmv_kernels", "rows": len(spmv_rows),
+          "all_within_tol": True, "wall_s": round(time.time() - t0, 3)})
+    t0 = time.time()
+    spmv_ex = phase_spmv_executor(torch, device)
+    emit({"phase": "spmv_executor", **spmv_ex,
+          "wall_s": round(time.time() - t0, 3)})
+    t0 = time.time()
+    fused_rows, fused_timing = phase_fused(torch, device, timer)
+    emit({"phase": "fused", "rows": len(fused_rows), "all_within_tol": True,
+          "wall_s": round(time.time() - t0, 3)})
+    t0 = time.time()
+    sweep = phase_fused_sweep(torch, device, timer)
+    emit({"phase": "fused_sweep", "rows": len(sweep), "all_within_tol": True,
+          "wall_s": round(time.time() - t0, 3)})
+    spmv_launches = phase_spmv_driver(torch, device)
+    phase_dfs_example(torch)
+
     # one halo iteration's six faces at the batched blocking, per kernel
     def six_faces(rows, blocking):
         picked = [r for r in rows if r["slot"] == blocking or (
@@ -1083,6 +1551,39 @@ def main() -> int:
         "library_calls": full["library_calls"],
         "work": f"one chunk's expert MLP: {e} experts x {c} slots, d {d}, "
                 f"d_ff {dff}, f32",
+    })
+    # the SpMV kernel at the --m 8192 path's spmv_remote shapes
+    main_row = next(r for r in spmv_rows if r["case"].startswith("m8192"))
+    kernels.append({
+        "name": "ell_spmv", "route": "cuda",
+        "source": "tenzing_tpu_torch/csrc/ell_spmv.cu",
+        "replaces": "tenzing_tpu/ops/spmv_pallas.py:78",
+        "launches": spmv_launches[8192]["ell_spmv"],
+        "max_abs_err": max(r["max_abs_err"] for r in spmv_rows),
+        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"],
+        "library_call": main_row["library_call"],
+        "work": "spmv_remote at m=8192: a (%d, %d) slab, x of %d" % tuple(
+            main_row["shape"]),
+    })
+    # the fused regions of the m=150000 naive order (host exchange), at one
+    # tile: no single library call computes a region; the stepped members'
+    # summed time stands beside it
+    host_t = [r for r in fused_timing if r["exchange"] == "host"]
+    kernels.append({
+        "name": "fused_region", "route": "cuda",
+        "source": "tenzing_tpu_torch/csrc/fused_region.cu",
+        "replaces": "tenzing_tpu/runtime/fused.py:358",
+        "launches": spmv_launches[150_000]["fused_region"],
+        "max_abs_err": max(max(r["vs_plain"].values()) for r in fused_rows),
+        "ms": sum(r["ms"] for r in host_t),
+        "plain_ms": sum(r["plain_ms"] for r in host_t),
+        "bound_ms": sum(r["bound_ms"] for r in host_t), "bound_by": "bytes",
+        "library_ms": None,
+        "stepped_members_ms": sum(r["stepped_ms"] for r in host_t),
+        "work": "the two regions of the m=150000 naive order, one tile: "
+                + "; ".join("+".join(r["members"]) for r in host_t),
     })
     emit({"phase": "done", "wall_s": round(time.time() - t_start, 3)})
     _log.close()

@@ -1,16 +1,19 @@
 """Where one iteration's time goes on the card.
 
-``python -m tenzing_tpu_torch.bench.breakdown [halo|attn|moe ...]``
-(default: all three) builds the workload at its full size — the halo
+``python -m tenzing_tpu_torch.bench.breakdown [halo|attn|moe|spmv ...]``
+(default: all four) builds the workload at its full size — the halo
 pipeline (nQ=3, 512^3 cells, radius 3), blocked attention (batch 4, 8k
-context in 8 blocks of 1024, head dim 128) or the MoE pipeline (8 experts,
-8192 tokens, d_model 512, d_ff 2048, 4 chunks) — runs a few fixed schedules
-through the stream executor (halo: naive, greedy host 8 lanes, greedy rdma 2
-lanes, alias 8 lanes; attn: naive all-``.xla``, the ``.pallas_bf16`` chain,
-the fused kernel in f32 and bf16; moe on 2 lanes: naive, greedy overlap,
-greedy bf16 and f32 device copy, and the bf16 device-copy order with every
-expert MLP on the ``ffn_batched`` kernel), and prints one JSON line per
-schedule:
+context in 8 blocks of 1024, head dim 128), the MoE pipeline (8 experts,
+8192 tokens, d_model 512, d_ff 2048, 4 chunks) or the SpMV iteration (the
+driver's graph at m=150000 and m=8192) — runs a few fixed schedules through
+the stream executor (halo: naive, greedy host 8 lanes, greedy rdma 2 lanes,
+alias 8 lanes; attn: naive all-``.xla``, the ``.pallas_bf16`` chain, the
+fused kernel in f32 and bf16; moe on 2 lanes: naive, greedy overlap, greedy
+bf16 and f32 device copy, and the bf16 device-copy order with every expert
+MLP on the ``ffn_batched`` kernel; spmv on 2 lanes: naive and the overlap
+order at m=150000, each also lowered into ``fused_region`` kernels at one
+tile, and naive and the all-kernel order at m=8192), and prints one JSON
+line per schedule:
 
 * ``wall_us`` — host wall time per iteration of ``run_n`` (what the driver's
   metric measures, fence included);
@@ -175,7 +178,26 @@ def _moe(dev) -> None:
         "pallas-bf16-rdma")})
 
 
-WORKLOADS = {"halo": _halo, "attn": _attn, "moe": _moe}
+def _spmv(dev) -> None:
+    from tenzing_tpu_torch.bench.driver import DriverRequest, build_spmv
+    from tenzing_tpu_torch.core.platform import Platform
+    from tenzing_tpu_torch.models.spmv import fixed_orders
+    from tenzing_tpu_torch.runtime.executor import StreamExecutor
+    from tenzing_tpu_torch.runtime.fused import FusedExecutor
+
+    for m, labels in ((150_000, ("naive", "overlap-2l")),
+                      (8192, ("naive", "pallas-2l"))):
+        g, bufs, _, _ = build_spmv(DriverRequest(workload="spmv", m=m), dev)
+        ex = StreamExecutor(Platform.make_n_lanes(2), bufs)
+        orders = fixed_orders(g)
+        _measure(f"spmv_m{m}", ex, {label: orders[label] for label in labels})
+        if m == 150_000:
+            _measure(f"spmv_m{m}", FusedExecutor(ex, tiles=1), {
+                f"fused-{label}-t1": orders[label] for label in labels})
+        del ex, bufs
+
+
+WORKLOADS = {"halo": _halo, "attn": _attn, "moe": _moe, "spmv": _spmv}
 
 
 def main(argv=None) -> int:

@@ -1,25 +1,31 @@
-"""The driver: the halo, blocked-attention and MoE searches end to end on CUDA.
+"""The driver: the halo, blocked-attention, MoE and SpMV searches end to end on
+CUDA.
 
-Counterpart of the halo, attn and moe paths of ``tenzing_tpu/bench/driver.py``.
+Counterpart of the single-device paths of ``tenzing_tpu/bench/driver.py``.
 :func:`run` builds the request's workload at the reference size with its menus
 on — the 3D halo exchange (nQ=3, 512^3 cells, radius 3; the default),
 single-device blocked attention at 8k context (``workload="attn"``: batch 4,
-8 K/V blocks of 1024, head dim 128) or the MoE dispatch/combine pipeline
+8 K/V blocks of 1024, head dim 128), the MoE dispatch/combine pipeline
 (``workload="moe"``: 8 experts, 8192 tokens, d_model 512, d_ff 2048, 4
-chunks, with the staging x engine and expert-MLP kernel menus) — then
+chunks, with the staging x engine and expert-MLP kernel menus) or one SpMV
+iteration (``workload="spmv"``: a band matrix of m=150000 rows, 10 nonzeros a
+row, the x exchange a host round trip, the SpMV kernel menu) — then
 
 1. measures the one-lane naive order (halo and moe: each chain completed in
-   turn; attn: the first decision at every step, the all-``.xla`` chain);
+   turn; attn and spmv: the first decision at every step);
 2. measures the incumbents: for halo the greedy and paired ones over
    ``engine in {host, rdma, mixed, alias}`` on 8 lanes (and the engine-fixed
    incumbents at 2, 3 and 6 lanes); for attn the bf16 kernel chain and the
    fused bf16 kernel, both on one lane; for moe the greedy overlap order with
    f32 and bf16 staging, the bf16 and f32 device-copy orders, and (the
    port's own) the bf16 device-copy order with the expert MLP on the kernel;
+   for spmv (the port's own; the reference has none) the naive walk with
+   every SpMV on the kernel where the menu offers it;
 3. runs FastMin MCTS (halo: seeded with the incumbents' decision paths, with
    the alias discipline as rollout policy; moe: seeded with the bf16-rdma
-   discipline, which is also its rollout policy; attn: unseeded, random
-   rollouts) at a cheap screen floor and a confirm pass at the search floor;
+   discipline, which is also its rollout policy; attn and spmv: unseeded,
+   random rollouts) at a cheap screen floor and a confirm pass at the search
+   floor;
 4. hill-climbs (halo: the alias discipline on 3 and 6 lanes, the budget split
    4:3; moe: the bf16-rdma discipline over the whole budget), paired, at 10x
    the search floor; the climbs' candidates and chain tips join the pool;
@@ -28,7 +34,12 @@ chunks, with the staging x engine and expert-MLP kernel menus) — then
 6. re-runs the winner beside naive from the same initial buffers as an
    integrity gate: outputs must agree and the independent verifier must pass
    it;
-7. returns the JSON line (``metric``, ``value``, ``unit``, ``vs_baseline``,
+7. with ``fuse_winner``, lowers the reported schedule into fused regions
+   (runtime/fused.py), measures each tile count of the menu, gates the best
+   fused program against the stepped one and re-verifies the schedule
+   (``perf.fused``); with ``fuse_search_tiles`` the tile menu is a decision
+   of the searched graph from the start (``perf.fuse_search_tiles``);
+8. returns the JSON line (``metric``, ``value``, ``unit``, ``vs_baseline``,
    ``verified``, plus the measurement regime).
 
 :class:`DriverRequest` is a copy of the reference's, field for field, with the
@@ -122,12 +133,12 @@ class DriverResult:
 _UNPORTED = ("dump_csv", "trace_out", "metrics_json", "seed_csv",
              "learn_train", "learn_trace", "learn_model", "learn_screen",
              "checkpoint", "resume", "measure_timeout", "inject_faults",
-             "profile_winner", "fuse_winner", "fuse_search_tiles", "chunk",
-             "synth_collectives", "search_workers", "measure_batch")
+             "profile_winner", "chunk", "synth_collectives", "search_workers",
+             "measure_batch")
 _DEFAULTS = DriverRequest()
 
 
-WORKLOADS = ("halo", "attn", "moe")
+WORKLOADS = ("halo", "attn", "moe", "spmv")
 
 # the recorded search databases the reference reads as warm starts on a
 # full-size run (its bench/driver.py:1283-1288)
@@ -154,16 +165,28 @@ def check_request(req: DriverRequest) -> None:
         raise DriverConfigError("--climb-budget must be >= 0")
     if req.halo_n < 1:
         raise DriverConfigError("--halo-n must be positive")
+    if req.workload == "attn" and (req.fuse_winner or req.fuse_search_tiles):
+        # the attention fold and finalize have no fused-region body yet
+        raise DriverConfigError("--fuse-winner / --fuse-search-tiles with "
+                                "--workload attn: not yet ported")
+    if req.m is not None and req.m < 2:
+        raise DriverConfigError("--m must be at least 2")
 
 
 def not_ported_meta(req: DriverRequest) -> Dict[str, Any]:
     """What the reference would have done for ``req`` that the port skips
     (the JSON's ``not_ported``): on a full-size run with ``seed_topk > 0``,
     the recorded warm starts — the glob the reference would have read — and
-    with them the climb it seeds from the best recorded schedule."""
-    if req.smoke or req.seed_topk <= 0:
-        return {}
-    return {"recorded_warm_start": RECORDED_WARM_START[req.workload]}
+    with them the climb it seeds from the best recorded schedule (the
+    reference reads no database for spmv); with ``fuse_winner``, the
+    attribution fields of ``perf.fused`` (obs/attrib's stepped timeline)."""
+    out = {}
+    if not req.smoke and req.seed_topk > 0 and req.workload in RECORDED_WARM_START:
+        out["recorded_warm_start"] = RECORDED_WARM_START[req.workload]
+    if req.fuse_winner:
+        out["perf.fused.dispatch_overhead_us"] = "obs/attrib stepped timeline"
+        out["perf.fused.sum_of_parts_us"] = "obs/attrib stepped timeline"
+    return out
 
 
 # the per-face aliased-unpack recipe of the reference (its ALIAS_UNPACK):
@@ -207,6 +230,9 @@ def metric_for(workload: str, args) -> str:
     if workload == "moe":
         t = 32 if args.smoke else args.moe_tokens
         return f"moe_pipe_pct50_searched_t{t}"
+    if workload == "spmv":
+        sfx = f"_bw{args.spmv_bw}" if args.spmv_bw is not None else ""
+        return f"spmv_iter_pct50_searched_m{spmv_m(args)}{sfx}"
     n_ctx = 4 * 16 if args.smoke else 8 * 1024
     return f"attn_blockwise_pct50_searched_n{n_ctx}"
 
@@ -315,6 +341,57 @@ def build_moe(args, device):
     del bufs
     g = build_graph(margs, cap, impl_choice=not args.smoke, staging=staging)
     return g, tbufs, metric_for("moe", args), (margs, cap)
+
+
+def spmv_m(args) -> int:
+    """The request's SpMV rows: ``--m``, else the reference's 150000 (512
+    for the smoke)."""
+    return args.m if args.m is not None else (512 if args.smoke else 150_000)
+
+
+def build_spmv(args, device):
+    """(graph, placed buffers, metric, m) at the request's size: a band
+    matrix of m rows and 10 nonzeros a row (band ``--spmv-bw``, default
+    m/8), the host round trip as the x exchange and the kernel menu with the
+    x sizes known (the reference's build_spmv, bench/driver.py:319-351).
+    The graph is the reference's: Start -> SpMVCompound -> Finish, the two
+    equal compounds it adds being one vertex."""
+    from tenzing_tpu_torch.core.graph import Graph
+    from tenzing_tpu_torch.models.spmv import (
+        SpMVCompound,
+        make_spmv_buffers,
+        spmv_host_buffer_names,
+    )
+    from tenzing_tpu_torch.runtime.executor import buffers_from_numpy
+
+    m = spmv_m(args)
+    bufs, _ = make_spmv_buffers(m=m, nnz_per_row=10, bw=args.spmv_bw, seed=0)
+    x_sizes = {"x_local": int(bufs["x_local"].shape[0]),
+               "x_remote": int(bufs["x_remote"].shape[0])}
+    tbufs = buffers_from_numpy(bufs, device, spmv_host_buffer_names())
+    del bufs
+
+    def mk():
+        return SpMVCompound(impl_choice=True, x_sizes=x_sizes, exchange="host")
+
+    g = Graph()
+    g.start_then(mk())
+    g.then_finish(mk())
+    return g, tbufs, metric_for("spmv", args), m
+
+
+def spmv_incumbents(g, plat):
+    """The port's own spmv incumbent (the reference has none,
+    bench/driver.py:1145): the first-decision walk with every SpMV on the
+    ``ell_spmv`` kernel where the menu offers it.  Without it a short search
+    may never launch the kernel.  Empty when no SpMV offers the kernel (the
+    walk would be the naive order)."""
+    from tenzing_tpu_torch.solve.local import first_decision_order
+
+    seq = first_decision_order(g, plat, ".pallas")
+    if not any(op.name().endswith(".pallas") for op in seq.vector()):
+        return []
+    return [("naive-pallas", seq)]
 
 
 def moe_kernel_prefer(op_name, choices):
@@ -522,15 +599,52 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
     from tenzing_tpu_torch.verify import ScheduleVerifier
 
     halo, moe = args.workload == "halo", args.workload == "moe"
-    build = {"halo": build_halo, "attn": build_attn,
-             "moe": build_moe}[args.workload]
+    spmv = args.workload == "spmv"
+    build = {"halo": build_halo, "attn": build_attn, "moe": build_moe,
+             "spmv": build_spmv}[args.workload]
     g, bufs, metric, wargs = build(args, dev)
     plat = Platform.make_n_lanes(search_lanes(args))
     if args.smoke:
         args.mcts_iters = min(args.mcts_iters, 12)
     ex = StreamExecutor(plat, bufs, device=str(dev))
     del bufs
-    emp = EmpiricalBenchmarker(ex)
+    # --fuse-search-tiles: plant the fused-region tile menu as a decision of
+    # the graph before the verifier and the search are built, so every
+    # measurement lowers through the schedule's fuse_tile.tN directive (the
+    # reference's bench/driver.py:835-891).
+    measure_ex, tile_menu, tile_planted = ex, None, False
+    if args.fuse_search_tiles:
+        from tenzing_tpu_torch.runtime.fused import FusedExecutor, with_tile_menu
+        from tenzing_tpu_torch.solve.local import first_decision_order
+
+        probe = first_decision_order(g, Platform.make_n_lanes(1))
+        tile_menu = FusedExecutor(ex).plan(probe).tile_menu
+        if len(tile_menu) > 1:
+            g = with_tile_menu(g, tile_menu)
+            measure_ex = FusedExecutor(ex)
+            tile_planted = True
+            log(f"fuse-search-tiles: menu {tile_menu} planted in the choice "
+                "graph; measurements lower through the searched directive")
+        else:
+            log("fuse-search-tiles: tile menu is [1] (no fusible "
+                "decomposition survived pruning); nothing to search")
+
+    def with_tile1(seq):
+        """An order built outside the planted graph (naive, the greedy
+        helpers) completed with the ``fuse_tile.t1`` directive after Start,
+        which the planted choice requires."""
+        if not tile_planted:
+            return seq
+        from tenzing_tpu_torch.core.sequence import Sequence
+        from tenzing_tpu_torch.runtime.fused import TILE_PREFIX, FuseTile
+
+        ops_ = list(seq.vector())
+        if any(op.name().startswith(TILE_PREFIX) for op in ops_):
+            return seq
+        at = 1 if ops_ and ops_[0].name() == "start" else 0
+        return Sequence(ops_[:at] + [FuseTile(1)] + ops_[at:])
+
+    emp = EmpiricalBenchmarker(measure_ex)
     bench = CachingBenchmarker(emp)
     verifier = None if args.no_verify else ScheduleVerifier(g)
 
@@ -545,8 +659,13 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         naive_seq = halo_pipeline.naive_order(wargs, naive_plat)
     elif moe:
         naive_seq = moe_pipeline.naive_order(*wargs, naive_plat)
-    else:  # attn: the first decision at every step (reference driver.py:1060-1064)
+    elif spmv:  # the first decision at every step (reference driver.py:1060-1064)
+        from tenzing_tpu_torch.solve.local import first_decision_order
+
+        naive_seq = first_decision_order(g, naive_plat)
+    else:  # attn: the same walk, which picks the all-.xla chain
         naive_seq = fixed_order(g, naive_plat)
+    naive_seq = with_tile1(naive_seq)
     t0 = time.time()
     naive = bench.benchmark(naive_seq, opts)
     log(f"naive: pct50={naive.pct50*1e6:.1f}us (wall {time.time()-t0:.0f}s)")
@@ -561,6 +680,8 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
     elif moe:
         greedy_seqs, seed_paths, rollout_policy = moe_incumbents(
             g, plat, *wargs, args.smoke)
+    elif spmv:
+        greedy_seqs = spmv_incumbents(g, plat)
     elif not args.smoke:
         # the reference's kernel incumbents (bench/driver.py:1104-1144): the
         # per-block chain on the bf16 kernel and the fused bf16 kernel, both
@@ -572,6 +693,7 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         ]
     else:
         greedy_seqs = []
+    greedy_seqs = [(label, with_tile1(seq)) for label, seq in greedy_seqs]
     for label, seq in greedy_seqs:
         t0 = time.time()
         res_i = bench.benchmark(seq, search_opts)
@@ -648,6 +770,9 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
             return f"{base}/{'rdma' if any('.rdma' in n for n in names) else 'host'}"
         if moe:
             return f"{base}/{moe_staging_of(s.order)}"
+        if spmv:
+            kern = any(n.split("@")[0].endswith(".pallas") for n in names)
+            return f"{base}/{'pallas' if kern else 'xla'}"
         engine = next((e for e in (".fused_bf16", ".fused")
                        if any(e in n for n in names)), ".chain")
         return f"{base}/{engine[1:]}"
@@ -716,8 +841,12 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         staging = moe_staging(args)
         skip.update(moe_pipeline.host_buffer_names(wargs[0], staging))
         skip.update(moe_pipeline.transport_buffer_names(wargs[0], staging))
+    if spmv:  # the host round trip's pinned staging buffer
+        from tenzing_tpu_torch.models.spmv import spmv_host_buffer_names
+
+        skip.update(spmv_host_buffer_names())
     mismatched = mismatched_outputs(out_n, out_w, args.verify_tol, skip=skip)
-    del out_w, out_n
+    del out_n
     verified = bool(verdict.ok and not mismatched)
     log("integrity gate: winner-vs-naive outputs "
         f"{'DIVERGE on ' + str(mismatched[:4]) if mismatched else 'agree'}, "
@@ -729,6 +858,23 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         value_us = (finals[0].pct50 if finals else naive.pct50) * 1e6
         demoted = winner
         vs, winner = 1.0, None
+    # the schedule whose number the JSON reports, after any demotion
+    reported_seq = winner.order if winner is not None else naive_seq
+    stepped_out = out_w if reported_seq is winner_seq else None
+    del out_w
+
+    perf: Dict[str, Any] = {}
+    if args.fuse_winner:
+        perf["fused"] = fuse_reported(
+            ex, reported_seq, stepped_out, opts, value_us, args.verify_tol,
+            skip, gate_verifier, log)
+    del stepped_out
+    if tile_menu is not None:
+        from tenzing_tpu_torch.runtime.fused import tiles_of
+
+        perf["fuse_search_tiles"] = {"menu": list(tile_menu),
+                                     "planted": tile_planted,
+                                     "chosen": tiles_of(reported_seq)}
 
     meta = {
         "verified": verified,
@@ -752,6 +898,8 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         meta["verdict"] = verdict.witness()
     if mismatched:
         meta["diverged"] = mismatched
+    if perf:
+        meta["perf"] = perf
     return DriverResult(verdict={
         "metric": metric,
         "value": round(value_us, 2),
@@ -759,6 +907,62 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         "vs_baseline": round(vs, 4),
         **meta,
     }, demoted=demoted.order if demoted is not None else None)
+
+
+def fuse_reported(ex, seq, stepped_out, opts, stepped_us: float, tol: float,
+                  skip, verifier, log) -> Dict[str, Any]:
+    """The ``--fuse-winner`` phase (the reference's bench/driver.py:1961-2078):
+    lower ``seq`` into fused regions, measure every tile count of the pruned
+    menu with a fresh benchmarker each, run the best fused program beside
+    the stepped one from the same initial buffers and re-verify the
+    schedule.  Returns the ``perf.fused`` block.  Unlike the reference, a
+    failure is not caught into the block: a region that fails to build,
+    launch or agree raises."""
+    from tenzing_tpu_torch.bench.benchmarker import EmpiricalBenchmarker
+    from tenzing_tpu_torch.runtime.fused import FusedExecutor, fused_summary
+
+    t0 = time.time()
+    menu = FusedExecutor(ex).plan(seq).tile_menu
+    by_tiles: Dict[str, float] = {}
+    best_t, best_us, best_fex = 1, None, None
+    for t in menu:
+        # a fresh benchmarker per count: a shared cache keys by canonical
+        # schedule and would hand back the stepped measurement
+        fex_t = FusedExecutor(ex, tiles=t)
+        us = EmpiricalBenchmarker(fex_t).benchmark(seq, opts).pct50 * 1e6
+        by_tiles[str(t)] = round(us, 2)
+        if best_us is None or us < best_us:
+            best_t, best_us, best_fex = t, us, fex_t
+    plan = best_fex.plan(seq)
+    out_f = best_fex.run(seq)
+    out_s = stepped_out if stepped_out is not None else ex.run(seq)
+    mismatched = mismatched_outputs(out_s, out_f, tol, skip=skip)
+    if mismatched:
+        raise RuntimeError(f"fuse-winner: the fused program's outputs diverge "
+                           f"from the stepped program's on {mismatched[:4]}")
+    re_verdict = verifier(seq)
+    block = {
+        "regions": len(plan.regions),
+        "region_sizes": [r.n_ops for r in plan.regions],
+        "fused_ops": plan.n_ops_fused,
+        "n_ops_total": plan.n_ops_total,
+        "tiles": {"chosen": best_t, "menu": menu,
+                  "per_region": [r.tiles for r in plan.regions],
+                  "by_tiles_us": by_tiles},
+        "measured_us": {"stepped": round(stepped_us, 2),
+                        "fused": round(best_us, 2)},
+        # CUDA has no per-schedule compile: the region kernel is built once
+        "compiled_programs": 0,
+        "verified": bool(re_verdict.ok),
+    }
+    if not re_verdict.ok:
+        block["verdict"] = re_verdict.witness()
+    log("fuse-winner: %s; tiles %s -> best t=%d %.1fus (stepped %.1fus); %s "
+        "(wall %.0fs)" % (fused_summary(plan), by_tiles, best_t, best_us,
+                          stepped_us,
+                          "verified" if re_verdict.ok else "NOT VERIFIED",
+                          time.time() - t0))
+    return block
 
 
 def main(argv: Optional[List[str]] = None) -> int:

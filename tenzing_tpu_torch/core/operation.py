@@ -24,7 +24,7 @@ separate one, so registering a kind here never touches the reference's serdes.
 from __future__ import annotations
 
 import copy
-from typing import TYPE_CHECKING, Any, Dict, List, Tuple
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple
 
 from tenzing_tpu_torch.core.resources import Lane
 
@@ -198,11 +198,37 @@ class DeviceOp(OpBase):
         """Scratch buffers: name -> (shape, dtype name).  Default: none."""
         return {}
 
+    def scratch_for(self, shapes: Dict[str, Tuple[int, ...]]
+                    ) -> Dict[str, Tuple[Tuple[int, ...], str]]:
+        """Scratch whose shape follows the schedule's buffers (``shapes``:
+        buffer name -> shape).  Default: :meth:`scratch`."""
+        return self.scratch()
+
     def apply(self, bufs: Dict[str, Any], ctx: "RunContext") -> None:
         raise NotImplementedError
 
     def bind(self, lane: Lane) -> "BoundDeviceOp":
         return BoundDeviceOp(self, lane)
+
+    # -- fused-region protocol (runtime/fused.py) -------------------------
+    def uses_pallas(self) -> bool:
+        """True when this op's slot launches a hand-written kernel (the
+        reference's Pallas slots: ``.pallas*``, ``.fused*``, and a fused
+        region itself).  Such an op never joins a fused region."""
+        return False
+
+    def fusible(self) -> bool:
+        """True when the op may run as a member of a fused region: a pure
+        buffer -> buffer device computation, no transfer or host semantics.
+        Opt-in per op class, so an un-audited op never lands in a region."""
+        return False
+
+    def fuse_tiling(self) -> Optional[Dict[str, Optional[int]]]:
+        """Row decomposition for fused-region tiling: over this op's reads
+        and writes, the axis along which it is independent (``None`` value:
+        the op needs the whole buffer, e.g. a gathered x).  ``None`` return:
+        not tileable; the op still fuses, its region offers one tile only."""
+        return None
 
 
 class BoundDeviceOp(BoundOp):
@@ -248,8 +274,21 @@ class BoundDeviceOp(BoundOp):
     def scratch(self) -> Dict[str, Tuple[Tuple[int, ...], str]]:
         return self._op.scratch()
 
+    def scratch_for(self, shapes: Dict[str, Tuple[int, ...]]
+                    ) -> Dict[str, Tuple[Tuple[int, ...], str]]:
+        return self._op.scratch_for(shapes)
+
     def apply(self, bufs: Dict[str, Any], ctx: "RunContext") -> None:
         self._op.apply(bufs, ctx)
+
+    def uses_pallas(self) -> bool:
+        return self._op.uses_pallas()
+
+    def fusible(self) -> bool:
+        return self._op.fusible()
+
+    def fuse_tiling(self) -> Optional[Dict[str, Optional[int]]]:
+        return self._op.fuse_tiling()
 
     def to_json(self) -> Dict[str, Any]:
         j = self._op.to_json()

@@ -186,6 +186,9 @@ class ExpertFFNPipePallas(ExpertFFNPipe):
         out.pop(f"moe_h_{self._c}")  # the gelu tile never leaves the kernel
         return out
 
+    def uses_pallas(self) -> bool:
+        return True
+
     def _mlp(self, x3, w1, w2, y3, ctx) -> None:
         from tenzing_tpu_torch.ops import ffn_kernels as fk
 

@@ -82,6 +82,19 @@ class AttnStep(DeviceOp):
         self._update(bufs["Q"], k, v, bufs["acc"], bufs["m_run"],
                      bufs["l_run"], ctx)
 
+    # fused-region protocol (runtime/fused.py), as the reference declares
+    # it: the online-softmax update is row-independent along the query axis
+    # (axis 1 of the (b, n, d) state); the K/V block stays whole.  The kernel
+    # subclasses inherit this but never join a region (uses_pallas).
+    def fusible(self) -> bool:
+        return True
+
+    def fuse_tiling(self):
+        t = {"Q": 1, "acc": 1, "m_run": 1, "l_run": 1}
+        for n in self.reads():
+            t.setdefault(n, None)  # the K/V pair, whatever its names
+        return t
+
 
 class FinalizeAttn(DeviceOp):
     """O = acc / l (the denominator division deferred past the folds)."""
@@ -99,6 +112,13 @@ class FinalizeAttn(DeviceOp):
         import torch
 
         torch.div(bufs["acc"], bufs["l_run"], out=bufs["O"])
+
+    # fused-region protocol: elementwise over the (b, n, d) state
+    def fusible(self) -> bool:
+        return True
+
+    def fuse_tiling(self):
+        return {"acc": 1, "l_run": 1, "O": 1}
 
 
 class BlockAttnStep(AttnStep):
@@ -126,6 +146,9 @@ class BlockAttnStepPallas(BlockAttnStep):
 
     def scratch(self):
         return {}
+
+    def uses_pallas(self) -> bool:
+        return True
 
     def _update(self, q, k, v, acc, m, l, ctx) -> None:
         fold = ak.attn_block_plain if ctx.plain_kernels else ak.attn_block
@@ -172,6 +195,9 @@ class FusedBlockAttn(DeviceOp):
 
     def writes(self):
         return ["acc", "m_run", "l_run"]
+
+    def uses_pallas(self) -> bool:
+        return True
 
     def apply(self, bufs, ctx):
         fold = ak.attn_fused_plain if ctx.plain_kernels else ak.attn_fused

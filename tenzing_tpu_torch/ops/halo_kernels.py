@@ -229,6 +229,9 @@ class _KernelPack(PackFlat):
     def _face_name(self) -> str:
         return f"face_{dir_name(self._d)}"
 
+    def uses_pallas(self) -> bool:
+        return True
+
     def scratch(self):
         if self.FLAT:
             return {}
@@ -259,6 +262,9 @@ class _KernelUnpack(UnpackRecv):
     def __init__(self, args: HaloArgs, d):
         super().__init__(args, d)
         self._name = f"unpack_{dir_name(d)}{self.SUFFIX}"
+
+    def uses_pallas(self) -> bool:
+        return True
 
     def apply(self, bufs, ctx):
         starts, _ = _face_slices(self._args, self._d, "unpack")

@@ -68,6 +68,9 @@ class RdmaCopyStart(CommStart):
     SURVEY §7.0): the searchable alternative to the host-staged round trip
     (``HostSpillStart`` + ``HostFetchStart``) in the transfer-engine menu."""
 
+    def uses_pallas(self) -> bool:
+        return True
+
     def apply(self, bufs: Dict[str, Any], ctx) -> None:
         copy = device_copy_plain if ctx.plain_kernels else device_copy
         copy(bufs[self._src], bufs[self._dst])

@@ -43,7 +43,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from tenzing_tpu_torch.core.operation import BoundDeviceOp, OpBase
+from tenzing_tpu_torch.core.operation import BoundDeviceOp, OpBase, unbound
 from tenzing_tpu_torch.core.platform import Platform
 from tenzing_tpu_torch.core.resources import Event, Lane
 from tenzing_tpu_torch.core.sequence import Sequence
@@ -218,6 +218,22 @@ class RunContext:
             self.lane_stream(waiter).wait_stream(self.lane_stream(waitee))
 
 
+def evolve_host_space(names: set, op: OpBase) -> None:
+    """Apply ONE op's transfer semantics to a set of host-resident buffer
+    names, in place: an op declaring ``DST_SPACE`` (ops/comm_ops.py) moves
+    its writes into ("host") or out of ("device") host memory; every other op
+    leaves the set alone.  The one copy of the rule, shared with the fusion
+    partitioner (runtime/fused.py ``partition_regions``) — the reference's
+    ``evolve_host_space`` (tenzing_tpu/runtime/executor.py:278)."""
+    dst_space = getattr(unbound(op), "DST_SPACE", None)
+    if dst_space is not None:
+        for w in op.writes():
+            if dst_space == "host":
+                names.add(w)
+            else:
+                names.discard(w)
+
+
 class StreamExecutor:
     """Runs schedules on CUDA streams (the ``ScheduleRunner`` the benchmarker
     calls: ``prepare``, ``prepare_n``, ``run``, ``compile``, ``precompile``,
@@ -260,8 +276,11 @@ class StreamExecutor:
         """Allocate the scratch the ops declare (on the current stream, before
         any run), then wait for the device: the lane streams do not order
         themselves after the default stream."""
+        shapes = {k: tuple(t.shape) for k, t in self.init_bufs.items()}
         for op in ops:
-            for name, (shape, dtype) in getattr(op, "scratch", dict)().items():
+            declared = (op.scratch_for(shapes) if hasattr(op, "scratch_for")
+                        else {})
+            for name, (shape, dtype) in declared.items():
                 have = self.ctx.scratch.get(name)
                 if have is not None and tuple(have.shape) == tuple(shape):
                     continue

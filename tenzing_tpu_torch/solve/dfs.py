@@ -1,0 +1,236 @@
+"""Exhaustive depth-first schedule enumeration and benchmarking.
+
+Counterpart of ``tenzing_tpu/solve/dfs.py`` (reference ``tenzing-dfs``,
+dfs.hpp/dfs.cpp): ``get_all_sequences`` is a worklist DFS over
+``State.frontier`` with equivalence-class dedup at each expansion
+(dfs.cpp:16-82); ``explore`` enumerates, dedups completed schedules under
+resource bijection (dfs.hpp:88-113), benchmarks each one and collects the
+results.
+
+The port enumerates with the Python worklist (:func:`_dfs_terminals`).  The
+reference's native C++ enumerator (``tenzing_tpu/native``) has the same cap
+semantics (unique terminals count against ``max_seqs``), so the terminal set
+is the same; a port of it comes later.  The port runs in one process, so the
+reference's broadcast protocol is the identity, and a measurement that raises
+propagates (as in the port's MCTS: on CUDA no compile step can legitimately
+fail).  Not ported yet, and refused when set: the learned ``prescreen``,
+``checkpoint``, compile ``prefetch`` and fleet ``subtree`` slicing.
+"""
+
+from __future__ import annotations
+
+import sys
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+from tenzing_tpu_torch.bench.benchmarker import BenchOpts, BenchResult
+from tenzing_tpu_torch.bench.recorded import result_row
+from tenzing_tpu_torch.core.graph import Graph
+from tenzing_tpu_torch.core.operation import ChoiceOp, CompoundOp
+from tenzing_tpu_torch.core.sequence import Sequence, canonical_key
+from tenzing_tpu_torch.core.state import State
+from tenzing_tpu_torch.utils.counters import Counters
+
+
+@dataclass
+class DfsOpts:
+    """reference dfs::Opts (dfs.hpp:30-40; the maxSeqs cap from
+    examples/spmv.cu:117).
+
+    ``batch=True`` benchmarks the whole enumerated set through
+    ``benchmark_batch_times`` — every schedule visited once per iteration in
+    a fresh random order (reference batch benchmark, benchmarker.cpp:21-76) —
+    so slow drift decorrelates from schedule identity.  ``verify`` (a
+    ``verify.ScheduleVerifier``) checks every terminal before it is
+    measured; an unsound one is skipped.  The remaining fields are the
+    reference's and must stay unset: not yet ported."""
+
+    max_seqs: int = 15000
+    bench_opts: BenchOpts = field(default_factory=BenchOpts)
+    dump_csv_path: Optional[str] = None
+    batch: bool = False
+    batch_seed: int = 0
+    verify: Optional[object] = None
+    prescreen: Optional[object] = None
+    prescreen_keep: int = 0
+    checkpoint: Optional[object] = None
+    prefetch: Optional[object] = None
+    prefetch_lookahead: int = 4
+    subtree: Optional[tuple] = None
+
+    def to_json(self) -> dict:
+        """Provenance stamp of the options (reference dfs.cpp:11-14)."""
+        return {"max_seqs": self.max_seqs, "n_iters": self.bench_opts.n_iters,
+                "batch": self.batch, "batch_seed": self.batch_seed}
+
+
+_UNPORTED = ("prescreen", "checkpoint", "prefetch", "subtree")
+
+
+@dataclass
+class SimResult:
+    """One benchmarked schedule (reference SimResult, dfs.hpp:20-28)."""
+
+    order: Sequence
+    result: BenchResult
+
+
+@dataclass
+class DfsResult:
+    """reference dfs::Result (dfs.hpp:74-76, dump_csv dfs.cpp:84-105)."""
+
+    sims: List[SimResult] = field(default_factory=list)
+    counters: Optional[Counters] = None
+
+    def dump_csv(self, path: Optional[str] = None) -> str:
+        # numbered from 1: row 0 is reserved for the naive schedule at final
+        # fidelity in the driver's dumps, and a solver dump has no such anchor
+        rows = [result_row(i, s.result, s.order)
+                for i, s in enumerate(self.sims, start=1)]
+        text = "\n".join(rows) + ("\n" if rows else "")
+        if path is not None:
+            with open(path, "w") as f:
+                f.write(text)
+        return text
+
+    def best(self) -> Optional[SimResult]:
+        if not self.sims:
+            return None
+        return min(self.sims, key=lambda s: s.result.pct10)
+
+
+def _dfs_terminals(graph: Graph, platform, max_seqs: int, dedup_terminals: bool,
+                   counters: Optional[Counters] = None) -> List[State]:
+    """Worklist DFS over ``State.frontier`` (reference get_all_sequences,
+    dfs.cpp:16-82; the per-expansion dedup is dfs.cpp:46-58).  With
+    ``dedup_terminals`` the cap counts bijection-unique terminals, recognized
+    by ``canonical_key``."""
+    c = counters if counters is not None else Counters()
+    terminals: List[State] = []
+    seen_keys: set = set()
+    stack: List[State] = [State(graph)]
+    while stack and len(terminals) < max_seqs:
+        st = stack.pop()
+        if st.is_terminal():
+            if dedup_terminals:
+                with c.phase("DEDUP"):
+                    key = canonical_key(st.sequence)
+                    dup = key in seen_keys
+                    seen_keys.add(key)
+                if dup:
+                    continue
+            terminals.append(st)
+            continue
+        with c.phase("SELECT"):
+            stack.extend(st.frontier(platform))
+    return terminals
+
+
+def get_all_sequences(graph: Graph, platform, max_seqs: int = 15000,
+                      counters: Optional[Counters] = None) -> List[State]:
+    """All complete schedules reachable from the initial state (terminal
+    duplicates across converging DFS paths included; ``max_seqs`` caps raw
+    terminals)."""
+    return _dfs_terminals(graph, platform, max_seqs, dedup_terminals=False,
+                          counters=counters)
+
+
+def get_unique_sequences(graph: Graph, platform, max_seqs: int = 15000,
+                         counters: Optional[Counters] = None) -> List[State]:
+    """Like :func:`get_all_sequences`, but terminals are deduplicated under
+    resource bijection as they are found and ``max_seqs`` counts unique
+    terminals (the reference's native enumerator's cap semantics)."""
+    return _dfs_terminals(graph, platform, max_seqs, dedup_terminals=True,
+                          counters=counters)
+
+
+def expand_all(graph: Graph) -> Graph:
+    """Inline every CompoundOp.  An ExpandOp is the only decision available
+    for a frontier compound and commutes with execution order, so eager
+    expansion keeps the terminal-schedule space (reference state.cpp:82-87)."""
+    while True:
+        comps = [v for v in graph.vertices() if isinstance(v, CompoundOp)]
+        if not comps:
+            return graph
+        graph = graph.clone_but_expand(comps[0])
+
+
+def structural_variants(graph: Graph) -> List[Graph]:
+    """All graphs reachable by compound expansion and choice substitution —
+    the structural half of the decision space, taken eagerly."""
+    graph = expand_all(graph)
+    choices = [v for v in graph.vertices() if isinstance(v, ChoiceOp)]
+    if not choices:
+        return [graph]
+    out: List[Graph] = []
+    for c in choices[0].choices():
+        out.extend(structural_variants(graph.clone_but_replace(c, choices[0])))
+    return out
+
+
+def enumerate_schedules(graph: Graph, platform, max_seqs: int = 15000,
+                        counters: Optional[Counters] = None,
+                        log=None) -> List[State]:
+    """Terminal states with per-expansion and terminal dedup applied.
+    Structural decisions are resolved eagerly into graph variants, and each
+    variant's order x lane space is enumerated in turn; the ``max_seqs``
+    budget is fair-shared across variants (unused share flows to later
+    ones)."""
+    log = log if log is not None else (lambda m: sys.stderr.write(m + "\n"))
+    variants = structural_variants(graph)
+    out: List[State] = []
+    for k, g in enumerate(variants):
+        remaining = max_seqs - len(out)
+        if remaining <= 0:
+            log(f"dfs: budget exhausted; {len(variants) - k} structural "
+                "variant(s) not enumerated (raise max_seqs)")
+            break
+        share = -(-remaining // (len(variants) - k))  # ceil fair share
+        nat = get_unique_sequences(g, platform, share, counters=counters)
+        if len(nat) >= share and k + 1 < len(variants):
+            log(f"dfs: variant {k} truncated at its fair share ({share} "
+                "schedules)")
+        out.extend(nat)
+    return out
+
+
+def explore(graph: Graph, platform, benchmarker,
+            opts: Optional[DfsOpts] = None) -> DfsResult:
+    """Enumerate, dedup and benchmark every schedule (reference dfs::explore,
+    dfs.hpp:78-178)."""
+    opts = opts if opts is not None else DfsOpts()
+    for name in _UNPORTED:
+        if getattr(opts, name) is not None:
+            raise NotImplementedError(f"DfsOpts.{name}: not yet ported")
+    counters = Counters()
+    result = DfsResult(counters=counters)
+    states = enumerate_schedules(graph, platform, opts.max_seqs,
+                                 counters=counters)
+    orders = [st.sequence for st in states]
+    if opts.verify is not None:
+        kept = []
+        for o in orders:
+            verdict = opts.verify(o)
+            if verdict.ok:
+                kept.append(o)
+            else:
+                sys.stderr.write("dfs: terminal rejected by the soundness "
+                                 f"verifier ({verdict.witness()})\n")
+        orders = kept
+    batch_times = getattr(benchmarker, "benchmark_batch_times", None)
+    if opts.batch and batch_times is None:
+        sys.stderr.write(f"dfs: batch=True ignored ({type(benchmarker).__name__} "
+                         "has no benchmark_batch_times); one at a time\n")
+    if opts.batch and batch_times is not None:
+        with counters.phase("BENCHMARK"):
+            times = batch_times(orders, opts.bench_opts, seed=opts.batch_seed)
+        result.sims = [SimResult(order=o, result=BenchResult.from_times(ts))
+                       for o, ts in zip(orders, times)]
+    else:
+        for o in orders:
+            with counters.phase("BENCHMARK"):
+                res = benchmarker.benchmark(o, opts.bench_opts)
+            result.sims.append(SimResult(order=o, result=res))
+    if opts.dump_csv_path:
+        result.dump_csv(opts.dump_csv_path)
+    return result

@@ -121,6 +121,23 @@ def drive(graph: Graph, platform, policy) -> Tuple[Sequence, List[Decision]]:
     return st.sequence, decisions
 
 
+def first_decision_order(graph: Graph, platform,
+                         prefer_suffix: Optional[str] = None) -> Sequence:
+    """The first decision at every step (the reference driver's naive order
+    for attn and spmv, bench/driver.py:1060-1064); with ``prefer_suffix``, a
+    choice resolves to the alternative with that suffix where it is
+    offered."""
+    st = State(graph)
+    while not st.is_terminal():
+        ds = st.get_decisions(platform)
+        pick = ds[0]
+        if prefer_suffix is not None:
+            pick = next((d for d in ds if isinstance(d, ChooseOp)
+                         and d.choice.name().endswith(prefer_suffix)), pick)
+        st = st.apply(pick)
+    return st.sequence
+
+
 def replay_with_substitution(
     graph: Graph, platform, decisions: List[Decision], i: int,
     alt: Decision, fallback,

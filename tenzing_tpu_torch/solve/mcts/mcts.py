@@ -71,6 +71,21 @@ class MctsResult:
     tree_size: int = 0
     counters: Optional[Counters] = None
 
+    def dump_csv(self, path: Optional[str] = None) -> str:
+        """The reference's dump (bench/recorded.py ``result_row``): one row
+        per rollout, numbered from 1 (row 0 is the driver's naive anchor);
+        only screened rows carry a fidelity cell."""
+        from tenzing_tpu_torch.bench.recorded import result_row
+
+        rows = [result_row(i, s.result, s.order,
+                           fidelity=None if s.fidelity == "full" else s.fidelity)
+                for i, s in enumerate(self.sims, start=1)]
+        text = "\n".join(rows) + ("\n" if rows else "")
+        if path is not None:
+            with open(path, "w") as f:
+                f.write(text)
+        return text
+
     def best(self) -> Optional[SimResult]:
         if not self.sims:
             return None

@@ -51,18 +51,21 @@ def test_smoke_attn_driver_on_cpu():
         assert res.demoted is not None
 
 
-@pytest.mark.parametrize("workload", ["halo", "attn", "moe"])
+@pytest.mark.parametrize("workload", ["halo", "attn", "moe", "spmv"])
 def test_metric_and_lanes_equal_reference(workload):
     for smoke in (True, False):
-        req = driver.DriverRequest(workload=workload, smoke=smoke)
-        ref = ref_driver.DriverRequest(workload=workload, smoke=smoke)
-        assert driver.metric_for(workload, req) == ref_driver.metric_for(
-            workload, ref)
-        assert driver.search_lanes(req) == ref_driver.search_lanes(ref)
+        for extra in ({}, dict(m=8192), dict(spmv_bw=64)):
+            req = driver.DriverRequest(workload=workload, smoke=smoke, **extra)
+            ref = ref_driver.DriverRequest(workload=workload, smoke=smoke,
+                                           **extra)
+            assert driver.metric_for(workload, req) == ref_driver.metric_for(
+                workload, ref)
+            assert driver.search_lanes(req) == ref_driver.search_lanes(ref)
 
 
 @pytest.mark.parametrize("override", [
-    dict(workload="spmv"), dict(workload="attn", chunk=True), dict(fuse_winner=True), dict(chunk=True),
+    dict(workload="spmv", chunk=True), dict(workload="attn", chunk=True),
+    dict(workload="attn", fuse_winner=True), dict(chunk=True),
     dict(synth_collectives=True), dict(learn_screen=True),
     dict(checkpoint="ckpt"), dict(inject_faults="flaky:0.1"),
     dict(profile_winner=True), dict(search_workers=2), dict(seed_csv="x.csv"),
@@ -159,3 +162,83 @@ def test_moe_labels_name_staging_and_engine():
     assert driver.moe_staging_of(kernel) == "bf16-rdma"
     assert sum(op.name().endswith(".pallas") for op in kernel.vector()) == 2
     assert len(seeds) == 1 and policy is not None
+
+
+SPMV_FLAGS = [{}, dict(fuse_winner=True), dict(fuse_search_tiles=True),
+              dict(fuse_winner=True, fuse_search_tiles=True)]
+
+
+@pytest.mark.parametrize("flags", SPMV_FLAGS,
+                         ids=["plain", "fuse-winner", "fuse-search-tiles", "both"])
+def test_smoke_spmv_driver_on_cpu(flags):
+    """The spmv search on the CPU at the reference's smoke size (m=512, both
+    SpMVs offer the kernel): the reference's metric, verified; the fusion
+    flags add their ``perf`` blocks, the fused program gated against the
+    stepped one."""
+    res = driver.run(driver.DriverRequest(workload="spmv", **FAST, **flags),
+                     device="cpu")
+    line = json.loads(res.to_json_line())
+    assert line["metric"] == "spmv_iter_pct50_searched_m512" == \
+        ref_driver.metric_for("spmv", ref_driver.DriverRequest(workload="spmv",
+                                                               smoke=True))
+    assert line["unit"] == "us" and line["value"] > 0
+    assert line["verified"] is True and line["climbs"] == []
+    perf = line.get("perf", {})
+    if flags.get("fuse_winner"):
+        f = perf["fused"]
+        assert f["verified"] is True and f["regions"] >= 1
+        assert f["compiled_programs"] == 0 and f["fused_ops"] >= 2
+        assert set(f["tiles"]["by_tiles_us"]) == {str(t) for t in f["tiles"]["menu"]}
+        assert "perf.fused.dispatch_overhead_us" in line["not_ported"]
+    else:
+        assert "fused" not in perf and line["not_ported"] == {}
+    if flags.get("fuse_search_tiles"):
+        t = perf["fuse_search_tiles"]
+        assert t["planted"] is True and t["menu"][0] == 1 and len(t["menu"]) > 1
+        assert t["chosen"] in t["menu"]
+
+
+def test_spmv_incumbent_and_naive():
+    """Naive is the first decision at every step (all .xla on one lane); the
+    port's own incumbent takes the kernel where the menu offers it: both
+    SpMVs at m=512, only spmv_remote at m=8192 (x_remote 4093 <= 4096),
+    none at m=150000."""
+    from tenzing_tpu_torch.core.platform import Platform
+    from tenzing_tpu_torch.solve.local import first_decision_order
+
+    plat = Platform.make_n_lanes(2)
+    want = {512: 2, 8192: 1, 150_000: 0}
+    for m, n_kernels in want.items():
+        req = driver.DriverRequest(workload="spmv", m=m)
+        g, bufs, metric, got_m = driver.build_spmv(req, "cpu")
+        assert got_m == m and metric == f"spmv_iter_pct50_searched_m{m}"
+        assert bufs["host_x"].device.type == "cpu"
+        naive = first_decision_order(g, Platform.make_n_lanes(1))
+        assert not any(op.name().endswith(".pallas") for op in naive.vector())
+        inc = driver.spmv_incumbents(g, plat)
+        if n_kernels == 0:
+            assert inc == []
+            continue
+        (label, seq), = inc
+        assert label == "naive-pallas"
+        assert sum(op.name().endswith(".pallas") for op in seq.vector()) == n_kernels
+
+
+def test_spmv_not_ported_reads_no_database():
+    """The reference reads no recorded database for spmv
+    (bench/driver.py:1283-1288): a full-size request skips nothing."""
+    assert driver.not_ported_meta(driver.DriverRequest(workload="spmv")) == {}
+
+
+@pytest.mark.parametrize("workload", ["halo", "moe"])
+def test_fuse_winner_finds_no_region_without_fusible_ops(workload):
+    """Halo and moe declare no fusible op, so the fused program is the
+    stepped one: zero regions and a one-tile menu, as in the reference."""
+    res = driver.run(driver.DriverRequest(workload=workload, fuse_winner=True,
+                                          fuse_search_tiles=True, **FAST),
+                     device="cpu")
+    perf = res.verdict["perf"]
+    assert perf["fused"]["regions"] == 0 and perf["fused"]["verified"] is True
+    assert perf["fused"]["tiles"]["menu"] == [1]
+    assert perf["fuse_search_tiles"] == {"menu": [1], "planted": False,
+                                         "chosen": 1}
