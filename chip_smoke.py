@@ -107,6 +107,42 @@ before the last line:
               at least one and print ``best:``, and the count of unique
               terminals the same enumeration gives is printed beside it.
 
+Run after the attn driver (phase 8):
+
+8a. attn fused — the attention members of ``fused_region`` at full width:
+              the naive ``.xla`` order (one region: 8 folds + finalize), a
+              2-lane order, and the naive order with every fold chunked 2
+              and 4 ways, at every tile count of their menus, against the
+              plain region (m, l, acc / l and O at ``F32_STATE_TOL``) and
+              the dense expected O (``F32_O_TOL``); two launches must be
+              bitwise equal, and a fold member whose key offset is one block
+              off must be rejected; each naive region's kernel time at every
+              tile count, and each region's at one tile beside the stepped
+              members, the plain region and the operations bound, with one
+              f32 ``scaled_dot_product_attention`` as the yardstick;
+8b. attn fused driver — ``run`` with ``workload="attn"``,
+              ``fuse_winner`` and ``fuse_search_tiles``: ``perf.fused`` and
+              a planted ``perf.fuse_search_tiles``, ``fused_region``
+              launched > 0 times; the fused block verified, or reported as
+              diverged by the reference's gate (the run raises if the fused
+              outputs fail the members' own tolerance); the result verified
+              or demoted as in phase 8.
+
+Run after the moe driver (phase 11):
+
+11a. chunk  — at full width, the chunked orders against the unchunked ones
+              at every valid count: attention's naive order with sub-folds
+              (``F32_STATE_TOL``, O against the expected), the moe orders
+              with expert partials under f32 and bf16 staging (Y within one
+              f32 / bf16 ulp of the unchunked Y and within ``F32_Y_TOL`` /
+              ``BF16_Y_TOL`` of the expected), each verified; then the
+              full-size pruned menus and the card's chunk constants of
+              ``bench/roofline.py`` measured: the stream executor's per-op
+              host dispatch and the pinned host <-> device copy rate;
+11b. chunk driver — ``run`` with ``chunk`` on attn and moe: a
+              ``perf.chunked`` block with menus, verified or demoted as the
+              plain runs may be.
+
 The halo and attn driver phases run with ``climb_budget=4`` (the halo climbs
 run; the reference runs none for attn).  Each driver phase sets every
 kernel's launch count to 0 just before it and reads the counts just after.  Then the ``{"kernels": [...]}`` line, the
@@ -1325,6 +1361,376 @@ def phase_spmv_driver(torch, device):
     return runs
 
 
+def phase_attn_fused(torch, device, timer, want_o):
+    """The attention members of ``fused_region`` at full width: the naive
+    ``.xla`` order, a 2-lane order and the naive order with every fold chunked
+    2 and 4 ways, at every tile count of their menus, against the plain
+    region (the state at ``F32_STATE_TOL``, O beside it) and the dense
+    expected O; two launches bitwise equal; a fold member whose key offset is
+    one block off must be rejected.  Times each region of the naive order
+    (every tile count) and of the chunked orders (one tile) beside the
+    stepped members, the plain region and the operations bound."""
+    import dataclasses
+
+    from tenzing_tpu_torch.bench.driver import attn_graph
+    from tenzing_tpu_torch.core.platform import Platform
+    from tenzing_tpu_torch.models.ring_attention import (
+        fixed_order,
+        make_blocked_buffers,
+    )
+    from tenzing_tpu_torch.ops import attention_kernels as ak
+    from tenzing_tpu_torch.ops import fused_region as fr
+    from tenzing_tpu_torch.runtime.executor import StreamExecutor, buffers_from_numpy
+    from tenzing_tpu_torch.runtime.fused import FusedExecutor, FusedRegionOp
+    from tenzing_tpu_torch.verify import ScheduleVerifier
+
+    a = attn_full_args()
+    bufs, _ = make_blocked_buffers(a, seed=0, with_expected=False)
+    tbufs = buffers_from_numpy(bufs, device)
+    del bufs
+    names = ("acc", "m_run", "l_run")
+    one, two = Platform.make_n_lanes(1), Platform.make_n_lanes(2)
+    kern = StreamExecutor(two, tbufs, device="cuda")
+    plain = StreamExecutor(two, tbufs, device="cuda", plain_kernels=True)
+    g, gc = attn_graph(a), attn_graph(a, chunk=True, chunk_relax=True)
+    orders = {
+        "naive": (fixed_order(g, one), g),
+        "2-lane": (fixed_order(g, two, lane_of=lambda s: s // 4), g),
+        "naive-c2": (fixed_order(gc, one, kernel_of=lambda s: ".xla.chunked.c2"), gc),
+        "naive-c4": (fixed_order(gc, one, kernel_of=lambda s: ".xla.chunked.c4"), gc),
+    }
+    rows, timing, failed = [], [], []
+    for label, (seq, graph) in orders.items():
+        if not ScheduleVerifier(graph)(seq).ok:
+            raise AssertionError(f"attn fused phase: {label} is not sound")
+        menu = FusedExecutor(kern).plan(seq).tile_menu
+        for t in menu:
+            t0 = time.time()
+            fex = FusedExecutor(kern, tiles=t)
+            plan = fex.plan(seq)
+            out_k = fex.run(seq)
+            again = fex.run(seq)
+            out_p = FusedExecutor(plain, tiles=t).run(seq)
+            ok_plain, errs = ak.state_check([out_k[n] for n in names],
+                                            [out_p[n] for n in names],
+                                            ak.F32_STATE_TOL)
+            err_o = float((out_k["O"] - out_p["O"]).abs().max())
+            ok_plain = ok_plain and torch.allclose(out_k["O"], out_p["O"],
+                                                   **ak.F32_STATE_TOL["acc/l"])
+            ok_want = torch.allclose(out_k["O"], want_o, **F32_O_TOL)
+            same = all(torch.equal(out_k[n], again[n]) for n in names + ("O",))
+            row = {"phase": "attn_fused", "order": label, "tiles": t,
+                   "menu": menu, "regions": [r.members for r in plan.regions],
+                   "region_tiles": [r.tiles for r in plan.regions],
+                   "tolerance": ak.F32_STATE_TOL, "vs_plain": errs,
+                   "o_vs_plain_max_abs_err": err_o, "within_tol_plain": ok_plain,
+                   "o_vs_expected_max_abs_err": float(
+                       (out_k["O"] - want_o).abs().max()),
+                   "within_tol_expected": ok_want, "deterministic": same}
+            if label == "naive" and t == 1:
+                # the control: the first fold reads the next block's keys
+                k = next(o for o in plan.fused_order
+                         if isinstance(o, FusedRegionOp)).unbound()
+                span = a.n_devices * a.seq_local
+                bad = [dataclasses.replace(b, key_off=(b.key_off + a.seq_local) % span)
+                       if i == 0 else b for i, b in enumerate(k.bodies())]
+                cbufs = {n: v.clone() for n, v in kern.init_bufs.items()}
+                for n in names:
+                    cbufs[n].copy_(kern._initial[n])
+                fr.fused_region(fr.RegionTable(bad, 1), cbufs,
+                                torch.zeros(2, dtype=torch.int32, device=device))
+                c_ok, c_errs = ak.state_check([cbufs[n] for n in names],
+                                              [out_p[n] for n in names],
+                                              ak.F32_STATE_TOL)
+                row["key_offset_control"] = {"errors": c_errs, "within_tol": c_ok}
+                ok_plain = ok_plain and not c_ok
+                del cbufs
+            row["wall_s"] = round(time.time() - t0, 3)
+            emit(row)
+            rows.append(row)
+            del out_k, out_p, again
+            if not (ok_plain and ok_want and same and plan.regions):
+                failed.append(f"{label}/t{t}")
+        if label == "2-lane":
+            continue
+        # each region's kernel beside the plain region and the stepped
+        # members: every tile count of the naive order, one tile otherwise
+        kern.precompile(seq)  # the members' own scratch, for stepping
+        bufs_, ctx = kern.init_bufs, kern.ctx
+        for t in (menu if label == "naive" else [1]):
+            fex = FusedExecutor(kern, tiles=t)
+            fseq = fex.fused_order(seq)
+            kern.precompile(fseq)
+            regs = [o for o in fseq if isinstance(o, FusedRegionOp)]
+            for op, info in zip(regs, fex.plan(seq).regions):
+                k = op.unbound()
+                members = k._members
+                ms = timer.ms(lambda: k.apply(bufs_, ctx))  # binds the table
+                trow = {"phase": "attn_fused_timing", "order": label,
+                        "members": info.members, "tiles": t,
+                        "blocks_per_group": k.table.blocks_per_group, "ms": ms}
+                if t == 1:
+                    trow["plain_ms"] = timer.ms(
+                        lambda: fr.region_plain(k.bodies(), bufs_, 1))
+                    trow["stepped_ms"] = timer.ms(
+                        lambda: [mm.apply(bufs_, ctx) for mm in members])
+                keys = sum(b.nkv for b in k.bodies() if b.body == "attn_fold")
+                ops = 4.0 * a.batch * a.n_devices * a.seq_local * keys * a.head_dim
+                trow["bound_ms"] = ops / PEAK_F32_FLOPS * 1e3
+                trow["bound_by"] = "operations"
+                emit(trow)
+                timing.append(trow)
+    # the library yardstick: one f32 scaled_dot_product_attention call over
+    # (batch, 1 head, n, d) views, as the attn kernels phase times it
+    import torch.nn.functional as F
+
+    q, kk, v = (kern.init_bufs[n].unsqueeze(1) for n in ("Q", "K", "V"))
+    sdpa_ms = timer.ms(lambda: F.scaled_dot_product_attention(q, kk, v))
+    emit({"phase": "attn_fused_library", "sdpa_f32_ms": sdpa_ms})
+    del kern, plain, tbufs, q, kk, v
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"attn fused phase failed on {failed}")
+    return rows, timing, sdpa_ms
+
+
+def phase_attn_fused_driver(torch, device):
+    """``--workload attn --fuse-winner --fuse-search-tiles`` at full width
+    with the cut budget; returns the launch counts."""
+    from tenzing_tpu_torch.bench import driver
+
+    t0 = time.time()
+    req = driver.DriverRequest(workload="attn", fuse_winner=True,
+                               fuse_search_tiles=True, mcts_iters=12, iters=3,
+                               search_iters=2)
+    reset_launches()
+    result = driver.run(req, device="cuda")
+    launches = all_launches()
+    verdict = result.verdict
+    print(result.to_json_line(), flush=True)
+    perf = verdict.get("perf", {})
+    row = {"phase": "attn_fused_driver", "launches": launches,
+           "verified": verdict.get("verified"), "diverged": verdict.get("diverged"),
+           "winner_label": verdict.get("winner_label"),
+           "vs_baseline": verdict.get("vs_baseline"),
+           "fused": perf.get("fused"),
+           "fuse_search_tiles": perf.get("fuse_search_tiles"),
+           "wall_s": round(time.time() - t0, 3)}
+    emit(row)
+    if verdict.get("metric") != "attn_blockwise_pct50_searched_n8192":
+        raise AssertionError(f"attn fused driver metric {verdict.get('metric')!r}")
+    fused, tiles = perf.get("fused"), perf.get("fuse_search_tiles")
+    if not fused or not tiles or not tiles.get("planted"):
+        raise AssertionError(f"attn fused driver: no perf.fused / planted "
+                             f"tile menu: {perf}")
+    # the reference's gate may report the fused program as diverged (the
+    # fused fold sums in another order); the members' own tolerance raised
+    # inside the run if the kernel were wrong
+    if fused.get("verified") is not True and not fused.get("diverged"):
+        raise AssertionError(f"attn fused driver: fused block not verified "
+                             f"and no divergence reported: {fused}")
+    if verdict.get("verified") is not True:
+        diverged = set(verdict.get("diverged") or ())
+        if result.demoted is None or not diverged or not diverged <= {"acc", "O"}:
+            raise AssertionError(f"attn fused driver not verified: {verdict}")
+    if launches["fused_region"] <= 0:
+        raise AssertionError("the fused attn path never launched fused_region")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def drive_to(g, plat, picks):
+    """A complete schedule of ``g`` on ``plat`` taking, at every choice, the
+    alternative whose name ends with ``picks(op_name)`` (None: the first
+    offered), every other decision the phase policy's."""
+    from tenzing_tpu_torch.models.moe_pipeline import PHASES
+    from tenzing_tpu_torch.solve.local import drive, phase_policy
+
+    def prefer(op_name, choices):
+        want = picks(op_name)
+        return next((c for c in choices if want and c.endswith(want)), None)
+
+    return drive(g, plat, phase_policy(plat, PHASES, prefer))[0]
+
+
+def phase_chunk(torch, device, timer, want_o, want_y):
+    """The chunked orders at full width against the unchunked ones at every
+    structurally valid count: attention's naive order with every fold split
+    into sub-folds (``F32_STATE_TOL``), the moe greedy orders with every
+    expert MLP split into expert partials, f32 and bf16 staging (one f32 /
+    bf16 ulp from the unchunked Y; Y against the float64 expected).  Then the
+    full-size pruned menus, and the two card constants of
+    ``bench/roofline.py`` measured: the stream executor's per-op host
+    dispatch and the pinned host <-> device copy rate."""
+    from tenzing_tpu_torch.bench import roofline
+    from tenzing_tpu_torch.bench.driver import attn_graph
+    from tenzing_tpu_torch.core.chunking import chunks_of
+    from tenzing_tpu_torch.core.operation import Finish, Start
+    from tenzing_tpu_torch.core.platform import Platform
+    from tenzing_tpu_torch.core.sequence import Sequence
+    from tenzing_tpu_torch.models.moe_pipeline import (
+        build_graph,
+        ffn_chunk_menu,
+        host_buffer_names,
+    )
+    from tenzing_tpu_torch.models.ring_attention import (
+        fixed_order,
+        fold_chunk_menu,
+        make_blocked_buffers,
+    )
+    from tenzing_tpu_torch.models.spmv import VectorAdd
+    from tenzing_tpu_torch.ops import attention_kernels as ak
+    from tenzing_tpu_torch.runtime.executor import StreamExecutor, buffers_from_numpy
+    from tenzing_tpu_torch.verify import ScheduleVerifier
+
+    rows, failed = [], []
+    a = attn_full_args()
+    bufs, _ = make_blocked_buffers(a, seed=0, with_expected=False)
+    tbufs = buffers_from_numpy(bufs, device)
+    del bufs
+    one = Platform.make_n_lanes(1)
+    ex = StreamExecutor(one, tbufs, device="cuda")
+    gc = attn_graph(a, chunk=True, chunk_relax=True)
+    names = ("acc", "m_run", "l_run")
+    base = ex.run(fixed_order(gc, one))
+    for n in [c for c in fold_chunk_menu(a, relax=True)[0] if c > 1]:
+        seq = fixed_order(gc, one, kernel_of=lambda s: f".xla.chunked.c{n}")
+        out = ex.run(seq)
+        ok, errs = ak.state_check([out[x] for x in names], [base[x] for x in names],
+                                  ak.F32_STATE_TOL)
+        ok = ok and torch.allclose(out["O"], base["O"], **ak.F32_STATE_TOL["acc/l"])
+        ok_want = torch.allclose(out["O"], want_o, **F32_O_TOL)
+        verified = ScheduleVerifier(gc)(seq).ok
+        row = {"phase": "chunk", "workload": "attn", "chunks": n,
+               "chosen": sorted(set(chunks_of(seq.vector()).values())),
+               "vs_unchunked": errs, "within_tol": ok,
+               "o_vs_expected_max_abs_err": float((out["O"] - want_o).abs().max()),
+               "within_tol_expected": ok_want, "verified": verified}
+        emit(row)
+        rows.append(row)
+        if not (ok and ok_want and verified):
+            failed.append(f"attn/c{n}")
+        del out
+    del ex, tbufs, base
+    torch.cuda.empty_cache()
+
+    m, mbufs, cap = moe_full()
+    tb = buffers_from_numpy(mbufs, device, host_buffer_names(m, "choice"))
+    del mbufs
+    two = Platform.make_n_lanes(2)
+    ex = StreamExecutor(two, tb, device="cuda")
+    gm = build_graph(m, cap, impl_choice=True, staging="choice", chunk=True,
+                     chunk_relax=True)
+    counts = [c for c in ffn_chunk_menu(m, cap, relax=True)[0] if c > 1]
+    for staging in ("f32", "bf16"):
+        bf16 = staging == "bf16"
+        chain = f".{staging}-host"
+
+        def picks(op, n=None):
+            if op.startswith("chain_"):
+                return chain
+            return ".xla" if n is None else f".xla.chunked.c{n}"
+
+        y0 = ex.run(drive_to(gm, two, picks))["Y"]
+        for n in counts:
+            seq = drive_to(gm, two, lambda op: picks(op, n))
+            y = ex.run(seq)["Y"]
+            tol = BF16_PLAIN_Y_TOL if bf16 else F32_PLAIN_Y_TOL
+            ok = torch.allclose(y, y0, **tol)
+            ok_want, errs = y_check(y, want_y, bf16)
+            verified = ScheduleVerifier(gm)(seq).ok
+            row = {"phase": "chunk", "workload": "moe", "staging": staging,
+                   "chunks": n,
+                   "chosen": sorted(set(chunks_of(seq.vector()).values())),
+                   "tolerance": tol,
+                   "vs_unchunked_max_abs_err": float((y - y0).abs().max()),
+                   "within_tol": ok, "vs_expected": errs,
+                   "within_tol_expected": ok_want, "verified": verified}
+            emit(row)
+            rows.append(row)
+            if not (ok and ok_want and verified and row["chosen"] == [n]):
+                failed.append(f"moe/{staging}/c{n}")
+    del ex, tb
+    torch.cuda.empty_cache()
+
+    # the card's constants: one more op's host time on the stream executor
+    # (a one-lane chain of 200 small adds, run 20 times), and the pinned copy
+    # rate of one moe slot table, both directions
+    k_ops, reps = 200, 20
+    vec = {n: torch.rand(4096, device=device) for n in ("a", "b", "o")}
+    lane = one.lanes[0]
+    chain_seq = Sequence([Start()] + [VectorAdd(f"add{i}", "a", "b", "o").bind(lane)
+                                      for i in range(k_ops)] + [Finish()])
+    dex = StreamExecutor(one, vec, device="cuda")
+    run_n = dex.prepare_n(chain_seq)
+    run_n(2)
+    per_op = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        run_n(reps)
+        per_op.append((time.perf_counter() - t0) / (reps * k_ops) * 1e6)
+    per_op.sort()
+    dispatch_us = per_op[len(per_op) // 2]
+    table = m.n_experts * cap * m.d_model * 4
+    host = torch.empty(table // 4, pin_memory=True)
+    dbuf = torch.empty(table // 4, device=device)
+    h2d = timer.ms(lambda: dbuf.copy_(host, non_blocking=True))
+    d2h = timer.ms(lambda: host.copy_(dbuf, non_blocking=True))
+    rate_gbs = (table / (h2d * 1e-3) + table / (d2h * 1e-3)) / 2 / 1e9
+    menus = {"attn": fold_chunk_menu(a), "moe": ffn_chunk_menu(m, cap)}
+    const = {"phase": "chunk_constants",
+             "dispatch_us_measured": dispatch_us,
+             "dispatch_us_samples": per_op,
+             "CHUNK_DISPATCH_US": roofline.CHUNK_DISPATCH_US,
+             "slot_table_bytes": table, "h2d_ms": h2d, "d2h_ms": d2h,
+             "xfer_gbs_measured": rate_gbs, "XFER_GBS": roofline.XFER_GBS,
+             "full_size_menus": {k: {"counts": v[0], "est_hidden_us": v[1]}
+                                 for k, v in menus.items()}}
+    emit(const)
+    del vec, dex, host, dbuf
+    if failed:
+        raise AssertionError(f"chunk phase failed on {failed}")
+    return rows, const
+
+
+def phase_chunk_driver(torch, device):
+    """``--chunk`` on attn and moe at full width with the cut budget: the
+    ``perf.chunked`` block, verified or demoted as the plain runs may be;
+    returns the launch counts of each run."""
+    from tenzing_tpu_torch.bench import driver
+
+    runs = {}
+    for workload in ("attn", "moe"):
+        t0 = time.time()
+        extra = dict(climb_budget=4) if workload == "moe" else {}
+        req = driver.DriverRequest(workload=workload, chunk=True, mcts_iters=12,
+                                   iters=3, search_iters=2, **extra)
+        reset_launches()
+        result = driver.run(req, device="cuda")
+        launches = all_launches()
+        verdict = result.verdict
+        print(result.to_json_line(), flush=True)
+        chunked = verdict.get("perf", {}).get("chunked")
+        row = {"phase": "chunk_driver", "workload": workload,
+               "launches": launches, "verified": verdict.get("verified"),
+               "diverged": verdict.get("diverged"),
+               "winner_label": verdict.get("winner_label"),
+               "vs_baseline": verdict.get("vs_baseline"), "chunked": chunked,
+               "wall_s": round(time.time() - t0, 3)}
+        emit(row)
+        if not chunked or "menus" not in chunked or not chunked["menus"]:
+            raise AssertionError(f"{workload} --chunk: no perf.chunked menus: {chunked}")
+        allowed = {"acc", "O"} if workload == "attn" else \
+            {"Y"} | {f"Y_{c}" for c in range(4)}
+        if verdict.get("verified") is not True:
+            diverged = set(verdict.get("diverged") or ())
+            if result.demoted is None or not diverged or not diverged <= allowed:
+                raise AssertionError(f"{workload} --chunk not verified: {verdict}")
+        runs[workload] = launches
+        torch.cuda.empty_cache()
+    return runs
+
+
 def phase_dfs_example(torch):
     """The DFS example at the reference's size with a small cap."""
     import contextlib
@@ -1436,6 +1842,14 @@ def main() -> int:
     emit({"phase": "attn_executor", **attn_ex,
           "wall_s": round(time.time() - t0, 3)})
     attn_launches = phase_attn_driver(torch, device, want_o)
+    t0 = time.time()
+    afused_rows, afused_timing, sdpa_ms = phase_attn_fused(torch, device, timer,
+                                                           want_o)
+    emit({"phase": "attn_fused", "rows": len(afused_rows),
+          "all_within_tol": True, "wall_s": round(time.time() - t0, 3)})
+    t0 = time.time()
+    afused_launches = phase_attn_fused_driver(torch, device)
+    emit({"phase": "attn_fused_driver", "wall_s": round(time.time() - t0, 3)})
 
     t0 = time.time()
     moe_rows = phase_moe_kernels(torch, device, timer)
@@ -1446,7 +1860,15 @@ def main() -> int:
     emit({"phase": "moe_executor", **moe_ex,
           "wall_s": round(time.time() - t0, 3)})
     moe_launches = phase_moe_driver(torch, device, want_y)
-    del want_y
+    t0 = time.time()
+    chunk_rows, chunk_const = phase_chunk(torch, device, timer, want_o,
+                                          want_y)
+    emit({"phase": "chunk", "rows": len(chunk_rows), "all_within_tol": True,
+          "wall_s": round(time.time() - t0, 3)})
+    del want_y, want_o
+    t0 = time.time()
+    chunk_launches = phase_chunk_driver(torch, device)
+    emit({"phase": "chunk_driver", "wall_s": round(time.time() - t0, 3)})
 
     t0 = time.time()
     spmv_rows = phase_spmv_kernels(torch, device, timer)
@@ -1584,6 +2006,32 @@ def main() -> int:
         "stepped_members_ms": sum(r["stepped_ms"] for r in host_t),
         "work": "the two regions of the m=150000 naive order, one tile: "
                 + "; ".join("+".join(r["members"]) for r in host_t),
+    })
+    # the attention members of the same kernel: the naive .xla order's one
+    # region (8 folds + finalize) at one tile; one f32
+    # scaled_dot_product_attention call computes its O
+    naive_t = next(r for r in afused_timing
+                   if r["order"] == "naive" and r["tiles"] == 1)
+    kernels.append({
+        "name": "fused_region_attn", "route": "cuda",
+        "source": "tenzing_tpu_torch/csrc/fused_region.cu",
+        "replaces": "tenzing_tpu/runtime/fused.py:358",
+        "launches": afused_launches["fused_region"],
+        "max_abs_err": max(max(v["max_abs"] for v in r["vs_plain"].values())
+                           for r in afused_rows),
+        "ms": naive_t["ms"], "plain_ms": naive_t["plain_ms"],
+        "bound_ms": naive_t["bound_ms"], "bound_by": naive_t["bound_by"],
+        "library_ms": sdpa_ms,
+        "stepped_members_ms": naive_t["stepped_ms"],
+        "by_tiles_ms": {str(r["tiles"]): r["ms"] for r in afused_timing
+                        if r["order"] == "naive"},
+        "work": "the naive .xla attention order's region at one tile: "
+                + "+".join(naive_t["members"]),
+        "chunk_constants": {k: chunk_const[k] for k in (
+            "dispatch_us_measured", "CHUNK_DISPATCH_US", "xfer_gbs_measured",
+            "XFER_GBS")},
+        "launches_chunk_driver": {w: c["fused_region"]
+                                  for w, c in chunk_launches.items()},
     })
     emit({"phase": "done", "wall_s": round(time.time() - t_start, 3)})
     _log.close()

@@ -8,7 +8,8 @@ context in 8 blocks of 1024, head dim 128), the MoE pipeline (8 experts,
 driver's graph at m=150000 and m=8192) — runs a few fixed schedules through
 the stream executor (halo: naive, greedy host 8 lanes, greedy rdma 2 lanes,
 alias 8 lanes; attn: naive all-``.xla``, the ``.pallas_bf16`` chain, the
-fused kernel in f32 and bf16; moe on 2 lanes: naive, greedy overlap, greedy
+fused kernel in f32 and bf16, and naive lowered into one ``fused_region``
+kernel at one tile; moe on 2 lanes: naive, greedy overlap, greedy
 bf16 and f32 device copy, and the bf16 device-copy order with every expert
 MLP on the ``ffn_batched`` kernel; spmv on 2 lanes: naive and the overlap
 order at m=150000, each also lowered into ``fused_region`` kernels at one
@@ -146,6 +147,7 @@ def _attn(dev) -> None:
         make_blocked_buffers,
     )
     from tenzing_tpu_torch.runtime.executor import StreamExecutor, buffers_from_numpy
+    from tenzing_tpu_torch.runtime.fused import FusedExecutor
 
     args = attn_args(DriverRequest(workload="attn"))
     bufs, _ = make_blocked_buffers(args, seed=0, with_expected=False)
@@ -154,6 +156,8 @@ def _attn(dev) -> None:
     orders = fixed_orders(attn_graph(args), args.n_devices)
     _measure("attn", ex, {label: orders[label] for label in (
         "naive", "pallas_bf16", "fused", "fused_bf16")})
+    _measure("attn", FusedExecutor(ex, tiles=1),
+             {"fused-naive-t1": orders["naive"]})
 
 
 def _moe(dev) -> None:

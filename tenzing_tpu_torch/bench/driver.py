@@ -39,7 +39,10 @@ row, the x exchange a host round trip, the SpMV kernel menu) — then
    fused program against the stepped one and re-verifies the schedule
    (``perf.fused``); with ``fuse_search_tiles`` the tile menu is a decision
    of the searched graph from the start (``perf.fuse_search_tiles``);
-8. returns the JSON line (``metric``, ``value``, ``unit``, ``vs_baseline``,
+8. with ``chunk``, the attn and moe menus offer the chunked expansions of
+   the ``.xla`` fold and expert MLP (core/chunking.py), and ``perf.chunked``
+   reports the pruned menus, what the search visited and what it chose;
+9. returns the JSON line (``metric``, ``value``, ``unit``, ``vs_baseline``,
    ``verified``, plus the measurement regime).
 
 :class:`DriverRequest` is a copy of the reference's, field for field, with the
@@ -48,7 +51,8 @@ raises :exc:`DriverConfigError` ("... not yet ported"); nothing is silently
 ignored.  What a default request would have done and the port skips is named
 in the JSON's ``not_ported``: at full size the recorded warm starts (the
 experiments/*_search_tpu_r[45]*.csv databases the reference reads), and
-therefore the climb the reference seeds from them.
+therefore the climb the reference seeds from them; with ``fuse_winner`` and
+``chunk``, the attribution fields their blocks would carry.
 
 Entry point: ``python -m tenzing_tpu_torch.bench`` (``--device cpu`` runs on
 the CPU; the default is the card).
@@ -133,7 +137,7 @@ class DriverResult:
 _UNPORTED = ("dump_csv", "trace_out", "metrics_json", "seed_csv",
              "learn_train", "learn_trace", "learn_model", "learn_screen",
              "checkpoint", "resume", "measure_timeout", "inject_faults",
-             "profile_winner", "chunk", "synth_collectives", "search_workers",
+             "profile_winner", "synth_collectives", "search_workers",
              "measure_batch")
 _DEFAULTS = DriverRequest()
 
@@ -165,10 +169,6 @@ def check_request(req: DriverRequest) -> None:
         raise DriverConfigError("--climb-budget must be >= 0")
     if req.halo_n < 1:
         raise DriverConfigError("--halo-n must be positive")
-    if req.workload == "attn" and (req.fuse_winner or req.fuse_search_tiles):
-        # the attention fold and finalize have no fused-region body yet
-        raise DriverConfigError("--fuse-winner / --fuse-search-tiles with "
-                                "--workload attn: not yet ported")
     if req.m is not None and req.m < 2:
         raise DriverConfigError("--m must be at least 2")
 
@@ -179,13 +179,17 @@ def not_ported_meta(req: DriverRequest) -> Dict[str, Any]:
     the recorded warm starts — the glob the reference would have read — and
     with them the climb it seeds from the best recorded schedule (the
     reference reads no database for spmv); with ``fuse_winner``, the
-    attribution fields of ``perf.fused`` (obs/attrib's stepped timeline)."""
+    attribution fields of ``perf.fused`` (obs/attrib's stepped timeline);
+    with ``chunk``, the measured hidden comm of ``perf.chunked`` (the same
+    timeline)."""
     out = {}
     if not req.smoke and req.seed_topk > 0 and req.workload in RECORDED_WARM_START:
         out["recorded_warm_start"] = RECORDED_WARM_START[req.workload]
     if req.fuse_winner:
         out["perf.fused.dispatch_overhead_us"] = "obs/attrib stepped timeline"
         out["perf.fused.sum_of_parts_us"] = "obs/attrib stepped timeline"
+    if req.chunk:
+        out["perf.chunked.hidden_comm_us.measured"] = "obs/attrib stepped timeline"
     return out
 
 
@@ -279,13 +283,15 @@ def attn_args(args):
     return RingAttnArgs(n_devices=8, batch=4, seq_local=1024, head_dim=128)
 
 
-def attn_graph(aargs):
-    """Start -> BlockedAttention (kernel and granularity menus) -> Finish."""
+def attn_graph(aargs, chunk: bool = False, chunk_relax: bool = False):
+    """Start -> BlockedAttention (kernel and granularity menus, and with
+    ``chunk`` the sub-fold menus) -> Finish."""
     from tenzing_tpu_torch.core.graph import Graph
     from tenzing_tpu_torch.models.ring_attention import BlockedAttention
 
     g = Graph()
-    op = BlockedAttention(aargs, impl_choice=True, fused_choice=True)
+    op = BlockedAttention(aargs, impl_choice=True, fused_choice=True,
+                          chunk=chunk, chunk_relax=chunk_relax)
     g.start_then(op)
     g.then_finish(op)
     return g
@@ -301,7 +307,10 @@ def build_attn(args, device):
     bufs, _ = make_blocked_buffers(aargs, seed=0, with_expected=False)
     tbufs = buffers_from_numpy(bufs, device)
     del bufs
-    return attn_graph(aargs), tbufs, metric_for("attn", args), aargs
+    # the chunk menus pruned by the roofline at full size, every valid count
+    # for the smoke (the reference's chunk_relax=args.smoke)
+    g = attn_graph(aargs, chunk=args.chunk, chunk_relax=args.smoke)
+    return g, tbufs, metric_for("attn", args), aargs
 
 
 def moe_args(args):
@@ -339,7 +348,8 @@ def build_moe(args, device):
     tbufs = buffers_from_numpy(bufs, device,
                                host_buffer_names(margs, staging=staging))
     del bufs
-    g = build_graph(margs, cap, impl_choice=not args.smoke, staging=staging)
+    g = build_graph(margs, cap, impl_choice=not args.smoke, staging=staging,
+                    chunk=args.chunk, chunk_relax=args.smoke)
     return g, tbufs, metric_for("moe", args), (margs, cap)
 
 
@@ -867,7 +877,8 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
     if args.fuse_winner:
         perf["fused"] = fuse_reported(
             ex, reported_seq, stepped_out, opts, value_us, args.verify_tol,
-            skip, gate_verifier, log)
+            skip, gate_verifier, log,
+            member_check=fused_member_check(args, reported_seq))
     del stepped_out
     if tile_menu is not None:
         from tenzing_tpu_torch.runtime.fused import tiles_of
@@ -875,6 +886,8 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         perf["fuse_search_tiles"] = {"menu": list(tile_menu),
                                      "planted": tile_planted,
                                      "chosen": tiles_of(reported_seq)}
+    if args.chunk:
+        perf["chunked"] = chunked_block(g, res.sims, reported_seq, log)
 
     meta = {
         "verified": verified,
@@ -909,15 +922,98 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
     }, demoted=demoted.order if demoted is not None else None)
 
 
+def chunked_block(g, sims, seq, log) -> Dict[str, Any]:
+    """The ``perf.chunked`` block (the reference's bench/driver.py:2080-2165):
+    the chunk menus the graph offers, the counts the search visited, how many
+    candidates were chunked and what the reported schedule chose, with the
+    roofline's estimate of the hidden comm.  The measured hidden comm needs
+    the attribution timeline (``not_ported``): it stays None."""
+    from tenzing_tpu_torch.core.chunking import chunk_menus, chunks_of
+
+    menus = chunk_menus(g)
+    chosen = chunks_of(seq.vector())
+    searched, n_chunked = set(), 0
+    for s in sims:
+        cm = chunks_of(s.order.vector())
+        if cm:
+            n_chunked += 1
+            searched.update(cm.values())
+    est = sum(float(menus[b].get("est_hidden_us", {}).get(n, 0.0))
+              for b, n in chosen.items() if b in menus)
+    block: Dict[str, Any] = {
+        "menus": {b: {"counts": list(m["counts"]),
+                      "est_hidden_us": {str(k): round(float(v), 2)
+                                        for k, v in m["est_hidden_us"].items()}}
+                  for b, m in sorted(menus.items())},
+        "searched_counts": sorted(int(c) for c in searched),
+        "n_candidates_chunked": n_chunked,
+        "chosen": {b: int(n) for b, n in sorted(chosen.items())},
+        "hidden_comm_us": {"estimated": round(est, 2), "measured": None},
+    }
+    if menus and all(not [c for c in m["counts"] if c > 1]
+                     for m in menus.values()):
+        block["note"] = ("roofline pruned every chunking: no transfer whose "
+                         "hidden-comm bound beats the dispatch+combine cost on "
+                         "this workload/hardware (bench/roofline.py::"
+                         "prune_chunkings)")
+    elif not menus:
+        block["note"] = ("workload offers no chunkable-op menus (--chunk is a "
+                         "no-op for it)")
+    log(f"chunked: {len(menus)} menu(s), {n_chunked} chunked candidate(s) "
+        f"searched, winner chose {block['chosen'] or 'no chunking'}")
+    return block
+
+
+def fused_member_check(args, seq):
+    """How the fused program is held to its members' own tolerance: for
+    attention the state (m, l, acc / l) and O at ``F32_STATE_TOL``, or at
+    ``BF16_STATE_TOL`` where ``seq`` also runs a bf16 kernel slot (its
+    rounding of p may flip where the fused fold's state differs in the last
+    bit); for every other workload each compared buffer at ``REGION_TOL``
+    (ops/fused_region.py).  Returns ``check(out_stepped, out_fused, skip) ->
+    names that fail``."""
+    import torch
+
+    from tenzing_tpu_torch.ops import attention_kernels as ak
+    from tenzing_tpu_torch.ops import fused_region as fr
+
+    if args.workload == "attn":
+        bf16 = any(op.name().endswith("_bf16")
+                   for op in seq.vector())
+        tol = ak.BF16_STATE_TOL if bf16 else ak.F32_STATE_TOL
+
+        def check(out_s, out_f, skip):
+            names = ("acc", "m_run", "l_run")
+            ok, _ = ak.state_check([out_f[n] for n in names],
+                                   [out_s[n] for n in names], tol)
+            bad = [] if ok else list(names)
+            if not torch.allclose(out_f["O"], out_s["O"], **tol["acc/l"]):
+                bad.append("O")
+            return bad
+        return check
+
+    def check(out_s, out_f, skip):
+        return [n for n in sorted((set(out_s) & set(out_f)) - set(skip))
+                if out_s[n].shape != out_f[n].shape or not torch.allclose(
+                    out_s[n].double(), out_f[n].double(), **fr.REGION_TOL)]
+    return check
+
+
 def fuse_reported(ex, seq, stepped_out, opts, stepped_us: float, tol: float,
-                  skip, verifier, log) -> Dict[str, Any]:
+                  skip, verifier, log, member_check) -> Dict[str, Any]:
     """The ``--fuse-winner`` phase (the reference's bench/driver.py:1961-2078):
     lower ``seq`` into fused regions, measure every tile count of the pruned
     menu with a fresh benchmarker each, run the best fused program beside
     the stepped one from the same initial buffers and re-verify the
-    schedule.  Returns the ``perf.fused`` block.  Unlike the reference, a
-    failure is not caught into the block: a region that fails to build,
-    launch or agree raises."""
+    schedule.  Returns the ``perf.fused`` block.
+
+    The fused outputs meet two tests.  The reference's gate, ``allclose``
+    at ``tol`` against the stepped program: where it fails, the block says
+    so as the reference's does (``verified: false``, ``error``,
+    ``diverged``) and the run goes on.  And ``member_check``, the members'
+    own tolerance (:func:`fused_member_check`): where it fails, the kernel is
+    wrong and this raises.  A region that fails to build or launch raises
+    too; nothing is caught into the block."""
     from tenzing_tpu_torch.bench.benchmarker import EmpiricalBenchmarker
     from tenzing_tpu_torch.runtime.fused import FusedExecutor, fused_summary
 
@@ -936,10 +1032,12 @@ def fuse_reported(ex, seq, stepped_out, opts, stepped_us: float, tol: float,
     plan = best_fex.plan(seq)
     out_f = best_fex.run(seq)
     out_s = stepped_out if stepped_out is not None else ex.run(seq)
+    wrong = member_check(out_s, out_f, skip)
+    if wrong:
+        raise RuntimeError(f"fuse-winner: the fused program's outputs are "
+                           f"outside the members' own tolerance on {wrong[:4]}")
     mismatched = mismatched_outputs(out_s, out_f, tol, skip=skip)
-    if mismatched:
-        raise RuntimeError(f"fuse-winner: the fused program's outputs diverge "
-                           f"from the stepped program's on {mismatched[:4]}")
+    del out_s, out_f
     re_verdict = verifier(seq)
     block = {
         "regions": len(plan.regions),
@@ -953,14 +1051,17 @@ def fuse_reported(ex, seq, stepped_out, opts, stepped_us: float, tol: float,
                         "fused": round(best_us, 2)},
         # CUDA has no per-schedule compile: the region kernel is built once
         "compiled_programs": 0,
-        "verified": bool(re_verdict.ok),
+        "verified": bool(re_verdict.ok and not mismatched),
     }
+    if mismatched:
+        block["error"] = f"fused outputs diverge on {mismatched[:4]}"
+        block["diverged"] = mismatched
     if not re_verdict.ok:
         block["verdict"] = re_verdict.witness()
     log("fuse-winner: %s; tiles %s -> best t=%d %.1fus (stepped %.1fus); %s "
         "(wall %.0fs)" % (fused_summary(plan), by_tiles, best_t, best_us,
                           stepped_us,
-                          "verified" if re_verdict.ok else "NOT VERIFIED",
+                          "verified" if block["verified"] else "GATE FAILED",
                           time.time() - t0))
     return block
 

@@ -1,8 +1,10 @@
-"""The fused-region tile pruning: ``Cost`` and ``prune_tilings``.
+"""Roofline pruning of the fused-region tile menus and the chunk menus.
 
-Counterpart of ``tenzing_tpu/bench/roofline.py:117-158`` (the rest of that
-module, the per-workload cost models against the card's peaks, comes later).
-The function is the reference's without its working-set ceiling.
+Counterpart of ``tenzing_tpu/bench/roofline.py:117-247`` (the rest of that
+module, the per-workload cost models against the card's peaks, comes later):
+``Cost``, ``prune_tilings`` (the reference's without its working-set
+ceiling), and the chunk-menu sketch constraint ``op_roofline_us``,
+``hidden_comm_bound_us``, ``prune_chunkings`` and ``chunk_menu``.
 
 On the card a fused region's tile is the row share of one group of thread
 blocks (csrc/fused_region.cu), and every group is resident at once: the
@@ -10,11 +12,24 @@ region's working set is the whole region's at every tile count, so no
 ceiling on a tile's working set (the TPU's VMEM budget) can tell two counts
 apart.  What a tile count changes is how many blocks each group barrier
 spans and which block sums which rows.
+
+The reference's constants are a TPU v5e's; none carries over.  Here each one
+is the H100's data sheet (the peaks), a reading of the card taken by
+``chip_smoke.py`` (phase ``chunk``; PERF.md has the readings with the card's
+name and power limit), or the reference's rule kept where nothing on the card
+measures it.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+# H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor cores
+# (the port's .xla folds and expert MLPs run in full f32, no TF32), dense bf16
+# on the tensor cores, and HBM3
+H100_PEAK_F32_FLOPS = 67e12
+H100_PEAK_BF16_FLOPS = 989e12
+H100_PEAK_HBM_BYTES = 3.35e12
 
 # The floor on a tile's share of the region's tiled traffic: none.  The tile
 # sweep of chip_smoke.py (phase ``fused_sweep``: every structurally valid tile
@@ -54,3 +69,97 @@ def prune_tilings(cost: Cost, tile_counts, min_tile_bytes: float = MIN_TILE_BYTE
         if t == 1 or tiled_total / t >= min_tile_bytes:
             out.append(t)
     return out or [1]
+
+
+# -- chunk menus (core/chunking.py) -----------------------------------------
+
+# The host time one more op adds to a schedule on the stream executor: the
+# median per-op wall time of a one-lane chain of 200 small device ops run
+# back to back, 25.12 µs on an H100 SXM (chip_smoke.py, phase ``chunk``;
+# PERF.md).  Splitting an op in n adds n - 1 such dispatches.
+CHUNK_DISPATCH_US = 25.1
+# The pinned host <-> device copy rate the staged transfers run at: the mean
+# of the two directions' rates for one full-size MoE slot table (4.98 MB),
+# 48.70 GB/s on an H100 SXM (chip_smoke.py, phase ``chunk``; PERF.md).  It
+# prices the neighbouring transfer a chunking could hide.
+XFER_GBS = 48.7
+# Menu cap on chunk counts: the reference's rule (beyond 4 partials the added
+# dispatches dominate), not measured on the card.
+MENU_CHUNK_CAP = 4
+
+
+def op_roofline_us(cost: Cost, peak_flops: float = H100_PEAK_F32_FLOPS,
+                   hbm_bytes_per_s: float = H100_PEAK_HBM_BYTES) -> float:
+    """The least time one op could take: the larger of its operations over
+    ``peak_flops`` and its bytes over the memory rate."""
+    return max(cost.flops / peak_flops, cost.hbm_bytes / hbm_bytes_per_s) * 1e6
+
+
+def hidden_comm_bound_us(cost: Cost, chunks: int, comm_us: float,
+                         peak_flops: float = H100_PEAK_F32_FLOPS,
+                         hbm_bytes_per_s: float = H100_PEAK_HBM_BYTES) -> float:
+    """Upper bound on the transfer time an ``n``-way chunking of an op can
+    newly hide: a transfer may start after the first chunk instead of after
+    the whole op, so at most ``(n-1)/n`` of the op's least time, and never
+    more than the transfer itself (``comm_us``)."""
+    if chunks <= 1:
+        return 0.0
+    return min(float(comm_us),
+               op_roofline_us(cost, peak_flops, hbm_bytes_per_s)
+               * (chunks - 1) / chunks)
+
+
+def prune_chunkings(cost: Cost, chunk_counts, comm_us=None,
+                    combine_bytes: float = 0.0,
+                    dispatch_us: float = CHUNK_DISPATCH_US,
+                    min_chunk_bytes: float = MIN_TILE_BYTES,
+                    peak_flops: float = H100_PEAK_F32_FLOPS,
+                    hbm_bytes_per_s: float = H100_PEAK_HBM_BYTES):
+    """Chunk counts of an audited op that could possibly help, from the
+    structurally valid ``chunk_counts`` (the reference's sketch constraint):
+
+    * ``n == 1`` always survives: it is the op itself;
+    * ``n > 1`` is dropped when a chunk's share of the op's traffic falls
+      under ``min_chunk_bytes`` (the reference's rule: the tile floor, 0 on
+      the card); and
+    * with ``comm_us`` (the neighbouring transfer's time) given, ``n`` is
+      dropped unless the hidden-comm bound beats the added cost: ``n-1``
+      extra dispatches plus ``n-1`` extra passes over ``combine_bytes`` (the
+      output every partial's read-modify-write re-presents).  ``comm_us``
+      None skips this rule.
+
+    ``cost`` is the chunked op's own cost."""
+    out = []
+    for n in sorted({int(n) for n in chunk_counts}):
+        if n < 1:
+            continue
+        if n == 1:
+            out.append(1)
+            continue
+        if cost.hbm_bytes / n < min_chunk_bytes:
+            continue
+        if comm_us is not None:
+            added = (n - 1) * (float(dispatch_us) + float(combine_bytes)
+                               / hbm_bytes_per_s * 1e6)
+            if hidden_comm_bound_us(cost, n, comm_us, peak_flops,
+                                    hbm_bytes_per_s) <= added:
+                continue
+        out.append(n)
+    return out or [1]
+
+
+def chunk_menu(counts, cost: Cost, comm_us=None, combine_bytes: float = 0.0,
+               relax: bool = False, cap: int = MENU_CHUNK_CAP):
+    """The models' chunk-menu scaffold: ``counts`` capped at ``cap``; with
+    ``relax`` (tests, the smoke) every one kept unpriced, else pruned by
+    :func:`prune_chunkings` and each surviving ``n > 1`` priced by
+    :func:`hidden_comm_bound_us`.  Returns ``(pruned counts, {count: est
+    hidden µs})``."""
+    counts = [int(c) for c in counts if int(c) <= cap]
+    if relax:
+        return list(counts), {}
+    pruned = prune_chunkings(cost, counts, comm_us=comm_us,
+                             combine_bytes=combine_bytes)
+    est = {n: hidden_comm_bound_us(cost, n, comm_us or 0.0)
+           for n in pruned if n > 1}
+    return pruned, est

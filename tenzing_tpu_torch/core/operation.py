@@ -230,6 +230,29 @@ class DeviceOp(OpBase):
         not tileable; the op still fuses, its region offers one tile only."""
         return None
 
+    # -- op-chunking protocol (core/chunking.py) ---------------------------
+    def chunkable(self) -> bool:
+        """True when this op can expand into ``n`` partial ops through
+        :meth:`split`.  Opt-in per op class, so chunked variants only enter a
+        menu for ops that declare it and an un-audited op is never silently
+        re-associated."""
+        return False
+
+    def chunk_counts(self) -> List[int]:
+        """Structurally valid chunk counts (always containing 1): the counts
+        :meth:`split` accepts.  Validity only; whether a count can help is
+        ``bench/roofline.prune_chunkings``'s question."""
+        return [1]
+
+    def split(self, n: int) -> List["DeviceOp"]:
+        """This op as ``n`` partial ops, run in list order: every partial
+        reads the buffer version its predecessor wrote (an accumulating
+        read-modify-write), so ``ChunkedOp`` chains them serially and other
+        ops may interleave between them."""
+        raise NotImplementedError(
+            f"{type(self).__name__} declares no split(): chunkable() ops "
+            "must implement the chunking protocol")
+
 
 class BoundDeviceOp(BoundOp):
     """DeviceOp + Lane = executable (reference BoundGpuOp, ops_cuda.hpp:202-238).
@@ -289,6 +312,15 @@ class BoundDeviceOp(BoundOp):
 
     def fuse_tiling(self) -> Optional[Dict[str, Optional[int]]]:
         return self._op.fuse_tiling()
+
+    def chunkable(self) -> bool:
+        return self._op.chunkable()
+
+    def chunk_counts(self) -> List[int]:
+        return self._op.chunk_counts()
+
+    def split(self, n: int) -> List[DeviceOp]:
+        return self._op.split(n)
 
     def to_json(self) -> Dict[str, Any]:
         j = self._op.to_json()

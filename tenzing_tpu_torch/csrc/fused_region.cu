@@ -12,50 +12,78 @@
 //   gather       out[i] = x[idx[i]]                        (Scatter)
 //   add          out[i] = a[i] + b[i]                      (VectorAdd)
 //   copy         out[i] = src[i]                           (LocalExchange)
+//   attn fold    the online-softmax fold of nkv keys from key_off of K/V
+//                into the (acc, m, l) state of the tile's query rows
+//                (BlockAttnStep, BlockAttnSubFold; attn_fold_f32.cuh)
+//   attn final   O = acc / l                               (FinalizeAttn)
 //
 // and a "barrier before me" flag, set where the member touches a buffer an
 // earlier member of the region wrote (or writes one an earlier member read).
 //
 // The kernel is launched cooperatively, so every block is resident and the
 // barriers cannot deadlock; the grid is bounded by the queried residency
-// limit.  Its blocks split into `tiles` groups.  Group g owns the g-th row
-// share of every row-tiled buffer of every member and reads full-view buffers
-// (a gathered x) whole; a flagged barrier is scoped to the group.  The region's
-// tiling rule (region_axes) guarantees that no buffer written in a tiled region
-// is read whole, so groups never wait on each other; with tiles == 1 the group
-// is the whole grid, which the reference's own SpMV region (the local exchange
+// limit at the region's shared memory (the largest any member needs: the
+// fold's tiles, 0 for an SpMV region).  Its blocks split into `tiles` groups.
+// Group g owns the g-th share [g rows / tiles, (g + 1) rows / tiles) of the
+// tiled axis of every row-tiled buffer of every member: axis 0 of the SpMV
+// vectors and slabs, axis 1 of the (outer, rows, inner) attention buffers,
+// where the share is a range of rows in each of the outer batch elements.
+// Full-view buffers (a gathered x, the K/V block of a fold) are read whole; a
+// flagged barrier is scoped to the group.  The region's tiling rule
+// (region_axes) guarantees that no buffer written in a tiled region is read
+// whole, so groups never wait on each other; with tiles == 1 the group is the
+// whole grid, which the reference's own SpMV region (the local exchange
 // writes x_remote, the remote SpMV gathers it whole) needs.
+//
+// A fold member splits its group's share into (batch element, 64-row tile)
+// items, dealt to the group's blocks in the same order for every fold, so a
+// block folds the same rows member after member.
 //
 // A barrier is a count and a generation per group in device memory (zeroed
 // once when the executor provisions the region); the last block to arrive
 // resets the count and advances the generation, so the pair needs no reset
-// between launches.  Loads go through L2 (ld.global.cg): a block may read what
-// another block wrote earlier in the same launch.
+// between launches.  Loads of what another block may have written in the
+// same launch go through L2 (ld.global.cg).
 //
-// Bound on an H100 SXM: bytes, each external input read once and each output
-// written once, at 3.35 TB/s.  The simple first version: one member after
-// another, no overlap across members, scalar loads.
+// Bound on an H100 SXM: bytes for the SpMV bodies (each external input read
+// once and each output written once, at 3.35 TB/s); operations for a region
+// of attention folds (4 b n nkv d per fold at 67 TFLOP/s in f32).  The simple
+// first version: one member after another, no overlap across members, the
+// fold's state read and written in device memory by every member.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attn_fold_f32.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxMembers = 32;
+constexpr int kHeadDim = 128;  // the attention bodies' only instantiation
+static_assert(kThreads == tz_attn_f32::kThreads, "the fold body's block size");
 
-enum Body : int32_t { kEll = 0, kGather = 1, kAdd = 2, kCopy = 3 };
+enum Body : int32_t {
+  kEll = 0, kGather = 1, kAdd = 2, kCopy = 3, kAttnFold = 4, kAttnFinalize = 5
+};
 
 // mirrors ops/fused_region.py _Member / _Table (ctypes), field for field
 struct Member {
   int32_t kind;
   int32_t barrier;
-  int64_t rows;   // extent of the member's row-tiled buffers
-  int64_t width;  // ELL slab width (other bodies: 0)
-  const void* a;  // ELL: vals   gather: x    add: a   copy: src
-  const void* b;  // ELL: cols   gather: idx  add: b
-  const void* c;  // ELL: x
-  void* out;      // ELL: y      gather: out  add: out copy: dst
+  int64_t rows;     // extent of the tiled axis of the row-tiled buffers
+  int64_t width;    // ELL slab width (other bodies: 0)
+  int64_t outer;    // attention: batch elements (SpMV: 1)
+  int64_t inner;    // attention: head dim (SpMV: 1)
+  int64_t kv_rows;  // attn fold: keys of K / V (their axis-1 extent)
+  int64_t key_off;  // attn fold: the block's first key
+  int64_t nkv;      // attn fold: the block's keys
+  float scale;      // attn fold: softmax scale
+  int32_t pad;
+  // operands in the body's order (ops/fused_region.py OPERANDS):
+  //   ELL: vals, cols, x, y   gather: x, idx, out   add: a, b, out
+  //   copy: src, out   attn fold: q, k, v, acc, m, l   finalize: acc, l, o
+  void* p[6];
 };
 
 struct Table {
@@ -63,6 +91,11 @@ struct Table {
   int32_t tiles;
   Member m[kMaxMembers];
 };
+
+// dynamic shared memory a body needs
+constexpr int body_smem(int32_t kind) {
+  return kind == kAttnFold ? tz_attn_f32::smem_bytes<kHeadDim>() : 0;
+}
 
 __device__ __forceinline__ void group_barrier(unsigned int* count,
                                               unsigned int* gen,
@@ -84,9 +117,10 @@ __device__ __forceinline__ void group_barrier(unsigned int* count,
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
     fused_region_kernel(const __grid_constant__ Table t,
                         unsigned int* __restrict__ counters) {
+  extern __shared__ float smem[];
   const int64_t bpg = gridDim.x / t.tiles;  // blocks per group
   const int64_t group = blockIdx.x / bpg;
   const int64_t gb = blockIdx.x % bpg;  // block index within the group
@@ -98,10 +132,10 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t lo = group * mb.rows / t.tiles;
     const int64_t hi = (group + 1) * mb.rows / t.tiles;
     if (mb.kind == kEll) {
-      const float* vals = static_cast<const float*>(mb.a);
-      const int* cols = static_cast<const int*>(mb.b);
-      const float* x = static_cast<const float*>(mb.c);
-      float* y = static_cast<float*>(mb.out);
+      const float* vals = static_cast<const float*>(mb.p[0]);
+      const int* cols = static_cast<const int*>(mb.p[1]);
+      const float* x = static_cast<const float*>(mb.p[2]);
+      float* y = static_cast<float*>(mb.p[3]);
       const int64_t w = mb.width;
       int G = 1;
       while (G < w && G < 32) G <<= 1;
@@ -120,60 +154,127 @@ __global__ void __launch_bounds__(kThreads)
           acc += __shfl_down_sync(0xffffffffu, acc, off, G);
         if (row < hi && lane == 0) y[row] = acc;
       }
+    } else if (mb.kind == kAttnFold) {
+      // items (batch element, 64-row tile of [lo, hi)), uniform over the block
+      const int64_t d = mb.inner;
+      const int64_t tiles_b = (hi - lo + tz_attn_f32::kRows - 1) / tz_attn_f32::kRows;
+      const int64_t st_b = mb.rows * d, kv_b = mb.kv_rows * d;
+      const float* q = static_cast<const float*>(mb.p[0]);
+      const float* kk = static_cast<const float*>(mb.p[1]) + mb.key_off * d;
+      const float* vv = static_cast<const float*>(mb.p[2]) + mb.key_off * d;
+      float* acc = static_cast<float*>(mb.p[3]);
+      float* m = static_cast<float*>(mb.p[4]);
+      float* l = static_cast<float*>(mb.p[5]);
+      for (int64_t it = gb; it < mb.outer * tiles_b; it += bpg) {
+        const int64_t bi = it / tiles_b;
+        const int64_t row0 = lo + (it % tiles_b) * tz_attn_f32::kRows;
+        tz_attn_f32::fold_rows<kHeadDim>(
+            smem, q + bi * st_b, kk + bi * kv_b, vv + bi * kv_b,
+            acc + bi * st_b, m + bi * st_b, l + bi * st_b, row0, hi, mb.nkv,
+            d, d, d, d, mb.scale);
+      }
+    } else if (mb.kind == kAttnFinalize) {
+      const int64_t d = mb.inner;
+      const int64_t share = (hi - lo) * d;  // elements of one batch element
+      const float* acc = static_cast<const float*>(mb.p[0]);
+      const float* l = static_cast<const float*>(mb.p[1]);
+      float* o = static_cast<float*>(mb.p[2]);
+      const int64_t step = bpg * kThreads;
+      for (int64_t i = gb * kThreads + threadIdx.x; i < mb.outer * share; i += step) {
+        const int64_t off = (i / share) * mb.rows * d + lo * d + i % share;
+        o[off] = __ldcg(acc + off) / __ldcg(l + off);
+      }
     } else {
       const int64_t step = bpg * kThreads;
       const int64_t first = lo + gb * kThreads + threadIdx.x;
-      float* out = static_cast<float*>(mb.out);
       if (mb.kind == kGather) {
-        const float* x = static_cast<const float*>(mb.a);
-        const int* idx = static_cast<const int*>(mb.b);
+        const float* x = static_cast<const float*>(mb.p[0]);
+        const int* idx = static_cast<const int*>(mb.p[1]);
+        float* out = static_cast<float*>(mb.p[2]);
         for (int64_t i = first; i < hi; i += step) out[i] = __ldcg(x + __ldcg(idx + i));
       } else if (mb.kind == kAdd) {
-        const float* a = static_cast<const float*>(mb.a);
-        const float* b = static_cast<const float*>(mb.b);
+        const float* a = static_cast<const float*>(mb.p[0]);
+        const float* b = static_cast<const float*>(mb.p[1]);
+        float* out = static_cast<float*>(mb.p[2]);
         for (int64_t i = first; i < hi; i += step) out[i] = __ldcg(a + i) + __ldcg(b + i);
       } else {  // kCopy
-        const float* src = static_cast<const float*>(mb.a);
+        const float* src = static_cast<const float*>(mb.p[0]);
+        float* out = static_cast<float*>(mb.p[1]);
         for (int64_t i = first; i < hi; i += step) out[i] = __ldcg(src + i);
       }
     }
   }
 }
 
+// Allow the fold's dynamic shared memory (above the 48 KB default); once.
+cudaError_t configure() {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(fused_region_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       body_smem(kAttnFold));
+  if (e == cudaSuccess) done = true;
+  return e;
+}
+
 }  // namespace
 
+// Bytes of one Member and of one Table, for the ctypes mirror's check.
+extern "C" int64_t tz_fused_region_member_size() { return (int64_t)sizeof(Member); }
+extern "C" int64_t tz_fused_region_table_size() { return (int64_t)sizeof(Table); }
+
+// The dynamic shared memory the region `table` (a Table) launches with: the
+// largest any of its members needs.
+extern "C" int64_t tz_fused_region_smem(const void* table) {
+  const Table* t = static_cast<const Table*>(table);
+  int bytes = 0;
+  for (int k = 0; k < t->n && k < kMaxMembers; ++k)
+    bytes = body_smem(t->m[k].kind) > bytes ? body_smem(t->m[k].kind) : bytes;
+  return bytes;
+}
+
 // The most blocks of fused_region_kernel that can be resident at once on the
-// current device (occupancy at kThreads threads x SMs): the bound of a
-// cooperative grid.  Negative: -(cudaError).
-extern "C" int tz_fused_region_max_blocks() {
+// current device with `smem_bytes` of dynamic shared memory each (occupancy
+// at kThreads threads x SMs): the bound of a cooperative grid.  Negative:
+// -(cudaError).
+extern "C" int tz_fused_region_max_blocks(int64_t smem_bytes) {
   int dev = 0, sms = 0, per_sm = 0, coop = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  cudaError_t e = configure();
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_region_kernel,
-                                                      kThreads, 0);
+                                                      kThreads, (size_t)smem_bytes);
   if (e != cudaSuccess) return -(int)e;
   if (!coop) return 0;
   return per_sm * sms;
 }
 
 // Run the region `table` (a Table) on `stream` over `tiles` x
-// `blocks_per_group` cooperative blocks; `counters` holds 2 x tiles zeroed
-// unsigned ints.  Returns cudaGetLastError() after the launch.
+// `blocks_per_group` cooperative blocks, with the dynamic shared memory its
+// members need; `counters` holds 2 x tiles zeroed unsigned ints.  An
+// attention member needs inner == 128.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int tz_fused_region(const void* table, void* counters,
                                int64_t blocks_per_group, void* stream) {
   const Table t = *static_cast<const Table*>(table);
   if (t.n < 0 || t.n > kMaxMembers || t.tiles < 1 || blocks_per_group < 1)
     return (int)cudaErrorInvalidValue;
+  for (int k = 0; k < t.n; ++k)
+    if ((t.m[k].kind == kAttnFold || t.m[k].kind == kAttnFinalize) &&
+        t.m[k].inner != kHeadDim)
+      return (int)cudaErrorInvalidValue;
+  cudaError_t e = configure();
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = (size_t)tz_fused_region_smem(&t);
   unsigned int* cnt = static_cast<unsigned int*>(counters);
   void* args[] = {(void*)&t, (void*)&cnt};
   const dim3 grid((unsigned)(t.tiles * blocks_per_group));
-  cudaError_t e = cudaLaunchCooperativeKernel((const void*)fused_region_kernel,
-                                              grid, dim3(kThreads), args, 0,
-                                              (cudaStream_t)stream);
+  e = cudaLaunchCooperativeKernel((const void*)fused_region_kernel, grid,
+                                  dim3(kThreads), args, smem, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -40,8 +40,10 @@ Differences from the reference, on purpose:
 * **Each host round trip posts its spill and fetch on one transfer channel**,
   so the fetch never reads pinned memory before the spill has written it.
 
-Not in this slice: ``ExpertFFNPipePartial`` and ``ffn_chunk_menu`` (the
-chunked expert MLP of ``--chunk``).
+With ``chunk=True`` the ``.xla`` expert MLP also offers its chunked
+expansions (core/chunking.py): ``n`` :class:`ExpertFFNPipePartial` s, each
+running the MLP of ``n_experts / n`` experts into their slice of the output
+slot table, priced and pruned by :func:`ffn_chunk_menu`.
 """
 
 from __future__ import annotations
@@ -153,27 +155,79 @@ class ExpertFFNPipe(DeviceOp):
             out[f"moe_y_{c}"] = (shape, "float32")
         return out
 
-    def _mlp(self, x3, w1, w2, y3, ctx) -> None:
-        """y3 := gelu_tanh(x3 @ w1) @ w2, per expert, in place."""
+    def _mlp(self, x3, w1, w2, y3, ctx, experts: slice) -> None:
+        """y3 := gelu_tanh(x3 @ w1) @ w2, per expert, in place; ``experts``
+        selects the hidden activations' scratch slice."""
         import torch
 
-        h = ctx.scratch[f"moe_h_{self._c}"]
+        h = ctx.scratch[f"moe_h_{self._c}"][experts]
         torch.bmm(x3, w1, out=h)
         torch.ops.aten.gelu_(h, approximate="tanh")
         torch.bmm(h, w2, out=y3)
 
+    def _experts(self) -> slice:
+        """The experts this op runs: all of them."""
+        return slice(0, self._args.n_experts)
+
     def apply(self, bufs, ctx):
+        """The MLP of :meth:`_experts` into their slice of ``out<s>_c``."""
         shape = _slot_shape(self._args, self._cap)
-        x3 = unflatten_face(bufs[f"recv{self._sfx}_{self._c}"], shape)
-        out3 = unflatten_face(bufs[f"out{self._sfx}_{self._c}"], shape)
+        e = self._experts()
+        x3 = unflatten_face(bufs[f"recv{self._sfx}_{self._c}"], shape)[e]
+        out3 = unflatten_face(bufs[f"out{self._sfx}_{self._c}"], shape)[e]
+        w1, w2 = bufs["W1"][e], bufs["W2"][e]
         if not self._sfx:
-            self._mlp(x3, bufs["W1"], bufs["W2"], out3, ctx)
+            self._mlp(x3, w1, w2, out3, ctx, e)
             return
-        xs = ctx.scratch[f"moe_x_{self._c}"]
-        ys = ctx.scratch[f"moe_y_{self._c}"]
+        xs = ctx.scratch[f"moe_x_{self._c}"][e]
+        ys = ctx.scratch[f"moe_y_{self._c}"][e]
         xs.copy_(x3)
-        self._mlp(xs, bufs["W1"], bufs["W2"], ys, ctx)
+        self._mlp(xs, w1, w2, ys, ctx, e)
         out3.copy_(ys)
+
+    # -- op-chunking protocol (core/chunking.py): the expert MLP splits over
+    # the expert axis into n partials, each updating its expert slice of the
+    # output slot table, so a transfer can start between them.  The kernel
+    # slot owns its blocking and never splits.
+    def chunkable(self) -> bool:
+        return True
+
+    def chunk_counts(self) -> List[int]:
+        from tenzing_tpu_torch.core.chunking import pow2_counts
+
+        return pow2_counts(self._args.n_experts)
+
+    def split(self, n: int) -> List["ExpertFFNPipePartial"]:
+        e = self._args.n_experts
+        if n < 1 or e % n:
+            raise ValueError(f"{e} experts do not split {n} ways")
+        prec = "bf16" if self._sfx else "f32"
+        return [ExpertFFNPipePartial(f"{self.name()}.c{n}p{j}", self._c,
+                                     self._args, self._cap, j, n, prec)
+                for j in range(n)]
+
+
+class ExpertFFNPipePartial(ExpertFFNPipe):
+    """Partial ``part`` of an ``n_parts``-way expert split: the MLP of its
+    ``n_experts / n_parts`` experts into their slice of ``out<s>_c`` (the
+    reference's read-modify-write slice update, written in place).  It reads
+    ``out<s>_c`` too, so the partials chain through the buffer.  It never
+    splits again."""
+
+    def __init__(self, name: str, c: int, args: MoEPipeArgs, cap: int,
+                 part: int, n_parts: int, prec: str = "f32"):
+        super().__init__(name, c, args, cap, prec)
+        self._part, self._n_parts = part, n_parts
+
+    def chunkable(self) -> bool:
+        return False
+
+    def reads(self):
+        return super().reads() + [f"out{self._sfx}_{self._c}"]
+
+    def _experts(self) -> slice:
+        per = self._args.n_experts // self._n_parts
+        return slice(self._part * per, (self._part + 1) * per)
 
 
 class ExpertFFNPipePallas(ExpertFFNPipe):
@@ -189,7 +243,10 @@ class ExpertFFNPipePallas(ExpertFFNPipe):
     def uses_pallas(self) -> bool:
         return True
 
-    def _mlp(self, x3, w1, w2, y3, ctx) -> None:
+    def chunkable(self) -> bool:
+        return False  # the kernel owns its blocking
+
+    def _mlp(self, x3, w1, w2, y3, ctx, experts: slice) -> None:
         from tenzing_tpu_torch.ops import ffn_kernels as fk
 
         if ctx.plain_kernels:
@@ -198,21 +255,57 @@ class ExpertFFNPipePallas(ExpertFFNPipe):
             fk.ffn_batched(x3, w1, w2, out=y3)
 
 
+def ffn_chunk_menu(args: MoEPipeArgs, cap: int, relax: bool = False):
+    """(pruned counts, {count: est hidden µs}) for one chunk's expert MLP
+    (bench/roofline.chunk_menu).  The neighbouring transfer is the combine
+    hop of the output slot table, priced at the card's pinned copy rate
+    (``roofline.XFER_GBS``); ``relax`` (the smoke and the tests) keeps every
+    structurally valid count."""
+    from tenzing_tpu_torch.bench import roofline
+
+    bpe = np.dtype(args.dtype).itemsize
+    e, d, dff = args.n_experts, args.d_model, args.d_ff
+    slots = float(e * cap)
+    table = slots * d * bpe  # one pass over the slot table
+    cost = roofline.Cost(flops=4.0 * slots * d * dff,
+                         hbm_bytes=2.0 * table + float(e * 2 * d * dff * bpe))
+    # every extra partial re-presents the output table (its read and write)
+    return roofline.chunk_menu(
+        ExpertFFNPipe("probe", 0, args, cap).chunk_counts(), cost,
+        comm_us=table / (roofline.XFER_GBS * 1e9) * 1e6,
+        combine_bytes=2.0 * table, relax=relax)
+
+
 class ExpertFFNPipeChoice(ChoiceOp):
-    """The expert-MLP kernel menu of one chunk: ``.xla`` / ``.pallas``."""
+    """The expert-MLP kernel menu of one chunk: ``.xla`` / ``.pallas``, and
+    the chunked expansions of ``.xla`` for ``chunk_counts`` > 1."""
 
     def __init__(self, name: str, c: int, args: MoEPipeArgs, cap: int,
-                 prec: str = "f32"):
+                 prec: str = "f32", chunk_counts=(), chunk_est=None):
         super().__init__(name)
         self._c, self._args, self._cap, self._prec = c, args, cap, prec
+        self._chunks = tuple(int(n) for n in chunk_counts if int(n) > 1)
+        self._chunk_est = dict(chunk_est or {})
+        if chunk_counts:
+            from tenzing_tpu_torch.core.chunking import menu_info
+
+            self.chunk_menu = menu_info(name + ".xla", chunk_counts,
+                                        self._chunk_est)
 
     def choices(self) -> List[OpBase]:
-        return [
+        from tenzing_tpu_torch.core.chunking import ChunkedOp
+
+        out: List[OpBase] = [
             ExpertFFNPipe(self.name() + ".xla", self._c, self._args, self._cap,
                           self._prec),
             ExpertFFNPipePallas(self.name() + ".pallas", self._c, self._args,
                                 self._cap, self._prec),
         ]
+        out += [ChunkedOp(ExpertFFNPipe(self.name() + ".xla", self._c,
+                                        self._args, self._cap, self._prec),
+                          n, est_hidden_us=self._chunk_est.get(n))
+                for n in self._chunks]
+        return out
 
 
 class CombinePipe(DeviceOp):
@@ -269,17 +362,32 @@ class ConcatPipe(DeviceOp):
 
 
 def chunk_ops(args: MoEPipeArgs, c: int, cap: int, impl_choice: bool = False,
-              prec: str = "f32", engine: str = "host"):
+              prec: str = "f32", engine: str = "host",
+              op_chunk_counts=(), op_chunk_est=None):
     """The op chain for one microbatch chunk.  ``prec="bf16"`` routes the
     staged transfers through the half-width bfloat16 buffer set (op and
     buffer names carry a ``16`` suffix so both variants can coexist in one
     choice graph); ``engine="rdma"`` replaces each host round trip with a
     device-resident copy (ops/rdma.py; the host buffers stay declared but
-    untouched)."""
+    untouched).  ``op_chunk_counts`` / ``op_chunk_est`` add the chunked
+    expert-MLP expansions (:func:`ffn_chunk_menu`) to the menu."""
     if engine not in ("host", "rdma"):
         raise ValueError(f"unknown transfer engine {engine!r}")
     s = _sfx(prec)
-    mk = ExpertFFNPipeChoice if impl_choice else ExpertFFNPipe
+    counts = tuple(n for n in (op_chunk_counts or ()) if int(n) > 1)
+    if impl_choice:
+        def mk(name, c_, a_, cap_, p_):
+            return ExpertFFNPipeChoice(name, c_, a_, cap_, p_,
+                                       chunk_counts=op_chunk_counts,
+                                       chunk_est=op_chunk_est)
+    elif counts:
+        from tenzing_tpu_torch.core.chunking import ChunkChoice, chunk_variants
+
+        def mk(name, c_, a_, cap_, p_):
+            op = ExpertFFNPipe(name, c_, a_, cap_, p_)
+            return ChunkChoice(op, chunk_variants(op, counts, op_chunk_est))
+    else:
+        mk = ExpertFFNPipe
     pack = DispatchPackPipe(f"pack{s}_{c}", c, args, cap, prec)
     if engine == "rdma":
         from tenzing_tpu_torch.ops.rdma import RdmaCopyStart
@@ -314,15 +422,19 @@ class ChunkChain(CompoundOp):
     selects."""
 
     def __init__(self, c: int, args: MoEPipeArgs, cap: int,
-                 impl_choice: bool, prec: str, engine: str = "host"):
+                 impl_choice: bool, prec: str, engine: str = "host",
+                 op_chunk_counts=(), op_chunk_est=None):
         super().__init__(f"chain_{c}.{prec}-{engine}")
         self._c, self._args, self._cap = c, args, cap
         self._impl_choice, self._prec, self._engine = impl_choice, prec, engine
+        self._op_chunk_counts = tuple(op_chunk_counts)
+        self._op_chunk_est = dict(op_chunk_est or {})
 
     def graph(self) -> Graph:
         g = Graph()
         ops = chunk_ops(self._args, self._c, self._cap, self._impl_choice,
-                        self._prec, self._engine)
+                        self._prec, self._engine, self._op_chunk_counts,
+                        self._op_chunk_est)
         g.start_then(ops[0])
         for a, b in zip(ops, ops[1:]):
             g.then(a, b)
@@ -336,15 +448,18 @@ class StagingChoice(ChoiceOp):
     rounds the dispatched tokens and the returned expert outputs; whether the
     halved bytes win is the solver's question."""
 
-    def __init__(self, c: int, args: MoEPipeArgs, cap: int, impl_choice: bool):
+    def __init__(self, c: int, args: MoEPipeArgs, cap: int, impl_choice: bool,
+                 op_chunk_counts=(), op_chunk_est=None):
         super().__init__(f"chain_{c}")
         self._c, self._args, self._cap = c, args, cap
         self._impl_choice = impl_choice
+        self._op_chunk_counts = tuple(op_chunk_counts)
+        self._op_chunk_est = dict(op_chunk_est or {})
 
     def choices(self) -> List[OpBase]:
         return [
             ChunkChain(self._c, self._args, self._cap, self._impl_choice,
-                       prec, engine)
+                       prec, engine, self._op_chunk_counts, self._op_chunk_est)
             for prec in ("f32", "bf16")
             for engine in ("host", "rdma")
         ]
@@ -355,21 +470,28 @@ PHASES = ("start", "pack", "spilld", "fetchd", "xferd", "awaitd", "ffn",
 
 
 def build_graph(args: MoEPipeArgs, cap: int, impl_choice: bool = False,
-                staging: str = "f32", engine: str = "host") -> Graph:
+                staging: str = "f32", engine: str = "host",
+                chunk: bool = False, chunk_relax: bool = False) -> Graph:
     """``n_chunks`` independent chains joined by the final concat.
     ``staging``: "f32" or "bf16" wires that variant directly (with
     ``engine``); "choice" wraps each chunk's chain in a
     :class:`StagingChoice` (buffers from ``make_pipe_buffers(...,
-    staging="choice")``)."""
+    staging="choice")``).  ``chunk=True`` adds the chunked expert-MLP
+    expansions to each chain's menus, pruned by :func:`ffn_chunk_menu`
+    (``chunk_relax`` keeps every valid count: the smoke and the tests)."""
+    counts, est = ((), None)
+    if chunk:
+        counts, est = ffn_chunk_menu(args, cap, relax=chunk_relax)
     g = Graph()
     cat = ConcatPipe("concat", args)
     for c in range(args.n_chunks):
         if staging == "choice":
-            chain = StagingChoice(c, args, cap, impl_choice)
+            chain = StagingChoice(c, args, cap, impl_choice, counts, est)
             g.start_then(chain)
             g.then(chain, cat)
             continue
-        ops = chunk_ops(args, c, cap, impl_choice, prec=staging, engine=engine)
+        ops = chunk_ops(args, c, cap, impl_choice, prec=staging, engine=engine,
+                        op_chunk_counts=counts, op_chunk_est=est)
         g.start_then(ops[0])
         for a, b in zip(ops, ops[1:]):
             g.then(a, b)

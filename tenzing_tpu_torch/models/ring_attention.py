@@ -15,13 +15,20 @@ JAX package deserializes and runs here.
 Buffers are torch tensors updated in place; no op allocates while a schedule
 runs.  The ``.xla`` fold's (b, n, seq_local) score matrix and its two small
 work buffers are declared op scratch (``DeviceOp.scratch``): the folds of a
-chain are serialized by the state, so they share one set.  A block's K/V is
-a view of the resident K/V; the bf16 slots round inside the kernel, so no
-bf16 copy of Q/K/V exists.
+chain are serialized by the state, so they share one set (the sub-folds of
+one key count share another).  A block's K/V is a view of the resident K/V;
+the bf16 slots round inside the kernel, so no bf16 copy of Q/K/V exists.
 
-Left for later slices: the mesh ring (``RingAttention``, ``RotateKV``,
-``AttnStepChoice``) and the chunked sub-folds (``BlockAttnSubFold``,
-``fold_chunk_menu``, the ``ChunkedOp`` menu entries).
+With ``chunk=True`` each block's ``.xla`` fold also offers its chunked
+expansions (core/chunking.py): ``n`` :class:`BlockAttnSubFold` s of
+``seq_local / n`` keys each, chained through the state, priced and pruned by
+:func:`fold_chunk_menu`.  The ``.xla`` folds (sub-folds included) and the
+finalize declare fused-region bodies (``FUSED_BODY``, ``fused_operands``,
+``fused_params``): runtime/fused.py lowers them into members of the
+``fused_region`` kernel.
+
+Left for the multi-device slice: the mesh ring (``RingAttention``,
+``RotateKV``, ``AttnStepChoice``).
 """
 
 from __future__ import annotations
@@ -65,17 +72,21 @@ class AttnStep(DeviceOp):
     def writes(self):
         return ["acc", "m_run", "l_run"]
 
+    def _tag(self) -> str:
+        """Suffix of this fold's scratch names ("": the full-block set)."""
+        return ""
+
     def scratch(self):
         a = self._args
         return ak.fold_scratch(a.batch, self._queries(), a.seq_local,
-                               a.head_dim)
+                               a.head_dim, self._tag())
 
     def _update(self, q, k, v, acc, m, l, ctx) -> None:
         """(acc, m, l) := the fold of k/v, in place, into the declared scratch
         (reference AttnStep._update, ring_attention.py:79-94)."""
-        sc = ctx.scratch
-        ak.fold_into(q, k, v, acc, m, l, self._args.scale, sc["attn_s"],
-                     sc["attn_row"], sc["attn_mnew"])
+        sc, t = ctx.scratch, self._tag()
+        ak.fold_into(q, k, v, acc, m, l, self._args.scale, sc["attn_s" + t],
+                     sc["attn_row" + t], sc["attn_mnew" + t])
 
     def apply(self, bufs, ctx):
         k, v = self._kv_block(bufs)
@@ -120,6 +131,12 @@ class FinalizeAttn(DeviceOp):
     def fuse_tiling(self):
         return {"acc": 1, "l_run": 1, "O": 1}
 
+    # the fused_region body (ops/fused_region.py): O = acc / l over the tile
+    FUSED_BODY = "attn_finalize"
+
+    def fused_operands(self):
+        return ("acc", "l_run", "O")
+
 
 class BlockAttnStep(AttnStep):
     """Fold K/V block ``s`` sliced from the resident K/V (a view: keys
@@ -137,6 +154,61 @@ class BlockAttnStep(AttnStep):
         sl = slice(self._s * blk, (self._s + 1) * blk)
         return bufs["K"][:, sl], bufs["V"][:, sl]
 
+    # the fused_region body (ops/fused_region.py): the same fold over the
+    # tile's query rows against this block's keys, read whole
+    FUSED_BODY = "attn_fold"
+
+    def fused_operands(self):
+        return ("Q", "K", "V", "acc", "m_run", "l_run")
+
+    def fused_params(self):
+        blk = self._args.seq_local
+        return {"key_off": self._s * blk, "nkv": blk, "scale": self._args.scale}
+
+    # -- op-chunking protocol (core/chunking.py): the fold splits along its
+    # K/V block into n sub-folds of seq_local / n keys; a sub-fold is a finer
+    # BlockAttnStep and the online-softmax state chain is the combine.  The
+    # kernel slots own their blocking and never split.
+    def chunkable(self) -> bool:
+        return True
+
+    def chunk_counts(self) -> List[int]:
+        from tenzing_tpu_torch.core.chunking import pow2_counts
+
+        return pow2_counts(self._args.seq_local)
+
+    def split(self, n: int) -> List["BlockAttnSubFold"]:
+        from dataclasses import replace
+
+        blk = self._args.seq_local
+        if n < 1 or blk % n:
+            raise ValueError(f"{blk} K/V columns do not split {n} ways")
+        sub = replace(self._args, seq_local=blk // n)
+        # sub-fold j of block s reads keys s*blk + j*(blk/n): block s*n + j
+        # at the finer size
+        return [BlockAttnSubFold(f"{self.name()}.c{n}p{j}", self._s * n + j,
+                                 sub, self._queries())
+                for j in range(n)]
+
+
+class BlockAttnSubFold(BlockAttnStep):
+    """One sub-fold of :meth:`BlockAttnStep.split`: the fold of
+    ``args.seq_local`` keys (block ``s`` at that size) into all ``queries``
+    query rows.  It never splits again."""
+
+    def __init__(self, name: str, s: int, args: RingAttnArgs, queries: int):
+        super().__init__(name, s, args)
+        self._nq = queries
+
+    def _queries(self) -> int:
+        return self._nq
+
+    def _tag(self) -> str:
+        return f"_k{self._args.seq_local}"
+
+    def chunkable(self) -> bool:
+        return False
+
 
 class BlockAttnStepPallas(BlockAttnStep):
     """Blocked step with the fold kernel (reference: the Pallas MXU kernel
@@ -150,6 +222,9 @@ class BlockAttnStepPallas(BlockAttnStep):
     def uses_pallas(self) -> bool:
         return True
 
+    def chunkable(self) -> bool:
+        return False  # the kernel owns its blocking
+
     def _update(self, q, k, v, acc, m, l, ctx) -> None:
         fold = ak.attn_block_plain if ctx.plain_kernels else ak.attn_block
         fold(q, k, v, acc, m, l, self._args.scale, bf16_inputs=self.BF16)
@@ -162,21 +237,57 @@ class BlockAttnStepPallasBf16(BlockAttnStepPallas):
     BF16 = True
 
 
-class BlockAttnChoice(ChoiceOp):
-    """The fold implementation menu of one block."""
+def fold_chunk_menu(args: RingAttnArgs, relax: bool = False):
+    """(pruned counts, {count: est hidden µs}) for one block fold
+    (bench/roofline.chunk_menu).  The one-device blocked fold has no
+    neighbouring transfer to hide (``comm_us=0``), so at full size every
+    n > 1 is pruned and ``perf.chunked`` says so; ``relax`` (the smoke and
+    the tests) keeps every structurally valid count."""
+    from tenzing_tpu_torch.bench import roofline
 
-    def __init__(self, name: str, s: int, args: RingAttnArgs):
+    bpe = np.dtype(args.dtype).itemsize
+    b, d, blk = args.batch, args.head_dim, args.seq_local
+    nq = args.n_devices * blk  # all queries fold against each block
+    state = 6.0 * b * nq * d * bpe  # read + write acc, m_run, l_run
+    cost = roofline.Cost(flops=4.0 * b * nq * blk * d,
+                         hbm_bytes=state + 2.0 * b * blk * d * bpe)
+    # every extra sub-fold re-presents the whole state (the combine)
+    return roofline.chunk_menu(
+        BlockAttnStep("probe", 0, args).chunk_counts(), cost,
+        comm_us=0.0, combine_bytes=state, relax=relax)
+
+
+class BlockAttnChoice(ChoiceOp):
+    """The fold implementation menu of one block, with the chunked
+    expansions of the ``.xla`` fold for ``chunk_counts`` > 1."""
+
+    def __init__(self, name: str, s: int, args: RingAttnArgs,
+                 chunk_counts=(), chunk_est=None):
         super().__init__(name)
         self._s = s
         self._args = args
+        self._chunks = tuple(int(c) for c in chunk_counts if int(c) > 1)
+        self._chunk_est = dict(chunk_est or {})
+        if chunk_counts:
+            from tenzing_tpu_torch.core.chunking import menu_info
+
+            self.chunk_menu = menu_info(name + ".xla", chunk_counts,
+                                        self._chunk_est)
 
     def choices(self) -> List[OpBase]:
-        return [
+        from tenzing_tpu_torch.core.chunking import ChunkedOp
+
+        out: List[OpBase] = [
             BlockAttnStep(self.name() + ".xla", self._s, self._args),
             BlockAttnStepPallas(self.name() + ".pallas", self._s, self._args),
             BlockAttnStepPallasBf16(self.name() + ".pallas_bf16", self._s,
                                     self._args),
         ]
+        out += [ChunkedOp(BlockAttnStep(self.name() + ".xla", self._s,
+                                        self._args),
+                          n, est_hidden_us=self._chunk_est.get(n))
+                for n in self._chunks]
+        return out
 
 
 class FusedBlockAttn(DeviceOp):
@@ -210,13 +321,21 @@ class FusedBlockAttnBf16(FusedBlockAttn):
     BF16 = True
 
 
-def _mk_block_step(name: str, s: int, args: RingAttnArgs,
-                   impl_choice: bool) -> OpBase:
-    """One block fold vertex: the kernel ChoiceOp, or the bare plain-PyTorch
-    step when the menu is off."""
+def _mk_block_step(name: str, s: int, args: RingAttnArgs, impl_choice: bool,
+                   chunk_counts=(), chunk_est=None) -> OpBase:
+    """One block fold vertex: the kernel ChoiceOp (with the chunked
+    expansions of chunk_counts > 1), a bare step in a ``ChunkChoice`` when
+    only chunking is searched, or the bare plain-PyTorch step."""
     if impl_choice:
-        return BlockAttnChoice(name, s, args)
-    return BlockAttnStep(name, s, args)
+        return BlockAttnChoice(name, s, args, chunk_counts=chunk_counts,
+                               chunk_est=chunk_est)
+    step = BlockAttnStep(name, s, args)
+    counts = [c for c in (chunk_counts or ()) if int(c) > 1]
+    if counts:
+        from tenzing_tpu_torch.core.chunking import ChunkChoice, chunk_variants
+
+        return ChunkChoice(step, chunk_variants(step, counts, chunk_est))
+    return step
 
 
 class BlockChain(CompoundOp):
@@ -224,15 +343,19 @@ class BlockChain(CompoundOp):
     alternative the fused kernel competes with inside
     :class:`AttnEngineChoice`."""
 
-    def __init__(self, name: str, args: RingAttnArgs, impl_choice: bool):
+    def __init__(self, name: str, args: RingAttnArgs, impl_choice: bool,
+                 chunk_counts=(), chunk_est=None):
         super().__init__(name)
         self._args = args
         self._impl_choice = impl_choice
+        self._chunk_counts = tuple(chunk_counts)
+        self._chunk_est = dict(chunk_est or {})
 
     def graph(self) -> Graph:
         g = Graph()
         n = self._args.n_devices
-        attns = [_mk_block_step(f"attn_{s}", s, self._args, self._impl_choice)
+        attns = [_mk_block_step(f"attn_{s}", s, self._args, self._impl_choice,
+                                self._chunk_counts, self._chunk_est)
                  for s in range(n)]
         g.start_then(attns[0])
         for s in range(1, n):
@@ -245,14 +368,18 @@ class AttnEngineChoice(ChoiceOp):
     """Granularity menu for the whole blocked fold: the per-block chain vs
     the fused single-kernel flash (f32 or bf16 inputs)."""
 
-    def __init__(self, args: RingAttnArgs, impl_choice: bool):
+    def __init__(self, args: RingAttnArgs, impl_choice: bool,
+                 chunk_counts=(), chunk_est=None):
         super().__init__("attn_blocks")
         self._args = args
         self._impl_choice = impl_choice
+        self._chunk_counts = tuple(chunk_counts)
+        self._chunk_est = dict(chunk_est or {})
 
     def choices(self) -> List[OpBase]:
         return [
-            BlockChain("attn_blocks.chain", self._args, self._impl_choice),
+            BlockChain("attn_blocks.chain", self._args, self._impl_choice,
+                       self._chunk_counts, self._chunk_est),
             FusedBlockAttn("attn_blocks.fused", self._args),
             FusedBlockAttnBf16("attn_blocks.fused_bf16", self._args),
         ]
@@ -262,14 +389,21 @@ class BlockedAttention(CompoundOp):
     """Single-device blockwise attention over ``args.n_devices`` K/V blocks:
     the folds chain through the softmax state; the per-block kernel is a
     ChoiceOp when ``impl_choice``; with ``fused_choice`` the whole chain also
-    competes with the fused kernel (:class:`AttnEngineChoice`)."""
+    competes with the fused kernel (:class:`AttnEngineChoice`).
+
+    ``chunk=True`` adds the chunked sub-fold expansions of each block's
+    ``.xla`` fold to the menus, pruned by :func:`fold_chunk_menu`
+    (``chunk_relax`` keeps every valid count: the smoke and the tests)."""
 
     def __init__(self, args: RingAttnArgs, name: str = "blocked_attention",
-                 impl_choice: bool = False, fused_choice: bool = False):
+                 impl_choice: bool = False, fused_choice: bool = False,
+                 chunk: bool = False, chunk_relax: bool = False):
         super().__init__(name)
         self._args = args
         self._impl_choice = impl_choice
         self._fused_choice = fused_choice
+        self._chunk = chunk
+        self._chunk_relax = chunk_relax
 
     def args(self) -> RingAttnArgs:
         return self._args
@@ -277,14 +411,17 @@ class BlockedAttention(CompoundOp):
     def graph(self) -> Graph:
         g = Graph()
         n = self._args.n_devices
+        counts, est = ((), None)
+        if self._chunk:
+            counts, est = fold_chunk_menu(self._args, relax=self._chunk_relax)
         fin = FinalizeAttn()
         if self._fused_choice:
-            eng = AttnEngineChoice(self._args, self._impl_choice)
+            eng = AttnEngineChoice(self._args, self._impl_choice, counts, est)
             g.start_then(eng)
             g.then(eng, fin)
         else:
             attns = [_mk_block_step(f"attn_{s}", s, self._args,
-                                    self._impl_choice)
+                                    self._impl_choice, counts, est)
                      for s in range(n)]
             g.start_then(attns[0])
             for s in range(1, n):

@@ -60,12 +60,14 @@ def _round_bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(torch.float32)
 
 
-def fold_scratch(b: int, n: int, nkv: int, d: int) -> Dict[str, tuple]:
+def fold_scratch(b: int, n: int, nkv: int, d: int,
+                 tag: str = "") -> Dict[str, tuple]:
     """The work buffers :func:`fold_into` needs for a fold of ``nkv`` keys
-    into a (b, n, d) state: name -> (shape, dtype name)."""
-    return {"attn_s": ((b, n, nkv), "float32"),
-            "attn_row": ((b, n, 1), "float32"),
-            "attn_mnew": ((b, n, d), "float32")}
+    into a (b, n, d) state: name -> (shape, dtype name).  ``tag`` suffixes
+    the names, so folds of another key count declare their own set."""
+    return {"attn_s" + tag: ((b, n, nkv), "float32"),
+            "attn_row" + tag: ((b, n, 1), "float32"),
+            "attn_mnew" + tag: ((b, n, d), "float32")}
 
 
 def fold_into(q, k, v, acc, m, l, scale: float, s, row, mnew,

@@ -11,18 +11,29 @@ per (schedule, tiles); :class:`RegionTable` holds them as the kernel's table
 and fills in the pointers once per buffer set (the executor's buffers are
 updated in place, never rebound, so the timed runs launch with no refill).
 
-The bodies are those of the SpMV iteration's four device ops:
+The bodies are those of the SpMV iteration's four device ops and of the
+blocked attention's fold and finalize:
 
 * ``ell``    — ``y[i] = sum_j vals[i, j] * x[cols[i, j]]`` (operands vals,
   cols, x, y; vals/cols/y row-tiled, x whole);
 * ``gather`` — ``out[i] = x[idx[i]]`` (x, idx, out);
 * ``add``    — ``out[i] = a[i] + b[i]`` (a, b, out);
-* ``copy``   — ``out[i] = src[i]`` (src, out).
+* ``copy``   — ``out[i] = src[i]`` (src, out);
+* ``attn_fold`` — the online-softmax fold of keys ``key_off .. key_off+nkv``
+  of k / v into the state (acc, m, l) of the tile's query rows (q, k, v,
+  acc, m, l; all (outer, rows, inner) but k / v (outer, kv_rows, inner),
+  tiled along axis 1, k / v read whole);
+* ``attn_finalize`` — ``o = acc / l`` (acc, l, o; tiled along axis 1).
 
-Values are float32, indices int32.  ``fused_region`` launches the kernel for
-CUDA tensors and runs :func:`region_plain` (the members' plain PyTorch
-functions in order over each tile's row slices) for CPU tensors.
-``LAUNCHES["fused_region"]`` counts kernel launches.
+SpMV values are float32 and indices int32; the attention bodies take float32
+with head dim 128 on the card (any on the CPU).  A region with more members
+than one table holds (``MAX_MEMBERS``) runs as consecutive launches on the
+same stream, each a table of at most ``MAX_MEMBERS`` members: the members of
+a region are one lane's ops in order, so the launch boundary is a barrier
+like any other.  ``fused_region`` launches the kernel for CUDA tensors and
+runs :func:`region_plain` (the members' plain PyTorch functions in order over
+each tile's slices) for CPU tensors.  ``LAUNCHES["fused_region"]`` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -33,30 +44,42 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from tenzing_tpu_torch.ops import attention_kernels as ak
 from tenzing_tpu_torch.ops import kernel_lib
 from tenzing_tpu_torch.ops.spmv_kernels import ELL_TOL, ell_spmv_plain
 
 LAUNCHES = {"fused_region": 0}
 
-BODIES = {"ell": 0, "gather": 1, "add": 2, "copy": 3}
+BODIES = {"ell": 0, "gather": 1, "add": 2, "copy": 3, "attn_fold": 4,
+          "attn_finalize": 5}
 # operand names of each body, in its operand order (csrc/fused_region.cu)
 OPERANDS = {"ell": ("vals", "cols", "x", "y"), "gather": ("x", "idx", "out"),
-            "add": ("a", "b", "out"), "copy": ("src", "out")}
-# which operands are row-tiled (the rest are read whole)
+            "add": ("a", "b", "out"), "copy": ("src", "out"),
+            "attn_fold": ("q", "k", "v", "acc", "m", "l"),
+            "attn_finalize": ("acc", "l", "o")}
+# which operands are tiled (the rest are read whole): along axis 0 for the
+# SpMV bodies, along axis 1 (query rows) for the attention bodies
 TILED = {"ell": ("vals", "cols", "y"), "gather": ("idx", "out"),
-         "add": ("a", "b", "out"), "copy": ("src", "out")}
+         "add": ("a", "b", "out"), "copy": ("src", "out"),
+         "attn_fold": ("q", "acc", "m", "l"),
+         "attn_finalize": ("acc", "l", "o")}
+ATTN_BODIES = ("attn_fold", "attn_finalize")
 MAX_MEMBERS = 32  # kMaxMembers in csrc/fused_region.cu
 
 # the fused region against its plain version: the ELL rows sum in another
-# order (ops/spmv_kernels.py); gather, add and copy are exact
+# order (ops/spmv_kernels.py); gather, add and copy are exact.  A region of
+# attention members is held as a state, at ``ak.F32_STATE_TOL`` (the fold
+# sums in another order than the plain fold's products).
 REGION_TOL = ELL_TOL
 
 
 class _Member(ctypes.Structure):
     _fields_ = [("kind", ctypes.c_int32), ("barrier", ctypes.c_int32),
                 ("rows", ctypes.c_int64), ("width", ctypes.c_int64),
-                ("a", ctypes.c_void_p), ("b", ctypes.c_void_p),
-                ("c", ctypes.c_void_p), ("out", ctypes.c_void_p)]
+                ("outer", ctypes.c_int64), ("inner", ctypes.c_int64),
+                ("kv_rows", ctypes.c_int64), ("key_off", ctypes.c_int64),
+                ("nkv", ctypes.c_int64), ("scale", ctypes.c_float),
+                ("pad", ctypes.c_int32), ("p", ctypes.c_void_p * 6)]
 
 
 class _Table(ctypes.Structure):
@@ -67,21 +90,31 @@ class _Table(ctypes.Structure):
 @dataclass(frozen=True)
 class MemberBody:
     """One region member as the kernel sees it: its body kind, its buffer
-    names in the body's operand order, the extent of its row-tiled buffers,
-    the ELL slab width (0 for other bodies), and whether a barrier precedes
-    it."""
+    names in the body's operand order, the extent of its tiled axis, the ELL
+    slab width (0 for other bodies), whether a barrier precedes it, and for
+    the attention bodies the batch and head dims, the keys of K / V, and
+    the fold's first key, key count and scale."""
 
     body: str
     operands: Tuple[str, ...]
     rows: int
     width: int
     barrier: bool
+    outer: int = 1
+    inner: int = 1
+    kv_rows: int = 0
+    key_off: int = 0
+    nkv: int = 0
+    scale: float = 0.0
 
 
 def check_member(body: str, operands: Tuple[str, ...],
                  shapes: Dict[str, Tuple[int, ...]],
-                 dtypes: Dict[str, torch.dtype]) -> Tuple[int, int]:
-    """(rows, width) of a member from the buffers' shapes and dtypes; raises
+                 dtypes: Dict[str, torch.dtype],
+                 params: Optional[Dict] = None) -> Dict[str, object]:
+    """The extents of a member (``MemberBody``'s fields past ``barrier``,
+    and ``rows`` / ``width``) from the buffers' shapes and dtypes and the
+    op's ``params`` (a fold's ``key_off``, ``nkv`` and ``scale``); raises
     when the kernel's body does not take them."""
     if body not in BODIES:
         raise ValueError(f"fused_region: unknown body {body!r}")
@@ -100,13 +133,30 @@ def check_member(body: str, operands: Tuple[str, ...],
                 or shapes[names["y"]] != (vshape[0],) \
                 or len(shapes[names["x"]]) != 1 or vshape[1] < 1:
             raise ValueError(f"fused_region: ell shapes {[shapes[n] for n in operands]}")
-        return vshape[0], vshape[1]
+        return {"rows": vshape[0], "width": vshape[1]}
     tiled = [shapes[names[r]] for r in TILED[body]]
+    if body in ATTN_BODIES:
+        if any(len(s) != 3 or s != tiled[0] for s in tiled):
+            raise ValueError(f"fused_region: {body} shapes {[shapes[n] for n in operands]}")
+        b, n, d = tiled[0]
+        out = {"rows": n, "width": 0, "outer": b, "inner": d}
+        if body == "attn_fold":
+            kv = shapes[names["k"]]
+            p = dict(params or {})
+            key_off, nkv = int(p.get("key_off", -1)), int(p.get("nkv", 0))
+            if len(kv) != 3 or kv[0] != b or kv[2] != d \
+                    or shapes[names["v"]] != kv or nkv < 1 or key_off < 0 \
+                    or key_off + nkv > kv[1]:
+                raise ValueError(f"fused_region: attn_fold keys {key_off}+{nkv} "
+                                 f"of k/v {kv} against q {tiled[0]}")
+            out.update(kv_rows=kv[1], key_off=key_off, nkv=nkv,
+                       scale=float(p["scale"]))
+        return out
     if any(len(s) != 1 or s != tiled[0] for s in tiled):
         raise ValueError(f"fused_region: {body} shapes {[shapes[n] for n in operands]}")
     if body == "gather" and len(shapes[names["x"]]) != 1:
         raise ValueError("fused_region: gather x must be 1-D")
-    return tiled[0][0], 0
+    return {"rows": tiled[0][0], "width": 0}
 
 
 def barrier_flags(reads: List[List[str]], writes: List[List[str]]) -> List[bool]:
@@ -124,36 +174,44 @@ def barrier_flags(reads: List[List[str]], writes: List[List[str]]) -> List[bool]
 
 
 class RegionTable:
-    """The kernel's descriptor table for one lowered region (a ctypes copy of
-    ``Table`` in csrc/fused_region.cu), built once; :meth:`bind` writes the
-    buffer pointers of one buffer dict into it."""
+    """The kernel's descriptor tables for one lowered region (ctypes copies
+    of ``Table`` in csrc/fused_region.cu), built once: one table per
+    ``MAX_MEMBERS`` members, launched in order.  :meth:`bind` writes the
+    buffer pointers of one buffer dict into them."""
 
     def __init__(self, members: List[MemberBody], tiles: int):
-        if not 1 <= len(members) <= MAX_MEMBERS:
-            raise ValueError(f"fused_region: {len(members)} members; the "
-                             f"kernel takes 1 to {MAX_MEMBERS}")
+        if not members:
+            raise ValueError("fused_region: a region needs a member")
         self.members = list(members)
         self.tiles = int(tiles)
-        self.table = _Table()
-        self.table.n = len(members)
-        self.table.tiles = self.tiles
+        self.tables: List[_Table] = []
+        for at in range(0, len(members), MAX_MEMBERS):
+            part = members[at:at + MAX_MEMBERS]
+            t = _Table()
+            t.n, t.tiles = len(part), self.tiles
+            for k, mb in enumerate(part):
+                e = t.m[k]
+                e.kind = BODIES[mb.body]
+                # a launch boundary already orders a table after the last
+                e.barrier = int(mb.barrier and k > 0)
+                e.rows, e.width = mb.rows, mb.width
+                e.outer, e.inner, e.kv_rows = mb.outer, mb.inner, mb.kv_rows
+                e.key_off, e.nkv, e.scale = mb.key_off, mb.nkv, mb.scale
+            self.tables.append(t)
         self.bound: Optional[Dict[str, torch.Tensor]] = None
         self.counters: Optional[torch.Tensor] = None
         self.blocks_per_group = 0
-        for k, mb in enumerate(members):
-            e = self.table.m[k]
-            e.kind, e.barrier = BODIES[mb.body], int(mb.barrier)
-            e.rows, e.width = mb.rows, mb.width
 
     def bind(self, bufs: Dict[str, torch.Tensor],
              counters: Optional[torch.Tensor] = None) -> None:
         """Write the pointers of ``bufs`` (the shapes and dtypes the region
-        was lowered with, checked then) into the table; raises on a buffer
+        was lowered with, checked then) into the tables; raises on a buffer
         that is not contiguous or not on the first operand's device.  On the
         card it also checks ``counters`` (2 x tiles int32, the group
-        barriers) and sizes the grid.  The table keeps both as :attr:`bound`
-        and :attr:`counters`: :func:`fused_region` rebinds only when another
-        dict or counter tensor comes."""
+        barriers) and the attention members' head dim, and sizes the grid
+        for the region's shared memory.  The table keeps both as
+        :attr:`bound` and :attr:`counters`: :func:`fused_region` rebinds
+        only when another dict or counter tensor comes."""
         self.bound = self.counters = None  # unbound until every check passed
         dev = bufs[self.members[0].operands[0]].device
         if dev.type == "cuda":
@@ -162,31 +220,34 @@ class RegionTable:
                     or counters.numel() < 2 * self.tiles:
                 raise ValueError("fused_region: needs 2 x tiles int32 barrier "
                                  "counters on the buffers' device")
-            self.blocks_per_group = blocks_per_group(self.tiles, dev)
+            for mb in self.members:
+                if mb.body in ATTN_BODIES and mb.inner not in ak.KERNEL_HEAD_DIMS:
+                    raise ValueError(f"fused_region: {mb.body} head dim "
+                                     f"{mb.inner} has no kernel instantiation "
+                                     f"(have {ak.KERNEL_HEAD_DIMS})")
+            smem = max(kernel_lib.lib().tz_fused_region_smem(ctypes.addressof(t))
+                       for t in self.tables)
+            self.blocks_per_group = blocks_per_group(self.tiles, dev, smem)
         elif dev.type != "cpu":
             raise ValueError(f"fused_region: unsupported device {dev}")
         for k, mb in enumerate(self.members):
-            e = self.table.m[k]
+            e = self.tables[k // MAX_MEMBERS].m[k % MAX_MEMBERS]
             ts = [bufs[n] for n in mb.operands]
             if any(t.device != dev or not t.is_contiguous() for t in ts):
                 raise ValueError(f"fused_region: the {mb.body} operands "
                                  f"{mb.operands} must be contiguous on {dev}")
-            ptrs = [t.data_ptr() for t in ts]
-            if mb.body == "ell":
-                e.a, e.b, e.c, e.out = ptrs
-            elif mb.body == "copy":
-                e.a, e.b, e.c, e.out = ptrs[0], None, None, ptrs[1]
-            else:
-                e.a, e.b, e.c, e.out = ptrs[0], ptrs[1], None, ptrs[2]
+            for i, t in enumerate(ts):
+                e.p[i] = t.data_ptr()
         self.bound, self.counters = bufs, counters
 
 
 def region_plain(members: List[MemberBody], bufs: Dict[str, torch.Tensor],
                  tiles: int) -> None:
     """The plain version: for each tile in turn, the members' plain PyTorch
-    functions in schedule order over the tile's row slices (full-view
-    operands whole).  It allocates temporaries: it is the reference the
-    kernel is held against."""
+    functions in schedule order over the tile's slices (full-view operands
+    whole): a fold is ``attention_kernels.fold_into`` over the tile's query
+    rows against its K/V block.  It allocates temporaries: it is the
+    reference the kernel is held against."""
     for g in range(tiles):
         for mb in members:
             lo, hi = g * mb.rows // tiles, (g + 1) * mb.rows // tiles
@@ -199,50 +260,68 @@ def region_plain(members: List[MemberBody], bufs: Dict[str, torch.Tensor],
                                    out=t["out"][lo:hi])
             elif mb.body == "add":
                 torch.add(t["a"][lo:hi], t["b"][lo:hi], out=t["out"][lo:hi])
-            else:
+            elif mb.body == "copy":
                 t["out"][lo:hi].copy_(t["src"][lo:hi])
+            elif mb.body == "attn_fold":
+                keys = slice(mb.key_off, mb.key_off + mb.nkv)
+                ak.attn_block_plain(t["q"][:, lo:hi], t["k"][:, keys],
+                                    t["v"][:, keys], t["acc"][:, lo:hi],
+                                    t["m"][:, lo:hi], t["l"][:, lo:hi], mb.scale)
+            else:  # attn_finalize
+                torch.div(t["acc"][:, lo:hi], t["l"][:, lo:hi],
+                          out=t["o"][:, lo:hi])
 
 
-_max_blocks: Dict[int, int] = {}
+_max_blocks: Dict[Tuple[int, int], int] = {}
 
 
-def blocks_per_group(tiles: int, device: torch.device) -> int:
+def blocks_per_group(tiles: int, device: torch.device, smem: int = 0) -> int:
     """Blocks of each tile's group: at most two blocks per SM in all, and
-    never more than the queried co-residency limit of the cooperative grid
-    allows (``tz_fused_region_max_blocks``)."""
+    never more than the queried co-residency limit of the cooperative grid at
+    ``smem`` bytes of dynamic shared memory a block allows
+    (``tz_fused_region_max_blocks``)."""
     idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _max_blocks:
+    key = (idx, int(smem))
+    if key not in _max_blocks:
         with torch.cuda.device(idx):
-            got = kernel_lib.lib().tz_fused_region_max_blocks()
+            got = kernel_lib.lib().tz_fused_region_max_blocks(int(smem))
         if got < 0:
             raise RuntimeError(f"fused_region: occupancy query failed with "
                                f"cudaError {-got}")
         if got == 0:
             raise RuntimeError("fused_region: the device has no cooperative launch")
-        _max_blocks[idx] = got
+        _max_blocks[key] = got
     sms = torch.cuda.get_device_properties(idx).multi_processor_count
-    total = min(_max_blocks[idx], 2 * sms)
+    total = min(_max_blocks[key], 2 * sms)
     if total < tiles:
         raise ValueError(f"fused_region: {tiles} tiles need at least {tiles} "
                          f"resident blocks; the grid holds {total}")
     return total // tiles
 
 
+def kernel_layout() -> Tuple[int, int]:
+    """(sizeof Member, sizeof Table) as the compiled kernel has them: the
+    ctypes mirror must match (``ctypes.sizeof(_Member)``, ``_Table``)."""
+    lib = kernel_lib.lib()
+    return lib.tz_fused_region_member_size(), lib.tz_fused_region_table_size()
+
+
 def fused_region(table: RegionTable, bufs: Dict[str, torch.Tensor],
                  counters: Optional[torch.Tensor]) -> None:
     """Run the region on the current stream: the ``tz_fused_region`` kernel
-    when its buffers are CUDA tensors (``counters``: 2 x tiles zeroed int32
-    on the card, the group barriers), :func:`region_plain` when they are CPU
-    tensors."""
+    (one launch per table) when its buffers are CUDA tensors (``counters``:
+    2 x tiles zeroed int32 on the card, the group barriers),
+    :func:`region_plain` when they are CPU tensors."""
     if table.counters is None or bufs is not table.bound \
             or counters is not table.counters:
         if bufs[table.members[0].operands[0]].device.type == "cpu":
             region_plain(table.members, bufs, table.tiles)
             return
         table.bind(bufs, counters)
-    err = kernel_lib.lib().tz_fused_region(
-        ctypes.addressof(table.table), table.counters.data_ptr(),
-        table.blocks_per_group,
-        torch.cuda.current_stream(table.counters.device).cuda_stream)
-    kernel_lib.check_launch("fused_region", err)
-    LAUNCHES["fused_region"] += 1
+    stream = torch.cuda.current_stream(table.counters.device).cuda_stream
+    for t in table.tables:
+        err = kernel_lib.lib().tz_fused_region(
+            ctypes.addressof(t), table.counters.data_ptr(),
+            table.blocks_per_group, stream)
+        kernel_lib.check_launch("fused_region", err)
+        LAUNCHES["fused_region"] += 1

@@ -29,6 +29,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tenzing_tpu_torch"
 SOURCES = ("halo_pack.cu", "halo_unpack.cu", "device_copy.cu", "attn_fold.cu",
            "ffn_expert.cu", "ell_spmv.cu", "fused_region.cu")
+HEADERS = ("attn_fold_f32.cuh",)  # included by the sources above
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -51,8 +52,17 @@ SIGNATURES = {
     "tz_ell_spmv": [_c_ptr] * 4 + [_c_i64] * 3 + [_c_ptr],
     # descriptor table (host), barrier counters; blocks per group; stream
     "tz_fused_region": [_c_ptr, _c_ptr, _c_i64, _c_ptr],
-    "tz_fused_region_max_blocks": [],
+    # dynamic shared memory per block
+    "tz_fused_region_max_blocks": [_c_i64],
+    # descriptor table (host)
+    "tz_fused_region_smem": [_c_ptr],
+    "tz_fused_region_member_size": [],
+    "tz_fused_region_table_size": [],
 }
+# entry points that return an int64 instead of a cudaError_t
+RESTYPES = {"tz_fused_region_smem": _c_i64,
+            "tz_fused_region_member_size": _c_i64,
+            "tz_fused_region_table_size": _c_i64}
 
 _lib: Optional[ctypes.CDLL] = None
 # what the last build() did: seconds, whether it compiled, nvcc's -v report
@@ -72,7 +82,7 @@ def nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(ARCH_FLAGS + COMPILE_FLAGS).encode())
@@ -142,7 +152,7 @@ def lib() -> ctypes.CDLL:
         for fn, argtypes in SIGNATURES.items():
             f = getattr(loaded, fn)
             f.argtypes = argtypes
-            f.restype = ctypes.c_int
+            f.restype = RESTYPES.get(fn, ctypes.c_int)
         _lib = loaded
     return _lib
 

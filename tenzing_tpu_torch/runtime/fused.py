@@ -31,12 +31,13 @@ Counterpart of ``tenzing_tpu/runtime/fused.py``:
   schedule x tiles).
 
 Each region is lowered, once per (schedule, tiles), into the kernel's
-descriptor table: the members in schedule order, each a body kind of the
-SpMV iteration (``FUSED_BODY`` and ``fused_operands()`` on the op) with its
-extents and a barrier flag.  A member of another kind raises "not yet
-ported": today that is the attention fold and finalize, whose tile bodies
-come later.  The barrier counters are op scratch, allocated when the executor
-provisions the fused order.
+descriptor table: the members in schedule order, each a body kind
+(``FUSED_BODY``, ``fused_operands()`` and ``fused_params()`` on the op: the
+SpMV iteration's four ops, the attention fold and sub-fold, the finalize)
+with its extents and a barrier flag.  A region with more members than one
+table holds runs as consecutive launches of the kernel on the same stream.
+A fusible op without a body raises "not yet ported".  The barrier counters
+are op scratch, allocated when the executor provisions the fused order.
 """
 
 from __future__ import annotations
@@ -290,11 +291,13 @@ def region_full_bytes(region: Region, nbytes: Dict[str, int]) -> int:
 def lower_region(members: List[BoundDeviceOp],
                  shapes: Dict[str, Tuple[int, ...]], dtypes: Dict[str, Any]):
     """The kernel's member entries (ops/fused_region.py ``MemberBody``) for a
-    region: each member's body and operands from its ``FUSED_BODY`` and
-    ``fused_operands()`` (every body tiles along rows, axis 0), its extents
+    region: each member's body, operands and parameters from its
+    ``FUSED_BODY``, ``fused_operands()`` and ``fused_params()``, its extents
     checked against the buffers, and the barrier flags from the members'
-    reads and writes.  Raises "not yet ported" for a member without a
-    body."""
+    reads and writes.  The kernel tiles a body's tiled operands along axis 0
+    (SpMV) or axis 1 (the attention bodies' query rows); a member whose
+    ``fuse_tiling`` declares another axis for one of them raises, and so
+    does a member without a body ("not yet ported")."""
     from tenzing_tpu_torch.ops import fused_region as fr
 
     flags = fr.barrier_flags([list(m.reads()) for m in members],
@@ -308,9 +311,18 @@ def lower_region(members: List[BoundDeviceOp],
                 f"not yet ported: fused region member {type(base).__name__} "
                 f"({op.name()})")
         operands = tuple(base.fused_operands())
-        rows, width = fr.check_member(body, operands, shapes, dtypes)
-        out.append(fr.MemberBody(body=body, operands=operands, rows=rows,
-                                 width=width, barrier=barrier))
+        params = base.fused_params() if hasattr(base, "fused_params") else None
+        tiling = base.fuse_tiling() or {}
+        axis = 1 if body in fr.ATTN_BODIES else 0
+        roles = dict(zip(fr.OPERANDS[body], operands))
+        for role in fr.TILED[body]:
+            if tiling and tiling.get(roles.get(role), axis) != axis:
+                raise ValueError(f"{op.name()}: {roles[role]!r} is declared "
+                                 f"tiled along axis {tiling[roles[role]]}, the "
+                                 f"{body} body tiles axis {axis}")
+        ext = fr.check_member(body, operands, shapes, dtypes, params)
+        out.append(fr.MemberBody(body=body, operands=operands,
+                                 barrier=barrier, **ext))
     return out
 
 

@@ -64,12 +64,13 @@ def test_metric_and_lanes_equal_reference(workload):
 
 
 @pytest.mark.parametrize("override", [
-    dict(workload="spmv", chunk=True), dict(workload="attn", chunk=True),
-    dict(workload="attn", fuse_winner=True), dict(chunk=True),
+    dict(workload="spmv", trace_out="t.jsonl"), dict(workload="attn", resume=True),
+    dict(workload="attn", metrics_json="m.json"), dict(measure_timeout=5.0),
     dict(synth_collectives=True), dict(learn_screen=True),
     dict(checkpoint="ckpt"), dict(inject_faults="flaky:0.1"),
     dict(profile_winner=True), dict(search_workers=2), dict(seed_csv="x.csv"),
-    dict(prefetch_compiles=4), dict(workload="moe", chunk=True), dict(dump_csv="out.csv"),
+    dict(prefetch_compiles=4), dict(workload="moe", learn_model="m.json"),
+    dict(dump_csv="out.csv"),
 ])
 def test_unported_flags_raise(override):
     with pytest.raises(driver.DriverConfigError, match="not yet ported"):
@@ -242,3 +243,121 @@ def test_fuse_winner_finds_no_region_without_fusible_ops(workload):
     assert perf["fused"]["tiles"]["menu"] == [1]
     assert perf["fuse_search_tiles"] == {"menu": [1], "planted": False,
                                          "chosen": 1}
+
+
+def test_smoke_attn_fuse_driver_on_cpu():
+    """``--workload attn --fuse-winner --fuse-search-tiles``: the naive
+    chain's region menu is planted in the graph, the reported schedule is
+    lowered and gated; the fused block is verified or carries the
+    reference's divergence report (the port raises only when the members'
+    own tolerance fails)."""
+    res = driver.run(driver.DriverRequest(workload="attn", fuse_winner=True,
+                                          fuse_search_tiles=True, **FAST),
+                     device="cpu")
+    line = json.loads(res.to_json_line())
+    perf = line["perf"]
+    t = perf["fuse_search_tiles"]
+    assert t["planted"] is True and t["menu"] == [1, 2, 4, 8, 16, 32, 64]
+    assert t["chosen"] in t["menu"]
+    f = perf["fused"]
+    assert set(f["tiles"]["by_tiles_us"]) == {str(x) for x in f["tiles"]["menu"]}
+    assert f["verified"] is True or (f["error"].startswith("fused outputs diverge")
+                                     and f["diverged"])
+    if line["winner_label"] is None:  # naive reported: its one region
+        assert f["regions"] == 1 and f["region_sizes"] == [5]
+    assert "perf.fused.sum_of_parts_us" in line["not_ported"]
+    if not line["verified"]:
+        assert set(line["diverged"]) <= {"acc", "O"}, line
+
+
+@pytest.mark.parametrize("workload", ["attn", "moe"])
+def test_smoke_chunk_driver_on_cpu(workload):
+    """``--chunk`` on the smoke: every structurally valid count is on the
+    menus (the reference's chunk_relax), the search visits chunked
+    candidates, and ``perf.chunked`` reports menus, visits and the choice;
+    the measured hidden comm is named in ``not_ported``."""
+    res = driver.run(driver.DriverRequest(workload=workload, chunk=True,
+                                          **dict(FAST, mcts_iters=8)),
+                     device="cpu")
+    line = json.loads(res.to_json_line())
+    c = line["perf"]["chunked"]
+    # the attn smoke graph has the kernel menus: the chunked entries wrap
+    # each block's .xla slot; the moe smoke wraps the bare expert MLP
+    bases = ({f"attn_{s}.xla" for s in range(4)} if workload == "attn"
+             else {"ffn_0", "ffn_1"})
+    assert set(c["menus"]) == bases
+    assert all(m["counts"] == [1, 2, 4] for m in c["menus"].values())
+    assert c["n_candidates_chunked"] >= 1 and set(c["searched_counts"]) <= {2, 4}
+    assert set(c["chosen"]) <= bases
+    assert c["hidden_comm_us"]["measured"] is None and "note" not in c
+    assert line["not_ported"] == {
+        "perf.chunked.hidden_comm_us.measured": "obs/attrib stepped timeline"}
+    if workload == "moe":
+        assert line["verified"] is True
+
+
+def test_chunk_is_a_noted_no_op_without_chunkable_ops():
+    """Halo and spmv declare no chunkable op: --chunk runs and says so."""
+    from tenzing_tpu_torch.core.chunking import chunk_menus
+
+    res = driver.run(driver.DriverRequest(workload="spmv", chunk=True, **FAST),
+                     device="cpu")
+    c = res.verdict["perf"]["chunked"]
+    assert c["menus"] == {} and c["chosen"] == {}
+    assert c["note"].startswith("workload offers no chunkable-op menus")
+    halo_req = driver.DriverRequest(chunk=True, **FAST)
+    driver.check_request(halo_req)
+    assert chunk_menus(driver.build_halo(halo_req, "cpu")[0]) == {}
+
+
+def test_full_size_attn_chunk_menu_is_pruned_with_a_note():
+    """At full size the blocked fold has no transfer to hide: the menus hold
+    [1] and perf.chunked says the roofline pruned every chunking."""
+    from tenzing_tpu_torch.core.chunking import chunk_menus
+    from tenzing_tpu_torch.models.ring_attention import RingAttnArgs
+
+    a = RingAttnArgs(n_devices=8, batch=4, seq_local=1024, head_dim=128)
+    g = driver.attn_graph(a, chunk=True)
+    menus = chunk_menus(g)
+    assert set(menus) == {f"attn_{s}.xla" for s in range(8)}
+    assert all(m["counts"] == [1] for m in menus.values())
+    from tenzing_tpu_torch.core.sequence import Sequence
+
+    block = driver.chunked_block(g, [], Sequence([]), lambda m: None)
+    assert block["note"].startswith("roofline pruned every chunking")
+
+
+def test_fuse_gate_reports_divergence_and_raises_on_member_tolerance():
+    """The fuse gate: a divergence at ``verify_tol`` is reported in the block
+    as the reference reports it and the run goes on; a failure at the
+    members' own tolerance raises."""
+    from tenzing_tpu_torch.bench.benchmarker import BenchOpts
+    from tenzing_tpu_torch.core.platform import Platform
+    from tenzing_tpu_torch.models.ring_attention import fixed_order
+    from tenzing_tpu_torch.runtime.executor import StreamExecutor
+    from tenzing_tpu_torch.verify import ScheduleVerifier
+
+    req = driver.DriverRequest(workload="attn", **FAST)
+    g, bufs, _, _ = driver.build_attn(req, "cpu")
+    ex = StreamExecutor(Platform.make_n_lanes(1), bufs, device="cpu")
+    seq = fixed_order(g, Platform.make_n_lanes(1))
+    opts = BenchOpts(n_iters=2, target_secs=0.0002)
+    check = driver.fused_member_check(req, seq)
+    # a stepped acc 1e-4 off: outside the gate at 1e-6, inside F32_STATE_TOL
+    out = ex.run(seq)
+    stepped = dict(out, acc=out["acc"] * (1 + 1e-4))
+    block = driver.fuse_reported(ex, seq, stepped, opts, 1.0, 1e-6, set(),
+                                 ScheduleVerifier(g), lambda m: None, check)
+    assert block["verified"] is False and block["regions"] == 1
+    assert block["diverged"] == ["acc"]
+    assert block["error"] == "fused outputs diverge on ['acc']"
+    with pytest.raises(RuntimeError, match="members' own tolerance"):
+        driver.fuse_reported(ex, seq, None, opts, 1.0, 0.02, set(),
+                             ScheduleVerifier(g), lambda m: None,
+                             lambda out_s, out_f, skip: ["acc"])
+    # the attention check itself: equal states pass, a moved acc fails
+    assert check(out, out, set()) == []
+    moved = dict(out, acc=out["acc"] * 1.01)
+    assert check(out, moved, set()) == ["acc", "m_run", "l_run"]
+    bf16 = fixed_order(g, Platform.make_n_lanes(1), ".fused_bf16")
+    assert driver.fused_member_check(req, bf16) is not check

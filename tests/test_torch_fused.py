@@ -8,10 +8,17 @@ reference's with ``min_tile_bytes=0``, the port's floor): the region partition, 
 the tiles each region takes must be the same, and the fused outputs must
 equal the stepped ones (the plain region applies the members' plain
 functions, so on the CPU they agree bit for bit at one tile) and the
-reference's fused outputs (at the ELL sums' tolerance).  Refusals: a region
-with an attention member, and ``--fuse-winner`` on attn.
+reference's fused outputs (at the ELL sums' tolerance).
 
-``test_cuda_region_matches_plain`` needs the card (marker ``needs_cuda``)."""
+The attention members (the fold, its chunked sub-folds and the finalize) go
+through both packages the same way at ``RingAttnArgs(n_devices=4, batch=2,
+seq_local=16, head_dim=8)``, the reference's ``FusedExecutor`` in interpret
+mode: the same regions, members, tile menus and tiles, and fused outputs
+within ``F32_STATE_TOL`` (m, l, acc / l; and O) of the stepped program and
+of the reference's fused program.  ``batch = 2``: a tile's query rows are a
+range in each batch element, which one element cannot show.
+
+The ``test_cuda_*`` tests need the card (marker ``needs_cuda``)."""
 
 import random
 
@@ -30,6 +37,8 @@ from tenzing_tpu.core.resources import Lane as RefLane
 from tenzing_tpu.core.serdes import sequence_from_json as ref_from_json
 from tenzing_tpu.core.sync_ops import EventRecord as RefRecord
 from tenzing_tpu.core.sync_ops import WaitEvent as RefWait
+from tenzing_tpu.core.state import State as RefState
+from tenzing_tpu.models import ring_attention as ref_ra
 from tenzing_tpu.models import spmv as ref_spmv
 from tenzing_tpu.runtime import fused as ref_fused
 from tenzing_tpu.runtime.executor import TraceExecutor
@@ -41,7 +50,9 @@ from tenzing_tpu_torch.core.sequence import Sequence
 from tenzing_tpu_torch.core.serdes import sequence_from_json, sequence_to_json
 from tenzing_tpu_torch.core.state import State
 from tenzing_tpu_torch.core.sync_ops import EventRecord, WaitEvent
+from tenzing_tpu_torch.models import ring_attention as ra
 from tenzing_tpu_torch.models import spmv
+from tenzing_tpu_torch.ops import attention_kernels as ak
 from tenzing_tpu_torch.ops import fused_region as fr
 from tenzing_tpu_torch.ops.spmv_kernels import ELL_TOL
 from tenzing_tpu_torch.runtime import fused
@@ -252,30 +263,6 @@ def test_barrier_flags_follow_the_data_hazards():
     assert fr.barrier_flags([["x"], ["q"]], [["y"], ["x"]]) == [False, True]
 
 
-def test_attention_member_is_not_ported():
-    from tenzing_tpu_torch.bench.driver import attn_args, attn_graph, DriverRequest
-    from tenzing_tpu_torch.models.ring_attention import fixed_order, make_blocked_buffers
-
-    a = attn_args(DriverRequest(workload="attn", smoke=True))
-    bufs, _ = make_blocked_buffers(a, seed=0, with_expected=False)
-    g = attn_graph(a)
-    ex = StreamExecutor(Platform.make_n_lanes(1), buffers_from_numpy(bufs, "cpu"),
-                        device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="not yet ported: fused region member BlockAttnStep"):
-        fused.FusedExecutor(ex).plan(
-            fixed_order(g, Platform.make_n_lanes(1)))
-
-
-def test_fuse_winner_on_attn_is_refused():
-    from tenzing_tpu_torch.bench import driver
-
-    for flag in ("fuse_winner", "fuse_search_tiles"):
-        with pytest.raises(driver.DriverConfigError, match="not yet ported"):
-            driver.run(driver.DriverRequest(workload="attn", smoke=True,
-                                            **{flag: True}), device="cpu")
-
-
 def test_fused_order_writes_in_place_and_serializes():
     g, _ = _graphs(exchange="local")
     ex, _, want = _executors(dict(m=64, nnz_per_row=4, seed=1), 2)
@@ -295,24 +282,35 @@ def test_fused_order_writes_in_place_and_serializes():
 
 
 def test_region_table_mirrors_the_kernel_layout():
-    """The ctypes table is the C struct: 56-byte members after an 8-byte
-    header (csrc/fused_region.cu ``Table``)."""
+    """The ctypes table is the C struct: 120-byte members (kind, barrier,
+    seven int64 extents, the scale and its pad, six operand pointers) after
+    an 8-byte header (csrc/fused_region.cu ``Member`` / ``Table``); a region
+    of more members than a table holds takes several tables."""
     import ctypes
 
-    assert ctypes.sizeof(fr._Member) == 56
-    assert ctypes.sizeof(fr._Table) == 8 + 56 * fr.MAX_MEMBERS
+    assert ctypes.sizeof(fr._Member) == 120
+    assert [f for f, _ in fr._Member._fields_] == [
+        "kind", "barrier", "rows", "width", "outer", "inner", "kv_rows",
+        "key_off", "nkv", "scale", "pad", "p"]
+    assert fr._Member.p.offset == 72
+    assert ctypes.sizeof(fr._Table) == 8 + 120 * fr.MAX_MEMBERS
     bodies = [fr.MemberBody("copy", ("a", "b"), 10, 0, False)]
     t = fr.RegionTable(bodies, 2)
     bufs = {"a": torch.zeros(10), "b": torch.zeros(10)}
     t.bind(bufs)
-    assert t.table.m[0].a == bufs["a"].data_ptr()
-    assert t.table.m[0].out == bufs["b"].data_ptr()
+    assert t.tables[0].m[0].p[0] == bufs["a"].data_ptr()
+    assert t.tables[0].m[0].p[1] == bufs["b"].data_ptr()
     assert t.bound is bufs
     with pytest.raises(ValueError, match="contiguous"):
         t.bind({"a": torch.zeros(20)[::2], "b": torch.zeros(10)})
     assert t.bound is None  # a failed bind leaves the table unbound
+    many = fr.RegionTable([fr.MemberBody("copy", ("a", "b"), 10, 0, True)]
+                          * (fr.MAX_MEMBERS + 1), 1)
+    assert [tb.n for tb in many.tables] == [fr.MAX_MEMBERS, 1]
+    # the launch boundary orders the second table: no barrier at its head
+    assert many.tables[1].m[0].barrier == 0 and many.tables[0].m[1].barrier == 1
     with pytest.raises(ValueError):
-        fr.RegionTable(bodies * (fr.MAX_MEMBERS + 1), 1)
+        fr.RegionTable([], 1)
     with pytest.raises(TypeError, match="int32"):
         fr.check_member("gather", ("x", "i", "o"),
                         {"x": (4,), "i": (3,), "o": (3,)},
@@ -344,3 +342,199 @@ def test_cuda_region_matches_plain(cuda_device, tiles):
         for name in ("y", "y_local", "y_remote", "send_buf", "x_remote"):
             torch.testing.assert_close(out_k[name], out_p[name], **ELL_TOL)
         np.testing.assert_allclose(out_k["y"].cpu().numpy(), want, **ELL_TOL)
+
+
+# -- the attention members ----------------------------------------------------
+
+ATTN = dict(n_devices=4, batch=2, seq_local=16, head_dim=8)
+
+
+def _attn_graphs(chunk=False):
+    g, rg = Graph(), RefGraph()
+    op = ra.BlockedAttention(ra.RingAttnArgs(**ATTN), impl_choice=True,
+                             fused_choice=True, chunk=chunk, chunk_relax=chunk)
+    rop = ref_ra.BlockedAttention(ref_ra.RingAttnArgs(**ATTN), impl_choice=True,
+                                  fused_choice=True, chunk=chunk,
+                                  chunk_relax=chunk)
+    g.start_then(op)
+    g.then_finish(op)
+    rg.start_then(rop)
+    rg.then_finish(rop)
+    return g, rg
+
+
+def _attn_executors(n_lanes):
+    bufs, want = ra.make_blocked_buffers(ra.RingAttnArgs(**ATTN), seed=0)
+    ex = StreamExecutor(Platform.make_n_lanes(n_lanes),
+                        buffers_from_numpy(bufs, "cpu"), device="cpu")
+    rbufs, _ = ref_ra.make_blocked_buffers(ref_ra.RingAttnArgs(**ATTN), seed=0)
+    rex = TraceExecutor(RefPlatform.make_n_lanes(n_lanes),
+                        {k: jnp.asarray(v) for k, v in rbufs.items()})
+    return ex, rex, want
+
+
+def _state_close(got, want):
+    names = ("acc", "m_run", "l_run")
+    ok, errs = ak.state_check([got[n] for n in names], [want[n] for n in names],
+                              ak.F32_STATE_TOL)
+    assert ok, errs
+    torch.testing.assert_close(got["O"], want["O"], **ak.F32_STATE_TOL["acc/l"])
+
+
+def _compare_attn(js, g, rg, ex, rex, want, tiles):
+    """One attention schedule JSON through both packages' FusedExecutor:
+    the same plan, fused outputs within F32_STATE_TOL of the stepped ones
+    (bit for bit at one tile) and of the reference's fused ones."""
+    order, rorder = sequence_from_json(js, g), ref_from_json(js, rg)
+    fex = fused.FusedExecutor(ex, tiles=tiles)
+    rfex = ref_fused.FusedExecutor(rex, tiles=tiles, min_tile_bytes=0)
+    plan, rplan = fex.plan(order), rfex.plan(rorder)
+    assert plan.tile_menu == rplan.tile_menu
+    assert [(r.members, r.lanes, r.tiles, r.valid_tiles, r.pruned_tiles)
+            for r in plan.regions] == \
+        [(r.members, r.lanes, r.tiles, r.valid_tiles, r.pruned_tiles)
+         for r in rplan.regions]
+    assert (plan.n_ops_total, plan.n_ops_fused) == \
+        (rplan.n_ops_total, rplan.n_ops_fused)
+    out_s, out_f = ex.run(order), fex.run(order)
+    rout = {k: torch.from_numpy(np.asarray(jax.device_get(v)).copy())
+            for k, v in rfex.run(rorder).items()}
+    if all(r.tiles == 1 for r in plan.regions):
+        for name in out_s:
+            assert torch.equal(out_s[name], out_f[name]), name
+    _state_close(out_f, out_s)
+    _state_close(out_f, rout)
+    np.testing.assert_allclose(out_f["O"].numpy(), want, rtol=2e-4, atol=2e-5)
+    return plan
+
+
+def test_attention_naive_region_every_tile_count():
+    """The naive all-.xla chain is one region of the four folds and the
+    finalize; every count of its menu (1 .. 64: 64 query rows) lowers the
+    same way in both packages."""
+    g, rg = _attn_graphs()
+    ex, rex, want = _attn_executors(1)
+    js = sequence_to_json(ra.fixed_order(g, Platform.make_n_lanes(1)))
+    menu = fused.FusedExecutor(ex).plan(sequence_from_json(js, g)).tile_menu
+    assert menu == [1, 2, 4, 8, 16, 32, 64]
+    for t in menu:
+        plan = _compare_attn(js, g, rg, ex, rex, want, t)
+        assert [r.n_ops for r in plan.regions] == [5]
+    kernel = next(op for op in plan.fused_order
+                  if isinstance(op, fused.FusedRegionOp)).unbound()
+    bodies = kernel.bodies()
+    assert [b.body for b in bodies] == ["attn_fold"] * 4 + ["attn_finalize"]
+    assert [b.barrier for b in bodies] == [False, True, True, True, True]
+    assert [(b.key_off, b.nkv) for b in bodies[:4]] == \
+        [(0, 16), (16, 16), (32, 16), (48, 16)]
+    assert {(b.outer, b.rows, b.inner) for b in bodies} == {(2, 64, 8)}
+    assert {b.kv_rows for b in bodies[:4]} == {64}
+    assert bodies[0].scale == pytest.approx(ra.RingAttnArgs(**ATTN).scale)
+
+
+@pytest.mark.parametrize("trial", range(3))
+def test_attention_two_lane_random_orders_fused_match(trial):
+    """Random 2-lane completions of the driver's attention graph: their
+    .xla runs fuse into the same regions as in the reference."""
+    g, rg = _attn_graphs()
+    ex, rex, want = _attn_executors(2)
+    rng = random.Random(11 + trial)
+    seq = ra.fixed_order(g, Platform.make_n_lanes(2),
+                         lane_of=lambda s: rng.randrange(2))
+    assert ScheduleVerifier(g)(seq).ok
+    js = sequence_to_json(seq)
+    for t in (1, 4):
+        _compare_attn(js, g, rg, ex, rex, want, t)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_attention_chunked_sub_folds_fuse(n):
+    """The naive order with every fold chunked n ways: the sub-folds are
+    fold members with their own key offsets; each directive's host sync
+    splits the chain into one region per block."""
+    g, rg = _attn_graphs(chunk=True)
+    ex, rex, want = _attn_executors(1)
+    seq = ra.fixed_order(g, Platform.make_n_lanes(1),
+                         kernel_of=lambda s: f".xla.chunked.c{n}")
+    js = sequence_to_json(seq)
+    for t in (1, 8):
+        plan = _compare_attn(js, g, rg, ex, rex, want, t)
+    assert [r.n_ops for r in plan.regions] == [n] * 3 + [n + 1]
+    kernel = next(op for op in plan.fused_order
+                  if isinstance(op, fused.FusedRegionOp)).unbound()
+    assert [(b.key_off, b.nkv) for b in kernel.bodies()] == \
+        [(j * 16 // n, 16 // n) for j in range(n)]
+
+
+def test_attention_region_past_one_table_runs_in_launches():
+    """A region of more members than one descriptor table holds (36 folds
+    and the finalize on one lane) lowers into two tables and runs."""
+    from tenzing_tpu_torch.core.operation import Finish, Start
+
+    a = ra.RingAttnArgs(**ATTN)
+    ex, _, _ = _attn_executors(1)
+    lane = Lane(0)
+    folds = [ra.BlockAttnStep(f"f{i}", i % 4, a).bind(lane) for i in range(36)]
+    seq = Sequence([Start()] + folds + [ra.FinalizeAttn().bind(lane), Finish()])
+    out_s = ex.run(seq)
+    for t in (1, 4):
+        fex = fused.FusedExecutor(ex, tiles=t)
+        plan = fex.plan(seq)
+        assert [r.n_ops for r in plan.regions] == [37]
+        kernel = next(op for op in plan.fused_order
+                      if isinstance(op, fused.FusedRegionOp)).unbound()
+        assert [tb.n for tb in kernel.table.tables] == [32, 5]
+        _state_close(fex.run(seq), out_s)
+
+
+def test_lowering_rejects_a_tiling_the_body_does_not_take():
+    class RowsOnAxis0(ra.BlockAttnStep):
+        def fuse_tiling(self):
+            return {"Q": 0, "acc": 0, "m_run": 0, "l_run": 0, "K": None,
+                    "V": None}
+
+    a = ra.RingAttnArgs(**ATTN)
+    ex, _, _ = _attn_executors(1)
+    shapes = {k: tuple(v.shape) for k, v in ex.init_bufs.items()}
+    dtypes = {k: v.dtype for k, v in ex.init_bufs.items()}
+    with pytest.raises(ValueError, match="axis 0"):
+        fused.lower_region([RowsOnAxis0("x", 0, a).bind(Lane(0))], shapes, dtypes)
+    with pytest.raises(ValueError, match="keys"):
+        fr.check_member("attn_fold", ("Q", "K", "V", "acc", "m_run", "l_run"),
+                        shapes, dtypes, {"key_off": 60, "nkv": 16, "scale": 1.0})
+
+
+@pytest.mark.needs_cuda
+def test_cuda_table_layout_matches_the_kernel(cuda_device):
+    import ctypes
+
+    assert fr.kernel_layout() == (ctypes.sizeof(fr._Member),
+                                  ctypes.sizeof(fr._Table))
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("chunks", [None, 2])
+@pytest.mark.parametrize("tiles", [1, 2, 8])
+def test_cuda_attention_region_matches_plain(cuda_device, chunks, tiles):
+    """The attention bodies at head dim 128 (the kernel's instantiation):
+    the fused naive order, plain or with every fold chunked, against the
+    same order with plain regions at F32_STATE_TOL."""
+    a = ra.RingAttnArgs(n_devices=2, batch=2, seq_local=256, head_dim=128)
+    g = Graph()
+    op = ra.BlockedAttention(a, impl_choice=True, chunk=bool(chunks),
+                             chunk_relax=True)
+    g.start_then(op)
+    g.then_finish(op)
+    bufs, want = ra.make_blocked_buffers(a, seed=1)
+    tb = buffers_from_numpy(bufs, cuda_device)
+    plat = Platform.make_n_lanes(1)
+    seq = ra.fixed_order(g, plat, kernel_of=(
+        (lambda s: f".xla.chunked.c{chunks}") if chunks else None))
+    before = fr.LAUNCHES["fused_region"]
+    out_k = fused.FusedExecutor(StreamExecutor(plat, tb), tiles=tiles).run(seq)
+    out_p = fused.FusedExecutor(StreamExecutor(plat, tb, plain_kernels=True),
+                                tiles=tiles).run(seq)
+    assert fr.LAUNCHES["fused_region"] > before
+    _state_close(out_k, out_p)
+    np.testing.assert_allclose(out_k["O"].cpu().numpy(), want, rtol=2e-4,
+                               atol=2e-5)
