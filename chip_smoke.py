@@ -139,9 +139,29 @@ Run after the moe driver (phase 11):
               full-size pruned menus and the card's chunk constants of
               ``bench/roofline.py`` measured: the stream executor's per-op
               host dispatch and the pinned host <-> device copy rate;
-11b. chunk driver — ``run`` with ``chunk`` on attn and moe: a
+11b. host syncs — the moe pipeline's chunked and unchunked orders (f32 chains
+              on the host and on the device copy) and attention's naive
+              order with its folds unchunked and chunked 2 and 4 ways, each
+              with every EventSync blocking the host and with the host syncs
+              deferred (runtime/executor.py): outputs bit-equal, in turns
+              each one's wall, ``breakdown.py``'s idle share and the host
+              blocks per iteration;
+11c. chunk driver — ``run`` with ``chunk`` on attn and moe: a
               ``perf.chunked`` block with menus, verified or demoted as the
-              plain runs may be.
+              plain runs may be;
+11d. moe layer kernels — ``ffn_rows`` at one chunk of the expert-parallel
+              MoE layer at world size 1 (n 2048, d 512, d_ff 2048) and at
+              ragged n (2047, 37) against its plain version at ``FFN_TOL``,
+              the erf control rejected, two launches bit-equal; the
+              kernel's, the plain version's and the three-call times beside
+              the bound;
+11e. moe layer — the layer (models/moe.py) at full width on a world-size-1
+              NCCL group made here: the dryrun's agreement protocol
+              (parallel/dryrun.py; an all-``.xla``, an all-``.pallas`` and a
+              mixed schedule within ``rtol=2e-4, atol=2e-5`` of the float64
+              Y, ``ffn_rows`` launched), a dropped-expert control that must
+              be rejected, the self all-to-all's time per chunk, and a
+              12-iteration ``explore`` through ``DistControlPlane``.
 
 The halo and attn driver phases run with ``climb_budget=4`` (the halo climbs
 run; the reference runs none for attn).  Each driver phase sets every
@@ -182,6 +202,14 @@ BF16_Y_TOL = {"rel_rms": 5e-3, "max_abs": 3e-2}
 # outputs (an f32 summation difference can flip an output's rounding)
 F32_PLAIN_Y_TOL = dict(rtol=1e-4, atol=1e-5)
 BF16_PLAIN_Y_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
+# The expert-parallel MoE layer's configuration on one card (models/moe.py):
+# the width of the repo's MoE model (MoEPipeArgs: d_model 512, d_ff 2048,
+# 8192 tokens, 4 chunks) at world size 1, where every token routes to the one
+# expert and each chunk's expert MLP is ffn_rows at n = 2048
+MOE_LAYER = dict(n_ep=1, tokens_per_shard=8192, d_model=512, d_ff=2048,
+                 n_chunks=4)  # parallel/dryrun.py FULL_ARGS at n_ep 1
+MOE_LAYER_ITERS = 12  # the layer's explore through DistControlPlane
+HOST_SYNC_ITERS = 15  # iterations per measurement of the host_syncs phase
 FLUSH_BYTES = 128 << 20  # > the 50 MB L2: each timed launch starts cold
 REPS = 15
 
@@ -1731,6 +1759,257 @@ def phase_chunk_driver(torch, device):
     return runs
 
 
+def _host_sync_row(torch, exs, workload, label, order, out_name):
+    """One order with every EventSync blocking the host and with the host
+    syncs deferred (runtime/executor.py): the outputs bit for bit, and in
+    turns (blocking, deferred, deferred, blocking) each one's wall and
+    breakdown.py's idle share per iteration and the host blocks it
+    executed."""
+    from tenzing_tpu_torch.bench.breakdown import measure
+
+    outs = {mode: ex.run(order)[out_name] for mode, ex in exs.items()}
+    equal = bool(torch.equal(outs["blocking"], outs["deferred"]))
+    del outs
+    runs = {}
+    for mode in ("blocking", "deferred", "deferred", "blocking"):
+        runs.setdefault(mode, []).append(measure(exs[mode], order,
+                                                 iters=HOST_SYNC_ITERS))
+    row = {"phase": "host_syncs", "workload": workload, "order": label,
+           "ops": len(order), "out": out_name, "bit_equal": equal}
+    for mode, ms in runs.items():
+        row[mode] = {"wall_us": [m["wall_us"] for m in ms],
+                     "idle_share": [m["idle_share"] for m in ms],
+                     "host_syncs_per_iter": [m["host_syncs_per_iter"]
+                                             for m in ms]}
+    emit(row)
+    return row
+
+
+def phase_host_syncs(torch, device):
+    """The chunk directive's host wait, blocking and deferred: the moe
+    pipeline's chunked orders (every expert MLP on .xla, unchunked and
+    chunked 2 and 4 ways, f32 chains on the host and on the device copy, 2
+    lanes) and attention's naive order with every fold unchunked and
+    chunked 2 and 4 ways (1 lane), each run with every EventSync blocking
+    and with the host syncs deferred.  The outputs must be bit-equal; the
+    chunked attention orders must execute fewer host blocks deferred (an
+    EventSync precedes each chunked block but the first); the moe orders
+    the same number (their directive follows the dispatch await, a host
+    op)."""
+    from tenzing_tpu_torch.bench.driver import attn_graph
+    from tenzing_tpu_torch.core.platform import Platform
+    from tenzing_tpu_torch.models.moe_pipeline import chunked_orders, host_buffer_names
+    from tenzing_tpu_torch.models.ring_attention import fixed_order, make_blocked_buffers
+    from tenzing_tpu_torch.runtime.executor import StreamExecutor, buffers_from_numpy
+
+    def executors(plat, bufs):
+        return {mode: StreamExecutor(plat, bufs, device="cuda",
+                                     defer_host_syncs=mode == "deferred")
+                for mode in ("blocking", "deferred")}
+
+    rows, failed = [], []
+    m, mbufs, cap = moe_full()
+    tb = buffers_from_numpy(mbufs, device, host_buffer_names(m, "choice"))
+    del mbufs
+    exs = executors(Platform.make_n_lanes(2), tb)
+    for chain in (".f32-host", ".f32-rdma"):
+        orders, _ = chunked_orders(m, cap, chain=chain)
+        for label, order in orders.items():
+            row = _host_sync_row(torch, exs, "moe", f"{chain[1:]}/{label}", order,
+                             "Y")
+            rows.append(row)
+            if not (row["bit_equal"] and row["deferred"]["host_syncs_per_iter"]
+                    == row["blocking"]["host_syncs_per_iter"]):
+                failed.append(row["order"])
+    del exs, tb
+    torch.cuda.empty_cache()
+
+    a = attn_full_args()
+    bufs, _ = make_blocked_buffers(a, seed=0, with_expected=False)
+    tb = buffers_from_numpy(bufs, device)
+    del bufs
+    one = Platform.make_n_lanes(1)
+    exs = executors(one, tb)
+    gc = attn_graph(a, chunk=True, chunk_relax=True)
+    for n in (1, 2, 4):
+        order = (fixed_order(gc, one) if n == 1 else
+                 fixed_order(gc, one, kernel_of=lambda s, n=n: f".xla.chunked.c{n}"))
+        row = _host_sync_row(torch, exs, "attn", f"naive/c{n}", order, "O")
+        rows.append(row)
+        fewer = (row["deferred"]["host_syncs_per_iter"][0]
+                 < row["blocking"]["host_syncs_per_iter"][0])
+        if not (row["bit_equal"] and (fewer if n > 1 else True)):
+            failed.append(f"attn/c{n}")
+    del exs, tb
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"host_syncs phase failed on {failed}")
+    return rows
+
+
+def phase_moe_layer_kernels(torch, device, timer):
+    """``ffn_rows`` at the layer's chunk shape (chunk 0's received slot
+    table at world size 1: n = 2048, d 512, d_ff 2048) and at ragged n
+    (2047, 37) against its plain version at ``FFN_TOL``; the erf gelu control
+    must be rejected and two launches must give the same bits; the kernel's,
+    the plain version's and the ``matmul -> gelu -> matmul`` three-call times
+    beside the bound."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from tenzing_tpu_torch.models.moe import MoEArgs, make_moe_buffers
+    from tenzing_tpu_torch.ops import ffn_kernels as fk
+
+    a = MoEArgs(**MOE_LAYER)
+    bufs, _, _ = make_moe_buffers(a, seed=0)
+    idx = torch.from_numpy(bufs["disp_idx_0"][0].reshape(-1)).long()
+    x0 = torch.from_numpy(bufs["X"][:a.chunk_tokens])[idx].contiguous().to(device)
+    w1 = torch.from_numpy(bufs["W1"][0].astype(np.float32)).to(device)
+    w2 = torch.from_numpy(bufs["W2"][0].astype(np.float32)).to(device)
+    del bufs
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+
+    def rand_case(n):
+        return torch.randn(n, a.d_model, device=device, generator=gen), w1, w2
+
+    cases = [("chunk", (x0, w1, w2)), ("ragged-n2047", rand_case(2047)),
+             ("ragged-n37", rand_case(37))]
+    rows, failed = [], []
+    for label, (x, cw1, cw2) in cases:
+        n, d = x.shape
+        dff = cw1.shape[1]
+        got = fk.ffn_rows(x, cw1, cw2)
+        again = fk.ffn_rows(x, cw1, cw2)
+        want = fk.ffn_rows_plain(x, cw1, cw2)
+        ctl = fk.ffn_rows_plain(x, cw1, cw2, approximate="none")
+        torch.cuda.synchronize()
+        flops, nbytes = fk.ffn_flops(1, n, d, dff), fk.ffn_bytes(1, n, d, dff)
+        bound, bound_by = attn_bound(nbytes, flops, bf16=False)
+        row = {"phase": "moe_layer_kernels", "case": label, "kernel": "ffn_rows",
+               "shape": [n, d, dff], "tolerance": fk.FFN_TOL,
+               "max_abs_err": float((got - want).abs().max()),
+               "within_tol": bool(torch.allclose(got, want, **fk.FFN_TOL)),
+               "deterministic": bool(torch.equal(got, again)),
+               "finite": bool(torch.isfinite(got).all()),
+               "erf_control_max_abs_err": float((ctl - want).abs().max()),
+               "erf_control_rejected": not torch.allclose(ctl, want,
+                                                           **fk.FFN_TOL),
+               "y_max_abs": float(want.abs().max()),
+               "flops": flops, "bytes": nbytes,
+               "bound_ms": bound, "bound_by": bound_by}
+        del again, ctl
+        if label == "chunk":
+            row.update({
+                "ms": timer.ms(lambda: fk.ffn_rows(x, cw1, cw2, out=got)),
+                "plain_ms": timer.ms(lambda: fk.ffn_rows_plain(x, cw1, cw2)),
+                # no single PyTorch call computes the function: three calls
+                "library_calls_ms": timer.ms(lambda: torch.matmul(F.gelu(
+                    torch.matmul(x, cw1), approximate="tanh"), cw2)),
+                "library_calls": "torch.matmul -> gelu(tanh) -> torch.matmul"})
+        emit(row)
+        rows.append(row)
+        if not (row["within_tol"] and row["deterministic"] and row["finite"]
+                and row["erf_control_rejected"]):
+            failed.append(label)
+        del got, want
+    del cases, x0, w1, w2
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"moe layer kernels phase failed on {failed}")
+    return rows
+
+
+def _drop_expert(torch, y, bufs, a, expert: int = 0):
+    """The control: the gathered Y with every token routed to ``expert``
+    zeroed, as if that expert's output were dropped."""
+    out = y.clone()
+    t, tc = a.tokens_per_shard, a.chunk_tokens
+    for c in range(a.n_chunks):
+        idx, w = bufs[f"disp_idx_{c}"], bufs[f"disp_w_{c}"]
+        for s in range(a.n_ep):
+            rows = s * t + c * tc + idx[s, expert][w[s, expert] > 0]
+            out[torch.from_numpy(rows.astype("int64")).to(out.device)] = 0.0
+    return out
+
+
+def phase_moe_layer(torch, device, timer):
+    """The expert-parallel MoE layer (models/moe.py) at full width on a
+    world-size-1 NCCL group initialised here through a ``file://``
+    rendezvous and torn down at the end: the dryrun's agreement protocol
+    (parallel/dryrun.py: an all-.xla, an all-.pallas and a mixed schedule,
+    Y within ``dryrun.Y_TOL`` of the float64 expected, ``ffn_rows`` launched
+    by the .pallas ones), a control with expert 0's output dropped that
+    must be rejected, the self all-to-all's time per chunk, and a short
+    ``explore`` through ``DistControlPlane``.  Returns the launch counts of
+    the agreement and the search."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from tenzing_tpu_torch.models.moe import MoEArgs, make_moe_buffers
+    from tenzing_tpu_torch.parallel import dryrun
+    from tenzing_tpu_torch.parallel.control_plane import DistControlPlane
+    from tenzing_tpu_torch.parallel.mesh import close_mesh, control_group, init_mesh
+
+    t0 = time.time()
+    a = MoEArgs(**MOE_LAYER)
+    torch.cuda.set_device(device)
+    with tempfile.TemporaryDirectory(prefix="tz_moe_layer_") as d:
+        mesh = init_mesh("ep", "nccl", "file://" + os.path.join(d, "rv"), 0, 1)
+        try:
+            cp = DistControlPlane(control_group())
+            layer = dryrun.build_layer(mesh, device, a, seed=0,
+                                       impl_choice=True)
+            setup_s = time.time() - t0
+            reset_launches()
+            rows, orders = dryrun.agree_schedules(layer, cp)
+            search = dryrun.explore_layer(layer, cp, MOE_LAYER_ITERS)
+            launches = all_launches()
+            for r in rows:
+                emit({"phase": "moe_layer", "y_tolerance": dryrun.Y_TOL, **r})
+            pallas = next(o for o, r in zip(orders, rows)
+                          if set(r["ffn_slots"]) == {".pallas"})
+            y = dryrun.run_gathered(layer, pallas)
+            bufs, _, _ = make_moe_buffers(a, seed=0)
+            ctl = _drop_expert(torch, y, bufs, a)
+            del bufs
+            ctl_ok = bool(torch.allclose(ctl, layer.want, **dryrun.Y_TOL))
+            # the exchange of one chunk's slot table, as the layer posts it,
+            # beside a plain device copy of the same bytes
+            ex_bufs = layer.executor.init_bufs
+            src, dst = ex_bufs["send_disp_0"], ex_bufs["recv_disp_0"]
+            group = mesh.group("ep")
+            a2a_ms = timer.ms(lambda: dist.all_to_all_single(dst, src,
+                                                             group=group))
+            copy_ms = timer.ms(lambda: dst.copy_(src))
+            nbytes = 2 * src.numel() * src.element_size()
+            row = {"phase": "moe_layer_summary", "args": MOE_LAYER,
+                   "schedules": len(rows),
+                   "dropped_expert_control": {
+                       "max_abs_err": float((ctl - layer.want).abs().max()),
+                       "within_tol": ctl_ok},
+                   "self_a2a_per_chunk_ms": a2a_ms, "copy_per_chunk_ms": copy_ms,
+                   "a2a_bytes": nbytes, "a2a_bound_ms": bound_ms(nbytes),
+                   "explore": {k: v for k, v in search.items() if k != "pct50_s"},
+                   "explore_pct50_s": search["pct50_s"],
+                   "launches": launches, "setup_s": round(setup_s, 3),
+                   "wall_s": round(time.time() - t0, 3)}
+            emit(row)
+            del layer, y, ctl, src, dst, ex_bufs
+        finally:
+            close_mesh()
+    torch.cuda.empty_cache()
+    if ctl_ok:
+        raise AssertionError("the dropped-expert control passed the Y "
+                             "tolerance")
+    if launches["ffn_rows"] <= 0:
+        raise AssertionError("the moe layer never launched ffn_rows")
+    if search["rollouts"] < 1:
+        raise AssertionError(f"the moe layer search measured nothing: {search}")
+    return launches, rows, row
+
+
 def phase_dfs_example(torch):
     """The DFS example at the reference's size with a small cap."""
     import contextlib
@@ -1867,8 +2146,18 @@ def main() -> int:
           "wall_s": round(time.time() - t0, 3)})
     del want_y, want_o
     t0 = time.time()
+    sync_rows = phase_host_syncs(torch, device)
+    emit({"phase": "host_syncs", "rows": len(sync_rows), "all_bit_equal": True,
+          "wall_s": round(time.time() - t0, 3)})
+    t0 = time.time()
     chunk_launches = phase_chunk_driver(torch, device)
     emit({"phase": "chunk_driver", "wall_s": round(time.time() - t0, 3)})
+
+    t0 = time.time()
+    layer_rows = phase_moe_layer_kernels(torch, device, timer)
+    emit({"phase": "moe_layer_kernels", "rows": len(layer_rows),
+          "all_within_tol": True, "wall_s": round(time.time() - t0, 3)})
+    layer_launches, _, layer_summary = phase_moe_layer(torch, device, timer)
 
     t0 = time.time()
     spmv_rows = phase_spmv_kernels(torch, device, timer)
@@ -1973,6 +2262,24 @@ def main() -> int:
         "library_calls": full["library_calls"],
         "work": f"one chunk's expert MLP: {e} experts x {c} slots, d {d}, "
                 f"d_ff {dff}, f32",
+    })
+    # the MoE layer's .pallas expert MLP at one chunk's shape
+    lrow = next(r for r in layer_rows if r["case"] == "chunk")
+    n, d, dff = lrow["shape"]
+    kernels.append({
+        "name": "ffn_rows", "route": "cuda",
+        "source": "tenzing_tpu_torch/csrc/ffn_rows.cu",
+        "replaces": "tenzing_tpu/ops/ffn_pallas.py:43",
+        "launches": layer_launches["ffn_rows"],
+        "max_abs_err": max(r["max_abs_err"] for r in layer_rows),
+        "ms": lrow["ms"], "plain_ms": lrow["plain_ms"],
+        "bound_ms": lrow["bound_ms"], "bound_by": lrow["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes it
+        "library_calls_ms": lrow["library_calls_ms"],
+        "library_calls": lrow["library_calls"],
+        "work": f"one chunk's expert MLP of the MoE layer at world size 1: "
+                f"n {n}, d {d}, d_ff {dff}, f32",
+        "self_a2a_per_chunk_ms": layer_summary["self_a2a_per_chunk_ms"],
     })
     # the SpMV kernel at the --m 8192 path's spmv_remote shapes
     main_row = next(r for r in spmv_rows if r["case"].startswith("m8192"))

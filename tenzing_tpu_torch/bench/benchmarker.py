@@ -19,8 +19,12 @@ Each measurement is ``wall(run_n(n)) - fence_overhead``: the executor's
 ``torch.cuda.synchronize()``, and the overhead is the median wall time of a
 synchronize after one trivial launch (:meth:`EmpiricalBenchmarker._fetch_overhead`).
 
-The control plane is a single-process stand-in: the reference's barrier before
-each measurement and max-reduction across hosts are the identity here.
+The control plane (parallel/control_plane.py) brackets each measurement as
+the reference's does (tenzing_tpu/bench/benchmarker.py:163-170; original
+tenzing benchmarker.cpp:43-60, 101, 145): a barrier before it, and the time
+is the max over ranks, so every rank of a mesh schedule takes the same
+decisions (sample growth, the runs test) and returns the same times.  At
+world size 1 both are the identity.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from typing import Callable, List, Optional, Tuple
 
 from tenzing_tpu_torch.bench.randomness import is_random
 from tenzing_tpu_torch.core.sequence import Sequence, canonical_key
+from tenzing_tpu_torch.parallel.control_plane import ControlPlane, default_control_plane
 from tenzing_tpu_torch.utils.numeric import percentile, stddev
 
 
@@ -74,10 +79,13 @@ class EmpiricalBenchmarker:
 
     ``runner`` is the stream executor (runtime/executor.py): ``prepare_n(order)``
     returns ``run_n(n)``, which runs the schedule n times and returns once the
-    device has finished.  ``runner.device`` says where it runs."""
+    device has finished.  ``runner.device`` says where it runs.
+    ``control_plane`` defaults to ``default_control_plane()``."""
 
-    def __init__(self, runner):
+    def __init__(self, runner, control_plane: Optional[ControlPlane] = None):
         self.runner = runner
+        self.cp = (control_plane if control_plane is not None
+                   else default_control_plane())
         self._overhead: Optional[float] = None
 
     def _fetch_overhead(self) -> float:
@@ -116,10 +124,13 @@ class EmpiricalBenchmarker:
         overhead; returns (secs-per-sample, possibly-grown n_samples)."""
         overhead = self._fetch_overhead()
         while True:
+            self.cp.barrier()
             t0 = time.perf_counter()
             run_n(n_samples)
             wall = time.perf_counter() - t0
-            elapsed = wall - overhead
+            elapsed = self.cp.allreduce_max(wall - overhead)
+            # the growth below must agree across ranks too
+            wall = self.cp.allreduce_max(wall)
             if elapsed >= opts.target_secs:
                 return elapsed / n_samples, n_samples
             # growth ratio from the raw wall time: overhead subtraction can

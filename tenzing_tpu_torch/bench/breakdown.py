@@ -10,8 +10,9 @@ the stream executor (halo: naive, greedy host 8 lanes, greedy rdma 2 lanes,
 alias 8 lanes; attn: naive all-``.xla``, the ``.pallas_bf16`` chain, the
 fused kernel in f32 and bf16, and naive lowered into one ``fused_region``
 kernel at one tile; moe on 2 lanes: naive, greedy overlap, greedy
-bf16 and f32 device copy, and the bf16 device-copy order with every expert
-MLP on the ``ffn_batched`` kernel; spmv on 2 lanes: naive and the overlap
+bf16 and f32 device copy, the bf16 device-copy order with every expert
+MLP on the ``ffn_batched`` kernel, and the f32 host-staged order with every
+expert MLP unchunked and chunked 2 and 4 ways; spmv on 2 lanes: naive and the overlap
 order at m=150000, each also lowered into ``fused_region`` kernels at one
 tile, and naive and the all-kernel order at m=8192), and prints one JSON
 line per schedule:
@@ -23,6 +24,7 @@ line per schedule:
   separate run;
 * ``idle_share`` — 1 - busy / wall over that traced run: how much of the
   iteration the card waits on the host;
+* ``host_syncs_per_iter`` — the host blocks one iteration executed;
 * ``top`` — device time per activity name, per iteration.
 
 The card's name and power limit lead the output.  It needs a CUDA device.
@@ -78,32 +80,41 @@ def _union(spans: List[Tuple[float, float]]) -> float:
     return total
 
 
-def _measure(workload: str, ex, orders) -> None:
-    """One JSON line per order: wall and device-busy time per iteration."""
+def measure(ex, order, iters: int = ITERS) -> dict:
+    """Wall and device-busy time per iteration of one order on ``ex`` (a
+    StreamExecutor or a FusedExecutor over one), and the host blocks each
+    iteration executed (``RunContext.host_syncs``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    for label, order in orders.items():
-        run_n = ex.prepare_n(order)
-        run_n(5)
+    ctx = getattr(ex, "inner", ex).ctx
+    run_n = ex.prepare_n(order)
+    run_n(5)
+    syncs0 = ctx.host_syncs
+    t0 = time.perf_counter()
+    run_n(iters)
+    wall = (time.perf_counter() - t0) / iters
+    syncs = (ctx.host_syncs - syncs0) / iters
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_n(ITERS)
-        wall = (time.perf_counter() - t0) / ITERS
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run_n(ITERS)
-            traced_wall = (time.perf_counter() - t0) / ITERS
-        spans, by_name = _device_intervals(prof)
-        busy = _union(spans) / ITERS  # us per iteration
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        print(json.dumps({
-            "workload": workload, "order": label, "ops": len(order),
-            "wall_us": wall * 1e6, "traced_wall_us": traced_wall * 1e6,
+        run_n(iters)
+        traced_wall = (time.perf_counter() - t0) / iters
+    spans, by_name = _device_intervals(prof)
+    busy = _union(spans) / iters  # us per iteration
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"ops": len(order), "wall_us": wall * 1e6,
+            "traced_wall_us": traced_wall * 1e6,
             "device_busy_us": busy if spans else None,
             "idle_share": (1.0 - busy / (traced_wall * 1e6)) if spans else None,
-            "device_activities": len(spans),
-            "top": {name: us / ITERS for name, us in top},
-        }), flush=True)
+            "device_activities": len(spans), "host_syncs_per_iter": syncs,
+            "top": {name: us / iters for name, us in top}}
+
+
+def _measure(workload: str, ex, orders) -> None:
+    """One JSON line per order: wall and device-busy time per iteration."""
+    for label, order in orders.items():
+        print(json.dumps({"workload": workload, "order": label,
+                          **measure(ex, order)}), flush=True)
 
 
 def _halo(dev) -> None:
@@ -164,6 +175,7 @@ def _moe(dev) -> None:
     from tenzing_tpu_torch.bench.driver import DriverRequest, moe_args
     from tenzing_tpu_torch.core.platform import Platform
     from tenzing_tpu_torch.models.moe_pipeline import (
+        chunked_orders,
         fixed_orders,
         host_buffer_names,
         make_pipe_buffers,
@@ -180,6 +192,8 @@ def _moe(dev) -> None:
     _measure("moe", ex, {label: orders[label][0] for label in (
         "naive", "greedy-overlap", "greedy-bf16-rdma", "greedy-f32-rdma",
         "pallas-bf16-rdma")})
+    chunked, _ = chunked_orders(args, cap)
+    _measure("moe", ex, {f"f32-host-xla-{k}": v for k, v in chunked.items()})
 
 
 def _spmv(dev) -> None:

@@ -83,6 +83,13 @@ CHUNK_DISPATCH_US = 25.1
 # 48.70 GB/s on an H100 SXM (chip_smoke.py, phase ``chunk``; PERF.md).  It
 # prices the neighbouring transfer a chunking could hide.
 XFER_GBS = 48.7
+# The rate an expert-parallel all-to-all moves a rank's slot table at (the MoE
+# layer's combine exchange, models/moe.py ``ffn_chunk_menu``; the reference
+# priced it at a v5e's ICI rate, which does not carry over): the H100's
+# NVLink, 450 GB/s each way per card (NVIDIA data sheet: 900 GB/s
+# bidirectional).  Unmeasured across cards: every record shows one card, where
+# the exchange is a self-copy.
+EXCHANGE_GBS = 450.0
 # Menu cap on chunk counts: the reference's rule (beyond 4 partials the added
 # dispatches dominate), not measured on the card.
 MENU_CHUNK_CAP = 4

@@ -678,3 +678,29 @@ def fixed_orders(args: MoEPipeArgs, cap: int,
     orders["pallas-f32-rdma"] = (all_pallas(".f32-rdma"), choice_g)
     orders["pallas-bf16-rdma"] = (all_pallas(".bf16-rdma"), choice_g)
     return orders
+
+
+def chunked_orders(args: MoEPipeArgs, cap: int, chain: str = ".f32-host"
+                   ) -> Tuple[Dict[str, Sequence], Graph]:
+    """({"c<n>": order} for n = 1, 2, 4, the graph) of the choice graph on
+    2 lanes with every chain on ``chain`` and every expert MLP on ``.xla``
+    (n = 1) or its ``n``-way chunked expansion, every other decision the
+    phase policy's: the
+    chunked and unchunked orders ``chip_smoke.py`` and the breakdown hold
+    side by side (chunk menus unpruned)."""
+    from tenzing_tpu_torch.core.platform import Platform
+    from tenzing_tpu_torch.solve.local import drive, phase_policy
+
+    plat = Platform.make_n_lanes(2)
+    g = build_graph(args, cap, impl_choice=True, staging="choice", chunk=True,
+                    chunk_relax=True)
+    orders = {}
+    for n in (1, 2, 4):
+        ffn = ".xla" if n == 1 else f".xla.chunked.c{n}"
+
+        def prefer(op_name, choices, ffn=ffn):
+            want = chain if op_name.startswith("chain_") else ffn
+            return next((c for c in choices if c.endswith(want)), None)
+
+        orders[f"c{n}"] = drive(g, plat, phase_policy(plat, PHASES, prefer))[0]
+    return orders, g

@@ -19,8 +19,11 @@ The host round trip posts the spill and the fetch on the SAME channel, so the
 fetch never reads the pinned host buffer before the spill has written it: the
 graph has no await between them (on the TPU the order came from SSA).
 
-The mesh collectives (``PermuteStart``, ``AllToAllStart``, ``PsumStart``) come
-with the multi-device slice.
+A **collective** start (``AllToAllStart``) is posted the same way, over the
+``torch.distributed`` process group of its mesh axis
+(``RunContext.post_collective``): the work it returns is in flight until its
+AwaitTransfer, which blocks the host until it has finished.
+``PermuteStart`` and ``PsumStart`` are not ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -130,3 +133,49 @@ class MultiAwait(CpuOp):
 
     def to_json(self) -> Dict[str, Any]:
         return {"kind": self.KIND, "name": self.name(), "bufs": list(self._bufs)}
+
+
+@register_kind("all_to_all_start")
+class AllToAllStart(CommStart):
+    """Post a width-padded all-to-all of ``src`` into ``dst`` over mesh axis
+    ``axis`` (reference ``AllToAllStart``, tenzing_tpu/ops/comm_ops.py:164;
+    the original tenzing's ``Ialltoallv``, ops_mpi.hpp:82-119).  The per-rank
+    buffers' ``split_axis`` indexes the peer rank: ``dst``'s block q is what
+    rank q sent here.  For ``split_axis=0`` that is
+    ``dist.all_to_all_single(dst, src, group, async_op=True)``; other split
+    axes are not on a ported path and raise."""
+
+    def __init__(self, name: str, src: str, dst: str, axis: str,
+                 split_axis: int = 1):
+        super().__init__(name, src, dst)
+        self._axis = axis
+        self._split = int(split_axis)
+
+    def axis(self) -> str:
+        return self._axis
+
+    def split_axis(self) -> int:
+        return self._split
+
+    def execute(self, ctx) -> None:
+        ctx.post_collective(self)
+
+    def apply(self, bufs: Dict[str, Any], ctx) -> None:
+        raise TypeError(f"{self.name()}: a collective is posted through "
+                        "RunContext.post_collective, not applied")
+
+    def launch(self, bufs: Dict[str, Any], group):
+        """Start the exchange on the current stream; returns its work."""
+        import torch.distributed as dist
+
+        if self._split != 0:
+            raise NotImplementedError(
+                f"not yet ported: all_to_all_start with split_axis="
+                f"{self._split} ({self.name()})")
+        return dist.all_to_all_single(bufs[self._dst], bufs[self._src],
+                                      group=group, async_op=True)
+
+    def to_json(self) -> Dict[str, Any]:
+        j = super().to_json()
+        j.update(axis=self._axis, split_axis=self._split)
+        return j

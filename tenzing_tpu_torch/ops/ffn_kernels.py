@@ -1,11 +1,15 @@
-"""The per-expert gelu MLP of the MoE pipeline: ``ffn_batched``.
+"""The gelu MLPs of the MoE models: ``ffn_batched`` and ``ffn_rows``.
 
-Counterpart of ``tenzing_tpu/ops/ffn_pallas.py``'s ``ffn_pallas_batched``
-(its body ``_ffn_batched_kernel``)::
+``ffn_batched`` is the counterpart of ``tenzing_tpu/ops/ffn_pallas.py``'s
+``ffn_pallas_batched`` (its body ``_ffn_batched_kernel``), the per-expert
+MLP of the MoE pipeline::
 
     y[e] = gelu_tanh(x[e] @ W1[e]) @ W2[e]
 
-for x (E, C, d), W1 (E, d, dff), W2 (E, dff, d), accumulated in float32.  The
+for x (E, C, d), W1 (E, d, dff), W2 (E, dff, d), accumulated in float32.
+``ffn_rows`` is the counterpart of ``ffn_pallas`` (its body ``_ffn_kernel``),
+the ``.pallas`` expert slot of the expert-parallel MoE layer
+(models/moe.py): the same MLP over one token matrix x (n, d) of any n.  The
 gelu is the tanh form, ``jax.nn.gelu``'s default (``approximate="tanh"`` in
 PyTorch).
 
@@ -13,14 +17,18 @@ On Hopper it is hand-written CUDA (csrc/ffn_expert.cu): the hidden-tile loop
 runs inside the thread block with the output sum in registers, each gelu tile
 lives in shared memory only, and the hidden dimension is split over a thread
 block cluster whose blocks sum their partials over distributed shared memory,
-so 8 experts of 304 slots still fill the card.  The kernel is instantiated
-for d = 512 (the reference's ``MoEPipeArgs``) and takes float32 only: the
-pipe converts a bf16-staged chain to float32 before the MLP, as the
-reference does.
+so 8 experts of 304 slots still fill the card.  ``ffn_rows``
+(csrc/ffn_rows.cu) runs the same tile body (csrc/ffn_tile.cuh) over row
+tiles of one matrix, masking a ragged n in the kernel.  The kernels are
+instantiated for d = 512 (the reference's ``MoEPipeArgs`` and the MoE
+layer's slice configuration) and take float32 only: the pipe converts a
+bf16-staged chain to float32 before the MLP, as the reference does, and a
+bf16 x for ``ffn_rows`` (the reference casts h to x's dtype between the
+products) raises ``TypeError`` (ROADMAP Queue 2).
 
-``ffn_batched`` launches the kernel for CUDA tensors and runs
-:func:`ffn_batched_plain` for CPU tensors; there is no other path.
-``LAUNCHES["ffn_batched"]`` counts kernel launches.
+Each wrapper launches its kernel for CUDA tensors and runs its plain version
+(:func:`ffn_batched_plain`, :func:`ffn_rows_plain`) for CPU tensors; there
+is no other path.  ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -33,9 +41,9 @@ from tenzing_tpu_torch.ops import kernel_lib
 
 # kernel launches (CUDA path only; the plain version and CPU tensors do not
 # count)
-LAUNCHES = {"ffn_batched": 0}
+LAUNCHES = {"ffn_batched": 0, "ffn_rows": 0}
 
-# d_model values the CUDA kernel is instantiated for (csrc/ffn_expert.cu)
+# d_model values the CUDA kernels are instantiated for (csrc/ffn_tile.cuh)
 KERNEL_D_MODELS = (512,)
 
 # y against the plain version: both sum in float32 over d and then d_ff
@@ -118,4 +126,74 @@ def ffn_batched(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
         dff, torch.cuda.current_stream(x.device).cuda_stream)
     kernel_lib.check_launch("ffn_batched", err)
     LAUNCHES["ffn_batched"] += 1
+    return out
+
+
+# -- ffn_rows: one token matrix (the MoE layer's .pallas slot) ---------------
+
+
+def ffn_rows_plain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                   approximate: str = "tanh") -> torch.Tensor:
+    """The plain PyTorch version of :func:`ffn_rows`: two matmuls around the
+    tanh gelu (returns a new tensor).  ``approximate="none"`` (the erf gelu)
+    is a deliberately wrong control for the tests and the chip smoke."""
+    h = torch.nn.functional.gelu(torch.matmul(x, w1), approximate=approximate)
+    return torch.matmul(h, w2)
+
+
+def _check_rows(x, w1, w2, out) -> None:
+    if x.dtype == torch.bfloat16:
+        raise TypeError("ffn_rows: a bfloat16 x is not ported yet (the "
+                        "reference casts h to x's dtype; ROADMAP Queue 2)")
+    ts = {"x": x, "w1": w1, "w2": w2, "out": out}
+    for key, t in ts.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"ffn_rows: {key} must be float32 (got {t.dtype})")
+        if t.device != x.device:
+            raise ValueError(f"ffn_rows: {key} on {t.device}, x on {x.device}")
+        if t.dim() != 2:
+            raise ValueError(f"ffn_rows: {key} must be 2D")
+        if not t.is_contiguous():
+            raise ValueError(f"ffn_rows: {key} must be contiguous")
+    n, d = x.shape
+    dff = w1.shape[1]
+    if w1.shape != (d, dff) or w2.shape != (dff, d):
+        raise ValueError(f"ffn_rows: w1 {tuple(w1.shape)} / w2 "
+                         f"{tuple(w2.shape)} do not match x {tuple(x.shape)}")
+    if out.shape != x.shape:
+        raise ValueError(f"ffn_rows: out {tuple(out.shape)} must be x's "
+                         f"shape {tuple(x.shape)}")
+    if n < 1 or dff < 1:
+        raise ValueError(f"ffn_rows: empty call (n={n}, dff={dff})")
+
+
+def ffn_rows(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out = gelu_tanh(x @ w1) @ w2`` on the current stream: the
+    ``tz_ffn_rows`` kernel for CUDA tensors, :func:`ffn_rows_plain` for CPU
+    tensors.  Writes into ``out`` (allocated when None) and returns it;
+    ``out`` must not overlap x."""
+    if out is None:
+        out = torch.empty_like(x)
+    _check_rows(x, w1, w2, out)
+    if x.device.type == "cpu":
+        out.copy_(ffn_rows_plain(x, w1, w2))
+        return out
+    if x.device.type != "cuda":
+        raise ValueError(f"ffn_rows: unsupported device {x.device}")
+    n, d = x.shape
+    dff = w1.shape[1]
+    if d not in KERNEL_D_MODELS:
+        raise ValueError(f"ffn_rows: d_model {d} has no kernel "
+                         f"instantiation (have {KERNEL_D_MODELS})")
+    if dff % 4:
+        raise ValueError(f"ffn_rows: d_ff {dff} must be a multiple of 4 "
+                         "(16-byte rows)")
+    if any(t.data_ptr() % 16 for t in (x, w1, w2, out)):
+        raise ValueError("ffn_rows: pointers must be 16-byte aligned")
+    err = kernel_lib.lib().tz_ffn_rows(
+        x.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(), n, d, dff,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    kernel_lib.check_launch("ffn_rows", err)
+    LAUNCHES["ffn_rows"] += 1
     return out

@@ -28,8 +28,8 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tenzing_tpu_torch"
 SOURCES = ("halo_pack.cu", "halo_unpack.cu", "device_copy.cu", "attn_fold.cu",
-           "ffn_expert.cu", "ell_spmv.cu", "fused_region.cu")
-HEADERS = ("attn_fold_f32.cuh",)  # included by the sources above
+           "ffn_expert.cu", "ffn_rows.cu", "ell_spmv.cu", "fused_region.cu")
+HEADERS = ("attn_fold_f32.cuh", "ffn_tile.cuh")  # included by the sources above
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -48,6 +48,8 @@ SIGNATURES = {
     + [ctypes.c_float, _c_i64, _c_ptr],
     # x, w1, w2, y; e, c, d, dff; stream
     "tz_ffn_batched": [_c_ptr] * 4 + [_c_i64] * 4 + [_c_ptr],
+    # x, w1, w2, y; n, d, dff; stream
+    "tz_ffn_rows": [_c_ptr] * 4 + [_c_i64] * 3 + [_c_ptr],
     # vals, cols, x, y; m, w, n; stream
     "tz_ell_spmv": [_c_ptr] * 4 + [_c_i64] * 3 + [_c_ptr],
     # descriptor table (host), barrier counters; blocks per group; stream

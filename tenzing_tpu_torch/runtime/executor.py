@@ -27,9 +27,38 @@ would be a use-after-free waiting to happen.)  Host buffers must be pinned: a
 non-blocking copy from pageable memory is silently synchronous and would hide
 the overlap the search measures.
 
+**Host syncs that no host work needs are deferred.**  The synchronizer puts
+an ``EventRecord`` / ``EventSync`` pair before every host op with a device
+op among its graph predecessors, also before the host ops that touch no
+buffer: the chunk directive (core/chunking.py ``ChunkDirective``) of an op
+whose predecessor is a device op, as in attention's fold chain.  On the TPU these syncs are value ties that
+cost nothing; a blocking ``event.synchronize()`` before every chunked block
+would cost the port a host round trip the reference does not pay.  So an
+``EventSync`` does not block when it runs: its event stays *pending*, and
+
+* before each later device op, each of the op's lane streams waits on every
+  pending event (``stream.wait_event``);
+* before each later host op that reads or writes a buffer (a transfer post
+  or await among them), the host waits on every pending event;
+* at the end of the schedule, the host waits on every pending event.
+
+A host op that touches no buffer cannot observe the device, and every later
+op is ordered after the event as before, so this is sound; the schedule JSON
+and the synchronizer's output are unchanged.  ``defer_host_syncs=False``
+blocks at every ``EventSync`` instead (the before/after measurement of
+``chip_smoke.py``'s ``host_syncs`` phase).  ``RunContext.host_syncs`` counts the
+host blocks executed.
+
+**Collectives** (``AllToAllStart``, ops/comm_ops.py) are posted like a
+transfer: on the channel's transfer stream, over the process group of the
+platform mesh's axis (core/platform.py ``Mesh``), with ``async_op=True``;
+the returned work is in flight until its ``AwaitTransfer``, which blocks the
+host until it has finished, on NCCL as on gloo.  Each rank runs the same
+schedule on its own shard of the buffers (parallel/mesh.py).
+
 ``prepare_n`` runs the schedule n times back to back on the persistent
 streams and synchronizes the device once; there is no CUDA-graph capture,
-since EventSync, LaneSync and AwaitTransfer block the host.
+since LaneSync, AwaitTransfer and the host ops' pending syncs block the host.
 
 With ``device="cpu"`` — only when asked, as the tests do — sync ops are no-ops
 and ops run in sequence order, so outputs stay checkable without a card.
@@ -48,6 +77,7 @@ from tenzing_tpu_torch.core.platform import Platform
 from tenzing_tpu_torch.core.resources import Event, Lane
 from tenzing_tpu_torch.core.sequence import Sequence
 from tenzing_tpu_torch.core.serdes import sequence_to_json_str
+from tenzing_tpu_torch.core.sync_ops import EventRecord, SyncOp
 
 
 def resolve_device(device: Optional[str] = None) -> torch.device:
@@ -111,21 +141,53 @@ def _copy_buffers(bufs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
+class _Collective:
+    """An in-flight collective: its ``async_op`` work and, on CUDA, the
+    transfer stream it was posted under."""
+
+    def __init__(self, work, stream):
+        self.work, self.stream = work, stream
+
+    def wait(self, event) -> None:
+        """Block the host until the collective has finished.  On gloo
+        ``work.wait()`` blocks; on NCCL it only makes the current stream
+        wait, so it is issued on the transfer stream and the host then waits
+        on an event recorded there."""
+        if self.stream is None:
+            self.work.wait()
+            return
+        with torch.cuda.stream(self.stream):
+            self.work.wait()
+        event.record(self.stream)
+        event.synchronize()
+
+
 class RunContext:
     """What ops see while a schedule runs: the buffers, the scratch, the lane
     and transfer streams, the events, and the in-flight transfers.  Owned by
     one :class:`StreamExecutor`; the streams and events live as long as it."""
 
-    def __init__(self, device: torch.device, plain_kernels: bool = False):
+    def __init__(self, device: torch.device, plain_kernels: bool = False,
+                 mesh=None, defer_host_syncs: bool = True):
         self.device = device
         self.on_cuda = device.type == "cuda"
         # True: every kernel wrapper is replaced by its plain PyTorch version
         # (the reference run that chip_smoke.py compares the kernels with)
         self.plain_kernels = plain_kernels
+        # the platform's mesh (core/platform.py Mesh): collectives' groups
+        self.mesh = mesh
+        self.defer_host_syncs = defer_host_syncs
         self.bufs: Dict[str, torch.Tensor] = {}
         self.scratch: Dict[str, torch.Tensor] = {}
         self.host_names: set = set()
         self.inflight: Dict[str, Any] = {}
+        # events of EventSyncs not waited on yet, and the (lane, event)
+        # stream waits already issued for them (module docstring)
+        self.pending: List[Event] = []
+        self._pending_waited: set = set()
+        # host blocks executed: an EventSync that blocks, a flush of the
+        # pending ones, a LaneSync, an AwaitTransfer
+        self.host_syncs = 0
         self._lanes: Dict[int, Any] = {}
         self._events: Dict[int, Any] = {}
         self._channels: Dict[str, Any] = {}
@@ -156,6 +218,39 @@ class RunContext:
             e = self._post_events[dst] = torch.cuda.Event()
         return e
 
+    # -- running one op -------------------------------------------------
+    def run(self, op: OpBase) -> None:
+        """Execute ``op``, first settling the pending host syncs it depends
+        on (module docstring): a device op's lanes wait on them, a host op
+        that touches a buffer waits for them on the host."""
+        if self.pending:
+            if isinstance(op, BoundDeviceOp):
+                for lane in op.lanes():
+                    self.wait_pending(lane)
+            elif isinstance(op, EventRecord):
+                if any(e.id == op.event().id for e in self.pending):
+                    self.flush_pending()  # re-recording a pending event
+            elif not isinstance(op, SyncOp) and (op.reads() or op.writes()):
+                self.flush_pending()
+        op.execute(self)
+
+    def wait_pending(self, lane: Lane) -> None:
+        """Make ``lane``'s stream wait on every pending event."""
+        for e in self.pending:
+            if (lane.id, e.id) not in self._pending_waited:
+                self._pending_waited.add((lane.id, e.id))
+                self.wait_event(lane, e)
+
+    def flush_pending(self) -> None:
+        """Block the host on every pending event (one host sync)."""
+        if not self.pending:
+            return
+        self.host_syncs += 1
+        for e in self.pending:
+            self.host_wait_event(e)
+        self.pending = []
+        self._pending_waited = set()
+
     # -- op hooks ---------------------------------------------------------
     def run_default(self, op: OpBase) -> None:
         if self.on_cuda and isinstance(op, BoundDeviceOp):
@@ -185,6 +280,27 @@ class RunContext:
             ev.record(stream)
             self.inflight[dst] = ev
 
+    def post_collective(self, op) -> None:
+        """Post ``op``'s collective (``op.launch(bufs, group)``, which returns
+        the ``async_op`` work) over the process group of its mesh axis; on
+        CUDA under the channel's transfer stream, which NCCL's stream waits
+        on at the call.  The work is in flight until its await."""
+        dst = op.dst()
+        if dst in self.inflight:
+            raise RuntimeError(f"{op.name()}: a transfer into {dst!r} is "
+                               "already in flight")
+        if self.mesh is None:
+            raise RuntimeError(f"{op.name()}: a collective over axis "
+                               f"{op.axis()!r} needs a platform mesh")
+        group = self.mesh.group(op.axis())
+        if not self.on_cuda:
+            self.inflight[dst] = _Collective(op.launch(self.bufs, group), None)
+            return
+        stream = self.channel_stream(op.channel())
+        with torch.cuda.stream(stream):
+            work = op.launch(self.bufs, group)
+        self.inflight[dst] = _Collective(work, stream)
+
     def await_transfer(self, buf: str) -> None:
         """Block the host until the transfer into ``buf`` has landed.  A
         host-space buffer has nothing to await (the reference's
@@ -193,9 +309,13 @@ class RunContext:
             return
         if buf not in self.inflight:
             raise RuntimeError(f"await on {buf!r}: no transfer in flight")
-        ev = self.inflight.pop(buf)
-        if self.on_cuda:
-            ev.synchronize()
+        entry = self.inflight.pop(buf)
+        self.host_syncs += 1
+        if isinstance(entry, _Collective):
+            entry.wait(self._post_event(buf) if entry.stream is not None
+                       else None)
+        elif self.on_cuda:
+            entry.synchronize()
 
     def record_event(self, lane: Lane, event: Event) -> None:
         if self.on_cuda:
@@ -206,10 +326,22 @@ class RunContext:
             self.lane_stream(lane).wait_event(self.event(event))
 
     def sync_event_host(self, event: Event) -> None:
+        """The ``EventSync`` hook: the event becomes pending (module
+        docstring), or the host waits on it now with ``defer_host_syncs``
+        off."""
+        if not self.defer_host_syncs:
+            self.host_syncs += 1
+            self.host_wait_event(event)
+        elif all(e.id != event.id for e in self.pending):
+            self.pending.append(event)
+
+    def host_wait_event(self, event: Event) -> None:
+        """Block the host until ``event``'s snapshot has completed."""
         if self.on_cuda:
             self.event(event).synchronize()
 
     def sync_lane_host(self, lane: Lane) -> None:
+        self.host_syncs += 1
         if self.on_cuda:
             self.lane_stream(lane).synchronize()
 
@@ -240,13 +372,15 @@ class StreamExecutor:
     ``is_compiled``).
 
     ``init_bufs`` are the schedule's buffers, already placed
-    (:func:`buffers_from_numpy`); timed runs update them in place.  A copy of
+    (:func:`buffers_from_numpy`; on a mesh, this rank's shards from
+    parallel/mesh.py ``shard_buffers``); timed runs update them in place.  A copy of
     their initial contents is kept so :meth:`run` can start every validation
     run from the same state.  ``device`` defaults to ``cuda``.
     """
 
     def __init__(self, platform: Platform, init_bufs: Dict[str, torch.Tensor],
-                 device: Optional[str] = None, plain_kernels: bool = False):
+                 device: Optional[str] = None, plain_kernels: bool = False,
+                 defer_host_syncs: bool = True):
         self.platform = platform
         self.device = resolve_device(device)
         self.init_bufs = dict(init_bufs)
@@ -259,7 +393,9 @@ class StreamExecutor:
             elif t.device.type != self.device.type:
                 raise ValueError(f"buffer {name!r} is on {t.device}, the "
                                  f"executor on {self.device}")
-        self.ctx = RunContext(self.device, plain_kernels=plain_kernels)
+        self.ctx = RunContext(self.device, plain_kernels=plain_kernels,
+                              mesh=platform.mesh,
+                              defer_host_syncs=defer_host_syncs)
         self.ctx.host_names = {k for k, t in self.init_bufs.items()
                                if t.device.type == "cpu"
                                and self.device.type == "cuda"}
@@ -296,8 +432,10 @@ class StreamExecutor:
         ctx = self.ctx
         ctx.bufs = bufs
         ctx.inflight = {}
+        ctx.pending, ctx._pending_waited = [], set()
         for op in ops:
-            op.execute(ctx)
+            ctx.run(op)
+        ctx.flush_pending()
         if ctx.inflight:
             raise ValueError(
                 "schedule ended with un-awaited transfers into "

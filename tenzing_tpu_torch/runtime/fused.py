@@ -394,7 +394,7 @@ class FusedRegionOp(BoundDeviceOp):
 
     def execute(self, ctx) -> None:
         if not ctx.on_cuda:
-            self.apply(ctx.bufs, ctx)
+            ctx.run_default(self)
             return
         import torch
 

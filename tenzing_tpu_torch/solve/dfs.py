@@ -10,11 +10,14 @@ results.
 The port enumerates with the Python worklist (:func:`_dfs_terminals`).  The
 reference's native C++ enumerator (``tenzing_tpu/native``) has the same cap
 semantics (unique terminals count against ``max_seqs``), so the terminal set
-is the same; a port of it comes later.  The port runs in one process, so the
-reference's broadcast protocol is the identity, and a measurement that raises
-propagates (as in the port's MCTS: on CUDA no compile step can legitimately
-fail).  Not ported yet, and refused when set: the learned ``prescreen``,
-``checkpoint``, compile ``prefetch`` and fleet ``subtree`` slicing.
+is the same; a port of it comes later.  With a ``control_plane`` of more than
+one rank, rank 0 enumerates and verifies, and the count and every schedule
+are broadcast as JSON (reference dfs.py:289-370, dfs.hpp:50-70, 145-167);
+every rank measures every schedule, one at a time (``batch`` is ignored, as
+in the reference).  A measurement that raises propagates (as in the port's
+MCTS: on CUDA no compile step can legitimately fail).  Not ported yet, and
+refused when set: the learned ``prescreen``, ``checkpoint``, compile
+``prefetch`` and fleet ``subtree`` slicing.
 """
 
 from __future__ import annotations
@@ -28,7 +31,9 @@ from tenzing_tpu_torch.bench.recorded import result_row
 from tenzing_tpu_torch.core.graph import Graph
 from tenzing_tpu_torch.core.operation import ChoiceOp, CompoundOp
 from tenzing_tpu_torch.core.sequence import Sequence, canonical_key
+from tenzing_tpu_torch.core.serdes import sequence_from_json, sequence_to_json
 from tenzing_tpu_torch.core.state import State
+from tenzing_tpu_torch.parallel.control_plane import ControlPlane, default_control_plane
 from tenzing_tpu_torch.utils.counters import Counters
 
 
@@ -195,17 +200,21 @@ def enumerate_schedules(graph: Graph, platform, max_seqs: int = 15000,
 
 
 def explore(graph: Graph, platform, benchmarker,
-            opts: Optional[DfsOpts] = None) -> DfsResult:
+            opts: Optional[DfsOpts] = None,
+            control_plane: Optional[ControlPlane] = None) -> DfsResult:
     """Enumerate, dedup and benchmark every schedule (reference dfs::explore,
-    dfs.hpp:78-178)."""
+    dfs.hpp:78-178).  ``control_plane`` defaults to
+    ``default_control_plane()``."""
     opts = opts if opts is not None else DfsOpts()
     for name in _UNPORTED:
         if getattr(opts, name) is not None:
             raise NotImplementedError(f"DfsOpts.{name}: not yet ported")
+    cp = control_plane if control_plane is not None else default_control_plane()
+    lead = cp.rank() == 0
     counters = Counters()
     result = DfsResult(counters=counters)
-    states = enumerate_schedules(graph, platform, opts.max_seqs,
-                                 counters=counters)
+    states = (enumerate_schedules(graph, platform, opts.max_seqs,
+                                  counters=counters) if lead else [])
     orders = [st.sequence for st in states]
     if opts.verify is not None:
         kept = []
@@ -217,6 +226,23 @@ def explore(graph: Graph, platform, benchmarker,
                 sys.stderr.write("dfs: terminal rejected by the soundness "
                                  f"verifier ({verdict.witness()})\n")
         orders = kept
+    if cp.size() > 1:
+        if opts.batch and lead:
+            sys.stderr.write("dfs: batch=True ignored (multi-rank control "
+                             "plane); one at a time\n")
+        with counters.phase("BCAST"):
+            n = cp.bcast_json(len(orders))
+        for i in range(n):
+            with counters.phase("BCAST"):
+                payload = cp.bcast_json(
+                    sequence_to_json(orders[i]) if lead else None)
+            o = orders[i] if lead else sequence_from_json(payload, graph)
+            with counters.phase("BENCHMARK"):
+                res = benchmarker.benchmark(o, opts.bench_opts)
+            result.sims.append(SimResult(order=o, result=res))
+        if opts.dump_csv_path and lead:
+            result.dump_csv(opts.dump_csv_path)
+        return result
     batch_times = getattr(benchmarker, "benchmark_batch_times", None)
     if opts.batch and batch_times is None:
         sys.stderr.write(f"dfs: batch=True ignored ({type(benchmarker).__name__} "

@@ -7,10 +7,14 @@ per iteration — select, expand, rollout to a complete schedule,
 root is fully visited.  Kept from the reference: decision-path seeds consumed
 as the first iterations, informed (policy) rollouts, the equivalence-keyed
 benchmark cache, the soundness gate, and the multi-fidelity screen/confirm
-split.  The port runs in one process, so the reference's broadcast protocol,
-checkpointing, compile prefetching and fleet sub-tree slicing are absent; a
-measurement that raises is not a search verdict on CUDA (there is no compile
-step that can legitimately fail) and propagates.
+split, and the multi-rank protocol (reference mcts.py:264-530, mcts.hpp:129-152,
+244): with a ``control_plane`` of more than one rank, rank 0 owns the tree,
+and the stop flag and every schedule to measure are broadcast as JSON; every
+rank measures every schedule (the benchmarker's barrier and max-reduction
+keep their times equal).  At world size 1 no broadcast runs.  Checkpointing,
+compile prefetching and fleet sub-tree slicing are absent; a measurement
+that raises is not a search verdict on CUDA (there is no compile step that
+can legitimately fail) and propagates, on every rank.
 """
 
 from __future__ import annotations
@@ -26,9 +30,11 @@ from tenzing_tpu_torch.bench.benchmarker import (
 )
 from tenzing_tpu_torch.core.schedule import remove_redundant_syncs
 from tenzing_tpu_torch.core.sequence import Sequence, canonical_key
+from tenzing_tpu_torch.core.serdes import sequence_from_json, sequence_to_json
 from tenzing_tpu_torch.core.state import State
 from tenzing_tpu_torch.solve.mcts.node import Node
 from tenzing_tpu_torch.solve.mcts.strategies import FastMin
+from tenzing_tpu_torch.parallel.control_plane import ControlPlane, default_control_plane
 from tenzing_tpu_torch.utils.counters import Counters
 
 
@@ -127,70 +133,94 @@ def explore(
     opts: Optional[MctsOpts] = None,
     strategy: Optional[Type] = None,
     seeds=None,
+    control_plane: Optional[ControlPlane] = None,
 ) -> MctsResult:
     """Run the MCTS search (reference mcts::explore, mcts.hpp:154-327).
 
     ``seeds`` (optional): decision paths consumed as the FIRST iterations —
     each is materialized as a tree path, benchmarked like any rollout and
-    backpropagated, warm-starting the selection statistics."""
+    backpropagated, warm-starting the selection statistics.
+    ``control_plane`` defaults to ``default_control_plane()``; every rank
+    calls ``explore`` with the same graph, options and seeds."""
     opts = opts if opts is not None else MctsOpts()
     strategy = strategy if strategy is not None else FastMin
+    cp = control_plane if control_plane is not None else default_control_plane()
+    multi = cp.size() > 1
+    lead = cp.rank() == 0
     rng = _random.Random(opts.seed)
     counters = Counters()
     result = MctsResult(counters=counters)
     if opts.cache_benchmarks and not isinstance(benchmarker, CachingBenchmarker):
+        # local on every rank: the broadcast order is identical on all of
+        # them, so hits and misses agree rank to rank
         benchmarker = CachingBenchmarker(benchmarker)
     ctx = strategy.Context(seed=opts.seed)
-    root = Node(State(graph), strategy)
+    root = Node(State(graph), strategy) if lead else None
     ctx.root = root
     seed_iter = iter(seeds if seeds is not None else ())
     failed_keys: set = set()  # negative cache for unsound schedules
     ropts = opts.screen_opts if opts.screen_opts is not None else opts.bench_opts
     fidelity = "screen" if opts.screen_opts is not None else "full"
     for _ in range(opts.n_iters):
-        path = next(seed_iter, None)
-        if path is not None:
-            with counters.phase("SEED"):
-                endpoint, st = _materialize_seed(root, path)
-                if st.is_terminal():
-                    # benchmarked AS RECORDED (no redundant-sync cleanup)
-                    order = st.sequence
-                else:  # defensive: complete the path
-                    _, order = endpoint.get_rollout(
-                        platform, rng, policy=opts.rollout_policy,
-                        policy_eps=opts.rollout_eps)
-        elif root.fully_visited_:
+        stop, order, endpoint = False, None, None
+        if lead:
+            path = next(seed_iter, None)
+            if path is not None:
+                with counters.phase("SEED"):
+                    endpoint, st = _materialize_seed(root, path)
+                    if st.is_terminal():
+                        # benchmarked AS RECORDED (no redundant-sync cleanup)
+                        order = st.sequence
+                    else:  # defensive: complete the path
+                        _, order = endpoint.get_rollout(
+                            platform, rng, policy=opts.rollout_policy,
+                            policy_eps=opts.rollout_eps)
+            elif root.fully_visited_:
+                stop = True
+            else:
+                with counters.phase("SELECT"):
+                    leaf = root.select(ctx, platform, rng)
+                with counters.phase("EXPAND"):
+                    child = leaf.expand(platform, rng)
+                with counters.phase("ROLLOUT"):
+                    endpoint, order = child.get_rollout(
+                        platform, rng, opts.expand_rollout,
+                        policy=opts.rollout_policy, policy_eps=opts.rollout_eps)
+                with counters.phase("REDUNDANT_SYNC"):
+                    order = remove_redundant_syncs(order)
+        if multi:  # stop-flag + schedule broadcast (mcts.hpp:129-152, 244)
+            with counters.phase("BCAST"):
+                stop = cp.bcast_json(stop)
+                if not stop:
+                    payload = cp.bcast_json(
+                        sequence_to_json(order) if lead else None)
+                    if not lead:
+                        order = sequence_from_json(payload, graph)
+        if stop:
             break
-        else:
-            with counters.phase("SELECT"):
-                leaf = root.select(ctx, platform, rng)
-            with counters.phase("EXPAND"):
-                child = leaf.expand(platform, rng)
-            with counters.phase("ROLLOUT"):
-                endpoint, order = child.get_rollout(
-                    platform, rng, opts.expand_rollout,
-                    policy=opts.rollout_policy, policy_eps=opts.rollout_eps)
-            with counters.phase("REDUNDANT_SYNC"):
-                order = remove_redundant_syncs(order)
         key = canonical_key(order)
         if key not in failed_keys and opts.verify is not None:
+            # deterministic and device-free: every rank reaches the same
+            # verdict, so the coherent skip needs no agreement round
             if not opts.verify(order).ok:
                 failed_keys.add(key)
         if key in failed_keys:
             # backprop a penalty (2x the worst time seen) so the tree learns
             # to avoid the region; no sim is recorded
-            worst = max((s.result.pct50 for s in result.sims), default=1.0)
-            with counters.phase("BACKPROP"):
-                endpoint.backprop(ctx, BenchResult.from_times([2.0 * worst]))
+            if lead:
+                worst = max((s.result.pct50 for s in result.sims), default=1.0)
+                with counters.phase("BACKPROP"):
+                    endpoint.backprop(ctx, BenchResult.from_times([2.0 * worst]))
             continue
         with counters.phase("BENCHMARK"):
             res = benchmarker.benchmark(order, ropts)
         result.sims.append(SimResult(order=order, result=res,
                                      fidelity=fidelity))
-        with counters.phase("BACKPROP"):
-            endpoint.backprop(ctx, res)
+        if lead:
+            with counters.phase("BACKPROP"):
+                endpoint.backprop(ctx, res)
     # multi-fidelity confirm: the top-k distinct screened schedules are
-    # re-measured at the full bench_opts floor
+    # re-measured at the full bench_opts floor, on every rank
     if opts.screen_opts is not None and result.sims:
         finals: List[Sequence] = []
         seen_keys: set = set()
@@ -207,5 +237,5 @@ def explore(
                 res = benchmarker.benchmark(order, opts.bench_opts)
             result.sims.append(SimResult(order=order, result=res,
                                          fidelity="full"))
-    result.tree_size = root.size()
+    result.tree_size = root.size() if lead else 0
     return result

@@ -74,3 +74,31 @@ def test_moe_smoke_driver_leaves_jax_unloaded():
         "smoke=True, workload='moe', mcts_iters=2, iters=3, search_iters=2")
     assert verdict["metric"] == "moe_pipe_pct50_searched_t32", verdict
     assert bad == []
+
+
+def test_mesh_dryrun_leaves_jax_unloaded():
+    """``python -m tenzing_tpu_torch.parallel.dryrun`` on the CPU: at one
+    rank in the interpreter that runs it, at two ranks through the
+    launcher; neither loads jax or tenzing_tpu where it runs."""
+    code = (
+        "import sys, json, io, contextlib\n"
+        "from tenzing_tpu_torch.parallel import dryrun\n"
+        "for n in ('1', '2'):\n"
+        "    buf = io.StringIO()\n"
+        "    with contextlib.redirect_stdout(buf):\n"
+        "        dryrun.main(['--nproc', n, '--device', 'cpu',\n"
+        "                     '--mcts-iters', '2'])\n"
+        "    s = json.loads(buf.getvalue().strip().splitlines()[-1])\n"
+        "    assert s['n_ep'] == int(n) and s['backend'] == 'gloo', s\n"
+        "    assert all(r['within_tol'] for r in s['schedules']), s\n"
+        "    print(json.dumps(s))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'tenzing_tpu'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

@@ -51,7 +51,9 @@ from tenzing_tpu_torch.core.state import State
 from tenzing_tpu_torch.models import moe_pipeline as pipe
 from tenzing_tpu_torch.models import ring_attention as ra
 from tenzing_tpu_torch.ops import attention_kernels as ak
-from tenzing_tpu_torch.runtime.executor import StreamExecutor, buffers_from_numpy
+from tenzing_tpu_torch.core.operation import BoundDeviceOp
+from tenzing_tpu_torch.runtime import fused
+from tenzing_tpu_torch.runtime.executor import RunContext, StreamExecutor, buffers_from_numpy
 from tenzing_tpu_torch.verify import ScheduleVerifier
 
 ATTN = dict(n_devices=2, batch=2, seq_local=8, head_dim=4)
@@ -508,3 +510,130 @@ def test_model_menus_relaxed_and_pruned():
                                               combine_bytes=2.0 * table)
     assert est == {n: roofline.hidden_comm_bound_us(cost, n, comm)
                    for n in counts if n > 1}
+
+
+# -- the executor: no host block at a chunk directive ---------------------------
+
+
+class _Recorder(RunContext):
+    """A CPU run context that logs what the executor does: the EventSyncs it
+    runs, the host blocks and stream waits it issues, and every op it runs
+    (device ops with their lanes, host ops with whether they touch a
+    buffer)."""
+
+    def __init__(self, defer: bool = True):
+        super().__init__(torch.device("cpu"), defer_host_syncs=defer)
+        self.log = []
+
+    def run_default(self, op):
+        if isinstance(op, BoundDeviceOp):
+            self.log.append(("launch", op.name(),
+                             tuple(lane.id for lane in op.lanes())))
+        else:
+            self.log.append(("host", op.name(),
+                             bool(op.reads() or op.writes())))
+        super().run_default(op)
+
+    def post_transfer(self, op):
+        self.log.append(("host", op.name(), True))
+        super().post_transfer(op)
+
+    def await_transfer(self, buf):
+        self.log.append(("host", f"await {buf}", True))
+        super().await_transfer(buf)
+
+    def sync_event_host(self, event):
+        self.log.append(("event_sync", event.id))
+        super().sync_event_host(event)
+
+    def host_wait_event(self, event):
+        self.log.append(("host_wait", event.id))
+        super().host_wait_event(event)
+
+    def wait_event(self, lane, event):
+        self.log.append(("stream_wait", lane.id, event.id))
+        super().wait_event(lane, event)
+
+
+def _check_ordering(log):
+    """Every op runs after every earlier EventSync's event, as a blocking
+    EventSync would order it: a device op through a host block or a stream
+    wait of each of its lanes, a host op that touches a buffer through a
+    host block; and the schedule ends with every event waited on.  Returns,
+    per directive, the events still pending (not host-waited) when it ran."""
+    synced, host_done, stream_done, at_directives = [], set(), set(), []
+    for entry in log:
+        if entry[0] == "event_sync":
+            synced.append(entry[1])
+        elif entry[0] == "host_wait":
+            host_done.add(entry[1])
+        elif entry[0] == "stream_wait":
+            stream_done.add(entry[1:])
+        elif entry[0] == "launch":
+            for e in synced:
+                assert e in host_done or all(
+                    (lane, e) in stream_done for lane in entry[2]), entry
+        elif entry[0] == "host":
+            if entry[2]:
+                assert set(synced) <= host_done, entry
+            if CHUNK_MARK in entry[1]:
+                at_directives.append(set(synced) - host_done)
+    assert set(synced) <= host_done
+    return at_directives
+
+
+def _recorded(ex, order, defer):
+    ex.ctx = _Recorder(defer)
+    out = ex.run(order)
+    return ex.ctx, out
+
+
+@pytest.mark.parametrize("fuse", [False, True], ids=["stream", "fused"])
+def test_chunk_directive_does_not_block_the_host(fuse):
+    """Attention's chunked naive order: the synchronizer puts an
+    EventRecord / EventSync before the second block's directive (its
+    predecessor is the first block's last sub-fold).  With the host syncs
+    deferred the directive runs with that event pending, the sub-folds
+    after it wait on it on their stream, and the run still ends with every
+    event waited on; blocking at every EventSync gives the same outputs
+    with one more host block.  The fused executor runs the same rule."""
+    plat = Platform.make_n_lanes(1)
+    seq = _drive(_attn_graph(), plat, want_suffix=".chunked.c2")
+    runs = {}
+    for defer in (True, False):
+        ex, _ = _attn_ex()
+        runner = fused.FusedExecutor(ex, tiles=1) if fuse else ex
+        if fuse:
+            runner.plan(seq)  # lowered before the recorder is installed
+        ctx, out = _recorded(ex, runner.fused_order(seq) if fuse else seq,
+                             defer)
+        runs[defer] = (ctx, out)
+    (on, out_on), (off, out_off) = runs[True], runs[False]
+    pending = _check_ordering(on.log)
+    assert len(pending) == 2 and pending[0] == set() and pending[1], pending
+    assert all(not p for p in _check_ordering(off.log))
+    # the block after the pending sync waits on it on the device
+    assert any(e[0] == "stream_wait" for e in on.log)
+    assert not any(e[0] == "stream_wait" for e in off.log)
+    assert on.host_syncs == off.host_syncs - 1
+    for k in out_on:
+        assert torch.equal(out_on[k], out_off[k]), k
+
+
+def test_moe_chunked_orders_keep_their_host_syncs():
+    """The moe pipeline's chunk directive follows the dispatch await, a host
+    op: no EventSync precedes it, so deferring changes nothing there — the
+    same host blocks and the same Y, bit for bit."""
+    m, cap, _, _ = _moe("f32")
+    g = pipe.build_graph(m, cap, staging="f32", chunk=True, chunk_relax=True)
+    plat = Platform.make_n_lanes(2)
+    for n in (2, 4):
+        seq = _drive(g, plat, want_suffix=f".chunked.c{n}")
+        runs = {}
+        for defer in (True, False):
+            ex = _moe("f32")[2]
+            runs[defer] = _recorded(ex, seq, defer)
+        (on, y_on), (off, y_off) = runs[True], runs[False]
+        assert all(not p for p in _check_ordering(on.log))
+        assert on.host_syncs == off.host_syncs
+        assert torch.equal(y_on["Y"], y_off["Y"])

@@ -1,9 +1,10 @@
-"""The port's per-expert MLP (``ops/ffn_kernels.py``) against the JAX package.
+"""The port's gelu MLPs (``ops/ffn_kernels.py``: the per-expert
+``ffn_batched`` and the row-tiled ``ffn_rows``) against the JAX package.
 
-On the CPU the wrapper runs its plain PyTorch version; the reference's Pallas
-kernel ``ffn_pallas_batched`` runs in the Pallas interpreter
-(``interpret=True``), as tests/test_moe_pipeline.py reaches it.  The same
-seeded numpy inputs feed both.
+On the CPU a wrapper runs its plain PyTorch version; the reference's Pallas
+kernels ``ffn_pallas_batched`` and ``ffn_pallas`` run in the Pallas
+interpreter (``interpret=True``), as tests/test_moe_pipeline.py and
+tests/test_moe.py reach them.  The same seeded numpy inputs feed both.
 
 Tolerance: ``ops.ffn_kernels.FFN_TOL`` (rtol = atol = 1e-4).  Both sides
 sum in float32 over d and then d_ff terms in different orders; at these
@@ -11,14 +12,15 @@ shapes the two agree to ~1e-6, and on the card the kernel and the plain
 version agree to 8e-6 at full width (d=512, d_ff=2048; PERF.md).  The
 erf gelu in place of the tanh form moves y by ~5e-4 and must fail it.
 
-``test_cuda_kernel_matches_plain`` needs the card (marker ``needs_cuda``)."""
+``test_cuda_kernel_matches_plain`` and ``test_cuda_rows_kernel_matches_plain``
+need the card (marker ``needs_cuda``)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from tenzing_tpu.ops.ffn_pallas import ffn_pallas_batched
+from tenzing_tpu.ops.ffn_pallas import ffn_pallas, ffn_pallas_batched
 from tenzing_tpu_torch.ops import ffn_kernels as fk
 
 FFN_TOL = fk.FFN_TOL
@@ -120,3 +122,93 @@ def test_cuda_kernel_matches_plain(cuda_device, shape):
     torch.testing.assert_close(got, want, **FFN_TOL)
     assert not torch.allclose(
         fk.ffn_batched_plain(x, w1, w2, approximate="none"), want, **FFN_TOL)
+
+
+# -- ffn_rows: the MoE layer's .pallas slot ---------------------------------------
+
+# (n, d, dff): n ragged against the reference's 512-row tile (one tile, and
+# more than one), a small and a ragged hidden width
+ROWS = [(37, 64, 16), (37, 64, 520), (600, 64, 16), (600, 64, 520)]
+
+
+def _rows_inputs(n, d, dff, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    w1 = (rng.standard_normal((d, dff)) / np.sqrt(d)).astype(np.float32)
+    w2 = (rng.standard_normal((dff, d)) / np.sqrt(dff)).astype(np.float32)
+    return x, w1, w2
+
+
+@pytest.mark.parametrize("shape", ROWS, ids=[f"n{n}-d{d}-dff{f}"
+                                             for n, d, f in ROWS])
+def test_rows_plain_matches_reference_kernel(shape):
+    x, w1, w2 = _rows_inputs(*shape, seed=11)
+    want = np.asarray(ffn_pallas(jnp.asarray(x), jnp.asarray(w1),
+                                 jnp.asarray(w2), interpret=True))
+    got = fk.ffn_rows(*(torch.from_numpy(t) for t in (x, w1, w2)))
+    np.testing.assert_allclose(got.numpy(), want, **FFN_TOL)
+    ctl = fk.ffn_rows_plain(*(torch.from_numpy(t) for t in (x, w1, w2)),
+                            approximate="none")
+    assert not np.allclose(ctl.numpy(), want, **FFN_TOL)
+
+
+def test_rows_wrapper_writes_into_out_and_counts_no_cpu_launch():
+    x, w1, w2 = (torch.from_numpy(t) for t in _rows_inputs(37, 32, 64, 12))
+    before = dict(fk.LAUNCHES)
+    out = torch.full_like(x, float("nan"))
+    assert fk.ffn_rows(x, w1, w2, out=out) is out
+    torch.testing.assert_close(out, fk.ffn_rows_plain(x, w1, w2))
+    assert fk.LAUNCHES == before
+
+
+@pytest.mark.parametrize("bad", ["bf16", "f64", "shape", "out", "noncontig",
+                                 "3d"])
+def test_rows_wrapper_rejects_bad_arguments(bad):
+    x, w1, w2 = (torch.from_numpy(t) for t in _rows_inputs(37, 32, 64, 13))
+    out = None
+    if bad == "bf16":
+        with pytest.raises(TypeError, match="ROADMAP"):
+            fk.ffn_rows(x.to(torch.bfloat16), w1, w2)
+        return
+    if bad == "f64":
+        w1 = w1.double()
+    elif bad == "shape":
+        w2 = w2[:-1]
+    elif bad == "out":
+        out = torch.zeros(x.shape[0] + 1, x.shape[1])
+    elif bad == "noncontig":
+        x = x.t().contiguous().t()
+    else:
+        x = x[None]
+    with pytest.raises((TypeError, ValueError)):
+        fk.ffn_rows(x, w1, w2, out=out)
+
+
+def test_rows_bound_at_the_slice_shape():
+    """One chunk of the MoE layer at world size 1 (n=2048, d=512,
+    dff=2048) is bound by operations: 8.59 GFLOP at 67 TFLOP/s is 128.2 us;
+    x, W1, W2 and y (16.8 MB) take 5.0 us at 3.35 TB/s."""
+    n, d, dff = 2048, 512, 2048
+    flops, nbytes = fk.ffn_flops(1, n, d, dff), fk.ffn_bytes(1, n, d, dff)
+    assert flops == pytest.approx(8.59e9, rel=1e-3)
+    assert flops / 67e12 * 1e6 == pytest.approx(128.2, abs=0.1)
+    assert nbytes == pytest.approx(16.8e6, rel=1e-2)
+    assert nbytes / 3.35e12 * 1e6 == pytest.approx(5.0, abs=0.05)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("shape", [(2048, 512, 2048), (2047, 512, 2048),
+                                   (37, 512, 520)])
+def test_cuda_rows_kernel_matches_plain(cuda_device, shape):
+    x, w1, w2 = (torch.from_numpy(t).to(cuda_device)
+                 for t in _rows_inputs(*shape, seed=14))
+    before = fk.LAUNCHES["ffn_rows"]
+    got = fk.ffn_rows(x, w1, w2)
+    again = fk.ffn_rows(x, w1, w2)
+    want = fk.ffn_rows_plain(x, w1, w2)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["ffn_rows"] == before + 2
+    torch.testing.assert_close(got, want, **FFN_TOL)
+    assert torch.equal(got, again)
+    assert not torch.allclose(
+        fk.ffn_rows_plain(x, w1, w2, approximate="none"), want, **FFN_TOL)
