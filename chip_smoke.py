@@ -161,7 +161,32 @@ Run after the moe driver (phase 11):
               mixed schedule within ``rtol=2e-4, atol=2e-5`` of the float64
               Y, ``ffn_rows`` launched), a dropped-expert control that must
               be rejected, the self all-to-all's time per chunk, and a
-              12-iteration ``explore`` through ``DistControlPlane``.
+              12-iteration ``explore`` through ``DistControlPlane``; then
+              the same layer in bf16: the agreement within
+              ``dryrun.Y_TOL_BF16`` of the float64 Y cast to bf16, the bf16
+              ``ffn_rows`` launched, the dropped-expert control rejected
+              (11d also holds the bf16 ``ffn_rows`` against its plain
+              version at ``FFN_BF16_TOL``, with a skipped-hidden-tile
+              control, and times it);
+11f. mesh halo — the mesh halo exchange (models/halo.py) at the flagship
+              width per rank (nQ 3, 512^3, radius 3) on a world-size-1 NCCL
+              group and a 1x1x1 mesh: the dryrun's agreement (three
+              ``HaloExchange`` schedules, then the engine menu's all-``.xla``,
+              all-``.rdma`` and mixed orders), U bit-exact against
+              ``make_halo_buffers``' expected array, then a 12-iteration
+              MCTS on the engine menu; the engines explored and each
+              iteration's time;
+11g. mesh halo shared — two ranks on GPU 0 over gloo (parallel/launch.py
+              ``shared_card``), a 2x1x1 mesh, every exchange ``.rdma``: the
+              x faces through the ``rdma_shift_post`` / ``rdma_shift_wait``
+              kernels (CUDA IPC between the two processes), y and z through
+              the loopback; each rank's U bit-exact, both kernels launched
+              on both ranks (each rank zeroes its counts before the run and
+              reads them after), the write-after-read probe (three runs back
+              to back, the interior bumped each run and a delay before each
+              unpack) exact, and one x face's shift timed (post, wait, both,
+              the barrier alone, the plain host-staged shift) and held
+              against ``torch.roll`` of the gathered faces.
 
 The halo and attn driver phases run with ``climb_budget=4`` (the halo climbs
 run; the reference runs none for attn).  Each driver phase sets every
@@ -176,6 +201,7 @@ import os
 import subprocess
 import sys
 import time
+from dataclasses import asdict
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out")
@@ -209,6 +235,7 @@ BF16_PLAIN_Y_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
 MOE_LAYER = dict(n_ep=1, tokens_per_shard=8192, d_model=512, d_ff=2048,
                  n_chunks=4)  # parallel/dryrun.py FULL_ARGS at n_ep 1
 MOE_LAYER_ITERS = 12  # the layer's explore through DistControlPlane
+MESH_HALO_ITERS = 12  # the mesh halo's MCTS on the engine menu
 HOST_SYNC_ITERS = 15  # iterations per measurement of the host_syncs phase
 FLUSH_BYTES = 128 << 20  # > the 50 MB L2: each timed launch starts cold
 REPS = 15
@@ -1873,33 +1900,52 @@ def phase_moe_layer_kernels(torch, device, timer):
     def rand_case(n):
         return torch.randn(n, a.d_model, device=device, generator=gen), w1, w2
 
+    def bf16(case):
+        return tuple(t.to(torch.bfloat16) for t in case)
+
     cases = [("chunk", (x0, w1, w2)), ("ragged-n2047", rand_case(2047)),
-             ("ragged-n37", rand_case(37))]
+             ("ragged-n37", rand_case(37)), ("chunk-bf16", bf16((x0, w1, w2))),
+             ("ragged-n2047-bf16", bf16(rand_case(2047))),
+             ("ragged-n37-bf16", bf16(rand_case(37)))]
     rows, failed = [], []
     for label, (x, cw1, cw2) in cases:
         n, d = x.shape
         dff = cw1.shape[1]
+        is16 = x.dtype == torch.bfloat16
+        tol = fk.FFN_BF16_TOL if is16 else fk.FFN_TOL
         got = fk.ffn_rows(x, cw1, cw2)
         again = fk.ffn_rows(x, cw1, cw2)
         want = fk.ffn_rows_plain(x, cw1, cw2)
-        ctl = fk.ffn_rows_plain(x, cw1, cw2, approximate="none")
+        if is16:
+            # a skipped hidden tile: W1's last 64 columns zeroed (the erf
+            # gelu moves y by less than a bf16 ulp)
+            w1c = cw1.clone()
+            w1c[:, -64:] = 0
+            ctl = fk.ffn_rows_plain(x, w1c, cw2)
+            del w1c
+        else:
+            ctl = fk.ffn_rows_plain(x, cw1, cw2, approximate="none")
         torch.cuda.synchronize()
-        flops, nbytes = fk.ffn_flops(1, n, d, dff), fk.ffn_bytes(1, n, d, dff)
-        bound, bound_by = attn_bound(nbytes, flops, bf16=False)
+        flops = fk.ffn_flops(1, n, d, dff)
+        nbytes = fk.ffn_bytes(1, n, d, dff, itemsize=x.element_size())
+        bound, bound_by = attn_bound(nbytes, flops, bf16=is16)
+        g32, w32 = got.float(), want.float()
         row = {"phase": "moe_layer_kernels", "case": label, "kernel": "ffn_rows",
-               "shape": [n, d, dff], "tolerance": fk.FFN_TOL,
-               "max_abs_err": float((got - want).abs().max()),
-               "within_tol": bool(torch.allclose(got, want, **fk.FFN_TOL)),
+               "dtype": str(x.dtype).replace("torch.", ""),
+               "shape": [n, d, dff], "tolerance": tol,
+               "max_abs_err": float((g32 - w32).abs().max()),
+               "within_tol": bool(torch.allclose(g32, w32, **tol)),
                "deterministic": bool(torch.equal(got, again)),
-               "finite": bool(torch.isfinite(got).all()),
-               "erf_control_max_abs_err": float((ctl - want).abs().max()),
-               "erf_control_rejected": not torch.allclose(ctl, want,
-                                                           **fk.FFN_TOL),
-               "y_max_abs": float(want.abs().max()),
+               "finite": bool(torch.isfinite(g32).all()),
+               "control": "skipped_hidden_tile" if is16 else "erf_gelu",
+               "control_max_abs_err": float((ctl.float() - w32).abs().max()),
+               "control_rejected": not torch.allclose(ctl.float(), w32,
+                                                      **tol),
+               "y_max_abs": float(w32.abs().max()),
                "flops": flops, "bytes": nbytes,
                "bound_ms": bound, "bound_by": bound_by}
-        del again, ctl
-        if label == "chunk":
+        del again, ctl, g32, w32
+        if label.startswith("chunk"):
             row.update({
                 "ms": timer.ms(lambda: fk.ffn_rows(x, cw1, cw2, out=got)),
                 "plain_ms": timer.ms(lambda: fk.ffn_rows_plain(x, cw1, cw2)),
@@ -1910,7 +1956,7 @@ def phase_moe_layer_kernels(torch, device, timer):
         emit(row)
         rows.append(row)
         if not (row["within_tol"] and row["deterministic"] and row["finite"]
-                and row["erf_control_rejected"]):
+                and row["control_rejected"]):
             failed.append(label)
         del got, want
     del cases, x0, w1, w2
@@ -1997,17 +2043,135 @@ def phase_moe_layer(torch, device, timer):
                    "wall_s": round(time.time() - t0, 3)}
             emit(row)
             del layer, y, ctl, src, dst, ex_bufs
+            torch.cuda.empty_cache()
+            # the same layer in bf16: its .pallas slot is the bf16 ffn_rows
+            a16 = MoEArgs(**MOE_LAYER, dtype="bfloat16")
+            layer16 = dryrun.build_layer(mesh, device, a16, seed=0,
+                                         impl_choice=True)
+            reset_launches()
+            rows16, orders16 = dryrun.agree_schedules(layer16, cp)
+            launches16 = all_launches()
+            for r in rows16:
+                emit({"phase": "moe_layer_bf16",
+                      "y_tolerance": dryrun.Y_TOL_BF16, **r})
+            pallas16 = next(o for o, r in zip(orders16, rows16)
+                            if set(r["ffn_slots"]) == {".pallas"})
+            y16 = dryrun.run_gathered(layer16, pallas16)
+            bufs16, _, _ = make_moe_buffers(a16, seed=0)
+            ctl16 = _drop_expert(torch, y16, bufs16, a16)
+            del bufs16
+            ctl16_ok = dryrun.y_within(ctl16, layer16.want, "bfloat16")
+            row16 = {"phase": "moe_layer_bf16_summary", "args": asdict(a16),
+                     "schedules": len(rows16),
+                     "dropped_expert_control": {
+                         **dryrun.y_error(ctl16, layer16.want),
+                         "within_tol": ctl16_ok},
+                     "launches": launches16,
+                     "wall_s": round(time.time() - t0, 3)}
+            emit(row16)
+            del layer16, y16, ctl16
         finally:
             close_mesh()
     torch.cuda.empty_cache()
-    if ctl_ok:
-        raise AssertionError("the dropped-expert control passed the Y "
-                             "tolerance")
+    if ctl_ok or ctl16_ok:
+        raise AssertionError("a dropped-expert control passed the Y "
+                             f"tolerance (f32 {ctl_ok}, bf16 {ctl16_ok})")
     if launches["ffn_rows"] <= 0:
         raise AssertionError("the moe layer never launched ffn_rows")
+    if launches16["ffn_rows_bf16"] <= 0:
+        raise AssertionError("the bf16 moe layer never launched ffn_rows in "
+                             "bf16")
     if search["rollouts"] < 1:
         raise AssertionError(f"the moe layer search measured nothing: {search}")
-    return launches, rows, row
+    return launches, rows, row, launches16
+
+
+def phase_mesh_halo(torch, device):
+    """The mesh halo exchange at the flagship width per rank on a
+    world-size-1 NCCL group and a 1x1x1 mesh: the dryrun's agreement
+    (parallel/dryrun.py ``agree_halo``: U bit-exact on every schedule, the
+    engine menu's all-``.xla``, all-``.rdma`` and mixed orders among them)
+    and an MCTS on the engine menu; returns the launch counts and the
+    summary row."""
+    import tempfile
+
+    from tenzing_tpu_torch.models.halo import HaloArgs
+    from tenzing_tpu_torch.parallel import dryrun
+    from tenzing_tpu_torch.parallel.control_plane import DistControlPlane
+    from tenzing_tpu_torch.parallel.mesh import close_mesh, control_group, init_mesh
+
+    t0 = time.time()
+    torch.cuda.set_device(device)
+    with tempfile.TemporaryDirectory(prefix="tz_mesh_halo_") as d:
+        mesh = init_mesh(dryrun.HALO_AXES, "nccl",
+                         "file://" + os.path.join(d, "rv"), 0, 1,
+                         shape=(1, 1, 1))
+        try:
+            cp = DistControlPlane(control_group())
+            h = dryrun.build_halo(mesh, device,
+                                  HaloArgs(**dryrun.HALO_FULL_ARGS), seed=0)
+            setup_s = time.time() - t0
+            reset_launches()
+            rows = dryrun.agree_halo(h, cp)
+            search = dryrun.explore_halo(h, cp, MESH_HALO_ITERS)
+            launches = all_launches()
+            for r in rows:
+                emit({"phase": "mesh_halo", **r})
+            row = {"phase": "mesh_halo_summary",
+                   "args": dryrun.HALO_FULL_ARGS, "mesh": [1, 1, 1],
+                   "schedules": len(rows),
+                   "engines_scheduled": sorted({e for r in rows
+                                                for e in r["engines"]}),
+                   "explore": {k: v for k, v in search.items()
+                               if k != "pct50_s"},
+                   "iteration_pct50_ms": [t * 1e3 for t in search["pct50_s"]],
+                   "launches": launches, "setup_s": round(setup_s, 3),
+                   "wall_s": round(time.time() - t0, 3)}
+            emit(row)
+            del h
+        finally:
+            close_mesh()
+    torch.cuda.empty_cache()
+    whole = {tuple(sorted(set(r["engines"]))) for r in rows}
+    if not {("xla",), ("rdma",)} <= whole:
+        raise AssertionError(f"the mesh halo agreement lacks an all-.xla or "
+                             f"an all-.rdma schedule: {whole}")
+    if search["rollouts"] < 1:
+        raise AssertionError(f"the mesh halo search measured nothing: {search}")
+    if launches["device_copy"] <= 0:
+        raise AssertionError("the mesh halo's .rdma loopback never launched "
+                             "device_copy")
+    return launches, row
+
+
+def phase_mesh_halo_shared(torch):
+    """Two ranks on GPU 0 over gloo, a 2x1x1 mesh, every exchange ``.rdma``
+    (parallel/dryrun.py ``halo_shared_main``): per rank, U exact, both shift
+    kernels launched, the write-after-read probe exact, and one x face's
+    shift timed and held against ``torch.roll``; returns the ranks' rows."""
+    from tenzing_tpu_torch.parallel import dryrun
+    from tenzing_tpu_torch.parallel.launch import launch
+
+    t0 = time.time()
+    ranks = launch("tenzing_tpu_torch.parallel.dryrun:halo_shared_main", 2,
+                   "cuda", {"args": dryrun.HALO_FULL_ARGS, "time_reps": 20},
+                   timeout_s=600.0, mesh_axes=dryrun.HALO_AXES,
+                   mesh_shape=(2, 1, 1), shared_card=True)
+    bad = []
+    for r in ranks:
+        emit({"phase": "mesh_halo_shared", "args": dryrun.HALO_FULL_ARGS, **r})
+        t = r["timing"]
+        if not (all(s["u_exact"] for s in r["schedules"])
+                and r["launches"]["rdma_shift_post"] > 0
+                and r["launches"]["rdma_shift_wait"] > 0
+                and r["war"]["acc_exact"] and t["exact_vs_roll"]
+                and t["plain_exact"]):
+            bad.append(r["rank"])
+    emit({"phase": "mesh_halo_shared_summary", "ranks": len(ranks),
+          "wall_s": round(time.time() - t0, 3)})
+    if bad:
+        raise AssertionError(f"the shared-card mesh halo failed on ranks {bad}")
+    return ranks
 
 
 def phase_dfs_example(torch):
@@ -2157,7 +2321,10 @@ def main() -> int:
     layer_rows = phase_moe_layer_kernels(torch, device, timer)
     emit({"phase": "moe_layer_kernels", "rows": len(layer_rows),
           "all_within_tol": True, "wall_s": round(time.time() - t0, 3)})
-    layer_launches, _, layer_summary = phase_moe_layer(torch, device, timer)
+    layer_launches, _, layer_summary, layer16_launches = phase_moe_layer(
+        torch, device, timer)
+    mesh_launches, mesh_summary = phase_mesh_halo(torch, device)
+    shared_ranks = phase_mesh_halo_shared(torch)
 
     t0 = time.time()
     spmv_rows = phase_spmv_kernels(torch, device, timer)
@@ -2263,24 +2430,58 @@ def main() -> int:
         "work": f"one chunk's expert MLP: {e} experts x {c} slots, d {d}, "
                 f"d_ff {dff}, f32",
     })
-    # the MoE layer's .pallas expert MLP at one chunk's shape
-    lrow = next(r for r in layer_rows if r["case"] == "chunk")
-    n, d, dff = lrow["shape"]
-    kernels.append({
-        "name": "ffn_rows", "route": "cuda",
-        "source": "tenzing_tpu_torch/csrc/ffn_rows.cu",
-        "replaces": "tenzing_tpu/ops/ffn_pallas.py:43",
-        "launches": layer_launches["ffn_rows"],
-        "max_abs_err": max(r["max_abs_err"] for r in layer_rows),
-        "ms": lrow["ms"], "plain_ms": lrow["plain_ms"],
-        "bound_ms": lrow["bound_ms"], "bound_by": lrow["bound_by"],
-        "library_ms": None,  # no single PyTorch call computes it
-        "library_calls_ms": lrow["library_calls_ms"],
-        "library_calls": lrow["library_calls"],
-        "work": f"one chunk's expert MLP of the MoE layer at world size 1: "
-                f"n {n}, d {d}, d_ff {dff}, f32",
-        "self_a2a_per_chunk_ms": layer_summary["self_a2a_per_chunk_ms"],
-    })
+    # the MoE layer's .pallas expert MLP at one chunk's shape, f32 and bf16
+    for dt, case, name, launched in (
+            ("float32", "chunk", "ffn_rows", layer_launches["ffn_rows"]),
+            ("bfloat16", "chunk-bf16", "ffn_rows_bf16",
+             layer16_launches["ffn_rows_bf16"])):
+        lrow = next(r for r in layer_rows if r["case"] == case)
+        n, d, dff = lrow["shape"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "tenzing_tpu_torch/csrc/ffn_rows.cu",
+            "replaces": "tenzing_tpu/ops/ffn_pallas.py:43",
+            "launches": launched,
+            "max_abs_err": max(r["max_abs_err"] for r in layer_rows
+                               if r["dtype"] == dt),
+            "ms": lrow["ms"], "plain_ms": lrow["plain_ms"],
+            "bound_ms": lrow["bound_ms"], "bound_by": lrow["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes it
+            "library_calls_ms": lrow["library_calls_ms"],
+            "library_calls": lrow["library_calls"],
+            "work": f"one chunk's expert MLP of the MoE layer at world size "
+                    f"1: n {n}, d {d}, d_ff {dff}, {dt}",
+        })
+    kernels[-2]["self_a2a_per_chunk_ms"] = layer_summary[
+        "self_a2a_per_chunk_ms"]
+    # the mesh shift: one x face of the flagship halo between two ranks on
+    # one card (time-sliced contexts, not NVLink); the slower rank's times
+    timing = [r["timing"] for r in shared_ranks]
+    face_bytes = timing[0]["bytes"]
+    for name, key, replaces, nbytes in (
+            ("rdma_shift_post", "post_ms", "tenzing_tpu/ops/rdma.py:189",
+             face_bytes),
+            ("rdma_shift_wait", "wait_ms", "tenzing_tpu/ops/rdma.py:225", 8)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "tenzing_tpu_torch/csrc/rdma_shift.cu",
+            "replaces": replaces,
+            "launches": sum(r["launches"][name] for r in shared_ranks),
+            "launches_by_rank": [r["launches"][name] for r in shared_ranks],
+            "max_abs_err": max(t["max_abs_err"] for t in timing),
+            "ms": max(t[key] for t in timing),
+            "plain_ms": max(t["plain_ms"] for t in timing),
+            "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+            "library_ms": None,  # NCCL refuses two ranks on one device
+            "by_rank_ms": [t[key] for t in timing],
+            "post_wait_ms": max(t["post_wait_ms"] for t in timing),
+            "barrier_ms": max(t["barrier_ms"] for t in timing),
+            "work": "one x face (3, 3, 512, 512) f32 of the flagship halo "
+                    "between two ranks sharing one card through CUDA IPC "
+                    "(time-sliced contexts, not NVLink)",
+        })
+    next(k for k in kernels if k["name"] == "device_copy")[
+        "launches_mesh_halo"] = mesh_launches["device_copy"]
     # the SpMV kernel at the --m 8192 path's spmv_remote shapes
     main_row = next(r for r in spmv_rows if r["case"].startswith("m8192"))
     kernels.append({

@@ -12,9 +12,12 @@ The mesh is the port's own: not a ``jax.sharding.Mesh`` but a map from axis
 name to :class:`MeshAxis` (the axis size, this rank's index along it and the
 ``torch.distributed`` process group of the axis), built by
 ``parallel/mesh.py`` ``init_mesh``.  A schedule on a mesh runs once per rank,
-each rank on its own shard of the buffers.  ``specs`` are the port's own
-too: for each buffer, the mesh axis that splits its dim 0, or ``None`` for a
-replicated buffer (no ``PartitionSpec``).
+each rank on its own shard of the buffers.  Ranks lie on the mesh in
+row-major order over its axes, as ``Mesh(devs.reshape(shape), names)`` lays
+out devices in the reference.  ``specs`` are the port's own too: for each
+buffer, the mesh axis that splits its dim 0, or a tuple with one entry per
+leading dim (an axis name or ``None``, as a ``PartitionSpec`` lists them),
+or ``None`` for a replicated buffer.
 """
 
 from __future__ import annotations
@@ -37,9 +40,11 @@ class MeshAxis:
 
 
 class Mesh:
-    """Axis name -> :class:`MeshAxis`, in axis order."""
+    """Axis name -> :class:`MeshAxis`, in axis order.  ``shared_card``: the
+    ranks share one CUDA device and are joined over gloo
+    (parallel/launch.py), where a collective cannot move device tensors."""
 
-    def __init__(self, axes: Dict[str, MeshAxis]):
+    def __init__(self, axes: Dict[str, MeshAxis], shared_card: bool = False):
         if not axes:
             raise ValueError("a mesh needs at least one axis")
         for name, ax in axes.items():
@@ -47,10 +52,20 @@ class Mesh:
                 raise ValueError(f"mesh axis {name!r}: index {ax.index} of "
                                  f"size {ax.size}")
         self.axes = dict(axes)
+        self.shared_card = shared_card
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
         return tuple(self.axes)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(ax.size for ax in self.axes.values())
+
+    @property
+    def coords(self) -> Tuple[int, ...]:
+        """This rank's index along each axis."""
+        return tuple(ax.index for ax in self.axes.values())
 
     def size(self, axis: str) -> int:
         return self._axis(axis).size
@@ -72,14 +87,14 @@ class Platform:
     buffers' specs (reference Platform, platform.hpp:131-215)."""
 
     def __init__(self, lanes: List[Lane], mesh: Optional[Mesh] = None,
-                 specs: Optional[Dict[str, Optional[str]]] = None):
+                 specs: Optional[Dict[str, Any]] = None):
         self.lanes = lanes
         self.mesh = mesh
         self.specs = dict(specs) if specs else {}
 
     @staticmethod
     def make_n_lanes(n: int, mesh: Optional[Mesh] = None,
-                     specs: Optional[Dict[str, Optional[str]]] = None
+                     specs: Optional[Dict[str, Any]] = None
                      ) -> "Platform":
         """reference Platform::make_n_streams (platform.hpp:211-215)."""
         return Platform([Lane(i) for i in range(n)], mesh=mesh, specs=specs)
@@ -88,6 +103,6 @@ class Platform:
     def axis_names(self) -> Tuple[str, ...]:
         return self.mesh.axis_names if self.mesh is not None else ()
 
-    def spec(self, name: str) -> Optional[str]:
-        """The axis splitting buffer ``name``'s dim 0 (None: replicated)."""
+    def spec(self, name: str) -> Any:
+        """Buffer ``name``'s spec (module docstring; None: replicated)."""
         return self.specs.get(name)

@@ -47,6 +47,7 @@ from tenzing_tpu_torch.core.graph import Graph
 from tenzing_tpu_torch.core.operation import ChoiceOp, CompoundOp, DeviceOp, OpBase
 from tenzing_tpu_torch.ops.comm_ops import AllToAllStart, AwaitTransfer
 from tenzing_tpu_torch.utils.numeric import gelu_tanh as _gelu
+from tenzing_tpu_torch.utils.numeric import round_bf16
 
 AXIS = "ep"
 
@@ -108,7 +109,14 @@ class ExpertFFN(DeviceOp):
     """Run the resident expert's gelu MLP over every received slot (``.xla``:
     two ``torch.matmul(out=)`` around an in-place tanh gelu, the hidden
     activations in per-chunk scratch).  Padding slots carry real numbers
-    but the combine multiplies them by weight 0."""
+    but the combine multiplies them by weight 0.
+
+    In bf16 it computes what the reference's does (``_mlp``: both products
+    accumulate in float32, the gelu acts on the float32 product, h is
+    rounded to bf16 between them): x and W1 are widened into float32
+    scratch for the first product, whose float32 result takes the gelu and
+    is then rounded into bf16 scratch for the second.  A bf16 product
+    straight into bf16 would round the pre-activation before the gelu."""
 
     def __init__(self, name: str, c: int, args: MoEArgs):
         super().__init__(name)
@@ -122,9 +130,15 @@ class ExpertFFN(DeviceOp):
         return [f"ffn_out_{self._c}"]
 
     def scratch_for(self, shapes):
-        n, cap, _ = shapes[f"recv_disp_{self._c}"]
-        return {f"moe_h_{self._c}": ((n * cap, shapes["W1"][-1]),
-                                     self._args.dtype)}
+        n, cap, d = shapes[f"recv_disp_{self._c}"]
+        dff = shapes["W1"][-1]
+        if self._args.dtype != "bfloat16":
+            return {f"moe_h_{self._c}": ((n * cap, dff), self._args.dtype)}
+        return {f"moe_h_{self._c}": ((n * cap, dff), "float32"),
+                f"moe_hb_{self._c}": ((n * cap, dff), "bfloat16"),
+                f"moe_x32_{self._c}": ((n * cap, d), "float32"),
+                # per op: concurrent partials of one chunk each widen W1
+                f"moe_w1f_{self.name()}": ((d, dff), "float32")}
 
     def _rows(self, n: int) -> slice:
         """The source-rank rows of the slot table this op runs: all."""
@@ -133,10 +147,22 @@ class ExpertFFN(DeviceOp):
     def _mlp(self, x2d, w1, w2, y2d, ctx, rows: slice, cap: int) -> None:
         import torch
 
-        h = ctx.scratch[f"moe_h_{self._c}"][rows.start * cap:rows.stop * cap]
-        torch.matmul(x2d, w1, out=h)
+        span = slice(rows.start * cap, rows.stop * cap)
+        h = ctx.scratch[f"moe_h_{self._c}"][span]
+        if self._args.dtype != "bfloat16":
+            torch.matmul(x2d, w1, out=h)
+            torch.ops.aten.gelu_(h, approximate="tanh")
+            torch.matmul(h, w2, out=y2d)
+            return
+        x32 = ctx.scratch[f"moe_x32_{self._c}"][span]
+        w1f = ctx.scratch[f"moe_w1f_{self.name()}"]
+        x32.copy_(x2d)
+        w1f.copy_(w1)
+        torch.matmul(x32, w1f, out=h)
         torch.ops.aten.gelu_(h, approximate="tanh")
-        torch.matmul(h, w2, out=y2d)
+        hb = ctx.scratch[f"moe_hb_{self._c}"][span]
+        hb.copy_(h)
+        torch.matmul(hb, w2, out=y2d)
 
     def apply(self, bufs, ctx):
         x = bufs[f"recv_disp_{self._c}"]  # (n_ep, C, d) rows by source rank
@@ -396,7 +422,10 @@ def make_moe_buffers(args: MoEArgs, seed: int = 0, synth: bool = False
     Every spec is ``"ep"`` (dim 0 split over the ranks).  Routing (top-1
     gating) runs here, on the host, against a fixed random gate matrix; the
     expected Y is the dense routed evaluation in float64, cast to the
-    layer's dtype (as the reference's)."""
+    layer's dtype (as the reference's).  numpy has no bfloat16 here, so for
+    ``dtype="bfloat16"`` each array the reference holds in bf16 is a float32
+    array of the same values (``round_bf16``); the caller places it as
+    bf16 (parallel/dryrun.py ``build_layer``)."""
     if synth:
         raise NotImplementedError(
             "not yet ported: synthesized collectives (make_moe_buffers "
@@ -404,11 +433,16 @@ def make_moe_buffers(args: MoEArgs, seed: int = 0, synth: bool = False
     rng = np.random.default_rng(seed)
     n, t, d, dff = args.n_ep, args.tokens_per_shard, args.d_model, args.d_ff
     tc_ = args.chunk_tokens
-    dt = np.dtype(args.dtype)
-    x = rng.standard_normal((n * t, d)).astype(dt)
-    wg = rng.standard_normal((d, n)).astype(dt)
-    w1 = rng.standard_normal((n, d, dff)).astype(dt) / np.sqrt(d)
-    w2 = rng.standard_normal((n, dff, d)).astype(dt) / np.sqrt(dff)
+    bf16 = args.dtype == "bfloat16"
+    dt = np.dtype(np.float32 if bf16 else args.dtype)
+
+    def cast(a):
+        return round_bf16(a) if bf16 else a.astype(dt)
+
+    x = cast(rng.standard_normal((n * t, d)))
+    wg = cast(rng.standard_normal((d, n)))
+    w1 = cast(rng.standard_normal((n, d, dff))) / np.sqrt(d)
+    w2 = cast(rng.standard_normal((n, dff, d))) / np.sqrt(dff)
 
     expert, gate = top1_route(x, wg)
 
@@ -435,7 +469,7 @@ def make_moe_buffers(args: MoEArgs, seed: int = 0, synth: bool = False
                 w[s, e, fill[e]] = gate[lo + j]
                 fill[e] += 1
         bufs[f"disp_idx_{c}"] = idx
-        bufs[f"disp_w_{c}"] = w
+        bufs[f"disp_w_{c}"] = cast(w)
         for nm in (f"send_disp_{c}", f"recv_disp_{c}", f"ffn_out_{c}",
                    f"recv_comb_{c}"):
             bufs[nm] = np.zeros((n * n, cap, d), dt)
@@ -448,4 +482,4 @@ def make_moe_buffers(args: MoEArgs, seed: int = 0, synth: bool = False
         sel = expert == e
         h = _gelu(x64[sel] @ w1[e].astype(np.float64))
         want[sel] = gate[sel, None] * (h @ w2[e].astype(np.float64))
-    return bufs, specs, want.astype(dt)
+    return bufs, specs, cast(want)

@@ -19,15 +19,16 @@ The host round trip posts the spill and the fetch on the SAME channel, so the
 fetch never reads the pinned host buffer before the spill has written it: the
 graph has no await between them (on the TPU the order came from SSA).
 
-A **collective** start (``AllToAllStart``) is posted the same way, over the
-``torch.distributed`` process group of its mesh axis
-(``RunContext.post_collective``): the work it returns is in flight until its
-AwaitTransfer, which blocks the host until it has finished.
-``PermuteStart`` and ``PsumStart`` are not ported yet (ROADMAP Queue 1).
+A **collective** start (``AllToAllStart``, ``PermuteStart``, ``PsumStart``)
+is posted the same way, over the ``torch.distributed`` process group of its
+mesh axis (``RunContext.post_collective``): the work it returns is in flight
+until its AwaitTransfer, which blocks the host until it has finished.  A
+collective's ``launch`` takes the buffers, the axis group and the axis size.
 """
 
 from __future__ import annotations
 
+import zlib
 from typing import Any, Dict, List, Optional, Sequence as Seq
 
 from tenzing_tpu_torch.core.operation import CpuOp, register_kind
@@ -135,8 +136,130 @@ class MultiAwait(CpuOp):
         return {"kind": self.KIND, "name": self.name(), "bufs": list(self._bufs)}
 
 
+class Collective(CommStart):
+    """Base of the collective starts: a transfer over the process group of
+    mesh axis ``axis``, posted by ``RunContext.post_collective`` through
+    :meth:`launch`."""
+
+    def __init__(self, name: str, src: str, dst: str, axis: str):
+        super().__init__(name, src, dst)
+        self._axis = axis
+
+    def axis(self) -> str:
+        return self._axis
+
+    def execute(self, ctx) -> None:
+        ctx.post_collective(self)
+
+    def apply(self, bufs: Dict[str, Any], ctx) -> None:
+        raise TypeError(f"{self.name()}: a collective is posted through "
+                        "RunContext.post_collective, not applied")
+
+    def launch(self, bufs: Dict[str, Any], group, size: int):
+        """Start the collective on the current stream; returns its work
+        (anything with a ``wait()``)."""
+        raise NotImplementedError
+
+
+class Works:
+    """Several ``async_op`` works waited as one."""
+
+    def __init__(self, works):
+        self.works = list(works)
+
+    def wait(self) -> None:
+        for w in self.works:
+            w.wait()
+
+
+class Done:
+    """The work of a collective that completed when it was posted."""
+
+    def wait(self) -> None:
+        return None
+
+
+def p2p_tag(name: str) -> int:
+    """A message tag that is the same on every rank for one buffer name, so
+    concurrent point-to-point exchanges of different buffers never match
+    each other's messages (gloo honours tags; NCCL orders by call)."""
+    return zlib.crc32(name.encode()) & 0x7FFF
+
+
+def shift_exchange(src, dst, group, size: int, shift: int, tag: int):
+    """Post ``dst`` <- the ``src`` of the rank ``shift`` places behind along
+    the group (group rank order is the axis coordinate), sending ``src`` to
+    the rank ``shift`` places ahead: ``dist.batch_isend_irecv`` of one send
+    and one receive; returns their works."""
+    import torch.distributed as dist
+
+    me = dist.get_rank(group)
+    fwd = dist.get_global_rank(group, (me + shift) % size)
+    bwd = dist.get_global_rank(group, (me - shift) % size)
+    return Works(dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, src, fwd, group, tag),
+        dist.P2POp(dist.irecv, dst, bwd, group, tag)]))
+
+
+@register_kind("permute_start")
+class PermuteStart(Collective):
+    """Post a neighbour shift of ``src`` over mesh axis ``axis`` into ``dst``
+    (reference ``PermuteStart``, tenzing_tpu/ops/comm_ops.py:140, a
+    ``lax.ppermute`` with perm ``[(i, (i + shift) % n)]``): rank i's ``dst``
+    receives the ``src`` of rank ``(i - shift) % n`` along the axis, through
+    ``dist.batch_isend_irecv`` over the axis group.
+
+    On an axis of size 1 the permutation is ``[(0, 0)]``: the identity, so
+    the post is a copy ``dst <- src`` on the transfer stream and no message
+    is sent.  That is decided by the axis size alone, on every backend: NCCL
+    takes a send and a receive to the rank itself (probed on the H100,
+    parallel/ipc_probe.py), gloo refuses one, and a size-1 axis of a larger
+    mesh has no group of its own."""
+
+    def __init__(self, name: str, src: str, dst: str, axis: str,
+                 shift: int = 1):
+        super().__init__(name, src, dst, axis)
+        self._shift = int(shift)
+
+    def shift(self) -> int:
+        return self._shift
+
+    def launch(self, bufs: Dict[str, Any], group, size: int):
+        src, dst = bufs[self._src], bufs[self._dst]
+        if size == 1:
+            dst.copy_(src, non_blocking=True)
+            return Done()
+        return shift_exchange(src, dst, group, size, self._shift % size,
+                              p2p_tag(self._dst))
+
+    def to_json(self) -> Dict[str, Any]:
+        j = super().to_json()
+        j.update(axis=self._axis, shift=self._shift)
+        return j
+
+
+@register_kind("psum_start")
+class PsumStart(Collective):
+    """Post an all-reduce (sum) of ``src`` over mesh axis ``axis`` into
+    ``dst`` (reference ``PsumStart``, tenzing_tpu/ops/comm_ops.py:194, a
+    ``lax.psum``): ``dst <- src``, then ``dist.all_reduce(dst,
+    async_op=True)`` over the axis group."""
+
+    def launch(self, bufs: Dict[str, Any], group, size: int):
+        import torch.distributed as dist
+
+        dst = bufs[self._dst]
+        dst.copy_(bufs[self._src], non_blocking=True)
+        return dist.all_reduce(dst, group=group, async_op=True)
+
+    def to_json(self) -> Dict[str, Any]:
+        j = super().to_json()
+        j.update(axis=self._axis)
+        return j
+
+
 @register_kind("all_to_all_start")
-class AllToAllStart(CommStart):
+class AllToAllStart(Collective):
     """Post a width-padded all-to-all of ``src`` into ``dst`` over mesh axis
     ``axis`` (reference ``AllToAllStart``, tenzing_tpu/ops/comm_ops.py:164;
     the original tenzing's ``Ialltoallv``, ops_mpi.hpp:82-119).  The per-rank
@@ -147,24 +270,13 @@ class AllToAllStart(CommStart):
 
     def __init__(self, name: str, src: str, dst: str, axis: str,
                  split_axis: int = 1):
-        super().__init__(name, src, dst)
-        self._axis = axis
+        super().__init__(name, src, dst, axis)
         self._split = int(split_axis)
-
-    def axis(self) -> str:
-        return self._axis
 
     def split_axis(self) -> int:
         return self._split
 
-    def execute(self, ctx) -> None:
-        ctx.post_collective(self)
-
-    def apply(self, bufs: Dict[str, Any], ctx) -> None:
-        raise TypeError(f"{self.name()}: a collective is posted through "
-                        "RunContext.post_collective, not applied")
-
-    def launch(self, bufs: Dict[str, Any], group):
+    def launch(self, bufs: Dict[str, Any], group, size: int):
         """Start the exchange on the current stream; returns its work."""
         import torch.distributed as dist
 

@@ -28,7 +28,8 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tenzing_tpu_torch"
 SOURCES = ("halo_pack.cu", "halo_unpack.cu", "device_copy.cu", "attn_fold.cu",
-           "ffn_expert.cu", "ffn_rows.cu", "ell_spmv.cu", "fused_region.cu")
+           "ffn_expert.cu", "ffn_rows.cu", "ell_spmv.cu", "fused_region.cu",
+           "rdma_shift.cu")
 HEADERS = ("attn_fold_f32.cuh", "ffn_tile.cuh")  # included by the sources above
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -50,6 +51,7 @@ SIGNATURES = {
     "tz_ffn_batched": [_c_ptr] * 4 + [_c_i64] * 4 + [_c_ptr],
     # x, w1, w2, y; n, d, dff; stream
     "tz_ffn_rows": [_c_ptr] * 4 + [_c_i64] * 3 + [_c_ptr],
+    "tz_ffn_rows_bf16": [_c_ptr] * 4 + [_c_i64] * 3 + [_c_ptr],
     # vals, cols, x, y; m, w, n; stream
     "tz_ell_spmv": [_c_ptr] * 4 + [_c_i64] * 3 + [_c_ptr],
     # descriptor table (host), barrier counters; blocks per group; stream
@@ -60,11 +62,29 @@ SIGNATURES = {
     "tz_fused_region_smem": [_c_ptr],
     "tz_fused_region_member_size": [],
     "tz_fused_region_table_size": [],
+    # x, peer y; bytes; my, +shift, -shift flag blocks; id, epoch; error
+    # word; stream
+    "tz_rdma_shift_post": [_c_ptr, _c_ptr, _c_i64, _c_ptr, _c_ptr, _c_ptr,
+                           _c_i64, _c_i64, _c_ptr, _c_ptr],
+    # my, +shift, -shift flag blocks; id, epoch; error word; stream
+    "tz_rdma_shift_barrier": [_c_ptr, _c_ptr, _c_ptr, _c_i64, _c_i64, _c_ptr,
+                              _c_ptr],
+    # my flag block; id, epoch; error word; stream
+    "tz_rdma_shift_wait": [_c_ptr, _c_i64, _c_i64, _c_ptr, _c_ptr],
+    "tz_rdma_shift_slots": [],
+    # allocation base, handle out (64 bytes)
+    "tz_ipc_get_handle": [_c_ptr, _c_ptr],
+    # handle (64 bytes), base out
+    "tz_ipc_open": [_c_ptr, ctypes.POINTER(ctypes.c_void_p)],
+    "tz_ipc_close": [_c_ptr],
+    "tz_ipc_handle_size": [],
 }
 # entry points that return an int64 instead of a cudaError_t
 RESTYPES = {"tz_fused_region_smem": _c_i64,
             "tz_fused_region_member_size": _c_i64,
-            "tz_fused_region_table_size": _c_i64}
+            "tz_fused_region_table_size": _c_i64,
+            "tz_rdma_shift_slots": _c_i64,
+            "tz_ipc_handle_size": _c_i64}
 
 _lib: Optional[ctypes.CDLL] = None
 # what the last build() did: seconds, whether it compiled, nvcc's -v report

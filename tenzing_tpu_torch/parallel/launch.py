@@ -3,7 +3,8 @@
 :func:`launch` starts ``nproc`` interpreters (``python -m
 tenzing_tpu_torch.parallel.launch <dir> <rank>``), which join one process
 group through a ``file://`` rendezvous in a fresh temporary directory (no
-port to collide with other runs on the host), build the one-axis mesh, call
+port to collide with other runs on the host), build the mesh (one axis
+``"ep"`` over all ranks, or the axes and shape the caller names), call
 the task's function as ``fn(mesh=..., device=..., **kwargs)`` and hand its
 result back through a pickle in that directory.  The workers import only
 the port: the task names its function as ``"module:function"`` inside
@@ -18,11 +19,19 @@ once.
 
 On ``cuda`` rank r runs on GPU r over NCCL (the launch refuses more ranks
 than visible GPUs); on ``cpu`` the ranks run over gloo with one thread each.
+With ``shared_card=True`` on ``cuda`` every rank runs on GPU 0 and the ranks
+join over gloo: the one way several ranks fit on one card, since NCCL
+refuses two ranks on one device.  Their mesh is marked ``shared_card``: a
+collective post raises there (gloo cannot move device tensors, and a
+silent round trip through the host would be a fallback), so only the
+``.rdma`` shift (ops/rdma.py), which writes into the peer's memory through
+CUDA IPC, exchanges data between them.
 """
 
 from __future__ import annotations
 
 import importlib
+import math
 import os
 import pickle
 import subprocess
@@ -30,12 +39,12 @@ import sys
 import tempfile
 import time
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 from tenzing_tpu_torch.parallel.mesh import GROUP_TIMEOUT_S
 
 PACKAGE = "tenzing_tpu_torch"
-# the mesh axis of the ported multi-device model (models/moe.py AXIS)
+# the mesh axis when the caller names none (models/moe.py AXIS)
 MESH_AXIS = "ep"
 REPO = Path(__file__).resolve().parents[2]
 
@@ -50,28 +59,40 @@ def _resolve(fn: str):
 
 def launch(fn: str, nproc: int, device: str = "cuda",
            kwargs: Optional[Dict[str, Any]] = None,
-           timeout_s: float = 300.0, workdir: Optional[str] = None
-           ) -> List[Any]:
+           timeout_s: float = 300.0, workdir: Optional[str] = None,
+           mesh_axes: Sequence[str] = (MESH_AXIS,),
+           mesh_shape: Optional[Sequence[int]] = None,
+           shared_card: bool = False) -> List[Any]:
     """Run ``fn(mesh=, device=, **kwargs)`` on ``nproc`` ranks of a mesh
-    with the one axis ``MESH_AXIS``; returns the
-    ranks' results in rank order.  Raises ``RuntimeError`` when a rank fails
-    and ``TimeoutError`` when the ranks outlast ``timeout_s``; either way no
-    child is left running."""
+    with axes ``mesh_axes`` of ``mesh_shape`` (default: one axis over all
+    ranks); returns the ranks' results in rank order.  ``shared_card``: all
+    ranks on GPU 0 over gloo (module docstring).  Raises ``RuntimeError``
+    when a rank fails and ``TimeoutError`` when the ranks outlast
+    ``timeout_s``; either way no child is left running."""
     if nproc < 1:
         raise ValueError(f"nproc must be >= 1 (got {nproc})")
     _resolve(fn)  # fail here, not in every child
+    shape = tuple(mesh_shape) if mesh_shape is not None else (nproc,)
+    if len(shape) != len(tuple(mesh_axes)) or \
+            int(math.prod(shape)) != nproc:
+        raise ValueError(f"mesh shape {shape} over axes {tuple(mesh_axes)} "
+                         f"does not hold {nproc} ranks")
+    if shared_card and device != "cuda":
+        raise ValueError("shared_card needs device='cuda'")
     if device == "cuda":
         import torch
 
         have = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if nproc > have:
-            raise RuntimeError(f"{nproc} ranks on cuda need {nproc} visible "
+        need = 1 if shared_card else nproc
+        if need > have:
+            raise RuntimeError(f"{nproc} ranks on cuda need {need} visible "
                                f"GPUs; {have} are visible")
     elif device != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     with tempfile.TemporaryDirectory(dir=workdir, prefix="tz_launch_") as d:
         task = {"fn": fn, "kwargs": dict(kwargs or {}), "device": device,
-                "world": nproc,
+                "world": nproc, "axes": tuple(mesh_axes), "shape": shape,
+                "shared_card": shared_card,
                 "init": "file://" + os.path.join(d, "rendezvous"),
                 "group_timeout_s": min(float(timeout_s), GROUP_TIMEOUT_S)}
         with open(os.path.join(d, "task.pkl"), "wb") as f:
@@ -122,6 +143,19 @@ def probe_control_plane(mesh, device, obj: Any = None, code: int = 0):
     return r, n, got, top, fault
 
 
+def probe_mesh(mesh, device):
+    """The launch's mesh check: for each axis, (size, this rank's index, the
+    global ranks of its group, or None where the axis has none)."""
+    import torch.distributed as dist
+
+    out = {}
+    for name, ax in mesh.axes.items():
+        ranks = (dist.get_process_group_ranks(ax.group)
+                 if ax.group is not None else None)
+        out[name] = (ax.size, ax.index, ranks)
+    return dist.get_rank(), out
+
+
 def _tail(d: str, r: int, n: int = 4000) -> str:
     with open(os.path.join(d, f"rank{r}.log")) as f:
         return f.read()[-n:]
@@ -158,13 +192,16 @@ def _child(d: str, rank: int) -> None:
         task = pickle.load(f)
     device = task["device"]
     if device == "cuda":
-        torch.cuda.set_device(rank)
-        dev, backend = torch.device("cuda", rank), "nccl"
+        gpu = 0 if task["shared_card"] else rank
+        torch.cuda.set_device(gpu)
+        dev = torch.device("cuda", gpu)
+        backend = "gloo" if task["shared_card"] else "nccl"
     else:
         torch.set_num_threads(1)
         dev, backend = torch.device("cpu"), "gloo"
-    mesh = init_mesh(MESH_AXIS, backend, task["init"], rank, task["world"],
-                     timeout_s=task["group_timeout_s"])
+    mesh = init_mesh(task["axes"], backend, task["init"], rank, task["world"],
+                     timeout_s=task["group_timeout_s"], shape=task["shape"],
+                     shared_card=task["shared_card"])
     result = _resolve(task["fn"])(mesh=mesh, device=dev, **task["kwargs"])
     close_mesh()
     tmp = os.path.join(d, f"result{rank}.pkl.tmp")

@@ -49,12 +49,30 @@ blocks at every ``EventSync`` instead (the before/after measurement of
 ``chip_smoke.py``'s ``host_syncs`` phase).  ``RunContext.host_syncs`` counts the
 host blocks executed.
 
-**Collectives** (``AllToAllStart``, ops/comm_ops.py) are posted like a
-transfer: on the channel's transfer stream, over the process group of the
-platform mesh's axis (core/platform.py ``Mesh``), with ``async_op=True``;
-the returned work is in flight until its ``AwaitTransfer``, which blocks the
-host until it has finished, on NCCL as on gloo.  Each rank runs the same
-schedule on its own shard of the buffers (parallel/mesh.py).
+**Collectives** (``AllToAllStart``, ``PermuteStart``, ``PsumStart``,
+ops/comm_ops.py) are posted like a transfer: on the channel's transfer
+stream, over the process group of the platform mesh's axis
+(core/platform.py ``Mesh``), with ``async_op=True``; the returned work is in
+flight until its ``AwaitTransfer``, which blocks the host until it has
+finished, on NCCL as on gloo.  Each rank runs the same schedule on its own
+shard of the buffers (parallel/mesh.py).  On a mesh whose ranks share one
+card over gloo a collective post raises: gloo does not move device tensors.
+
+**The mesh shift** (``RdmaShiftStart`` on an axis of size > 1, ops/rdma.py)
+is posted by :meth:`RunContext.post_shift`: the channel's transfer stream
+first waits on this rank's earlier readers of its own ``dst`` (the
+neighbour's post writes into it, so it must not land while an unpack of
+the previous run still reads it: the device ops that read a shift
+destination record an event after them; the schedule's last sync before
+``finish`` already makes the host wait for a run's device ops before the
+next run's posts, and the stream wait keeps the order where no host wait
+lies between them), then runs ``rdma_shift_post``;
+the await runs ``rdma_shift_wait`` on the same stream and blocks the host
+on an event after it.  An event on the post alone would not do: the bytes
+that land in ``dst`` come from the neighbour's kernel, so only this rank's
+arrival flag shows they landed.  On an axis of size 1 the shift is the
+loopback copy, posted like any transfer.  With ``device="cpu"``, or under
+``plain_kernels``, the shift is its plain version over the axis group.
 
 ``prepare_n`` runs the schedule n times back to back on the persistent
 streams and synchronizes the device once; there is no CUDA-graph capture,
@@ -78,6 +96,7 @@ from tenzing_tpu_torch.core.resources import Event, Lane
 from tenzing_tpu_torch.core.sequence import Sequence
 from tenzing_tpu_torch.core.serdes import sequence_to_json_str
 from tenzing_tpu_torch.core.sync_ops import EventRecord, SyncOp
+from tenzing_tpu_torch.ops.comm_ops import Done
 
 
 def resolve_device(device: Optional[str] = None) -> torch.device:
@@ -162,6 +181,32 @@ class _Collective:
         event.synchronize()
 
 
+class _Shift:
+    """An in-flight mesh shift: what its wait kernel needs."""
+
+    def __init__(self, peers, cid: int, epoch: int, stream):
+        self.peers, self.cid, self.epoch, self.stream = (peers, cid, epoch,
+                                                         stream)
+
+    def wait(self, event) -> None:
+        """Launch ``rdma_shift_wait`` on the post's stream and block the host
+        until it returns; a kernel timeout raises with its reason."""
+        from tenzing_tpu_torch.ops import rdma
+
+        with torch.cuda.stream(self.stream):
+            rdma.rdma_shift_wait(self.peers.flags, self.cid, self.epoch,
+                                 self.peers.err)
+        event.record(self.stream)
+        try:
+            event.synchronize()
+        except RuntimeError as e:
+            why = rdma.shift_error(self.peers.err)
+            if why is None:
+                raise
+            raise RuntimeError(f"rdma shift on axis {self.peers.axis!r}, "
+                               f"collective id {self.cid}: {why}") from e
+
+
 class RunContext:
     """What ops see while a schedule runs: the buffers, the scratch, the lane
     and transfer streams, the events, and the in-flight transfers.  Owned by
@@ -192,6 +237,12 @@ class RunContext:
         self._events: Dict[int, Any] = {}
         self._channels: Dict[str, Any] = {}
         self._post_events: Dict[str, Any] = {}
+        # the mesh shift: one ShiftPeers per axis, the destinations posted so
+        # far, and per destination an event after each lane's last reader
+        self.generation = 0
+        self._peers: Dict[str, Any] = {}
+        self._shift_dsts: set = set()
+        self._readers: Dict[str, Dict[int, Any]] = {}
 
     # -- resources (created once, on first use) -------------------------
     def lane_stream(self, lane: Lane):
@@ -254,8 +305,14 @@ class RunContext:
     # -- op hooks ---------------------------------------------------------
     def run_default(self, op: OpBase) -> None:
         if self.on_cuda and isinstance(op, BoundDeviceOp):
-            with torch.cuda.stream(self.lane_stream(op.lane())):
+            stream = self.lane_stream(op.lane())
+            with torch.cuda.stream(stream):
                 op.apply(self.bufs, self)
+            for buf in self._shift_dsts.intersection(op.reads()):
+                ev = self._readers.setdefault(buf, {}).get(op.lane().id)
+                if ev is None:
+                    ev = self._readers[buf][op.lane().id] = torch.cuda.Event()
+                ev.record(stream)
         else:
             op.apply(self.bufs, self)
 
@@ -292,14 +349,62 @@ class RunContext:
         if self.mesh is None:
             raise RuntimeError(f"{op.name()}: a collective over axis "
                                f"{op.axis()!r} needs a platform mesh")
-        group = self.mesh.group(op.axis())
+        if self.mesh.shared_card:
+            raise RuntimeError(
+                f"{op.name()}: the ranks share one card over gloo, which "
+                "cannot move device tensors; only the .rdma shift exchanges "
+                "data between them")
+        group, size = self.mesh.group(op.axis()), self.mesh.size(op.axis())
         if not self.on_cuda:
-            self.inflight[dst] = _Collective(op.launch(self.bufs, group), None)
+            self.inflight[dst] = _Collective(
+                op.launch(self.bufs, group, size), None)
             return
         stream = self.channel_stream(op.channel())
         with torch.cuda.stream(stream):
-            work = op.launch(self.bufs, group)
+            work = op.launch(self.bufs, group, size)
         self.inflight[dst] = _Collective(work, stream)
+
+    def post_shift(self, op) -> None:
+        """Post a mesh shift (ops/rdma.py ``RdmaShiftStart``; module
+        docstring): the loopback on an axis of size 1 (or without a mesh, as
+        the reference's), else the shift kernel's post half, or the plain
+        shift on the CPU and under ``plain_kernels``."""
+        from tenzing_tpu_torch.ops import rdma
+
+        size = (self.mesh.size(op.axis())
+                if self.mesh is not None and op.axis() in self.mesh.axes
+                else 1)
+        if size == 1:
+            self.post_transfer(op)
+            return
+        dst = op.dst()
+        if dst in self.inflight:
+            raise RuntimeError(f"{op.name()}: a transfer into {dst!r} is "
+                               "already in flight")
+        group = self.mesh.group(op.axis())
+        x, y = self.bufs[op.src()], self.bufs[dst]
+        if not self.on_cuda or self.plain_kernels:
+            rdma.rdma_shift_plain(x, y, group, size, op.shift(), op.tag())
+            self.inflight[dst] = _Collective(Done(), None)
+            return
+        peers = self._peers.get(op.axis())
+        if peers is None:
+            peers = self._peers[op.axis()] = rdma.ShiftPeers(
+                op.axis(), group, size, self.device)
+        shift = op.shift() % size
+        peer_y = peers.peer_recv(dst, y, shift, self.generation)
+        self._shift_dsts.add(dst)
+        stream = self.channel_stream(op.channel())
+        for ev in self._readers.get(dst, {}).values():
+            stream.wait_event(ev)
+        cid = op.collective_id()
+        epoch = peers.next_epoch(cid)
+        with torch.cuda.stream(stream):
+            rdma.rdma_shift_post(x, peer_y, peers.flags,
+                                 peers.flag_block(shift),
+                                 peers.flag_block(-shift), cid, epoch,
+                                 peers.err)
+        self.inflight[dst] = _Shift(peers, cid, epoch, stream)
 
     def await_transfer(self, buf: str) -> None:
         """Block the host until the transfer into ``buf`` has landed.  A
@@ -311,7 +416,9 @@ class RunContext:
             raise RuntimeError(f"await on {buf!r}: no transfer in flight")
         entry = self.inflight.pop(buf)
         self.host_syncs += 1
-        if isinstance(entry, _Collective):
+        if isinstance(entry, _Shift):
+            entry.wait(self._post_event(buf))
+        elif isinstance(entry, _Collective):
             entry.wait(self._post_event(buf) if entry.stream is not None
                        else None)
         elif self.on_cuda:
@@ -430,6 +537,9 @@ class StreamExecutor:
 
     def _run_ops(self, ops: List[OpBase], bufs: Dict[str, torch.Tensor]) -> None:
         ctx = self.ctx
+        if bufs is not ctx.bufs:
+            # a new buffer dict: the mesh shift maps its peers' anew
+            ctx.generation += 1
         ctx.bufs = bufs
         ctx.inflight = {}
         ctx.pending, ctx._pending_waited = [], set()

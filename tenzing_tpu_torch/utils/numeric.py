@@ -3,13 +3,16 @@
 Counterpart of ``tenzing_tpu/utils/numeric.py`` (reference
 include/tenzing/numeric.hpp): avg/med/var/stddev, Pearson correlation (MCTS
 strategies), nearest-rank percentiles, the paired bootstrap speedup the
-driver's verdict is computed with, and the tanh gelu of the host-side
-expected outputs."""
+driver's verdict is computed with, the tanh gelu of the host-side
+expected outputs, the prime factors of the halo's device grid, and bf16
+rounding without a bf16 numpy type."""
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import List, Sequence
+
+import numpy as np
 
 
 def avg(xs: Sequence[float]) -> float:
@@ -87,3 +90,29 @@ def paired_speedup(
     n = len(ratios)
     meds = sorted(med([ratios[rng.randrange(n)] for _ in range(n)]) for _ in range(n_boot))
     return med(ratios), percentile(meds, 2.5), percentile(meds, 97.5)
+
+
+def prime_factors(n: int) -> List[int]:
+    """Ascending prime factorization (reference numeric.cpp:11-33; used for
+    the halo's device-grid layout, halo_run_strategy.hpp:80-98)."""
+    out: List[int] = []
+    d = 2
+    while d * d <= n:
+        while n % d == 0:
+            out.append(d)
+            n //= d
+        d += 1
+    if n > 1:
+        out.append(n)
+    return out
+
+
+def round_bf16(a) -> np.ndarray:
+    """``a`` rounded to bfloat16 (to nearest, ties to even), held in a
+    float32 array.  Rounds through float32 first, as ``ml_dtypes``' cast to
+    bfloat16 does, so the values are the reference's bf16 arrays' bit for
+    bit; ``torch.from_numpy(r).to(torch.bfloat16)`` then is exact."""
+    bits = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    bits = (bits + np.uint32(0x7FFF) + ((bits >> 16) & np.uint32(1))) \
+        & np.uint32(0xFFFF0000)
+    return bits.view(np.float32)

@@ -12,8 +12,16 @@ shapes the two agree to ~1e-6, and on the card the kernel and the plain
 version agree to 8e-6 at full width (d=512, d_ff=2048; PERF.md).  The
 erf gelu in place of the tanh form moves y by ~5e-4 and must fail it.
 
-``test_cuda_kernel_matches_plain`` and ``test_cuda_rows_kernel_matches_plain``
-need the card (marker ``needs_cuda``)."""
+bf16 ``ffn_rows``: the same bf16 inputs (float32 numpy rounded to bf16 the
+same way on both sides) through ``ffn_pallas(interpret=True)`` and the
+plain version, at ``FFN_BF16_TOL`` (rtol = atol = 2^-7, two bf16 ulps at
+|y| ~ 1: the bf16 rounding of h and y, after float32 sums in different
+orders, may land one ulp apart).  A control with W1's last 64 hidden
+columns zeroed (a skipped hidden tile) must fail it.
+
+``test_cuda_kernel_matches_plain``, ``test_cuda_rows_kernel_matches_plain``
+and ``test_cuda_rows_bf16_kernel_matches_plain`` need the card (marker
+``needs_cuda``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -167,7 +175,8 @@ def test_rows_wrapper_rejects_bad_arguments(bad):
     x, w1, w2 = (torch.from_numpy(t) for t in _rows_inputs(37, 32, 64, 13))
     out = None
     if bad == "bf16":
-        with pytest.raises(TypeError, match="ROADMAP"):
+        # a bf16 x takes bf16 weights: mixed dtypes are refused
+        with pytest.raises(TypeError, match="like x"):
             fk.ffn_rows(x.to(torch.bfloat16), w1, w2)
         return
     if bad == "f64":
@@ -212,3 +221,85 @@ def test_cuda_rows_kernel_matches_plain(cuda_device, shape):
     assert torch.equal(got, again)
     assert not torch.allclose(
         fk.ffn_rows_plain(x, w1, w2, approximate="none"), want, **FFN_TOL)
+
+
+# -- ffn_rows in bf16 (the reference's kernel with a bf16 x) ---------------------
+
+FFN_BF16_TOL = fk.FFN_BF16_TOL
+
+
+def _bf16_inputs(n, d, dff, seed):
+    return [torch.from_numpy(t).to(torch.bfloat16)
+            for t in _rows_inputs(n, d, dff, seed)]
+
+
+def _tile_dropped(w1):
+    """W1 with its last 64 hidden columns zeroed: a skipped hidden tile."""
+    w1 = w1.clone()
+    w1[:, -min(64, w1.shape[1]):] = 0
+    return w1
+
+
+@pytest.mark.parametrize("shape", ROWS + [(300, 512, 2048)],
+                         ids=[f"n{n}-d{d}-dff{f}"
+                              for n, d, f in ROWS + [(300, 512, 2048)]])
+def test_rows_bf16_plain_matches_reference_kernel(shape):
+    x, w1, w2 = _bf16_inputs(*shape, seed=11)
+    want = ffn_pallas(*(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                        for t in (x, w1, w2)), interpret=True)
+    assert want.dtype == jnp.bfloat16
+    want = torch.from_numpy(np.asarray(want.astype(jnp.float32)))
+    got = fk.ffn_rows(x, w1, w2)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want, **FFN_BF16_TOL)
+    ctl = fk.ffn_rows_plain(x, _tile_dropped(w1), w2)
+    assert not torch.allclose(ctl.float(), want, **FFN_BF16_TOL)
+
+
+def test_rows_bf16_plain_rounds_h_and_y():
+    """The plain version rounds h to bf16 between the products and y at the
+    end, as the reference's kernel: not the same as carrying h in float32."""
+    x, w1, w2 = _bf16_inputs(300, 512, 2048, seed=15)
+    got = fk.ffn_rows_plain(x, w1, w2)
+    h = torch.nn.functional.gelu(x.float() @ w1.float(), approximate="tanh")
+    unrounded = (h @ w2.float()).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert not torch.equal(got, unrounded)
+    torch.testing.assert_close(got.float(), unrounded.float(), **FFN_BF16_TOL)
+
+
+def test_rows_bf16_wrapper_writes_into_out_and_counts_no_cpu_launch():
+    x, w1, w2 = _bf16_inputs(37, 32, 64, 12)
+    before = dict(fk.LAUNCHES)
+    out = torch.full_like(x, float("nan"))
+    assert fk.ffn_rows(x, w1, w2, out=out) is out
+    assert torch.equal(out, fk.ffn_rows_plain(x, w1, w2))
+    assert fk.LAUNCHES == before
+
+
+def test_rows_bf16_bound_at_the_slice_shape():
+    """In bf16 the same chunk is bound by operations at the tensor cores'
+    989 TFLOP/s: 8.7 us; its bytes (8.4 MB) take 2.5 us."""
+    n, d, dff = 2048, 512, 2048
+    flops = fk.ffn_flops(1, n, d, dff)
+    nbytes = fk.ffn_bytes(1, n, d, dff, itemsize=2)
+    assert flops / 989e12 * 1e6 == pytest.approx(8.69, abs=0.01)
+    assert nbytes / 3.35e12 * 1e6 == pytest.approx(2.50, abs=0.01)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("shape", [(2048, 512, 2048), (2047, 512, 2048),
+                                   (37, 512, 520)])
+def test_cuda_rows_bf16_kernel_matches_plain(cuda_device, shape):
+    x, w1, w2 = (t.to(cuda_device) for t in _bf16_inputs(*shape, seed=16))
+    before = dict(fk.LAUNCHES)
+    got = fk.ffn_rows(x, w1, w2)
+    again = fk.ffn_rows(x, w1, w2)
+    want = fk.ffn_rows_plain(x, w1, w2)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["ffn_rows_bf16"] == before["ffn_rows_bf16"] + 2
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **FFN_BF16_TOL)
+    assert torch.equal(got, again)
+    assert not torch.allclose(fk.ffn_rows_plain(x, _tile_dropped(w1), w2)
+                              .float(), want.float(), **FFN_BF16_TOL)

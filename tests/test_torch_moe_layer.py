@@ -16,7 +16,14 @@ parallel/) against the JAX package's (tenzing_tpu/models/moe.py).
 * the chunked expert partials at n_ep = 4 (``chunk_relax=True``) agree the
   same way;
 * a rank that raises while the others sit in a collective fails the launch
-  within its timeout.
+  within its timeout;
+* a bf16 layer (``MoEArgs(dtype="bfloat16")``): its buffers are the
+  reference's values, and at n_ep = 1 and 2 the port's Y (its ``.pallas``
+  slot on the bf16 ``ffn_rows``) and the reference's (W1 / W2 cast to bf16
+  on both sides) agree within ``dryrun.Y_TOL_BF16``, as each does with the
+  float64 dense evaluation cast to bf16, while a control with one expert's
+  output dropped fails it; at most 1% of Y's elements may differ from the
+  reference's at all (each slot rounds where the reference rounds).
 
 The spawned ranks import only the port; the reference runs in this
 process.  ``test_cuda_layer_world_one`` needs the card (``needs_cuda``)."""
@@ -26,6 +33,7 @@ from dataclasses import asdict
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -73,9 +81,13 @@ def _shape(g):
 
 
 def _ref_run(args, jsons, **kw):
-    """The reference's Y for each schedule JSON, on an n_ep-device CPU mesh."""
+    """The reference's Y for each schedule JSON, on an n_ep-device CPU mesh
+    (a bf16 layer's float64 W1 / W2 cast to bf16, as the port places them)."""
     bufs, specs, want = ref.make_moe_buffers(ref.MoEArgs(**asdict(args)),
                                              seed=SEED)
+    if args.dtype == "bfloat16":
+        bufs = {k: v.astype(ml_dtypes.bfloat16) if v.dtype == np.float64
+                else v for k, v in bufs.items()}
     mesh = JaxMesh(np.array(jax.devices()[:args.n_ep]), ("ep",))
     plat = RefPlatform.make_n_lanes(2, mesh=mesh, specs=specs)
     ex = TraceExecutor(plat, {k: jnp.asarray(v) for k, v in bufs.items()})
@@ -235,6 +247,68 @@ def test_raising_rank_fails_the_launch_within_its_timeout(tmp_path):
     assert not list(tmp_path.iterdir())  # the launch directory is gone
 
 
+# -- bf16 -------------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("nep", [1, 2])
+def test_bf16_buffers_hold_the_reference_values(nep):
+    a = _args(nep, dtype="bfloat16")
+    bufs, specs, want = moe.make_moe_buffers(a, seed=SEED)
+    rbufs, _, rwant = ref.make_moe_buffers(ref.MoEArgs(**asdict(a)), seed=SEED)
+    assert bufs.keys() == rbufs.keys()
+    for k in bufs:
+        # numpy holds no bf16 here: the reference's bf16 arrays are float32
+        # arrays of the same values in the port (W1 / W2 are float64 in both)
+        want_dt = np.float32 if rbufs[k].dtype == ml_dtypes.bfloat16 \
+            else rbufs[k].dtype
+        assert bufs[k].dtype == want_dt, k
+        assert np.array_equal(bufs[k], rbufs[k].astype(want_dt)), k
+    assert np.array_equal(want, rwant.astype(np.float32))
+
+
+def _bf16_err(y, want):
+    return dryrun.y_error(torch.from_numpy(np.asarray(y, np.float32)),
+                          torch.from_numpy(np.asarray(want, np.float32)))
+
+
+def _within_bf16(err):
+    return (err["rel_rms"] <= dryrun.Y_TOL_BF16["rel_rms"]
+            and err["max_abs"] <= dryrun.Y_TOL_BF16["max_abs"])
+
+
+@pytest.mark.needs_shard_map
+@pytest.mark.parametrize("nep", [1, 2])
+def test_gloo_bf16_layer_matches_reference_mesh(nep, tmp_path):
+    a = _args(nep, dtype="bfloat16")
+    orders = dryrun.pick_schedules(dryrun.layer_graph(a, impl_choice=True),
+                                   Platform.make_n_lanes(2))
+    slots = {s for o in orders for s in dryrun.ffn_slots(o)}
+    assert {".xla", ".pallas"} <= slots
+    jsons = [sequence_to_json(o) for o in orders]
+    ref_ys, want = _ref_run(a, jsons, impl_choice=True)
+    want = want.astype(np.float32)
+    port_ys = _port_run(a, jsons, tmp_path, impl_choice=True)
+    assert len(port_ys) == len(ref_ys) == len(orders)
+    bufs, _, _ = moe.make_moe_buffers(a, seed=SEED)
+    for py, ry in zip(port_ys, ref_ys):
+        ry = ry.astype(np.float32)
+        assert _within_bf16(_bf16_err(py, ry))
+        # both slots round where the reference rounds: at most a summation
+        # order's worth of elements may land one bf16 ulp apart (an .xla
+        # slot that rounded x @ W1 to bf16 before the gelu moved ~half)
+        assert np.count_nonzero(py != ry) <= 0.01 * py.size
+        assert _within_bf16(_bf16_err(ry, want))
+        assert _within_bf16(_bf16_err(py, want))
+        # the control: every token routed to expert 0 loses its output
+        ctl = py.copy()
+        t, tc = a.tokens_per_shard, a.chunk_tokens
+        for c in range(a.n_chunks):
+            idx, w = bufs[f"disp_idx_{c}"], bufs[f"disp_w_{c}"]
+            for s_ in range(a.n_ep):
+                ctl[s_ * t + c * tc + idx[s_, 0][w[s_, 0] > 0]] = 0.0
+        assert not _within_bf16(_bf16_err(ctl, want))
+
+
 # -- the card -------------------------------------------------------------------------
 
 
@@ -259,3 +333,20 @@ def test_cuda_layer_world_one(cuda_device):
     assert any(".pallas" in r["ffn_slots"] and r["ffn_rows_launches"] > 0
                for r in rows)
     assert summary["explore"]["rollouts"] >= 1
+
+
+@pytest.mark.needs_cuda
+def test_cuda_bf16_layer_world_one(cuda_device):
+    """The bf16 layer at world size 1 over NCCL at d_model 512: every
+    schedule within the bf16 tolerance, the .pallas ones through the bf16
+    ffn_rows."""
+    from tenzing_tpu_torch.ops import ffn_kernels as fk
+
+    before = fk.LAUNCHES["ffn_rows_bf16"]
+    summary = dryrun.world_one(
+        "cuda", {"args": dict(n_ep=1, tokens_per_shard=256, d_model=512,
+                              d_ff=2048, n_chunks=2, dtype="bfloat16"),
+                 "mcts_iters": 2})
+    rows = summary["schedules"]
+    assert all(r["within_tol"] and r["dtype"] == "bfloat16" for r in rows)
+    assert fk.LAUNCHES["ffn_rows_bf16"] > before
