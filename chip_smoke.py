@@ -22,7 +22,12 @@ before the last line:
 5. driver   — ``tenzing_tpu_torch.bench.driver.run`` at ``halo_n=512`` with a
               small budget; ``verified`` must be true and each halo kernel's
               launch count over this run must be > 0;
-6. attn kernels  — at the full-width attention shapes (batch 4, 8192
+6. attn kernels  — first the bf16 kernel's ``ptxas -v`` report
+              (registers, spills), its launch constants against
+              ``ops/attention_kernels.bf16_launch_plan`` and the stress cases
+              of ``bench/attn_bf16.py`` (ragged n and nkv, several kv blocks,
+              strided views, q scaled by 8) at ``BF16_STATE_TOL``; then at
+              the full-width attention shapes (batch 4, 8192
               queries, head dim 128): ``attn_block`` (f32 and bf16 inputs) on a
               1024-key block from the initial state and from the state after
               three folds, ``attn_fused`` (f32 and bf16) over all 8192 keys,
@@ -36,7 +41,9 @@ before the last line:
               attention (``F32_O_TOL`` / ``BF16_O_TOL``; the controls' O is
               reported beside it).  Each row carries the kernel's, the plain
               version's and (fused) ``scaled_dot_product_attention``'s times
-              and the bound;
+              and the bound; each bf16 row also its achieved TFLOP/s (on
+              4 b n nkv d), the two-pass design's bound and the time of the
+              wrapper's K/V casts (inside the kernel's time);
 7. attn executor — the naive (all ``.xla``), ``.pallas`` on 2 lanes,
               ``.pallas_bf16``, ``.fused``, ``.fused_bf16`` and a mixed order
               at full width through ``StreamExecutor``, each against the same
@@ -563,12 +570,30 @@ def control_fold(torch, ak, q, k, v, state, scale, bkv, fault):
 
 def phase_attn_kernels(torch, device, timer):
     """Both attention kernels at the full-width shapes against their plain
-    versions, with controls, times and bounds."""
+    versions, with controls, times and bounds; first the bf16 kernel's
+    build report, launch constants and stress cases."""
     import torch.nn.functional as F
 
+    from tenzing_tpu_torch.bench import attn_bf16
     from tenzing_tpu_torch.ops import attention_kernels as ak
+    from tenzing_tpu_torch.ops import kernel_lib
 
     a = attn_full_args()
+    ptxas = attn_bf16.ptxas_report(str(kernel_lib.build_info.get("ptxas", "")))
+    mismatch = attn_bf16.config_mismatch(a.batch, a.n_devices * a.seq_local,
+                                         a.n_devices * a.seq_local,
+                                         a.seq_local)
+    stress = {}
+    for name in attn_bf16.STRESS_CASES:
+        ok, info = attn_bf16.run_case(torch, device, name)
+        stress[name] = {"ok": ok, **info}
+    emit({"phase": "attn_bf16_checks", "ptxas": ptxas,
+          "config": attn_bf16.library_config(), "config_mismatch": mismatch,
+          "stress": stress})
+    bad = [k for k, r in stress.items() if not r["ok"]]
+    if mismatch or bad:
+        raise AssertionError(f"attn_fold_bf16: launch constants {mismatch}, "
+                             f"stress cases failed {bad}")
     b, n, d, blk = a.batch, a.n_devices * a.seq_local, a.head_dim, a.seq_local
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
@@ -654,6 +679,13 @@ def phase_attn_kernels(torch, device, timer):
                                                bf16_inputs=bf16, **kw)),
             "library_ms": timer.ms(library) if library else None,
             "bound_ms": bound, "bound_by": bound_by})
+        if bf16:  # the wrapper's time includes its K/V casts
+            flops = ak.attention_flops(nb, nq, nkv, d)
+            row.update({
+                "tflops": flops / (row["ms"] * 1e-3) / 1e12,
+                "bound_two_pass_ms": 1.5 * flops / PEAK_BF16_FLOPS * 1e3,
+                "cast_ms": timer.ms(lambda: ak.cast_kv_bf16(ck, cv)),
+                "ptxas": ptxas})
         emit(row)
         rows.append(row)
         o_ok = row.get("o_vs_expected", {}).get("kernel", {}).get("within_tol",
@@ -2409,7 +2441,8 @@ def main() -> int:
             "work": work + ", f32 inputs",
             "launches_bf16_inputs": attn_launches[name + "_bf16"],
             "bf16": {key: bf16[key] for key in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")} | {
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "tflops", "bound_two_pass_ms", "cast_ms", "ptxas")} | {
                 "max_abs_err": max(r["max_abs_err"] for r in attn_rows
                                    if r["kernel"] == name and r["bf16_inputs"])},
         })

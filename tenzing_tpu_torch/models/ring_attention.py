@@ -16,8 +16,12 @@ Buffers are torch tensors updated in place; no op allocates while a schedule
 runs.  The ``.xla`` fold's (b, n, seq_local) score matrix and its two small
 work buffers are declared op scratch (``DeviceOp.scratch``): the folds of a
 chain are serialized by the state, so they share one set (the sub-folds of
-one key count share another).  A block's K/V is a view of the resident K/V;
-the bf16 slots round inside the kernel, so no bf16 copy of Q/K/V exists.
+one key count share another).  A block's K/V is a view of the resident K/V.
+The bf16 slots cast that block's K/V into a bf16 copy per launch
+(``ops/attention_kernels.cast_kv_bf16``) held in op scratch (``attn_kv_bf16``
+for the chain's folds, serialized by the state like the ``.xla`` set;
+``attn_kv_bf16_all`` for the fused fold), and the kernel rounds Q as it
+loads it: no bf16 copy of Q exists.
 
 With ``chunk=True`` each block's ``.xla`` fold also offers its chunked
 expansions (core/chunking.py): ``n`` :class:`BlockAttnSubFold` s of
@@ -226,15 +230,25 @@ class BlockAttnStepPallas(BlockAttnStep):
         return False  # the kernel owns its blocking
 
     def _update(self, q, k, v, acc, m, l, ctx) -> None:
-        fold = ak.attn_block_plain if ctx.plain_kernels else ak.attn_block
-        fold(q, k, v, acc, m, l, self._args.scale, bf16_inputs=self.BF16)
+        if ctx.plain_kernels:
+            ak.attn_block_plain(q, k, v, acc, m, l, self._args.scale, self.BF16)
+            return
+        ak.attn_block(q, k, v, acc, m, l, self._args.scale,
+                      bf16_inputs=self.BF16,
+                      kv_scratch=ctx.scratch.get("attn_kv_bf16"))
 
 
 class BlockAttnStepPallasBf16(BlockAttnStepPallas):
     """Blocked step with the fold kernel on bfloat16-rounded q/k/v (the
-    reference casts them before its bf16 Pallas call)."""
+    reference casts them before its bf16 Pallas call); the kernel reads the
+    block's K/V cast into the ``attn_kv_bf16`` scratch."""
 
     BF16 = True
+
+    def scratch(self):
+        a = self._args
+        return {"attn_kv_bf16": ak.kv_scratch_spec(a.batch, a.seq_local,
+                                                   a.head_dim)}
 
 
 def fold_chunk_menu(args: RingAttnArgs, relax: bool = False):
@@ -311,14 +325,26 @@ class FusedBlockAttn(DeviceOp):
         return True
 
     def apply(self, bufs, ctx):
-        fold = ak.attn_fused_plain if ctx.plain_kernels else ak.attn_fused
-        fold(bufs["Q"], bufs["K"], bufs["V"], bufs["acc"], bufs["m_run"],
-             bufs["l_run"], self._args.scale, bkv=self._args.seq_local,
-             bf16_inputs=self.BF16)
+        args = (bufs["Q"], bufs["K"], bufs["V"], bufs["acc"], bufs["m_run"],
+                bufs["l_run"], self._args.scale)
+        if ctx.plain_kernels:
+            ak.attn_fused_plain(*args, bkv=self._args.seq_local,
+                                bf16_inputs=self.BF16)
+            return
+        ak.attn_fused(*args, bkv=self._args.seq_local, bf16_inputs=self.BF16,
+                      kv_scratch=ctx.scratch.get("attn_kv_bf16_all"))
 
 
 class FusedBlockAttnBf16(FusedBlockAttn):
+    """The fused kernel on bfloat16-rounded q/k/v; it reads all of K/V cast
+    into the ``attn_kv_bf16_all`` scratch."""
+
     BF16 = True
+
+    def scratch(self):
+        a = self._args
+        return {"attn_kv_bf16_all": ak.kv_scratch_spec(
+            a.batch, a.n_devices * a.seq_local, a.head_dim)}
 
 
 def _mk_block_step(name: str, s: int, args: RingAttnArgs, impl_choice: bool,

@@ -15,8 +15,10 @@ compute the same fold of K/V keys into the running (acc, m, l) state
 folds the whole resident K/V with the state held in VMEM across the kv grid
 axis.  On Hopper both are hand-written CUDA (csrc/attn_fold.cu) whose kv loop
 runs inside the thread block with the state in registers — on the SIMT units
-for f32 inputs, on the tensor cores (``mma.sync``) for bf16 inputs; the two C
-entry points differ only in how many keys one launch folds.
+for f32 inputs; for bf16 inputs a warp-specialized kernel that streams K/V
+tiles through a TMA-filled shared-memory ring into ``wgmma`` (launch constants
+in :func:`bf16_launch_plan`).  The two C entry points differ only in how many
+keys one launch folds.
 
 Differences from the reference, on purpose:
 
@@ -24,9 +26,13 @@ Differences from the reference, on purpose:
   updates ``acc``, ``m`` and ``l`` in place (no op allocates while a
   schedule runs).
 * **bf16 inputs are a flag.**  The reference casts q/k/v to bfloat16 before
-  the call; the port passes the float32 tensors with ``bf16_inputs=True`` and
-  the kernel rounds them as it stages them (and p before the second
-  product), so no bf16 copy of Q/K/V is ever made in device memory.
+  the call; the port passes the float32 tensors with ``bf16_inputs=True``.
+  The wrapper casts K and V once per call into one contiguous bfloat16
+  tensor (:func:`cast_kv_bf16`: the caller's ``kv_scratch``, which the
+  schedule's ops declare, or one the wrapper allocates), which the kernel's
+  TMA loads read; Q stays float32 and the
+  kernel rounds it as each CTA loads its rows once (so a chain of block folds
+  never casts all of Q per block).  p is rounded before the second product.
 
 m and l are carried broadcast along d, as in the reference: the kernel reads
 column 0 and writes the value to every column.
@@ -41,7 +47,7 @@ kernel: ``attn_block`` / ``attn_fused`` for f32 inputs (``attn_fold_f32``),
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -119,6 +125,58 @@ def attn_fused_plain(q, k, v, acc, m, l, scale: float, bkv: int = 1024,
                          scale, bf16_inputs)
 
 
+# -- the bf16 kernel's launch ----------------------------------------------------
+
+# launch constants of attn_fold_bf16 (csrc/attn_fold.cu, namespace bf16k);
+# chip_smoke.py holds them against the library's tz_attn_bf16_config
+BF16_ROWS = 128  # query rows per CTA: two consumer warpgroups of 64
+BF16_KEY_TILE = 128  # keys per K / V tile
+BF16_K_STAGES = 4
+BF16_V_STAGES = 2
+BF16_THREADS = 384  # two consumer warpgroups + the producer warpgroup
+GRID_Y_LIMIT = 65_535
+
+
+def bf16_launch_plan(b: int, n: int, nkv: int, bkv: int, d: int) -> dict:
+    """The launch of ``attn_fold_bf16`` for a fold of ``nkv`` keys in blocks
+    of ``bkv`` (``nkv`` for ``tz_attn_block``) into a (b, n, d) state: grid,
+    threads, tile sizes, ring stages and dynamic shared memory (bytes)."""
+    tile_bytes = BF16_KEY_TILE * d * 2  # bf16
+    # the ring, 1024 bytes of alignment slack (the 128-byte swizzle's atom)
+    # and 128 of mbarriers; Q lives in registers
+    smem = 1024 + (BF16_K_STAGES + BF16_V_STAGES) * tile_bytes + 128
+    return {"grid": (-(-n // BF16_ROWS), b), "threads": BF16_THREADS,
+            "rows_per_cta": BF16_ROWS, "key_tile": BF16_KEY_TILE,
+            "k_stages": BF16_K_STAGES, "v_stages": BF16_V_STAGES,
+            "smem_bytes": smem, "kv_blocks": -(-nkv // min(bkv, nkv))}
+
+
+def kv_scratch_spec(b: int, nkv: int, d: int) -> tuple:
+    """(shape, dtype name) of the bf16 K/V copy a bf16 fold of ``nkv`` keys
+    casts into: what an op declares as scratch to pass as ``kv_scratch``."""
+    return (2, b, nkv, d), "bfloat16"
+
+
+def cast_kv_bf16(k: torch.Tensor, v: torch.Tensor,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """k and v (b, nkv, d), float32, possibly strided views, rounded to
+    bfloat16 (nearest even) into one contiguous (2, b, nkv, d) tensor:
+    ``[0]`` is k, ``[1]`` is v.  The bf16 kernel's TMA loads read it.
+    ``out`` (of :func:`kv_scratch_spec`'s shape and type) is written in
+    place; without it a new tensor is allocated."""
+    shape = (2,) + tuple(k.shape)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.bfloat16, device=k.device)
+    elif (tuple(out.shape) != shape or out.dtype != torch.bfloat16
+          or out.device != k.device or not out.is_contiguous()):
+        raise ValueError(f"cast_kv_bf16: out must be contiguous bfloat16 "
+                         f"{shape} on {k.device} (got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device})")
+    out[0].copy_(k)
+    out[1].copy_(v)
+    return out
+
+
 # -- kernel wrappers -----------------------------------------------------------
 
 
@@ -133,7 +191,7 @@ def _check(name: str, q, k, v, acc, m, l) -> None:
     for key, t in ts.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: {key} must be float32 (got {t.dtype}); "
-                            "bf16 inputs are rounded inside the kernel")
+                            "bf16 inputs are a flag (bf16_inputs=True)")
         if t.device != q.device:
             raise ValueError(f"{name}: {key} on {t.device}, q on {q.device}")
         if t.dim() != 3:
@@ -157,15 +215,24 @@ def _check(name: str, q, k, v, acc, m, l) -> None:
 
 
 def _launch(fn_name: str, q, k, v, acc, m, l, scale: float,
-            bf16_inputs: bool, bkv=None) -> None:
+            bf16_inputs: bool, bkv=None, kv_scratch=None) -> None:
     """Launch ``fn_name``; ``bkv`` (tz_attn_fused only) is the kv block the
-    bf16 kernel takes each block's row max over before it rounds p."""
+    bf16 kernel takes each block's row max over before it rounds p.  With
+    bf16 inputs, K and V go to the kernel as :func:`cast_kv_bf16`'s copy,
+    into ``kv_scratch`` when given."""
     b, n, d = q.shape
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{fn_name}: head_dim {d} has no kernel instantiation "
                          f"(have {KERNEL_HEAD_DIMS})")
-    if b > 65535:
+    if b > GRID_Y_LIMIT:
         raise ValueError(f"{fn_name}: batch {b} exceeds the grid's y limit")
+    if bf16_inputs:
+        if (any(t.data_ptr() % 8 for t in (acc, m, l)) or acc.stride(1) % 2
+                or (b > 1 and acc.stride(0) % 2)):
+            raise ValueError(f"{fn_name}: the bf16 kernel needs acc, m and l "
+                             "8-byte aligned with even strides")
+        kv = cast_kv_bf16(k, v, kv_scratch)
+        k, v = kv[0], kv[1]
     fn = getattr(kernel_lib.lib(), fn_name)
     sizes = (b, n, k.shape[1]) + (() if bkv is None else (bkv,)) + (d,)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
@@ -177,30 +244,37 @@ def _launch(fn_name: str, q, k, v, acc, m, l, scale: float,
     kernel_lib.check_launch(fn_name, err)
 
 
-def attn_block(q, k, v, acc, m, l, scale: float,
-               bf16_inputs: bool = False) -> None:
+def attn_block(q, k, v, acc, m, l, scale: float, bf16_inputs: bool = False,
+               kv_scratch: Optional[torch.Tensor] = None) -> None:
     """Fold one K/V block (b, nkv, d) into the online-softmax state (acc, m,
     l) (b, n, d), in place, on the current stream: the ``tz_attn_block``
     kernel for CUDA tensors, :func:`attn_block_plain` for CPU tensors.  k and v
-    may be strided views (batch and row strides; last dim contiguous)."""
+    may be strided views (batch and row strides; last dim contiguous).  With
+    bf16 inputs the kernel reads a bf16 copy of k and v, cast into
+    ``kv_scratch`` (:func:`kv_scratch_spec`) or, without it, into a tensor
+    the wrapper allocates, and it needs acc, m and l 8-byte aligned with
+    even strides (it moves the state in float2s)."""
     _check("attn_block", q, k, v, acc, m, l)
     if q.device.type == "cpu":
         attn_block_plain(q, k, v, acc, m, l, scale, bf16_inputs)
         return
     if q.device.type != "cuda":
         raise ValueError(f"attn_block: unsupported device {q.device}")
-    _launch("tz_attn_block", q, k, v, acc, m, l, scale, bf16_inputs)
+    _launch("tz_attn_block", q, k, v, acc, m, l, scale, bf16_inputs,
+            kv_scratch=kv_scratch)
     LAUNCHES["attn_block_bf16" if bf16_inputs else "attn_block"] += 1
 
 
 def attn_fused(q, k, v, acc, m, l, scale: float, bkv: int = 1024,
-               bf16_inputs: bool = False) -> None:
+               bf16_inputs: bool = False,
+               kv_scratch: Optional[torch.Tensor] = None) -> None:
     """Fold the whole resident K/V (b, nkv, d) into (acc, m, l) in one launch,
     in place, on the current stream: the ``tz_attn_fused`` kernel for CUDA
     tensors, :func:`attn_fused_plain` for CPU tensors.  ``bkv`` is the
     reference's kv block and must divide nkv (its assert): with bf16 inputs p
     is rounded against the running max after each block, as the reference
-    rounds it; the kernel's own key tile is internal."""
+    rounds it; the kernel's own key tile is internal.  ``kv_scratch`` as
+    for :func:`attn_block`."""
     _check("attn_fused", q, k, v, acc, m, l)
     nkv = k.shape[1]
     bkv_eff = min(bkv, nkv)
@@ -211,7 +285,8 @@ def attn_fused(q, k, v, acc, m, l, scale: float, bkv: int = 1024,
         return
     if q.device.type != "cuda":
         raise ValueError(f"attn_fused: unsupported device {q.device}")
-    _launch("tz_attn_fused", q, k, v, acc, m, l, scale, bf16_inputs, bkv_eff)
+    _launch("tz_attn_fused", q, k, v, acc, m, l, scale, bf16_inputs, bkv_eff,
+            kv_scratch)
     LAUNCHES["attn_fused_bf16" if bf16_inputs else "attn_fused"] += 1
 
 

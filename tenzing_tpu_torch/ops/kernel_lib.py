@@ -42,11 +42,13 @@ SIGNATURES = {
     "tz_halo_unpack": [_c_ptr, _c_ptr] + [_c_i64] * 11 + [_c_ptr],
     "tz_device_copy": [_c_ptr, _c_ptr, _c_i64, _c_ptr],
     # q, k, v, acc, m, l; b, n, nkv, (fused: bkv,) d; 8 batch/row strides;
-    # scale; bf16; stream
+    # scale; bf16 (k and v then bf16 copies); stream
     "tz_attn_block": [_c_ptr] * 6 + [_c_i64] * 12
     + [ctypes.c_float, _c_i64, _c_ptr],
     "tz_attn_fused": [_c_ptr] * 6 + [_c_i64] * 13
     + [ctypes.c_float, _c_i64, _c_ptr],
+    # out: rows per CTA, key tile, K stages, V stages, threads, smem bytes
+    "tz_attn_bf16_config": [ctypes.POINTER(ctypes.c_int64)],
     # x, w1, w2, y; e, c, d, dff; stream
     "tz_ffn_batched": [_c_ptr] * 4 + [_c_i64] * 4 + [_c_ptr],
     # x, w1, w2, y; n, d, dff; stream

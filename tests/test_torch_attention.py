@@ -13,7 +13,8 @@ m_run, l_run and O must agree, and O must agree with the dense float64
 expected attention (rtol 2e-4 / atol 2e-5 for f32, 3e-2 with bf16 inputs, the
 reference's test_ring_attention.py:76 and :121).
 
-``test_cuda_kernels_match_plain`` needs the card (marker ``needs_cuda``)."""
+``test_cuda_kernels_match_plain`` and ``test_cuda_bf16_fold_stress`` need
+the card (marker ``needs_cuda``)."""
 
 import random
 
@@ -31,6 +32,7 @@ from tenzing_tpu.core.state import State as RefState
 from tenzing_tpu.models import ring_attention as ref_attn
 from tenzing_tpu.ops.attention_pallas import attn_block_pallas, attn_fused_pallas
 from tenzing_tpu.runtime.executor import TraceExecutor
+from tenzing_tpu_torch.bench import attn_bf16
 from tenzing_tpu_torch.bench.driver import attn_graph
 from tenzing_tpu_torch.core.platform import Platform
 from tenzing_tpu_torch.core.serdes import sequence_from_json, sequence_to_json
@@ -267,7 +269,13 @@ def test_timed_runs_write_in_place_and_plain_mode_agrees():
         a, b = ex.run(orders[label]), plain.run(orders[label])
         for name in a:
             np.testing.assert_array_equal(a[name].numpy(), b[name].numpy())
-    assert set(ex.ctx.scratch) == {"attn_s", "attn_row", "attn_mnew"}
+    # mixed-2l's .pallas_bf16 folds declare the bf16 K/V copy their kernel
+    # reads: one block's keys, shared by the chain like the .xla set
+    assert set(ex.ctx.scratch) == {"attn_s", "attn_row", "attn_mnew",
+                                   "attn_kv_bf16"}
+    kv = ex.ctx.scratch["attn_kv_bf16"]
+    assert kv.dtype == torch.bfloat16
+    assert tuple(kv.shape) == (2, args.batch, args.seq_local, args.head_dim)
 
 
 @pytest.fixture
@@ -314,3 +322,29 @@ def test_cuda_kernels_match_plain(cuda_device, d):
     failed = [(label, errs) for label, ok, errs in card_fold_errors(cuda_device, d)
               if not ok]
     assert not failed, failed
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("case", list(attn_bf16.STRESS_CASES))
+def test_cuda_bf16_fold_stress(cuda_device, case):
+    """The bf16 kernel's ring and tiles under stress, against its plain
+    version at ``BF16_STATE_TOL`` (bench/attn_bf16.py STRESS_CASES): one
+    tile, nkv not a multiple of the 128-key tile, n not a multiple of 128,
+    several kv blocks per launch (bkv 256, 200 and 64, so the ring crosses
+    pass and block boundaries mid-tile), strided Q/K/V views, and q scaled
+    by 8."""
+    ok, info = attn_bf16.run_case(torch, cuda_device, case)
+    assert ok, info
+
+
+@pytest.mark.needs_cuda
+def test_cuda_bf16_fold_rejects_misaligned_state(cuda_device):
+    """The bf16 kernel reads and writes the state in 8-byte vectors: a state
+    that starts one float off is refused, not written out of line."""
+    b, n, nkv, d = 1, 128, 128, 128
+    q, k, v, st = attn_bf16.case_inputs(torch, cuda_device, b, n, nkv, "init",
+                                        "dense")
+    buf = torch.zeros(b * n * d + 1, device=cuda_device)
+    acc = buf[1:].view(b, n, d)
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        ak.attn_block(q, k, v, acc, st[1], st[2], d ** -0.5, bf16_inputs=True)
