@@ -22,11 +22,14 @@ before the last line:
 5. driver   — ``tenzing_tpu_torch.bench.driver.run`` at ``halo_n=512`` with a
               small budget; ``verified`` must be true and each halo kernel's
               launch count over this run must be > 0;
-6. attn kernels  — first the bf16 kernel's ``ptxas -v`` report
-              (registers, spills), its launch constants against
-              ``ops/attention_kernels.bf16_launch_plan`` and the stress cases
-              of ``bench/attn_bf16.py`` (ragged n and nkv, several kv blocks,
-              strided views, q scaled by 8) at ``BF16_STATE_TOL``; then at
+6. attn kernels  — first each kernel's ``ptxas -v`` report (registers,
+              spills), its launch constants against
+              ``ops/attention_kernels.f32_launch_plan`` /
+              ``bf16_launch_plan`` and the stress cases of
+              ``bench/attn_f32.py`` (with a fused-region fold at a key
+              offset) and ``bench/attn_bf16.py`` (ragged n and nkv, several
+              kv blocks, strided views, q scaled by 8) at ``F32_STATE_TOL`` /
+              ``BF16_STATE_TOL``; then at
               the full-width attention shapes (batch 4, 8192
               queries, head dim 128): ``attn_block`` (f32 and bf16 inputs) on a
               1024-key block from the initial state and from the state after
@@ -37,13 +40,16 @@ before the last line:
               every bf16 row also holds three deliberately faulty plain folds
               (p left unrounded, V truncated, nothing rounded) against the
               same plain version and fails if the tolerance accepts any of
-              them; the fused rows hold O = acc / l against the dense float64
+              them, every f32 row a plain fold with one TF32 pass per product
+              instead of the split's three; the fused rows hold O = acc / l
+              against the dense float64
               attention (``F32_O_TOL`` / ``BF16_O_TOL``; the controls' O is
               reported beside it).  Each row carries the kernel's, the plain
               version's and (fused) ``scaled_dot_product_attention``'s times
-              and the bound; each bf16 row also its achieved TFLOP/s (on
-              4 b n nkv d), the two-pass design's bound and the time of the
-              wrapper's K/V casts (inside the kernel's time);
+              and the bound (f32: the split's three TF32 products at 495
+              TFLOP/s, the SIMT bound beside it) and its achieved TFLOP/s (on
+              4 b n nkv d); each bf16 row also the two-pass design's bound and
+              the time of the wrapper's K/V casts (inside the kernel's time);
 7. attn executor — the naive (all ``.xla``), ``.pallas`` on 2 lanes,
               ``.pallas_bf16``, ``.fused``, ``.fused_bf16`` and a mixed order
               at full width through ``StreamExecutor``, each against the same
@@ -98,7 +104,9 @@ before the last line:
               ``fused_region`` kernel against the plain region at
               ``REGION_TOL`` and against the float64 product; a control with
               one remote slab column dropped must be rejected; each region's
-              kernel, plain and stepped-members times beside the bound;
+              kernel, plain and stepped-members times beside the bound; it
+              fails when the host exchange's two regions sum to more than
+              3% above their recorded 144.0 us (``SPMV_REGION_RECORDED_MS``);
 15. fused sweep — every structurally valid tile count of the naive
               order's regions at m=150000 and m=8192: the fused
               order against plain regions and the float64 product, and each
@@ -125,8 +133,12 @@ Run after the attn driver (phase 8):
               bitwise equal, and a fold member whose key offset is one block
               off must be rejected; each naive region's kernel time at every
               tile count, and each region's at one tile beside the stepped
-              members, the plain region and the operations bound, with one
-              f32 ``scaled_dot_product_attention`` as the yardstick;
+              members, the plain region and the operations bound (the
+              split's, the SIMT one beside it), with one f32
+              ``scaled_dot_product_attention`` as the yardstick; every
+              region's instantiation (threads, shared memory) as the library
+              reports it must be the attention one, and every SpMV region's
+              (phase 14) the 256-thread one;
 8b. attn fused driver — ``run`` with ``workload="attn"``,
               ``fuse_winner`` and ``fuse_search_tiles``: ``perf.fused`` and
               a planted ``perf.fuse_search_tiles``, ``fused_region``
@@ -215,6 +227,17 @@ OUT_DIR = os.path.join(REPO, "chiprun_out")
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12  # f32 outside the tensor cores (data sheet)
 PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor cores (data sheet)
+PEAK_TF32_FLOPS = 495e12  # dense TF32 tensor cores (data sheet)
+# the f32 fold and the fused region's attention members compute each
+# product as three TF32 products (hi hi + hi lo + lo hi): their bound is
+# that count at the TF32 rate; the SIMT bound (PEAK_F32_FLOPS) is reported
+# beside it as bound_simt_ms
+TF32_SPLIT = 3
+# the SpMV regions' fused_region time recorded in PERF.md (the kernel table,
+# row 16) on an H100 80GB HBM3 at 700 W: the fused phase fails when this
+# run's sum of the two regions is more than SPMV_REGION_SLACK above it
+SPMV_REGION_RECORDED_MS = 0.1440
+SPMV_REGION_SLACK = 0.03
 # O against the dense float64 attention: f32 inputs at the reference's f32
 # tolerance (tests/test_ring_attention.py:76); bf16 inputs at twice the
 # error that rounding q/k/v and p gives at this size (PERF.md, PR 2).  The
@@ -303,10 +326,30 @@ def bound_ms(nbytes: int) -> float:
 
 def attn_bound(nbytes: float, flops: float, bf16: bool):
     """(bound ms, what bounds it): the larger of the bytes over the memory
-    rate and the operations over the peak rate of their type."""
+    rate and the operations over the peak rate of their type: bf16 on the
+    tensor cores, or f32 as the split's TF32_SPLIT TF32 products."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / (PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS) * 1e3
+    t_ops = (flops / PEAK_BF16_FLOPS if bf16
+             else TF32_SPLIT * flops / PEAK_TF32_FLOPS) * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def region_instantiation(table):
+    """The library's answer for the instantiation that runs ``table`` (an
+    ops/fused_region.RegionTable): threads and shared memory of its first
+    descriptor table, beside the Python mirror's (fr.instantiation)."""
+    import ctypes
+
+    from tenzing_tpu_torch.ops import fused_region as fr
+    from tenzing_tpu_torch.ops import kernel_lib
+
+    lib = kernel_lib.lib()
+    got = {"threads": int(lib.tz_fused_region_threads(
+               ctypes.addressof(table.tables[0]))),
+           "smem_bytes": int(lib.tz_fused_region_smem(
+               ctypes.addressof(table.tables[0])))}
+    want = fr.instantiation(table.members)
+    return got, {k: want[k] for k in got}
 
 
 def _launch_counts():
@@ -574,12 +617,29 @@ def phase_attn_kernels(torch, device, timer):
     build report, launch constants and stress cases."""
     import torch.nn.functional as F
 
-    from tenzing_tpu_torch.bench import attn_bf16
+    from tenzing_tpu_torch.bench import attn_bf16, attn_f32
     from tenzing_tpu_torch.ops import attention_kernels as ak
     from tenzing_tpu_torch.ops import kernel_lib
 
     a = attn_full_args()
-    ptxas = attn_bf16.ptxas_report(str(kernel_lib.build_info.get("ptxas", "")))
+    ptxas_text = str(kernel_lib.build_info.get("ptxas", ""))
+    ptxas = attn_bf16.ptxas_report(ptxas_text)
+    ptxas_f32 = attn_f32.ptxas_reports(ptxas_text)
+    mismatch_f32 = attn_f32.config_mismatch(a.batch, a.n_devices * a.seq_local,
+                                            a.n_devices * a.seq_local)
+    stress_f32 = {}
+    for name in attn_f32.STRESS_CASES:
+        ok, info = attn_f32.run_case(torch, device, name)
+        stress_f32[name] = {"ok": ok, **info}
+    ok, info = attn_f32.run_region_case(torch, device)
+    stress_f32["region-key-off"] = {"ok": ok, **info}
+    emit({"phase": "attn_f32_checks", "ptxas": ptxas_f32,
+          "config": attn_f32.library_config(),
+          "config_mismatch": mismatch_f32, "stress": stress_f32})
+    bad = [k for k, r in stress_f32.items() if not r["ok"]]
+    if mismatch_f32 or bad:
+        raise AssertionError(f"attn_fold_f32: launch constants {mismatch_f32}, "
+                             f"stress cases failed {bad}")
     mismatch = attn_bf16.config_mismatch(a.batch, a.n_devices * a.seq_local,
                                          a.n_devices * a.seq_local,
                                          a.seq_local)
@@ -651,18 +711,21 @@ def phase_attn_kernels(torch, device, timer):
                "errors": errs, "within_tol": ok, "finite": finite,
                "tolerance": tol}
         states = {"kernel": got, "plain": want}
-        if bf16:
-            row["controls"] = {}
-            for fault in CONTROLS:
-                ctl = [t.clone() for t in st]
+        row["controls"] = {}
+        for fault in (CONTROLS if bf16 else ("tf32_single_pass",)):
+            ctl = [t.clone() for t in st]
+            if bf16:
                 control_fold(torch, ak, cq, ck, cv, ctl, a.scale,
                              ck.shape[1] if kernel == "attn_block" else blk,
                              fault)
-                c_ok, c_errs = ak.state_check(ctl, want, tol)
-                row["controls"][fault] = {"errors": c_errs, "within_tol": c_ok}
-                states[fault] = ctl
-            row["controls_rejected"] = not any(
-                c["within_tol"] for c in row["controls"].values())
+            else:  # one TF32 pass per product instead of the split's three
+                attn_f32.tf32_fold_plain(torch, cq, ck, cv, ctl, a.scale,
+                                         passes=1)
+            c_ok, c_errs = ak.state_check(ctl, want, tol)
+            row["controls"][fault] = {"errors": c_errs, "within_tol": c_ok}
+            states[fault] = ctl
+        row["controls_rejected"] = not any(
+            c["within_tol"] for c in row["controls"].values())
         if kernel == "attn_fused":  # from the initial state: O = acc / l
             row["o_vs_expected"] = {}
             for who, (acc, _, l) in states.items():
@@ -679,18 +742,21 @@ def phase_attn_kernels(torch, device, timer):
                                                bf16_inputs=bf16, **kw)),
             "library_ms": timer.ms(library) if library else None,
             "bound_ms": bound, "bound_by": bound_by})
+        flops = ak.attention_flops(nb, nq, nkv, d)
+        row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
         if bf16:  # the wrapper's time includes its K/V casts
-            flops = ak.attention_flops(nb, nq, nkv, d)
             row.update({
-                "tflops": flops / (row["ms"] * 1e-3) / 1e12,
                 "bound_two_pass_ms": 1.5 * flops / PEAK_BF16_FLOPS * 1e3,
                 "cast_ms": timer.ms(lambda: ak.cast_kv_bf16(ck, cv)),
                 "ptxas": ptxas})
+        else:
+            row.update({"bound_simt_ms": flops / PEAK_F32_FLOPS * 1e3,
+                        "ptxas": ptxas_f32})
         emit(row)
         rows.append(row)
         o_ok = row.get("o_vs_expected", {}).get("kernel", {}).get("within_tol",
                                                                    True)
-        if not (ok and finite and o_ok and row.get("controls_rejected", True)):
+        if not (ok and finite and o_ok and row["controls_rejected"]):
             failed.append(label)
         del got, want
     del q, k, v, mid, cases, want_o
@@ -1322,7 +1388,12 @@ def phase_fused(torch, device, timer):
                 k = op.unbound()
                 members = region.members
                 nb = region_bytes(region, nbytes)
+                k.apply(bufs, ctx)  # binds the table
+                inst, inst_want = region_instantiation(k.table)
+                if inst != inst_want or inst != {"threads": 256, "smem_bytes": 0}:
+                    failed.append(f"{exchange}: SpMV region instantiation {inst}")
                 trow = {"phase": "fused_timing", "exchange": exchange,
+                        "instantiation": inst,
                         "members": [mm.name() for mm in members], "tiles": 1,
                         "ms": timer.ms(lambda: k.apply(bufs, ctx)),
                         "plain_ms": timer.ms(
@@ -1334,6 +1405,17 @@ def phase_fused(torch, device, timer):
                 timing.append(trow)
         del kern, plain, tbufs, ctl
         torch.cuda.empty_cache()
+    # the SpMV instantiation is not to slow down beside its recorded time
+    host_ms = sum(r["ms"] for r in timing if r["exchange"] == "host")
+    vs = {"phase": "fused_timing_vs_recorded", "exchange": "host",
+          "ms": host_ms, "recorded_ms": SPMV_REGION_RECORDED_MS,
+          "ratio": host_ms / SPMV_REGION_RECORDED_MS,
+          "limit": 1 + SPMV_REGION_SLACK}
+    vs["within_limit"] = vs["ratio"] <= vs["limit"]
+    emit(vs)
+    if not vs["within_limit"]:
+        failed.append(f"SpMV regions {host_ms:.4f} ms, more than "
+                      f"{SPMV_REGION_SLACK:.0%} above {SPMV_REGION_RECORDED_MS}")
     if failed:
         raise AssertionError(f"fused phase failed on {failed}")
     return rows, timing
@@ -1553,9 +1635,14 @@ def phase_attn_fused(torch, device, timer, want_o):
                 k = op.unbound()
                 members = k._members
                 ms = timer.ms(lambda: k.apply(bufs_, ctx))  # binds the table
+                inst, inst_want = region_instantiation(k.table)
                 trow = {"phase": "attn_fused_timing", "order": label,
                         "members": info.members, "tiles": t,
-                        "blocks_per_group": k.table.blocks_per_group, "ms": ms}
+                        "blocks_per_group": k.table.blocks_per_group, "ms": ms,
+                        "instantiation": inst}
+                if inst != inst_want:
+                    failed.append(f"{label}/t{t}: instantiation {inst}, "
+                                  f"want {inst_want}")
                 if t == 1:
                     trow["plain_ms"] = timer.ms(
                         lambda: fr.region_plain(k.bodies(), bufs_, 1))
@@ -1563,8 +1650,10 @@ def phase_attn_fused(torch, device, timer, want_o):
                         lambda: [mm.apply(bufs_, ctx) for mm in members])
                 keys = sum(b.nkv for b in k.bodies() if b.body == "attn_fold")
                 ops = 4.0 * a.batch * a.n_devices * a.seq_local * keys * a.head_dim
-                trow["bound_ms"] = ops / PEAK_F32_FLOPS * 1e3
+                trow["bound_ms"] = TF32_SPLIT * ops / PEAK_TF32_FLOPS * 1e3
                 trow["bound_by"] = "operations"
+                trow["bound_simt_ms"] = ops / PEAK_F32_FLOPS * 1e3
+                trow["tflops"] = ops / (ms * 1e-3) / 1e12
                 emit(trow)
                 timing.append(trow)
     # the library yardstick: one f32 scaled_dot_product_attention call over
@@ -2438,7 +2527,10 @@ def main() -> int:
             "ms": f32["ms"], "plain_ms": f32["plain_ms"],
             "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
             "library_ms": f32["library_ms"],
-            "work": work + ", f32 inputs",
+            "bound_simt_ms": f32["bound_simt_ms"], "tflops": f32["tflops"],
+            "ptxas": f32["ptxas"],
+            "work": work + ", f32 inputs (split-TF32 wgmma; bound_ms by the "
+                           "split's three TF32 products)",
             "launches_bf16_inputs": attn_launches[name + "_bf16"],
             "bf16": {key: bf16[key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -2545,6 +2637,7 @@ def main() -> int:
         "bound_ms": sum(r["bound_ms"] for r in host_t), "bound_by": "bytes",
         "library_ms": None,
         "stepped_members_ms": sum(r["stepped_ms"] for r in host_t),
+        "instantiation": host_t[0]["instantiation"],
         "work": "the two regions of the m=150000 naive order, one tile: "
                 + "; ".join("+".join(r["members"]) for r in host_t),
     })
@@ -2564,13 +2657,14 @@ def main() -> int:
         "bound_ms": naive_t["bound_ms"], "bound_by": naive_t["bound_by"],
         "library_ms": sdpa_ms,
         "stepped_members_ms": naive_t["stepped_ms"],
+        "bound_simt_ms": naive_t["bound_simt_ms"], "tflops": naive_t["tflops"],
+        "instantiation": naive_t["instantiation"],
         "by_tiles_ms": {str(r["tiles"]): r["ms"] for r in afused_timing
                         if r["order"] == "naive"},
         "work": "the naive .xla attention order's region at one tile: "
                 + "+".join(naive_t["members"]),
         "chunk_constants": {k: chunk_const[k] for k in (
-            "dispatch_us_measured", "CHUNK_DISPATCH_US", "xfer_gbs_measured",
-            "XFER_GBS")},
+            "dispatch_us_measured", "xfer_gbs_measured")},
         "launches_chunk_driver": {w: c["fused_region"]
                                   for w, c in chunk_launches.items()},
     })

@@ -17,8 +17,8 @@
    (:data:`ABLATIONS`: the first version's full-precision ``expf`` per
    element, the first version's scalar loads and stores of the state, no
    exp at all, no pass 1, no P V — the last three compute wrong numbers and
-   are timed only), each variant's time beside the kernel's,
-   K/V already cast, in alternating rounds in one process (CUDA events, the
+   are timed only), each variant's ptxas report and time beside the
+   kernel's, K/V already cast, in alternating rounds in one process (CUDA events, the
    median of single launches, each after a 128 MB L2 flush).
 
 One JSON object per line.  It needs a CUDA device; exits 1 if a case fails.
@@ -28,17 +28,18 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
-import subprocess
 import sys
 from typing import Dict, List, Tuple
 
-# name -> (kernel, b, n, nkv, bkv, state, layout): kernel "block" folds all
-# nkv keys as one block, "fused" in blocks of bkv; state "init" or "mid";
-# layout "dense", "strided" (Q, K and V are views with row strides of 2 d and
-# K/V a key range of a longer tensor, as the block chain passes them) or
-# "x8" (q scaled by 8, so s spans 8 times its range: the max and exp path at
-# large exponents).  With q and k both scaled (s at 64 times its range) the
+from tenzing_tpu_torch.bench import attn_common as common
+from tenzing_tpu_torch.bench.attn_common import HEAD_DIM, case_inputs
+
+KERNEL = "attn_fold_bf16"
+CONFIG_ENTRY = "tz_attn_bf16_config"
+
+# name -> (kernel, b, n, nkv, bkv, state, layout) of
+# :func:`attn_common.run_case`: "x8" scales q by 8, so s spans 8 times its
+# range (the max and exp path at large exponents).  With q and k both scaled (s at 64 times its range) the
 # f32 summation-order differences of s alone exceed l's rtol between any
 # two correct folds; :func:`x8qk_vs_f64` reports that case against a float64
 # fold instead.
@@ -53,7 +54,6 @@ STRESS_CASES: Dict[str, Tuple[str, int, int, int, int, str, str]] = {
     "fused-strided": ("fused", 2, 256, 1024, 256, "init", "strided"),
     "x8": ("fused", 2, 256, 1024, 256, "mid", "x8"),
 }
-HEAD_DIM = 128
 
 # --ablate: name -> [(text of csrc/attn_fold.cu, its replacement)]
 ABLATIONS = {
@@ -101,56 +101,38 @@ ABLATIONS = {
 }
 
 
-def case_inputs(torch, device, b, n, nkv, state, layout, seed=0):
-    """Seeded q, k, v and a state (acc, m, l) on ``device``."""
-    gen = torch.Generator(device="cpu")
-    gen.manual_seed(seed)
-    d = HEAD_DIM
-
-    def randn(*shape):
-        return torch.randn(*shape, generator=gen).to(device)
-
-    if layout == "strided":  # rows of 2 d, keys [nkv, 2 nkv) of 3 nkv
-        q = randn(b, n, 2 * d)[:, :, d:]
-        k = randn(b, 3 * nkv, 2 * d)[:, nkv:2 * nkv, :d]
-        v = randn(b, 3 * nkv, 2 * d)[:, nkv:2 * nkv, d:]
-    else:
-        q, k, v = randn(b, n, d), randn(b, nkv, d), randn(b, nkv, d)
-        if layout == "x8":
-            q = q * 8
-        elif layout == "x8qk":
-            q, k = q * 8, k * 8
-    if state == "mid":
-        acc = randn(b, n, d)
-        m = randn(b, n, 1).expand(b, n, d).contiguous()
-        l = (1 + 3 * torch.rand(b, n, 1, generator=gen)).to(device)
-        l = l.expand(b, n, d).contiguous()
-    else:
-        acc = torch.zeros(b, n, d, device=device)
-        m = torch.full((b, n, d), -1e30, device=device)
-        l = torch.zeros(b, n, d, device=device)
-    return q, k, v, [acc, m, l]
-
-
 def run_case(torch, device, name: str) -> Tuple[bool, dict]:
-    """One stress case: the kernel against its plain version, held at
-    ``BF16_STATE_TOL``.  Returns (ok, errors)."""
+    """One stress case against the plain version at ``BF16_STATE_TOL``."""
     from tenzing_tpu_torch.ops import attention_kernels as ak
 
-    kernel, b, n, nkv, bkv, state, layout = STRESS_CASES[name]
-    q, k, v, st = case_inputs(torch, device, b, n, nkv, state, layout)
-    got, want = [t.clone() for t in st], [t.clone() for t in st]
-    scale = HEAD_DIM ** -0.5
-    if kernel == "block":
-        ak.attn_block(q, k, v, *got, scale, bf16_inputs=True)
-        ak.attn_block_plain(q, k, v, *want, scale, bf16_inputs=True)
-    else:
-        ak.attn_fused(q, k, v, *got, scale, bkv=bkv, bf16_inputs=True)
-        ak.attn_fused_plain(q, k, v, *want, scale, bkv, True)
-    torch.cuda.synchronize()
-    ok, errs = ak.state_check(got, want, ak.BF16_STATE_TOL)
-    finite = all(bool(torch.isfinite(t).all()) for t in got)
-    return ok and finite, {"errors": errs, "finite": finite}
+    return common.run_case(torch, device, STRESS_CASES[name],
+                           ak.BF16_STATE_TOL, bf16=True)
+
+
+def ptxas_report(text: str) -> dict:
+    """:func:`attn_common.ptxas_report` of ``attn_fold_bf16``."""
+    return common.ptxas_report(text, KERNEL)
+
+
+def library_config() -> dict:
+    """The bf16 kernel's launch constants as the built library reports."""
+    return common.library_config(CONFIG_ENTRY)
+
+
+def config_mismatch(b, n, nkv, bkv) -> dict:
+    """Keys where :func:`bf16_launch_plan` and the library disagree."""
+    from tenzing_tpu_torch.ops import attention_kernels as ak
+
+    return common.config_mismatch(
+        ak.bf16_launch_plan(b, n, nkv, bkv, HEAD_DIM), CONFIG_ENTRY)
+
+
+def ablate(torch, device, rounds: int = 2) -> List[dict]:
+    """Build each :data:`ABLATIONS` variant of csrc/attn_fold.cu beside the
+    source as it is; their ptxas reports, then their times at the main
+    path's shapes with K/V already cast."""
+    libs, rows = common.build_variants("attn_fold.cu", ABLATIONS, KERNEL)
+    return rows + common.time_variants(torch, device, libs, True, rounds)
 
 
 def fold_f64(torch, q, k, v, state, scale: float, bkv: int):
@@ -194,153 +176,6 @@ def x8qk_vs_f64(torch, device) -> dict:
     return out
 
 
-def ptxas_report(text: str, kernel: str = "attn_fold_bf16") -> dict:
-    """What ``ptxas -v`` said about ``kernel`` in the build's report:
-    registers, spill bytes, stack, and any lines that warn about it."""
-    lines = text.splitlines()
-    out: dict = {"found": False, "warnings": []}
-    inside = False
-    for line in lines:
-        if "Compiling entry function" in line:
-            inside = kernel in line
-            out["found"] = out["found"] or inside
-            continue
-        if not inside:
-            continue
-        mm = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                       r"(\d+) bytes spill loads", line)
-        if mm:
-            out.update(stack_bytes=int(mm.group(1)),
-                       spill_store_bytes=int(mm.group(2)),
-                       spill_load_bytes=int(mm.group(3)))
-        mm = re.search(r"Used (\d+) registers", line)
-        if mm:
-            out["registers"] = int(mm.group(1))
-            mm = re.search(r"(\d+) bytes smem", line)
-            out["static_smem_bytes"] = int(mm.group(1)) if mm else 0
-    out["warnings"] = [ln.strip() for ln in lines
-                       if ("warning" in ln.lower() and ("setmaxnreg" in ln
-                                                        or "wgmma" in ln))
-                       or "Potential Performance Loss" in ln]
-    return out
-
-
-def library_config() -> dict:
-    """The bf16 kernel's launch constants as the built library reports."""
-    import ctypes
-
-    from tenzing_tpu_torch.ops import kernel_lib
-
-    out = (ctypes.c_int64 * 6)()
-    kernel_lib.lib().tz_attn_bf16_config(out)
-    keys = ("rows_per_cta", "key_tile", "k_stages", "v_stages", "threads",
-            "smem_bytes")
-    return dict(zip(keys, list(out)))
-
-
-def config_mismatch(b, n, nkv, bkv) -> dict:
-    """Keys where :func:`bf16_launch_plan` and the library disagree."""
-    from tenzing_tpu_torch.ops import attention_kernels as ak
-
-    plan = ak.bf16_launch_plan(b, n, nkv, bkv, HEAD_DIM)
-    return {k: (plan[k], v) for k, v in library_config().items()
-            if plan[k] != v}
-
-
-def cuda_ms(torch, fn, reps: int = 15) -> float:
-    """Median CUDA-event time of single calls of ``fn``, each after a 128 MB
-    write that flushes the L2 and a spin that covers the enqueue."""
-    flush = torch.empty(32 << 20, device="cuda")
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        torch.cuda._sleep(2_000_000)
-        flush.fill_(1.0)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
-
-
-def _main_shape_calls(torch, device, lib):
-    """(fused, block) closures calling ``lib``'s entry points directly on
-    the main path's shapes with K/V already cast, for the ablation."""
-    from tenzing_tpu_torch.ops import attention_kernels as ak
-
-    b, n, nkv, blk, d = 4, 8192, 8192, 1024, HEAD_DIM
-    q, k, v, st = case_inputs(torch, device, b, n, nkv, "init", "dense")
-    kv_all = ak.cast_kv_bf16(k, v)
-    kv_blk = ak.cast_kv_bf16(k[:, :blk], v[:, :blk])
-    stream = torch.cuda.current_stream(device).cuda_stream
-    acc, m, l = (t.clone() for t in st)
-
-    def call(kv, nk, fused):
-        head = (q.data_ptr(), kv[0].data_ptr(), kv[1].data_ptr(),
-                acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, n, nk)
-        tail = (d, q.stride(0), q.stride(1), nk * d, d, nk * d, d,
-                acc.stride(0), acc.stride(1), d ** -0.5, 1, stream)
-        if fused:
-            err = lib.tz_attn_fused(*head, blk, *tail)
-        else:
-            err = lib.tz_attn_block(*head, *tail)
-        if err:
-            raise RuntimeError(f"ablation launch failed with cudaError {err}")
-
-    return (lambda: call(kv_all, nkv, True)), (lambda: call(kv_blk, blk, False))
-
-
-def ablate(torch, device, rounds: int = 2) -> List[dict]:
-    """Build each :data:`ABLATIONS` variant of csrc/attn_fold.cu beside the
-    source as it is and time all of them at the main path's shapes."""
-    import ctypes
-    import tempfile
-    from pathlib import Path
-
-    from tenzing_tpu_torch.ops import kernel_lib
-
-    src = (kernel_lib.CSRC / "attn_fold.cu").read_text()
-    kernel_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    work = Path(tempfile.mkdtemp(dir=kernel_lib.BUILD_DIR))
-    procs = {}
-    for name, edits in {"kernel": [], **ABLATIONS}.items():
-        text = src
-        for old, new in edits:
-            if old not in text:
-                raise RuntimeError(f"ablation {name}: source text not found")
-            text = text.replace(old, new)
-        cu, so = work / f"{name}.cu", work / f"{name}.so"
-        cu.write_text(text)
-        procs[name] = (so, subprocess.Popen(
-            [kernel_lib.nvcc(), *kernel_lib.ARCH_FLAGS,
-             *kernel_lib.COMPILE_FLAGS, "-shared", "-I", str(kernel_lib.CSRC),
-             str(cu), "-o", str(so)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"ablation {name} failed to build:\n{out}")
-        lib = ctypes.CDLL(str(so))
-        for fn in ("tz_attn_fused", "tz_attn_block"):
-            getattr(lib, fn).argtypes = kernel_lib.SIGNATURES[fn]
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
-    rows = []
-    for rnd in range(rounds):
-        for name, lib in libs.items():
-            fused, block = _main_shape_calls(torch, device, lib)
-            rows.append({"ablation": name, "round": rnd,
-                         "fused_ms": cuda_ms(torch, fused),
-                         "block_ms": cuda_ms(torch, block)})
-    return rows
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ablate", action="store_true",
@@ -353,24 +188,17 @@ def main(argv=None) -> int:
         return 2
     from tenzing_tpu_torch.ops import kernel_lib
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    print(json.dumps({"device": smi, "torch": torch.__version__,
-                      "cuda": torch.version.cuda}), flush=True)
+    common.device_line(torch)
     kernel_lib.lib()
     report = ptxas_report(str(kernel_lib.build_info.get("ptxas", "")))
-    mismatch = config_mismatch(4, 8192, 8192, 1024)
+    mismatch = config_mismatch(*common.MAIN_SHAPE)
     print(json.dumps({"build_s": kernel_lib.build_info.get("seconds"),
                       "ptxas": report, "config": library_config(),
                       "config_mismatch": mismatch}), flush=True)
     device = torch.device("cuda", 0)
     failed = [] if not mismatch else ["config"]
-    for name in STRESS_CASES:
-        ok, info = run_case(torch, device, name)
-        print(json.dumps({"case": name, "ok": ok, **info}), flush=True)
-        if not ok:
-            failed.append(name)
+    common.run_checks([(name, lambda name=name: run_case(torch, device, name))
+                       for name in STRESS_CASES], failed)
     print(json.dumps(x8qk_vs_f64(torch, device)), flush=True)
     if args.ablate:
         for row in ablate(torch, device):

@@ -19,10 +19,13 @@
 // written.  Two kernels, both one CTA per (tile of query rows, batch element)
 // with the kv loop inside and the state (acc, m, l) in registers:
 //
-// * attn_fold_f32 (f32 inputs; SIMT, no TF32): k/v float32 (b, nkv, d) with
-//   batch and row strides, read in place.  Its body is tz_attn_f32::fold_rows
-//   (attn_fold_f32.cuh), which the fused_region kernel's attn_fold member
-//   runs too.  ~82 KB of shared memory at d = 128: two CTAs per SM.
+// * attn_fold_f32 (f32 inputs), split-TF32 on wgmma: k/v float32 (b, nkv,
+//   d) with batch and row strides, read in place.  Its body (producer and
+//   consumer halves, attn_fold_f32.cuh, whose note gives the design) is the
+//   one the fused_region kernel's attention members run too.  384 threads,
+//   grid (ceil(n / 128), b), 230,528 bytes of shared memory: one CTA per SM.
+//   The launcher refuses a pointer that is not 16-byte aligned or a stride
+//   that is not a multiple of 4 floats (K rows move in 16-byte loads).
 //
 // * attn_fold_bf16 (bf16 inputs), designed for Hopper:
 //   - K and V arrive as contiguous bfloat16 (b, nkv, d) copies that the
@@ -68,7 +71,7 @@
 // The state is read and written in 8-byte vectors, a lane's column pair
 // (the launcher refuses a state that is not 8-byte aligned).
 //
-// Precision: no TF32.  m starts at -1e30 (the reference's init):
+// Precision (bf16 kernel): bf16 products, f32 sums.  m starts at -1e30:
 // alpha = expf(-1e30 - m') = 0, never NaN.  Masked query rows (ragged n) load
 // zeros, stay finite and are never stored; keys at or past the block's end
 // get p = 0 (their V rows are zeros past nkv, finite inside it).
@@ -78,7 +81,7 @@
 // 6*b*n*nkv*d (Q K^T twice), 208 us at (4, 8192, 8192, 128).  For one
 // 1024-key block the state's bytes (acc read and written, m and l written
 // broadcast, at 3.35 TB/s) come out about equal to the operations.  f32
-// inputs: 4*b*n*nkv*d at 67 TFLOP/s outside the tensor cores.
+// inputs: 3 x 4*b*n*nkv*d (the split) at 495 TFLOP/s TF32.
 //
 // Within a warpgroup each product is waited for before the exp or the max
 // that reads it; the two consumer warpgroups overlap each other.  Overlap
@@ -100,31 +103,47 @@
 #include <stdint.h>
 
 #include "attn_fold_f32.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-// -- f32 inputs: SIMT (the body is tz_attn_f32::fold_rows) -------------------
+// -- f32 inputs: split-TF32 wgmma (the body is attn_fold_f32.cuh) -----------
 
-template <int kHeadDim>
-__global__ void __launch_bounds__(tz_attn_f32::kThreads, 2)
+// One item per CTA: rows blockIdx.x * kRows .. of batch element blockIdx.y.
+// kDense: q, K, V and state rows are contiguous (row stride d).
+template <bool kDense>
+__global__ void __launch_bounds__(tz_attn_f32::kThreads, 1)
 attn_fold_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ acc,
-              float* __restrict__ m, float* __restrict__ l,
-              int64_t n, int64_t nkv,
+              float* __restrict__ m, float* __restrict__ l, int n, int nkv,
               int64_t q_sb, int64_t q_sr, int64_t k_sb, int64_t k_sr,
               int64_t v_sb, int64_t v_sr, int64_t st_sb, int64_t st_sr,
-              float scale) {
-  extern __shared__ float smem[];
+              float scale, float scale2) {
+  using namespace tz_attn_f32;
+  extern __shared__ __align__(1024) unsigned char smem_f32[];
+  const Smem sm = setup(smem_f32);
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
   const int64_t bi = blockIdx.y;
-  tz_attn_f32::fold_rows<kHeadDim>(
-      smem, q + bi * q_sb, k + bi * k_sb, v + bi * v_sb, acc + bi * st_sb,
-      m + bi * st_sb, l + bi * st_sb, (int64_t)blockIdx.x * tz_attn_f32::kRows,
-      n, nkv, q_sr, k_sr, v_sr, st_sr, scale);
+  Ring kr, vr;
+  if (wg == kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+    produce<kDense>(sm, kr, vr, k + bi * k_sb, v + bi * v_sb, k_sr, v_sr,
+                    nkv, threadIdx.x % 128);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+    consume<kDense>(sm, kr, vr, q + bi * q_sb, acc + bi * st_sb,
+                    m + bi * st_sb, l + bi * st_sb,
+                    (int64_t)blockIdx.x * kRows, n, nkv, q_sr, st_sr, scale,
+                    scale2, wg, threadIdx.x % 128);
+  }
 }
 
 // -- bf16 inputs: TMA ring, mbarriers, wgmma ----------------------------------
 
 namespace bf16k {
+
+using namespace tz_hopper;
 
 constexpr int kHeadDim = 128;
 constexpr int kConsumers = 2;                     // warpgroups, 64 rows each
@@ -147,51 +166,9 @@ static_assert(kProducerRegs * 128 + kConsumerRegs * 128 * kConsumers <= 65536,
               "register budget");
 static_assert(2 * (kKStages + kVStages) * 8 <= kBarrierBytes, "barriers");
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// -- mbarriers
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed; trap after ~2^32
-// cycles instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  long long t0 = 0;
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (done) return;
-    if (t0 == 0) {
-      t0 = clock64();
-    } else if (clock64() - t0 > (1ll << 32)) {
-      __trap();
-    }
-  }
 }
 
 // -- TMA: one box of a 3D tensor map into shared memory, completing on `bar`
@@ -207,46 +184,6 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
 }
 
 // -- wgmma
-
-// Shared-memory matrix descriptor for a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout 1 (B128).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving reads or writes of an accumulator across
-// the wgmma fence / wait around it.
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define TZ_REGS64                                                          \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
-  "%58, %59, %60, %61, %62, %63}"
-#define TZ_ACC8(c, x, i)                                                  \
-  c(x[i]), c(x[i + 1]), c(x[i + 2]), c(x[i + 3]), c(x[i + 4]), c(x[i + 5]), \
-      c(x[i + 6]), c(x[i + 7])
-#define TZ_ACC64(c, x)                                                    \
-  TZ_ACC8(c, x, 0), TZ_ACC8(c, x, 8), TZ_ACC8(c, x, 16), TZ_ACC8(c, x, 24), \
-      TZ_ACC8(c, x, 32), TZ_ACC8(c, x, 40), TZ_ACC8(c, x, 48),             \
-      TZ_ACC8(c, x, 56)
 
 // d (+)= a b for a 64 x 128 x 16 step: a (64 x 16 bf16) from registers in
 // the m16n8k16 A-fragment layout of each warp's 16 rows, b (16 x 128) from
@@ -349,18 +286,6 @@ __device__ __forceinline__ void exp_tile(float (&s)[64], int lim, int tq,
   }
 }
 
-struct Ring {
-  int stage = 0;
-  uint32_t phase = 0;
-  template <int kStages>
-  __device__ __forceinline__ void advance() {
-    if (++stage == kStages) {
-      stage = 0;
-      phase ^= 1u;
-    }
-  }
-};
-
 // The producer's half of one tile: wait for the stage to be free, arm its
 // full barrier with the tile's bytes, and issue the two 64-column boxes.
 template <int kStages>
@@ -374,12 +299,6 @@ __device__ __forceinline__ void load_tile(const CUtensorMap* map,
   tma_load_3d(dst, map, &full[r.stage], 0, kv0, bi);
   tma_load_3d(dst + kHalfBytes, map, &full[r.stage], 64, kv0, bi);
   r.advance<kStages>();
-}
-
-// A consumer warp is done reading a stage.
-__device__ __forceinline__ void release(uint64_t* empty, int lane) {
-  __syncwarp();
-  if (lane == 0) mbar_arrive(empty);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -576,10 +495,6 @@ attn_fold_bf16(const __grid_constant__ CUtensorMap k_map,
   }
 }
 
-#undef TZ_REGS64
-#undef TZ_ACC8
-#undef TZ_ACC64
-
 // -- host: tensor maps
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -671,19 +586,33 @@ int launch_f32(const float* q, const float* k, const float* v, float* acc,
                int64_t q_sb, int64_t q_sr, int64_t k_sb, int64_t k_sr,
                int64_t v_sb, int64_t v_sr, int64_t st_sb, int64_t st_sr,
                float scale, cudaStream_t stream) {
-  constexpr int bytes = tz_attn_f32::smem_bytes<128>();
+  using tz_attn_f32::kRows;
+  using tz_attn_f32::kSmemBytes;
+  if (n > (1 << 30) || nkv > (1 << 30)) return (int)cudaErrorInvalidValue;
+  // K rows move in 16-byte loads and the state in 8-byte vectors: every
+  // pointer 16-byte aligned, every row and batch stride a multiple of 4
+  const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                         (uintptr_t)acc | (uintptr_t)m | (uintptr_t)l;
+  const int64_t strides = q_sr | k_sr | v_sr | st_sr |
+                          (b > 1 ? q_sb | k_sb | v_sb | st_sb : 0);
+  if (ptrs % 16 || strides % 4) return (int)cudaErrorInvalidValue;
   static bool configured = false;
-  if (!configured) {  // one attribute call
-    cudaError_t err = cudaFuncSetAttribute(
-        attn_fold_f32<128>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
+  if (!configured) {  // one attribute call each
+    for (auto fn : {attn_fold_f32<true>, attn_fold_f32<false>}) {
+      cudaError_t err = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      if (err != cudaSuccess) return (int)err;
+    }
     configured = true;
   }
-  dim3 grid((unsigned)((n + tz_attn_f32::kRows - 1) / tz_attn_f32::kRows),
-            (unsigned)b);
-  attn_fold_f32<128><<<grid, tz_attn_f32::kThreads, bytes, stream>>>(
-      q, k, v, acc, m, l, n, nkv, q_sb, q_sr, k_sb, k_sr, v_sb, v_sr, st_sb,
-      st_sr, scale);
+  dim3 grid((unsigned)((n + kRows - 1) / kRows), (unsigned)b);
+  constexpr int64_t d = tz_attn_f32::kHeadDim;
+  auto fn = q_sr == d && k_sr == d && v_sr == d && st_sr == d
+                ? attn_fold_f32<true>
+                : attn_fold_f32<false>;
+  fn<<<grid, tz_attn_f32::kThreads, kSmemBytes, stream>>>(
+      q, k, v, acc, m, l, (int)n, (int)nkv, q_sb, q_sr, k_sb, k_sr, v_sb,
+      v_sr, st_sb, st_sr, scale, scale * tz_attn_f32::kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -746,5 +675,16 @@ extern "C" int tz_attn_bf16_config(int64_t* out) {
   out[3] = bf16k::kVStages;
   out[4] = bf16k::kThreads;
   out[5] = bf16k::kSmemBytes;
+  return 0;
+}
+
+// The f32 kernel's launch constants, in the order of tz_attn_bf16_config.
+extern "C" int tz_attn_f32_config(int64_t* out) {
+  out[0] = tz_attn_f32::kRows;
+  out[1] = tz_attn_f32::kKeyTile;
+  out[2] = tz_attn_f32::kKStages;
+  out[3] = tz_attn_f32::kVStages;
+  out[4] = tz_attn_f32::kThreads;
+  out[5] = tz_attn_f32::kSmemBytes;
   return 0;
 }

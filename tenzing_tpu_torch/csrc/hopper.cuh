@@ -1,0 +1,139 @@
+// Hopper building blocks shared by the attention folds (attn_fold.cu,
+// attn_fold_f32.cuh): mbarriers, the ring of shared-memory stages, wgmma's
+// fences and its shared-memory matrix descriptor.  Needs sm_90a.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tz_hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// -- mbarriers
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// (The barrier functions take a barrier's pointer or its shared-memory
+// address.)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  mbar_arrive(smem_u32(bar));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed; trap after ~2^32
+// cycles instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t addr, uint32_t parity) {
+  long long t0 = 0;
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (t0 == 0) {
+      t0 = clock64();
+    } else if (clock64() - t0 > (1ll << 32)) {
+      __trap();
+    }
+  }
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  mbar_wait(smem_u32(bar), parity);
+}
+
+// Order this thread's plain shared-memory writes before later reads of the
+// async proxy (wgmma) that a barrier hands them to.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A position in a ring of kStages stages: the stage and the parity of its
+// current phase.
+struct Ring {
+  int stage = 0;
+  uint32_t phase = 0;
+  template <int kStages>
+  __device__ __forceinline__ void advance() {
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
+};
+
+// A consumer warp is done reading a stage.
+__device__ __forceinline__ void release(uint32_t empty, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty);
+}
+__device__ __forceinline__ void release(uint64_t* empty, int lane) {
+  release(smem_u32(empty), lane);
+}
+
+// -- wgmma
+
+// Shared-memory matrix descriptor for a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1 (B128).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of an accumulator across
+// the wgmma fence / wait around it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+}  // namespace tz_hopper
+
+// wgmma operand lists: the accumulator registers of an asm statement whose
+// first outputs are d, and its "+f" / "=f" constraints.
+#define TZ_REGS16                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define TZ_REGS64                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+#define TZ_ACC8(c, x, i)                                                  \
+  c(x[i]), c(x[i + 1]), c(x[i + 2]), c(x[i + 3]), c(x[i + 4]), c(x[i + 5]), \
+      c(x[i + 6]), c(x[i + 7])
+#define TZ_ACC64(c, x)                                                    \
+  TZ_ACC8(c, x, 0), TZ_ACC8(c, x, 8), TZ_ACC8(c, x, 16), TZ_ACC8(c, x, 24), \
+      TZ_ACC8(c, x, 32), TZ_ACC8(c, x, 40), TZ_ACC8(c, x, 48),             \
+      TZ_ACC8(c, x, 56)
+#define TZ_ACC16(c, x) TZ_ACC8(c, x, 0), TZ_ACC8(c, x, 8)
+

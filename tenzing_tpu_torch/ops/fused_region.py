@@ -26,7 +26,11 @@ blocked attention's fold and finalize:
 * ``attn_finalize`` — ``o = acc / l`` (acc, l, o; tiled along axis 1).
 
 SpMV values are float32 and indices int32; the attention bodies take float32
-with head dim 128 on the card (any on the CPU).  A region with more members
+with head dim 128 on the card (any on the CPU).  A table runs on one of two
+instantiations of the kernel (:func:`instantiation`): attention members on
+the split-TF32 ``wgmma`` fold's warp-specialized block (384 threads, one
+block per SM), SpMV members on the 256-thread SIMT one; a table never
+mixes them.  A region with more members
 than one table holds (``MAX_MEMBERS``) runs as consecutive launches on the
 same stream, each a table of at most ``MAX_MEMBERS`` members: the members of
 a region are one lane's ops in order, so the launch boundary is a barrier
@@ -65,6 +69,7 @@ TILED = {"ell": ("vals", "cols", "y"), "gather": ("idx", "out"),
          "attn_finalize": ("acc", "l", "o")}
 ATTN_BODIES = ("attn_fold", "attn_finalize")
 MAX_MEMBERS = 32  # kMaxMembers in csrc/fused_region.cu
+SPMV_THREADS = 256  # kThreads of the SpMV instantiation (fused_region_kernel)
 
 # the fused region against its plain version: the ELL rows sum in another
 # order (ops/spmv_kernels.py); gather, add and copy are exact.  A region of
@@ -173,6 +178,25 @@ def barrier_flags(reads: List[List[str]], writes: List[List[str]]) -> List[bool]
     return out
 
 
+def instantiation(members: List[MemberBody]) -> Dict[str, object]:
+    """The kernel instantiation a table of ``members`` launches: ``attn``
+    where any member is an attention body (the f32 fold's threads and
+    shared memory, :func:`ak.f32_launch_plan`), else ``spmv`` (256 threads,
+    no shared memory).  Raises for a table that mixes the two, which the
+    kernel refuses.  The launch itself takes the library's answer
+    (``tz_fused_region_threads`` / ``_max_blocks``); this statement of the
+    rule is what the CPU refuses by and what the card tests hold the
+    library's answer against."""
+    attn = [mb.body in ATTN_BODIES for mb in members]
+    if any(attn) and not all(attn):
+        raise ValueError("fused_region: a table cannot mix attention and "
+                         f"SpMV bodies: {[mb.body for mb in members]}")
+    if any(attn):
+        return {"kind": "attn", "threads": ak.F32_THREADS,
+                "smem_bytes": ak.F32_SMEM_BYTES}
+    return {"kind": "spmv", "threads": SPMV_THREADS, "smem_bytes": 0}
+
+
 class RegionTable:
     """The kernel's descriptor tables for one lowered region (ctypes copies
     of ``Table`` in csrc/fused_region.cu), built once: one table per
@@ -184,6 +208,7 @@ class RegionTable:
             raise ValueError("fused_region: a region needs a member")
         self.members = list(members)
         self.tiles = int(tiles)
+        instantiation(self.members)  # refuses a mixed table
         self.tables: List[_Table] = []
         for at in range(0, len(members), MAX_MEMBERS):
             part = members[at:at + MAX_MEMBERS]
@@ -208,8 +233,9 @@ class RegionTable:
         was lowered with, checked then) into the tables; raises on a buffer
         that is not contiguous or not on the first operand's device.  On the
         card it also checks ``counters`` (2 x tiles int32, the group
-        barriers) and the attention members' head dim, and sizes the grid
-        for the region's shared memory.  The table keeps both as
+        barriers) and the attention members' head dim and 16-byte
+        alignment, and sizes the grid for the table's instantiation
+        (:func:`instantiation`).  The table keeps both as
         :attr:`bound` and :attr:`counters`: :func:`fused_region` rebinds
         only when another dict or counter tensor comes."""
         self.bound = self.counters = None  # unbound until every check passed
@@ -225,9 +251,12 @@ class RegionTable:
                     raise ValueError(f"fused_region: {mb.body} head dim "
                                      f"{mb.inner} has no kernel instantiation "
                                      f"(have {ak.KERNEL_HEAD_DIMS})")
-            smem = max(kernel_lib.lib().tz_fused_region_smem(ctypes.addressof(t))
-                       for t in self.tables)
-            self.blocks_per_group = blocks_per_group(self.tiles, dev, smem)
+                if mb.body in ATTN_BODIES and any(
+                        bufs[n].data_ptr() % 16 for n in mb.operands):
+                    raise ValueError(f"fused_region: the {mb.body} operands "
+                                     f"{mb.operands} must be 16-byte aligned")
+            self.blocks_per_group = blocks_per_group(self.tiles, dev,
+                                                     self.tables[0])
         elif dev.type != "cpu":
             raise ValueError(f"fused_region: unsupported device {dev}")
         for k, mb in enumerate(self.members):
@@ -275,16 +304,17 @@ def region_plain(members: List[MemberBody], bufs: Dict[str, torch.Tensor],
 _max_blocks: Dict[Tuple[int, int], int] = {}
 
 
-def blocks_per_group(tiles: int, device: torch.device, smem: int = 0) -> int:
+def blocks_per_group(tiles: int, device: torch.device, table: _Table) -> int:
     """Blocks of each tile's group: at most two blocks per SM in all, and
-    never more than the queried co-residency limit of the cooperative grid at
-    ``smem`` bytes of dynamic shared memory a block allows
+    never more than the queried co-residency limit of the cooperative grid
+    of the instantiation that runs ``table``
     (``tz_fused_region_max_blocks``)."""
     idx = device.index if device.index is not None else torch.cuda.current_device()
-    key = (idx, int(smem))
+    lib = kernel_lib.lib()
+    key = (idx, int(lib.tz_fused_region_threads(ctypes.addressof(table))))
     if key not in _max_blocks:
         with torch.cuda.device(idx):
-            got = kernel_lib.lib().tz_fused_region_max_blocks(int(smem))
+            got = lib.tz_fused_region_max_blocks(ctypes.addressof(table))
         if got < 0:
             raise RuntimeError(f"fused_region: occupancy query failed with "
                                f"cudaError {-got}")

@@ -30,7 +30,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tenzing_tpu_torch"
 SOURCES = ("halo_pack.cu", "halo_unpack.cu", "device_copy.cu", "attn_fold.cu",
            "ffn_expert.cu", "ffn_rows.cu", "ell_spmv.cu", "fused_region.cu",
            "rdma_shift.cu")
-HEADERS = ("attn_fold_f32.cuh", "ffn_tile.cuh")  # included by the sources above
+HEADERS = ("attn_fold_f32.cuh", "ffn_tile.cuh",
+           "hopper.cuh")  # included by the sources above
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -48,7 +49,9 @@ SIGNATURES = {
     "tz_attn_fused": [_c_ptr] * 6 + [_c_i64] * 13
     + [ctypes.c_float, _c_i64, _c_ptr],
     # out: rows per CTA, key tile, K stages, V stages, threads, smem bytes
+    # (the bf16 and the f32 kernel)
     "tz_attn_bf16_config": [ctypes.POINTER(ctypes.c_int64)],
+    "tz_attn_f32_config": [ctypes.POINTER(ctypes.c_int64)],
     # x, w1, w2, y; e, c, d, dff; stream
     "tz_ffn_batched": [_c_ptr] * 4 + [_c_i64] * 4 + [_c_ptr],
     # x, w1, w2, y; n, d, dff; stream
@@ -58,10 +61,10 @@ SIGNATURES = {
     "tz_ell_spmv": [_c_ptr] * 4 + [_c_i64] * 3 + [_c_ptr],
     # descriptor table (host), barrier counters; blocks per group; stream
     "tz_fused_region": [_c_ptr, _c_ptr, _c_i64, _c_ptr],
-    # dynamic shared memory per block
-    "tz_fused_region_max_blocks": [_c_i64],
     # descriptor table (host)
+    "tz_fused_region_max_blocks": [_c_ptr],
     "tz_fused_region_smem": [_c_ptr],
+    "tz_fused_region_threads": [_c_ptr],
     "tz_fused_region_member_size": [],
     "tz_fused_region_table_size": [],
     # x, peer y; bytes; my, +shift, -shift flag blocks; id, epoch; error
@@ -83,6 +86,7 @@ SIGNATURES = {
 }
 # entry points that return an int64 instead of a cudaError_t
 RESTYPES = {"tz_fused_region_smem": _c_i64,
+            "tz_fused_region_threads": _c_i64,
             "tz_fused_region_member_size": _c_i64,
             "tz_fused_region_table_size": _c_i64,
             "tz_rdma_shift_slots": _c_i64,

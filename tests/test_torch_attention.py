@@ -32,7 +32,7 @@ from tenzing_tpu.core.state import State as RefState
 from tenzing_tpu.models import ring_attention as ref_attn
 from tenzing_tpu.ops.attention_pallas import attn_block_pallas, attn_fused_pallas
 from tenzing_tpu.runtime.executor import TraceExecutor
-from tenzing_tpu_torch.bench import attn_bf16
+from tenzing_tpu_torch.bench import attn_bf16, attn_f32
 from tenzing_tpu_torch.bench.driver import attn_graph
 from tenzing_tpu_torch.core.platform import Platform
 from tenzing_tpu_torch.core.serdes import sequence_from_json, sequence_to_json
@@ -348,3 +348,45 @@ def test_cuda_bf16_fold_rejects_misaligned_state(cuda_device):
     acc = buf[1:].view(b, n, d)
     with pytest.raises(ValueError, match="8-byte aligned"):
         ak.attn_block(q, k, v, acc, st[1], st[2], d ** -0.5, bf16_inputs=True)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("case", list(attn_f32.STRESS_CASES) + ["region-key-off"])
+def test_cuda_f32_fold_stress(cuda_device, case):
+    """The f32 split-TF32 kernel's ring and tiles under stress, against its
+    plain version at ``F32_STATE_TOL`` (bench/attn_f32.py STRESS_CASES):
+    one key tile from the -1e30 init, nkv not a multiple of the 32-key
+    tile, n not a multiple of 128, both, several kv blocks, strided Q/K/V
+    views, q scaled by 8, and a fused-region fold whose keys start at an
+    offset (its one-tile-late control must fail)."""
+    if case == "region-key-off":
+        ok, info = attn_f32.run_region_case(torch, cuda_device)
+    else:
+        ok, info = attn_f32.run_case(torch, cuda_device, case)
+    assert ok, info
+
+
+@pytest.mark.needs_cuda
+def test_cuda_f32_fold_refuses_misaligned_views(cuda_device):
+    """The f32 kernel moves K rows in 16-byte loads and the state in 8-byte
+    vectors: a K view one float off, or a row stride that is not a
+    multiple of 4 floats, is refused (the launch returns
+    cudaErrorInvalidValue and the wrapper raises), not read out of line."""
+    b, n, nkv, d = 1, 128, 64, 128
+    q, k, v, st = attn_f32.case_inputs(torch, cuda_device, b, n, nkv, "init",
+                                       "dense")
+    kbuf = torch.randn(b * nkv * d + 1, device=cuda_device)
+    k_off = kbuf[1:].view(b, nkv, d)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        ak.attn_block(q, k_off, v, *[t.clone() for t in st], d ** -0.5)
+    q_odd = torch.randn(b, n, d + 1, device=cuda_device)[:, :, :d]
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        ak.attn_fused(q_odd, k, v, *[t.clone() for t in st], d ** -0.5, bkv=nkv)
+    torch.cuda.synchronize()
+    got = [t.clone() for t in st]  # the aligned call still runs
+    ak.attn_block(q, k, v, *got, d ** -0.5)
+    want = [t.clone() for t in st]
+    ak.attn_block_plain(q, k, v, *want, d ** -0.5)
+    ok, errs = ak.state_check(got, want, ak.F32_STATE_TOL)
+    assert ok, errs
+

@@ -317,6 +317,41 @@ def test_region_table_mirrors_the_kernel_layout():
                         {"x": torch.float32, "i": torch.int64, "o": torch.float32})
 
 
+def _attn_members(d=128):
+    fold = fr.MemberBody("attn_fold", fr.OPERANDS["attn_fold"], 64, 0, False,
+                         outer=2, inner=d, kv_rows=96, key_off=32, nkv=32,
+                         scale=d ** -0.5)
+    fin = fr.MemberBody("attn_finalize", ("acc", "l", "o"), 64, 0, True,
+                        outer=2, inner=d)
+    return [fold, fin]
+
+
+def test_attention_table_selects_the_split_tf32_instantiation():
+    """A table of attention members (folds and a finalize, or the finalize
+    alone, as the last table of a long region) launches the f32 fold's
+    warp-specialized block: its threads and shared memory (the plan of
+    csrc/attn_fold_f32.cuh)."""
+    want = {"kind": "attn", "threads": 384, "smem_bytes": 230_528}
+    for members in (_attn_members(), _attn_members()[1:]):
+        assert fr.instantiation(members) == want
+        assert len(fr.RegionTable(members, 2).tables) == 1
+    plan = ak.f32_launch_plan(2, 64, 32, 128)
+    assert (want["threads"], want["smem_bytes"]) == (plan["threads"],
+                                                     plan["smem_bytes"])
+
+
+def test_spmv_table_keeps_the_simt_instantiation():
+    """SpMV members keep the 256-thread instantiation without shared
+    memory, and a table never mixes the two (the kernel refuses it)."""
+    spmv = [fr.MemberBody("ell", fr.OPERANDS["ell"], 10, 3, False),
+            fr.MemberBody("copy", ("a", "b"), 10, 0, True)]
+    assert fr.instantiation(spmv) == {"kind": "spmv", "threads": 256,
+                                      "smem_bytes": 0}
+    assert len(fr.RegionTable(spmv, 1).tables) == 1
+    with pytest.raises(ValueError, match="mix"):
+        fr.RegionTable(spmv + _attn_members(), 1)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -510,6 +545,23 @@ def test_cuda_table_layout_matches_the_kernel(cuda_device):
 
     assert fr.kernel_layout() == (ctypes.sizeof(fr._Member),
                                   ctypes.sizeof(fr._Table))
+
+
+@pytest.mark.needs_cuda
+def test_cuda_library_selects_the_same_instantiation(cuda_device):
+    """The library's tz_fused_region_threads / _smem answer what
+    fr.instantiation says, for attention and SpMV tables."""
+    import ctypes
+
+    from tenzing_tpu_torch.ops import kernel_lib
+
+    lib = kernel_lib.lib()
+    spmv = [fr.MemberBody("copy", ("a", "b"), 10, 0, False)]
+    for members in (_attn_members(), spmv):
+        t = fr.RegionTable(members, 1).tables[0]
+        want = fr.instantiation(members)
+        assert lib.tz_fused_region_threads(ctypes.addressof(t)) == want["threads"]
+        assert lib.tz_fused_region_smem(ctypes.addressof(t)) == want["smem_bytes"]
 
 
 @pytest.mark.needs_cuda
