@@ -13,7 +13,12 @@ before the last line:
               their plain PyTorch versions, and ``device_copy`` against
               ``copy_``: bit-exact (tolerance 0, pure data movement), with the
               kernel's, the plain version's and the library call's times and
-              the bytes bound;
+              the bytes bound (z faces also the sector bound); each halo row
+              names the body the library plans (TMA for the x and y
+              unpacks, SIMT for the rest) and holds its plan against
+              ``halo_launch_plan``, runs the SIMT body forced on the unpacks
+              TMA takes (bit-exact, timed as ``simt_ms``), and after each
+              unpack U outside the cut must be unchanged;
 4. executor — the naive, greedy host/rdma/mixed, alias and all-kernel orders on
               8 lanes through ``StreamExecutor``: the final grid must be
               bit-identical to the same order run with every kernel replaced by
@@ -21,7 +26,7 @@ before the last line:
               runs must leave every buffer's ``data_ptr`` unchanged;
 5. driver   — ``tenzing_tpu_torch.bench.driver.run`` at ``halo_n=512`` with a
               small budget; ``verified`` must be true and each halo kernel's
-              launch count over this run must be > 0;
+              launch count over this run must be > 0, for each body;
 6. attn kernels  — first each kernel's ``ptxas -v`` report (registers,
               spills), its launch constants against
               ``ops/attention_kernels.f32_launch_plan`` /
@@ -377,6 +382,45 @@ def all_launches():
     return out
 
 
+def outside_same(torch, got, before, starts, sizes, what: str) -> None:
+    """Raise unless ``got`` equals ``before`` everywhere outside the cut."""
+    from tenzing_tpu_torch.models.halo import face_view
+
+    probe = got.clone()
+    face_view(probe, starts, sizes).copy_(face_view(before, starts, sizes))
+    same = torch.equal(probe, before)
+    del probe
+    if not same:
+        raise AssertionError(f"{what}: wrote outside its cut")
+
+
+def halo_bodies(torch, hk, kind, u, face, want, starts, sizes, rpb, timer):
+    """The body the library plans for this call (``tz_halo_plan``) against
+    ``halo_launch_plan``, and, where that is TMA (the x and y unpacks), the
+    SIMT body forced through ``launch_body``: bit-exact against ``want``
+    (the plain version's U) and timed.  ``face`` is the call's face buffer."""
+    pack = kind == "pack"
+    plan = hk.library_plan(u, face, starts, sizes, pack)
+    mirror = hk.halo_launch_plan(u.shape, starts, sizes, pack, face.data_ptr(),
+                                 sms=torch.cuda.get_device_properties(
+                                     u.device).multi_processor_count)
+    if plan != {k: mirror[k] for k in hk.PLAN_FIELDS}:
+        raise AssertionError(f"halo_{kind} plan {plan} != mirror {mirror}")
+    out = {"body": plan["body"], "plan": plan}
+    if plan["body"] != "tma":
+        return out
+    dst = u.clone()
+    hk.launch_body("unpack", dst, face, starts, sizes, rpb, "simt")
+    torch.cuda.synchronize()
+    if not torch.equal(dst, want):
+        raise AssertionError(f"halo_{kind} with the SIMT body forced differs "
+                             "from its plain version")
+    out["simt_ms"] = timer.ms(lambda: hk.launch_body(
+        "unpack", dst, face, starts, sizes, rpb, "simt"))
+    del dst
+    return out
+
+
 def phase_kernels(torch, device, timer):
     """Every kernel slot at the flagship shapes against its plain version."""
     from tenzing_tpu_torch.models.halo import (
@@ -386,6 +430,7 @@ def phase_kernels(torch, device, timer):
         dir_name,
         face_view,
     )
+    from tenzing_tpu_torch.bench import halo_kernels as halo_bench
     from tenzing_tpu_torch.models.halo_pipeline import _padded_shape
     from tenzing_tpu_torch.ops import halo_kernels as hk
     from tenzing_tpu_torch.ops import rdma
@@ -430,11 +475,16 @@ def phase_kernels(torch, device, timer):
             row = {"kernel": "halo_pack", "face": name, "slot": suffix,
                    "rows_per_block": rpb, "shape": list(sizes), "exact": True,
                    "max_abs_err": err,
+                   **halo_bodies(torch, hk, "pack", u, got, want, starts,
+                                 sizes, rpb, timer),
                    "ms": timer.ms(lambda: hk.halo_pack(u, got, starts, sizes, rpb)),
                    "plain_ms": timer.ms(
                        lambda: hk.halo_pack_plain(u, want, starts, sizes)),
                    "library_ms": timer.ms(lambda: face4d.copy_(uview)),
                    "bound_ms": bound_ms(face_bytes)}
+            if d[2]:
+                row["sector_bound_ms"] = bound_ms(
+                    halo_bench.sector_bytes(u.shape, starts, sizes))
             emit(row)
             summary["halo_pack"].append(row)
             recv = want.view(-1)[:n].clone()
@@ -455,18 +505,24 @@ def phase_kernels(torch, device, timer):
             if not same:
                 raise AssertionError(f"halo_unpack{suffix} {name}: differs "
                                      f"from its plain version (max abs err {err})")
+            outside_same(torch, ug, u, ustarts, sizes, f"halo_unpack{suffix} {name}")
+            bodies = halo_bodies(torch, hk, "unpack", u, staging, uw, ustarts,
+                                 sizes, rpb, timer)
             del uw
             uview = face_view(ug, ustarts, sizes)
             face4d = staging[:n].view(tuple(sizes))
             row = {"kernel": "halo_unpack", "face": name, "slot": suffix,
                    "rows_per_block": rpb, "shape": list(sizes), "exact": True,
-                   "max_abs_err": err,
+                   "max_abs_err": err, "outside_cut_untouched": True, **bodies,
                    "ms": timer.ms(
                        lambda: hk.halo_unpack(ug, staging, ustarts, sizes, rpb)),
                    "plain_ms": timer.ms(
                        lambda: hk.halo_unpack_plain(ug, staging, ustarts, sizes)),
                    "library_ms": timer.ms(lambda: uview.copy_(face4d)),
                    "bound_ms": bound_ms(face_bytes)}
+            if d[2]:
+                row["sector_bound_ms"] = bound_ms(
+                    halo_bench.sector_bytes(u.shape, ustarts, sizes))
             emit(row)
             summary["halo_unpack"].append(row)
             del ug
@@ -2392,7 +2448,9 @@ def main() -> int:
     if not verdict.get("climbs") or not all(c["spent"] > 0
                                             for c in verdict["climbs"]):
         raise AssertionError(f"the halo climbs did not run: {verdict}")
-    missing = [k for k in ("halo_pack", "halo_unpack", "device_copy")
+    missing = [k for k in ("halo_pack", "halo_unpack", "device_copy",
+                           "halo_pack.simt", "halo_unpack.tma",
+                           "halo_unpack.simt")
                if launches[k] <= 0]
     if missing:
         raise AssertionError(f"the main path never launched {missing}")
@@ -2490,6 +2548,21 @@ def main() -> int:
     for name, (src, replaces, blocking) in sources.items():
         rows = summary[name]
         agg = six_faces(rows, blocking)
+        if name != "device_copy":
+            # the flat slot's x and y faces (rows 5-6 of PERF.md's table)
+            flat = [r for r in rows if r["slot"] == ".pallasf"]
+            z_rows = [r for r in rows if "sector_bound_ms" in r
+                      and r["slot"] == blocking]
+            halo_extra = {
+                "body_by_face": {r["face"]: r["body"] for r in rows},
+                "launches_by_body": {b: launches[f"{name}.{b}"]
+                                     for b in ("tma", "simt")
+                                     if f"{name}.{b}" in launches},
+                "sector_bound_ms": sum(r["sector_bound_ms"] for r in z_rows),
+                "flat_xy": {key: sum(r[key] for r in flat) for key in (
+                    "ms", "library_ms", "bound_ms", "simt_ms")
+                    if all(key in r for r in flat)},
+            }
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             # device_copy also runs on the moe path's .rdma chains
@@ -2506,6 +2579,8 @@ def main() -> int:
         if name == "device_copy":
             kernels[-1]["launches_by_path"] = {"halo": launches[name],
                                                "moe": moe_launches[name]}
+        else:
+            kernels[-1].update(halo_extra)
     # the attention kernels: the f32 row at the main path's shapes, the bf16
     # row beside it; launches count both input types
     for name, case, replaces, work in (

@@ -256,31 +256,34 @@ def apply_edits(text: str, edits: List[Tuple[str, str]], name: str) -> str:
 
 
 def build_variants(edited: str, ablations: Dict[str, List[Tuple[str, str]]],
-                   kernel: str) -> Tuple[Dict[str, ctypes.CDLL], List[dict]]:
-    """Build ``csrc/attn_fold.cu`` once as it is (``kernel``) and once per
+                   kernel: str, source: str = "attn_fold.cu",
+                   entry_points: Sequence[str] = ("tz_attn_fused",
+                                                  "tz_attn_block"),
+                   ) -> Tuple[Dict[str, ctypes.CDLL], List[dict]]:
+    """Build ``csrc/<source>`` once as it is (``kernel``) and once per
     entry of ``ablations`` with the file ``edited`` of csrc/ changed by that
     entry's edits, each variant in a directory of its own under the build
     directory (the .cu's quoted includes find an edited header beside it
     first), all ``nvcc`` processes started together.  Returns the loaded
-    libraries by name and each variant's :func:`ptxas_report` of
-    ``kernel``."""
+    libraries by name, with ``entry_points`` bound, and each variant's
+    :func:`ptxas_report` of ``kernel``."""
     from tenzing_tpu_torch.ops import kernel_lib
 
     base = (kernel_lib.CSRC / edited).read_text()
-    source = (kernel_lib.CSRC / "attn_fold.cu").read_text()
+    text = (kernel_lib.CSRC / source).read_text()
     kernel_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(dir=kernel_lib.BUILD_DIR))
     procs = {}
     for name, edits in {"kernel": [], **ablations}.items():
         vdir = work / name
         vdir.mkdir()
-        (vdir / "attn_fold.cu").write_text(source)
+        (vdir / source).write_text(text)
         (vdir / edited).write_text(apply_edits(base, edits, name))
         so = vdir / f"{name}.so"
         procs[name] = (so, subprocess.Popen(
             [kernel_lib.nvcc(), *kernel_lib.ARCH_FLAGS,
              *kernel_lib.COMPILE_FLAGS, "-shared", "-I", str(kernel_lib.CSRC),
-             str(vdir / "attn_fold.cu"), "-o", str(so)],
+             str(vdir / source), "-o", str(so)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs, rows = {}, []
     for name, (so, proc) in procs.items():
@@ -289,7 +292,7 @@ def build_variants(edited: str, ablations: Dict[str, List[Tuple[str, str]]],
             raise RuntimeError(f"ablation {name} failed to build:\n{out}")
         rows.append({"ablation": name, "ptxas": ptxas_report(out, kernel)})
         lib = ctypes.CDLL(str(so))
-        for fn in ("tz_attn_fused", "tz_attn_block"):
+        for fn in entry_points:
             getattr(lib, fn).argtypes = kernel_lib.SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib

@@ -1,13 +1,44 @@
 // Hopper building blocks shared by the attention folds (attn_fold.cu,
-// attn_fold_f32.cuh): mbarriers, the ring of shared-memory stages, wgmma's
-// fences and its shared-memory matrix descriptor.  Needs sm_90a.
+// attn_fold_f32.cuh) and the halo kernels (halo_copy.cuh): tensor-map
+// encoding, mbarriers, the ring of shared-memory stages, wgmma's fences and
+// its shared-memory matrix descriptor.  Needs sm_90a.
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace tz_hopper {
+
+// -- host: tensor maps
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API function; the library links only
+// the runtime, so it is fetched through the runtime's entry-point query.
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -56,6 +87,11 @@ __device__ __forceinline__ void mbar_wait(uint32_t addr, uint32_t parity) {
 }
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   mbar_wait(smem_u32(bar), parity);
+}
+
+// Make freshly initialized barriers visible to the async proxy (TMA).
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
 // Order this thread's plain shared-memory writes before later reads of the

@@ -28,12 +28,20 @@ and a schedule JSON must mean the same thing in both packages.
 
 ``halo_pack`` / ``halo_unpack`` launch the CUDA kernel for CUDA tensors and
 run their plain PyTorch version (indexing plus ``copy_``) for CPU tensors;
-there is no other path.  Each keeps a launch count in ``LAUNCHES``.
+there is no other path.  Each keeps a launch count in ``LAUNCHES``, in total
+and by the body the library launched (``.tma`` or ``.simt``; a pack has
+only the SIMT body): the library's own plan for the call
+(:func:`library_plan`, asked once per face buffer and row length).
+:func:`halo_launch_plan` mirrors the library's launch plan (the body, the
+box, the ring, the grid, the tensor map) and :func:`tma_box_walk` the TMA
+body's box walk; tests/test_torch_halo_plan.py holds them against the
+source, and the card tests hold the library's plan against them.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence as Seq, Tuple
+import ctypes
+from typing import Dict, List, Optional, Sequence as Seq, Tuple
 
 import torch
 
@@ -53,8 +61,28 @@ from tenzing_tpu_torch.models.halo_pipeline import (
 )
 from tenzing_tpu_torch.ops import kernel_lib
 
-# kernel launches (CUDA path only; plain versions and CPU tensors do not count)
-LAUNCHES = {"halo_pack": 0, "halo_unpack": 0}
+# kernel launches (CUDA path only; plain versions and CPU tensors do not count),
+# in total and by body
+LAUNCHES = {"halo_pack": 0, "halo_unpack": 0, "halo_pack.simt": 0,
+            "halo_unpack.tma": 0, "halo_unpack.simt": 0}
+
+# csrc/halo_copy.cuh's launch constants (tests/test_torch_halo_plan.py reads
+# them from the source)
+CONSUMER_WARPS = 4
+TMA_THREADS = 32 * (1 + CONSUMER_WARPS)
+BOX_BYTES = 8192
+STAGES = 3
+BLOCKS_PER_SM = 8
+MAX_STAGES = 8
+MAX_BOX_DIM = 256
+STAGE_ALIGN = 128
+SMEM_LIMIT = 232_448
+SIMT_THREADS = 256
+SIMT_RUNS = 4
+H100_SMS = 132
+BODIES = {"auto": 0, "tma": 1, "simt": 2}
+PLAN_FIELDS = ("body", "bz", "by", "bx", "stages", "boxes", "group", "runs",
+               "grid", "threads", "smem_bytes")
 
 
 # -- menu gates (the reference's, tenzing_tpu/ops/halo_pallas.py:156-183,
@@ -141,9 +169,6 @@ def _check_face_args(name: str, u: torch.Tensor, face: torch.Tensor,
     if rows_per_block < 1 or sx % rows_per_block:
         raise ValueError(f"{name}: rows_per_block {rows_per_block} must divide "
                          f"sx={sx}")
-    if nq * (sx // rows_per_block) > 65535:
-        raise ValueError(f"{name}: {nq * (sx // rows_per_block)} row blocks "
-                         "exceed the grid's y limit")
     n = nq * sx * sy * sz
     if face.numel() < n:
         raise ValueError(f"{name}: face buffer holds {face.numel()} < {n} elements")
@@ -166,15 +191,158 @@ def halo_unpack_plain(u: torch.Tensor, face: torch.Tensor, starts: Seq[int],
     face_view(u, starts, sizes).copy_(face.view(-1)[:n].view(tuple(sizes)))
 
 
-def _launch(fn_name: str, a: torch.Tensor, b: torch.Tensor, u: torch.Tensor,
-            starts: Seq[int], sizes: Seq[int], rows_per_block: int) -> None:
+# -- the launch plan (the mirror of csrc/halo_copy.cuh's make_plan) ------------
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _balanced(n: int, cap: int) -> int:
+    """The fewest boxes of at most ``cap`` along ``n``, all of one size."""
+    return _cdiv(n, _cdiv(n, cap))
+
+
+def tma_fits(sizes: Seq[int], face_ptr: int = 0) -> bool:
+    """Whether an unpack of the cut can take the TMA body: a 16-byte aligned
+    face and rows (sz) of a multiple of 4 floats."""
+    return face_ptr % 16 == 0 and sizes[3] % 4 == 0
+
+
+def halo_launch_plan(u_shape: Seq[int], starts: Seq[int], sizes: Seq[int],
+                     pack: bool, face_ptr: int = 0, body: str = "auto",
+                     sms: int = H100_SMS) -> Dict[str, object]:
+    """What one pack (``pack``) or unpack of the cut launches: the library's
+    fields (:data:`PLAN_FIELDS`, body as a name) and, for the TMA body, the
+    face map it loads (``map``: dims and byte strides innermost first, the
+    box) and the bytes in flight per SM when every block's ring is full.
+    Raises ValueError where the library refuses the call."""
+    nq, sx, sy, sz = (int(v) for v in sizes)
+    _, X, Y, Z = (int(v) for v in u_shape)
+    lim = 1 << 31
+    if (min(sms, nq, sx, sy, sz) < 1
+            or max(X, Y, Z, nq, nq * sx * sy) >= lim):
+        raise ValueError(f"halo plan: cut {tuple(sizes)} out of range")
+    fits = not pack and tma_fits(sizes, face_ptr)
+    if body == "auto":
+        body = "tma" if fits else "simt"
+    if body not in ("tma", "simt") or (body == "tma" and not fits):
+        raise ValueError(f"halo plan: body {body!r} cannot take the cut")
+    plan: Dict[str, object] = dict.fromkeys(PLAN_FIELDS, 0)
+    plan["body"] = body
+    if body == "simt":
+        g = 1
+        while g < sz and g < SIMT_THREADS:
+            g *= 2
+        runs = nq * sx * sy
+        plan.update(group=g, runs=runs, threads=SIMT_THREADS,
+                    grid=_cdiv(runs, (SIMT_THREADS // g) * SIMT_RUNS))
+        return plan
+    bz = _cdiv(_balanced(sz, MAX_BOX_DIM), 4) * 4
+    by = _balanced(sy, min(max(BOX_BYTES // (4 * bz), 1), MAX_BOX_DIM))
+    bx = _balanced(sx, min(max(BOX_BYTES // (4 * bz * by), 1), MAX_BOX_DIM))
+    boxes = _cdiv(sz, bz) * _cdiv(sy, by) * _cdiv(sx, bx) * nq
+    stage = _cdiv(4 * bz * by * bx, STAGE_ALIGN) * STAGE_ALIGN
+    smem = STAGE_ALIGN + STAGES * stage
+    grid = min(boxes, sms * BLOCKS_PER_SM)
+    if smem > SMEM_LIMIT - 16 * MAX_STAGES or boxes >= lim:
+        raise ValueError(f"halo plan: a ring of {smem} bytes does not fit")
+    plan.update(bz=bz, by=by, bx=bx, stages=STAGES, boxes=boxes, grid=grid,
+                threads=TMA_THREADS, smem_bytes=smem)
+    plan["map"] = {"dims": (sz, sy, sx, nq),
+                   "strides": (4 * sz, 4 * sy * sz, 4 * sx * sy * sz),
+                   "box": (bz, by, bx, 1)}
+    plan["in_flight_per_sm"] = (grid / sms * min(STAGES, _cdiv(boxes, grid))
+                                * 4 * bz * by * bx)
+    return plan
+
+
+def tma_box_walk(plan: Dict[str, object],
+                 sizes: Seq[int]) -> List[List[Tuple[int, int, int, int]]]:
+    """The TMA body's walk: per block, in the order it copies them (box
+    b = block, block + grid, ...; z fastest, then y, x, q), each box's face
+    origin (k, j, i, q), which is also the coordinate its load asks of the
+    face map (innermost first)."""
+    nq, sx, sy, sz = (int(v) for v in sizes)
+    bz, by, bx = plan["bz"], plan["by"], plan["bx"]
+    nbz, nby, nbx = _cdiv(sz, bz), _cdiv(sy, by), _cdiv(sx, bx)
+    walk = []
+    for blk in range(plan["grid"]):
+        boxes = []
+        for b in range(blk, plan["boxes"], plan["grid"]):
+            cz, t = (b % nbz) * bz, b // nbz
+            cy, t = (t % nby) * by, t // nby
+            cx, q = (t % nbx) * bx, t // nbx
+            boxes.append((cz, cy, cx, q))
+        walk.append(boxes)
+    return walk
+
+
+def library_plan(u: torch.Tensor, face: torch.Tensor, starts: Seq[int],
+                 sizes: Seq[int], pack: bool,
+                 body: str = "auto") -> Dict[str, object]:
+    """The built library's own plan for this call (``tz_halo_plan``), in
+    :data:`PLAN_FIELDS` (body as a name); raises where it refuses."""
     _, X, Y, Z = u.shape
-    fn = getattr(kernel_lib.lib(), fn_name)
-    err = fn(a.data_ptr(), b.data_ptr(), int(sizes[0]), X, Y, Z,
-             int(starts[1]), int(starts[2]), int(starts[3]),
-             int(sizes[1]), int(sizes[2]), int(sizes[3]), int(rows_per_block),
-             torch.cuda.current_stream(u.device).cuda_stream)
-    kernel_lib.check_launch(fn_name, err)
+    out = (ctypes.c_int64 * len(PLAN_FIELDS))()
+    err = kernel_lib.lib().tz_halo_plan(
+        face.data_ptr(), int(sizes[0]), X, Y, Z, int(starts[1]),
+        int(starts[2]), int(starts[3]), int(sizes[1]), int(sizes[2]),
+        int(sizes[3]), int(pack), BODIES[body], out)
+    kernel_lib.check_launch("tz_halo_plan", err)
+    plan = dict(zip(PLAN_FIELDS, list(out)))
+    plan["body"] = {v: k for k, v in BODIES.items()}[plan["body"]]
+    return plan
+
+
+def _launch(fn: str, u: torch.Tensor, face: torch.Tensor, starts: Seq[int],
+            sizes: Seq[int], rows_per_block: int, extra: tuple = ()) -> None:
+    """Call the C entry point ``fn`` on CUDA tensors."""
+    _, X, Y, Z = u.shape
+    err = getattr(kernel_lib.lib(), fn)(
+        u.data_ptr(), face.data_ptr(), int(sizes[0]), X, Y, Z, int(starts[1]),
+        int(starts[2]), int(starts[3]), int(sizes[1]), int(sizes[2]),
+        int(sizes[3]), int(rows_per_block), *extra,
+        torch.cuda.current_stream(u.device).cuda_stream)
+    kernel_lib.check_launch(fn, err)
+
+
+# (kind, face address, sz) -> the LAUNCHES key of the body the library picks
+_LAUNCHED: Dict[tuple, str] = {}
+
+
+def _launched(key: tuple, u: torch.Tensor, face: torch.Tensor,
+              starts: Seq[int], sizes: Seq[int]) -> str:
+    """The ``LAUNCHES`` key of the body the library launched for the call
+    that ``key`` (kind, face address, sz) names: the body its own plan
+    names (:func:`library_plan`), asked once per key.  These are all that
+    the library's choice of body reads; the card tests hold
+    :func:`halo_launch_plan`'s choice against the library's on every cut."""
+    if len(_LAUNCHED) >= 4096:  # buffers come and go off the main path
+        _LAUNCHED.clear()
+    name = _LAUNCHED[key] = f"halo_{key[0]}." + library_plan(
+        u, face, starts, sizes, key[0] == "pack")["body"]
+    return name
+
+
+def launch_body(kind: str, u: torch.Tensor, face: torch.Tensor,
+                starts: Seq[int], sizes: Seq[int], rows_per_block: int = 1,
+                body: str = "auto") -> None:
+    """``kind`` ("pack" or "unpack") on CUDA tensors, not counted in
+    ``LAUNCHES``: for the card tests and bench/halo_kernels.py, never the
+    main path.  An unpack runs with the body named (``tz_halo_unpack_ex``;
+    the library refuses a TMA body the cut does not allow); a pack has one
+    body, SIMT, so ``body`` "tma" is refused here."""
+    _check_face_args(f"halo_{kind}", u, face, starts, sizes, rows_per_block)
+    if u.device.type != "cuda":
+        raise ValueError(f"launch_body: CUDA tensors only (got {u.device})")
+    if kind == "pack":
+        if body == "tma":
+            raise ValueError("launch_body: a pack has no TMA body")
+        _launch("tz_halo_pack", u, face, starts, sizes, rows_per_block)
+    else:
+        _launch("tz_halo_unpack_ex", u, face, starts, sizes, rows_per_block,
+                (BODIES[body],))
 
 
 def halo_pack(u: torch.Tensor, out: torch.Tensor, starts: Seq[int],
@@ -189,8 +357,10 @@ def halo_pack(u: torch.Tensor, out: torch.Tensor, starts: Seq[int],
         return
     if u.device.type != "cuda":
         raise ValueError(f"halo_pack: unsupported device {u.device}")
-    _launch("tz_halo_pack", u, out, u, starts, sizes, rows_per_block)
+    _launch("tz_halo_pack", u, out, starts, sizes, rows_per_block)
     LAUNCHES["halo_pack"] += 1
+    key = ("pack", out.data_ptr(), sizes[3])
+    LAUNCHES[_LAUNCHED.get(key) or _launched(key, u, out, starts, sizes)] += 1
 
 
 def halo_unpack(u: torch.Tensor, face: torch.Tensor, starts: Seq[int],
@@ -205,8 +375,11 @@ def halo_unpack(u: torch.Tensor, face: torch.Tensor, starts: Seq[int],
         return
     if u.device.type != "cuda":
         raise ValueError(f"halo_unpack: unsupported device {u.device}")
-    _launch("tz_halo_unpack", u, face, u, starts, sizes, rows_per_block)
+    _launch("tz_halo_unpack", u, face, starts, sizes, rows_per_block)
     LAUNCHES["halo_unpack"] += 1
+    key = ("unpack", face.data_ptr(), sizes[3])
+    LAUNCHES[_LAUNCHED.get(key) or _launched(key, u, face, starts,
+                                             sizes)] += 1
 
 
 # -- ops + choice menu ---------------------------------------------------------

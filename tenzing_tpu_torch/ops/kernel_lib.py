@@ -30,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tenzing_tpu_torch"
 SOURCES = ("halo_pack.cu", "halo_unpack.cu", "device_copy.cu", "attn_fold.cu",
            "ffn_expert.cu", "ffn_rows.cu", "ell_spmv.cu", "fused_region.cu",
            "rdma_shift.cu")
-HEADERS = ("attn_fold_f32.cuh", "ffn_tile.cuh",
+HEADERS = ("attn_fold_f32.cuh", "ffn_tile.cuh", "halo_copy.cuh",
            "hopper.cuh")  # included by the sources above
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -41,6 +41,10 @@ _c_ptr = ctypes.c_void_p
 SIGNATURES = {
     "tz_halo_pack": [_c_ptr, _c_ptr] + [_c_i64] * 11 + [_c_ptr],
     "tz_halo_unpack": [_c_ptr, _c_ptr] + [_c_i64] * 11 + [_c_ptr],
+    # the same and body (0 auto, 1 TMA, 2 SIMT)
+    "tz_halo_unpack_ex": [_c_ptr, _c_ptr] + [_c_i64] * 12 + [_c_ptr],
+    # face; the cut; pack (1) or unpack (0); body; out (int64[11])
+    "tz_halo_plan": [_c_ptr] + [_c_i64] * 12 + [_c_ptr],
     "tz_device_copy": [_c_ptr, _c_ptr, _c_i64, _c_ptr],
     # q, k, v, acc, m, l; b, n, nkv, (fused: bkv,) d; 8 batch/row strides;
     # scale; bf16 (k and v then bf16 copies); stream

@@ -8,9 +8,14 @@ comparison is exact (tolerance 0).  The same numpy inputs feed both.  The
 menu gates must be the reference's functions on every shape, so the two
 packages offer the same search space.
 
-``test_cuda_kernels_match_plain`` needs the card (marker ``needs_cuda``):
-``python -m pytest tests/test_torch_halo_kernels.py -m needs_cuda`` on the
-machine with the GPU."""
+The ``test_cuda_*`` tests need the card (marker ``needs_cuda``): ``python -m
+pytest tests/test_torch_halo_kernels.py -m needs_cuda`` on the machine with
+the GPU.  They hold both bodies of the kernels (TMA and SIMT, forced through
+``launch_body``) bit-exact against the plain versions on every face and slot,
+at the flagship and at odd shapes, the library's launch plan against
+:func:`halo_launch_plan`, the cells outside every unpack's cut against a
+canary, and unpacks on two streams at once against the same unpacks in
+turn."""
 
 import itertools
 
@@ -24,7 +29,13 @@ from tenzing_tpu.models.halo_pipeline import _padded_shape as ref_padded_shape
 from tenzing_tpu.models.halo_pipeline import flatten_face as ref_flatten_face
 from tenzing_tpu.ops import halo_pallas as ref
 from tenzing_tpu.ops.rdma import rdma_copy_fused_local
-from tenzing_tpu_torch.models.halo import DIRECTIONS, HaloArgs, _face_slices, dir_name
+from tenzing_tpu_torch.models.halo import (
+    DIRECTIONS,
+    HaloArgs,
+    _face_slices,
+    dir_name,
+    face_view,
+)
 from tenzing_tpu_torch.models.halo_pipeline import _padded_shape, flatten_face
 from tenzing_tpu_torch.ops import halo_kernels as hk
 from tenzing_tpu_torch.ops import rdma
@@ -234,3 +245,182 @@ def test_cuda_kernels_match_plain(cuda_device, size):
         rdma.device_copy(got, dst)
         assert torch.equal(dst, got)
     torch.cuda.synchronize()
+
+
+# the card tests' grids: HaloArgs and whether U is padded as the pipeline
+# pads it (an unpadded grid's x and y faces with rows that are not a multiple
+# of 4 floats take no TMA).  r1-nq2's x and y unpacks end in a ragged box
+# along z, y and x
+CARD_SHAPES = {
+    "flagship": (dict(nq=3, lx=512, ly=512, lz=512, radius=3), True),
+    "r1-nq2": (dict(nq=2, lx=41, ly=37, lz=300, radius=1), True),
+    "r2-lz30": (dict(nq=1, lx=24, ly=20, lz=30, radius=2), True),
+    "unpadded-nq2": (dict(nq=2, lx=30, ly=28, lz=26, radius=2), False),
+    "unpadded-z4": (dict(nq=2, lx=20, ly=12, lz=36, radius=2), False),
+}
+CANARY = -12345.5
+
+
+def _card_grid(name, device, fill=None):
+    kw, padded = CARD_SHAPES[name]
+    args = HaloArgs(**kw)
+    shape = (_padded_shape(args.local_shape()) if padded
+             else args.local_shape())
+    gen = torch.Generator(device=device)
+    gen.manual_seed(21)
+    if fill is not None:
+        return args, torch.full(shape, fill, device=device)
+    return args, torch.rand(shape, device=device, generator=gen)
+
+
+def _slots(u, args, d, starts, sizes):
+    """(slot, rows_per_block, face buffer) of every kernel slot of this face."""
+    n = int(np.prod(sizes))
+    rpb = hk._rows_per_block(u, starts, sizes)
+    out = [(".pallas", 1, torch.zeros(tuple(sizes), device=u.device)),
+           (".pallasb", rpb, torch.zeros(tuple(sizes), device=u.device))]
+    if hk._flat_ok(args, d):
+        out.append((".pallasf", rpb,
+                    torch.zeros((-(-n // 128), 128), device=u.device)))
+    return out
+
+
+def _bodies(kind, face, sizes):
+    """The wrappers' own pick ("auto") and, for an unpack, each body the
+    library takes for this call: SIMT always, TMA where the face allows it
+    (a pack has one body)."""
+    if kind == "pack":
+        return ["auto"]
+    return ["auto", "simt"] + (["tma"] if hk.tma_fits(
+        sizes, face.data_ptr()) else [])
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("shape", list(CARD_SHAPES))
+def test_cuda_bodies_match_plain(cuda_device, shape):
+    """Both bodies (and the wrappers' own pick) on every face and slot,
+    bit-exact against the plain versions; the wrappers count each launch
+    under the body the library's plan names."""
+    args, u = _card_grid(shape, cuda_device)
+    for d in DIRECTIONS:
+        starts, sizes = _face_slices(args, d, "pack")
+        ustarts, _ = _face_slices(args, d, "unpack")
+        n = int(np.prod(sizes))
+        for slot, rpb, face in _slots(u, args, d, starts, sizes):
+            want = torch.zeros_like(face)
+            hk.halo_pack_plain(u, want, starts, sizes)
+            uw = u.clone()
+            hk.halo_unpack_plain(uw, want, ustarts, sizes)
+            for body in _bodies("pack", face, sizes):
+                tag = f"pack {dir_name(d)}{slot} {body}"
+                face.zero_()
+                if body == "auto":
+                    before = hk.LAUNCHES["halo_pack.simt"]
+                    hk.halo_pack(u, face, starts, sizes, rpb)
+                    assert hk.LAUNCHES["halo_pack.simt"] == before + 1, tag
+                else:
+                    hk.launch_body("pack", u, face, starts, sizes, rpb, body)
+                assert torch.equal(face.view(-1)[:n], want.view(-1)[:n]), tag
+            for body in _bodies("unpack", want, sizes):
+                tag = f"unpack {dir_name(d)}{slot} {body}"
+                ug = u.clone()
+                if body == "auto":
+                    key = "halo_unpack." + hk.library_plan(
+                        ug, want, ustarts, sizes, False)["body"]
+                    before = hk.LAUNCHES[key]
+                    hk.halo_unpack(ug, want, ustarts, sizes, rpb)
+                    assert hk.LAUNCHES[key] == before + 1, tag
+                else:
+                    hk.launch_body("unpack", ug, want, ustarts, sizes, rpb,
+                                   body)
+                assert torch.equal(ug, uw), tag
+                del ug
+            del uw
+    torch.cuda.synchronize()
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("shape", list(CARD_SHAPES))
+def test_cuda_library_plan_matches_mirror(cuda_device, shape):
+    """The library's plan (tz_halo_plan) is :func:`halo_launch_plan` on every
+    cut and body; the flagship's x and y unpacks take TMA, every other cut
+    SIMT; a TMA body named where the library has none is refused."""
+    args, u = _card_grid(shape, cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for d, which in itertools.product(DIRECTIONS, ("pack", "unpack")):
+        starts, _ = _face_slices(args, d, which)
+        _, sizes = _face_slices(args, d, "pack")
+        pack = which == "pack"
+        face = torch.zeros(int(np.prod(sizes)) + 128, device=cuda_device)
+        for body in ("auto", "simt", "tma"):
+            try:
+                want = hk.halo_launch_plan(u.shape, starts, sizes, pack,
+                                           face.data_ptr(), body, sms)
+            except ValueError:
+                with pytest.raises(RuntimeError):
+                    hk.library_plan(u, face, starts, sizes, pack, body)
+                with pytest.raises(ValueError if pack else RuntimeError):
+                    hk.launch_body(which, u, face, starts, sizes, 1, body)
+                continue
+            got = hk.library_plan(u, face, starts, sizes, pack, body)
+            assert got == {k: want[k] for k in hk.PLAN_FIELDS}, (d, body)
+        if shape == "flagship":
+            body = hk.library_plan(u, face, starts, sizes, pack)["body"]
+            assert body == ("simt" if pack or d[2] else "tma"), (d, which)
+        # a face buffer off a 16-byte boundary takes the SIMT body
+        plan = hk.library_plan(u, face[1:], starts, sizes, pack)
+        assert plan["body"] == "simt"
+        with pytest.raises(ValueError if pack else RuntimeError):
+            hk.launch_body(which, u, face[1:], starts, sizes, 1, "tma")
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("shape", list(CARD_SHAPES))
+def test_cuda_unpack_writes_only_its_cut(cuda_device, shape):
+    """U filled with a canary: after every unpack (each face, slot and body;
+    r1-nq2's boxes end ragged along z, y and x) the cut holds the face and
+    every other cell the canary."""
+    args, u = _card_grid(shape, cuda_device, fill=CANARY)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(22)
+    for d in DIRECTIONS:
+        ustarts, _ = _face_slices(args, d, "unpack")
+        pstarts, sizes = _face_slices(args, d, "pack")
+        for slot, rpb, face in _slots(u, args, d, pstarts, sizes):
+            face.copy_(torch.rand(face.shape, device=cuda_device,
+                                  generator=gen))
+            n = int(np.prod(sizes))
+            want = face.view(-1)[:n].view(tuple(sizes))
+            for body in _bodies("unpack", face, sizes):
+                hk.launch_body("unpack", u, face, ustarts, sizes, rpb, body)
+                cut = face_view(u, ustarts, sizes)
+                assert torch.equal(cut, want), (d, slot, body)
+                cut.fill_(CANARY)
+                assert bool((u == CANARY).all()), (d, slot, body)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("shape", ["flagship", "unpadded-nq2"])
+def test_cuda_unpacks_on_two_streams(cuda_device, shape):
+    """The six faces' unpacks alternating over two streams at once equal the
+    same unpacks in turn on one stream."""
+    args, u0 = _card_grid(shape, cuda_device)
+    faces = []
+    for d in DIRECTIONS:
+        ustarts, _ = _face_slices(args, d, "unpack")
+        pstarts, sizes = _face_slices(args, d, "pack")
+        face = torch.empty(int(np.prod(sizes)), device=cuda_device)
+        hk.halo_pack(u0, face, pstarts, sizes)
+        faces.append((ustarts, sizes, face))
+    want = u0.clone()
+    for ustarts, sizes, face in faces:
+        hk.halo_unpack_plain(want, face, ustarts, sizes)
+    got = u0.clone()
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    torch.cuda.synchronize()
+    for i, (ustarts, sizes, face) in enumerate(faces):
+        with torch.cuda.stream(streams[i % 2]):
+            hk.halo_unpack(got, face, ustarts, sizes)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
