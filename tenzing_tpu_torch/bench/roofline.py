@@ -34,8 +34,12 @@ H100_PEAK_HBM_BYTES = 3.35e12
 # The floor on a tile's share of the region's tiled traffic: none.  The tile
 # sweep of chip_smoke.py (phase ``fused_sweep``: every structurally valid tile
 # count of the spmv naive order's regions at m=150000 and m=8192, on an H100
-# SXM) read every count within 5% of one tile, at tile shares down to 24 KB
-# (PERF.md), so no share is small enough to prune.
+# SXM) read every count within 5% of one tile, at tile shares down to 24 KB,
+# for the first kernel.  For the slab-ring kernel one count lost more (region
+# 0 at 2 tiles, a 16.2 MB share: 1.028-1.062 of one tile over three runs)
+# while every smaller share, 9.15 MB down to 24 KB, read within 5% (PERF.md):
+# the loss does not grow as a share shrinks, so a floor would prune counts
+# that are as fast, and none is set.
 MIN_TILE_BYTES = 0
 
 

@@ -25,8 +25,9 @@
 // runs fused_region_attn_kernel (the fold's 384 threads: two consumer
 // warpgroups and a producer warpgroup, kSmemBytes of shared memory, one
 // block per SM; the finalize runs on the consumers' 256 threads), any other
-// table fused_region_kernel (256 threads, no shared memory, the SpMV
-// bodies).  A table that mixes the two is refused.
+// table fused_region_kernel (the SpMV bodies: 160 threads, a ring of ELL
+// slab stages in kSpmvSmemBytes of shared memory, two blocks per SM).  A
+// table that mixes the two is refused.
 //
 // The kernel is launched cooperatively, so every block is resident and the
 // barriers cannot deadlock; the grid is bounded by the queried residency
@@ -49,11 +50,32 @@
 // walk the members and items in the same order, so the ring of K/V stages
 // runs on across them; setmaxnreg splits the registers once, at the start.
 //
+// An ELL member streams its slab, it does not walk it: the group's share of
+// rows splits into chunks of up to kChunkRows rows (cut at multiples of 4
+// rows), dealt to the group's blocks in turn.  A producer thread copies each
+// chunk's vals and cols into a ring of shared-memory stages with 1D bulk
+// copies (full and empty mbarriers), so tens of KB are in flight per SM;
+// each consumer thread sums one row from the stage, issuing its x gathers
+// kXBatch at a time, in a fixed order (two launches agree bit for bit;
+// kXBatch partial sums added as a tree), and the block stores y coalesced.
+// A bulk copy needs 16-byte aligned addresses, so it moves the chunk's
+// aligned inner range: a row that reaches outside it (a group's first row lo
+// where lo w % 4 != 0, as a tile's share may have, its last row hi - 1 where
+// hi w % 4 != 0, and narrow rows sharing their 16 bytes), every row wider
+// than kSlabWidth and every row of a slab whose base is off 16 bytes (a view
+// into a larger buffer) is read from global memory by its thread.  The
+// gather, add and copy bodies move 16 bytes per load where their operands
+// are aligned (a float a load read up to 1.6 us slower a region at
+// m=150000: bench/fused_spmv.py's scalar_elementwise).
+//
 // A barrier is a count and a generation per group in device memory (zeroed
 // once when the executor provisions the region); the last block to arrive
 // resets the count and advances the generation, so the pair needs no reset
-// between launches.  Loads of what another block may have written in the
-// same launch go through L2 (ld.global.cg).
+// between launches.  A member's `written` bits (runtime/fused.py's lowering)
+// name the operands an earlier member of the same table wrote: those are
+// loaded through L2 (ld.global.cg), the rest through the read-only L1 path;
+// a bulk copy of a written slab follows fence.proxy.async.global, as the
+// async proxy is not ordered with the generic stores before the barrier.
 //
 // Bound on an H100 SXM: bytes for the SpMV bodies (each external input read
 // once and each output written once, at 3.35 TB/s); operations for a region
@@ -68,7 +90,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // the SpMV instantiation
 constexpr int kMaxMembers = 32;
 constexpr int kHeadDim = tz_attn_f32::kHeadDim;  // the attention bodies' only one
 constexpr int kAttnThreads = tz_attn_f32::kThreads;
@@ -90,7 +111,8 @@ struct Member {
   int64_t key_off;  // attn fold: the block's first key
   int64_t nkv;      // attn fold: the block's keys
   float scale;      // attn fold: softmax scale
-  int32_t pad;
+  int32_t written;  // bit i: operand i was written by an earlier member of
+                    // this table (read it through L2, not the L1 read path)
   // operands in the body's order (ops/fused_region.py OPERANDS):
   //   ELL: vals, cols, x, y   gather: x, idx, out   add: a, b, out
   //   copy: src, out   attn fold: q, k, v, acc, m, l   finalize: acc, l, o
@@ -102,6 +124,29 @@ struct Table {
   int32_t tiles;
   Member m[kMaxMembers];
 };
+
+// The SpMV instantiation: a producer warp and kConsumerWarps consumer
+// warps; an ELL chunk has one row per consumer thread, and its vals and cols
+// pass through a ring of kSlabStages shared-memory stages that hold
+// kChunkRows rows of up to kSlabWidth entries (+ 4: a stage starts at the
+// chunk's first element rounded down to 16 bytes).
+constexpr int kConsumerWarps = 4;
+constexpr int kThreads = 32 * (1 + kConsumerWarps);
+constexpr int kChunkRows = 32 * kConsumerWarps;
+constexpr int kSlabWidth = 32;
+constexpr int kSlabStages = 3;
+constexpr int kStageFloats = kChunkRows * kSlabWidth + 4;
+constexpr int kXBatch = 8;  // x gathers a consumer thread issues at once
+static_assert((kXBatch & (kXBatch - 1)) == 0, "the partial sums add as a tree");
+
+struct SpmvSmem {
+  float vals[kSlabStages][kStageFloats];
+  int cols[kSlabStages][kStageFloats];
+  uint64_t full[kSlabStages];   // the producer's bulk copies landed
+  uint64_t empty[kSlabStages];  // every consumer warp is done with the stage
+};
+constexpr int kSpmvSmemBytes = (int)sizeof(SpmvSmem);
+static_assert(kStageFloats * 4 % 16 == 0, "stages must stay 16-byte aligned");
 
 constexpr bool attn_body(int32_t kind) {
   return kind == kAttnFold || kind == kAttnFinalize;
@@ -146,60 +191,235 @@ __device__ __forceinline__ void group_barrier(unsigned int* count,
   if (kAligned) __syncthreads(); else cta_sync();
 }
 
+// -- the SpMV instantiation
+
+// Chunk c of a share [lo, hi) cut at multiples of `rows` (itself a multiple
+// of 4) from base = lo rounded down to 4 rows, so every chunk but the first
+// starts and ends on a 16-byte boundary of the slab: its rows r0 .. r1, and
+// of its element range [r0 w, r1 w) the 16-byte aligned part [a0, a1) the
+// ring's bulk copies move; b0 is r0 w rounded down, the element the
+// stage's first float stands for.  Without `staged` (a slab whose base is off
+// 16 bytes, rows wider than kSlabWidth) the range is empty: every row is
+// read from global memory.
+struct Chunk {
+  int64_t r0, r1, b0, a0, a1;
+  __device__ __forceinline__ Chunk(int64_t base, int64_t lo, int64_t hi,
+                                   int64_t c, int64_t rows, int64_t w,
+                                   bool staged) {
+    r0 = base + c * rows > lo ? base + c * rows : lo;
+    r1 = base + (c + 1) * rows < hi ? base + (c + 1) * rows : hi;
+    const int64_t e0 = r0 * w;
+    b0 = e0 & ~(int64_t)3;
+    a0 = (e0 + 3) & ~(int64_t)3;
+    a1 = (r1 * w) & ~(int64_t)3;
+    if (!staged || a1 < a0) a1 = a0;
+  }
+};
+
+// x[i] from global memory: through L2 only (ld.global.cg) where a member of
+// this launch wrote the buffer, through the read-only L1 path otherwise.
+template <bool kCoherent, typename T>
+__device__ __forceinline__ T ld(const T* p) {
+  return kCoherent ? __ldcg(p) : __ldg(p);
+}
+
+// One ELL row's sum in a fixed order (deterministic): entry j goes to
+// partial sum j % kXBatch, and the kXBatch partials add up as a tree, so no
+// term waits on a chain of w roundings.  The row's vals and cols come from
+// a ring stage (kSlab == kShared) or global memory (kGlobal, kGlobalCg); its
+// x gathers are issued kXBatch at a time.
+enum SlabSrc { kShared, kGlobal, kGlobalCg };
+template <int kSlab, bool kXCoherent>
+__device__ __forceinline__ float row_sum(const float* v, const int* c,
+                                         const float* __restrict__ x,
+                                         int64_t w) {
+  auto val = [&](int64_t j) {
+    if constexpr (kSlab == kShared) return v[j];
+    else return ld<kSlab == kGlobalCg>(v + j);
+  };
+  auto col = [&](int64_t j) {
+    if constexpr (kSlab == kShared) return c[j];
+    else return ld<kSlab == kGlobalCg>(c + j);
+  };
+  float acc[kXBatch];
+#pragma unroll
+  for (int u = 0; u < kXBatch; ++u) acc[u] = 0.0f;
+  int64_t j = 0;
+  for (; j + kXBatch <= w; j += kXBatch) {
+    float xv[kXBatch];
+#pragma unroll
+    for (int u = 0; u < kXBatch; ++u) xv[u] = ld<kXCoherent>(x + col(j + u));
+#pragma unroll
+    for (int u = 0; u < kXBatch; ++u) acc[u] = fmaf(val(j + u), xv[u], acc[u]);
+  }
+#pragma unroll
+  for (int u = 0; u < kXBatch; ++u)
+    if (j + u < w) acc[u] = fmaf(val(j + u), ld<kXCoherent>(x + col(j + u)), acc[u]);
+#pragma unroll
+  for (int s = kXBatch / 2; s > 0; s /= 2)
+#pragma unroll
+    for (int u = 0; u < s; ++u) acc[u] += acc[u + s];
+  return acc[0];
+}
+
+// An ELL member over [lo, hi): chunks of `rows` rows dealt to the group's
+// blocks in turn.  The producer (thread 0) bulk-copies each chunk's aligned
+// vals and cols into the ring; consumer thread t sums row r0 + t from the
+// stage, or from global memory where the row reaches outside [a0, a1)
+// (a ragged chunk edge, a row wider than kSlabWidth, a slab off 16 bytes),
+// and stores it.
+template <bool kXCoherent>
+__device__ __forceinline__ void ell_member(const Member& mb, int64_t lo,
+                                           int64_t hi, int64_t bpg, int64_t gb,
+                                           SpmvSmem& sm, tz_hopper::Ring& ring) {
+  const float* vals = static_cast<const float*>(mb.p[0]);
+  const int* cols = static_cast<const int*>(mb.p[1]);
+  const float* x = static_cast<const float*>(mb.p[2]);
+  float* y = static_cast<float*>(mb.p[3]);
+  const int64_t w = mb.width;
+  const bool staged = w <= kSlabWidth &&
+                    ((uintptr_t)vals | (uintptr_t)cols) % 16 == 0;
+  // rows per chunk: the share spread over the group's blocks, a multiple
+  // of 4 rows, at least 32 and at most kChunkRows
+  if (hi <= lo) return;
+  const int64_t base = lo & ~(int64_t)3, n = hi - base;
+  int64_t rows = ((n + bpg - 1) / bpg + 3) & ~(int64_t)3;
+  rows = rows < 32 ? 32 : rows > kChunkRows ? kChunkRows : rows;
+  const int64_t chunks = (n + rows - 1) / rows;
+  if (threadIdx.x < 32) {  // the producer warp: thread 0 issues
+    if (threadIdx.x != 0) return;
+    // what another block stored before the barrier, read by the async proxy
+    if (mb.written & 3) tz_hopper::fence_proxy_async_global();
+    for (int64_t c = gb; c < chunks; c += bpg) {
+      const Chunk ck(base, lo, hi, c, rows, w, staged);
+      tz_hopper::mbar_wait(&sm.empty[ring.stage], ring.phase ^ 1u);
+      uint64_t* full = &sm.full[ring.stage];
+      if (ck.a1 > ck.a0) {
+        const uint32_t bytes = (uint32_t)(ck.a1 - ck.a0) * 4u;
+        tz_hopper::mbar_expect_tx(full, 2u * bytes);
+        tz_hopper::bulk_load(&sm.vals[ring.stage][ck.a0 - ck.b0], vals + ck.a0,
+                             bytes, full);
+        tz_hopper::bulk_load(&sm.cols[ring.stage][ck.a0 - ck.b0], cols + ck.a0,
+                             bytes, full);
+      } else {
+        tz_hopper::mbar_arrive(full);
+      }
+      ring.advance<kSlabStages>();
+    }
+    return;
+  }
+  const int t = threadIdx.x - 32;
+  for (int64_t c = gb; c < chunks; c += bpg) {
+    const Chunk ck(base, lo, hi, c, rows, w, staged);
+    tz_hopper::mbar_wait(&sm.full[ring.stage], ring.phase);
+    const int64_t row = ck.r0 + t;
+    if (row < ck.r1) {
+      const int64_t e = row * w;
+      float acc;
+      if (e >= ck.a0 && e + w <= ck.a1)
+        acc = row_sum<kShared, kXCoherent>(&sm.vals[ring.stage][e - ck.b0],
+                                           &sm.cols[ring.stage][e - ck.b0], x, w);
+      else if (mb.written & 3)
+        acc = row_sum<kGlobalCg, kXCoherent>(vals + e, cols + e, x, w);
+      else
+        acc = row_sum<kGlobal, kXCoherent>(vals + e, cols + e, x, w);
+      y[row] = acc;
+    }
+    tz_hopper::release(&sm.empty[ring.stage], threadIdx.x % 32);
+    ring.advance<kSlabStages>();
+  }
+}
+
+// Elementwise members over [lo, hi) on every thread of the group: 16-byte
+// loads and stores where every operand is 16-byte aligned at a multiple of
+// 4 elements (scalar head and tail), scalar otherwise.
+__device__ __forceinline__ void elementwise_member(const Member& mb, int64_t lo,
+                                                   int64_t hi, int64_t bpg,
+                                                   int64_t gb) {
+  const int nops = mb.kind == kCopy ? 2 : 3;
+  uintptr_t ptrs = 0;
+  for (int i = 0; i < nops; ++i) ptrs |= (uintptr_t)mb.p[i];
+  const bool vec = ptrs % 16 == 0;
+  int64_t a0 = vec ? (lo + 3) & ~(int64_t)3 : hi;
+  if (a0 > hi) a0 = hi;
+  const int64_t a1 = vec && (hi & ~(int64_t)3) > a0 ? hi & ~(int64_t)3 : a0;
+  const int64_t tid = gb * kThreads + threadIdx.x, step = bpg * kThreads;
+  const bool cg0 = mb.written & 1, cg1 = mb.written & 2;
+  auto ldf = [](const float* p, bool cg) { return cg ? __ldcg(p) : __ldg(p); };
+  auto ldf4 = [](const float4* p, bool cg) { return cg ? __ldcg(p) : __ldg(p); };
+  if (mb.kind == kGather) {
+    const float* x = static_cast<const float*>(mb.p[0]);
+    const int* idx = static_cast<const int*>(mb.p[1]);
+    float* out = static_cast<float*>(mb.p[2]);
+    for (int64_t i = a0 / 4 + tid; i < a1 / 4; i += step) {
+      const int4 k = cg1 ? __ldcg(reinterpret_cast<const int4*>(idx) + i)
+                         : __ldg(reinterpret_cast<const int4*>(idx) + i);
+      reinterpret_cast<float4*>(out)[i] =
+          make_float4(ldf(x + k.x, cg0), ldf(x + k.y, cg0), ldf(x + k.z, cg0),
+                      ldf(x + k.w, cg0));
+    }
+    for (int64_t i = lo + tid; i < a0; i += step)
+      out[i] = ldf(x + (cg1 ? __ldcg(idx + i) : __ldg(idx + i)), cg0);
+    for (int64_t i = a1 + tid; i < hi; i += step)
+      out[i] = ldf(x + (cg1 ? __ldcg(idx + i) : __ldg(idx + i)), cg0);
+  } else if (mb.kind == kAdd) {
+    const float* a = static_cast<const float*>(mb.p[0]);
+    const float* b = static_cast<const float*>(mb.p[1]);
+    float* out = static_cast<float*>(mb.p[2]);
+    for (int64_t i = a0 / 4 + tid; i < a1 / 4; i += step) {
+      const float4 u = ldf4(reinterpret_cast<const float4*>(a) + i, cg0);
+      const float4 v = ldf4(reinterpret_cast<const float4*>(b) + i, cg1);
+      reinterpret_cast<float4*>(out)[i] =
+          make_float4(u.x + v.x, u.y + v.y, u.z + v.z, u.w + v.w);
+    }
+    for (int64_t i = lo + tid; i < a0; i += step) out[i] = ldf(a + i, cg0) + ldf(b + i, cg1);
+    for (int64_t i = a1 + tid; i < hi; i += step) out[i] = ldf(a + i, cg0) + ldf(b + i, cg1);
+  } else {  // kCopy
+    const float* src = static_cast<const float*>(mb.p[0]);
+    float* out = static_cast<float*>(mb.p[1]);
+    for (int64_t i = a0 / 4 + tid; i < a1 / 4; i += step)
+      reinterpret_cast<float4*>(out)[i] =
+          ldf4(reinterpret_cast<const float4*>(src) + i, cg0);
+    for (int64_t i = lo + tid; i < a0; i += step) out[i] = ldf(src + i, cg0);
+    for (int64_t i = a1 + tid; i < hi; i += step) out[i] = ldf(src + i, cg0);
+  }
+}
+
+// The SpMV instantiation: ELL, gather, add and copy members; a producer
+// warp and kConsumerWarps consumer warps share the slab ring; every thread
+// takes part in the elementwise members and the group barriers (the
+// unaligned form: the producer's thread 0 reaches them on its own).
 __global__ void __launch_bounds__(kThreads, 2)
     fused_region_kernel(const __grid_constant__ Table t,
                         unsigned int* __restrict__ counters) {
+  extern __shared__ __align__(128) unsigned char smem_spmv[];
+  SpmvSmem& sm = *reinterpret_cast<SpmvSmem*>(smem_spmv);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlabStages; ++s) {
+      tz_hopper::mbar_init(&sm.full[s], 1);
+      tz_hopper::mbar_init(&sm.empty[s], kConsumerWarps);
+    }
+    tz_hopper::fence_barrier_init();
+  }
+  __syncthreads();
   const int64_t bpg = gridDim.x / t.tiles;  // blocks per group
   const int64_t group = blockIdx.x / bpg;
   const int64_t gb = blockIdx.x % bpg;  // block index within the group
   unsigned int* count = counters + 2 * group;
   unsigned int* gen = count + 1;
+  tz_hopper::Ring ring;  // the producer's and each consumer's place in the ring
   for (int k = 0; k < t.n; ++k) {
     const Member& mb = t.m[k];
-    if (mb.barrier) group_barrier(count, gen, (unsigned int)bpg);
+    if (mb.barrier) group_barrier<false>(count, gen, (unsigned int)bpg);
     const int64_t lo = group * mb.rows / t.tiles;
     const int64_t hi = (group + 1) * mb.rows / t.tiles;
     if (mb.kind == kEll) {
-      const float* vals = static_cast<const float*>(mb.p[0]);
-      const int* cols = static_cast<const int*>(mb.p[1]);
-      const float* x = static_cast<const float*>(mb.p[2]);
-      float* y = static_cast<float*>(mb.p[3]);
-      const int64_t w = mb.width;
-      int G = 1;
-      while (G < w && G < 32) G <<= 1;
-      const int lane = threadIdx.x % G;
-      const int64_t rpb = kThreads / G;  // rows per block per step
-      const int64_t stride = bpg * rpb;
-      // r0 is uniform over the block: whole warps reach the shuffles
-      for (int64_t r0 = lo + gb * rpb; r0 < hi; r0 += stride) {
-        const int64_t row = r0 + threadIdx.x / G;
-        float acc = 0.0f;
-        if (row < hi) {
-          for (int64_t j = lane; j < w; j += G)
-            acc += __ldcg(vals + row * w + j) * __ldcg(x + __ldcg(cols + row * w + j));
-        }
-        for (int off = G / 2; off > 0; off >>= 1)
-          acc += __shfl_down_sync(0xffffffffu, acc, off, G);
-        if (row < hi && lane == 0) y[row] = acc;
-      }
+      if (mb.written & 4)
+        ell_member<true>(mb, lo, hi, bpg, gb, sm, ring);
+      else
+        ell_member<false>(mb, lo, hi, bpg, gb, sm, ring);
     } else {
-      const int64_t step = bpg * kThreads;
-      const int64_t first = lo + gb * kThreads + threadIdx.x;
-      if (mb.kind == kGather) {
-        const float* x = static_cast<const float*>(mb.p[0]);
-        const int* idx = static_cast<const int*>(mb.p[1]);
-        float* out = static_cast<float*>(mb.p[2]);
-        for (int64_t i = first; i < hi; i += step) out[i] = __ldcg(x + __ldcg(idx + i));
-      } else if (mb.kind == kAdd) {
-        const float* a = static_cast<const float*>(mb.p[0]);
-        const float* b = static_cast<const float*>(mb.p[1]);
-        float* out = static_cast<float*>(mb.p[2]);
-        for (int64_t i = first; i < hi; i += step) out[i] = __ldcg(a + i) + __ldcg(b + i);
-      } else {  // kCopy
-        const float* src = static_cast<const float*>(mb.p[0]);
-        float* out = static_cast<float*>(mb.p[1]);
-        for (int64_t i = first; i < hi; i += step) out[i] = __ldcg(src + i);
-      }
+      elementwise_member(mb, lo, hi, bpg, gb);
     }
   }
 }
@@ -280,13 +500,17 @@ __global__ void __launch_bounds__(kAttnThreads, 1)
   }
 }
 
-// Allow the attention instantiation's dynamic shared memory; once.
+// Allow both instantiations' dynamic shared memory; once.
 cudaError_t configure() {
   static bool done = false;
   if (done) return cudaSuccess;
   cudaError_t e = cudaFuncSetAttribute(fused_region_attn_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        tz_attn_f32::kSmemBytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(fused_region_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSpmvSmemBytes);
   if (e == cudaSuccess) done = true;
   return e;
 }
@@ -297,11 +521,11 @@ cudaError_t configure() {
 extern "C" int64_t tz_fused_region_member_size() { return (int64_t)sizeof(Member); }
 extern "C" int64_t tz_fused_region_table_size() { return (int64_t)sizeof(Table); }
 
-// The dynamic shared memory the region `table` (a Table) launches with: the
-// attention instantiation's, 0 for the SpMV one; -1 for a mixed table.
+// The dynamic shared memory the region `table` (a Table) launches with (its
+// instantiation's); -1 for a mixed table.
 extern "C" int64_t tz_fused_region_smem(const void* table) {
   const int inst = instantiation(*static_cast<const Table*>(table));
-  return inst < 0 ? -1 : inst ? tz_attn_f32::kSmemBytes : 0;
+  return inst < 0 ? -1 : inst ? tz_attn_f32::kSmemBytes : kSpmvSmemBytes;
 }
 
 // The threads per block the region `table` launches with (-1: mixed).
@@ -329,7 +553,8 @@ extern "C" int tz_fused_region_max_blocks(const void* table) {
                    &per_sm, fused_region_attn_kernel, kAttnThreads,
                    (size_t)tz_attn_f32::kSmemBytes)
              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   &per_sm, fused_region_kernel, kThreads, 0);
+                   &per_sm, fused_region_kernel, kThreads,
+                   (size_t)kSpmvSmemBytes);
   if (e != cudaSuccess) return -(int)e;
   if (!coop) return 0;
   return per_sm * sms;
@@ -366,7 +591,8 @@ extern "C" int tz_fused_region(const void* table, void* counters,
                                     (cudaStream_t)stream);
   else
     e = cudaLaunchCooperativeKernel((const void*)fused_region_kernel, grid,
-                                    dim3(kThreads), args, 0,
+                                    dim3(kThreads), args,
+                                    (size_t)kSpmvSmemBytes,
                                     (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the attention folds (attn_fold.cu,
-// attn_fold_f32.cuh) and the halo kernels (halo_copy.cuh): tensor-map
-// encoding, mbarriers, the ring of shared-memory stages, wgmma's fences and
-// its shared-memory matrix descriptor.  Needs sm_90a.
+// attn_fold_f32.cuh), the halo kernels (halo_copy.cuh) and the fused
+// region's SpMV slab ring (fused_region.cu): tensor-map encoding,
+// mbarriers, 1D bulk copies, the ring of shared-memory stages, wgmma's
+// fences and its shared-memory matrix descriptor.  Needs sm_90a.
 
 #pragma once
 
@@ -98,6 +99,25 @@ __device__ __forceinline__ void fence_barrier_init() {
 // async proxy (wgmma) that a barrier hands them to.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Order generic-proxy writes to global memory (by any thread, ordered before
+// this one by a barrier) before this thread's later bulk copies read it.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// -- 1D bulk copies (no tensor map).  Both addresses 16-byte aligned, the
+// size a multiple of 16.
+
+// global -> shared; completes `bytes` of `bar`'s transaction count.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 // A position in a ring of kStages stages: the stage and the parity of its

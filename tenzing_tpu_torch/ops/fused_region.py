@@ -29,10 +29,14 @@ SpMV values are float32 and indices int32; the attention bodies take float32
 with head dim 128 on the card (any on the CPU).  A table runs on one of two
 instantiations of the kernel (:func:`instantiation`): attention members on
 the split-TF32 ``wgmma`` fold's warp-specialized block (384 threads, one
-block per SM), SpMV members on the 256-thread SIMT one; a table never
-mixes them.  A region with more members
-than one table holds (``MAX_MEMBERS``) runs as consecutive launches on the
-same stream, each a table of at most ``MAX_MEMBERS`` members: the members of
+block per SM), SpMV members on a block of a producer warp and four consumer
+warps that streams the ELL slabs through a ring of shared-memory stages
+(160 threads, two blocks per SM); a table never mixes them.  A member's
+``written`` operands (those an earlier member of the region writes) are
+loaded through L2 only, the others through the read-only L1 path.  A
+region with more members than one table holds (``MAX_MEMBERS``) runs as
+consecutive launches on the same stream, each a table of at most
+``MAX_MEMBERS`` members: the members of
 a region are one lane's ops in order, so the launch boundary is a barrier
 like any other.  ``fused_region`` launches the kernel for CUDA tensors and
 runs :func:`region_plain` (the members' plain PyTorch functions in order over
@@ -69,7 +73,11 @@ TILED = {"ell": ("vals", "cols", "y"), "gather": ("idx", "out"),
          "attn_finalize": ("acc", "l", "o")}
 ATTN_BODIES = ("attn_fold", "attn_finalize")
 MAX_MEMBERS = 32  # kMaxMembers in csrc/fused_region.cu
-SPMV_THREADS = 256  # kThreads of the SpMV instantiation (fused_region_kernel)
+# the SpMV instantiation (fused_region_kernel): kThreads, and the bytes of its
+# SpmvSmem (3 stages x (vals + cols) x (128 rows x 32 + 4) x 4 bytes, and
+# the stages' full and empty mbarriers)
+SPMV_THREADS = 160
+SPMV_SMEM_BYTES = 3 * 2 * (128 * 32 + 4) * 4 + 2 * 3 * 8
 
 # the fused region against its plain version: the ELL rows sum in another
 # order (ops/spmv_kernels.py); gather, add and copy are exact.  A region of
@@ -84,7 +92,7 @@ class _Member(ctypes.Structure):
                 ("outer", ctypes.c_int64), ("inner", ctypes.c_int64),
                 ("kv_rows", ctypes.c_int64), ("key_off", ctypes.c_int64),
                 ("nkv", ctypes.c_int64), ("scale", ctypes.c_float),
-                ("pad", ctypes.c_int32), ("p", ctypes.c_void_p * 6)]
+                ("written", ctypes.c_int32), ("p", ctypes.c_void_p * 6)]
 
 
 class _Table(ctypes.Structure):
@@ -96,9 +104,10 @@ class _Table(ctypes.Structure):
 class MemberBody:
     """One region member as the kernel sees it: its body kind, its buffer
     names in the body's operand order, the extent of its tiled axis, the ELL
-    slab width (0 for other bodies), whether a barrier precedes it, and for
+    slab width (0 for other bodies), whether a barrier precedes it, for
     the attention bodies the batch and head dims, the keys of K / V, and
-    the fold's first key, key count and scale."""
+    the fold's first key, key count and scale, and the operands it reads
+    that an earlier member of the region wrote (:func:`written_flags`)."""
 
     body: str
     operands: Tuple[str, ...]
@@ -111,6 +120,7 @@ class MemberBody:
     key_off: int = 0
     nkv: int = 0
     scale: float = 0.0
+    written: Tuple[str, ...] = ()
 
 
 def check_member(body: str, operands: Tuple[str, ...],
@@ -178,15 +188,30 @@ def barrier_flags(reads: List[List[str]], writes: List[List[str]]) -> List[bool]
     return out
 
 
+def written_flags(reads: List[List[str]],
+                  writes: List[List[str]]) -> List[Tuple[str, ...]]:
+    """Per member: the buffers it reads that an earlier member wrote, in
+    its read order.  The kernel loads those through L2 only (another block
+    may have stored them in the same launch) and the rest through the
+    read-only L1 path; a region's flags cover every table it splits into,
+    which is never less than one launch needs."""
+    written: set = set()
+    out = []
+    for r, w in zip(reads, writes):
+        out.append(tuple(dict.fromkeys(n for n in r if n in written)))
+        written.update(w)
+    return out
+
+
 def instantiation(members: List[MemberBody]) -> Dict[str, object]:
     """The kernel instantiation a table of ``members`` launches: ``attn``
     where any member is an attention body (the f32 fold's threads and
-    shared memory, :func:`ak.f32_launch_plan`), else ``spmv`` (256 threads,
-    no shared memory).  Raises for a table that mixes the two, which the
-    kernel refuses.  The launch itself takes the library's answer
-    (``tz_fused_region_threads`` / ``_max_blocks``); this statement of the
-    rule is what the CPU refuses by and what the card tests hold the
-    library's answer against."""
+    shared memory, :func:`ak.f32_launch_plan`), else ``spmv``
+    (:data:`SPMV_THREADS`, :data:`SPMV_SMEM_BYTES`: the slab ring).  Raises
+    for a table that mixes the two, which the kernel refuses.  The launch
+    itself takes the library's answer (``tz_fused_region_threads`` /
+    ``_max_blocks``); this statement of the rule is what the CPU refuses
+    by and what the card tests hold the library's answer against."""
     attn = [mb.body in ATTN_BODIES for mb in members]
     if any(attn) and not all(attn):
         raise ValueError("fused_region: a table cannot mix attention and "
@@ -194,7 +219,8 @@ def instantiation(members: List[MemberBody]) -> Dict[str, object]:
     if any(attn):
         return {"kind": "attn", "threads": ak.F32_THREADS,
                 "smem_bytes": ak.F32_SMEM_BYTES}
-    return {"kind": "spmv", "threads": SPMV_THREADS, "smem_bytes": 0}
+    return {"kind": "spmv", "threads": SPMV_THREADS,
+            "smem_bytes": SPMV_SMEM_BYTES}
 
 
 class RegionTable:
@@ -222,6 +248,8 @@ class RegionTable:
                 e.rows, e.width = mb.rows, mb.width
                 e.outer, e.inner, e.kv_rows = mb.outer, mb.inner, mb.kv_rows
                 e.key_off, e.nkv, e.scale = mb.key_off, mb.nkv, mb.scale
+                e.written = sum(1 << i for i, n in enumerate(mb.operands)
+                                if n in mb.written)
             self.tables.append(t)
         self.bound: Optional[Dict[str, torch.Tensor]] = None
         self.counters: Optional[torch.Tensor] = None

@@ -293,17 +293,20 @@ def lower_region(members: List[BoundDeviceOp],
     """The kernel's member entries (ops/fused_region.py ``MemberBody``) for a
     region: each member's body, operands and parameters from its
     ``FUSED_BODY``, ``fused_operands()`` and ``fused_params()``, its extents
-    checked against the buffers, and the barrier flags from the members'
-    reads and writes.  The kernel tiles a body's tiled operands along axis 0
-    (SpMV) or axis 1 (the attention bodies' query rows); a member whose
-    ``fuse_tiling`` declares another axis for one of them raises, and so
-    does a member without a body ("not yet ported")."""
+    checked against the buffers, and the barrier flags and the operands
+    written earlier in the region from the members' reads and writes.  The
+    kernel tiles a body's tiled operands along axis 0 (SpMV) or axis 1 (the
+    attention bodies' query rows); a member whose ``fuse_tiling`` declares
+    another axis for one of them raises, and so does a member without a
+    body ("not yet ported")."""
     from tenzing_tpu_torch.ops import fused_region as fr
 
-    flags = fr.barrier_flags([list(m.reads()) for m in members],
-                             [list(m.writes()) for m in members])
+    reads = [list(m.reads()) for m in members]
+    writes = [list(m.writes()) for m in members]
+    flags = fr.barrier_flags(reads, writes)
     out = []
-    for op, barrier in zip(members, flags):
+    for op, barrier, written in zip(members, flags,
+                                    fr.written_flags(reads, writes)):
         base = unbound(op)
         body = getattr(base, "FUSED_BODY", None)
         if body is None:
@@ -321,8 +324,9 @@ def lower_region(members: List[BoundDeviceOp],
                                  f"tiled along axis {tiling[roles[role]]}, the "
                                  f"{body} body tiles axis {axis}")
         ext = fr.check_member(body, operands, shapes, dtypes, params)
-        out.append(fr.MemberBody(body=body, operands=operands,
-                                 barrier=barrier, **ext))
+        out.append(fr.MemberBody(
+            body=body, operands=operands, barrier=barrier,
+            written=tuple(n for n in operands if n in written), **ext))
     return out
 
 

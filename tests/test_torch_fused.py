@@ -263,6 +263,41 @@ def test_barrier_flags_follow_the_data_hazards():
     assert fr.barrier_flags([["x"], ["q"]], [["y"], ["x"]]) == [False, True]
 
 
+def _lowered(g, host_names=()):
+    """The member entries of each region of ``g``'s naive order, lowered at
+    m=64 (runtime/fused.py ``lower_region``)."""
+    bufs, _ = spmv.make_spmv_buffers(m=64, nnz_per_row=4, seed=1)
+    shapes = {k: v.shape for k, v in bufs.items()}
+    dtypes = {k: torch.from_numpy(v).dtype for k, v in bufs.items()}
+    seq = _walk(g, Platform.make_n_lanes(1))
+    return [fused.lower_region(r.members, shapes, dtypes) for k, r in
+            fused.partition_regions(seq.vector(), set(host_names))
+            if k == "region"]
+
+
+def test_written_flags_mark_what_an_earlier_member_of_the_launch_wrote():
+    """The lowering names the operands an earlier member of the region
+    wrote (the kernel loads them through L2, the rest through the read-only
+    L1 path): in the local-exchange region the exchange's send_buf,
+    spmv_remote's x_remote (the exchange writes it, the remote SpMV gathers
+    it whole after the barrier) and the add's inputs; in both host-exchange
+    regions no ELL member is flagged, only the add's y_remote.  The table
+    packs them into Member.written, bit i for operand i."""
+    g, _ = _graphs(exchange="local")
+    (local,) = _lowered(g)
+    assert [(b.body, b.written) for b in local] == [
+        ("ell", ()), ("gather", ()), ("copy", ("send_buf",)),
+        ("ell", ("x_remote",)), ("add", ("y_local", "y_remote"))]
+    t = fr.RegionTable(local, 1).tables[0]
+    assert [t.m[k].written for k in range(t.n)] == [0, 0, 1, 4, 3]
+    g, _ = _graphs(**DRIVER_KW)
+    host = _lowered(g, spmv.spmv_host_buffer_names())
+    assert [[(b.body, b.written) for b in r] for r in host] == [
+        [("ell", ()), ("gather", ())], [("ell", ()), ("add", ("y_remote",))]]
+    assert fr.written_flags([["a"], ["a", "b"], ["c", "b", "b"]],
+                            [["b"], ["c"], ["d"]]) == [(), ("b",), ("c", "b")]
+
+
 def test_fused_order_writes_in_place_and_serializes():
     g, _ = _graphs(exchange="local")
     ex, _, want = _executors(dict(m=64, nnz_per_row=4, seed=1), 2)
@@ -283,15 +318,16 @@ def test_fused_order_writes_in_place_and_serializes():
 
 def test_region_table_mirrors_the_kernel_layout():
     """The ctypes table is the C struct: 120-byte members (kind, barrier,
-    seven int64 extents, the scale and its pad, six operand pointers) after
-    an 8-byte header (csrc/fused_region.cu ``Member`` / ``Table``); a region
-    of more members than a table holds takes several tables."""
+    seven int64 extents, the scale, the written-operand bits in what was
+    the scale's pad, six operand pointers) after an 8-byte header
+    (csrc/fused_region.cu ``Member`` / ``Table``); a region of more members
+    than a table holds takes several tables."""
     import ctypes
 
     assert ctypes.sizeof(fr._Member) == 120
     assert [f for f, _ in fr._Member._fields_] == [
         "kind", "barrier", "rows", "width", "outer", "inner", "kv_rows",
-        "key_off", "nkv", "scale", "pad", "p"]
+        "key_off", "nkv", "scale", "written", "p"]
     assert fr._Member.p.offset == 72
     assert ctypes.sizeof(fr._Table) == 8 + 120 * fr.MAX_MEMBERS
     bodies = [fr.MemberBody("copy", ("a", "b"), 10, 0, False)]
@@ -341,12 +377,14 @@ def test_attention_table_selects_the_split_tf32_instantiation():
 
 
 def test_spmv_table_keeps_the_simt_instantiation():
-    """SpMV members keep the 256-thread instantiation without shared
-    memory, and a table never mixes the two (the kernel refuses it)."""
+    """SpMV members take the slab-ring instantiation (a producer warp and
+    four consumer warps, 160 threads; three stages of 128 rows x 32 vals
+    and cols, + 16 bytes each, and their full and empty mbarriers), and a
+    table never mixes the two (the kernel refuses it)."""
     spmv = [fr.MemberBody("ell", fr.OPERANDS["ell"], 10, 3, False),
             fr.MemberBody("copy", ("a", "b"), 10, 0, True)]
-    assert fr.instantiation(spmv) == {"kind": "spmv", "threads": 256,
-                                      "smem_bytes": 0}
+    assert fr.instantiation(spmv) == {"kind": "spmv", "threads": 160,
+                                      "smem_bytes": 98_448}
     assert len(fr.RegionTable(spmv, 1).tables) == 1
     with pytest.raises(ValueError, match="mix"):
         fr.RegionTable(spmv + _attn_members(), 1)
@@ -377,6 +415,189 @@ def test_cuda_region_matches_plain(cuda_device, tiles):
         for name in ("y", "y_local", "y_remote", "send_buf", "x_remote"):
             torch.testing.assert_close(out_k[name], out_p[name], **ELL_TOL)
         np.testing.assert_allclose(out_k["y"].cpu().numpy(), want, **ELL_TOL)
+
+
+# the slab ring's edges: (m, w, tiles, x written inside the region, the
+# slabs' offset in elements into a larger buffer).  A tile's first row lo
+# makes a chunk's slab start 16-byte aligned only where lo * w % 4 == 0: at
+# 16 tiles m=1000, w=29 starts group 1 at row 62 (62 * 29 % 4 == 2) and
+# m=70000, w=26 at row 4375; w = 1 packs several rows into a bulk copy's 16
+# bytes; rows wider than 32 never go through the ring; m=1000 is no multiple
+# of a 128-row chunk; a copy member writing x before the ELL member gathers
+# it takes the L2 path after the barrier (one tile: the ELL member reads x
+# whole); slabs that start off 16 bytes (``slab[1:]`` at w=26 starts 104
+# bytes in, one element 4 bytes in) are read from global memory.
+RING_CASES = [(1000, 29, 16, False, 0), (70000, 26, 16, False, 0),
+              (70000, 26, 1, False, 0), (777, 1, 3, False, 0),
+              (300, 40, 1, False, 0), (5000, 33, 2, False, 0),
+              (1000, 29, 1, True, 0), (4096, 7, 1, True, 0),
+              (70000, 26, 16, False, 26), (1000, 29, 1, False, 1)]
+
+
+def _slab(host, off, device):
+    """``host`` on ``device`` as a view ``off`` elements into a larger
+    buffer (its data pointer 4 x ``off`` bytes past the allocation's)."""
+    flat = torch.zeros(host.size + off, dtype=torch.from_numpy(host).dtype,
+                       device=device)
+    flat[off:] = torch.from_numpy(host.ravel()).to(device)
+    return flat[off:].view(host.shape)
+
+
+def _ring_case(device, m, w, tiles, x_written, signed, off=0):
+    """(members, tiles, buffers) of one ring case: vals and x uniform in
+    [0, 1) as the spmv workload's (models/spmv.py), or standard normal
+    (``signed``), cols over an x of 4093; the slabs ``off`` elements into
+    larger buffers."""
+    rng = np.random.default_rng(m + w + tiles)
+    n = 4093
+    draw = rng.standard_normal if signed else rng.random
+    host = {"vals": draw((m, w)).astype(np.float32),
+            "cols": rng.integers(0, n, size=(m, w)).astype(np.int32),
+            "x": draw(n).astype(np.float32),
+            "x_src": draw(n).astype(np.float32),
+            "y": np.zeros(m, np.float32)}
+    bufs = {k: (_slab(v, off, device) if k in ("vals", "cols")
+                else torch.from_numpy(v).to(device)) for k, v in host.items()}
+    ell = fr.MemberBody("ell", ("vals", "cols", "x", "y"), m, w, x_written,
+                        written=("x",) if x_written else ())
+    members = [fr.MemberBody("copy", ("x_src", "x"), n, 0, False), ell] \
+        if x_written else [ell]
+    return members, fr.RegionTable(members, tiles), bufs
+
+
+def _run_twice(table, bufs, tiles, device):
+    counters = torch.zeros(2 * tiles, dtype=torch.int32, device=device)
+    fr.fused_region(table, bufs, counters)
+    first = bufs["y"].clone()
+    fr.fused_region(table, bufs, counters)
+    torch.cuda.synchronize()
+    return first
+
+
+def _float64_bound(bufs, w):
+    """y in float64 and the rounding bound of the kernel's order: a row's
+    entries fold into 8 partial sums (ceil(w / 8) roundings each) added as
+    a 3-level tree, so |y - y64| <= (ceil(w / 8) + 3) u sum |v x| to first
+    order, u = 2^-24."""
+    v = bufs["vals"].double()
+    t = v * bufs["x"].double()[bufs["cols"].long()]
+    return t.sum(1), (-(-w // 8) + 3) * 2.0 ** -24 * t.abs().sum(1)
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("m,w,tiles,x_written,off", RING_CASES,
+                         ids=[f"m{c[0]}-w{c[1]}-t{c[2]}" + ("-xw" if c[3] else "")
+                              + (f"-off{c[4]}" if c[4] else "")
+                              for c in RING_CASES])
+def test_cuda_spmv_ring_edges_match_plain(cuda_device, m, w, tiles, x_written,
+                                          off):
+    """An ELL member (behind a copy member that writes its x, where
+    ``x_written``) through the kernel against region_plain at REGION_TOL
+    and against the float64 product within its rounding bound, and two
+    launches bit for bit."""
+    members, table, bufs = _ring_case(cuda_device, m, w, tiles, x_written,
+                                      signed=False, off=off)
+    want = {k: v.clone() for k, v in bufs.items()}
+    fr.region_plain(members, want, tiles)
+    first = _run_twice(table, bufs, tiles, cuda_device)
+    torch.testing.assert_close(bufs["y"], want["y"], **fr.REGION_TOL)
+    assert torch.equal(bufs["y"], first)
+    assert torch.equal(bufs["x"], want["x"])
+    y64, bound = _float64_bound(bufs, w)
+    assert bool(((bufs["y"].double() - y64).abs() <= bound).all())
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("m,w,tiles", [(70000, 26, 16), (5000, 33, 2)])
+def test_cuda_spmv_ring_signed_rows_within_rounding_bound(cuda_device, m, w,
+                                                          tiles):
+    """Rows of signed products cancel: two float32 orders (the kernel's and
+    region_plain's ``torch.sum``) then differ by a few ulps of the partial
+    sums, above REGION_TOL's atol where a row sums near 0.  The kernel is
+    held against the float64 product within its order's rounding bound,
+    and two launches bit for bit."""
+    _, table, bufs = _ring_case(cuda_device, m, w, tiles, False, signed=True)
+    first = _run_twice(table, bufs, tiles, cuda_device)
+    assert torch.equal(bufs["y"], first)
+    y64, bound = _float64_bound(bufs, w)
+    assert bool(((bufs["y"].double() - y64).abs() <= bound).all())
+
+
+def _flat_views(bufs):
+    """``bufs`` with ``vals_flat`` / ``cols_flat``: flat views of the slabs
+    (sharing their storage), as the copy members write them."""
+    return {**bufs, "vals_flat": bufs["vals"].view(-1),
+            "cols_flat": bufs["cols"].view(-1)}
+
+
+def _written_case(device, case):
+    """(members, tiles, buffers) of a region whose ELL member reads what an
+    earlier member of the launch wrote, the old contents left where a
+    stale read would find them (vals and x uniform in [0, 1)).
+
+    ``x_after_l1``: a gather of 200000 random entries of x (every block
+    reads most of x's lines through the read-only L1 path), a copy member
+    overwriting x, and the ELL member gathering the new x (``written``: it
+    loads x through L2; one tile, as it reads x whole).
+    ``slab_written``: copy members writing vals and cols over flat views of
+    the slabs at 16 tiles (m a multiple of 16, so a group's copy covers
+    its own ELL rows), then the ELL member bulk-copying them (``written``:
+    a proxy fence first, edge rows through L2).
+
+    On an H100 a build whose ELL member loads x through L1 whatever
+    ``written`` says, and skips the proxy fence, passes both cases too (the
+    group barrier's fences leave no stale line to read): they hold the
+    order of the writes and the reads, the L2 path and the fence are what
+    the memory model asks for."""
+    rng = np.random.default_rng(11)
+    m, w, n = 70000, 26, 4093
+    cols = rng.integers(0, n, size=(m, w)).astype(np.int32)
+    host = {"vals": rng.random((m, w)).astype(np.float32),
+            "cols": cols,
+            "vals_src": rng.random(m * w).astype(np.float32),
+            "cols_src": rng.integers(0, n, size=m * w).astype(np.int32),
+            "x": rng.random(n).astype(np.float32),
+            "x_src": rng.random(n).astype(np.float32),
+            "idx": rng.integers(0, n, size=200_000).astype(np.int32),
+            "gathered": np.zeros(200_000, np.float32),
+            "y": np.zeros(m, np.float32)}
+    bufs = _flat_views({k: torch.from_numpy(v).to(device)
+                        for k, v in host.items()})
+    if case == "x_after_l1":
+        tiles = 1
+        members = [
+            fr.MemberBody("gather", ("x", "idx", "gathered"), 200_000, 0, False),
+            fr.MemberBody("copy", ("x_src", "x"), n, 0, True),
+            fr.MemberBody("ell", ("vals", "cols", "x", "y"), m, w, True,
+                          written=("x",))]
+    else:
+        tiles = 16
+        members = [
+            fr.MemberBody("copy", ("vals_src", "vals_flat"), m * w, 0, False),
+            fr.MemberBody("copy", ("cols_src", "cols_flat"), m * w, 0, False),
+            fr.MemberBody("ell", ("vals", "cols", "x", "y"), m, w, True,
+                          written=("vals", "cols"))]
+    return members, tiles, bufs
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("case", ["x_after_l1", "slab_written"])
+def test_cuda_spmv_ring_reads_what_the_launch_wrote(cuda_device, case):
+    """An ELL member reads operands an earlier member of the same launch
+    overwrote: it must see the new values (against region_plain at
+    REGION_TOL, which runs the members in order), not lines an earlier
+    member left in L1 or the slab's old contents; two launches bit for
+    bit."""
+    members, tiles, bufs = _written_case(cuda_device, case)
+    table = fr.RegionTable(members, tiles)
+    want = _flat_views({k: v.clone() for k, v in bufs.items()
+                        if not k.endswith("_flat")})
+    fr.region_plain(members, want, tiles)
+    first = _run_twice(table, bufs, tiles, cuda_device)
+    torch.testing.assert_close(bufs["y"], want["y"], **fr.REGION_TOL)
+    assert torch.equal(bufs["y"], first)
+    for name in ("x", "vals", "cols"):
+        assert torch.equal(bufs[name], want[name]), name
 
 
 # -- the attention members ----------------------------------------------------
