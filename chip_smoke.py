@@ -68,13 +68,19 @@ before the last line:
               diverging (bf16 rounding against the f32 naive chain; the
               demoted schedule's O must then be within ``BF16_O_TOL`` of the
               expected);
-9.  moe kernels  — ``ffn_batched`` at the main path's shapes (chunk 0's slot
+9.  moe kernels  — ``ffn_batched`` (split-TF32 ``wgmma``,
+              csrc/ffn_tile.cuh) at the main path's shapes (chunk 0's slot
               table of the full-width pipeline: 8 experts x 304 slots, d 512,
-              d_ff 2048) and at ragged ones (1 slot, 257 slots, d_ff 520)
+              d_ff 2048) and at ragged ones (1, 257 and 305 slots, d_ff 520)
               against its plain version on the card at ``FFN_TOL``; the erf
               gelu control must be rejected, a second launch must give the
-              same bits; the kernel's, the plain version's and the
-              ``bmm -> gelu -> bmm`` three-call times beside the bound;
+              same bits; at the main shape a plain emulation of the kernel's
+              three TF32 passes must pass and one with a single pass (the
+              single-TF32 control) must fail, and the library's launch
+              constants and tiling must equal ``ffn_launch_plan``; the
+              kernel's, the plain version's and the ``bmm -> gelu -> bmm``
+              three-call times beside the split bound (the SIMT bound
+              beside it);
 10. moe executor — naive, the four greedy incumbents and two all-``.pallas``
               completions of the choice graph (f32 and bf16 device-copy
               staging) at full width on 2 lanes through ``StreamExecutor``: Y
@@ -92,11 +98,17 @@ before the last line:
               Y within ``BF16_Y_TOL`` of the expected;
 12. spmv kernels — ``ell_spmv`` at the ``--m 8192`` path's ``spmv_remote``
               shapes (a (8192, 22) slab, x of 4093) and at ragged ones (m not
-              a multiple of a block, w = 1, n = 1, n = 4096, w above a warp)
-              against its plain version at ``ELL_TOL``; a control with one
-              slab column dropped must be rejected, a second launch must give
-              the same bits; the kernel's, the plain version's and cuSPARSE's
-              (``torch.sparse_csr_tensor @ x``) times beside the bound;
+              a multiple of a warp's 32 rows, w = 1, n = 1, n = 4096, w above
+              a warp, a slab view 104 bytes off 16) against the float64
+              product within the rounding bound of the kernel's order
+              (signed rows cancel, so two float32 orders may differ by more
+              than ``ELL_TOL``'s atol; the main slab also against its plain
+              version at ``ELL_TOL``); a control with one slab column
+              dropped must be rejected by both, a second launch must give
+              the same bits; the kernel's, the plain version's, cuSPARSE's
+              (``torch.sparse_csr_tensor @ x``) and an empty launch of the
+              kernel's grid's (the floor) times beside the bound, and the
+              kernel's warm time;
 13. spmv executor — naive, the 2-lane overlap order and the all-kernel
               order at m=8192, naive and the overlap order at m=150000,
               through ``StreamExecutor``: y against the same order with plain
@@ -179,9 +191,9 @@ Run after the moe driver (phase 11):
 11d. moe layer kernels — ``ffn_rows`` at one chunk of the expert-parallel
               MoE layer at world size 1 (n 2048, d 512, d_ff 2048) and at
               ragged n (2047, 37) against its plain version at ``FFN_TOL``,
-              the erf control rejected, two launches bit-equal; the
-              kernel's, the plain version's and the three-call times beside
-              the bound;
+              the erf control and (at the chunk) the single-TF32-pass
+              emulation rejected, two launches bit-equal; the kernel's, the
+              plain version's and the three-call times beside the bound;
 11e. moe layer — the layer (models/moe.py) at full width on a world-size-1
               NCCL group made here: the dryrun's agreement protocol
               (parallel/dryrun.py; an all-``.xla``, an all-``.pallas`` and a
@@ -1011,12 +1023,32 @@ def dropped_expert(bufs, y, a, expert: int = 0):
     return out
 
 
+def split_controls(torch, x, w1, w2, want, tol) -> dict:
+    """The f32 FFN kernel's arithmetic emulated in plain PyTorch with three
+    TF32 passes per product (must pass ``tol`` against the plain version)
+    and with one (the single-TF32 control: must fail it)."""
+    from tenzing_tpu_torch.bench import ffn_f32
+
+    out = {}
+    for passes in (3, 1):
+        emu = ffn_f32.tf32_ffn_plain(torch, x, w1, w2, passes)
+        out[f"tf32_{passes}pass_max_abs_err"] = float((emu - want).abs().max())
+        out[f"tf32_{passes}pass_within_tol"] = bool(torch.allclose(emu, want,
+                                                                   **tol))
+        del emu
+    out["split_controls_ok"] = (out["tf32_3pass_within_tol"]
+                                and not out["tf32_1pass_within_tol"])
+    return out
+
+
 def phase_moe_kernels(torch, device, timer):
     """``ffn_batched`` at the main path's shapes and at ragged ones against
     its plain version, with the erf control, times and the bound."""
     import torch.nn.functional as F
 
+    from tenzing_tpu_torch.bench import attn_common, ffn_f32
     from tenzing_tpu_torch.ops import ffn_kernels as fk
+    from tenzing_tpu_torch.ops import kernel_lib
 
     a, bufs, cap = moe_full()
     # the main path's launch: chunk 0's slot table through the experts
@@ -1038,6 +1070,7 @@ def phase_moe_kernels(torch, device, timer):
     cases = [("full", (x0, w1, w2)),
              ("ragged-c1", rand_case(a.n_experts, 1, a.d_ff)),
              ("ragged-c257", rand_case(a.n_experts, 257, a.d_ff)),
+             ("ragged-c305", rand_case(a.n_experts, 305, a.d_ff)),
              ("ragged-dff520", rand_case(a.n_experts, cap, 520))]
     rows, failed = [], []
     for label, (x, cw1, cw2) in cases:
@@ -1061,11 +1094,19 @@ def phase_moe_kernels(torch, device, timer):
                                                            **fk.FFN_TOL),
                "y_max_abs": float(want.abs().max()),
                "flops": flops, "bytes": nbytes,
-               "bound_ms": bound, "bound_by": bound_by}
+               "bound_ms": bound, "bound_by": bound_by,
+               "bound_simt_ms": flops / PEAK_F32_FLOPS * 1e3}
         del again, ctl
         if label == "full":
+            row.update(split_controls(torch, x, cw1, cw2, want, fk.FFN_TOL))
+            row["plan"] = ffn_f32.library_plan(e, c, dff)
+            row["plan_mismatch"] = ffn_f32.plan_mismatch()
+            row["ptxas"] = attn_common.ptxas_report(
+                str(kernel_lib.build_info.get("ptxas", "")), "ffn_expert_kernel")
+            work = torch.empty(e, c, dff, device=device)
             row.update({
-                "ms": timer.ms(lambda: fk.ffn_batched(x, cw1, cw2, out=got)),
+                "ms": timer.ms(lambda: fk.ffn_batched(x, cw1, cw2, out=got,
+                                                      work=work)),
                 "plain_ms": timer.ms(lambda: fk.ffn_batched_plain(x, cw1, cw2)),
                 # no single PyTorch call computes the function: three calls
                 "library_calls_ms": timer.ms(lambda: torch.bmm(F.gelu(
@@ -1074,7 +1115,9 @@ def phase_moe_kernels(torch, device, timer):
         emit(row)
         rows.append(row)
         if not (row["within_tol"] and row["deterministic"] and row["finite"]
-                and row["erf_control_rejected"]):
+                and row["erf_control_rejected"]
+                and row.get("split_controls_ok", True)
+                and not row.get("plan_mismatch")):
             failed.append(label)
         del got, want
     del cases, x0, w1, w2
@@ -1240,74 +1283,56 @@ def y_close(torch, got, want, tol) -> bool:
 
 
 def phase_spmv_kernels(torch, device, timer):
-    """``ell_spmv`` at the main path's shapes and ragged ones against its
-    plain version, with the dropped-column control, the times and the
-    bound."""
-    import numpy as np
-
-    from tenzing_tpu_torch.models import spmv
+    """``ell_spmv`` at the main path's shapes and ragged ones: y against the
+    float64 product within the rounding bound of the kernel's order, and the
+    main slab also against its plain version at ``ELL_TOL``; the
+    dropped-column control, two launches bit for bit; the kernel's, the
+    plain version's, cuSPARSE's and an empty launch of the kernel's grid's
+    (the floor) times beside the bound (bench/ell_spmv.py's inputs and
+    checks)."""
+    from tenzing_tpu_torch.bench import ell_spmv as eb
     from tenzing_tpu_torch.ops import spmv_kernels as sk
 
-    m = 8192
-    bufs, _ = spmv.make_spmv_buffers(m=m, nnz_per_row=10, seed=0)
-    a = spmv.random_band_matrix(m, m // 8, 10 * m, seed=0)
-    remote = spmv.split_local_remote(a, 0, m // 2).remote
-    x_remote = bufs["x_local"][bufs["send_idx"]]
-    rng = np.random.default_rng(0)
-
-    def rand_case(mm, w, n):
-        return (rng.standard_normal((mm, w)).astype(np.float32),
-                rng.integers(0, n, size=(mm, w)).astype(np.int32),
-                rng.standard_normal(n).astype(np.float32))
-
-    cases = [("m8192-spmv_remote", (bufs["A_rem_vals"], bufs["A_rem_cols"],
-                                    x_remote))]
-    cases += [(f"ragged-m{mm}-w{w}-n{n}", rand_case(mm, w, n)) for mm, w, n in
-              ((1000, 23, 4093), (37, 5, 300), (64, 1, 50), (50, 7, 1),
-               (513, 12, 4096), (9, 40, 128))]
+    vals, cols, x, csr = eb.main_slab(torch, device)
+    cases = [("m8192-spmv_remote", vals, cols, x)]
+    cases += [(f"ragged-m{mm}-w{w}-n{n}" + (f"-off{o}" if o else ""),
+               *eb.case_inputs(torch, device, mm, w, n, o)) for mm, w, n, o in
+              ((1000, 23, 4093, 0), (37, 5, 300, 0), (64, 1, 50, 0),
+               (50, 7, 1, 0), (513, 12, 4096, 0), (9, 40, 128, 0),
+               (1001, 22, 4093, 0), (1000, 26, 4093, 26))]
     rows, failed = [], []
-    for label, arrays in cases:
-        vals, cols, x = (torch.from_numpy(np.ascontiguousarray(t)).to(device)
-                         for t in arrays)
-        mm, w = vals.shape
-        got = sk.ell_spmv(vals, cols, x)
-        again = sk.ell_spmv(vals, cols, x)
-        want = sk.ell_spmv_plain(vals, cols, x)
-        ctl = sk.ell_spmv_plain(vals[:, :-1].contiguous(),
-                                cols[:, :-1].contiguous(), x) if w > 1 else \
-            torch.zeros_like(want)
-        torch.cuda.synchronize()
-        nbytes, flops = sk.ell_bytes(mm, w, x.shape[0]), sk.ell_flops(mm, w)
+    for label, v, c, xx in cases:
+        mm, w = v.shape
+        nbytes, flops = sk.ell_bytes(mm, w, xx.shape[0]), sk.ell_flops(mm, w)
         bound, bound_by = attn_bound(nbytes, flops, bf16=False)
-        row = {"phase": "spmv_kernels", "case": label, "kernel": "ell_spmv",
-               "shape": [mm, w, int(x.shape[0])], "tolerance": sk.ELL_TOL,
-               "max_abs_err": float((got - want).abs().max()),
-               "within_tol": bool(torch.allclose(got, want, **sk.ELL_TOL)),
-               "deterministic": bool(torch.equal(got, again)),
-               "finite": bool(torch.isfinite(got).all()),
-               "control_max_abs_err": float((ctl - want).abs().max()),
-               "control_rejected": not torch.allclose(ctl, want, **sk.ELL_TOL),
-               "bytes": nbytes, "flops": flops,
+        row = {"phase": "spmv_kernels", "kernel": "ell_spmv",
+               **eb.check_case(torch, None, label, v, c, xx),
+               "tolerance": sk.ELL_TOL, "bytes": nbytes, "flops": flops,
                "bound_ms": bound, "bound_by": bound_by}
-        if label.startswith("m8192"):
-            # the library yardstick: cuSPARSE SpMV of the same matrix, the
-            # product alone timed
-            csr = torch.sparse_csr_tensor(
-                torch.from_numpy(remote.indptr.astype(np.int64)),
-                torch.from_numpy(remote.cols.astype(np.int64)),
-                torch.from_numpy(remote.vals), size=(remote.m, remote.n)).to(device)
-            lib_y = csr.matmul(x)
+        main = label.startswith("m8192")
+        if main:
+            got = torch.empty(mm, device=device)
+            lib_y = csr.matmul(xx)
             torch.cuda.synchronize()
             row.update({
-                "ms": timer.ms(lambda: sk.ell_spmv(vals, cols, x, out=got)),
-                "plain_ms": timer.ms(lambda: sk.ell_spmv_plain(vals, cols, x)),
-                "library_ms": timer.ms(lambda: csr.matmul(x)),
+                "ms": timer.ms(lambda: sk.ell_spmv(v, c, xx, out=got)),
+                "plain_ms": timer.ms(lambda: sk.ell_spmv_plain(v, c, xx)),
+                # the library yardstick: cuSPARSE SpMV of the same matrix
+                "library_ms": timer.ms(lambda: csr.matmul(xx)),
                 "library_call": "torch.sparse_csr_tensor(...).matmul(x) (cuSPARSE)",
-                "library_max_abs_err": float((lib_y - want).abs().max())})
+                "library_max_abs_err": float(
+                    (lib_y - sk.ell_spmv_plain(v, c, xx)).abs().max()),
+                # an empty launch of the kernel's grid, and the kernel with
+                # its inputs still in L2
+                "floor_ms": timer.ms(lambda: sk.ell_floor(mm, device)),
+                "warm_ms": eb.warm_ms(torch, lambda: sk.ell_spmv(v, c, xx,
+                                                                 out=got))})
+            row["above_floor_ms"] = row["ms"] - row["floor_ms"]
         emit(row)
         rows.append(row)
-        if not (row["within_tol"] and row["deterministic"] and row["finite"]
-                and row["control_rejected"]):
+        if not (row["within_f64_bound"] and row["deterministic"]
+                and row["finite"] and row["control_rejected"]
+                and (row["within_ell_tol"] or not main)):
             failed.append(label)
     torch.cuda.empty_cache()
     if failed:
@@ -2136,10 +2161,16 @@ def phase_moe_layer_kernels(torch, device, timer):
                "y_max_abs": float(w32.abs().max()),
                "flops": flops, "bytes": nbytes,
                "bound_ms": bound, "bound_by": bound_by}
+        if not is16:
+            row["bound_simt_ms"] = flops / PEAK_F32_FLOPS * 1e3
         del again, ctl, g32, w32
+        if label == "chunk":
+            row.update(split_controls(torch, x, cw1, cw2, want, tol))
         if label.startswith("chunk"):
+            work = None if is16 else torch.empty(n, dff, device=device)
             row.update({
-                "ms": timer.ms(lambda: fk.ffn_rows(x, cw1, cw2, out=got)),
+                "ms": timer.ms(lambda: fk.ffn_rows(x, cw1, cw2, out=got,
+                                                   work=work)),
                 "plain_ms": timer.ms(lambda: fk.ffn_rows_plain(x, cw1, cw2)),
                 # no single PyTorch call computes the function: three calls
                 "library_calls_ms": timer.ms(lambda: torch.matmul(F.gelu(
@@ -2148,7 +2179,8 @@ def phase_moe_layer_kernels(torch, device, timer):
         emit(row)
         rows.append(row)
         if not (row["within_tol"] and row["deterministic"] and row["finite"]
-                and row["control_rejected"]):
+                and row["control_rejected"]
+                and row.get("split_controls_ok", True)):
             failed.append(label)
         del got, want
     del cases, x0, w1, w2
@@ -2642,6 +2674,7 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in moe_rows),
         "ms": full["ms"], "plain_ms": full["plain_ms"],
         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
+        "bound_simt_ms": full["bound_simt_ms"],
         "library_ms": None,  # no single PyTorch call computes it
         "library_calls_ms": full["library_calls_ms"],
         "library_calls": full["library_calls"],
@@ -2664,6 +2697,8 @@ def main() -> int:
                                if r["dtype"] == dt),
             "ms": lrow["ms"], "plain_ms": lrow["plain_ms"],
             "bound_ms": lrow["bound_ms"], "bound_by": lrow["bound_by"],
+            **({"bound_simt_ms": lrow["bound_simt_ms"]}
+               if "bound_simt_ms" in lrow else {}),
             "library_ms": None,  # no single PyTorch call computes it
             "library_calls_ms": lrow["library_calls_ms"],
             "library_calls": lrow["library_calls"],
@@ -2712,6 +2747,7 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "library_call": main_row["library_call"],
+        "floor_ms": main_row["floor_ms"], "warm_ms": main_row["warm_ms"],
         "work": "spmv_remote at m=8192: a (%d, %d) slab, x of %d" % tuple(
             main_row["shape"]),
     })

@@ -134,18 +134,23 @@ CHECKED_ABLATIONS = ("no-lo",)
 
 
 def split_tf32(torch, x):
-    """(hi, lo) of float32 ``x`` as the kernel splits it: hi = x rounded to
-    TF32 (10 mantissa bits, to nearest with ties away from zero: add half
-    of the 13 dropped bits to the magnitude, then clear them), lo = x - hi
-    rounded the same way.  Integer operations on the bits, so it holds on
-    any device."""
+    """(hi, lo) of float32 ``x`` as the kernel splits it (csrc/hopper.cuh
+    ``split``): hi = x rounded to TF32 (10 mantissa bits, to nearest with
+    ties away from zero: add half of the 13 dropped bits to the magnitude,
+    then clear them; the carry turns a NaN whose top mantissa bits are set
+    into a zero), lo = x - hi rounded the same way but with infinities and
+    NaNs unchanged (cvt.rna.tf32.f32), so a NaN x has a NaN lo.  Integer
+    operations on the bits, so it holds on any device."""
     def rna(t):
         bits = t.contiguous().view(torch.int32)
         out = (bits + 0x1000) & -0x2000  # 0xFFFFE000 as an int32
-        return out.view(torch.float32)
+        return out, bits
 
-    hi = rna(x)
-    return hi, rna(x - hi)
+    hi, _ = rna(x)
+    hi = hi.view(torch.float32)
+    lo, bits = rna(x - hi)
+    lo = torch.where(bits & 0x7F800000 == 0x7F800000, bits, lo)
+    return hi, lo.view(torch.float32)
 
 
 def tf32_fold_plain(torch, q, k, v, state, scale: float, passes: int = 3):

@@ -16,11 +16,12 @@ time goes.
    alone (one member kind at a time), each beside its bytes bound (its
    external inputs read once and outputs written once at 3.35 TB/s);
 4. with ``--ablate``, ``csrc/fused_region.cu`` built again with one part
-   changed (:data:`ABLATIONS`, each a text replacement; all ``nvcc``
-   processes started together) and every region timed through each
-   variant: the group barriers removed (each block only syncs itself),
-   the barrier's spin without ``__nanosleep``, the ELL body's x gather
-   replaced by the column index (no load: the slab stream alone), and an
+   of it or of ``csrc/ell_row.cuh`` (the row sum it shares with
+   ``ell_spmv.cu``) changed (:data:`ABLATIONS`, each a text replacement;
+   all ``nvcc`` processes started together) and every region timed
+   through each variant: the group barriers removed (each block only
+   syncs itself), the barrier's spin without ``__nanosleep``, the ELL
+   body's x gather replaced by the column index (no load: the slab stream alone), and an
    empty launch of the same cooperative grid, table and shared memory (the
    launch floor); for this tree's kernel also the tuning variants (ring
    depth, gathers in flight, consumer warps, every x load through L2,
@@ -72,10 +73,14 @@ __device__ __forceinline__ void bulk_load_evict_first(void* dst, const void* src
 }
 """
 
+# the files a build of the kernel reads from a version's csrc/ (an older
+# checkout may lack the row sum's header)
+FILES = ("fused_region.cu", "ell_row.cuh")
 # name -> (alternative edit lists, keeps the result): the first list whose
-# edits all apply to a version's source is used (the parent's ELL body and
+# edits all apply to a version's files is used (the parent's ELL body and
 # this tree's differ); an edit (old, new) replaces the first occurrence of
-# old.  A variant with no list that applies is skipped for that version.
+# old in the first file holding it.  A variant with no list that applies is
+# skipped for that version.
 Edits = List[Tuple[str, str]]
 ABLATIONS: Dict[str, Tuple[List[Edits], bool]] = {
     "no_group_barriers": ([[(
@@ -127,39 +132,44 @@ def bound_ms(nbytes: float) -> float:
     return nbytes / PEAK_BYTES_PER_S * 1e3
 
 
-def apply(text: str, alternatives: List[Edits]):
-    """``text`` with the edits of the first alternative that applies (each
-    edit's first occurrence replaced), or None when none applies."""
+def apply(texts: Dict[str, str], alternatives: List[Edits]):
+    """``texts`` (file -> text) with the edits of the first alternative that
+    applies (each edit's first occurrence replaced, in the first file that
+    holds it), or None when none applies."""
     for edits in alternatives:
-        if all(old in text for old, _ in edits):
+        if all(any(old in t for t in texts.values()) for old, _ in edits):
+            out = dict(texts)
             for old, new in edits:
-                text = text.replace(old, new, 1)
-            return text
+                f = next(f for f, t in out.items() if old in t)
+                out[f] = out[f].replace(old, new, 1)
+            return out
     return None
 
 
 def build(csrc: Path, ablate: bool, tag: str) -> Dict[str, ctypes.CDLL]:
     """csrc/fused_region.cu of ``csrc`` as it is (``kernel``) and, with
     ``ablate``, each :data:`ABLATIONS` variant that applies to it, each a
-    shared library built in a directory of its own (the quoted includes
-    find ``csrc``'s headers through ``-I``), all ``nvcc`` processes started
+    shared library built in a directory of its own holding that version of
+    :data:`FILES` (the quoted includes find them there first and ``csrc``'s
+    other headers through ``-I``), all ``nvcc`` processes started
     together."""
     from tenzing_tpu_torch.ops import kernel_lib
 
-    text = (csrc / "fused_region.cu").read_text()
-    variants = {"kernel": text}
+    texts = {f: (csrc / f).read_text() for f in FILES if (csrc / f).exists()}
+    variants = {"kernel": texts}
     if ablate:
         for name, (alternatives, _) in ABLATIONS.items():
-            edited = apply(text, alternatives)
+            edited = apply(texts, alternatives)
             if edited is not None:
                 variants[name] = edited
     kernel_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix=f"fused_spmv_{tag}_",
                                  dir=kernel_lib.BUILD_DIR))
     procs = {}
-    for name, src in variants.items():
+    for name, files in variants.items():
         (work / name).mkdir()
-        (work / name / "fused_region.cu").write_text(src)
+        for f, text in files.items():
+            (work / name / f).write_text(text)
         so = work / name / f"{name}.so"
         procs[name] = (so, subprocess.Popen(
             [kernel_lib.nvcc(), *kernel_lib.ARCH_FLAGS, *kernel_lib.COMPILE_FLAGS,

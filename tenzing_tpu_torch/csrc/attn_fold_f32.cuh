@@ -13,7 +13,7 @@
 // broadcast along d (column 0 is read, every column is written).
 //
 // Float32 accuracy on the tensor cores.  Every operand x is split into
-// hi = tf32_rna(x) and lo = tf32_rna(x - hi) (cvt.rna.tf32.f32), and each
+// hi = tf32_rna(x) and lo = tf32_rna(x - hi) (hopper.cuh), and each
 // product is hi hi + hi lo + lo hi in f32 (lo lo, ~2^-22 of a term, is
 // dropped): 3xTF32, the scheme of PyTorch's f32 memory-efficient attention,
 // here on wgmma.  One TF32 pass alone keeps ~3 decimal digits and is a
@@ -151,32 +151,6 @@ __device__ __forceinline__ Smem setup(unsigned char* raw) {
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   return sm;
-}
-
-// -- the split
-
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));
-}
-
-__device__ __forceinline__ void split4(const float4& x, uint4& hi, uint4& lo) {
-  split(x.x, hi.x, lo.x);
-  split(x.y, hi.y, lo.y);
-  split(x.z, hi.z, lo.z);
-  split(x.w, hi.w, lo.w);
-}
-
-// Byte offset of 16-byte chunk `chunk` of row `row` in a 128-byte-swizzled
-// region whose rows are 128 bytes (the region 1024-byte aligned).
-__device__ __forceinline__ int sw128(int row, int chunk) {
-  return row * 128 + ((chunk ^ (row & 7)) << 4);
 }
 
 // Make values computed by ordinary instructions ready before a wgmma fence.

@@ -55,9 +55,9 @@
 // rows), dealt to the group's blocks in turn.  A producer thread copies each
 // chunk's vals and cols into a ring of shared-memory stages with 1D bulk
 // copies (full and empty mbarriers), so tens of KB are in flight per SM;
-// each consumer thread sums one row from the stage, issuing its x gathers
-// kXBatch at a time, in a fixed order (two launches agree bit for bit;
-// kXBatch partial sums added as a tree), and the block stores y coalesced.
+// each consumer thread sums one row from the stage in ell_row.cuh's fixed
+// order (shared with ell_spmv.cu; two launches agree bit for bit), and the
+// block stores y coalesced.
 // A bulk copy needs 16-byte aligned addresses, so it moves the chunk's
 // aligned inner range: a row that reaches outside it (a group's first row lo
 // where lo w % 4 != 0, as a tile's share may have, its last row hi - 1 where
@@ -87,6 +87,7 @@
 #include <stdint.h>
 
 #include "attn_fold_f32.cuh"
+#include "ell_row.cuh"
 
 namespace {
 
@@ -136,8 +137,6 @@ constexpr int kChunkRows = 32 * kConsumerWarps;
 constexpr int kSlabWidth = 32;
 constexpr int kSlabStages = 3;
 constexpr int kStageFloats = kChunkRows * kSlabWidth + 4;
-constexpr int kXBatch = 8;  // x gathers a consumer thread issues at once
-static_assert((kXBatch & (kXBatch - 1)) == 0, "the partial sums add as a tree");
 
 struct SpmvSmem {
   float vals[kSlabStages][kStageFloats];
@@ -216,52 +215,6 @@ struct Chunk {
   }
 };
 
-// x[i] from global memory: through L2 only (ld.global.cg) where a member of
-// this launch wrote the buffer, through the read-only L1 path otherwise.
-template <bool kCoherent, typename T>
-__device__ __forceinline__ T ld(const T* p) {
-  return kCoherent ? __ldcg(p) : __ldg(p);
-}
-
-// One ELL row's sum in a fixed order (deterministic): entry j goes to
-// partial sum j % kXBatch, and the kXBatch partials add up as a tree, so no
-// term waits on a chain of w roundings.  The row's vals and cols come from
-// a ring stage (kSlab == kShared) or global memory (kGlobal, kGlobalCg); its
-// x gathers are issued kXBatch at a time.
-enum SlabSrc { kShared, kGlobal, kGlobalCg };
-template <int kSlab, bool kXCoherent>
-__device__ __forceinline__ float row_sum(const float* v, const int* c,
-                                         const float* __restrict__ x,
-                                         int64_t w) {
-  auto val = [&](int64_t j) {
-    if constexpr (kSlab == kShared) return v[j];
-    else return ld<kSlab == kGlobalCg>(v + j);
-  };
-  auto col = [&](int64_t j) {
-    if constexpr (kSlab == kShared) return c[j];
-    else return ld<kSlab == kGlobalCg>(c + j);
-  };
-  float acc[kXBatch];
-#pragma unroll
-  for (int u = 0; u < kXBatch; ++u) acc[u] = 0.0f;
-  int64_t j = 0;
-  for (; j + kXBatch <= w; j += kXBatch) {
-    float xv[kXBatch];
-#pragma unroll
-    for (int u = 0; u < kXBatch; ++u) xv[u] = ld<kXCoherent>(x + col(j + u));
-#pragma unroll
-    for (int u = 0; u < kXBatch; ++u) acc[u] = fmaf(val(j + u), xv[u], acc[u]);
-  }
-#pragma unroll
-  for (int u = 0; u < kXBatch; ++u)
-    if (j + u < w) acc[u] = fmaf(val(j + u), ld<kXCoherent>(x + col(j + u)), acc[u]);
-#pragma unroll
-  for (int s = kXBatch / 2; s > 0; s /= 2)
-#pragma unroll
-    for (int u = 0; u < s; ++u) acc[u] += acc[u + s];
-  return acc[0];
-}
-
 // An ELL member over [lo, hi): chunks of `rows` rows dealt to the group's
 // blocks in turn.  The producer (thread 0) bulk-copies each chunk's aligned
 // vals and cols into the ring; consumer thread t sums row r0 + t from the
@@ -317,12 +270,12 @@ __device__ __forceinline__ void ell_member(const Member& mb, int64_t lo,
       const int64_t e = row * w;
       float acc;
       if (e >= ck.a0 && e + w <= ck.a1)
-        acc = row_sum<kShared, kXCoherent>(&sm.vals[ring.stage][e - ck.b0],
-                                           &sm.cols[ring.stage][e - ck.b0], x, w);
+        acc = tz_ell::row_sum<tz_ell::kShared, kXCoherent>(
+            &sm.vals[ring.stage][e - ck.b0], &sm.cols[ring.stage][e - ck.b0], x, w);
       else if (mb.written & 3)
-        acc = row_sum<kGlobalCg, kXCoherent>(vals + e, cols + e, x, w);
+        acc = tz_ell::row_sum<tz_ell::kGlobalCg, kXCoherent>(vals + e, cols + e, x, w);
       else
-        acc = row_sum<kGlobal, kXCoherent>(vals + e, cols + e, x, w);
+        acc = tz_ell::row_sum<tz_ell::kGlobal, kXCoherent>(vals + e, cols + e, x, w);
       y[row] = acc;
     }
     tz_hopper::release(&sm.empty[ring.stage], threadIdx.x % 32);

@@ -1,8 +1,10 @@
 // Hopper building blocks shared by the attention folds (attn_fold.cu,
-// attn_fold_f32.cuh), the halo kernels (halo_copy.cuh) and the fused
-// region's SpMV slab ring (fused_region.cu): tensor-map encoding,
-// mbarriers, 1D bulk copies, the ring of shared-memory stages, wgmma's
-// fences and its shared-memory matrix descriptor.  Needs sm_90a.
+// attn_fold_f32.cuh), the f32 FFN (ffn_tile.cuh), the halo kernels
+// (halo_copy.cuh) and the fused region's SpMV slab ring (fused_region.cu):
+// tensor-map encoding, mbarriers, 1D bulk copies, the ring of shared-memory
+// stages, wgmma's fences and its shared-memory matrix descriptor, and the
+// split of a float32 operand into TF32 hi and lo parts with the 128-byte
+// swizzle the split-TF32 bodies store them in.  Needs sm_90a.
 
 #pragma once
 
@@ -170,6 +172,38 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// -- split-TF32: a float32 operand as the sum of two TF32 values
+
+// x = hi + lo, each rounded to TF32 (10 mantissa bits) to nearest with
+// ties away from zero, as cvt.rna.tf32.f32 rounds.  hi on the integer
+// units: half of the 13 dropped bits added to the magnitude, then cleared;
+// for every finite x and every infinity this is the conversion's result,
+// but the carry turns a NaN with its top mantissa bits set (0x7FFFFFFF, the
+// card's canonical NaN) into a zero.  lo through the conversion, which
+// keeps a NaN: x - hi is NaN for a NaN x, so lo carries it into the hi lo
+// and lo hi products and the result is NaN, as in f32.  Both through the
+// conversion read 5% slower in the f32 FFN body, both on the integer units
+// with a select for non-finite values 10% slower, and this as fast as the
+// integer rounding of both without it (bench/ffn_f32.py --ablate: cvt-split,
+// select-split, unsafe-split).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(__fsub_rn(x, __uint_as_float(hi))));
+}
+
+__device__ __forceinline__ void split4(const float4& x, uint4& hi, uint4& lo) {
+  split(x.x, hi.x, lo.x);
+  split(x.y, hi.y, lo.y);
+  split(x.z, hi.z, lo.z);
+  split(x.w, hi.w, lo.w);
+}
+
+// Byte offset of 16-byte chunk `chunk` of row `row` in a 128-byte-swizzled
+// region whose rows are 128 bytes (the region 1024-byte aligned).
+__device__ __forceinline__ int sw128(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
 }
 
 }  // namespace tz_hopper

@@ -226,15 +226,23 @@ class ExpertFFNPallas(ExpertFFN):
     ``ctx.plain_kernels``."""
 
     def scratch_for(self, shapes):
-        return {}  # the gelu tile never leaves the kernel
+        # the f32 kernel's h workspace; the bf16 one keeps h on chip
+        if self._args.dtype == "bfloat16":
+            return {}
+        n, cap, _ = shapes[f"recv_disp_{self._c}"]
+        return {f"moe_h_{self._c}": ((n * cap, shapes["W1"][-1]), "float32")}
 
     def _mlp(self, x2d, w1, w2, y2d, ctx, rows: slice, cap: int) -> None:
         from tenzing_tpu_torch.ops import ffn_kernels as fk
 
         if ctx.plain_kernels:
             y2d.copy_(fk.ffn_rows_plain(x2d, w1, w2))
-        else:
+        elif self._args.dtype == "bfloat16":
             fk.ffn_rows(x2d, w1, w2, out=y2d)
+        else:
+            span = slice(rows.start * cap, rows.stop * cap)
+            fk.ffn_rows(x2d, w1, w2, out=y2d,
+                        work=ctx.scratch[f"moe_h_{self._c}"][span])
 
     def uses_pallas(self) -> bool:
         return True

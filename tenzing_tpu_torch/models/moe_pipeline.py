@@ -235,11 +235,6 @@ class ExpertFFNPipePallas(ExpertFFNPipe):
     (reference: the Pallas kernel ffn_pallas_batched); the plain version
     under ``ctx.plain_kernels``."""
 
-    def scratch(self):
-        out = dict(super().scratch())
-        out.pop(f"moe_h_{self._c}")  # the gelu tile never leaves the kernel
-        return out
-
     def uses_pallas(self) -> bool:
         return True
 
@@ -252,7 +247,8 @@ class ExpertFFNPipePallas(ExpertFFNPipe):
         if ctx.plain_kernels:
             y3.copy_(fk.ffn_batched_plain(x3, w1, w2))
         else:
-            fk.ffn_batched(x3, w1, w2, out=y3)
+            fk.ffn_batched(x3, w1, w2, out=y3,
+                           work=ctx.scratch[f"moe_h_{self._c}"][experts])
 
 
 def ffn_chunk_menu(args: MoEPipeArgs, cap: int, relax: bool = False):

@@ -13,20 +13,26 @@ the ``.pallas`` expert slot of the expert-parallel MoE layer
 gelu is the tanh form, ``jax.nn.gelu``'s default (``approximate="tanh"`` in
 PyTorch).
 
-On Hopper it is hand-written CUDA (csrc/ffn_expert.cu): the hidden-tile loop
-runs inside the thread block with the output sum in registers, each gelu tile
-lives in shared memory only, and the hidden dimension is split over a thread
-block cluster whose blocks sum their partials over distributed shared memory,
-so 8 experts of 304 slots still fill the card.  ``ffn_rows``
-(csrc/ffn_rows.cu) runs the same tile body (csrc/ffn_tile.cuh) over row
-tiles of one matrix, masking a ragged n in the kernel.  The kernels are
-instantiated for d = 512 (the reference's ``MoEPipeArgs`` and the MoE
+On Hopper the float32 MLP is hand-written CUDA on the tensor cores,
+split-TF32 on ``wgmma`` (csrc/ffn_tile.cuh, behind both csrc/ffn_expert.cu
+and csrc/ffn_rows.cu): every operand is split into TF32 hi and lo parts and
+each product is hi hi + hi lo + lo hi, float32 accuracy at three TF32
+passes.  One call is two launches of one GEMM body: the first writes
+h = gelu_tanh(x @ W1) into a float32 workspace (``work``, (E, C, dff) or
+(n, dff); allocated when the caller passes none), the second computes
+h @ W2.  Ragged C / n and d_ff (a multiple of 4) are masked in the kernel,
+with no padding copy; where the tiles do not fill the card the depth is
+split over a thread block cluster whose CTAs sum their partials over
+distributed shared memory in a fixed order, so two launches agree bit for
+bit.  :func:`ffn_launch_plan` mirrors the launches' tiling.  The kernels
+are instantiated for d = 512 (the reference's ``MoEPipeArgs`` and the MoE
 layer's slice configuration).  ``ffn_batched`` takes float32 only: the
 pipe converts a bf16-staged chain to float32 before the MLP, as the
 reference does.  ``ffn_rows`` also takes bf16 x, W1, W2 and out, as the
 reference's kernel computes a bf16 x: both products accumulate in float32,
 h is rounded to bf16 between them and y is written in bf16
-(csrc/ffn_rows.cu ``tz_ffn_rows_bf16``, on the tensor cores).
+(csrc/ffn_rows.cu ``tz_ffn_rows_bf16``, ``mma.sync`` on 16-row blocks; it
+needs no workspace).
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain version
 (:func:`ffn_batched_plain`, :func:`ffn_rows_plain`) for CPU tensors; there
@@ -49,10 +55,11 @@ LAUNCHES = {"ffn_batched": 0, "ffn_rows": 0, "ffn_rows_bf16": 0}
 KERNEL_D_MODELS = (512,)
 
 # y against the plain version: both sum in float32 over d and then d_ff
-# terms, in different orders.  On an H100 at full width (8 x 304 slots,
-# d=512, d_ff=2048) the two differ by at most 8e-6 with |y| up to 3.4, and
-# the erf gelu in place of the tanh form moves y by 4.8e-4 to 7.4e-4
-# (PERF.md): this rejects it and sits 12x above the kernel's error.
+# terms, in different orders (the kernel's products as three TF32 passes).
+# On an H100 at full width (8 x 304 slots, d=512, d_ff=2048) the two differ
+# by at most 9.7e-6 with |y| up to 3.4, while the erf gelu in place of the
+# tanh form moves y by 4.8e-4 to 7.4e-4 and one TF32 pass per product by
+# 1.4e-3 (PERF.md): this rejects both and sits 10x above the kernel's error.
 FFN_TOL = dict(rtol=1e-4, atol=1e-4)
 # bf16 y against the plain version on the same bf16 inputs.  Both round h to
 # bf16 (8 significant bits: a half ulp is 2^-9 of the value) after f32 sums
@@ -63,6 +70,68 @@ FFN_TOL = dict(rtol=1e-4, atol=1e-4)
 # 5e-4) is not a bf16-visible control, so the bf16 checks drop an expert's
 # weights or rows instead.
 FFN_BF16_TOL = dict(rtol=2.0 ** -7, atol=2.0 ** -7)
+
+
+# the f32 body's launch constants (csrc/ffn_tile.cuh; the library reports
+# them through tz_ffn_f32_config, in this order)
+F32_ROWS = 128        # output rows per CTA: two consumer warpgroups of 64
+F32_COLS = 128        # output columns per CTA (the wgmma's N)
+F32_DEPTH = 32        # K per ring stage
+F32_STAGES = 2        # split stages (TF32 hi and lo planes of A and B^T)
+F32_RAW_STAGES = 3    # raw f32 stages the TMA fills ahead of the split
+F32_THREADS = 512     # two consumer warpgroups and two producer warpgroups
+F32_MAX_SPLITS = 4    # CTAs of a split-K cluster
+# the 1024-byte alignment slack, the split stages (A and B^T chunks, hi and
+# lo), the raw stages (A and B chunks) and the ring's barriers
+F32_SMEM_BYTES = (1024 + F32_STAGES * 2 * (F32_ROWS + F32_COLS) * F32_DEPTH * 4
+                  + F32_RAW_STAGES * (F32_ROWS + F32_COLS) * F32_DEPTH * 4 + 64)
+F32_CONFIG_KEYS = ("rows", "cols", "depth", "stages", "raw_stages", "threads",
+                   "smem_bytes", "max_splits")
+H100_SMS = 132
+
+
+def split_k(tiles: int, chunks: int, sms: int = H100_SMS) -> int:
+    """The depth split of one launch (csrc/ffn_tile.cuh ``split_k``): 1
+    unless the tiles leave more than half the SMs idle (2 tiles <= sms);
+    then the count in {1, 2, 4} with the fewest full-depth waves
+    ceil(tiles s / sms) / s (one CTA per SM), the smallest on a tie, at
+    least 4 chunks a split."""
+    if 2 * tiles > sms:
+        return 1
+    best, best_waves = 1, -(-tiles // sms)
+    s = 2
+    while s <= F32_MAX_SPLITS and chunks >= 4 * s:
+        waves = -(-tiles * s // sms)
+        if waves * best < best_waves * s:
+            best, best_waves = s, waves
+        s *= 2
+    return best
+
+
+def gemm_plan(experts: int, m: int, n: int, k: int,
+              sms: int = H100_SMS) -> dict:
+    """The tiling of one launch of the f32 body for ``experts`` problems
+    C[M x N] = A[M x K] @ B[K x N] (csrc/ffn_tile.cuh ``plan``, reported by
+    the library's ``tz_ffn_f32_plan``)."""
+    m_tiles, n_tiles = -(-m // F32_ROWS), -(-n // F32_COLS)
+    chunks = -(-k // F32_DEPTH)
+    tiles = experts * m_tiles * n_tiles
+    splits = split_k(tiles, chunks, sms)
+    return {"m_tiles": m_tiles, "n_tiles": n_tiles, "splits": splits,
+            "chunks_per_split": -(-chunks // splits),
+            "ctas": tiles * splits}
+
+
+def ffn_launch_plan(e: int, c: int, dff: int, d: int = 512,
+                    sms: int = H100_SMS) -> dict:
+    """Both launches of one f32 call (``ffn_batched`` at (e, c, dff),
+    ``ffn_rows`` at (1, n, dff)): h = gelu(x @ W1), then y = h @ W2; the
+    threads and shared memory of every CTA, the cluster of each launch
+    (its splits) and the workspace h's bytes."""
+    return {"threads": F32_THREADS, "smem_bytes": F32_SMEM_BYTES,
+            "launches": [gemm_plan(e, c, dff, d, sms),
+                         gemm_plan(e, c, d, dff, sms)],
+            "work_bytes": 4 * e * c * dff}
 
 
 def ffn_batched_plain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
@@ -108,15 +177,30 @@ def _check(x, w1, w2, out) -> None:
         raise ValueError(f"ffn_batched: empty call (C={c}, dff={dff})")
 
 
+def _check_work(work, shape, x, who: str) -> None:
+    """Raise unless ``work`` can be the f32 kernels' h workspace."""
+    if work.dtype != torch.float32 or tuple(work.shape) != tuple(shape) \
+            or work.device != x.device or not work.is_contiguous():
+        raise ValueError(f"{who}: work must be a contiguous float32 "
+                         f"{tuple(shape)} tensor on {x.device} (got "
+                         f"{work.dtype} {tuple(work.shape)} on {work.device})")
+
+
 def ffn_batched(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
-                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                out: Optional[torch.Tensor] = None,
+                work: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out[e] = gelu_tanh(x[e] @ w1[e]) @ w2[e]`` on the current stream:
     the ``tz_ffn_batched`` kernel for CUDA tensors, :func:`ffn_batched_plain`
     for CPU tensors.  Writes into ``out`` (allocated when None) and returns
-    it; ``out`` must not overlap x."""
+    it; ``out`` must not overlap x.  ``work`` is the kernel's h, a float32
+    (E, C, dff) workspace overlapping none of the others (checked when
+    given; allocated when None on the card; the CPU path does not use it)."""
     if out is None:
         out = torch.empty_like(x)
     _check(x, w1, w2, out)
+    if work is not None:
+        _check_work(work, (x.shape[0], x.shape[1], w1.shape[2]), x,
+                    "ffn_batched")
     if x.device.type == "cpu":
         out.copy_(ffn_batched_plain(x, w1, w2))
         return out
@@ -130,11 +214,14 @@ def ffn_batched(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     if dff % 4:
         raise ValueError(f"ffn_batched: d_ff {dff} must be a multiple of 4 "
                          "(16-byte rows)")
-    if any(t.data_ptr() % 16 for t in (x, w1, w2, out)):
+    if work is None:
+        work = torch.empty(e, c, dff, dtype=torch.float32, device=x.device)
+    if any(t.data_ptr() % 16 for t in (x, w1, w2, out, work)):
         raise ValueError("ffn_batched: pointers must be 16-byte aligned")
     err = kernel_lib.lib().tz_ffn_batched(
-        x.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(), e, c, d,
-        dff, torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(),
+        work.data_ptr(), e, c, d, dff,
+        torch.cuda.current_stream(x.device).cuda_stream)
     kernel_lib.check_launch("ffn_batched", err)
     LAUNCHES["ffn_batched"] += 1
     return out
@@ -187,16 +274,22 @@ def _check_rows(x, w1, w2, out) -> None:
 
 
 def ffn_rows(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
-             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+             out: Optional[torch.Tensor] = None,
+             work: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out = gelu_tanh(x @ w1) @ w2`` on the current stream, in float32 or
     bf16 (all four tensors of one dtype): the ``tz_ffn_rows`` /
     ``tz_ffn_rows_bf16`` kernel for CUDA tensors, :func:`ffn_rows_plain` for
     CPU tensors.  Writes into ``out`` (allocated when None) and returns it;
-    ``out`` must not overlap x.  Both dtypes count as launches of
-    ``ffn_rows``; bf16 ones also as ``ffn_rows_bf16``."""
+    ``out`` must not overlap x.  ``work`` is the float32 kernel's h, a
+    float32 (n, dff) workspace overlapping none of the others (checked when
+    given; allocated when None on the card; the CPU path and bf16 do not use
+    it).  Both dtypes count as
+    launches of ``ffn_rows``; bf16 ones also as ``ffn_rows_bf16``."""
     if out is None:
         out = torch.empty_like(x)
     _check_rows(x, w1, w2, out)
+    if work is not None:
+        _check_work(work, (x.shape[0], w1.shape[1]), x, "ffn_rows")
     if x.device.type == "cpu":
         out.copy_(ffn_rows_plain(x, w1, w2))
         return out
@@ -214,10 +307,19 @@ def ffn_rows(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
                          f"{per16} (16-byte rows)")
     if any(t.data_ptr() % 16 for t in (x, w1, w2, out)):
         raise ValueError("ffn_rows: pointers must be 16-byte aligned")
-    fn = (kernel_lib.lib().tz_ffn_rows_bf16 if bf16
-          else kernel_lib.lib().tz_ffn_rows)
-    err = fn(x.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(), n, d,
-             dff, torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if bf16:
+        err = kernel_lib.lib().tz_ffn_rows_bf16(
+            x.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(), n, d,
+            dff, stream)
+    else:
+        if work is None:
+            work = torch.empty(n, dff, dtype=torch.float32, device=x.device)
+        if work.data_ptr() % 16:
+            raise ValueError("ffn_rows: pointers must be 16-byte aligned")
+        err = kernel_lib.lib().tz_ffn_rows(
+            x.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(),
+            work.data_ptr(), n, d, dff, stream)
     kernel_lib.check_launch("ffn_rows", err)
     LAUNCHES["ffn_rows"] += 1
     if bf16:

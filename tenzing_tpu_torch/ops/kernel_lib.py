@@ -30,8 +30,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tenzing_tpu_torch"
 SOURCES = ("halo_pack.cu", "halo_unpack.cu", "device_copy.cu", "attn_fold.cu",
            "ffn_expert.cu", "ffn_rows.cu", "ell_spmv.cu", "fused_region.cu",
            "rdma_shift.cu")
-HEADERS = ("attn_fold_f32.cuh", "ffn_tile.cuh", "halo_copy.cuh",
-           "hopper.cuh")  # included by the sources above
+HEADERS = ("attn_fold_f32.cuh", "ell_row.cuh", "ffn_tile.cuh",
+           "halo_copy.cuh", "hopper.cuh")  # included by the sources above
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -56,13 +56,22 @@ SIGNATURES = {
     # (the bf16 and the f32 kernel)
     "tz_attn_bf16_config": [ctypes.POINTER(ctypes.c_int64)],
     "tz_attn_f32_config": [ctypes.POINTER(ctypes.c_int64)],
-    # x, w1, w2, y; e, c, d, dff; stream
-    "tz_ffn_batched": [_c_ptr] * 4 + [_c_i64] * 4 + [_c_ptr],
+    # x, w1, w2, y, h (workspace); e, c, d, dff; stream
+    "tz_ffn_batched": [_c_ptr] * 5 + [_c_i64] * 4 + [_c_ptr],
+    # x, w1, w2, y, h (workspace); n, d, dff; stream
+    "tz_ffn_rows": [_c_ptr] * 5 + [_c_i64] * 3 + [_c_ptr],
     # x, w1, w2, y; n, d, dff; stream
-    "tz_ffn_rows": [_c_ptr] * 4 + [_c_i64] * 3 + [_c_ptr],
     "tz_ffn_rows_bf16": [_c_ptr] * 4 + [_c_i64] * 3 + [_c_ptr],
+    # out: rows, cols, depth, stages, raw stages, threads, smem bytes,
+    # max splits
+    "tz_ffn_f32_config": [ctypes.POINTER(ctypes.c_int64)],
+    # experts, m, n, k, sms; out: row tiles, column tiles, splits, chunks
+    # per split, CTAs
+    "tz_ffn_f32_plan": [_c_i64] * 5 + [ctypes.POINTER(ctypes.c_int64)],
     # vals, cols, x, y; m, w, n; stream
     "tz_ell_spmv": [_c_ptr] * 4 + [_c_i64] * 3 + [_c_ptr],
+    # m; stream: an empty launch of tz_ell_spmv's grid
+    "tz_ell_spmv_floor": [_c_i64, _c_ptr],
     # descriptor table (host), barrier counters; blocks per group; stream
     "tz_fused_region": [_c_ptr, _c_ptr, _c_i64, _c_ptr],
     # descriptor table (host)

@@ -5,11 +5,16 @@ Counterpart of ``tenzing_tpu/ops/spmv_pallas.py``'s ``ell_spmv_pallas``::
     y[i] = sum_j vals[i, j] * x[cols[i, j]]
 
 for vals (m, w) float32, cols (m, w) int32 and x (n) float32 with
-n <= ``MAX_X``.  On Hopper it is hand-written CUDA (csrc/ell_spmv.cu): x is
-staged whole into shared memory once per block and each row is summed by a
-group of threads over its w columns.  The gate ``supports`` is the
-reference's (4096 = 32 vregs of 128 lanes), so the SpMV menu offers the slot
-for the same x lengths in both packages.
+n <= ``MAX_X``.  On Hopper it is hand-written CUDA (csrc/ell_spmv.cu): one
+row a thread, the slab covered in one wave; each warp copies its 32 rows'
+piece of the slab into shared memory with 16-byte copies, all issued
+before the first wait, and x is gathered through the read-only L1 path
+(no copy of x); each row sums in csrc/ell_row.cuh's fixed order, shared
+with the fused region's ELL members (its rounding bound is
+:func:`row_sum_bound`).  :func:`ell_row_plan` mirrors which rows the
+kernel reads from shared memory and which from global memory.  The gate
+``supports`` is the reference's (4096 = 32 vregs of 128 lanes), so the SpMV menu offers the
+slot for the same x lengths in both packages.
 
 ``ell_spmv`` launches the kernel for CUDA tensors and runs
 :func:`ell_spmv_plain` for CPU tensors; there is no other path.
@@ -32,12 +37,54 @@ LANES = 128
 # n/128 vregs above which the reference's masked-gather sweep loses to the
 # gather path; it offers the kernel only up to here (spmv_pallas.py:43-50)
 MAX_X_BLOCKS = 32
-MAX_X = LANES * MAX_X_BLOCKS  # 4096 float32: 16 KB of shared memory
+MAX_X = LANES * MAX_X_BLOCKS  # 4096 float32 (16 KB)
 
 # y against the plain version: both sum w float32 products per row, in
 # different orders, so they agree to a few ulps of the row sum, not bitwise.
 # A control that drops one slab column moves y by a whole product (PERF.md).
 ELL_TOL = dict(rtol=1e-5, atol=1e-6)
+
+# the kernel's constants (csrc/ell_spmv.cu)
+ROWS_PER_WARP = 32    # one row a thread
+SLAB_WIDTH = 32       # widest row staged in shared memory
+# x gathers in flight a thread, and the partial sums of a row
+# (csrc/ell_row.cuh kXBatch)
+X_BATCH = 8
+
+
+def ell_row_plan(m: int, w: int, vals_off: int = 0, cols_off: int = 0):
+    """Where csrc/ell_spmv.cu reads each row's vals and cols: a list of
+    (r0, r1, b0, a0, a1, rows) per warp piece of rows [r0, r1), whose
+    16-byte aligned elements [a0, a1) are copied into shared memory from
+    float b0 on, and ``rows[i]`` True where row r0 + i is read from there
+    (False: from global memory).  ``vals_off`` / ``cols_off``: the slabs'
+    data pointers modulo 16 bytes (a view into a larger buffer); the
+    allocation itself is 16-byte aligned."""
+    staged = w <= SLAB_WIDTH and (vals_off | cols_off) % 16 == 0
+    out = []
+    for r0 in range(0, m, ROWS_PER_WARP):
+        r1 = min(r0 + ROWS_PER_WARP, m)
+        b0, a0 = (r0 * w) & ~3, (r0 * w + 3) & ~3
+        a1 = (r1 * w) & ~3
+        if not staged or a1 < a0:
+            a1 = a0
+        rows = [a0 <= r * w and r * w + w <= a1 for r in range(r0, r1)]
+        out.append((r0, r1, b0, a0, a1, rows))
+    return out
+
+
+def row_sum_bound(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
+                  x_batch: int = X_BATCH):
+    """(y in float64, the rounding bound of the kernels' order): a row's
+    entries fold into ``x_batch`` partial sums (ceil(w / x_batch) roundings
+    each) added as a log2(x_batch)-level tree, so |y - y64| <=
+    (ceil(w / x_batch) + log2(x_batch)) u sum |v x| to first order,
+    u = 2^-24."""
+    t = vals.double() * x.double()[cols.long()]
+    w = vals.shape[1]
+    levels = x_batch.bit_length() - 1
+    return t.sum(1), ((-(-w // x_batch) + levels) * 2.0 ** -24
+                      * t.abs().sum(1))
 
 
 def supports(n: int, max_blocks: int = MAX_X_BLOCKS) -> bool:
@@ -115,3 +162,11 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
     kernel_lib.check_launch("ell_spmv", err)
     LAUNCHES["ell_spmv"] += 1
     return out
+
+
+def ell_floor(m: int, device) -> None:
+    """An empty launch of the kernel's grid at m rows on the current stream:
+    the floor under its time (not a launch of ``ell_spmv``; not counted)."""
+    err = kernel_lib.lib().tz_ell_spmv_floor(
+        m, torch.cuda.current_stream(device).cuda_stream)
+    kernel_lib.check_launch("ell_spmv floor", err)

@@ -367,6 +367,28 @@ def test_cuda_f32_fold_stress(cuda_device, case):
 
 
 @pytest.mark.needs_cuda
+def test_cuda_f32_fold_keeps_a_nan_in_q(cuda_device):
+    """A NaN in a query row (0x7FFFFFFF, as f32 arithmetic on the card makes
+    it) reaches that row's acc and l and no other row, as in the plain
+    version: the TF32 split passes it through."""
+    b, n, nkv, d = 1, 128, 128, 128
+    q, k, v, st = attn_f32.case_inputs(torch, cuda_device, b, n, nkv, "init",
+                                       "dense")
+    q[0, 5, 7] = float(np.array([0x7FFFFFFF], np.uint32).view(np.float32)[0])
+    want = [t.clone() for t in st]
+    ak.attn_block(q, k, v, *st, d ** -0.5)
+    ak.attn_block_plain(q, k, v, *want, d ** -0.5)
+    torch.cuda.synchronize()
+    acc, _, l = st
+    assert torch.equal(torch.isnan(acc), torch.isnan(want[0]))
+    assert bool(torch.isnan(acc[0, 5]).all()) and bool(torch.isnan(l[0, 5]).all())
+    rest = torch.ones(n, dtype=torch.bool, device=cuda_device)
+    rest[5] = False
+    assert bool(torch.isfinite(acc[0, rest]).all())
+    assert bool(torch.isfinite(l[0, rest]).all())
+
+
+@pytest.mark.needs_cuda
 def test_cuda_f32_fold_refuses_misaligned_views(cuda_device):
     """The f32 kernel moves K rows in 16-byte loads and the state in 8-byte
     vectors: a K view one float off, or a row stride that is not a

@@ -115,6 +115,27 @@ def test_split_hi_and_lo_have_tf32_mantissas():
     assert np.array_equal(np.signbit(hi[x == 0]), np.signbit(x[x == 0]))
 
 
+def test_split_keeps_infinities_and_nans():
+    """A NaN with its top mantissa bits set (0x7FFFFFFF, the card's own)
+    carries into a zero under hi's add-and-clear rounding; lo is rounded as
+    cvt.rna.tf32.f32 rounds, which keeps it, so every NaN x has a NaN lo and
+    its products are NaN.  Infinities stay in hi (lo = inf - inf is NaN, as
+    with the conversion), and a value that rounds past the largest float
+    gives an infinite hi, as the conversion does."""
+    nans = np.array([0x7FFFFFFF, 0xFFFFFFFF, 0x7FC00000, 0x7F801000],
+                    np.uint32).view(np.float32)
+    hi, lo = _split(nans)
+    assert np.isnan(lo).all()
+    assert np.isnan(hi[2:]).all() and (hi[:2] == 0).all()
+    infs = np.array([np.inf, -np.inf], np.float32)
+    hi, lo = _split(infs)
+    assert np.array_equal(hi, infs) and np.isnan(lo).all()
+    big = np.array([3.4028235e38, -3.4028235e38], np.float32)  # rounds past max
+    hi, lo = _split(big)
+    assert np.array_equal(hi, [np.inf, -np.inf])
+    assert np.array_equal(lo, [-np.inf, np.inf])
+
+
 def test_split_rounds_ties_away_from_zero():
     base = np.array([1.0, 1.5, 3.0, 1e-3, 7e20], np.float32)
     for sign in (1, -1):

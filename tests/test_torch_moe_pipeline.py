@@ -321,14 +321,17 @@ def test_plain_kernel_mode_matches_kernel_mode_on_cpu():
 
 def test_ops_allocate_only_declared_scratch():
     """Each chunk's ops declare per-chunk scratch (chunks run on different
-    lanes at once), and the kernel slot needs no hidden-activation buffer."""
+    lanes at once); the kernel slot's hidden activations go to the same
+    per-chunk buffer as the ``.xla`` slot's (the split-TF32 kernel's h
+    workspace between its two launches)."""
     args = pipe.MoEPipeArgs(**SMALL)
     cap = _cap(SMALL)
     xla = pipe.ExpertFFNPipe("ffn16_1.xla", 1, args, cap, "bf16").scratch()
     pal = pipe.ExpertFFNPipePallas("ffn16_1.pallas", 1, args, cap, "bf16").scratch()
     assert set(xla) == {"moe_h_1", "moe_x_1", "moe_y_1"}
-    assert set(pal) == {"moe_x_1", "moe_y_1"}
-    assert pipe.ExpertFFNPipePallas("ffn_0.pallas", 0, args, cap).scratch() == {}
+    assert pal == xla
+    assert pipe.ExpertFFNPipePallas("ffn_0.pallas", 0, args, cap).scratch() \
+        == {"moe_h_0": ((args.n_experts, cap, args.d_ff), "float32")}
     assert set(pipe.DispatchPackPipe("pack16_0", 0, args, cap, "bf16").scratch()) \
         == {"moe_slots_0"}
     assert pipe.DispatchPackPipe("pack_0", 0, args, cap).scratch() == {}

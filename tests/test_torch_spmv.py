@@ -19,6 +19,8 @@
 
 import json
 import random
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -172,6 +174,144 @@ def test_ell_tolerance_rejects_a_dropped_column():
                             torch.from_numpy(cols[:, :-1].copy()),
                             torch.from_numpy(x))
     assert not torch.allclose(ctl, got, **ELL_TOL)
+
+
+CSRC = Path(__file__).resolve().parents[1] / "tenzing_tpu_torch" / "csrc"
+
+# the kernel's staging plan (csrc/ell_spmv.cu), mirrored by ell_row_plan:
+# widths around the 16-byte boundary (w % 4), the staged width (32) and
+# above it; slab views 0, 4 and 104 bytes off a 16-byte boundary
+PLAN_WIDTHS = [1, 5, 22, 23, 32, 33, 40]
+PLAN_OFFSETS = [0, 4, 104]
+
+
+@pytest.mark.parametrize("off", PLAN_OFFSETS)
+@pytest.mark.parametrize("w", PLAN_WIDTHS)
+def test_ell_row_plan_covers_every_row_once(w, off):
+    """Each warp piece of 32 rows copies its 16-byte aligned part into
+    shared memory; a row is read from there only where it lies inside
+    that part, every other row from global memory, and no row twice."""
+    for m in (1, 31, 32, 33, 1000, 1001, 8192):
+        plan = sk.ell_row_plan(m, w, off, off)
+        assert [p[0] for p in plan] == list(range(0, m, 32))
+        seen = 0
+        for r0, r1, b0, a0, a1, rows in plan:
+            assert r1 - r0 == len(rows) and r1 == min(r0 + 32, m)
+            seen += len(rows)
+            assert b0 % 4 == 0 and a0 % 4 == 0 and a1 % 4 == 0
+            assert b0 <= r0 * w <= a0 <= a1 <= r1 * w
+            assert a1 - b0 <= 32 * sk.SLAB_WIDTH + 4  # the piece fits
+            for i, staged in enumerate(rows):
+                r = r0 + i
+                assert staged == (a0 <= r * w and r * w + w <= a1)
+            if off or w > sk.SLAB_WIDTH:
+                assert a1 == a0 and not any(rows)  # all from global memory
+            else:
+                # a piece's first row starts 16-byte aligned, so only the
+                # rows reaching into its last < 16 bytes (of a ragged m) are
+                # read from global memory: a suffix, one row where w >= 4
+                assert a0 == r0 * w
+                g0 = rows.index(False) if False in rows else len(rows)
+                assert not any(rows[g0:])
+                assert (len(rows) - g0 - 1) * w < 4
+                assert all(rows) == (r1 * w % 4 == 0)
+        assert seen == m
+
+
+def test_ell_row_plan_at_the_main_shape_stages_every_row():
+    plan = sk.ell_row_plan(8192, 22)
+    assert len(plan) == 256  # 256 warps: one wave of 128 two-warp blocks
+    assert all(all(rows) for *_, rows in plan)
+
+
+def _kernel_order(vals, cols, x, x_batch):
+    """The kernels' row sum (csrc/ell_row.cuh) in numpy: entry j into partial
+    j % x_batch by a fused multiply-add (the exact float64 product added to
+    the float32 partial, rounded once to float32), then the partials added
+    pairwise as a tree in float32."""
+    t = vals.astype(np.float64) * x.astype(np.float64)[cols]
+    acc = np.zeros((vals.shape[0], x_batch), np.float32)
+    for j in range(vals.shape[1]):
+        u = j % x_batch
+        acc[:, u] = (acc[:, u].astype(np.float64) + t[:, j]).astype(np.float32)
+    s = x_batch // 2
+    while s:
+        acc[:, :s] = acc[:, :s] + acc[:, s:2 * s]
+        s //= 2
+    return acc[:, 0]
+
+
+@pytest.mark.parametrize("x_batch", [8, 16, 32])
+@pytest.mark.parametrize("w", PLAN_WIDTHS)
+def test_row_sum_bound_holds_the_kernel_order(w, x_batch):
+    """The kernels' order on signed rows (which cancel) stays within
+    row_sum_bound at its batch (8, and the bench's 16 and 32 ablations),
+    and a dropped slab column breaks the same bound."""
+    vals, cols, x = _ell_inputs(1000, w, 4093, seed=w + x_batch)
+    got = torch.from_numpy(_kernel_order(vals, cols, x, x_batch))
+    vt, ct, xt = (torch.from_numpy(a) for a in (vals, cols, x))
+    y64, bound = sk.row_sum_bound(vt, ct, xt, x_batch)
+    assert bool(((got.double() - y64).abs() <= bound).all())
+    if w > 1:
+        ctl = torch.from_numpy(_kernel_order(
+            np.ascontiguousarray(vals[:, :-1]), np.ascontiguousarray(cols[:, :-1]),
+            x, x_batch))
+        assert not bool(((ctl.double() - y64).abs() <= bound).all())
+
+
+def test_ell_ablation_edits_apply_to_the_source():
+    from tenzing_tpu_torch.bench import ell_spmv
+
+    texts = {f: (CSRC / f).read_text() for f in ell_spmv.FILES}
+    for name, edits in ell_spmv.ABLATIONS.items():
+        for f, old, new in edits:
+            assert texts[f].count(old) == 1, (name, old)
+            assert old != new
+    for name in ("kWarps", "kSlabWidth"):
+        assert re.search(rf"constexpr int {name} = \d+;", texts["ell_spmv.cu"]), name
+    assert '#include "ell_row.cuh"' in texts["ell_spmv.cu"]
+    assert re.search(r"constexpr int kXBatch = (\d+);",
+                     texts["ell_row.cuh"]).group(1) == str(sk.X_BATCH)
+    assert re.search(r"constexpr int kSlabWidth = (\d+);",
+                     texts["ell_spmv.cu"]).group(1) == str(sk.SLAB_WIDTH)
+
+
+def test_fused_spmv_ablation_edits_apply_to_the_source():
+    """Every ablation of bench/fused_spmv.py applies to this tree's
+    fused_region.cu and the row sum it includes from ell_row.cuh."""
+    from tenzing_tpu_torch.bench import fused_spmv
+
+    texts = {f: (CSRC / f).read_text() for f in fused_spmv.FILES}
+    assert '#include "ell_row.cuh"' in texts["fused_region.cu"]
+    for name, (alternatives, _) in fused_spmv.ABLATIONS.items():
+        edited = fused_spmv.apply(texts, alternatives)
+        assert edited is not None, name
+        assert edited != texts, name
+
+
+@pytest.mark.parametrize("case", range(11))
+def test_ell_bench_cases_pass_their_checks_on_the_cpu(case, monkeypatch):
+    """bench/ell_spmv.py's cases (signed values, slab views off 16 bytes)
+    through its checks with the wrapper's plain version (CPU tensors): the
+    float64 bound holds, the dropped column is rejected."""
+    from tenzing_tpu_torch.bench import ell_spmv
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    m, w, n, off = ell_spmv.CASES[case]
+    vals, cols, x = ell_spmv.case_inputs(torch, torch.device("cpu"), m, w, n, off)
+    assert vals.data_ptr() % 16 == 4 * off % 16
+    row = ell_spmv.check_case(torch, None, "cpu", vals, cols, x)
+    assert row["within_f64_bound"] and row["deterministic"] and row["finite"]
+    assert row["control_rejected"] or w == 1
+
+
+def test_row_sum_bound_holds_the_plain_version_and_rejects_a_dropped_column():
+    vals, cols, x = (torch.from_numpy(t) for t in _ell_inputs(1000, 23, 4093, 6))
+    y64, bound = sk.row_sum_bound(vals, cols, x)
+    got = sk.ell_spmv_plain(vals, cols, x)
+    assert bool(((got.double() - y64).abs() <= bound).all())
+    ctl = sk.ell_spmv_plain(vals[:, :-1].contiguous(), cols[:, :-1].contiguous(), x)
+    assert not bool(((ctl.double() - y64).abs() <= bound).all())
 
 
 def test_supports_equals_reference_gate():
@@ -402,3 +542,39 @@ def test_cuda_kernel_matches_plain(cuda_device, m, w, n):
     assert sk.LAUNCHES["ell_spmv"] == before + 2
     torch.testing.assert_close(got, want, **ELL_TOL)
     assert torch.equal(got, again)
+
+
+# (m, w, n, slab offset in floats): the plan's widths, n = 1, 4093 and 4096,
+# slab views 4 and 104 bytes off a 16-byte boundary, m ragged against a warp
+CARD_CASES = ([(1001, w, 4093, 0) for w in PLAN_WIDTHS]
+              + [(300, 22, 1, 0), (300, 22, 4096, 0), (1000, 22, 4093, 1),
+                 (1000, 26, 4093, 26), (8192, 22, 4093, 0)])
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("m,w,n,off", CARD_CASES,
+                         ids=[f"m{m}-w{w}-n{n}-off{o}" for m, w, n, o in CARD_CASES])
+def test_cuda_kernel_signed_rows_within_rounding_bound(cuda_device, m, w, n, off):
+    """Signed rows cancel, so the kernel's order and the plain version's
+    differ by a few ulps of the partial sums; the kernel is held against
+    the float64 product within its order's rounding bound, two launches bit
+    for bit, and a dropped slab column is rejected by the same bound."""
+    vals_h, cols_h, x_h = _ell_inputs(m, w, n, seed=m + w + off)
+
+    def placed(host):
+        flat = torch.zeros(host.size + off, dtype=torch.from_numpy(host).dtype,
+                           device=cuda_device)
+        flat[off:] = torch.from_numpy(host.ravel()).to(cuda_device)
+        return flat[off:].view(host.shape)
+
+    vals, cols = placed(vals_h), placed(cols_h)
+    x = torch.from_numpy(x_h).to(cuda_device)
+    got, again = sk.ell_spmv(vals, cols, x), sk.ell_spmv(vals, cols, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    y64, bound = sk.row_sum_bound(vals, cols, x)
+    assert bool(((got.double() - y64).abs() <= bound).all())
+    if w > 1:
+        ctl = sk.ell_spmv_plain(vals[:, :-1].contiguous(),
+                                cols[:, :-1].contiguous(), x)
+        assert not bool(((ctl.double() - y64).abs() <= bound).all())
