@@ -192,8 +192,12 @@ Run after the moe driver (phase 11):
               MoE layer at world size 1 (n 2048, d 512, d_ff 2048) and at
               ragged n (2047, 37) against its plain version at ``FFN_TOL``,
               the erf control and (at the chunk) the single-TF32-pass
-              emulation rejected, two launches bit-equal; the kernel's, the
-              plain version's and the three-call times beside the bound;
+              emulation rejected, two launches bit-equal; the same in bf16
+              at ``FFN_BF16_TOL`` (also n 1, d_ff 2040 and 8) with a
+              skipped-hidden-tile control, and the bf16 body's SASS (HGMMA
+              in each instantiation, no ``mma.sync``, no spills); the
+              kernel's, the plain version's and the three-call times
+              beside the bound, f32 and bf16;
 11e. moe layer — the layer (models/moe.py) at full width on a world-size-1
               NCCL group made here: the dryrun's agreement protocol
               (parallel/dryrun.py; an all-``.xla``, an all-``.pallas`` and a
@@ -224,7 +228,9 @@ Run after the moe driver (phase 11):
               reads them after), the write-after-read probe (three runs back
               to back, the interior bumped each run and a delay before each
               unpack) exact, and one x face's shift timed (post, wait, both,
-              the barrier alone, the plain host-staged shift) and held
+              the barrier alone, the copy kernel alone, for the kept
+              hand-off, CUDA stream memory operations, and the spin
+              kernels', in turns; the plain host-staged shift) and held
               against ``torch.roll`` of the gathered faces.
 
 The halo and attn driver phases run with ``climb_budget=4`` (the halo climbs
@@ -2120,10 +2126,20 @@ def phase_moe_layer_kernels(torch, device, timer):
     def bf16(case):
         return tuple(t.to(torch.bfloat16) for t in case)
 
+    def dff_case(n, dff):
+        return (torch.randn(n, a.d_model, device=device, generator=gen),
+                torch.randn(a.d_model, dff, device=device, generator=gen)
+                / a.d_model ** 0.5,
+                torch.randn(dff, a.d_model, device=device, generator=gen)
+                / dff ** 0.5)
+
     cases = [("chunk", (x0, w1, w2)), ("ragged-n2047", rand_case(2047)),
              ("ragged-n37", rand_case(37)), ("chunk-bf16", bf16((x0, w1, w2))),
              ("ragged-n2047-bf16", bf16(rand_case(2047))),
-             ("ragged-n37-bf16", bf16(rand_case(37)))]
+             ("ragged-n37-bf16", bf16(rand_case(37))),
+             ("ragged-n1-bf16", bf16(rand_case(1))),
+             ("ragged-dff2040-bf16", bf16(dff_case(2048, 2040))),
+             ("ragged-dff8-bf16", bf16(dff_case(300, 8)))]
     rows, failed = [], []
     for label, (x, cw1, cw2) in cases:
         n, d = x.shape
@@ -2167,7 +2183,7 @@ def phase_moe_layer_kernels(torch, device, timer):
         if label == "chunk":
             row.update(split_controls(torch, x, cw1, cw2, want, tol))
         if label.startswith("chunk"):
-            work = None if is16 else torch.empty(n, dff, device=device)
+            work = torch.empty(n, dff, dtype=x.dtype, device=device)
             row.update({
                 "ms": timer.ms(lambda: fk.ffn_rows(x, cw1, cw2, out=got,
                                                    work=work)),
@@ -2185,6 +2201,20 @@ def phase_moe_layer_kernels(torch, device, timer):
         del got, want
     del cases, x0, w1, w2
     torch.cuda.empty_cache()
+    # the bf16 body's SASS: HGMMA in every instantiation, no mma.sync
+    # (HMMA), no spills
+    from tenzing_tpu_torch.bench import ffn_bf16
+
+    sass = ffn_bf16.hmma_counts(ffn_bf16.KERNELS)
+    emit({"phase": "moe_layer_kernels", "case": "bf16_sass", "sass": sass})
+    for name, v in sass.items():
+        if not v.get("hgmma") or v.get("hmma") or sum(
+                v.get("spills", {}).values()):
+            failed.append(f"sass {name}")
+    next(r for r in rows if r["case"] == "chunk-bf16")["sass"] = {
+        k: {"hgmma": v.get("hgmma"), "hmma": v.get("hmma"),
+            "spills": sum(v.get("spills", {}).values())}
+        for k, v in sass.items()}
     if failed:
         raise AssertionError(f"moe layer kernels phase failed on {failed}")
     return rows
@@ -2729,6 +2759,11 @@ def main() -> int:
             "by_rank_ms": [t[key] for t in timing],
             "post_wait_ms": max(t["post_wait_ms"] for t in timing),
             "barrier_ms": max(t["barrier_ms"] for t in timing),
+            "copy_ms": max(t["copy_ms"] for t in timing),
+            "handoff": timing[0]["handoff"],
+            "handoffs": {h: {k: max(t["handoffs"][h][k] for t in timing)
+                             for k in timing[0]["handoffs"][h]}
+                         for h in timing[0]["handoffs"]},
             "work": "one x face (3, 3, 512, 512) f32 of the flagship halo "
                     "between two ranks sharing one card through CUDA IPC "
                     "(time-sliced contexts, not NVLink)",

@@ -79,7 +79,7 @@ _CHUNK_CALL = ("      chunk_product(t, st + wg * (kAPlaneBytes / kConsumers), "
 _ADD_T = """#pragma unroll
       for (int i = 0; i < 64; ++i) acc[i] += t[i];
 """
-_TMA_BOX = "// One box of a 3D tensor map into shared memory, completing on `bar`.\n"
+_TMA_BOX = "// Chunk kc's raw A rows [row0, row0 + kRows) and B columns [col0, col0 +\n"
 def _split_fn(tag: str, hi: str, lo: str) -> str:
     """A split4 variant, split4_<tag>: per element, h from v (its bits u),
     then l from r = v - h (its bits ur), each a C expression."""
@@ -125,7 +125,7 @@ def _split_edits(tag: str) -> List[Tuple[str, str]]:
         for i in ("i", "h")]
 
 
-_STORE = ("    *reinterpret_cast<float4*>(c + (int64_t)row * g.n + col) = s;")
+_STORE = "    store4(c + (int64_t)row * g.n + col, s);"
 
 # --ablate: name -> [(text of csrc/ffn_tile.cuh, its replacement)]
 ABLATIONS: Dict[str, List[Tuple[str, str]]] = {
@@ -195,11 +195,11 @@ CYCLE_EDITS: List[Tuple[str, str]] = [
      "    long long d1 = clock64();\n    Q[0] += d1 - d0;\n    Q[7] += 1;\n"
      "    if (active) {\n      const uint32_t st = ring_base + r.stage * kStageBytes;\n"
      "      float t[64];\n" + _CHUNK_CALL + "\n      Q[1] += clock64() - d1;\n"),
-    ("    r.advance<kStages>();\n  }\n}\n\n// The CTA blockIdx.x",
+    ("    r.advance<kStages>();\n  }\n}\n\n// The tile's position",
      "    r.advance<kStages>();\n  }\n"
      "  if (lane == 0 && threadIdx.x % 128 == 0) for (int i = 0; i < 8; ++i)\n"
      "    atomicAdd(&g_cycles[16 + wg * 8 + i], (unsigned long long)Q[i]);\n}\n"
-     "\n// The CTA blockIdx.x"),
+     "\n// The tile's position"),
 ]
 CYCLES_ENTRY = """
 extern "C" int tz_ffn_cycles(unsigned long long* out) {
@@ -368,17 +368,19 @@ def build(csrc: Path, sources: Tuple[str, ...], signatures: Dict[str, list],
 
 
 def parent_calls(torch, lib, x, w1, w2, y):
-    """A closure calling an older checkout's f32 entry point (no workspace
-    argument) at x's shape."""
+    """A closure calling an older checkout's f32 entry point (one without
+    the workspace argument) at x's shape; raises when the entry point
+    refuses the call, as one with another signature does."""
     stream = torch.cuda.current_stream().cuda_stream
-    if x.dim() == 3:
-        e, c, d = x.shape
-        return lambda: lib.tz_ffn_batched(x.data_ptr(), w1.data_ptr(),
-                                          w2.data_ptr(), y.data_ptr(), e, c,
-                                          d, w1.shape[-1], stream)
-    n, d = x.shape
-    return lambda: lib.tz_ffn_rows(x.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-                                   y.data_ptr(), n, d, w1.shape[-1], stream)
+    entry = lib.tz_ffn_batched if x.dim() == 3 else lib.tz_ffn_rows
+    ptrs = (x.data_ptr(), w1.data_ptr(), w2.data_ptr(), y.data_ptr())
+
+    def run():
+        err = entry(*ptrs, *x.shape, w1.shape[-1], stream)
+        if err:
+            raise RuntimeError(f"ffn_f32: the parent's launch failed with "
+                               f"cudaError {err}")
+    return run
 
 
 def batched_call(torch, lib, x, w1, w2, y, h):

@@ -166,50 +166,7 @@ static_assert(kProducerRegs * 128 + kConsumerRegs * 128 * kConsumers <= 65536,
               "register budget");
 static_assert(2 * (kKStages + kVStages) * 8 <= kBarrierBytes, "barriers");
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// -- TMA: one box of a 3D tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// -- wgmma
-
-// d (+)= a b for a 64 x 128 x 16 step: a (64 x 16 bf16) from registers in
-// the m16n8k16 A-fragment layout of each warp's 16 rows, b (16 x 128) from
-// shared memory through `desc`; kTransB = 0 reads b K-major, 1 MN-major.
-// kAccumulate = false overwrites d.
-template <int kTransB, bool kAccumulate>
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t desc) {
-  if constexpr (kAccumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " TZ_REGS64
-        ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-        : TZ_ACC64("+f", d)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
-          "n"(kTransB));
-  } else {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " TZ_REGS64
-        ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-        : TZ_ACC64("=f", d)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(0),
-          "n"(kTransB));
-  }
-}
+// -- wgmma (hopper.cuh wgmma_rs)
 
 // s = q k^T (unscaled) for this warpgroup's 64 rows x one 128-key K tile.
 // The tile is two 64-column boxes [128 keys][64 d], 128-byte swizzled:
@@ -296,8 +253,8 @@ __device__ __forceinline__ void load_tile(const CUtensorMap* map,
   mbar_wait(&empty[r.stage], r.phase ^ 1u);
   mbar_expect_tx(&full[r.stage], kTileBytes);
   unsigned char* dst = tiles + r.stage * kTileBytes;
-  tma_load_3d(dst, map, &full[r.stage], 0, kv0, bi);
-  tma_load_3d(dst + kHalfBytes, map, &full[r.stage], 64, kv0, bi);
+  tma_box(dst, map, &full[r.stage], 0, kv0, bi);
+  tma_box(dst + kHalfBytes, map, &full[r.stage], 64, kv0, bi);
   r.advance<kStages>();
 }
 

@@ -1,7 +1,9 @@
 // The f32 gelu MLP on the tensor cores, split-TF32 on wgmma: the body shared
 // by ffn_expert_kernel (ffn_expert.cu, tz_ffn_batched: E experts' slot
 // tables) and ffn_rows_kernel (ffn_rows.cu, tz_ffn_rows: one token matrix,
-// E = 1):
+// E = 1).  Its launch (GemmT, plan, split_k, launch_gemm, the tensor maps
+// and the split-K epilogue store_partial / sum_store) is templated on the
+// element type and the tile, and also carries ffn_rows.cu's bf16 body:
 //
 //     h[e] = gelu_tanh(x[e] @ W1[e]);   y[e] = h[e] @ W2[e]
 //
@@ -71,6 +73,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -126,18 +129,50 @@ __device__ __forceinline__ float gelu_tanh(float v) {
   return 0.5f * v * (1.0f + tanhf(k0 * (v + k1 * v * v * v)));
 }
 
-// One launch: C[e] = epilogue(A[e] @ B[e]) for e < experts (passed by
-// value, a __grid_constant__ kernel parameter).
-struct Gemm {
-  CUtensorMap a_map;  // A (experts, m, k): boxes of kDepth x kRows x 1
-  CUtensorMap b_map;  // B (experts, k, n): boxes of kCols x kDepth x 1
-  float* c;
+// The same function as v / (1 + exp(-2u)), u the tanh form's argument
+// (0.5 (1 + tanh u) = 1 / (1 + exp(-2u))): one __expf and a division in
+// place of tanhf, within ~1e-6 relative of it.  The bf16 body's epilogue
+// uses it (its h is rounded to bf16, 2^-9 relative, right after); tanhf
+// there read 1.1 us slower in a 37 us call (bench/ffn_bf16.py --ablate,
+// tanh-gelu).
+__device__ __forceinline__ float gelu_exp(float v) {
+  const float k0 = 0.7978845608028654f;
+  const float k1 = 0.044715f;
+  return __fdividef(v, 1.0f + __expf(-2.0f * k0 * (v + k1 * v * v * v)));
+}
+
+// The gelu of four outputs of element type T: the tanh form for float32,
+// the exp form for bf16.
+template <typename T>
+__device__ __forceinline__ float4 gelu4(float4 s) {
+  if constexpr (sizeof(T) == 2)
+    return make_float4(gelu_exp(s.x), gelu_exp(s.y), gelu_exp(s.z), gelu_exp(s.w));
+  else
+    return make_float4(gelu_tanh(s.x), gelu_tanh(s.y), gelu_tanh(s.z),
+                       gelu_tanh(s.w));
+}
+
+// One launch: C[e] = epilogue(A[e] @ B[e]) for e < experts, C of element
+// type T (passed by value, a __grid_constant__ kernel parameter).
+template <typename T>
+struct GemmT {
+  CUtensorMap a_map;  // A (experts, m, k): boxes of depth x rows x 1
+  CUtensorMap b_map;  // B (experts, k, n): boxes of box_cols x depth x 1
+  T* c;
   int64_t c_batch;    // elements from one expert's C to the next
   int m, n, k;        // rows, columns, depth
   int m_tiles, n_tiles, splits;
   int chunks_per_split;
   int gelu;                           // apply gelu_tanh before the store
 };
+using Gemm = GemmT<float>;
+
+// A body's tile and launch: output rows and columns per CTA, the depth of a
+// chunk, B's TMA box width, threads and dynamic shared memory per CTA.
+struct Body {
+  int rows, cols, depth, box_cols, threads, smem_bytes;
+};
+constexpr Body kF32Body = {kRows, kCols, kDepth, kCols, kThreads, kSmemBytes};
 
 // The split of the depth over a cluster: none unless the tiles leave more
 // than half the SMs idle (2 tiles <= sms); then the count in {1, 2, 4} with
@@ -162,11 +197,14 @@ inline int split_k(int64_t tiles, int64_t chunks, int sms) {
   return best;
 }
 
-// Fill the tiling of g for a launch on `sms` SMs; returns the CTA count.
-inline int64_t plan(Gemm& g, int64_t experts, int sms) {
-  g.m_tiles = (g.m + kRows - 1) / kRows;
-  g.n_tiles = (g.n + kCols - 1) / kCols;
-  const int64_t chunks = (g.k + kDepth - 1) / kDepth;
+// Fill the tiling of g for a launch of `body` on `sms` SMs; returns the CTA
+// count.
+template <typename T>
+inline int64_t plan(GemmT<T>& g, int64_t experts, int sms,
+                    const Body& body = kF32Body) {
+  g.m_tiles = (g.m + body.rows - 1) / body.rows;
+  g.n_tiles = (g.n + body.cols - 1) / body.cols;
+  const int64_t chunks = (g.k + body.depth - 1) / body.depth;
   const int64_t tiles = experts * g.m_tiles * g.n_tiles;
   g.splits = split_k(tiles, chunks, sms);
   g.chunks_per_split = (int)((chunks + g.splits - 1) / g.splits);
@@ -216,17 +254,6 @@ __device__ __forceinline__ void chunk_product(float (&t)[64], uint32_t ahi,
   wg_commit();
   wg_wait_all();
   fence_regs(t);
-}
-
-// One box of a 3D tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
-                                        uint64_t* bar, int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
 }
 
 // Chunk kc's raw A rows [row0, row0 + kRows) and B columns [col0, col0 +
@@ -339,6 +366,88 @@ __device__ __forceinline__ void consume(float (&acc)[64], bool active,
   }
 }
 
+// The tile's position: the cluster's CTAs are the splits of one tile,
+// blockIdx.x = split + splits (column tile + n_tiles (row tile + m_tiles
+// expert)).
+struct TilePos {
+  int split, row0, col0, e, kc0, kc1;
+};
+template <int kTileRows, int kTileCols, int kTileDepth, typename T>
+__device__ __forceinline__ TilePos tile_pos(const GemmT<T>& g) {
+  TilePos p;
+  p.split = (int)(blockIdx.x % g.splits);  // == cluster.block_rank()
+  int64_t tile = blockIdx.x / g.splits;
+  p.col0 = (int)(tile % g.n_tiles) * kTileCols;
+  tile /= g.n_tiles;
+  p.row0 = (int)(tile % g.m_tiles) * kTileRows;
+  p.e = (int)(tile / g.m_tiles);
+  const int chunks = (g.k + kTileDepth - 1) / kTileDepth;
+  p.kc0 = p.split * g.chunks_per_split;
+  p.kc1 = p.kc0 + g.chunks_per_split < chunks ? p.kc0 + g.chunks_per_split
+                                                : chunks;
+  return p;
+}
+
+// A consumer warpgroup's m64nN accumulator (acc[4 j + 0..1]: row 16 warp +
+// g, columns 8 j + 2 tq + {0, 1}; [4 j + 2..3] the same 8 rows on) into rows
+// 64 wg .. of the CTA's partial sum, kPitch floats a row.
+template <int kN, int kPitch>
+__device__ __forceinline__ void store_partial(float* part,
+                                              const float (&acc)[kN / 2],
+                                              int wg, int t) {
+  const int warp = t / 32, lane = t % 32;
+  const int ra = 64 * wg + 16 * warp + (lane >> 2), cq = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j) {
+    *reinterpret_cast<float2*>(part + ra * kPitch + 8 * j + cq) =
+        make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(part + (ra + 8) * kPitch + 8 * j + cq) =
+        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// Four consecutive outputs: float32 as they are, bf16 rounded to nearest.
+__device__ __forceinline__ void store4(float* p, float4 s) {
+  *reinterpret_cast<float4*>(p) = s;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 s) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(s.x, s.y), pack_bf16(s.z, s.w));
+}
+
+// The split-K epilogue, after a cluster barrier that made every CTA's
+// partial (kTileRows x kTileCols floats, kPitch a row, at `part`) visible: this
+// CTA's share of the tile's rows summed over the cluster's distributed
+// shared memory in rank order, the gelu (first launch), and the store, four
+// columns a thread and step.  Deterministic: a fixed order, no atomics.
+// Ends with the cluster barrier that keeps every CTA's memory alive until
+// the last reader is done.
+template <int kTileRows, int kTileCols, int kPitch, int kNThreads, typename T>
+__device__ __forceinline__ void sum_store(const GemmT<T>& g,
+                                          cg::cluster_group& cluster,
+                                          float* part, const TilePos& p) {
+  T* c = g.c + (int64_t)p.e * g.c_batch;
+  const int r_lo = p.split * kTileRows / g.splits;
+  const int r_hi = (p.split + 1) * kTileRows / g.splits;
+  for (int i = threadIdx.x; i < (r_hi - r_lo) * (kTileCols / 4); i += kNThreads) {
+    const int r = r_lo + i / (kTileCols / 4), c4 = 4 * (i % (kTileCols / 4));
+    const int row = p.row0 + r, col = p.col0 + c4;
+    if (row >= g.m || col >= g.n) continue;
+    float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int q = 0; q < g.splits; ++q) {
+      // (unsplit: this CTA's own shared memory, not the cluster window)
+      const float* src = g.splits == 1 ? part : cluster.map_shared_rank(part, q);
+      const float4 v = *reinterpret_cast<const float4*>(src + r * kPitch + c4);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    if (g.gelu) s = gelu4<T>(s);
+    store4(c + (int64_t)row * g.n + col, s);
+  }
+  cluster.sync();  // no CTA leaves while another still reads its memory
+}
+
 // The CTA blockIdx.x of launch g (every thread calls it; smem_raw holds
 // kSmemBytes of dynamic shared memory).  The cluster's CTAs are the splits
 // of one tile: blockIdx.x = split + splits (column tile + n_tiles (row tile
@@ -362,17 +471,8 @@ __device__ __forceinline__ void gemm_cta(const Gemm& g, unsigned char* smem_raw)
   }
   __syncthreads();
 
-  const int split = (int)(blockIdx.x % g.splits);  // == cluster.block_rank()
-  int64_t tile = blockIdx.x / g.splits;
-  const int col0 = (int)(tile % g.n_tiles) * kCols;
-  tile /= g.n_tiles;
-  const int row0 = (int)(tile % g.m_tiles) * kRows;
-  const int e = (int)(tile / g.m_tiles);
-  float* c = g.c + (int64_t)e * g.c_batch;
-  const int chunks = (g.k + kDepth - 1) / kDepth;
-  const int kc0 = split * g.chunks_per_split;
-  const int kc1 = kc0 + g.chunks_per_split < chunks ? kc0 + g.chunks_per_split
-                                                    : chunks;
+  const TilePos p = tile_pos<kRows, kCols, kDepth>(g);
+  const int row0 = p.row0, col0 = p.col0, e = p.e, kc0 = p.kc0, kc1 = p.kc1;
 
   // the CTA's partial sum, (kRows, kPartPitch) floats over the split stages
   float* part = reinterpret_cast<float*>(base);
@@ -390,41 +490,11 @@ __device__ __forceinline__ void gemm_cta(const Gemm& g, unsigned char* smem_raw)
     // every product has read its last stage (and every split store and TMA
     // load before it has landed): the split stages are free
     consumer_sync();
-    if (active) {
-      const int warp = t / 32, lane = t % 32;
-      const int ra = 64 * wg + 16 * warp + (lane >> 2), cq = 2 * (lane & 3);
-#pragma unroll
-      for (int j = 0; j < kCols / 8; ++j) {
-        *reinterpret_cast<float2*>(part + ra * kPartPitch + 8 * j + cq) =
-            make_float2(acc[4 * j], acc[4 * j + 1]);
-        *reinterpret_cast<float2*>(part + (ra + 8) * kPartPitch + 8 * j + cq) =
-            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
-      }
-    }
+    if (active) store_partial<kCols, kPartPitch>(part, acc, wg, t);
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kLaunchRegs));
   }
   cluster.sync();  // every partial of the tile written and visible
-
-  // this CTA's share of the tile's rows, summed over the cluster in rank order
-  const int r_lo = split * kRows / g.splits, r_hi = (split + 1) * kRows / g.splits;
-  for (int i = threadIdx.x; i < (r_hi - r_lo) * (kCols / 4); i += kThreads) {
-    const int r = r_lo + i / (kCols / 4), c4 = 4 * (i % (kCols / 4));
-    const int row = row0 + r, col = col0 + c4;
-    if (row >= g.m || col >= g.n) continue;
-    float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    for (int q = 0; q < g.splits; ++q) {
-      const float4 p = *reinterpret_cast<const float4*>(
-          cluster.map_shared_rank(part, q) + r * kPartPitch + c4);
-      s.x += p.x;
-      s.y += p.y;
-      s.z += p.z;
-      s.w += p.w;
-    }
-    if (g.gelu) s = make_float4(gelu_tanh(s.x), gelu_tanh(s.y), gelu_tanh(s.z),
-                                gelu_tanh(s.w));
-    *reinterpret_cast<float4*>(c + (int64_t)row * g.n + col) = s;
-  }
-  cluster.sync();  // no CTA leaves while another still reads its memory
+  sum_store<kRows, kCols, kPartPitch, kThreads>(g, cluster, part, p);
 }
 
 inline int sm_count() {
@@ -438,20 +508,20 @@ inline int sm_count() {
   return sms;
 }
 
-// Launch `kernel` (a __global__ taking a Gemm that calls gemm_cta) for g
-// over `experts` on `stream`.
-template <typename Kernel>
-cudaError_t launch_gemm(Kernel kernel, Gemm g, int64_t experts,
-                        cudaStream_t stream) {
-  const int64_t blocks = plan(g, experts, sm_count());
+// Launch `kernel` (a __global__ taking a GemmT<T>: gemm_cta's or the bf16
+// body's) of `body` for g over `experts` on `stream`.
+template <typename Kernel, typename T>
+cudaError_t launch_gemm(Kernel kernel, GemmT<T> g, int64_t experts,
+                        cudaStream_t stream, const Body& body = kF32Body) {
+  const int64_t blocks = plan(g, experts, sm_count(), body);
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, body.smem_bytes);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)blocks, 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.blockDim = dim3(body.threads, 1, 1);
+  cfg.dynamicSmemBytes = body.smem_bytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -465,37 +535,46 @@ cudaError_t launch_gemm(Kernel kernel, Gemm g, int64_t experts,
   return cudaGetLastError();
 }
 
-// A 3D tensor map over a contiguous float32 (experts, rows, cols) tensor,
-// boxes of box_cols x box_rows x 1, no swizzle, zeros out of bounds.
-inline int map_3d(CUtensorMap* map, const float* ptr, int64_t experts,
+// A 3D tensor map over a contiguous (experts, rows, cols) tensor of T
+// (float32: the f32 body's raw boxes, no swizzle; bf16: the bf16 body's
+// boxes of one 128-byte row, 128-byte swizzled as wgmma reads them), boxes
+// of box_cols x box_rows x 1, zeros out of bounds.
+template <typename T>
+inline int map_3d(CUtensorMap* map, const T* ptr, int64_t experts,
                   int64_t rows, int64_t cols, int box_cols, int box_rows) {
+  constexpr bool kBf16 = sizeof(T) == 2;
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
                               (cuuint64_t)experts};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 4,
-                                 (cuuint64_t)(rows * cols * 4)};
+  const cuuint64_t strides[2] = {(cuuint64_t)(cols * sizeof(T)),
+                                 (cuuint64_t)(rows * cols * sizeof(T))};
   const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
-                  const_cast<float*>(ptr), dims, strides, box, elem,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+  CUresult r = fn(map, kBf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                             : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                  3, const_cast<T*>(ptr), dims, strides, box, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  kBf16 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// The launch C = A B for `experts` stacked (m, k) and (k, n) operands.
-inline int gemm(Gemm& g, const float* a, const float* b, float* c,
-                int64_t experts, int64_t m, int64_t n, int64_t k, int gelu) {
+// The launch C = A B of `body` for `experts` stacked (m, k) and (k, n)
+// operands.
+template <typename T>
+inline int gemm(GemmT<T>& g, const T* a, const T* b, T* c, int64_t experts,
+                int64_t m, int64_t n, int64_t k, int gelu,
+                const Body& body = kF32Body) {
   g.c = c;
   g.c_batch = m * n;
   g.m = (int)m;
   g.n = (int)n;
   g.k = (int)k;
   g.gelu = gelu;
-  int err = map_3d(&g.a_map, a, experts, m, k, kDepth, kRows);
-  if (err == 0) err = map_3d(&g.b_map, b, experts, k, n, kCols, kDepth);
+  int err = map_3d(&g.a_map, a, experts, m, k, body.depth, body.rows);
+  if (err == 0) err = map_3d(&g.b_map, b, experts, k, n, body.box_cols, body.depth);
   return err;
 }
 

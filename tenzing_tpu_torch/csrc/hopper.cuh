@@ -1,16 +1,59 @@
 // Hopper building blocks shared by the attention folds (attn_fold.cu,
-// attn_fold_f32.cuh), the f32 FFN (ffn_tile.cuh), the halo kernels
-// (halo_copy.cuh) and the fused region's SpMV slab ring (fused_region.cu):
-// tensor-map encoding, mbarriers, 1D bulk copies, the ring of shared-memory
-// stages, wgmma's fences and its shared-memory matrix descriptor, and the
-// split of a float32 operand into TF32 hi and lo parts with the 128-byte
-// swizzle the split-TF32 bodies store them in.  Needs sm_90a.
+// attn_fold_f32.cuh), the FFN bodies (ffn_tile.cuh, ffn_rows.cu), the halo
+// kernels (halo_copy.cuh), the fused region's SpMV slab ring
+// (fused_region.cu) and the mesh shift (rdma_shift.cu): driver entry points,
+// tensor-map encoding, mbarriers, 1D bulk copies and 3D TMA boxes, the ring
+// of shared-memory stages, wgmma's fences, its shared-memory matrix
+// descriptor and its bf16 products (A from registers or from shared
+// memory), and the split of a float32 operand into TF32 hi and lo parts with
+// the 128-byte swizzle the split-TF32 bodies store them in.  Needs sm_90a.
 
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// wgmma operand lists: the accumulator registers of an asm statement whose
+// first outputs are d, and its "+f" / "=f" constraints.
+#define TZ_REGS16                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define TZ_REGS32                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define TZ_REGS64                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+#define TZ_REGS128                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "   \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "   \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "   \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "       \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "       \
+  "%122, %123, %124, %125, %126, %127}"
+#define TZ_ACC8(c, x, i)                                                  \
+  c(x[i]), c(x[i + 1]), c(x[i + 2]), c(x[i + 3]), c(x[i + 4]), c(x[i + 5]), \
+      c(x[i + 6]), c(x[i + 7])
+#define TZ_ACC64(c, x)                                                    \
+  TZ_ACC8(c, x, 0), TZ_ACC8(c, x, 8), TZ_ACC8(c, x, 16), TZ_ACC8(c, x, 24), \
+      TZ_ACC8(c, x, 32), TZ_ACC8(c, x, 40), TZ_ACC8(c, x, 48),             \
+      TZ_ACC8(c, x, 56)
+#define TZ_ACC16(c, x) TZ_ACC8(c, x, 0), TZ_ACC8(c, x, 8)
+#define TZ_ACC32(c, x) \
+  TZ_ACC8(c, x, 0), TZ_ACC8(c, x, 8), TZ_ACC8(c, x, 16), TZ_ACC8(c, x, 24)
+#define TZ_ACC128(c, x)                                                    \
+  TZ_ACC64(c, x), TZ_ACC8(c, x, 64), TZ_ACC8(c, x, 72), TZ_ACC8(c, x, 80), \
+      TZ_ACC8(c, x, 88), TZ_ACC8(c, x, 96), TZ_ACC8(c, x, 104),           \
+      TZ_ACC8(c, x, 112), TZ_ACC8(c, x, 120)
 
 namespace tz_hopper {
 
@@ -23,24 +66,33 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   CUtensorMapL2promotion,
                                   CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled is a driver-API function; the library links only
-// the runtime, so it is fetched through the runtime's entry-point query.
+// The library links only the runtime, so a driver-API function is fetched
+// through the runtime's entry-point query (its CUDA 12.0 form); nullptr
+// when the driver has none of that name.
+inline void* driver_entry(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  cudaError_t err = cudaGetDriverEntryPointByVersion(name, &p, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+  cudaError_t err = cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &found);
+#endif
+  if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+  return p;
+}
+
 inline EncodeTiledFn encode_tiled() {
   static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
+  if (fn == nullptr)
+    fn = reinterpret_cast<EncodeTiledFn>(driver_entry("cuTensorMapEncodeTiled"));
   return fn;
+}
+
+// Two floats rounded to bf16 (to nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -122,6 +174,18 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// One box of a 3D tensor map into shared memory at coordinates (c0, c1,
+// c2), innermost first; completes its bytes on `bar` (one thread issues).
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
+                                        uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // A position in a ring of kStages stages: the stage and the parity of its
 // current phase.
 struct Ring {
@@ -165,6 +229,11 @@ __device__ __forceinline__ void wg_commit() {
 __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Wait until at most kPending committed groups are still in flight.
+template <int kPending>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(kPending) : "memory");
+}
 
 // Keep the compiler from moving reads or writes of an accumulator across
 // the wgmma fence / wait around it.
@@ -172,6 +241,72 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// -- wgmma, bf16 in, f32 accumulate (m64nNk16)
+//
+// kTransB = 0 reads b K-major (its rows are the N index, K contiguous), 1
+// MN-major (its rows are the K index, N contiguous): the transpose bit, so
+// a row-major K x N operand needs no transpose.  A 128-byte-swizzled
+// MN-major b of 64-column boxes [K rows][64] advances 16 rows (2048 bytes)
+// a k step, the next 8 rows are SBO = 1024 bytes on and the next 64
+// columns LBO = one box on; a K-major one advances 32 bytes a k step, the
+// next 8 rows 1024 bytes on.
+
+// d (+)= a b for a 64 x 128 x 16 step: a (64 x 16) from registers in the
+// m16n8k16 A-fragment layout of each warp's 16 rows, b (16 x 128) from
+// shared memory through `desc`.  kAccumulate = false overwrites d.
+template <int kTransB, bool kAccumulate>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  if constexpr (kAccumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " TZ_REGS64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : TZ_ACC64("+f", d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+          "n"(kTransB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " TZ_REGS64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : TZ_ACC64("=f", d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(0),
+          "n"(kTransB));
+  }
+}
+
+// d += a b for a 64 x kN x 16 step (kN 64, 128 or 256), both operands from
+// shared memory: a (64 x 16) K-major through `da`, b (16 x kN) through
+// `db`.  Always accumulates: the caller zeroes d first.
+template <int kN, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[kN / 2], uint64_t da,
+                                         uint64_t db) {
+  static_assert(kN == 64 || kN == 128 || kN == 256, "wgmma_ss: N");
+  if constexpr (kN == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TZ_REGS32
+        ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+        : TZ_ACC32("+f", d)
+        : "l"(da), "l"(db), "r"(1), "n"(kTransB));
+  } else if constexpr (kN == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " TZ_REGS64
+        ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+        : TZ_ACC64("+f", d)
+        : "l"(da), "l"(db), "r"(1), "n"(kTransB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " TZ_REGS128
+        ", %128, %129, p, 1, 1, 0, %131;\n}\n"
+        : TZ_ACC128("+f", d)
+        : "l"(da), "l"(db), "r"(1), "n"(kTransB));
+  }
 }
 
 // -- split-TF32: a float32 operand as the sum of two TF32 values
@@ -207,23 +342,3 @@ __device__ __forceinline__ int sw128(int row, int chunk) {
 }
 
 }  // namespace tz_hopper
-
-// wgmma operand lists: the accumulator registers of an asm statement whose
-// first outputs are d, and its "+f" / "=f" constraints.
-#define TZ_REGS16                                                          \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
-#define TZ_REGS64                                                          \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
-  "%58, %59, %60, %61, %62, %63}"
-#define TZ_ACC8(c, x, i)                                                  \
-  c(x[i]), c(x[i + 1]), c(x[i + 2]), c(x[i + 3]), c(x[i + 4]), c(x[i + 5]), \
-      c(x[i + 6]), c(x[i + 7])
-#define TZ_ACC64(c, x)                                                    \
-  TZ_ACC8(c, x, 0), TZ_ACC8(c, x, 8), TZ_ACC8(c, x, 16), TZ_ACC8(c, x, 24), \
-      TZ_ACC8(c, x, 32), TZ_ACC8(c, x, 40), TZ_ACC8(c, x, 48),             \
-      TZ_ACC8(c, x, 56)
-#define TZ_ACC16(c, x) TZ_ACC8(c, x, 0), TZ_ACC8(c, x, 8)
-

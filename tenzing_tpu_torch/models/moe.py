@@ -225,24 +225,27 @@ class ExpertFFNPallas(ExpertFFN):
     reference's Pallas ``ffn_pallas``); its plain version under
     ``ctx.plain_kernels``."""
 
+    def _work(self) -> str:
+        """The kernel's h workspace: float32 ``moe_h_<c>``, or in bf16
+        ``moe_hb_<c>`` (the name and shape the bf16 ``.xla`` slot's own h
+        has, so the two alternatives of a chunk share it as the f32 ones
+        share ``moe_h_<c>``)."""
+        bf16 = self._args.dtype == "bfloat16"
+        return f"moe_hb_{self._c}" if bf16 else f"moe_h_{self._c}"
+
     def scratch_for(self, shapes):
-        # the f32 kernel's h workspace; the bf16 one keeps h on chip
-        if self._args.dtype == "bfloat16":
-            return {}
         n, cap, _ = shapes[f"recv_disp_{self._c}"]
-        return {f"moe_h_{self._c}": ((n * cap, shapes["W1"][-1]), "float32")}
+        return {self._work(): ((n * cap, shapes["W1"][-1]), self._args.dtype)}
 
     def _mlp(self, x2d, w1, w2, y2d, ctx, rows: slice, cap: int) -> None:
         from tenzing_tpu_torch.ops import ffn_kernels as fk
 
         if ctx.plain_kernels:
             y2d.copy_(fk.ffn_rows_plain(x2d, w1, w2))
-        elif self._args.dtype == "bfloat16":
-            fk.ffn_rows(x2d, w1, w2, out=y2d)
         else:
             span = slice(rows.start * cap, rows.stop * cap)
             fk.ffn_rows(x2d, w1, w2, out=y2d,
-                        work=ctx.scratch[f"moe_h_{self._c}"][span])
+                        work=ctx.scratch[self._work()][span])
 
     def uses_pallas(self) -> bool:
         return True

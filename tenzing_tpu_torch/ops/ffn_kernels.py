@@ -31,8 +31,10 @@ pipe converts a bf16-staged chain to float32 before the MLP, as the
 reference does.  ``ffn_rows`` also takes bf16 x, W1, W2 and out, as the
 reference's kernel computes a bf16 x: both products accumulate in float32,
 h is rounded to bf16 between them and y is written in bf16
-(csrc/ffn_rows.cu ``tz_ffn_rows_bf16``, ``mma.sync`` on 16-row blocks; it
-needs no workspace).
+(csrc/ffn_rows.cu ``tz_ffn_rows_bf16``: bf16 ``wgmma`` with both operands
+brought into shared memory by TMA, W1 and W2 read as they stand through
+the transpose bit, two launches through a bf16 workspace h (n, dff);
+:func:`bf16_launch_plan` mirrors its tiling).
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain version
 (:func:`ffn_batched_plain`, :func:`ffn_rows_plain`) for CPU tensors; there
@@ -90,6 +92,25 @@ F32_CONFIG_KEYS = ("rows", "cols", "depth", "stages", "raw_stages", "threads",
 H100_SMS = 132
 
 
+# the bf16 body's launch constants (csrc/ffn_rows.cu; the library reports
+# them through tz_ffn_bf16_config, in this order)
+BF16_ROWS = 128       # output rows per CTA: two consumer warpgroups of 64
+BF16_COLS = (256, 128)  # columns per CTA of the first (x @ W1) and second launch
+BF16_TILE_COLS = (64, 128, 256)  # the widths the library is instantiated for
+BF16_DEPTH = 64       # K per ring stage (one 128-byte row of A)
+BF16_STAGES = 4
+BF16_THREADS = 384    # two consumer warpgroups and one producer warpgroup
+BF16_CONFIG_KEYS = ("rows", "cols1", "cols2", "depth", "stages", "threads",
+                    "smem_bytes1", "smem_bytes2", "max_splits")
+
+
+def bf16_smem_bytes(cols: int) -> int:
+    """Dynamic shared memory of a bf16 CTA of 128 x ``cols``: the 1024-byte
+    alignment slack, the ring's stages (A's 128 x 64 chunk and B's 64 x
+    ``cols``, bf16) and its barriers."""
+    return 1024 + BF16_STAGES * 2 * BF16_DEPTH * (BF16_ROWS + cols) + 64
+
+
 def split_k(tiles: int, chunks: int, sms: int = H100_SMS) -> int:
     """The depth split of one launch (csrc/ffn_tile.cuh ``split_k``): 1
     unless the tiles leave more than half the SMs idle (2 tiles <= sms);
@@ -108,13 +129,15 @@ def split_k(tiles: int, chunks: int, sms: int = H100_SMS) -> int:
     return best
 
 
-def gemm_plan(experts: int, m: int, n: int, k: int,
-              sms: int = H100_SMS) -> dict:
-    """The tiling of one launch of the f32 body for ``experts`` problems
-    C[M x N] = A[M x K] @ B[K x N] (csrc/ffn_tile.cuh ``plan``, reported by
-    the library's ``tz_ffn_f32_plan``)."""
-    m_tiles, n_tiles = -(-m // F32_ROWS), -(-n // F32_COLS)
-    chunks = -(-k // F32_DEPTH)
+def gemm_plan(experts: int, m: int, n: int, k: int, sms: int = H100_SMS,
+              rows: int = F32_ROWS, cols: int = F32_COLS,
+              depth: int = F32_DEPTH) -> dict:
+    """The tiling of one launch for ``experts`` problems C[M x N] = A[M x K]
+    @ B[K x N] in tiles of ``rows`` x ``cols`` and chunks ``depth`` deep
+    (csrc/ffn_tile.cuh ``plan``; the f32 body's by default, reported by the
+    library's ``tz_ffn_f32_plan``, the bf16 body's by ``tz_ffn_bf16_plan``)."""
+    m_tiles, n_tiles = -(-m // rows), -(-n // cols)
+    chunks = -(-k // depth)
     tiles = experts * m_tiles * n_tiles
     splits = split_k(tiles, chunks, sms)
     return {"m_tiles": m_tiles, "n_tiles": n_tiles, "splits": splits,
@@ -132,6 +155,21 @@ def ffn_launch_plan(e: int, c: int, dff: int, d: int = 512,
             "launches": [gemm_plan(e, c, dff, d, sms),
                          gemm_plan(e, c, d, dff, sms)],
             "work_bytes": 4 * e * c * dff}
+
+
+def bf16_launch_plan(n: int, dff: int, d: int = 512, sms: int = H100_SMS,
+                     cols: tuple = BF16_COLS) -> dict:
+    """Both launches of one bf16 ``ffn_rows`` call at (n, dff): h = gelu(x @
+    W1) in tiles of 128 x ``cols[0]``, then y = h @ W2 in tiles of 128 x
+    ``cols[1]``; each launch's tiling, columns and shared memory, the
+    threads of every CTA and the bf16 workspace h's bytes."""
+    launches = []
+    for (m, nn, k), c in zip(((n, dff, d), (n, d, dff)), cols):
+        lp = gemm_plan(1, m, nn, k, sms, BF16_ROWS, c, BF16_DEPTH)
+        lp.update(cols=c, smem_bytes=bf16_smem_bytes(c))
+        launches.append(lp)
+    return {"threads": BF16_THREADS, "launches": launches,
+            "work_bytes": 2 * n * dff}
 
 
 def ffn_batched_plain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
@@ -178,10 +216,12 @@ def _check(x, w1, w2, out) -> None:
 
 
 def _check_work(work, shape, x, who: str) -> None:
-    """Raise unless ``work`` can be the f32 kernels' h workspace."""
-    if work.dtype != torch.float32 or tuple(work.shape) != tuple(shape) \
+    """Raise unless ``work`` can be the kernels' h workspace: contiguous, of
+    ``shape``, on x's device and of x's dtype (float32 h for the f32 body,
+    bf16 h for the bf16 one)."""
+    if work.dtype != x.dtype or tuple(work.shape) != tuple(shape) \
             or work.device != x.device or not work.is_contiguous():
-        raise ValueError(f"{who}: work must be a contiguous float32 "
+        raise ValueError(f"{who}: work must be a contiguous {x.dtype} "
                          f"{tuple(shape)} tensor on {x.device} (got "
                          f"{work.dtype} {tuple(work.shape)} on {work.device})")
 
@@ -280,11 +320,11 @@ def ffn_rows(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     bf16 (all four tensors of one dtype): the ``tz_ffn_rows`` /
     ``tz_ffn_rows_bf16`` kernel for CUDA tensors, :func:`ffn_rows_plain` for
     CPU tensors.  Writes into ``out`` (allocated when None) and returns it;
-    ``out`` must not overlap x.  ``work`` is the float32 kernel's h, a
-    float32 (n, dff) workspace overlapping none of the others (checked when
-    given; allocated when None on the card; the CPU path and bf16 do not use
-    it).  Both dtypes count as
-    launches of ``ffn_rows``; bf16 ones also as ``ffn_rows_bf16``."""
+    ``out`` must not overlap x.  ``work`` is the kernel's h, an (n, dff)
+    workspace of x's dtype overlapping none of the others (checked when
+    given; allocated when None on the card; the CPU path does not use it).
+    Both dtypes count as launches of ``ffn_rows``; bf16 ones also as
+    ``ffn_rows_bf16``."""
     if out is None:
         out = torch.empty_like(x)
     _check_rows(x, w1, w2, out)
@@ -305,21 +345,15 @@ def ffn_rows(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     if dff % per16:
         raise ValueError(f"ffn_rows: d_ff {dff} must be a multiple of "
                          f"{per16} (16-byte rows)")
-    if any(t.data_ptr() % 16 for t in (x, w1, w2, out)):
+    if work is None:
+        work = torch.empty(n, dff, dtype=x.dtype, device=x.device)
+    if any(t.data_ptr() % 16 for t in (x, w1, w2, out, work)):
         raise ValueError("ffn_rows: pointers must be 16-byte aligned")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if bf16:
-        err = kernel_lib.lib().tz_ffn_rows_bf16(
-            x.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(), n, d,
-            dff, stream)
-    else:
-        if work is None:
-            work = torch.empty(n, dff, dtype=torch.float32, device=x.device)
-        if work.data_ptr() % 16:
-            raise ValueError("ffn_rows: pointers must be 16-byte aligned")
-        err = kernel_lib.lib().tz_ffn_rows(
-            x.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(),
-            work.data_ptr(), n, d, dff, stream)
+    entry = (kernel_lib.lib().tz_ffn_rows_bf16 if bf16
+             else kernel_lib.lib().tz_ffn_rows)
+    err = entry(x.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(),
+                work.data_ptr(), n, d, dff,
+                torch.cuda.current_stream(x.device).cuda_stream)
     kernel_lib.check_launch("ffn_rows", err)
     LAUNCHES["ffn_rows"] += 1
     if bf16:

@@ -60,8 +60,15 @@ SIGNATURES = {
     "tz_ffn_batched": [_c_ptr] * 5 + [_c_i64] * 4 + [_c_ptr],
     # x, w1, w2, y, h (workspace); n, d, dff; stream
     "tz_ffn_rows": [_c_ptr] * 5 + [_c_i64] * 3 + [_c_ptr],
-    # x, w1, w2, y; n, d, dff; stream
-    "tz_ffn_rows_bf16": [_c_ptr] * 4 + [_c_i64] * 3 + [_c_ptr],
+    # x, w1, w2, y, h (bf16 workspace); n, d, dff; stream
+    "tz_ffn_rows_bf16": [_c_ptr] * 5 + [_c_i64] * 3 + [_c_ptr],
+    # the same; the two launches' tile columns; stream
+    "tz_ffn_rows_bf16_ex": [_c_ptr] * 5 + [_c_i64] * 5 + [_c_ptr],
+    # out: rows, cols1, cols2, depth, stages, threads, smem bytes of each
+    # launch, max splits
+    "tz_ffn_bf16_config": [ctypes.POINTER(ctypes.c_int64)],
+    # m, n, k, cols, sms; out: as tz_ffn_f32_plan's
+    "tz_ffn_bf16_plan": [_c_i64] * 5 + [ctypes.POINTER(ctypes.c_int64)],
     # out: rows, cols, depth, stages, raw stages, threads, smem bytes,
     # max splits
     "tz_ffn_f32_config": [ctypes.POINTER(ctypes.c_int64)],
@@ -81,14 +88,19 @@ SIGNATURES = {
     "tz_fused_region_member_size": [],
     "tz_fused_region_table_size": [],
     # x, peer y; bytes; my, +shift, -shift flag blocks; id, epoch; error
-    # word; stream
+    # word; spin (the spin kernels' hand-off, else the stream's); stream
     "tz_rdma_shift_post": [_c_ptr, _c_ptr, _c_i64, _c_ptr, _c_ptr, _c_ptr,
-                           _c_i64, _c_i64, _c_ptr, _c_ptr],
-    # my, +shift, -shift flag blocks; id, epoch; error word; stream
+                           _c_i64, _c_i64, _c_ptr, _c_i64, _c_ptr],
+    # my, +shift, -shift flag blocks; id, epoch; error word; spin; stream
     "tz_rdma_shift_barrier": [_c_ptr, _c_ptr, _c_ptr, _c_i64, _c_i64, _c_ptr,
-                              _c_ptr],
-    # my flag block; id, epoch; error word; stream
-    "tz_rdma_shift_wait": [_c_ptr, _c_i64, _c_i64, _c_ptr, _c_ptr],
+                              _c_i64, _c_ptr],
+    # x, peer y; bytes; stream
+    "tz_rdma_shift_copy": [_c_ptr, _c_ptr, _c_i64, _c_ptr],
+    # my flag block; id, epoch; error word; spin; stream
+    "tz_rdma_shift_wait": [_c_ptr, _c_i64, _c_i64, _c_ptr, _c_i64, _c_ptr],
+    # my flag block; id, epoch; stream
+    "tz_rdma_shift_release": [_c_ptr, _c_i64, _c_i64, _c_ptr],
+    "tz_rdma_shift_memops": [],
     "tz_rdma_shift_slots": [],
     # allocation base, handle out (64 bytes)
     "tz_ipc_get_handle": [_c_ptr, _c_ptr],

@@ -13,13 +13,17 @@ Counterpart of ``tenzing_tpu/ops/rdma.py``.
   reference's ``rdma_shift_post`` / ``rdma_shift_wait``): rank i's ``dst``
   receives the ``src`` of rank ``(i - shift) % n`` along the axis.  On CUDA
   the ranks are processes that map each other's receive buffers and flag
-  blocks through CUDA IPC (:class:`ShiftPeers`); the post launches
+  blocks through CUDA IPC (:class:`ShiftPeers`); the post enqueues
   ``rdma_shift_post`` (csrc/rdma_shift.cu: a flag barrier with both
-  neighbours, the copy into the +shift neighbour's receive buffer, an
-  arrival flag) on the direction's transfer stream, and the await launches
-  ``rdma_shift_wait``, which spins until this rank's arrival flag shows the
-  -shift neighbour's block landed, and blocks the host on it
-  (runtime/executor.py ``RunContext.post_shift``).  Nothing else moves the
+  neighbours, the copy kernel into the +shift neighbour's receive buffer,
+  an arrival flag) on the direction's transfer stream, and the await
+  enqueues ``rdma_shift_wait``, a wait until this rank's arrival flag shows
+  the -shift neighbour's block landed, and blocks the host on it
+  (runtime/executor.py ``RunContext.post_shift``) with a deadline
+  (:func:`await_shift`).  The flag writes and waits are CUDA stream memory
+  operations (:data:`HANDOFF` ``"stream"``: the GPU's front end waits, no
+  SM spins); the first version's one-thread spin kernels stay as the
+  ``"spin"`` alternative that the timing compares.  Nothing else moves the
   bytes: no NCCL, no ``cudaMemcpyPeer``, no ``copy_`` of a mapped tensor.
 
 Each kernel wrapper runs its kernel for CUDA tensors; the plain versions
@@ -32,6 +36,7 @@ against) are what CPU tensors get, and what the executor runs under
 from __future__ import annotations
 
 import ctypes
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -85,11 +90,24 @@ def device_copy(src: torch.Tensor, dst: torch.Tensor) -> None:
 # collective ids a flag block has room for (the halo uses 0-5, one per
 # direction, as the reference: tenzing_tpu/models/halo.py:163-167)
 MAX_COLLECTIVE_IDS = 16
-# the error codes csrc/rdma_shift.cu writes before it traps
+# the error codes of a stuck hand-off: written by the spin kernels before
+# they trap, or by :func:`await_shift` past its deadline
 SHIFT_ERRORS = {1: "the neighbour barrier timed out (a neighbour never "
                    "posted this shift)",
                 2: "the arrival wait timed out (the -shift neighbour's "
                    "block never landed)"}
+# who waits for a flag: "stream", CUDA stream memory operations (the GPU's
+# front end holds the stream), or "spin", one-thread kernels spinning on the
+# words (the first version, kept for timing); csrc/rdma_shift.cu says which
+# reads faster between two ranks sharing one card
+HANDOFFS = ("stream", "spin")
+HANDOFF = "stream"
+# seconds an await waits for a posted epoch before it raises (the spin
+# kernels' own timeout is the same 10 s); then as long again for the
+# released stream to drain
+SHIFT_DEADLINE_S = 10.0
+# the flag words of one collective id (csrc/rdma_shift.cu)
+FROM_BWD, FROM_FWD, ARRIVAL = 0, 1, 2
 
 
 def shift_roll(blocks: torch.Tensor, shift: int, dim: int = 0) -> torch.Tensor:
@@ -124,55 +142,129 @@ def _check_shift_src(x: torch.Tensor, peer_y: int) -> None:
         raise ValueError("rdma_shift_post: pointers must be 16-byte aligned")
 
 
+def _spin(handoff: str) -> int:
+    if handoff not in HANDOFFS:
+        raise ValueError(f"rdma shift: hand-off {handoff!r} not in {HANDOFFS}")
+    return int(handoff == "spin")
+
+
+def check_memops() -> None:
+    """Raise unless this device can run the stream's hand-off (64-bit CUDA
+    stream memory operations; the library asks the driver once).  There is
+    no fall back to the spin kernels."""
+    rc = int(kernel_lib.lib().tz_rdma_shift_memops())
+    if rc != 0:
+        raise RuntimeError(
+            "rdma shift: this device or driver has no 64-bit stream memory "
+            f"operations (CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS; "
+            f"error {rc}), which the shift's hand-off needs")
+
+
 def rdma_shift_post(x: torch.Tensor, peer_y: int, flags: torch.Tensor,
                     fwd_flags: int, bwd_flags: int, cid: int, epoch: int,
-                    err: torch.Tensor) -> None:
-    """Launch the post half on the current stream: the flag barrier with
+                    err: torch.Tensor, handoff: str = HANDOFF) -> None:
+    """Enqueue the post half on the current stream: the flag barrier with
     both neighbours (``flags`` is this rank's block, ``fwd_flags`` /
     ``bwd_flags`` the mapped blocks of the +shift / -shift neighbours), the
-    copy of ``x`` into the +shift neighbour's receive buffer at the mapped
-    address ``peer_y``, and the arrival flag of ``epoch`` in the neighbour's
-    block.  ``err`` is a pinned host word the kernel writes a code into
-    before it traps on a timeout."""
+    copy kernel of ``x`` into the +shift neighbour's receive buffer at the
+    mapped address ``peer_y``, and the arrival flag of ``epoch`` in the
+    neighbour's block.  ``err`` is a pinned host word that receives the code
+    of a stuck hand-off."""
     _check_shift_src(x, peer_y)
     if not 0 <= cid < MAX_COLLECTIVE_IDS:
         raise ValueError(f"rdma_shift_post: collective id {cid} outside "
                          f"[0, {MAX_COLLECTIVE_IDS})")
     rc = kernel_lib.lib().tz_rdma_shift_post(
         x.data_ptr(), peer_y, x.numel() * x.element_size(), flags.data_ptr(),
-        fwd_flags, bwd_flags, cid, epoch, err.data_ptr(),
+        fwd_flags, bwd_flags, cid, epoch, err.data_ptr(), _spin(handoff),
         torch.cuda.current_stream(x.device).cuda_stream)
     kernel_lib.check_launch("rdma_shift_post", rc)
     LAUNCHES["rdma_shift_post"] += 1
 
 
 def rdma_shift_wait(flags: torch.Tensor, cid: int, epoch: int,
-                    err: torch.Tensor) -> None:
-    """Launch the wait half on the current stream: spin until this rank's
+                    err: torch.Tensor, handoff: str = HANDOFF) -> None:
+    """Enqueue the wait half on the current stream: wait until this rank's
     arrival flag for ``cid`` reaches ``epoch``."""
     if flags.device.type != "cuda":
         raise ValueError(f"rdma_shift_wait: flags on {flags.device}")
     rc = kernel_lib.lib().tz_rdma_shift_wait(
-        flags.data_ptr(), cid, epoch, err.data_ptr(),
+        flags.data_ptr(), cid, epoch, err.data_ptr(), _spin(handoff),
         torch.cuda.current_stream(flags.device).cuda_stream)
     kernel_lib.check_launch("rdma_shift_wait", rc)
     LAUNCHES["rdma_shift_wait"] += 1
 
 
 def rdma_shift_barrier(flags: torch.Tensor, fwd_flags: int, bwd_flags: int,
-                       cid: int, epoch: int, err: torch.Tensor) -> None:
+                       cid: int, epoch: int, err: torch.Tensor,
+                       handoff: str = HANDOFF) -> None:
     """The post's barrier alone (not counted as a launch of either half):
     the chip smoke times it by itself."""
     rc = kernel_lib.lib().tz_rdma_shift_barrier(
         flags.data_ptr(), fwd_flags, bwd_flags, cid, epoch, err.data_ptr(),
-        torch.cuda.current_stream(flags.device).cuda_stream)
+        _spin(handoff), torch.cuda.current_stream(flags.device).cuda_stream)
     kernel_lib.check_launch("rdma_shift_barrier", rc)
 
 
+def rdma_shift_copy(x: torch.Tensor, peer_y: int) -> None:
+    """The post's copy kernel alone (not counted as a launch of either
+    half): the chip smoke times it by itself."""
+    _check_shift_src(x, peer_y)
+    rc = kernel_lib.lib().tz_rdma_shift_copy(
+        x.data_ptr(), peer_y, x.numel() * x.element_size(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    kernel_lib.check_launch("rdma_shift_copy", rc)
+
+
 def shift_error(err: torch.Tensor) -> Optional[str]:
-    """What the kernels reported through the error word, if anything."""
+    """What a stuck hand-off reported through the error word, if anything."""
     code = int(err[0])
     return SHIFT_ERRORS.get(code, f"error code {code}") if code else None
+
+
+def _stuck_code(flags: torch.Tensor, cid: int, epoch: int) -> int:
+    """1 when this rank's barrier words of ``cid`` have not reached
+    ``epoch`` (a neighbour never posted), else 2 (the arrival never came);
+    read on a stream of its own, the stuck one being blocked."""
+    slots = flags.numel() // MAX_COLLECTIVE_IDS
+    with torch.cuda.stream(torch.cuda.Stream(device=flags.device)):
+        words = flags[cid * slots:(cid + 1) * slots].cpu().tolist()
+    return 1 if min(words[FROM_BWD], words[FROM_FWD]) < epoch else 2
+
+
+def _release(flags: torch.Tensor, cid: int, epoch: int) -> None:
+    """Write ``epoch`` into this rank's words of ``cid`` from a stream of
+    its own, which lets a stuck stream wait of that epoch go on."""
+    stream = torch.cuda.Stream(device=flags.device)
+    rc = kernel_lib.lib().tz_rdma_shift_release(flags.data_ptr(), cid, epoch,
+                                                stream.cuda_stream)
+    kernel_lib.check_launch("rdma_shift_release", rc)
+    stream.synchronize()
+
+
+def await_shift(event, flags: torch.Tensor, cid: int, epoch: int,
+                err: torch.Tensor,
+                deadline_s: float = SHIFT_DEADLINE_S) -> None:
+    """Block the host until ``event`` (recorded after the wait half of
+    ``epoch`` on its stream) has completed.  A stream wait has no deadline
+    of its own, so this keeps one: past ``deadline_s`` it writes the stuck
+    step's code (:data:`SHIFT_ERRORS`) into ``err``, releases the wait
+    (:func:`_release`), gives the stream as long again to drain, and raises
+    naming the barrier or the arrival.  With the spin kernels a timeout
+    traps on the card instead, and the event's query raises."""
+    end = time.monotonic() + deadline_s
+    while not event.query():
+        if time.monotonic() < end:
+            time.sleep(0)
+            continue
+        code = _stuck_code(flags, cid, epoch)
+        err[0] = code
+        _release(flags, cid, epoch)
+        drain = time.monotonic() + deadline_s
+        while not event.query() and time.monotonic() < drain:
+            time.sleep(0.001)
+        raise RuntimeError(f"rdma shift, collective id {cid}, epoch {epoch}: "
+                           f"{SHIFT_ERRORS[code]} after {deadline_s} s")
 
 
 # -- CUDA IPC ----------------------------------------------------------------
@@ -254,6 +346,8 @@ class ShiftPeers:
 
         self.axis, self.group, self.size = axis, group, size
         self.me = dist.get_rank(group)
+        if HANDOFF == "stream":
+            check_memops()
         slots = int(kernel_lib.lib().tz_rdma_shift_slots())
         self.flags = torch.zeros(MAX_COLLECTIVE_IDS * slots,
                                  dtype=torch.int64, device=device)

@@ -860,13 +860,67 @@ def war_check(mesh, device, args, cp, seed: int = 0, runs: int = 3,
             "acc_max_abs_err": err}
 
 
+def _time_handoff(peers, x, peer_y, stream, handoff: str, reps: int,
+                  times: Dict[str, list]) -> None:
+    """One round of ``time_shift`` with the hand-off ``handoff``: ``reps``
+    posts and waits, ``reps`` barriers alone (their own collective id) and
+    ``reps`` copies alone, each timed with CUDA events on ``stream``; the
+    milliseconds go into ``times``' lists."""
+    import torch
+
+    from tenzing_tpu_torch.ops import rdma
+
+    cid, bar_cid = 0, rdma.MAX_COLLECTIVE_IDS - 1
+
+    def ev():
+        return torch.cuda.Event(enable_timing=True)
+
+    for _ in range(reps):
+        e = peers.next_epoch(cid)
+        t0, t1, t2 = ev(), ev(), ev()
+        with torch.cuda.stream(stream):
+            t0.record(stream)
+            rdma.rdma_shift_post(x, peer_y, peers.flags, peers.flag_block(1),
+                                 peers.flag_block(-1), cid, e, peers.err,
+                                 handoff)
+            t1.record(stream)
+            rdma.rdma_shift_wait(peers.flags, cid, e, peers.err, handoff)
+            t2.record(stream)
+        rdma.await_shift(t2, peers.flags, cid, e, peers.err)
+        times["post"].append(t0.elapsed_time(t1))
+        times["wait"].append(t1.elapsed_time(t2))
+        times["both"].append(t0.elapsed_time(t2))
+    for _ in range(reps):
+        e = peers.next_epoch(bar_cid)
+        t0, t1 = ev(), ev()
+        with torch.cuda.stream(stream):
+            t0.record(stream)
+            rdma.rdma_shift_barrier(peers.flags, peers.flag_block(1),
+                                    peers.flag_block(-1), bar_cid, e,
+                                    peers.err, handoff)
+            t1.record(stream)
+        rdma.await_shift(t1, peers.flags, bar_cid, e, peers.err)
+        times["barrier"].append(t0.elapsed_time(t1))
+    for _ in range(reps):
+        t0, t1 = ev(), ev()
+        with torch.cuda.stream(stream):
+            t0.record(stream)
+            rdma.rdma_shift_copy(x, peer_y)
+            t1.record(stream)
+        t1.synchronize()
+        times["copy"].append(t0.elapsed_time(t1))
+
+
 def time_shift(mesh, device, x, y, cp, axis: str = "x", reps: int = 20
                ) -> dict:
     """The shift of one face along ``axis`` timed on this rank with CUDA
-    events, every rank running the same loop: the post alone, the wait
-    after it, the post and wait together, and the barrier alone (its own
-    collective id); the plain shift (host-staged gloo) by the host clock;
-    and the kernel's y against ``torch.roll`` of the gathered x."""
+    events, every rank running the same loops: the post alone, the wait
+    after it, the post and wait together, the barrier alone (its own
+    collective id) and the copy kernel alone, for each hand-off of
+    ``rdma.HANDOFFS`` (the kept one's at the top level, both under
+    ``handoffs``), in turns (kept, other, other, kept); the plain shift
+    (host-staged gloo) by the host clock; and the kernel's y against
+    ``torch.roll`` of the gathered x."""
     import time
 
     import torch
@@ -879,41 +933,16 @@ def time_shift(mesh, device, x, y, cp, axis: str = "x", reps: int = 20
     peers = rdma.ShiftPeers(axis, group, n, device)
     peer_y = peers.peer_recv("timing", y, 1, 0)
     stream = torch.cuda.Stream(device=device)
-    cid, bar_cid = 0, rdma.MAX_COLLECTIVE_IDS - 1
     before = dict(rdma.LAUNCHES)
-
-    def ev():
-        return torch.cuda.Event(enable_timing=True)
-
-    post, wait, both, barrier = [], [], [], []
+    other = next(h for h in rdma.HANDOFFS if h != rdma.HANDOFF)
+    times = {h: {k: [] for k in ("post", "wait", "both", "barrier", "copy")}
+             for h in rdma.HANDOFFS}
     y.zero_()
     torch.cuda.synchronize(device)
-    cp.barrier()
-    for _ in range(reps):
-        e = peers.next_epoch(cid)
-        t0, t1, t2 = ev(), ev(), ev()
-        with torch.cuda.stream(stream):
-            t0.record(stream)
-            rdma.rdma_shift_post(x, peer_y, peers.flags, peers.flag_block(1),
-                                 peers.flag_block(-1), cid, e, peers.err)
-            t1.record(stream)
-            rdma.rdma_shift_wait(peers.flags, cid, e, peers.err)
-            t2.record(stream)
-        t2.synchronize()
-        post.append(t0.elapsed_time(t1))
-        wait.append(t1.elapsed_time(t2))
-        both.append(t0.elapsed_time(t2))
-    for _ in range(reps):
-        e = peers.next_epoch(bar_cid)
-        t0, t1 = ev(), ev()
-        with torch.cuda.stream(stream):
-            t0.record(stream)
-            rdma.rdma_shift_barrier(peers.flags, peers.flag_block(1),
-                                    peers.flag_block(-1), bar_cid, e,
-                                    peers.err)
-            t1.record(stream)
-        t1.synchronize()
-        barrier.append(t0.elapsed_time(t1))
+    for handoff in (rdma.HANDOFF, other, other, rdma.HANDOFF):
+        cp.barrier()
+        _time_handoff(peers, x, peer_y, stream, handoff, max(1, reps // 2),
+                      times[handoff])
     for k in rdma.LAUNCHES:  # timing launches do not count
         rdma.LAUNCHES[k] = before[k]
     specs = {"x": HALO_SPEC, "y": HALO_SPEC}
@@ -940,9 +969,12 @@ def time_shift(mesh, device, x, y, cp, axis: str = "x", reps: int = 20
         return v[len(v) // 2]
 
     nbytes = 2 * x.numel() * x.element_size()
+    by = {h: {"post_ms": median(t["post"]), "wait_ms": median(t["wait"]),
+              "post_wait_ms": median(t["both"]),
+              "barrier_ms": median(t["barrier"]), "copy_ms": median(t["copy"])}
+          for h, t in times.items()}
     return {"axis": axis, "face_shape": list(x.shape), "reps": reps,
-            "post_ms": median(post), "wait_ms": median(wait),
-            "post_wait_ms": median(both), "barrier_ms": median(barrier),
+            "handoff": rdma.HANDOFF, **by[rdma.HANDOFF], "handoffs": by,
             "plain_ms": median(plain), "bytes": nbytes,
             "exact_vs_roll": exact, "max_abs_err": err,
             "plain_exact": plain_exact}

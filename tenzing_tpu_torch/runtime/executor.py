@@ -67,8 +67,8 @@ destination record an event after them; the schedule's last sync before
 ``finish`` already makes the host wait for a run's device ops before the
 next run's posts, and the stream wait keeps the order where no host wait
 lies between them), then runs ``rdma_shift_post``;
-the await runs ``rdma_shift_wait`` on the same stream and blocks the host
-on an event after it.  An event on the post alone would not do: the bytes
+the await enqueues ``rdma_shift_wait`` on the same stream and blocks the
+host on an event after it, with a deadline (``rdma.await_shift``).  An event on the post alone would not do: the bytes
 that land in ``dst`` come from the neighbour's kernel, so only this rank's
 arrival flag shows they landed.  On an axis of size 1 the shift is the
 loopback copy, posted like any transfer.  With ``device="cpu"``, or under
@@ -189,8 +189,9 @@ class _Shift:
                                                          stream)
 
     def wait(self, event) -> None:
-        """Launch ``rdma_shift_wait`` on the post's stream and block the host
-        until it returns; a kernel timeout raises with its reason."""
+        """Enqueue ``rdma_shift_wait`` on the post's stream and block the
+        host until it has passed (``rdma.await_shift``: a deadline, since a
+        stream wait has none); a stuck hand-off raises with its reason."""
         from tenzing_tpu_torch.ops import rdma
 
         with torch.cuda.stream(self.stream):
@@ -198,7 +199,8 @@ class _Shift:
                                  self.peers.err)
         event.record(self.stream)
         try:
-            event.synchronize()
+            rdma.await_shift(event, self.peers.flags, self.cid, self.epoch,
+                             self.peers.err)
         except RuntimeError as e:
             why = rdma.shift_error(self.peers.err)
             if why is None:

@@ -290,7 +290,8 @@ def test_rows_bf16_bound_at_the_slice_shape():
 
 @pytest.mark.needs_cuda
 @pytest.mark.parametrize("shape", [(2048, 512, 2048), (2047, 512, 2048),
-                                   (37, 512, 520)])
+                                   (37, 512, 520), (1, 512, 2048),
+                                   (2048, 512, 2040), (300, 512, 8)])
 def test_cuda_rows_bf16_kernel_matches_plain(cuda_device, shape):
     x, w1, w2 = (t.to(cuda_device) for t in _bf16_inputs(*shape, seed=16))
     before = dict(fk.LAUNCHES)

@@ -266,6 +266,21 @@ def test_bf16_buffers_hold_the_reference_values(nep):
     assert np.array_equal(want, rwant.astype(np.float32))
 
 
+def test_bf16_pallas_slot_declares_the_xla_slots_bf16_h():
+    """The bf16 layer's .pallas slot declares a bf16 (n_ep * C, d_ff)
+    workspace for the kernel's h, under the name, shape and dtype the bf16
+    .xla slot gives its own bf16 h, so the two alternatives of a chunk share
+    it; the f32 slots share their float32 ``moe_h_<c>`` the same way."""
+    for dtype, name in (("bfloat16", "moe_hb_1"), ("float32", "moe_h_1")):
+        a = _args(2, dtype=dtype)
+        shapes = {"recv_disp_1": (2, 24, a.d_model),
+                  "W1": (1, a.d_model, a.d_ff)}
+        pal = moe.ExpertFFNPallas("ffn_1.pallas", 1, a).scratch_for(shapes)
+        xla = moe.ExpertFFN("ffn_1.xla", 1, a).scratch_for(shapes)
+        assert pal == {name: ((48, a.d_ff), dtype)}
+        assert xla[name] == pal[name]
+
+
 def _bf16_err(y, want):
     return dryrun.y_error(torch.from_numpy(np.asarray(y, np.float32)),
                           torch.from_numpy(np.asarray(want, np.float32)))

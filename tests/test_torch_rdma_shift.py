@@ -221,6 +221,77 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         rdma.rdma_shift_wait(x, 0, 1, x)
 
 
+def test_handoff_names_are_checked():
+    """The hand-off is the stream's or the spin kernels'; any other name is
+    refused before anything is enqueued."""
+    assert rdma.HANDOFF in rdma.HANDOFFS == ("stream", "spin")
+    assert rdma._spin("stream") == 0 and rdma._spin("spin") == 1
+    with pytest.raises(ValueError, match="hand-off"):
+        rdma._spin("poll")
+
+
+def test_check_memops_raises_without_stream_memory_operations(monkeypatch):
+    """No 64-bit stream memory operations: the shift raises (there is no
+    fall back to the spin kernels)."""
+    from tenzing_tpu_torch.ops import kernel_lib
+
+    class Lib:
+        def __init__(self, rc):
+            self.rc = rc
+
+        def tz_rdma_shift_memops(self):
+            return self.rc
+
+    monkeypatch.setattr(kernel_lib, "lib", lambda: Lib(801))
+    with pytest.raises(RuntimeError, match="STREAM_MEM_OPS"):
+        rdma.check_memops()
+    monkeypatch.setattr(kernel_lib, "lib", lambda: Lib(0))
+    rdma.check_memops()
+
+
+class _Stuck:
+    """An event that never completes until ``released``."""
+
+    def __init__(self):
+        self.released = False
+
+    def query(self):
+        return self.released
+
+
+@pytest.mark.parametrize("code,step", [(1, "barrier"), (2, "arrival")])
+def test_await_shift_deadline_names_the_stuck_step(monkeypatch, code, step):
+    """Past the deadline the await writes the stuck step's code into the
+    error word, releases the wait and raises naming the step, instead of
+    blocking for ever."""
+    import time
+
+    ev, calls = _Stuck(), []
+    monkeypatch.setattr(rdma, "_stuck_code", lambda f, c, e: code)
+
+    def release(flags, cid, epoch):
+        calls.append((cid, epoch))
+        ev.released = True
+
+    monkeypatch.setattr(rdma, "_release", release)
+    err = torch.zeros(1, dtype=torch.int32)
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match=step):
+        rdma.await_shift(ev, None, 3, 7, err, deadline_s=0.05)
+    assert 0.05 <= time.monotonic() - t0 < 5.0
+    assert calls == [(3, 7)]
+    assert rdma.shift_error(err) == rdma.SHIFT_ERRORS[code]
+
+
+def test_await_shift_returns_when_the_event_completes(monkeypatch):
+    ev = _Stuck()
+    ev.released = True
+    monkeypatch.setattr(rdma, "_release", lambda *a: pytest.fail("released"))
+    err = torch.zeros(1, dtype=torch.int32)
+    rdma.await_shift(ev, None, 0, 1, err, deadline_s=0.01)
+    assert rdma.shift_error(err) is None
+
+
 def test_shift_post_needs_an_await():
     """A shift posted without its await fails the run, as any transfer."""
     from tenzing_tpu_torch.core.platform import Mesh, MeshAxis, Platform
@@ -271,3 +342,49 @@ def test_cuda_back_to_back_runs_with_a_changed_interior(cuda_device):
     for r in rows:
         assert r["war"]["acc_exact"] and r["war"]["runs"] == 4
         assert r["launches_war"]["rdma_shift_post"] == 4 * 2
+
+
+@pytest.mark.needs_cuda
+@pytest.mark.parametrize("stuck", ["barrier", "arrival"])
+def test_cuda_missing_peer_raises_within_the_deadline(cuda_device, stuck):
+    """One rank alone: its neighbours' flag blocks are words nobody writes,
+    so its barrier (or, with both barrier words set beforehand, its
+    arrival) never completes.  The await raises naming the step within its
+    deadline, and the released stream drains: no hang."""
+    import time
+
+    from tenzing_tpu_torch.ops import kernel_lib
+
+    slots = int(kernel_lib.lib().tz_rdma_shift_slots())
+    flags = torch.zeros(rdma.MAX_COLLECTIVE_IDS * slots, dtype=torch.int64,
+                        device=cuda_device)
+    nobody = torch.zeros_like(flags)  # the absent neighbours' blocks
+    err = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+    x = torch.arange(4096.0, device=cuda_device)
+    y = torch.zeros_like(x)
+    cid, epoch = 3, 1
+    if stuck == "arrival":
+        flags[cid * slots + rdma.FROM_BWD] = epoch
+        flags[cid * slots + rdma.FROM_FWD] = epoch
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream(device=cuda_device)
+    with torch.cuda.stream(stream):
+        rdma.rdma_shift_post(x, y.data_ptr(), flags, nobody.data_ptr(),
+                             nobody.data_ptr(), cid, epoch, err)
+        rdma.rdma_shift_wait(flags, cid, epoch, err)
+        done = torch.cuda.Event()
+        done.record(stream)
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match=stuck):
+        rdma.await_shift(done, flags, cid, epoch, err, deadline_s=1.0)
+    assert time.monotonic() - t0 < 5.0
+    assert rdma.shift_error(err) == rdma.SHIFT_ERRORS[
+        1 if stuck == "barrier" else 2]
+    torch.cuda.synchronize()  # the released wait let the stream drain
+    assert time.monotonic() - t0 < 10.0
+    assert torch.equal(y, x)  # the copy ran once the barrier was released
+
+
+@pytest.mark.needs_cuda
+def test_cuda_device_has_stream_memory_operations(cuda_device):
+    rdma.check_memops()
