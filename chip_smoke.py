@@ -26,7 +26,16 @@ before the last line:
               runs must leave every buffer's ``data_ptr`` unchanged;
 5. driver   — ``tenzing_tpu_torch.bench.driver.run`` at ``halo_n=512`` with a
               small budget; ``verified`` must be true and each halo kernel's
-              launch count over this run must be > 0, for each body;
+              launch count over this run must be > 0, for each body; the
+              run warm-starts from the committed databases (at least one
+              recorded row measured, the recorded climb spent budget; the
+              ``recorded`` block printed), dumps its own database
+              (``chiprun_out/halo_driver.csv``) and runs with
+              ``profile_winner``, ``trace_out`` and ``metrics_json`` under
+              ``chiprun_out/``: the ``attrib`` block must be complete with
+              ``sum_of_parts_us >= critical_path_us > 0``, and
+              ``explain.json``, the trace (JSONL and Chrome) and the
+              metrics must parse;
 6. attn kernels  — first each kernel's ``ptxas -v`` report (registers,
               spills), its launch constants against
               ``ops/attention_kernels.f32_launch_plan`` /
@@ -95,7 +104,8 @@ before the last line:
               ``device_copy`` must launch > 0 times, the climb must have
               spent budget, and the result is verified or its winner was
               demoted with only Y / Y_c diverging and the demoted schedule's
-              Y within ``BF16_Y_TOL`` of the expected;
+              Y within ``BF16_Y_TOL`` of the expected; the warm start checked
+              as in phase 5;
 12. spmv kernels — ``ell_spmv`` at the ``--m 8192`` path's ``spmv_remote``
               shapes (a (8192, 22) slab, x of 4093) and at ragged ones (m not
               a multiple of a warp's 32 rows, w = 1, n = 1, n = 4096, w above
@@ -134,13 +144,19 @@ before the last line:
               (the rows ``bench/roofline.MIN_TILE_BYTES`` is set from);
 16. spmv driver — ``run`` with ``workload="spmv"`` at m=150000 with
               ``fuse_winner`` and ``fuse_search_tiles``: verified, the fused
-              program verified with at least one region, ``fused_region``
-              launched > 0 times; then at ``m=8192``: verified, ``ell_spmv``
-              launched > 0 times;
+              program verified with at least one region, its dispatch
+              overhead and stepped sum of parts before and after fusing
+              present, ``fused_region`` launched > 0 times; then at
+              ``m=8192``: verified, ``ell_spmv`` launched > 0 times;
 17. dfs example — ``python -m tenzing_tpu_torch.examples.spmv_dfs`` at
               ``--matrix-m 150000`` with a cap of 12 schedules: it must measure
               at least one and print ``best:``, and the count of unique
-              terminals the same enumeration gives is printed beside it.
+              terminals the same enumeration gives is printed beside it;
+18. examples — ``moe_mcts`` at full width, ``halo_mcts`` at the flagship
+              width on a world-size-1 NCCL group and on two ranks sharing
+              the card (every exchange ``.rdma``), each with a small budget:
+              CSV rows and ``best:``; then ``mcts_replay`` over phase 5's
+              database: a line per strategy.
 
 Run after the attn driver (phase 8):
 
@@ -186,8 +202,8 @@ Run after the moe driver (phase 11):
               each one's wall, ``breakdown.py``'s idle share and the host
               blocks per iteration;
 11c. chunk driver — ``run`` with ``chunk`` on attn and moe: a
-              ``perf.chunked`` block with menus, verified or demoted as the
-              plain runs may be;
+              ``perf.chunked`` block with menus and the measured hidden comm,
+              verified or demoted as the plain runs may be;
 11d. moe layer kernels — ``ffn_rows`` at one chunk of the expert-parallel
               MoE layer at world size 1 (n 2048, d 512, d_ff 2048) and at
               ragged n (2047, 37) against its plain version at ``FFN_TOL``,
@@ -234,8 +250,9 @@ Run after the moe driver (phase 11):
               against ``torch.roll`` of the gathered faces.
 
 The halo and attn driver phases run with ``climb_budget=4`` (the halo climbs
-run; the reference runs none for attn).  Each driver phase sets every
-kernel's launch count to 0 just before it and reads the counts just after.  Then the ``{"kernels": [...]}`` line, the
+run; the reference runs none for attn).  Each driver and example phase sets
+every kernel's launch count to 0 just before it and reads the counts just
+after.  Then the ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Without a
 CUDA device it prints nothing and exits 2.  Times are CUDA-event times on the
 card this runs on.
@@ -1231,6 +1248,7 @@ def phase_moe_driver(torch, device, want_y):
         raise AssertionError(f"the moe path never launched {missing}")
     if not verdict.get("climbs") or verdict["climbs"][0]["spent"] <= 0:
         raise AssertionError(f"the moe climb did not run: {verdict}")
+    check_warm_start(verdict, "moe_driver")
     if verdict.get("verified") is not True:
         diverged = set(verdict.get("diverged") or ())
         outputs = {"Y"} | {f"Y_{c}" for c in range(4)}
@@ -1623,6 +1641,13 @@ def phase_spmv_driver(torch, device):
         if flags:
             if not fused or fused["verified"] is not True or fused["regions"] < 1:
                 raise AssertionError(f"the fused spmv program failed: {fused}")
+            measured = [fused.get(k, {}).get(w) for k in (
+                "dispatch_overhead_us", "sum_of_parts_us")
+                for w in ("before", "after")]
+            if not all(isinstance(v, float) and v >= 0 for v in measured) \
+                    or fused["sum_of_parts_us"]["before"] <= 0:
+                raise AssertionError(f"perf.fused lacks its measured "
+                                     f"attribution fields: {fused}")
             if launches["fused_region"] <= 0:
                 raise AssertionError("the fused spmv path never launched fused_region")
         elif launches["ell_spmv"] <= 0:
@@ -1998,6 +2023,10 @@ def phase_chunk_driver(torch, device):
         emit(row)
         if not chunked or "menus" not in chunked or not chunked["menus"]:
             raise AssertionError(f"{workload} --chunk: no perf.chunked menus: {chunked}")
+        hidden = chunked["hidden_comm_us"].get("measured")
+        if not isinstance(hidden, float) or hidden < 0:
+            raise AssertionError(f"{workload} --chunk: perf.chunked lacks the "
+                                 f"measured hidden comm: {chunked}")
         allowed = {"acc", "O"} if workload == "attn" else \
             {"Y"} | {f"Y_{c}" for c in range(4)}
         if verdict.get("verified") is not True:
@@ -2464,6 +2493,108 @@ def phase_dfs_example(torch):
     return row
 
 
+def check_warm_start(verdict, phase: str) -> None:
+    """The recorded warm start of a full-size driver run: at least one row
+    of the committed databases measured (the block is printed, each row's
+    TPU ratio beside its pct50 here) and the climb seeded from the best one
+    spent budget."""
+    rec = verdict.get("recorded")
+    climbs = verdict.get("climbs") or []
+    emit({"phase": f"{phase}_warm_start", "recorded": rec,
+          "recorded_climb": climbs[0] if climbs else None})
+    if not rec or not rec.get("measured"):
+        raise AssertionError(f"{phase}: the warm start measured no recorded "
+                             f"row: {rec}")
+    if not climbs or climbs[0].get("seed") != "recorded" \
+            or climbs[0]["spent"] <= 0:
+        raise AssertionError(f"{phase}: the recorded climb did not run: "
+                             f"{climbs}")
+
+
+def check_attrib(verdict, trace_dir: str, metrics_path: str) -> None:
+    """``--profile-winner`` / ``--trace-out`` / ``--metrics-json`` of the
+    halo driver run: the ``attrib`` block complete with ``sum_of_parts_us >=
+    critical_path_us > 0``, and explain.json, the trace and the metrics
+    parse."""
+    a = verdict.get("attrib") or {}
+    keys = ("n_timed", "sum_of_parts_us", "critical_path_us",
+            "dispatch_overhead_us", "overlap_efficiency", "timers",
+            "fetch_overhead_us")
+    with open(os.path.join(trace_dir, "explain.json")) as f:
+        explain = json.load(f)
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        chrome = json.load(f)
+    with open(os.path.join(trace_dir, "trace.jsonl")) as f:
+        records = [json.loads(line) for line in f if line.strip()]
+    with open(metrics_path) as f:
+        metrics = json.load(f)
+    emit({"phase": "driver_attrib", **{k: a.get(k) for k in keys},
+          "explain": a.get("explain"), "critical_path": a.get("critical_path"),
+          "per_lane_busy_us": a.get("per_lane_busy_us"),
+          "utilization": a.get("utilization"),
+          "trace_records": len(records),
+          "trace_events": len(chrome["traceEvents"]),
+          "counters": metrics["counters"]})
+    if any(a.get(k) is None for k in keys) or not \
+            a["sum_of_parts_us"] >= a["critical_path_us"] > 0:
+        raise AssertionError(f"the attrib block is incomplete: {a}")
+    if verdict.get("winner_label") is not None and "explain" not in a:
+        raise AssertionError("the attrib block lacks the explain against naive")
+    if explain.get("attrib", {}).get("n_timed") != a["n_timed"] \
+            or not records or not chrome["traceEvents"]:
+        raise AssertionError("explain.json or the trace is empty")
+
+
+def phase_examples(torch, halo_db: str):
+    """The MoE and halo examples with small budgets (the halo on a
+    world-size-1 NCCL group, then on two ranks sharing the card with every
+    exchange ``.rdma``), and ``mcts_replay`` over the halo driver's
+    database."""
+    import contextlib
+    import io
+
+    from tenzing_tpu_torch.examples import halo_mcts, mcts_replay, moe_mcts
+
+    small = ["--mcts-iters", "4", "--benchmark-iters", "3"]
+    for name, module, argv in (
+            ("moe_mcts", moe_mcts, small),
+            ("halo_mcts", halo_mcts, small),
+            ("halo_mcts_shared", halo_mcts,
+             small + ["--nproc", "2", "--shared-card"])):
+        t0 = time.time()
+        out, err = io.StringIO(), io.StringIO()
+        reset_launches()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = module.main(argv)
+        launches = all_launches()
+        rows = out.getvalue().strip().splitlines()
+        best = [line for line in err.getvalue().splitlines()
+                if line.startswith("best:")]
+        row = {"phase": "examples", "example": name, "rc": rc,
+               "schedules": len(rows), "best": best[0] if best else None,
+               "launches": {k: v for k, v in launches.items() if v},
+               "wall_s": round(time.time() - t0, 3)}
+        emit(row)
+        if rc != 0 or len(rows) < 1 or not best:
+            raise AssertionError(f"the {name} example failed: {row}")
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = mcts_replay.main(["--csv", halo_db, "--workload", "halo",
+                               "--lanes", "8", "--mcts-iters", "24",
+                               "--strategies", "FastMin,Random"])
+    lines = out.getvalue().strip().splitlines()
+    db = [line for line in err.getvalue().splitlines()
+          if line.startswith("database:")]
+    row = {"phase": "examples", "example": "mcts_replay", "rc": rc,
+           "database": db[0] if db else None, "strategies": lines,
+           "wall_s": round(time.time() - t0, 3)}
+    emit(row)
+    if rc != 0 or len(lines) != 2 or not db:
+        raise AssertionError(f"the replay example failed: {row}")
+
+
 def main() -> int:
     global _log
     import torch
@@ -2508,8 +2639,13 @@ def main() -> int:
     emit({"phase": "executor", **ex_info, "wall_s": round(time.time() - t0, 3)})
 
     t0 = time.time()
+    halo_trace = os.path.join(OUT_DIR, "halo_trace")
+    halo_metrics = os.path.join(OUT_DIR, "halo_metrics.json")
+    halo_db = os.path.join(OUT_DIR, "halo_driver.csv")
     req = driver.DriverRequest(mcts_iters=12, iters=3, search_iters=2,
-                               climb_budget=4)
+                               climb_budget=4, profile_winner=True,
+                               trace_out=halo_trace,
+                               metrics_json=halo_metrics, dump_csv=halo_db)
     reset_launches()
     result = driver.run(req, device="cuda")
     launches = all_launches()
@@ -2518,6 +2654,8 @@ def main() -> int:
     emit({"phase": "driver", "launches": launches,
           "verified": verdict.get("verified"), "climbs": verdict.get("climbs"),
           "wall_s": round(time.time() - t0, 3)})
+    check_warm_start(verdict, "driver")
+    check_attrib(verdict, halo_trace, halo_metrics)
     if verdict.get("metric") != "halo_iter_pct50_searched_n512":
         raise AssertionError(f"driver metric {verdict.get('metric')!r}")
     if verdict.get("verified") is not True:
@@ -2600,6 +2738,7 @@ def main() -> int:
           "wall_s": round(time.time() - t0, 3)})
     spmv_launches = phase_spmv_driver(torch, device)
     phase_dfs_example(torch)
+    phase_examples(torch, halo_db)
 
     # one halo iteration's six faces at the batched blocking, per kernel
     def six_faces(rows, blocking):

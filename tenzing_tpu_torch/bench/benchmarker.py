@@ -13,6 +13,9 @@ Counterpart of ``tenzing_tpu/bench/benchmarker.py`` (reference
   iteration k visits every schedule once in a seeded random order, so paired
   per-iteration ratios cancel drift common to both schedules.
 * ``CachingBenchmarker`` — equivalence-keyed result cache.
+* ``CsvBenchmarker`` — answers queries from a recorded search database
+  (``result_row``'s format), matching schedules by equivalence
+  (benchmarker.cpp:169-223): search experiments with no device.
 
 Each measurement is ``wall(run_n(n)) - fence_overhead``: the executor's
 ``run_n`` runs the schedule n times on its streams and ends in one
@@ -25,25 +28,69 @@ tenzing benchmarker.cpp:43-60, 101, 145): a barrier before it, and the time
 is the max over ranks, so every rank of a mesh schedule takes the same
 decisions (sample growth, the runs test) and returns the same times.  At
 world size 1 both are the identity.
+
+Telemetry (obs/): ``bench.benchmark`` / ``bench.warm`` spans per schedule,
+``bench.batch`` / ``bench.batch_warm`` per paired batch, ``bench.cache``
+events, and the counters ``bench.benchmarks``, ``bench.measurements``,
+``bench.runs_test_retries``, ``bench.cache.hits`` / ``.misses`` and the
+``bench.cache.hit_rate`` gauge, at the reference's points.
 """
 
 from __future__ import annotations
 
+import json
 import random as _random
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Tuple
 
 from tenzing_tpu_torch.bench.randomness import is_random
 from tenzing_tpu_torch.core.sequence import Sequence, canonical_key
+from tenzing_tpu_torch.obs.metrics import get_metrics
+from tenzing_tpu_torch.obs.tracer import get_tracer, short_digest
 from tenzing_tpu_torch.parallel.control_plane import ControlPlane, default_control_plane
 from tenzing_tpu_torch.utils.numeric import percentile, stddev
+
+
+def schedule_id(order) -> str:
+    """Short stable id of a schedule for telemetry (the reference's):
+    ``short_digest`` of its schedule JSON, memoized on the sequence.  The
+    same id in every span and event names the same schedule."""
+    if isinstance(order, str):
+        return order
+
+    def derive() -> str:
+        from tenzing_tpu_torch.core.serdes import sequence_to_json_str
+
+        return short_digest(sequence_to_json_str(order))
+
+    if isinstance(order, Sequence):
+        return order.cached("schedule_id", derive)
+    return derive()
+
+
+def candidate_failed(where: str, order, exc: BaseException) -> None:
+    """Record a candidate schedule whose measurement raised: a
+    ``search.candidate_failed`` event (schedule id, exception class,
+    message) and counter.  The reference then rejects the candidate and
+    searches on; in the port the caller re-raises (a failed launch is a
+    fault, not a search verdict), so the record is the last thing the trace
+    shows before the run ends."""
+    get_metrics().counter("search.candidate_failed").inc()
+    tr = get_tracer()
+    if tr.enabled:
+        tr.event("search.candidate_failed", where=where,
+                 schedule=schedule_id(order), error=type(exc).__name__,
+                 message=str(exc)[:200])
 
 
 @dataclass
 class BenchResult:
     """Percentile statistics of per-iteration wall time in seconds
-    (reference Benchmark::Result, benchmarker.hpp:14-22)."""
+    (reference Benchmark::Result, benchmarker.hpp:14-22).  ``times`` (the
+    raw series) and ``fetch_overhead`` (what was subtracted per
+    measurement) ride along and take no part in equality: a replayed result
+    (:class:`CsvBenchmarker`) has no raw series."""
 
     pct01: float = 0.0
     pct10: float = 0.0
@@ -51,6 +98,10 @@ class BenchResult:
     pct90: float = 0.0
     pct99: float = 0.0
     stddev: float = 0.0
+    times: Optional[List[float]] = field(default=None, compare=False,
+                                         repr=False)
+    fetch_overhead: Optional[float] = field(default=None, compare=False,
+                                            repr=False)
 
     @staticmethod
     def from_times(times: List[float]) -> "BenchResult":
@@ -62,7 +113,32 @@ class BenchResult:
             pct90=percentile(s, 90),
             pct99=percentile(s, 99),
             stddev=stddev(s),
+            times=list(times),
         )
+
+
+def fence_overhead_s(device) -> float:
+    """Median wall time of the fence alone on ``device``: one trivial launch
+    followed by ``torch.cuda.synchronize()`` on the card (a trivial op on the
+    CPU), over 7 calls after a first one excluded."""
+    import torch
+
+    device = torch.device(device)
+    x = torch.zeros((), device=device)
+
+    def fence() -> None:
+        x.add_(1.0)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    fence()  # first launch excluded
+    ts = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        fence()
+        ts.append(time.perf_counter() - t0)
+    ts.sort()
+    return ts[len(ts) // 2]
 
 
 @dataclass
@@ -89,28 +165,11 @@ class EmpiricalBenchmarker:
         self._overhead: Optional[float] = None
 
     def _fetch_overhead(self) -> float:
-        """Median wall time of the fence alone: one trivial launch followed by
-        ``torch.cuda.synchronize()`` on the card (a trivial op on the CPU).
-        Subtracted from every measurement, each of which ends in one fence."""
+        """The fence's overhead on the runner's device
+        (:func:`fence_overhead_s`), measured once.  Subtracted from every
+        measurement, each of which ends in one fence."""
         if self._overhead is None:
-            import torch
-
-            device = torch.device(self.runner.device)
-            x = torch.zeros((), device=device)
-
-            def fence() -> None:
-                x.add_(1.0)
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-
-            fence()  # first launch excluded
-            ts = []
-            for _ in range(7):
-                t0 = time.perf_counter()
-                fence()
-                ts.append(time.perf_counter() - t0)
-            ts.sort()
-            self._overhead = ts[len(ts) // 2]
+            self._overhead = fence_overhead_s(self.runner.device)
         return self._overhead
 
     # reference measure(), benchmarker.cpp:83-119
@@ -149,16 +208,32 @@ class EmpiricalBenchmarker:
     # reference benchmark(), benchmarker.cpp:121-167
     def benchmark(self, order: Sequence, opts: Optional[BenchOpts] = None) -> BenchResult:
         opts = opts if opts is not None else BenchOpts()
-        run_n = self.runner.prepare_n(order)
-        run_n(1)  # warmup: first launches and scratch allocation excluded
-        n_samples = 1
-        for attempt in range(opts.max_retries):
-            times: List[float] = []
-            for _ in range(opts.n_iters):
-                t, n_samples = self._measure(run_n, n_samples, opts)
-                times.append(t)
-            if is_random(times) or attempt == opts.max_retries - 1:
-                return BenchResult.from_times(times)
+        tr = get_tracer()
+        sid = schedule_id(order) if tr.enabled else None
+        with tr.span("bench.benchmark", schedule=sid, n_iters=opts.n_iters,
+                     target_secs=opts.target_secs) as sp:
+            run_n = self.runner.prepare_n(order)
+            with tr.span("bench.warm", schedule=sid):
+                run_n(1)  # warmup: first launches and scratch allocation excluded
+            n_samples = 1
+            for attempt in range(opts.max_retries):
+                times: List[float] = []
+                for _ in range(opts.n_iters):
+                    t, n_samples = self._measure(run_n, n_samples, opts)
+                    times.append(t)
+                if is_random(times) or attempt == opts.max_retries - 1:
+                    res = BenchResult.from_times(times)
+                    res.fetch_overhead = self._overhead
+                    sp.set("pct50", res.pct50)
+                    sp.set("n_samples", n_samples)
+                    sp.set("fetch_overhead", self._overhead)
+                    sp.set("attempts", attempt + 1)
+                    reg = get_metrics()
+                    reg.counter("bench.benchmarks").inc()
+                    reg.counter("bench.measurements").inc(len(times))
+                    if attempt:
+                        reg.counter("bench.runs_test_retries").inc(attempt)
+                    return res
         raise AssertionError("unreachable")  # pragma: no cover
 
     # reference batch benchmark(), benchmarker.cpp:21-76
@@ -175,17 +250,25 @@ class EmpiricalBenchmarker:
         common-mode drift cancels (utils.numeric.paired_speedup)."""
         opts = opts if opts is not None else BenchOpts()
         rng = _random.Random(seed)
-        runners = [self.runner.prepare_n(o) for o in orders]
-        for r in runners:
-            r(1)  # warm every schedule before timing any
-        n_samples = [1] * len(orders)
-        times: List[List[float]] = [[] for _ in orders]
-        for _ in range(opts.n_iters):
-            perm = list(range(len(orders)))
-            rng.shuffle(perm)
-            for i in perm:
-                t, n_samples[i] = self._measure(runners[i], n_samples[i], opts)
-                times[i].append(t)
+        tr = get_tracer()
+        with tr.span("bench.batch", n_orders=len(orders),
+                     n_iters=opts.n_iters, seed=seed) as sp:
+            runners = [self.runner.prepare_n(o) for o in orders]
+            with tr.span("bench.batch_warm", n_orders=len(orders)):
+                for r in runners:
+                    r(1)  # warm every schedule before timing any
+            n_samples = [1] * len(orders)
+            times: List[List[float]] = [[] for _ in orders]
+            for _ in range(opts.n_iters):
+                perm = list(range(len(orders)))
+                rng.shuffle(perm)
+                for i in perm:
+                    t, n_samples[i] = self._measure(runners[i], n_samples[i],
+                                                    opts)
+                    times[i].append(t)
+            sp.set("fetch_overhead", self._overhead)
+            get_metrics().counter("bench.measurements").inc(
+                opts.n_iters * len(orders))
         return times
 
 
@@ -208,12 +291,132 @@ class CachingBenchmarker:
         ok = (opts.n_iters, opts.max_retries, opts.target_secs) if opts else None
         return (ok, canonical_key(order))
 
+    @property
+    def hit_rate(self) -> float:
+        """Fraction of queries answered from the cache (0.0 when unqueried)."""
+        total = self.hits + self.misses
+        return self.hits / total if total else 0.0
+
     def benchmark(self, order: Sequence, opts: Optional[BenchOpts] = None) -> BenchResult:
         key = self._key(order, opts)
-        if key in self._cache:
+        hit = key in self._cache
+        if hit:
             self.hits += 1
-            return self._cache[key]
-        res = self.inner.benchmark(order, opts)
-        self._cache[key] = res
-        self.misses += 1
+            res = self._cache[key]
+        else:
+            res = self.inner.benchmark(order, opts)
+            self._cache[key] = res
+            self.misses += 1
+        reg = get_metrics()
+        reg.counter("bench.cache.hits" if hit else "bench.cache.misses").inc()
+        reg.gauge("bench.cache.hit_rate").set(self.hit_rate)
+        tr = get_tracer()
+        if tr.enabled:
+            tr.event("bench.cache", hit=hit, schedule=schedule_id(order),
+                     pct50=res.pct50)
+        return res
+
+
+# -- the search database (reference CsvBenchmarker, benchmarker.cpp:169-223) --
+
+CSV_DELIM = "|"
+
+
+def split_fidelity(cells: List[str]) -> Tuple[str, int]:
+    """(fidelity, index of the first op cell) of a split CSV row: the one
+    rule for the optional ``fid=<tag>`` cell between the stats and the ops
+    (rows without one are "full")."""
+    if len(cells) > 7 and cells[7].startswith("fid="):
+        return cells[7][4:], 8
+    return "full", 7
+
+
+def result_row(idx: int, res, order, fidelity: Optional[str] = None) -> str:
+    """One CSV row: ``idx|pct01|pct10|pct50|pct90|pct99|stddev|op-json|...``
+    (the reference's mcts.cpp:13-31 / dfs.cpp:84-105 dump format).
+    ``fidelity`` (e.g. "screen") inserts a ``fid=<tag>`` cell before the ops;
+    a tag containing the delimiter is rejected."""
+    if fidelity is not None and CSV_DELIM in fidelity:
+        raise ValueError(f"fidelity tag {fidelity!r} contains the CSV delimiter")
+    cells = [
+        str(idx),
+        # float() first: a numpy scalar's repr would not parse back
+        repr(float(res.pct01)),
+        repr(float(res.pct10)),
+        repr(float(res.pct50)),
+        repr(float(res.pct90)),
+        repr(float(res.pct99)),
+        repr(float(res.stddev)),
+    ] + ([f"fid={fidelity}"] if fidelity is not None else []) + [
+        # '|' can only occur inside JSON strings; the \\u007c escape keeps the
+        # cell valid JSON while making the row safely splittable
+        json.dumps(op.to_json()).replace(CSV_DELIM, "\\u007c")
+        for op in order
+    ]
+    return CSV_DELIM.join(cells)
+
+
+class CsvBenchmarker:
+    """Answers benchmark queries from a recorded database by matching the
+    query against the stored schedules under equivalence (reference
+    benchmarker.cpp:169-223; ``tenzing_tpu/bench/benchmarker.py``
+    ``CsvBenchmarker``).
+
+    ``strict=False`` skips rows that are malformed or whose ops do not
+    resolve against ``graph`` (recorded against another structural variant);
+    their indices are kept in ``skipped``.  ``normalize=True`` matches
+    modulo ``remove_redundant_syncs`` on both sides, so a database of raw
+    DFS terminals answers the cleaned rollouts of MCTS.  ``entries`` holds
+    every parsed row, ``fidelities`` their tags in parallel; only "full"
+    rows answer queries, and for schedules recorded twice the first full
+    row wins (the driver's dump puts the final batch's numbers first)."""
+
+    def __init__(self, rows: List[str], graph, strict: bool = True,
+                 normalize: bool = False):
+        from tenzing_tpu_torch.core.schedule import remove_redundant_syncs
+        from tenzing_tpu_torch.core.serdes import op_from_json
+
+        self._normalize = remove_redundant_syncs if normalize else (lambda s: s)
+        self.entries: List[Tuple[Sequence, BenchResult]] = []
+        self.fidelities: List[str] = []
+        self._by_canonical: dict = {}
+        self.skipped: List[int] = []
+        for i, row in enumerate(rows):
+            if not row.strip():
+                continue
+            cells = row.split(CSV_DELIM)
+            try:
+                res = BenchResult(
+                    pct01=float(cells[1]),
+                    pct10=float(cells[2]),
+                    pct50=float(cells[3]),
+                    pct90=float(cells[4]),
+                    pct99=float(cells[5]),
+                    stddev=float(cells[6]),
+                )
+                fid, ops_at = split_fidelity(cells)
+                ops = [op_from_json(json.loads(c), graph) for c in cells[ops_at:]]
+            except (KeyError, TypeError, ValueError, IndexError):
+                if strict:
+                    raise
+                self.skipped.append(i)
+                continue
+            seq = Sequence(ops)
+            self.entries.append((seq, res))
+            self.fidelities.append(fid)
+            if fid == "full":
+                self._by_canonical.setdefault(
+                    canonical_key(self._normalize(seq)), res)
+
+    @classmethod
+    def from_file(cls, path: str, graph, strict: bool = True,
+                  normalize: bool = False) -> "CsvBenchmarker":
+        with open(path) as f:
+            return cls(f.read().splitlines(), graph, strict=strict,
+                       normalize=normalize)
+
+    def benchmark(self, order: Sequence, opts: Optional[BenchOpts] = None) -> BenchResult:
+        res = self._by_canonical.get(canonical_key(self._normalize(order)))
+        if res is None:
+            raise KeyError(f"no recorded schedule equivalent to: {order.desc()}")
         return res

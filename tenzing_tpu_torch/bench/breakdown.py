@@ -25,8 +25,14 @@ line per schedule:
 * ``idle_share`` — 1 - busy / wall over that traced run: how much of the
   iteration the card waits on the host;
 * ``host_syncs_per_iter`` — the host blocks one iteration executed;
-* ``top`` — device time per activity name, per iteration.
+* ``top`` — device time per activity name, per iteration;
+* ``attrib`` — the schedule run unit by unit
+  (obs/attrib ``stepped_timeline``, 7 repeats; a fused order's regions as
+  units) and analyzed against ``wall_us``: the stepped sum of parts, the
+  critical path, the dispatch overhead, the overlap efficiency, the units
+  and how they were timed, the fence overhead.
 
+``python -m tenzing_tpu_torch.bench.breakdown [halo|attn|moe|spmv ...]``.
 The card's name and power limit lead the output.  It needs a CUDA device.
 """
 
@@ -36,48 +42,28 @@ import json
 import subprocess
 import sys
 import time
-from typing import Dict, List, Tuple
 
 ITERS = 50
 
 
-def _device_intervals(prof) -> Tuple[List[Tuple[float, float]], Dict[str, float]]:
-    """(start, end) in microseconds of every device activity in the trace,
-    and the summed duration per activity name."""
-    from torch.autograd import DeviceType
+def attrib_of(ex, order, wall_us: float) -> dict:
+    """The stepped timeline of ``order`` on ``ex`` (a FusedExecutor steps
+    its fused order on the executor under it), analyzed against
+    ``wall_us``."""
+    from tenzing_tpu_torch.obs import attrib
 
-    spans, by_name = [], {}
-    for e in prof.events():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue
-        start, end = float(e.time_range.start), float(e.time_range.end)
-        spans.append((start, end))
-        name = _short(e.name)
-        by_name[name] = by_name.get(name, 0.0) + (end - start)
-    return spans, by_name
-
-
-def _short(name: str) -> str:
-    """A kernel's name without its return type, template and signature."""
-    name = name[5:] if name.startswith("void ") else name
-    name = name.replace("(anonymous namespace)::", "")
-    cut = min((i for i in (name.find("<"), name.find("(")) if i > 0),
-              default=len(name))
-    return name[:cut]
-
-
-def _union(spans: List[Tuple[float, float]]) -> float:
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(spans):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
+    inner = getattr(ex, "inner", None)
+    stepper, seq = (inner, ex.fused_order(order)) if inner is not None \
+        else (ex, order)
+    tl = attrib.stepped_timeline(stepper, seq)
+    doc = attrib.analyze(seq.vector(), tl, measured_us=wall_us).to_json(
+        with_timeline=False)
+    doc["timers"] = tl.timers()
+    doc["fetch_overhead_us"] = tl.fetch_overhead_us
+    return {k: doc[k] for k in (
+        "n_timed", "sum_of_parts_us", "critical_path_us",
+        "dispatch_overhead_us", "overlap_efficiency", "per_lane_busy_us",
+        "timers", "fetch_overhead_us")}
 
 
 def measure(ex, order, iters: int = ITERS) -> dict:
@@ -85,6 +71,9 @@ def measure(ex, order, iters: int = ITERS) -> dict:
     StreamExecutor or a FusedExecutor over one), and the host blocks each
     iteration executed (``RunContext.host_syncs``)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from tenzing_tpu_torch.obs.attrib.xplane import busy as union
+    from tenzing_tpu_torch.obs.attrib.xplane import device_intervals
 
     ctx = getattr(ex, "inner", ex).ctx
     run_n = ex.prepare_n(order)
@@ -99,8 +88,8 @@ def measure(ex, order, iters: int = ITERS) -> dict:
         t0 = time.perf_counter()
         run_n(iters)
         traced_wall = (time.perf_counter() - t0) / iters
-    spans, by_name = _device_intervals(prof)
-    busy = _union(spans) / iters  # us per iteration
+    spans, by_name, _ = device_intervals(prof)
+    busy = union(spans) / iters  # us per iteration
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"ops": len(order), "wall_us": wall * 1e6,
             "traced_wall_us": traced_wall * 1e6,
@@ -111,10 +100,12 @@ def measure(ex, order, iters: int = ITERS) -> dict:
 
 
 def _measure(workload: str, ex, orders) -> None:
-    """One JSON line per order: wall and device-busy time per iteration."""
+    """One JSON line per order: wall and device-busy time per iteration, and
+    the stepped attribution."""
     for label, order in orders.items():
-        print(json.dumps({"workload": workload, "order": label,
-                          **measure(ex, order)}), flush=True)
+        row = {"workload": workload, "order": label, **measure(ex, order)}
+        row["attrib"] = attrib_of(ex, order, row["wall_us"])
+        print(json.dumps(row), flush=True)
 
 
 def _halo(dev) -> None:

@@ -13,7 +13,9 @@ row, the x exchange a host round trip, the SpMV kernel menu) — then
 
 1. measures the one-lane naive order (halo and moe: each chain completed in
    turn; attn and spmv: the first decision at every step);
-2. measures the incumbents: for halo the greedy and paired ones over
+2. measures the incumbents (and, at full size, the best rows of the
+   recorded search databases: the warm start, :func:`warm_start`): for halo
+   the greedy and paired ones over
    ``engine in {host, rdma, mixed, alias}`` on 8 lanes (and the engine-fixed
    incumbents at 2, 3 and 6 lanes); for attn the bf16 kernel chain and the
    fused bf16 kernel, both on one lane; for moe the greedy overlap order with
@@ -27,13 +29,17 @@ row, the x exchange a host round trip, the SpMV kernel menu) — then
    random rollouts) at a cheap screen floor and a confirm pass at the search
    floor;
 4. hill-climbs (halo: the alias discipline on 3 and 6 lanes, the budget split
-   4:3; moe: the bf16-rdma discipline over the whole budget), paired, at 10x
-   the search floor; the climbs' candidates and chain tips join the pool;
+   4:3; moe: the bf16-rdma discipline over the whole budget; with recorded
+   rows, first a climb from the best one's menu choices, on a third of the
+   halo budget or half the moe budget), paired, at 10x the search floor;
+   the climbs' candidates and chain tips join the pool;
 5. ranks the distinct candidates against naive in a paired decorrelated
    screen, then re-measures naive and the top 3 in a longer paired final;
 6. re-runs the winner beside naive from the same initial buffers as an
    integrity gate: outputs must agree and the independent verifier must pass
-   it;
+   it; with ``profile_winner`` the reported schedule (and naive) run unit by
+   unit for the attribution block (``attrib``: sum of parts, critical path,
+   dispatch overhead, overlap efficiency, the decision diff; obs/attrib);
 7. with ``fuse_winner``, lowers the reported schedule into fused regions
    (runtime/fused.py), measures each tile count of the menu, gates the best
    fused program against the stepped one and re-verifies the schedule
@@ -41,18 +47,23 @@ row, the x exchange a host round trip, the SpMV kernel menu) — then
    of the searched graph from the start (``perf.fuse_search_tiles``);
 8. with ``chunk``, the attn and moe menus offer the chunked expansions of
    the ``.xla`` fold and expert MLP (core/chunking.py), and ``perf.chunked``
-   reports the pruned menus, what the search visited and what it chose;
-9. returns the JSON line (``metric``, ``value``, ``unit``, ``vs_baseline``,
-   ``verified``, plus the measurement regime).
+   reports the pruned menus, what the search visited and what it chose, and
+   the comm measured hidden under the partials;
+9. with ``dump_csv`` writes the run's search database (naive as row 0, the
+   final batch's numbers first), which ``seed_csv`` reads back;
+10. returns the JSON line (``metric``, ``value``, ``unit``, ``vs_baseline``,
+    ``verified``, plus the measurement regime), and with ``trace_out`` /
+    ``metrics_json`` writes the telemetry bundle (obs/).
 
 :class:`DriverRequest` is a copy of the reference's, field for field, with the
 same defaults.  A request that sets a flag this port does not implement yet
 raises :exc:`DriverConfigError` ("... not yet ported"); nothing is silently
-ignored.  What a default request would have done and the port skips is named
-in the JSON's ``not_ported``: at full size the recorded warm starts (the
-experiments/*_search_tpu_r[45]*.csv databases the reference reads), and
-therefore the climb the reference seeds from them; with ``fuse_winner`` and
-``chunk``, the attribution fields their blocks would carry.
+ignored.  Three deviations from the reference: a recorded row is measured
+only after the port's verifier passes it (a rejected row is counted in the
+``recorded`` block); a failed measurement or profile raises (the reference
+retries, drops or catches it into an error field); and the smoke reads a
+database it is given (``--seed-csv``) and climbs from it, where the
+reference's smoke ignores the flag.
 
 Entry point: ``python -m tenzing_tpu_torch.bench`` (``--device cpu`` runs on
 the CPU; the default is the card).
@@ -62,6 +73,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import sys
 import time
 from dataclasses import dataclass, field
@@ -134,18 +146,21 @@ class DriverResult:
 
 # fields whose non-default values select features this port does not have
 # yet; ``run`` raises on them instead of ignoring them
-_UNPORTED = ("dump_csv", "trace_out", "metrics_json", "seed_csv",
-             "learn_train", "learn_trace", "learn_model", "learn_screen",
+_UNPORTED = ("learn_train", "learn_trace", "learn_model", "learn_screen",
              "checkpoint", "resume", "measure_timeout", "inject_faults",
-             "profile_winner", "synth_collectives", "search_workers",
-             "measure_batch")
+             "synth_collectives", "search_workers", "measure_batch")
 _DEFAULTS = DriverRequest()
 
 
 WORKLOADS = ("halo", "attn", "moe", "spmv")
 
-# the recorded search databases the reference reads as warm starts on a
-# full-size run (its bench/driver.py:1283-1288)
+# the repository's root: the default warm-start globs are relative to it
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+# the recorded search databases a full-size run reads as warm starts by
+# default (the reference's bench/driver.py:1283-1288); ``--seed-csv GLOB``
+# names others, ``--seed-topk 0`` turns the warm start off
 RECORDED_WARM_START = {
     "halo": "experiments/halo_search_tpu_r[45]*.csv",
     "moe": "experiments/moe_search_tpu_r[45]*.csv",
@@ -171,26 +186,6 @@ def check_request(req: DriverRequest) -> None:
         raise DriverConfigError("--halo-n must be positive")
     if req.m is not None and req.m < 2:
         raise DriverConfigError("--m must be at least 2")
-
-
-def not_ported_meta(req: DriverRequest) -> Dict[str, Any]:
-    """What the reference would have done for ``req`` that the port skips
-    (the JSON's ``not_ported``): on a full-size run with ``seed_topk > 0``,
-    the recorded warm starts — the glob the reference would have read — and
-    with them the climb it seeds from the best recorded schedule (the
-    reference reads no database for spmv); with ``fuse_winner``, the
-    attribution fields of ``perf.fused`` (obs/attrib's stepped timeline);
-    with ``chunk``, the measured hidden comm of ``perf.chunked`` (the same
-    timeline)."""
-    out = {}
-    if not req.smoke and req.seed_topk > 0 and req.workload in RECORDED_WARM_START:
-        out["recorded_warm_start"] = RECORDED_WARM_START[req.workload]
-    if req.fuse_winner:
-        out["perf.fused.dispatch_overhead_us"] = "obs/attrib stepped timeline"
-        out["perf.fused.sum_of_parts_us"] = "obs/attrib stepped timeline"
-    if req.chunk:
-        out["perf.chunked.hidden_comm_us.measured"] = "obs/attrib stepped timeline"
-    return out
 
 
 # the per-face aliased-unpack recipe of the reference (its ALIAS_UNPACK):
@@ -443,31 +438,130 @@ def moe_incumbents(g, plat, margs, cap, smoke: bool):
     return greedy, [decs], phase_policy(plat, PHASES, moe_bf16_prefer)
 
 
-def climb_configs(args, plat):
-    """The hill-climbs of a full-size run: (platform, phases, prefer,
+def recorded_prefer(chosen: Dict[str, str]):
+    """The climb policy replicating a recorded schedule's menu choices
+    (``chosen``: base op name -> ``".suffix"``; the reference's
+    ``recorded_prefer``).  Off the map, a transfer takes ``.host`` (a
+    recorded host-staged transfer leaves no ``xfer_*`` vertex: the
+    round-trip compound expands into spill and fetch) and anything else
+    ``.xla``."""
+
+    def prefer(op_name, choices):
+        want = chosen.get(op_name)
+        if want is not None:
+            c = next((c for c in choices if c.endswith(want)), None)
+            if c is not None:
+                return c
+        if op_name.startswith("xfer_"):
+            return next((c for c in choices if c.endswith(".host")), None)
+        return next((c for c in choices if c.endswith(".xla")), None)
+
+    return prefer
+
+
+def recorded_prefer_and_lanes(seq):
+    """(prefer, lanes) of the climb seeded from a recorded schedule: its
+    menu choices (:func:`recorded_prefer`) on as many lanes as it used
+    (2 when it binds none; the reference's ``recorded_prefer_and_lanes``)."""
+    from tenzing_tpu_torch.core.serdes import sequence_to_json
+
+    js = sequence_to_json(seq)
+    chosen: Dict[str, str] = {}
+    for j in js:
+        n = j.get("name", "")
+        if "." in n:
+            base, suffix = n.rsplit(".", 1)
+            chosen.setdefault(base, "." + suffix)
+    lanes_used = [j.get("lane") for j in js if j.get("lane") is not None]
+    return recorded_prefer(chosen), (max(lanes_used) + 1 if lanes_used else 2)
+
+
+def climb_configs(args, plat, recorded=()):
+    """The hill-climbs of a full-size run: (label, platform, phases, prefer,
     budget) each.  Halo: the alias discipline on 3 and 6 lanes, the budget
-    split 4:3; moe: the bf16-rdma discipline over the whole budget.  The
-    reference also climbs from the best recorded schedule (its ``b_rec``
-    share), which is 0 here: the recorded warm starts are not ported
-    (``not_ported_meta``).  Attn and the smoke run no climbs (reference
-    bench/driver.py:1457-1495)."""
+    split 4:3; moe: the bf16-rdma discipline over the whole budget.  With
+    ``recorded`` schedules (the warm start's, best measured first) a climb
+    seeded from the first one's menu choices comes first and takes a third
+    of the halo budget, half of the moe budget (the reference's ``b_rec``).
+    Attn and spmv run no climbs, and neither does the smoke (reference
+    bench/driver.py:1457-1495), but for the recorded one where the smoke
+    was given a database (``--seed-csv``)."""
     from tenzing_tpu_torch.core.platform import Platform
 
-    if args.smoke or args.climb_budget <= 0:
+    if args.climb_budget <= 0 or args.workload not in ("halo", "moe"):
+        return []
+    if args.smoke and not recorded:
         return []
     if args.workload == "halo":
-        from tenzing_tpu_torch.models.halo_pipeline import HALO_PHASES
+        from tenzing_tpu_torch.models.halo_pipeline import HALO_PHASES as phases
 
-        rest = args.climb_budget
+        b_rec = args.climb_budget // 3 if recorded else 0
+        rest = args.climb_budget - b_rec
         b1 = (rest * 4) // 7
-        return [(Platform.make_n_lanes(3), HALO_PHASES, halo_alias_prefer, b1),
-                (Platform.make_n_lanes(6), HALO_PHASES, halo_alias_prefer,
-                 rest - b1)]
-    if args.workload == "moe":
-        from tenzing_tpu_torch.models.moe_pipeline import PHASES
+        out = [("halo_alias", Platform.make_n_lanes(3), phases,
+                halo_alias_prefer, b1),
+               ("halo_alias", Platform.make_n_lanes(6), phases,
+                halo_alias_prefer, rest - b1)]
+    else:
+        from tenzing_tpu_torch.models.moe_pipeline import PHASES as phases
 
-        return [(plat, PHASES, moe_bf16_prefer, args.climb_budget)]
-    return []
+        b_rec = args.climb_budget // 2 if recorded else 0
+        out = [("moe_bf16", plat, phases, moe_bf16_prefer,
+                args.climb_budget - b_rec)]
+    if args.smoke:  # the smoke climbs only from the database it was given
+        out = []
+    if b_rec:
+        prefer, n_lanes = recorded_prefer_and_lanes(recorded[0])
+        out.insert(0, ("recorded", Platform.make_n_lanes(n_lanes), phases,
+                       prefer, b_rec))
+    return out
+
+
+def warm_start(pattern: str, topk: int, g, bench, verifier, opts, with_tile1,
+               log):
+    """The recorded warm start (the reference's bench/driver.py:1275-1340):
+    rank the rows of the databases ``pattern`` matches (a glob, relative to
+    :data:`REPO_ROOT` unless absolute) by their in-file ratio
+    (bench/recorded.py ``rank_recorded``), check each of the ``topk`` picked
+    rows with the port's verifier and measure the sound ones at ``opts``.
+    Returns ``(sims, block)``: a ``SimResult`` per measured row, best
+    recorded ratio first, and the JSON's ``recorded`` block.
+
+    Row 0 of a database is its naive anchor and is never picked (it never
+    beats itself).  A picked row the verifier rejects is counted and
+    skipped; a row that does not resolve against the graph was skipped by
+    the reader and is counted too.  A measurement that fails raises."""
+    import glob
+
+    from tenzing_tpu_torch.bench.recorded import rank_recorded
+    from tenzing_tpu_torch.solve.mcts import SimResult
+
+    full = pattern if os.path.isabs(pattern) else os.path.join(REPO_ROOT,
+                                                               pattern)
+    paths = sorted(glob.glob(full))
+    if not paths:
+        log(f"recorded db: no files match {full!r}")
+    block: Dict[str, Any] = {"glob": pattern}
+    picked = rank_recorded(paths, g, topk, log=log, stats=block)
+    block.update(picked=len(picked), rejected=0, measured=[])
+    sims = []
+    for ri, (seq, ratio) in enumerate(picked):
+        seq = with_tile1(seq)
+        verdict = verifier(seq)
+        if not verdict.ok:
+            block["rejected"] += 1
+            log(f"recorded[{ri}] rejected by the verifier "
+                f"({verdict.witness()})")
+            continue
+        t0 = time.time()
+        meas = bench.benchmark(seq, opts)
+        log(f"recorded[{ri}] candidate: pct50={meas.pct50*1e6:.1f}us "
+            f"(recorded ratio {ratio:.3f}, wall {time.time()-t0:.0f}s)")
+        block["measured"].append({"label": f"recorded[{ri}]",
+                                  "recorded_ratio": round(ratio, 4),
+                                  "pct50_us": round(meas.pct50 * 1e6, 2)})
+        sims.append(SimResult(order=seq, result=meas))
+    return sims, block
 
 
 def moe_staging_of(seq) -> str:
@@ -585,10 +679,18 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
     log = lambda m: sys.stderr.write(m + "\n")  # noqa: E731
     if dev.type == "cuda":
         log(f"device: {torch.cuda.get_device_name(dev)}")
-    not_ported = not_ported_meta(args)
-    for name, what in not_ported.items():
-        log(f"{name} ({what}): not yet ported, skipped")
+    # --trace-out / --metrics-json: the bundle is written on the success
+    # path and, should the run raise, at exit
+    attrib_extra: List[Dict[str, Any]] = []
+    write_telemetry = telemetry_writer(args, attrib_extra, log)
+    if args.trace_out:
+        from tenzing_tpu_torch import obs
 
+        obs.configure(enabled=True)
+    if args.trace_out or args.metrics_json:
+        import atexit
+
+        atexit.register(write_telemetry)
     from itertools import chain, zip_longest
 
     from tenzing_tpu_torch.bench.benchmarker import (
@@ -657,6 +759,7 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
     emp = EmpiricalBenchmarker(measure_ex)
     bench = CachingBenchmarker(emp)
     verifier = None if args.no_verify else ScheduleVerifier(g)
+    gate_verifier = verifier if verifier is not None else ScheduleVerifier(g)
 
     # the reference's measurement floors (bench/driver.py:1037-1047)
     opts = BenchOpts(n_iters=max(5, args.iters), max_retries=2,
@@ -713,6 +816,24 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         labels[id(sim)] = label
         incumbents.append(sim)
 
+    # the recorded warm start: the best distinct schedules of earlier runs'
+    # databases join the candidates, and the best measured one seeds a climb
+    recorded, recorded_block = [], None
+    # a full-size run reads the committed databases; the smoke reads only
+    # one it is given (the reference's smoke ignores --seed-csv)
+    seed_glob = (args.seed_csv if args.seed_csv is not None
+                 else RECORDED_WARM_START.get(args.workload, ""))
+    if seed_glob and args.seed_topk > 0 and (
+            args.seed_csv is not None or not args.smoke):
+        rec_sims, recorded_block = warm_start(
+            seed_glob, args.seed_topk, g, bench, gate_verifier, search_opts,
+            with_tile1, log)
+        for sim, entry in zip(rec_sims, recorded_block["measured"]):
+            labels[id(sim)] = entry["label"]
+            incumbents.append(sim)
+        recorded = [s.order for s in sorted(rec_sims,
+                                            key=lambda s: s.result.pct50)]
+
     # directed search: cheap screen floor for rollouts, confirm at 10x the
     # search floor (the reference's multi-fidelity split)
     t0 = time.time()
@@ -733,25 +854,27 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         f"{len(confirmed)} confirmed)")
     log(res.counters.report())
     log(f"bench cache: {bench.hits} hits / {bench.misses} misses")
-    sims = list(res.sims)
+    # every measured schedule, in the order the database dump writes them
+    sims = list(incumbents) + list(res.sims)
 
     # neighborhood search from the workload's best discipline: paired
     # hill-climbs at 10x the search floor (reference bench/driver.py:1524-1613)
     climb_opts = dataclasses.replace(search_opts, n_iters=8,
                                      target_secs=10 * search_opts.target_secs)
     climbs = []
-    for ci, (cplat, cphases, cprefer, cbudget) in enumerate(
-            climb_configs(args, plat)):
+    for ci, (clabel, cplat, cphases, cprefer, cbudget) in enumerate(
+            climb_configs(args, plat, recorded)):
         t0 = time.time()
         lres = hill_climb(g, cplat, bench, cphases, prefer=cprefer,
                           opts=LocalOpts(budget=cbudget, bench_opts=climb_opts,
                                          seed=2 + ci, paired=True,
                                          verify=verifier))
-        log(f"hill-climb[{ci}] ({len(cplat.lanes)} lanes): "
+        log(f"hill-climb[{ci}] ({clabel}, {len(cplat.lanes)} lanes): "
             f"{len(lres.sims)} candidates, {lres.accepted} moves accepted, "
             f"best pct50={lres.best().result.pct50*1e6:.1f}us "
             f"(wall {time.time()-t0:.0f}s)")
-        climbs.append({"lanes": len(cplat.lanes), "budget": cbudget,
+        climbs.append({"seed": clabel, "lanes": len(cplat.lanes),
+                       "budget": cbudget,
                        "spent": lres.spent, "accepted": lres.accepted,
                        "candidates": len(lres.sims)})
         for s in lres.sims:
@@ -841,7 +964,6 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
     # verifier must pass it, or the run is demoted to no-win
     winner = top[best_i] if top and finals and vs > 1.0 else None
     winner_seq = winner.order if winner is not None else naive_seq
-    gate_verifier = verifier if verifier is not None else ScheduleVerifier(g)
     verdict = gate_verifier(winner_seq)
     t0 = time.time()
     out_w = ex.run(winner_seq)
@@ -873,12 +995,27 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
     stepped_out = out_w if reported_seq is winner_seq else None
     del out_w
 
+    # --profile-winner: the reported schedule's stepped timeline, and
+    # naive's for the decision diff (the reference's bench/driver.py:
+    # 1878-1960); a failure raises (the reference catches it into the block)
+    cost = workload_cost(args.workload, wargs)
+    attrib_block, profiled = None, None
+    if args.profile_winner:
+        fin_res = (finals[1 + best_i] if winner is not None
+                   else (finals[0] if finals else naive))
+        attrib_block, profiled = profile_reported(
+            ex, reported_seq, naive_seq, value_us,
+            (finals[0].pct50 if finals else naive.pct50) * 1e6, cost,
+            args.profile_repeats, args.trace_out, attrib_extra, fin_res, log)
+
     perf: Dict[str, Any] = {}
     if args.fuse_winner:
         perf["fused"] = fuse_reported(
             ex, reported_seq, stepped_out, opts, value_us, args.verify_tol,
             skip, gate_verifier, log,
-            member_check=fused_member_check(args, reported_seq))
+            member_check=fused_member_check(args, reported_seq),
+            profile_repeats=args.profile_repeats, cost=cost,
+            profiled=profiled)
     del stepped_out
     if tile_menu is not None:
         from tenzing_tpu_torch.runtime.fused import tiles_of
@@ -888,6 +1025,11 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
                                      "chosen": tiles_of(reported_seq)}
     if args.chunk:
         perf["chunked"] = chunked_block(g, res.sims, reported_seq, log)
+        perf["chunked"]["hidden_comm_us"]["measured"] = round(
+            chunked_hidden_measured(ex, reported_seq, value_us, profiled,
+                                    args.profile_repeats, log), 2)
+    if args.dump_csv:
+        dump_database(args.dump_csv, naive_seq, naive, sims, finals, top, log)
 
     meta = {
         "verified": verified,
@@ -903,8 +1045,12 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         "mcts": {"iters": args.mcts_iters, "tree_size": res.tree_size,
                  "sims": len(res.sims), "seeded": len(seed_paths)},
         "climbs": climbs,
-        "not_ported": not_ported,
+        "recorded_seeds": len(recorded),
     }
+    if recorded_block is not None:
+        meta["recorded"] = recorded_block
+    if attrib_block is not None:
+        meta["attrib"] = attrib_block
     if demoted is not None:
         meta["demoted_label"] = label_of(demoted)
     if not verdict.ok:
@@ -913,6 +1059,7 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         meta["diverged"] = mismatched
     if perf:
         meta["perf"] = perf
+    write_telemetry()
     return DriverResult(verdict={
         "metric": metric,
         "value": round(value_us, 2),
@@ -922,12 +1069,166 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
     }, demoted=demoted.order if demoted is not None else None)
 
 
+def telemetry_writer(args, attrib_extra, log):
+    """The writer of ``--trace-out DIR`` (``trace.jsonl``, and ``trace.json``
+    in the Chrome trace-event format with ``attrib_extra``'s per-lane
+    tracks) and ``--metrics-json PATH`` (the metrics registry); it writes
+    once, however often it is called (the reference's
+    bench/driver.py:686-741)."""
+    done = [False]
+
+    def write() -> None:
+        from tenzing_tpu_torch import obs
+
+        if done[0]:
+            return
+        done[0] = True
+        if args.trace_out:
+            os.makedirs(args.trace_out, exist_ok=True)
+            obs.write_jsonl(obs.get_tracer(),
+                            os.path.join(args.trace_out, "trace.jsonl"))
+            obs.write_chrome_trace(obs.get_tracer(),
+                                   os.path.join(args.trace_out, "trace.json"),
+                                   extra_events=attrib_extra or None)
+            log(f"trace bundle: {args.trace_out}")
+        if args.metrics_json:
+            with open(args.metrics_json, "w") as f:
+                json.dump(obs.get_metrics().to_json(block=False), f, indent=2,
+                          sort_keys=True)
+            log(f"metrics: {args.metrics_json}")
+
+    return write
+
+
+def workload_cost(workload: str, wargs):
+    """One iteration's roofline cost of the workload (bench/roofline.py; the
+    reference's ``workload_cost``): ``wargs`` is the fourth value the
+    ``build_*`` functions return."""
+    from tenzing_tpu_torch.bench import roofline
+
+    if workload == "halo":
+        return roofline.halo_cost(wargs.nq, wargs.lx, wargs.ly, wargs.lz,
+                                  wargs.radius)
+    if workload == "spmv":
+        return roofline.spmv_cost(wargs, nnz=10 * wargs)
+    if workload == "moe":
+        margs = wargs[0]
+        return roofline.moe_cost(margs.tokens, margs.d_model, margs.d_ff,
+                                 staged=True, n_experts=margs.n_experts)
+    return roofline.attention_cost(wargs.batch,
+                                   wargs.n_devices * wargs.seq_local,
+                                   wargs.head_dim)
+
+
+def profile_reported(ex, seq, naive_seq, measured_us: float, naive_us: float,
+                     cost, repeats: int, trace_out, attrib_extra, fin_res,
+                     log):
+    """``--profile-winner`` (the reference's bench/driver.py:1878-1960): the
+    stepped timeline of ``seq`` (obs/attrib), analyzed against its measured
+    ``measured_us``, and where ``seq`` is not naive, naive's too and the
+    decision diff.  Returns ``(attrib block, the Attribution)``; with
+    ``trace_out`` writes ``explain.json`` there and adds the per-lane tracks
+    to ``attrib_extra``."""
+    from tenzing_tpu_torch.obs import attrib
+
+    t0 = time.time()
+    w_tl = attrib.stepped_timeline(ex, seq, repeats=repeats)
+    w_at = attrib.analyze(seq.vector(), w_tl, measured_us=measured_us,
+                          cost=cost)
+    block = w_at.to_json()
+    block["fetch_overhead_us"] = round(w_tl.fetch_overhead_us, 3)
+    block["timers"] = w_tl.timers()
+    expl, n_at = None, None
+    if seq is not naive_seq:
+        n_tl = attrib.stepped_timeline(ex, naive_seq, repeats=repeats)
+        n_at = attrib.analyze(naive_seq.vector(), n_tl, measured_us=naive_us,
+                              cost=cost)
+        expl = attrib.explain(naive_seq.vector(), seq.vector(),
+                              naive_attrib=n_at, winner_attrib=w_at)
+        block["explain"] = expl.get("timing", {})
+    if fin_res.times:
+        block["measured_times"] = [round(t, 9) for t in fin_res.times]
+    if trace_out:
+        os.makedirs(trace_out, exist_ok=True)
+        doc = dict(expl) if expl is not None else {}
+        doc["attrib"] = block
+        path = os.path.join(trace_out, "explain.json")
+        attrib.write_explain(path, doc)
+        t0_us = time.time() * 1e6
+        attrib_extra.extend(attrib.timeline_trace_events(
+            w_at, t0_us=t0_us, label="attrib/winner"))
+        if n_at is not None:
+            attrib_extra.extend(attrib.timeline_trace_events(
+                n_at, t0_us=t0_us, label="attrib/naive", tid_base=2000))
+        log(f"explain: {path}")
+    eff = block["overlap_efficiency"]
+    log("profile-winner: %d units stepped, sum-of-parts %.1fus, critical path "
+        "%.1fus, dispatch overhead %.1fus, overlap efficiency %s, fence "
+        "%.1fus (wall %.0fs)" % (
+            block["n_timed"], block["sum_of_parts_us"],
+            block["critical_path_us"], block["dispatch_overhead_us"],
+            f"{eff:.3f}" if eff is not None else "n/a",
+            w_tl.fetch_overhead_us, time.time() - t0))
+    return block, w_at
+
+
+def chunked_hidden_measured(ex, seq, measured_us: float, profiled, repeats: int,
+                            log) -> float:
+    """``perf.chunked.hidden_comm_us.measured`` (the reference's
+    bench/driver.py:2132-2148): the transfer time that ran under the chunk
+    partials on the stepped timeline (core/chunking.py
+    ``hidden_comm_measured_us``), reusing ``--profile-winner``'s analysis
+    where there is one.  An unchunked schedule hides nothing behind
+    partials: 0.0 without a profile."""
+    from tenzing_tpu_torch.core.chunking import chunks_of, hidden_comm_measured_us
+
+    if not chunks_of(seq.vector()):
+        return 0.0
+    from tenzing_tpu_torch.obs import attrib
+
+    t0 = time.time()
+    at = profiled
+    if at is None:
+        at = attrib.analyze(seq.vector(), attrib.stepped_timeline(
+            ex, seq, repeats=repeats), measured_us=measured_us)
+    measured = hidden_comm_measured_us(seq.vector(), at)
+    log("chunked: hidden comm measured %.1fus (wall %.0fs)"
+        % (measured, time.time() - t0))
+    return measured
+
+
+def dump_database(path, naive_seq, naive, sims, finals, top, log) -> None:
+    """``--dump-csv``: the run's search database (the reference's
+    bench/driver.py:2257-2315), one row per measured schedule, naive as row
+    0 at full fidelity.  The final batch's results supersede the search-time
+    rows of naive and the finalists (``CsvBenchmarker`` answers from the
+    first full row, so the verdict is replayable); MCTS rollouts measured at
+    the screen floor carry ``fid=screen``."""
+    from tenzing_tpu_torch.bench.benchmarker import result_row
+
+    results = [naive] + [s.result for s in sims]
+    fids = ["full"] + [s.fidelity for s in sims]
+    if finals:
+        results[0] = finals[0]
+        for r, s in zip(finals[1:], top):
+            # identity, not ==: sync ops compare by kind alone
+            idx = next(i for i, s2 in enumerate(sims) if s2 is s)
+            results[1 + idx] = r
+            fids[1 + idx] = "full"
+    orders = [naive_seq] + [s.order for s in sims]
+    rows = [result_row(i, r, o, fidelity=None if f == "full" else f)
+            for i, (r, o, f) in enumerate(zip(results, orders, fids))]
+    with open(path, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    log(f"csv: {path} ({len(rows)} rows)")
+
+
 def chunked_block(g, sims, seq, log) -> Dict[str, Any]:
     """The ``perf.chunked`` block (the reference's bench/driver.py:2080-2165):
     the chunk menus the graph offers, the counts the search visited, how many
     candidates were chunked and what the reported schedule chose, with the
-    roofline's estimate of the hidden comm.  The measured hidden comm needs
-    the attribution timeline (``not_ported``): it stays None."""
+    roofline's estimate of the hidden comm.  The measured hidden comm is
+    filled in by the caller (:func:`chunked_hidden_measured`)."""
     from tenzing_tpu_torch.core.chunking import chunk_menus, chunks_of
 
     menus = chunk_menus(g)
@@ -1000,7 +1301,8 @@ def fused_member_check(args, seq):
 
 
 def fuse_reported(ex, seq, stepped_out, opts, stepped_us: float, tol: float,
-                  skip, verifier, log, member_check) -> Dict[str, Any]:
+                  skip, verifier, log, member_check, profile_repeats: int = 7,
+                  cost=None, profiled=None) -> Dict[str, Any]:
     """The ``--fuse-winner`` phase (the reference's bench/driver.py:1961-2078):
     lower ``seq`` into fused regions, measure every tile count of the pruned
     menu with a fresh benchmarker each, run the best fused program beside
@@ -1013,7 +1315,14 @@ def fuse_reported(ex, seq, stepped_out, opts, stepped_us: float, tol: float,
     ``diverged``) and the run goes on.  And ``member_check``, the members'
     own tolerance (:func:`fused_member_check`): where it fails, the kernel is
     wrong and this raises.  A region that fails to build or launch raises
-    too; nothing is caught into the block."""
+    too; nothing is caught into the block.
+
+    The block's ``dispatch_overhead_us`` and ``sum_of_parts_us`` come as
+    ``before`` / ``after`` pairs (the reference's :2040-2056): the stepped
+    timeline (obs/attrib) of ``seq`` against ``stepped_us`` (``profiled``,
+    ``--profile-winner``'s analysis of the same schedule, where there is
+    one) and of the fused program, a unit per region, against its
+    measured time."""
     from tenzing_tpu_torch.bench.benchmarker import EmpiricalBenchmarker
     from tenzing_tpu_torch.runtime.fused import FusedExecutor, fused_summary
 
@@ -1039,6 +1348,16 @@ def fuse_reported(ex, seq, stepped_out, opts, stepped_us: float, tol: float,
     mismatched = mismatched_outputs(out_s, out_f, tol, skip=skip)
     del out_s, out_f
     re_verdict = verifier(seq)
+    from tenzing_tpu_torch.obs import attrib
+
+    at_b = profiled
+    if at_b is None:
+        at_b = attrib.analyze(seq.vector(), attrib.stepped_timeline(
+            ex, seq, repeats=profile_repeats), measured_us=stepped_us,
+            cost=cost)
+    fseq = best_fex.fused_order(seq)
+    at_a = attrib.analyze(fseq.vector(), attrib.stepped_timeline(
+        ex, fseq, repeats=profile_repeats), measured_us=best_us, cost=cost)
     block = {
         "regions": len(plan.regions),
         "region_sizes": [r.n_ops for r in plan.regions],
@@ -1052,17 +1371,24 @@ def fuse_reported(ex, seq, stepped_out, opts, stepped_us: float, tol: float,
         # CUDA has no per-schedule compile: the region kernel is built once
         "compiled_programs": 0,
         "verified": bool(re_verdict.ok and not mismatched),
+        "dispatch_overhead_us": {
+            "before": round(at_b.dispatch_overhead_us, 3),
+            "after": round(at_a.dispatch_overhead_us, 3)},
+        "sum_of_parts_us": {"before": round(at_b.sum_of_parts_us, 3),
+                            "after": round(at_a.sum_of_parts_us, 3)},
     }
     if mismatched:
         block["error"] = f"fused outputs diverge on {mismatched[:4]}"
         block["diverged"] = mismatched
     if not re_verdict.ok:
         block["verdict"] = re_verdict.witness()
-    log("fuse-winner: %s; tiles %s -> best t=%d %.1fus (stepped %.1fus); %s "
-        "(wall %.0fs)" % (fused_summary(plan), by_tiles, best_t, best_us,
-                          stepped_us,
-                          "verified" if block["verified"] else "GATE FAILED",
-                          time.time() - t0))
+    log("fuse-winner: %s; tiles %s -> best t=%d %.1fus (stepped %.1fus); "
+        "dispatch overhead %.1f -> %.1fus; %s (wall %.0fs)" % (
+            fused_summary(plan), by_tiles, best_t, best_us, stepped_us,
+            block["dispatch_overhead_us"]["before"],
+            block["dispatch_overhead_us"]["after"],
+            "verified" if block["verified"] else "GATE FAILED",
+            time.time() - t0))
     return block
 
 

@@ -1,10 +1,13 @@
-"""Roofline pruning of the fused-region tile menus and the chunk menus.
+"""Roofline costs: the per-workload cost models, and the pruning of the
+fused-region tile menus and the chunk menus.
 
-Counterpart of ``tenzing_tpu/bench/roofline.py:117-247`` (the rest of that
-module, the per-workload cost models against the card's peaks, comes later):
-``Cost``, ``prune_tilings`` (the reference's without its working-set
-ceiling), and the chunk-menu sketch constraint ``op_roofline_us``,
-``hidden_comm_bound_us``, ``prune_chunkings`` and ``chunk_menu``.
+Counterpart of ``tenzing_tpu/bench/roofline.py``: ``Cost`` and its
+fraction-of-peak report (``Cost.utilization``), the per-workload cost models
+(``attention_cost``, ``moe_cost``, ``halo_cost``, ``spmv_cost``: the
+reference's FLOP and byte counts, one iteration each), ``prune_tilings``
+(the reference's without its working-set ceiling), and the chunk-menu
+sketch constraint ``op_roofline_us``, ``hidden_comm_bound_us``,
+``prune_chunkings`` and ``chunk_menu``.
 
 On the card a fused region's tile is the row share of one group of thread
 blocks (csrc/fused_region.cu), and every group is resident at once: the
@@ -23,6 +26,7 @@ measures it.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Dict
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor cores
 # (the port's .xla folds and expert MLPs run in full f32, no TF32), dense bf16
@@ -45,11 +49,72 @@ MIN_TILE_BYTES = 0
 
 @dataclass(frozen=True)
 class Cost:
-    """Arithmetic and device-memory traffic of one unit of work
-    (``hbm_bytes``: reads plus writes of its live buffers)."""
+    """Arithmetic and memory traffic of one unit of work: ``hbm_bytes``
+    counts the reads and writes of its live device buffers, ``xfer_bytes``
+    the bytes through the host staging path (PCIe), which has its own
+    rate."""
 
     flops: float
     hbm_bytes: float
+    xfer_bytes: float = 0.0
+
+    def utilization(self, seconds: float) -> Dict[str, float]:
+        """Achieved rates and fractions of the H100's peaks for one
+        iteration of ``seconds`` (the reference's report, with the card's
+        peaks: f32 outside the tensor cores and dense bf16 on them)."""
+        return {
+            "seconds": seconds,
+            "tflops": self.flops / seconds / 1e12,
+            "f32_frac": self.flops / seconds / H100_PEAK_F32_FLOPS,
+            "bf16_frac": self.flops / seconds / H100_PEAK_BF16_FLOPS,
+            "hbm_gbs": self.hbm_bytes / seconds / 1e9,
+            "hbm_frac": self.hbm_bytes / seconds / H100_PEAK_HBM_BYTES,
+            "xfer_gbs": self.xfer_bytes / seconds / 1e9,
+        }
+
+
+def attention_cost(batch: int, seq: int, head_dim: int,
+                   bytes_per_el: int = 4) -> Cost:
+    """Dense softmax attention, one head group: QK^T and PV are each
+    2*b*n^2*d FLOPs (the softmax's O(b*n^2) is left out).  Traffic: read Q,
+    K, V and write O."""
+    flops = 4.0 * batch * seq * seq * head_dim
+    hbm = 4.0 * batch * seq * head_dim * bytes_per_el
+    return Cost(flops=flops, hbm_bytes=hbm)
+
+
+def moe_cost(tokens: int, d_model: int, d_ff: int, bytes_per_el: int = 4,
+             staged: bool = False, n_experts: int = 8) -> Cost:
+    """Top-1 routed MoE layer: every token through one gelu MLP, 2*t*d*dff
+    FLOPs up and as many down.  Traffic: read X and every expert's weights
+    once, write Y; ``staged`` adds the dispatch and combine round trips
+    through the staging path (4 crossings of the slot table)."""
+    flops = 4.0 * tokens * d_model * d_ff
+    weights = 2.0 * n_experts * d_model * d_ff * bytes_per_el
+    hbm = (2.0 * tokens * d_model) * bytes_per_el + weights
+    xfer = 4.0 * tokens * d_model * bytes_per_el if staged else 0.0
+    return Cost(flops=flops, hbm_bytes=hbm, xfer_bytes=xfer)
+
+
+def halo_cost(nq: int, lx: int, ly: int, lz: int, radius: int,
+              bytes_per_el: int = 4, staged: bool = True) -> Cost:
+    """The 6-face halo exchange, one iteration: no FLOPs.  Per face: pack
+    (read the face, write the buffer) and unpack (read the buffer, write the
+    shell), 4 face-bytes of traffic; host staging adds 2 crossings (spill
+    and fetch)."""
+    faces = 2 * (lx * ly + ly * lz + lx * lz) * radius * nq
+    face_bytes = float(faces) * bytes_per_el
+    return Cost(flops=0.0, hbm_bytes=4.0 * face_bytes,
+                xfer_bytes=(2.0 * face_bytes if staged else 0.0))
+
+
+def spmv_cost(m: int, nnz: int, bytes_per_el: int = 4) -> Cost:
+    """CSR y = A x: 2 FLOPs a stored element; traffic: the value, the column
+    index and the gathered x of each stored element, and a row's y write and
+    4-byte row offset."""
+    flops = 2.0 * nnz
+    hbm = float(nnz) * (2 * bytes_per_el + 4) + float(m) * (bytes_per_el + 4)
+    return Cost(flops=flops, hbm_bytes=hbm)
 
 
 def prune_tilings(cost: Cost, tile_counts, min_tile_bytes: float = MIN_TILE_BYTES,

@@ -23,9 +23,9 @@ transfer post, another chain's compute) run between them:
 ``chunks=1`` is the op itself; ``chunks>1`` re-associates the accumulation
 and is held to the driver's integrity gate like any other schedule.
 
-Not here yet: ``hidden_comm_measured_us`` (the overlap of transfers with the
-partials on the attribution profiler's timeline), which comes with the
-port's ``obs/attrib``.
+The measured side: :func:`hidden_comm_measured_us` is the overlap of
+transfers with the partials on the attribution profiler's timeline
+(obs/attrib).
 """
 
 from __future__ import annotations
@@ -176,6 +176,52 @@ def chunks_of(order) -> Dict[str, int]:
         except ValueError:
             continue
     return out
+
+
+# the op kinds whose units move data between devices or through the host
+# (the reference's ICI_KINDS and PCIE_KINDS, bench/model.py) and the awaits
+COMM_KINDS = frozenset({
+    "permute_start", "all_to_all_start", "psum_start", "rdma_copy_start",
+    "rdma_shift_start", "host_spill_start", "host_fetch_start",
+    "await_transfer", "multi_await"})
+
+
+def hidden_comm_measured_us(ops, attrib) -> float:
+    """The measured hidden comm of a chunked schedule (the driver's
+    ``perf.chunked.hidden_comm_us.measured``; the reference's
+    core/chunking.py:221): the summed overlap, on the attribution
+    timeline's Gantt (obs/attrib: durations measured per unit, starts
+    rebuilt from the happens-before relation), between transfer units and
+    the chunk partials' units, i.e. the comm time that ran under a chunked
+    op's partials.  ``ops`` is the executed op list, ``attrib`` the
+    analyzed ``Attribution`` of the same schedule; 0.0 for an unchunked
+    schedule or one without transfers."""
+    chosen = chunks_of(ops)
+    if not chosen:
+        return 0.0
+    ops = list(ops)
+    part_prefixes = tuple(f"{base}.c{n}p" for base, n in chosen.items())
+
+    def op_kind(pos: int) -> str:
+        if pos >= len(ops):
+            return ""
+        op = ops[pos]
+        base = op.unbound() if hasattr(op, "unbound") else op
+        return getattr(base, "KIND", "") or ""
+
+    parts, comms = [], []
+    for rec in attrib.timeline.records:
+        if rec.dur_us <= 0:
+            continue
+        if rec.name.startswith(part_prefixes):
+            parts.append((rec.start_us, rec.end_us))
+        elif any(op_kind(p) in COMM_KINDS for p in rec.positions):
+            comms.append((rec.start_us, rec.end_us))
+    total = 0.0
+    for cs, ce in comms:
+        for ps, pe in parts:
+            total += max(0.0, min(ce, pe) - max(cs, ps))
+    return total
 
 
 def chunk_menus(graph: Graph) -> Dict[str, Dict[str, Any]]:

@@ -14,7 +14,7 @@ schedule written by the JAX package deserializes here and runs on CUDA.
 from __future__ import annotations
 
 import json
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List
 
 from tenzing_tpu_torch.core.graph import Graph
 from tenzing_tpu_torch.core import sync_ops as _sync_ops  # noqa: F401 — registers the
@@ -48,33 +48,33 @@ def sequence_to_json_str(seq: Sequence) -> str:
     return json.dumps(sequence_to_json(seq))
 
 
-def _search_op(op: OpBase, name: str) -> Optional[OpBase]:
-    """Uniform recursive match on one op: its own name, then — whatever the
-    nesting — compound sub-graphs and choice alternatives (reference
-    operation_serdes.cpp:14-56 recurses uniformly; a ChoiceOp nested inside a
-    choice alternative's compound must resolve the same as a top-level one)."""
-    if op.name() == name:
-        return op
-    if isinstance(op, CompoundOp):
-        hit = _find_by_name(op.graph(), name)
-        if hit is not None:
-            return hit
-    if isinstance(op, ChoiceOp):
-        for c in op.choices():
-            hit = _search_op(c, name)
-            if hit is not None:
-                return hit
-    return None
+def _name_index(graph: Graph) -> Dict[str, OpBase]:
+    """The graph-anchored lookup (reference operation_serdes.cpp:14-56): every
+    op name in ``graph``, descending uniformly into compound sub-graphs and
+    choice alternatives whatever the nesting, mapped to the first op of
+    that name in the reference's search order (a vertex, then its compound
+    sub-graph, then its choice alternatives).  Kept on the graph while its
+    vertex count stands (a graph only gains vertices), so reading a database
+    of thousands of rows walks the graph once instead of once per op."""
+    n = len(graph.vertices())
+    cached = getattr(graph, "_serdes_index", None)
+    if cached is not None and cached[0] == n:
+        return cached[1]
+    names: Dict[str, OpBase] = {}
 
+    def walk(op: OpBase) -> None:
+        names.setdefault(op.name(), op)
+        if isinstance(op, CompoundOp):
+            for v in op.graph().vertices():
+                walk(v)
+        if isinstance(op, ChoiceOp):
+            for c in op.choices():
+                walk(c)
 
-def _find_by_name(graph: Graph, name: str) -> Optional[OpBase]:
-    """Recursive graph-anchored lookup (reference operation_serdes.cpp:14-56):
-    search vertices, descending into compound sub-graphs and choice alternatives."""
     for v in graph.vertices():
-        hit = _search_op(v, name)
-        if hit is not None:
-            return hit
-    return None
+        walk(v)
+    graph._serdes_index = (n, names)
+    return names
 
 
 def op_from_json(j: Dict[str, Any], graph: Graph) -> OpBase:
@@ -87,7 +87,7 @@ def op_from_json(j: Dict[str, Any], graph: Graph) -> OpBase:
         # scheduler-inserted sync ops carry everything they need
         return cls.from_json(j)
     name = j["name"]
-    op = _find_by_name(graph, name)
+    op = _name_index(graph).get(name)
     if op is None:
         raise KeyError(f"op {name!r} not found in graph during deserialization")
     from tenzing_tpu_torch.core.operation import unbound

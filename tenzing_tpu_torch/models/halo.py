@@ -216,10 +216,13 @@ class HaloExchange(CompoundOp):
 
 def add_to_graph(g: Graph, args: HaloArgs, preds: Optional[List] = None,
                  succs: Optional[List] = None, xfer_choice: bool = False,
-                 synth: bool = False, synth_relax: bool = False) -> Graph:
+                 synth: bool = False, synth_relax: bool = False,
+                 engine: str = "xla") -> Graph:
     """The per-direction pack -> post -> await -> unpack chains (reference
     HaloExchange::add_to_graph, ops_halo_exchange.cu:33-257).  With
-    ``xfer_choice`` each post is an :class:`ExchangeChoice`."""
+    ``xfer_choice`` each post is an :class:`ExchangeChoice`, else the
+    ``engine`` post (:func:`exchange_post`; ranks sharing one card exchange
+    only through ``"rdma"``)."""
     from tenzing_tpu_torch.ops.comm_ops import AwaitTransfer
 
     if synth or synth_relax:
@@ -228,7 +231,7 @@ def add_to_graph(g: Graph, args: HaloArgs, preds: Optional[List] = None,
     succs = succs if succs is not None else [g.finish()]
     for d in DIRECTIONS:
         name = dir_name(d)
-        exch = ExchangeChoice(d) if xfer_choice else exchange_post(d, "xla")
+        exch = ExchangeChoice(d) if xfer_choice else exchange_post(d, engine)
         await_ = AwaitTransfer(f"await_{name}", f"recv_{name}")
         pack, unpack = Pack(args, d), Unpack(args, d)
         for p in preds:

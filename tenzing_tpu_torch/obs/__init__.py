@@ -1,0 +1,65 @@
+"""Telemetry: span/event tracing, metrics, progress lines, export.
+
+Counterpart of ``tenzing_tpu/obs/__init__.py``, the single-process part:
+
+* :mod:`~tenzing_tpu_torch.obs.tracer` — nested spans and instant events,
+  thread-safe, a no-op while disabled; every record carries the control
+  plane's rank;
+* :mod:`~tenzing_tpu_torch.obs.context` — the trace context stamped onto
+  every record while it is ambient;
+* :mod:`~tenzing_tpu_torch.obs.metrics` — counters, gauges and histograms
+  with percentile summaries (``utils/counters.py`` mirrors the solvers'
+  phase timings into it);
+* :mod:`~tenzing_tpu_torch.obs.progress` — progress lines that also go to
+  the tracer's event stream;
+* :mod:`~tenzing_tpu_torch.obs.export` — JSONL and Chrome trace-event sinks.
+
+The driver writes them with ``--trace-out DIR`` (``trace.jsonl``,
+``trace.json``) and ``--metrics-json PATH``.  Everything here is stdlib
+only; :mod:`~tenzing_tpu_torch.obs.attrib` (the attribution profiler) is
+imported on its own, since it needs torch.
+"""
+
+from tenzing_tpu_torch.obs.context import TraceContext, new_trace
+from tenzing_tpu_torch.obs.export import (
+    chrome_trace,
+    read_jsonl,
+    to_jsonl,
+    write_chrome_trace,
+    write_jsonl,
+)
+from tenzing_tpu_torch.obs.metrics import (
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    get_metrics,
+    set_metrics,
+)
+from tenzing_tpu_torch.obs.progress import ProgressReporter, get_reporter, set_reporter
+from tenzing_tpu_torch.obs.tracer import Event, Span, Tracer, configure, get_tracer, set_tracer
+
+__all__ = [
+    "Counter",
+    "Event",
+    "Gauge",
+    "Histogram",
+    "MetricsRegistry",
+    "ProgressReporter",
+    "Span",
+    "TraceContext",
+    "Tracer",
+    "chrome_trace",
+    "configure",
+    "get_metrics",
+    "get_reporter",
+    "get_tracer",
+    "new_trace",
+    "read_jsonl",
+    "set_metrics",
+    "set_reporter",
+    "set_tracer",
+    "to_jsonl",
+    "write_chrome_trace",
+    "write_jsonl",
+]

@@ -1,0 +1,265 @@
+"""Metrics registry: counters, gauges, histograms with percentile summaries.
+
+Counterpart of ``tenzing_tpu/obs/metrics.py`` without its serving half (the
+SLO configuration and the snapshot writer wait for the serve plane).  Where
+the tracer answers "what happened when", the registry answers "how much /
+how often / how slow".  One process-global registry (:func:`get_metrics`)
+aggregates over a whole run — the solvers' phase timings (through
+``utils/counters.py``), the benchmark cache's hit rate, measurement counts —
+and serializes to one JSON document
+(``python -m tenzing_tpu_torch.bench --metrics-json PATH``).
+
+Histogram summaries use the nearest-rank percentile of ``BenchResult``
+(utils/numeric.py ``percentile``) and keep raw observations up to a cap.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from contextlib import contextmanager
+from typing import Any, Dict, List, Optional
+
+from tenzing_tpu_torch.utils.numeric import percentile
+
+
+class Counter:
+    """Monotonic event count."""
+
+    __slots__ = ("name", "_lock", "_value")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._lock = threading.Lock()
+        self._value = 0
+
+    def inc(self, n: int = 1) -> None:
+        with self._lock:
+            self._value += n
+
+    @property
+    def value(self) -> int:
+        return self._value
+
+
+class Gauge:
+    """Last-write-wins instantaneous value."""
+
+    __slots__ = ("name", "_value")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._value = 0.0
+
+    def set(self, value: float) -> None:
+        self._value = float(value)
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+
+class Histogram:
+    """Distribution of observations with a percentile summary.
+
+    Aggregates (count/sum/min/max) are exact and O(1) per observation; raw
+    values are retained only up to ``max_raw`` for the percentile summary —
+    a hot loop observing per-node timings (DFS enumeration) cannot grow
+    memory without bound.  A truncated summary carries ``raw_retained`` and
+    ``truncated: true`` so downstream tooling (e.g. the report CLI,
+    obs/report.py) labels the percentiles prefix-only instead of silently
+    treating them as full-series statistics.
+
+    ``window=True`` retains the most RECENT ``max_raw`` observations
+    instead of the first (a deque ring): the serving-latency series a
+    live SLO block reads must reflect current traffic — first-N
+    retention would freeze the pct99 at whatever the process saw before
+    the cap filled, hiding every regression after warm-up.  Windowed
+    summaries carry ``window: true`` (+ ``raw_retained``) instead of
+    ``truncated``."""
+
+    __slots__ = ("name", "_lock", "_values", "_count", "_sum", "_min",
+                 "_max", "_max_raw", "_window")
+
+    def __init__(self, name: str, max_raw: int = 65536,
+                 window: bool = False):
+        self.name = name
+        self._lock = threading.Lock()
+        self._window = bool(window)
+        self._max_raw = max(1, max_raw)
+        self._values = (deque(maxlen=self._max_raw) if self._window
+                        else [])  # type: ignore[var-annotated]
+        self._count = 0
+        self._sum = 0.0
+        self._min = float("inf")
+        self._max = float("-inf")
+
+    def observe(self, value: float) -> None:
+        value = float(value)
+        with self._lock:
+            self._count += 1
+            self._sum += value
+            if value < self._min:
+                self._min = value
+            if value > self._max:
+                self._max = value
+            if self._window or len(self._values) < self._max_raw:
+                self._values.append(value)  # deque evicts oldest itself
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    @property
+    def total(self) -> float:
+        return self._sum
+
+    def values(self) -> List[float]:
+        """The retained raw observations (all of them below ``max_raw``)."""
+        with self._lock:
+            return list(self._values)
+
+    def summary(self, block: bool = True) -> Dict[str, float]:
+        """count/sum/min/max/mean + nearest-rank p50/p90/p99.
+
+        ``block=False`` is the async-signal-safe read (the driver's exit-path
+        ``write_telemetry``): if the instrument lock cannot be acquired —
+        the interrupted thread may hold it mid-``observe`` — the summary is
+        computed from a GIL-atomic copy of the fields instead of blocking
+        on a lock that will never be released."""
+        acquired = self._lock.acquire(blocking=block)
+        try:
+            count, total = self._count, self._sum
+            mn, mx = self._min, self._max
+            xs = sorted(self._values)
+        finally:
+            if acquired:
+                self._lock.release()
+        if count == 0 or not xs:
+            # xs can be empty at count > 0 only on a torn non-blocking read
+            # (observe() bumps count before appending); report the exact
+            # aggregates without percentiles rather than crash at exit
+            return {"count": count, "sum": total}
+        out = {
+            "count": count,
+            "sum": total,
+            "min": mn,
+            "max": mx,
+            "mean": total / count,
+            "p50": percentile(xs, 50),
+            "p90": percentile(xs, 90),
+            "p99": percentile(xs, 99),
+        }
+        if len(xs) < count:
+            # the retained-raw cap bounded the series: the percentiles
+            # cover only ``raw_retained`` of ``count`` observations —
+            # the FIRST raw_retained for plain histograms (``truncated``,
+            # labeled "prefix-only" by the report CLI) or the most
+            # RECENT for windowed ones (``window``, labeled
+            # "recent-window").  Explicit markers so readers never have
+            # to compare count vs raw_retained themselves.
+            out["raw_retained"] = len(xs)
+            if self._window:
+                out["window"] = True
+            else:
+                out["truncated"] = True
+        return out
+
+
+class MetricsRegistry:
+    """Get-or-create namespace of instruments; serializes to one JSON doc."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._counters: Dict[str, Counter] = {}
+        self._gauges: Dict[str, Gauge] = {}
+        self._histograms: Dict[str, Histogram] = {}
+
+    def counter(self, name: str) -> Counter:
+        with self._lock:
+            inst = self._counters.get(name)
+            if inst is None:
+                inst = self._counters[name] = Counter(name)
+            return inst
+
+    def gauge(self, name: str) -> Gauge:
+        with self._lock:
+            inst = self._gauges.get(name)
+            if inst is None:
+                inst = self._gauges[name] = Gauge(name)
+            return inst
+
+    def histogram(self, name: str, max_raw: Optional[int] = None,
+                  window: bool = False) -> Histogram:
+        """Get-or-create; ``max_raw`` / ``window`` shape the raw-series
+        retention and apply only at creation (the first caller of a
+        name decides: a long-lived process passes a small windowed cap
+        for a latency series so live percentiles track current
+        traffic)."""
+        with self._lock:
+            inst = self._histograms.get(name)
+            if inst is None:
+                kwargs: Dict[str, Any] = {"window": window}
+                if max_raw is not None:
+                    kwargs["max_raw"] = max_raw
+                inst = self._histograms[name] = Histogram(name, **kwargs)
+            return inst
+
+    def histograms(self) -> Dict[str, Histogram]:
+        """Snapshot of the registered histograms (name -> instrument)."""
+        with self._lock:
+            return dict(self._histograms)
+
+    @contextmanager
+    def timer(self, name: str):
+        """Time a block into histogram ``name`` (seconds)."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.histogram(name).observe(time.perf_counter() - t0)
+
+    def to_json(self, block: bool = True) -> Dict[str, Any]:
+        """Serialize every instrument.  ``block=False`` is the
+        async-signal-safe variant (the driver's exit path,
+        ``write_telemetry``): registry and per-histogram locks are taken
+        non-blocking with GIL-atomic dict/list copies as the fallback, so a
+        signal handler can archive metrics even while the interrupted
+        thread holds an instrument lock."""
+        acquired = self._lock.acquire(blocking=block)
+        try:
+            counters = dict(self._counters)
+            gauges = dict(self._gauges)
+            histograms = dict(self._histograms)
+        finally:
+            if acquired:
+                self._lock.release()
+        return {
+            "counters": {n: c.value for n, c in sorted(counters.items())},
+            "gauges": {n: g.value for n, g in sorted(gauges.items())},
+            "histograms": {n: h.summary(block=block)
+                           for n, h in sorted(histograms.items())},
+        }
+
+    def clear(self) -> None:
+        with self._lock:
+            self._counters.clear()
+            self._gauges.clear()
+            self._histograms.clear()
+
+
+_GLOBAL = MetricsRegistry()
+
+
+def get_metrics() -> MetricsRegistry:
+    """The process-global registry (always live — recording into it is cheap
+    and reading it is opt-in, so there is no enabled flag to thread around)."""
+    return _GLOBAL
+
+
+def set_metrics(registry: MetricsRegistry) -> MetricsRegistry:
+    """Swap the process-global registry (tests); returns the previous one."""
+    global _GLOBAL
+    prev, _GLOBAL = _GLOBAL, registry
+    return prev

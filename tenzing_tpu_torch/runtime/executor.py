@@ -74,6 +74,11 @@ arrival flag shows they landed.  On an axis of size 1 the shift is the
 loopback copy, posted like any transfer.  With ``device="cpu"``, or under
 ``plain_kernels``, the shift is its plain version over the axis group.
 
+**Stepped execution** (:meth:`StreamExecutor.op_stepped`, the attribution
+profiler's timed mode, obs/attrib/timeline.py) runs a schedule one unit at a
+time from a copy of the initial buffers, each unit alone on an idle device;
+see the method.
+
 ``prepare_n`` runs the schedule n times back to back on the persistent
 streams and synchronizes the device once; there is no CUDA-graph capture,
 since LaneSync, AwaitTransfer and the host ops' pending syncs block the host.
@@ -84,6 +89,7 @@ and ops run in sequence order, so outputs stay checkable without a card.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 
@@ -459,6 +465,41 @@ class RunContext:
             self.lane_stream(waiter).wait_stream(self.lane_stream(waitee))
 
 
+def _is_sync(op: OpBase) -> bool:
+    return getattr(op, "is_sync", lambda: False)()
+
+
+def step_units(ops: List[OpBase]) -> List[Tuple[int, ...]]:
+    """The positions of each unit of :meth:`StreamExecutor.op_stepped`, in
+    order: a split ``.rdma`` post with every op through its matching await
+    (the reference's grouping), a sync op outside such a group alone, every
+    other op alone; an un-awaited tail is one unit."""
+    units: List[Tuple[int, ...]] = []
+    cur: List[int] = []
+    pending: set = set()
+    for p, op in enumerate(ops):
+        if _is_sync(op):
+            if cur:
+                cur.append(p)
+            else:
+                units.append((p,))
+            continue
+        cur.append(p)
+        kind = getattr(op, "KIND", "")
+        if kind in ("rdma_copy_start", "rdma_shift_start"):
+            pending.update(op.writes())
+        elif kind == "await_transfer":
+            pending.discard(op.buf())
+        elif kind == "multi_await":
+            pending.difference_update(op.bufs())
+        if not pending:
+            units.append(tuple(cur))
+            cur = []
+    if cur:
+        units.append(tuple(cur))
+    return units
+
+
 def evolve_host_space(names: set, op: OpBase) -> None:
     """Apply ONE op's transfer semantics to a set of host-resident buffer
     names, in place: an op declaring ``DST_SPACE`` (ops/comm_ops.py) moves
@@ -565,11 +606,16 @@ class StreamExecutor:
     def precompile(self, order: Sequence) -> bool:
         """Provision ``order``'s scratch, streams and events ahead of its first
         run; returns True when this call did the work.  There is nothing to
-        compile: the kernels are built once per process (ops/kernel_lib.py)."""
+        compile: the kernels are built once per process (ops/kernel_lib.py).
+        An ``executor.build`` span records the provisioning."""
         key = sequence_to_json_str(order)
         if key in self._prepared:
             return False
-        self._provision(order.vector())
+        from tenzing_tpu_torch.obs.tracer import get_tracer, short_digest
+
+        with get_tracer().span("executor.build", schedule=short_digest(key),
+                               n_ops=len(order)):
+            self._provision(order.vector())
         self._prepared.add(key)
         return True
 
@@ -597,6 +643,93 @@ class StreamExecutor:
             self._fence()
 
         return run_n
+
+    # -- timed execution mode (the attribution profiler's entry point) ------
+    def op_stepped(self, order: Sequence) -> List[Tuple[Tuple[int, ...],
+                                                        Optional[Callable]]]:
+        """The schedule as units run one at a time: ``[(positions, fn)]``
+        covering every position in order (the reference's
+        ``TraceExecutor.op_stepped``, tenzing_tpu/runtime/executor.py:642).
+
+        * A sync op outside a group is its own unit with ``fn=None``: every
+          unit ends with the device idle, so it has nothing to order.
+        * A transfer post of the ``.rdma`` engine (``rdma_copy_start``,
+          ``rdma_shift_start``) is grouped with every op up to its matching
+          await, sync ops included, into one unit (the reference's grouping
+          of split posts).  Every other op is a unit of its own.
+
+        The units run from a copy of the initial buffers, in order: each
+        ``fn(repeats)`` runs its unit alone against the state the previous
+        units left, once to warm and ``repeats`` more times, each time from
+        that same state (the buffers the unit writes and the transfers in
+        flight are restored before each run), so the state advances by one
+        application.  It returns ``(times in µs, timer)``: with
+        ``timer == "event"`` (a unit of one device op, on the card) each
+        time is a pair of CUDA events recorded on the op's lane stream
+        around its dispatch; with ``"host"`` (every other unit, and every
+        unit on the CPU) the host wall time of the unit followed by a
+        device synchronize.  Mesh platforms are rejected, as in the
+        reference."""
+        if self.platform.mesh is not None:
+            raise RuntimeError(
+                "op_stepped: per-op stepped profiling is single-device only "
+                "(obs/attrib/xplane.py's profiler capture works on a mesh)")
+        self.precompile(order)
+        ops = order.vector()
+        ctx = self.ctx
+        ctx.bufs = _copy_buffers(self._initial)
+        ctx.generation += 1
+        ctx.inflight = {}
+        self._fence()
+        steps: List[Tuple[Tuple[int, ...], Optional[Callable]]] = []
+        for positions in step_units(ops):
+            members = [ops[p] for p in positions]
+            if all(_is_sync(op) for op in members):
+                steps.append((positions, None))
+            else:
+                steps.append((positions, self._unit_fn(members)))
+        return steps
+
+    def _unit_fn(self, members: List[OpBase]) -> Callable:
+        """The runner of one stepped unit (:meth:`op_stepped`)."""
+        ctx = self.ctx
+        work = [op for op in members if not _is_sync(op)]
+        lane = (work[0].lane() if ctx.on_cuda and len(members) == 1
+                and isinstance(work[0], BoundDeviceOp) else None)
+
+        def fn(repeats: int) -> Tuple[List[float], str]:
+            written = dict.fromkeys(n for op in work for n in op.writes())
+            saved = {n: ctx.bufs[n].clone() for n in written if n in ctx.bufs}
+            inflight0 = dict(ctx.inflight)
+            times: List[float] = []
+            for r in range(repeats + 1):
+                if r:
+                    for n, t in saved.items():
+                        ctx.bufs[n].copy_(t)
+                    ctx.inflight = dict(inflight0)
+                self._fence()
+                ctx.pending, ctx._pending_waited = [], set()
+                if lane is not None:
+                    stream = ctx.lane_stream(lane)
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record(stream)
+                    ctx.run(members[0])
+                    b.record(stream)
+                    b.synchronize()
+                    t = a.elapsed_time(b) * 1e3
+                else:
+                    t0 = time.perf_counter()
+                    for op in members:
+                        ctx.run(op)
+                    ctx.flush_pending()
+                    self._fence()
+                    t = (time.perf_counter() - t0) * 1e6
+                if r:
+                    times.append(t)
+            return times, "event" if lane is not None else "host"
+
+        return fn
 
     def run(self, order: Sequence) -> Dict[str, torch.Tensor]:
         """Execute once from the initial buffer contents, on fresh copies, and

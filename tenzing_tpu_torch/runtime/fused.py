@@ -57,6 +57,8 @@ from tenzing_tpu_torch.core.operation import (
 )
 from tenzing_tpu_torch.core.sequence import Sequence
 from tenzing_tpu_torch.core.sync_ops import EventRecord, SyncOp
+from tenzing_tpu_torch.obs.metrics import get_metrics
+from tenzing_tpu_torch.obs.tracer import get_tracer
 from tenzing_tpu_torch.runtime.executor import evolve_host_space
 
 
@@ -526,29 +528,33 @@ class FusedExecutor:
         fused_ops: List[OpBase] = []
         infos: List[RegionInfo] = []
         n_fused = 0
-        for kind, seg in segments:
-            if kind == "op":
-                fused_ops.append(seg)
-                continue
-            region: Region = seg
-            valid = region_tile_counts(region, shapes)
-            pruned = self._pruned_tiles(region, valid, nbytes)
-            t = _best_divisor(int(tiles_req), pruned)
-            bodies = lower_region(region.members, shapes, dtypes)
-            idx = len(infos)
-            kernel = FusedRegionKernel(
-                f"fused{idx}.t{t}", region.members, region.reads_external(),
-                region.writes(), bodies, t)
-            fused_ops.append(FusedRegionOp(kernel, region.lanes()))
-            infos.append(RegionInfo(
-                n_ops=len(region.members),
-                members=[m.name() for m in region.members],
-                lanes=[lane.id for lane in region.lanes()],
-                tiles=t, valid_tiles=valid, pruned_tiles=pruned))
-            n_fused += len(region.members)
+        with get_tracer().span("fused.plan", n_ops=len(ops),
+                               tiles=int(tiles_req)):
+            for kind, seg in segments:
+                if kind == "op":
+                    fused_ops.append(seg)
+                    continue
+                region: Region = seg
+                valid = region_tile_counts(region, shapes)
+                pruned = self._pruned_tiles(region, valid, nbytes)
+                t = _best_divisor(int(tiles_req), pruned)
+                bodies = lower_region(region.members, shapes, dtypes)
+                idx = len(infos)
+                kernel = FusedRegionKernel(
+                    f"fused{idx}.t{t}", region.members,
+                    region.reads_external(), region.writes(), bodies, t)
+                fused_ops.append(FusedRegionOp(kernel, region.lanes()))
+                infos.append(RegionInfo(
+                    n_ops=len(region.members),
+                    members=[m.name() for m in region.members],
+                    lanes=[lane.id for lane in region.lanes()],
+                    tiles=t, valid_tiles=valid, pruned_tiles=pruned))
+                n_fused += len(region.members)
         plan = FusionPlan(fused_order=Sequence(fused_ops), regions=infos,
                           tiles_requested=int(tiles_req),
                           n_ops_total=len(ops), n_ops_fused=n_fused)
+        get_metrics().counter("fused.plans").inc()
+        get_metrics().counter("fused.regions").inc(len(infos))
         self._plans[key] = plan
         return plan
 

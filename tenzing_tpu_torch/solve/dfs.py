@@ -15,7 +15,10 @@ one rank, rank 0 enumerates and verifies, and the count and every schedule
 are broadcast as JSON (reference dfs.py:289-370, dfs.hpp:50-70, 145-167);
 every rank measures every schedule, one at a time (``batch`` is ignored, as
 in the reference).  A measurement that raises propagates (as in the port's
-MCTS: on CUDA no compile step can legitimately fail).  Not ported yet, and
+MCTS: on CUDA no compile step can legitimately fail) after a
+``search.candidate_failed`` record.  Telemetry: ``dfs.explore``,
+``dfs.enumerate``, ``dfs.enumerate_variant`` and a ``dfs.iter`` span per
+schedule measured one at a time, as in the reference.  Not ported yet, and
 refused when set: the learned ``prescreen``, ``checkpoint``, compile
 ``prefetch`` and fleet ``subtree`` slicing.
 """
@@ -26,13 +29,19 @@ import sys
 from dataclasses import dataclass, field
 from typing import List, Optional
 
-from tenzing_tpu_torch.bench.benchmarker import BenchOpts, BenchResult
-from tenzing_tpu_torch.bench.recorded import result_row
+from tenzing_tpu_torch.bench.benchmarker import (
+    BenchOpts,
+    BenchResult,
+    candidate_failed,
+    result_row,
+    schedule_id,
+)
 from tenzing_tpu_torch.core.graph import Graph
 from tenzing_tpu_torch.core.operation import ChoiceOp, CompoundOp
 from tenzing_tpu_torch.core.sequence import Sequence, canonical_key
 from tenzing_tpu_torch.core.serdes import sequence_from_json, sequence_to_json
 from tenzing_tpu_torch.core.state import State
+from tenzing_tpu_torch.obs.tracer import get_tracer
 from tenzing_tpu_torch.parallel.control_plane import ControlPlane, default_control_plane
 from tenzing_tpu_torch.utils.counters import Counters
 
@@ -110,7 +119,7 @@ def _dfs_terminals(graph: Graph, platform, max_seqs: int, dedup_terminals: bool,
     dfs.cpp:16-82; the per-expansion dedup is dfs.cpp:46-58).  With
     ``dedup_terminals`` the cap counts bijection-unique terminals, recognized
     by ``canonical_key``."""
-    c = counters if counters is not None else Counters()
+    c = counters if counters is not None else Counters(mirror_global=False)
     terminals: List[State] = []
     seen_keys: set = set()
     stack: List[State] = [State(graph)]
@@ -118,7 +127,7 @@ def _dfs_terminals(graph: Graph, platform, max_seqs: int, dedup_terminals: bool,
         st = stack.pop()
         if st.is_terminal():
             if dedup_terminals:
-                with c.phase("DEDUP"):
+                with c.phase("DEDUP", span=False):
                     key = canonical_key(st.sequence)
                     dup = key in seen_keys
                     seen_keys.add(key)
@@ -126,7 +135,7 @@ def _dfs_terminals(graph: Graph, platform, max_seqs: int, dedup_terminals: bool,
                     continue
             terminals.append(st)
             continue
-        with c.phase("SELECT"):
+        with c.phase("SELECT", span=False):
             stack.extend(st.frontier(platform))
     return terminals
 
@@ -191,7 +200,10 @@ def enumerate_schedules(graph: Graph, platform, max_seqs: int = 15000,
                 "variant(s) not enumerated (raise max_seqs)")
             break
         share = -(-remaining // (len(variants) - k))  # ceil fair share
-        nat = get_unique_sequences(g, platform, share, counters=counters)
+        with get_tracer().span("dfs.enumerate_variant", variant=k,
+                               share=share) as sp:
+            nat = get_unique_sequences(g, platform, share, counters=counters)
+            sp.set("n_terminals", len(nat))
         if len(nat) >= share and k + 1 < len(variants):
             log(f"dfs: variant {k} truncated at its fair share ({share} "
                 "schedules)")
@@ -210,11 +222,42 @@ def explore(graph: Graph, platform, benchmarker,
         if getattr(opts, name) is not None:
             raise NotImplementedError(f"DfsOpts.{name}: not yet ported")
     cp = control_plane if control_plane is not None else default_control_plane()
-    lead = cp.rank() == 0
-    counters = Counters()
+    counters = Counters(prefix="dfs.phase")
     result = DfsResult(counters=counters)
-    states = (enumerate_schedules(graph, platform, opts.max_seqs,
-                                  counters=counters) if lead else [])
+    with get_tracer().span("dfs.explore", max_seqs=opts.max_seqs,
+                           batch=opts.batch):
+        _explore(graph, platform, benchmarker, opts, cp, counters, result)
+    if opts.dump_csv_path and cp.rank() == 0:
+        result.dump_csv(opts.dump_csv_path)
+    return result
+
+
+def _measure_one(benchmarker, order, opts: DfsOpts, counters: Counters,
+                 i: int, result: DfsResult) -> None:
+    """Measure one schedule under a ``dfs.iter`` span."""
+    tr = get_tracer()
+    with tr.span("dfs.iter", i=i) as sp:
+        with counters.phase("BENCHMARK"):
+            try:
+                res = benchmarker.benchmark(order, opts.bench_opts)
+            except Exception as e:
+                candidate_failed("dfs.benchmark", order, e)
+                raise
+        if tr.enabled:
+            sp.set("schedule", schedule_id(order))
+            sp.set("pct50", res.pct50)
+    result.sims.append(SimResult(order=order, result=res))
+
+
+def _explore(graph: Graph, platform, benchmarker, opts: DfsOpts, cp,
+             counters: Counters, result: DfsResult) -> None:
+    """The body of :func:`explore`: fills ``result``."""
+    lead = cp.rank() == 0
+    states = []
+    if lead:
+        with get_tracer().span("dfs.enumerate"):
+            states = enumerate_schedules(graph, platform, opts.max_seqs,
+                                         counters=counters)
     orders = [st.sequence for st in states]
     if opts.verify is not None:
         kept = []
@@ -237,12 +280,8 @@ def explore(graph: Graph, platform, benchmarker,
                 payload = cp.bcast_json(
                     sequence_to_json(orders[i]) if lead else None)
             o = orders[i] if lead else sequence_from_json(payload, graph)
-            with counters.phase("BENCHMARK"):
-                res = benchmarker.benchmark(o, opts.bench_opts)
-            result.sims.append(SimResult(order=o, result=res))
-        if opts.dump_csv_path and lead:
-            result.dump_csv(opts.dump_csv_path)
-        return result
+            _measure_one(benchmarker, o, opts, counters, i, result)
+        return
     batch_times = getattr(benchmarker, "benchmark_batch_times", None)
     if opts.batch and batch_times is None:
         sys.stderr.write(f"dfs: batch=True ignored ({type(benchmarker).__name__} "
@@ -253,10 +292,5 @@ def explore(graph: Graph, platform, benchmarker,
         result.sims = [SimResult(order=o, result=BenchResult.from_times(ts))
                        for o, ts in zip(orders, times)]
     else:
-        for o in orders:
-            with counters.phase("BENCHMARK"):
-                res = benchmarker.benchmark(o, opts.bench_opts)
-            result.sims.append(SimResult(order=o, result=res))
-    if opts.dump_csv_path:
-        result.dump_csv(opts.dump_csv_path)
-    return result
+        for i, o in enumerate(orders):
+            _measure_one(benchmarker, o, opts, counters, i, result)

@@ -14,8 +14,9 @@ The climb draws from ``random.Random(seed)`` in the reference's order, so the
 two packages climb the same chain for the same measurements.  Left out, with
 their subsystems: the learned prescreen, checkpointing, compile prefetching
 and the fleet's shared claim registry.  A measurement that raises propagates,
-as in the port's MCTS: on CUDA there is no compile step that can legitimately
-fail, so a failure is not a neighbor's verdict.
+as in the port's MCTS (after a ``search.candidate_failed`` record): on CUDA
+there is no compile step that can legitimately fail, so a failure is not a
+neighbor's verdict.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import random as _random
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Sequence as Seq, Tuple
 
-from tenzing_tpu_torch.bench.benchmarker import BenchOpts
+from tenzing_tpu_torch.bench.benchmarker import BenchOpts, candidate_failed
 from tenzing_tpu_torch.core.graph import Graph
 from tenzing_tpu_torch.core.sequence import Sequence
 from tenzing_tpu_torch.core.state import (
@@ -246,7 +247,11 @@ def hill_climb(
         if unsound(seq_):
             return None, False
         pre_hits = getattr(benchmarker, "hits", None)
-        res = benchmarker.benchmark(seq_, opts.bench_opts)
+        try:
+            res = benchmarker.benchmark(seq_, opts.bench_opts)
+        except Exception as e:
+            candidate_failed("local.measure", seq_, e)
+            raise
         result.sims.append(SimResult(order=seq_, result=res))
         return res, pre_hits is None or benchmarker.hits == pre_hits
 
@@ -267,7 +272,12 @@ def hill_climb(
         pair_seed = rng.randrange(1 << 30)
         if unsound(cand_seq):
             return None, False, False
-        times = batcher([cur_seq, cand_seq], opts.bench_opts, seed=pair_seed)
+        try:
+            times = batcher([cur_seq, cand_seq], opts.bench_opts,
+                            seed=pair_seed)
+        except Exception as e:
+            candidate_failed("local.paired", cand_seq, e)
+            raise
         m, lo, _ = paired_speedup(times[0], times[1], seed=pair_seed + 1)
         res = BenchResult.from_times(times[1])
         result.sims.append(SimResult(order=cand_seq, result=res))

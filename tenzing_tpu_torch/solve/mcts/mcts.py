@@ -14,7 +14,13 @@ rank measures every schedule (the benchmarker's barrier and max-reduction
 keep their times equal).  At world size 1 no broadcast runs.  Checkpointing,
 compile prefetching and fleet sub-tree slicing are absent; a measurement
 that raises is not a search verdict on CUDA (there is no compile step that
-can legitimately fail) and propagates, on every rank.
+can legitimately fail) and propagates, on every rank, after a
+``search.candidate_failed`` record.
+
+Telemetry (obs/): an ``mcts.explore`` span around the search and an
+``mcts.iter`` span per iteration (``seeded``, ``selected``, ``schedule``,
+``pct50``, ``fidelity``, ``unsound`` / ``rejected``, ``tree_size``), with
+the ``mcts.phase.*`` spans of ``utils/counters.py`` nested inside.
 """
 
 from __future__ import annotations
@@ -27,11 +33,14 @@ from tenzing_tpu_torch.bench.benchmarker import (
     BenchOpts,
     BenchResult,
     CachingBenchmarker,
+    candidate_failed,
+    schedule_id,
 )
 from tenzing_tpu_torch.core.schedule import remove_redundant_syncs
 from tenzing_tpu_torch.core.sequence import Sequence, canonical_key
 from tenzing_tpu_torch.core.serdes import sequence_from_json, sequence_to_json
 from tenzing_tpu_torch.core.state import State
+from tenzing_tpu_torch.obs.tracer import get_tracer
 from tenzing_tpu_torch.solve.mcts.node import Node
 from tenzing_tpu_torch.solve.mcts.strategies import FastMin
 from tenzing_tpu_torch.parallel.control_plane import ControlPlane, default_control_plane
@@ -78,10 +87,10 @@ class MctsResult:
     counters: Optional[Counters] = None
 
     def dump_csv(self, path: Optional[str] = None) -> str:
-        """The reference's dump (bench/recorded.py ``result_row``): one row
+        """The reference's dump (bench/benchmarker.py ``result_row``): one row
         per rollout, numbered from 1 (row 0 is the driver's naive anchor);
         only screened rows carry a fidelity cell."""
-        from tenzing_tpu_torch.bench.recorded import result_row
+        from tenzing_tpu_torch.bench.benchmarker import result_row
 
         rows = [result_row(i, s.result, s.order,
                            fidelity=None if s.fidelity == "full" else s.fidelity)
@@ -145,15 +154,27 @@ def explore(
     opts = opts if opts is not None else MctsOpts()
     strategy = strategy if strategy is not None else FastMin
     cp = control_plane if control_plane is not None else default_control_plane()
-    multi = cp.size() > 1
-    lead = cp.rank() == 0
     rng = _random.Random(opts.seed)
-    counters = Counters()
+    counters = Counters(prefix="mcts.phase")
     result = MctsResult(counters=counters)
     if opts.cache_benchmarks and not isinstance(benchmarker, CachingBenchmarker):
         # local on every rank: the broadcast order is identical on all of
         # them, so hits and misses agree rank to rank
         benchmarker = CachingBenchmarker(benchmarker)
+    tr = get_tracer()
+    with tr.span("mcts.explore", n_iters=opts.n_iters, seed=opts.seed) as sp:
+        _explore(graph, platform, benchmarker, opts, strategy, seeds, cp,
+                 rng, counters, result, tr)
+        sp.set("n_sims", len(result.sims))
+        sp.set("tree_size", result.tree_size)
+    return result
+
+
+def _explore(graph, platform, benchmarker, opts: MctsOpts, strategy, seeds,
+             cp, rng, counters: Counters, result: MctsResult, tr) -> None:
+    """The body of :func:`explore`: fills ``result``."""
+    multi = cp.size() > 1
+    lead = cp.rank() == 0
     ctx = strategy.Context(seed=opts.seed)
     root = Node(State(graph), strategy) if lead else None
     ctx.root = root
@@ -161,64 +182,84 @@ def explore(
     failed_keys: set = set()  # negative cache for unsound schedules
     ropts = opts.screen_opts if opts.screen_opts is not None else opts.bench_opts
     fidelity = "screen" if opts.screen_opts is not None else "full"
-    for _ in range(opts.n_iters):
-        stop, order, endpoint = False, None, None
-        if lead:
-            path = next(seed_iter, None)
-            if path is not None:
-                with counters.phase("SEED"):
-                    endpoint, st = _materialize_seed(root, path)
-                    if st.is_terminal():
-                        # benchmarked AS RECORDED (no redundant-sync cleanup)
-                        order = st.sequence
-                    else:  # defensive: complete the path
-                        _, order = endpoint.get_rollout(
-                            platform, rng, policy=opts.rollout_policy,
-                            policy_eps=opts.rollout_eps)
-            elif root.fully_visited_:
-                stop = True
-            else:
-                with counters.phase("SELECT"):
-                    leaf = root.select(ctx, platform, rng)
-                with counters.phase("EXPAND"):
-                    child = leaf.expand(platform, rng)
-                with counters.phase("ROLLOUT"):
-                    endpoint, order = child.get_rollout(
-                        platform, rng, opts.expand_rollout,
-                        policy=opts.rollout_policy, policy_eps=opts.rollout_eps)
-                with counters.phase("REDUNDANT_SYNC"):
-                    order = remove_redundant_syncs(order)
-        if multi:  # stop-flag + schedule broadcast (mcts.hpp:129-152, 244)
-            with counters.phase("BCAST"):
-                stop = cp.bcast_json(stop)
-                if not stop:
-                    payload = cp.bcast_json(
-                        sequence_to_json(order) if lead else None)
-                    if not lead:
-                        order = sequence_from_json(payload, graph)
-        if stop:
-            break
-        key = canonical_key(order)
-        if key not in failed_keys and opts.verify is not None:
-            # deterministic and device-free: every rank reaches the same
-            # verdict, so the coherent skip needs no agreement round
-            if not opts.verify(order).ok:
-                failed_keys.add(key)
-        if key in failed_keys:
-            # backprop a penalty (2x the worst time seen) so the tree learns
-            # to avoid the region; no sim is recorded
+    for it in range(opts.n_iters):
+        with tr.span("mcts.iter", it=it) as it_sp:
+            stop, order, endpoint = False, None, None
             if lead:
-                worst = max((s.result.pct50 for s in result.sims), default=1.0)
+                path = next(seed_iter, None)
+                if path is not None:
+                    it_sp.set("seeded", True)
+                    with counters.phase("SEED"):
+                        endpoint, st = _materialize_seed(root, path)
+                        if st.is_terminal():
+                            # benchmarked AS RECORDED (no redundant-sync cleanup)
+                            order = st.sequence
+                        else:  # defensive: complete the path
+                            _, order = endpoint.get_rollout(
+                                platform, rng, policy=opts.rollout_policy,
+                                policy_eps=opts.rollout_eps)
+                elif root.fully_visited_:
+                    stop = True
+                else:
+                    with counters.phase("SELECT"):
+                        leaf = root.select(ctx, platform, rng)
+                    with counters.phase("EXPAND"):
+                        child = leaf.expand(platform, rng)
+                    with counters.phase("ROLLOUT"):
+                        endpoint, order = child.get_rollout(
+                            platform, rng, opts.expand_rollout,
+                            policy=opts.rollout_policy,
+                            policy_eps=opts.rollout_eps)
+                    with counters.phase("REDUNDANT_SYNC"):
+                        order = remove_redundant_syncs(order)
+                    if tr.enabled and child.decision is not None:
+                        it_sp.set("selected", child.decision.desc())
+            if multi:  # stop-flag + schedule broadcast (mcts.hpp:129-152, 244)
+                with counters.phase("BCAST"):
+                    stop = cp.bcast_json(stop)
+                    if not stop:
+                        payload = cp.bcast_json(
+                            sequence_to_json(order) if lead else None)
+                        if not lead:
+                            order = sequence_from_json(payload, graph)
+            if stop:
+                break
+            key = canonical_key(order)
+            if tr.enabled:
+                it_sp.set("schedule", schedule_id(order))
+            if key not in failed_keys and opts.verify is not None:
+                # deterministic and device-free: every rank reaches the same
+                # verdict, so the coherent skip needs no agreement round
+                if not opts.verify(order).ok:
+                    it_sp.set("unsound", True)
+                    failed_keys.add(key)
+            if key in failed_keys:
+                # backprop a penalty (2x the worst time seen) so the tree
+                # learns to avoid the region; no sim is recorded
+                it_sp.set("rejected", True)
+                if lead:
+                    worst = max((s.result.pct50 for s in result.sims),
+                                default=1.0)
+                    with counters.phase("BACKPROP"):
+                        endpoint.backprop(
+                            ctx, BenchResult.from_times([2.0 * worst]))
+                continue
+            with counters.phase("BENCHMARK"):
+                try:
+                    res = benchmarker.benchmark(order, ropts)
+                except Exception as e:
+                    candidate_failed("mcts.rollout", order, e)
+                    raise
+            if tr.enabled:
+                it_sp.set("pct50", res.pct50)
+                it_sp.set("fidelity", fidelity)
+            result.sims.append(SimResult(order=order, result=res,
+                                         fidelity=fidelity))
+            if lead:
                 with counters.phase("BACKPROP"):
-                    endpoint.backprop(ctx, BenchResult.from_times([2.0 * worst]))
-            continue
-        with counters.phase("BENCHMARK"):
-            res = benchmarker.benchmark(order, ropts)
-        result.sims.append(SimResult(order=order, result=res,
-                                     fidelity=fidelity))
-        if lead:
-            with counters.phase("BACKPROP"):
-                endpoint.backprop(ctx, res)
+                    endpoint.backprop(ctx, res)
+                if tr.enabled:
+                    it_sp.set("tree_size", root.size())
     # multi-fidelity confirm: the top-k distinct screened schedules are
     # re-measured at the full bench_opts floor, on every rank
     if opts.screen_opts is not None and result.sims:
@@ -234,8 +275,11 @@ def explore(
                 break
         for order in finals:
             with counters.phase("CONFIRM"):
-                res = benchmarker.benchmark(order, opts.bench_opts)
+                try:
+                    res = benchmarker.benchmark(order, opts.bench_opts)
+                except Exception as e:
+                    candidate_failed("mcts.confirm", order, e)
+                    raise
             result.sims.append(SimResult(order=order, result=res,
                                          fidelity="full"))
     result.tree_size = root.size() if lead else 0
-    return result

@@ -1,6 +1,8 @@
 """The port's driver (tenzing_tpu_torch.bench.driver): the smoke search end
 to end on the CPU, the reference's request/metric contract, and the
-not-yet-ported flags."""
+not-yet-ported flags.  The recorded warm start, the database dump and the
+telemetry flags have their own files (test_torch_recorded.py,
+test_torch_obs.py, test_torch_attrib.py)."""
 
 import dataclasses
 import json
@@ -31,8 +33,8 @@ def test_smoke_driver_on_cpu_verified():
     assert line["device"]["type"] == "cpu"
     # the smoke runs no climbs and reads no recorded warm starts, as in the
     # reference: nothing is skipped
-    assert line["not_ported"] == {}
-    assert line["climbs"] == []
+    assert "not_ported" not in line and "recorded" not in line
+    assert line["climbs"] == [] and line["recorded_seeds"] == 0
 
 
 def test_smoke_attn_driver_on_cpu():
@@ -45,7 +47,7 @@ def test_smoke_attn_driver_on_cpu():
     assert line["metric"] == ref_driver.metric_for(
         "attn", ref_driver.DriverRequest(workload="attn", smoke=True))
     assert line["unit"] == "us" and line["value"] > 0
-    assert line["not_ported"] == {}
+    assert "not_ported" not in line
     if not line["verified"]:
         assert set(line["diverged"]) <= {"acc", "O"}, line
         assert res.demoted is not None
@@ -64,13 +66,12 @@ def test_metric_and_lanes_equal_reference(workload):
 
 
 @pytest.mark.parametrize("override", [
-    dict(workload="spmv", trace_out="t.jsonl"), dict(workload="attn", resume=True),
-    dict(workload="attn", metrics_json="m.json"), dict(measure_timeout=5.0),
+    dict(workload="attn", resume=True), dict(measure_timeout=5.0),
     dict(synth_collectives=True), dict(learn_screen=True),
     dict(checkpoint="ckpt"), dict(inject_faults="flaky:0.1"),
-    dict(profile_winner=True), dict(search_workers=2), dict(seed_csv="x.csv"),
+    dict(search_workers=2), dict(measure_batch=4),
     dict(prefetch_compiles=4), dict(workload="moe", learn_model="m.json"),
-    dict(dump_csv="out.csv"),
+    dict(learn_train=["a.csv"]), dict(workload="spmv", learn_trace=["t"]),
 ])
 def test_unported_flags_raise(override):
     with pytest.raises(driver.DriverConfigError, match="not yet ported"):
@@ -108,7 +109,7 @@ def test_smoke_moe_driver_on_cpu():
     assert line["metric"] == "moe_pipe_pct50_searched_t32"
     assert line["unit"] == "us" and line["value"] > 0
     assert line["verified"] is True
-    assert line["not_ported"] == {} and line["climbs"] == []
+    assert "not_ported" not in line and line["climbs"] == []
 
 
 @pytest.mark.parametrize("budget", [0, 8, 44])
@@ -123,23 +124,23 @@ def test_climb_budget_is_accepted(budget):
 
 @pytest.mark.parametrize("workload", ["halo", "attn", "moe"])
 def test_not_ported_names_the_recorded_warm_start(workload):
-    """A full-size request reports the recorded warm start the reference
-    would have read (its glob matches the committed databases); a smoke or
-    seed_topk=0 request skips nothing."""
+    """The recorded warm start is ported: a full-size request reads the
+    databases the reference reads (its glob, resolved against the
+    repository's root, matches the committed files), and the flags that
+    select or dump a database no longer raise."""
     import glob
     import os
 
     req = driver.DriverRequest(workload=workload)
     driver.check_request(req)
-    meta = driver.not_ported_meta(req)
     pat = f"experiments/{workload}_search_tpu_r[45]*.csv"
-    assert meta == {"recorded_warm_start": pat}
+    assert driver.RECORDED_WARM_START[workload] == pat
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert driver.REPO_ROOT == repo
     assert glob.glob(os.path.join(repo, pat))
-    assert driver.not_ported_meta(driver.DriverRequest(workload=workload,
-                                                       smoke=True)) == {}
-    assert driver.not_ported_meta(driver.DriverRequest(workload=workload,
-                                                       seed_topk=0)) == {}
+    for flags in (dict(seed_csv="x.csv"), dict(dump_csv="out.csv"),
+                  dict(seed_topk=0)):
+        driver.check_request(driver.DriverRequest(workload=workload, **flags))
 
 
 def test_moe_labels_name_staging_and_engine():
@@ -190,9 +191,13 @@ def test_smoke_spmv_driver_on_cpu(flags):
         assert f["verified"] is True and f["regions"] >= 1
         assert f["compiled_programs"] == 0 and f["fused_ops"] >= 2
         assert set(f["tiles"]["by_tiles_us"]) == {str(t) for t in f["tiles"]["menu"]}
-        assert "perf.fused.dispatch_overhead_us" in line["not_ported"]
+        for k in ("dispatch_overhead_us", "sum_of_parts_us"):
+            assert set(f[k]) == {"before", "after"}
+            assert f[k]["before"] >= 0 and f[k]["after"] >= 0
+        assert f["sum_of_parts_us"]["before"] > 0
     else:
-        assert "fused" not in perf and line["not_ported"] == {}
+        assert "fused" not in perf
+    assert "not_ported" not in line
     if flags.get("fuse_search_tiles"):
         t = perf["fuse_search_tiles"]
         assert t["planted"] is True and t["menu"][0] == 1 and len(t["menu"]) > 1
@@ -227,8 +232,8 @@ def test_spmv_incumbent_and_naive():
 
 def test_spmv_not_ported_reads_no_database():
     """The reference reads no recorded database for spmv
-    (bench/driver.py:1283-1288): a full-size request skips nothing."""
-    assert driver.not_ported_meta(driver.DriverRequest(workload="spmv")) == {}
+    (bench/driver.py:1283-1288), and neither does the port."""
+    assert "spmv" not in driver.RECORDED_WARM_START
 
 
 @pytest.mark.parametrize("workload", ["halo", "moe"])
@@ -265,7 +270,8 @@ def test_smoke_attn_fuse_driver_on_cpu():
                                      and f["diverged"])
     if line["winner_label"] is None:  # naive reported: its one region
         assert f["regions"] == 1 and f["region_sizes"] == [5]
-    assert "perf.fused.sum_of_parts_us" in line["not_ported"]
+    assert f["sum_of_parts_us"]["before"] > 0 and f["sum_of_parts_us"]["after"] > 0
+    assert "not_ported" not in line
     if not line["verified"]:
         assert set(line["diverged"]) <= {"acc", "O"}, line
 
@@ -274,8 +280,9 @@ def test_smoke_attn_fuse_driver_on_cpu():
 def test_smoke_chunk_driver_on_cpu(workload):
     """``--chunk`` on the smoke: every structurally valid count is on the
     menus (the reference's chunk_relax), the search visits chunked
-    candidates, and ``perf.chunked`` reports menus, visits and the choice;
-    the measured hidden comm is named in ``not_ported``."""
+    candidates, and ``perf.chunked`` reports menus, visits and the choice,
+    with the hidden comm measured on the stepped timeline (0.0 for an
+    unchunked winner, which hides nothing behind partials)."""
     res = driver.run(driver.DriverRequest(workload=workload, chunk=True,
                                           **dict(FAST, mcts_iters=8)),
                      device="cpu")
@@ -289,9 +296,11 @@ def test_smoke_chunk_driver_on_cpu(workload):
     assert all(m["counts"] == [1, 2, 4] for m in c["menus"].values())
     assert c["n_candidates_chunked"] >= 1 and set(c["searched_counts"]) <= {2, 4}
     assert set(c["chosen"]) <= bases
-    assert c["hidden_comm_us"]["measured"] is None and "note" not in c
-    assert line["not_ported"] == {
-        "perf.chunked.hidden_comm_us.measured": "obs/attrib stepped timeline"}
+    measured = c["hidden_comm_us"]["measured"]
+    assert isinstance(measured, float) and measured >= 0 and "note" not in c
+    if not c["chosen"]:
+        assert measured == 0.0
+    assert "not_ported" not in line
     if workload == "moe":
         assert line["verified"] is True
 

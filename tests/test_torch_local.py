@@ -155,16 +155,35 @@ def test_replay_with_substitution_equals_reference(workload):
 def test_climb_configs_split_the_budget_as_the_reference():
     """Halo: 3 and 6 lanes split 4:3; moe: one climb over the whole budget on
     the search lanes; attn and the smoke: none (reference
-    bench/driver.py:1457-1495, no recorded climb)."""
+    bench/driver.py:1457-1495).  With recorded schedules the climb seeded
+    from the best one comes first with a third of the halo budget and half
+    of the moe budget, on the lanes it used; the smoke then runs it alone."""
+    from tenzing_tpu_torch.models.halo import HaloArgs
+    from tenzing_tpu_torch.models.halo_pipeline import greedy_overlap_order
+
     plat = Platform.make_n_lanes(2)
     halo = driver.climb_configs(driver.DriverRequest(), plat)
-    assert [(len(p.lanes), b) for p, _, _, b in halo] == [(3, 25), (6, 19)]
+    assert [(lbl, len(p.lanes), b) for lbl, p, _, _, b in halo] == [
+        ("halo_alias", 3, 25), ("halo_alias", 6, 19)]
     moe = driver.climb_configs(driver.DriverRequest(workload="moe"), plat)
-    assert [(len(p.lanes), b) for p, _, _, b in moe] == [(2, 44)]
-    assert moe[0][2] is driver.moe_bf16_prefer
+    assert [(lbl, len(p.lanes), b) for lbl, p, _, _, b in moe] == [
+        ("moe_bf16", 2, 44)]
+    assert moe[0][3] is driver.moe_bf16_prefer
     assert driver.climb_configs(driver.DriverRequest(workload="attn"), plat) == []
     assert driver.climb_configs(driver.DriverRequest(smoke=True), plat) == []
     assert driver.climb_configs(driver.DriverRequest(climb_budget=0), plat) == []
+    rec = [greedy_overlap_order(HaloArgs(nq=1, lx=4, ly=4, lz=4, radius=1),
+                                Platform.make_n_lanes(3))]
+    halo = driver.climb_configs(driver.DriverRequest(), plat, rec)
+    assert [(lbl, len(p.lanes), b) for lbl, p, _, _, b in halo] == [
+        ("recorded", 3, 14), ("halo_alias", 3, 17), ("halo_alias", 6, 13)]
+    moe = driver.climb_configs(driver.DriverRequest(workload="moe"), plat, rec)
+    assert [(lbl, b) for lbl, _, _, _, b in moe] == [("recorded", 22),
+                                                     ("moe_bf16", 22)]
+    smoke = driver.climb_configs(driver.DriverRequest(smoke=True), plat, rec)
+    assert [(lbl, b) for lbl, _, _, _, b in smoke] == [("recorded", 14)]
+    assert driver.climb_configs(driver.DriverRequest(workload="attn"), plat,
+                                rec) == []
 
 
 @pytest.mark.parametrize("op,choices", [
