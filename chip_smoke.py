@@ -124,6 +124,14 @@ before the last line:
               through ``StreamExecutor``: y against the same order with plain
               kernels and against the float64 product, ``data_ptr``s kept, no
               allocation in timed runs;
+13a. graphs — every fixed schedule of ``bench/breakdown.py`` (halo,
+              attn, moe, spmv, the fused one-tile orders among them) on an
+              executor that replays CUDA graphs and on one with
+              ``graphs=False``, over the same buffers: both walls per
+              iteration, one run's outputs compared (bit for bit for halo
+              and spmv; attention and moe within ``GRAPH_ATTN_TOL`` /
+              ``GRAPH_MOE_TOL``), segments and graphs per schedule, and the
+              schedules slower with graphs listed;
 14. fused   — every tile count on the pruned menu of the naive and overlap
               orders at m=150000 (the host exchange: two regions), and the
               examples' local-exchange graph (one five-member region with a
@@ -249,6 +257,13 @@ Run after the moe driver (phase 11):
               kernels', in turns; the plain host-staged shift) and held
               against ``torch.roll`` of the gathered faces.
 
+Every executor captures its schedules as CUDA graphs (runtime/graphs.py),
+except the mesh phases' (11e-11g, parallel/dryrun.py builds them with
+``graphs=False``: a collective or the mesh shift waits from the host).  The
+driver phases run with the default ``--prefetch-compiles 2``; the halo
+driver's ``perf.prefetch`` must show hits > 0 and its captures counted
+(``compiled_programs``), and the attn driver's row carries the peak device
+memory of its run.
 The halo and attn driver phases run with ``climb_budget=4`` (the halo climbs
 run; the reference runs none for attn).  Each driver and example phase sets
 every kernel's launch count to 0 just before it and reads the counts just
@@ -464,6 +479,67 @@ def halo_bodies(torch, hk, kind, u, face, want, starts, sizes, rpb, timer):
         "unpack", dst, face, starts, sizes, rpb, "simt"))
     del dst
     return out
+
+
+def capture_perf(verdict) -> dict:
+    """A driver JSON's capture provenance: the schedules it captured as CUDA
+    graphs, the capture wall, the prefetch pipeline's tallies and the graph
+    cache."""
+    perf = verdict.get("perf") or {}
+    return {k: perf.get(k) for k in ("compiled_programs", "compile_secs",
+                                     "prefetch", "graphs")}
+
+
+def check_prefetch(verdict, phase: str) -> None:
+    """The driver ran with the default ``--prefetch-compiles 2``: the
+    pipeline must have captured schedules the foreground then measured."""
+    perf = capture_perf(verdict)
+    pf = perf["prefetch"] or {}
+    if pf.get("workers") != 2 or pf.get("hits", 0) <= 0:
+        raise AssertionError(f"{phase}: no prefetch hit: {perf}")
+    if not perf["compiled_programs"] or perf["compiled_programs"] <= 0:
+        raise AssertionError(f"{phase}: nothing was captured: {perf}")
+
+
+# captured replay against eager on the fixed schedules: bit for bit where
+# the schedule only moves data or runs the same kernels in the same order
+# (halo, spmv); attention and moe within these (PyTorch may pick another
+# GEMM algorithm for a captured .xla op)
+GRAPH_ATTN_TOL = 1e-4  # max |O, acc, m, l diff|: far below F32_STATE_TOL
+GRAPH_MOE_TOL = 1e-4  # max |Y diff| (Y is O(1))
+
+
+def phase_graphs(torch, device):
+    """Each fixed schedule of bench/breakdown.py (halo, attn, moe, spmv) on
+    an executor that replays CUDA graphs and on one that dispatches every op
+    (``graphs=False``), over the same buffers: the wall per iteration of
+    each, one run's outputs compared, the schedule's segments and graphs.
+    Fails when an output differs (beyond the stated tolerance for attention
+    and moe) or when a schedule has no graph.  (The launch counts under
+    replay are the driver phases' checks: every executor there captures.)"""
+    from tenzing_tpu_torch.bench import breakdown
+
+    rows = []
+
+    def sink(row):
+        row = {"phase": "graphs", **row}
+        emit(row)
+        rows.append(row)
+
+    opts = breakdown.Opts(iters=20, profile=False, attrib=False, emit=sink)
+    for w in ("halo", "attn", "moe", "spmv"):
+        breakdown.WORKLOADS[w](device, opts)
+        torch.cuda.empty_cache()
+    for r in rows:
+        exact = not r["workload"].startswith(("attn", "moe"))
+        tol = 0.0 if exact else (GRAPH_ATTN_TOL if r["workload"] == "attn"
+                                 else GRAPH_MOE_TOL)
+        if (r["outputs_max_abs_diff"] > tol
+                or (exact and not r["outputs_equal"])):
+            raise AssertionError(f"graphs: replay differs from eager: {r}")
+        if r["graphs"] <= 0:
+            raise AssertionError(f"graphs: nothing captured: {r}")
+    return rows
 
 
 def phase_kernels(torch, device, timer):
@@ -947,6 +1023,8 @@ def phase_attn_driver(torch, device, want_o):
     t0 = time.time()
     req = driver.DriverRequest(workload="attn", mcts_iters=12, iters=3,
                                search_iters=2, climb_budget=4)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
     reset_launches()
     result = driver.run(req, device="cuda")
     launches = all_launches()
@@ -956,6 +1034,11 @@ def phase_attn_driver(torch, device, want_o):
            "verified": verdict.get("verified"),
            "diverged": verdict.get("diverged"),
            "demoted_label": verdict.get("demoted_label"),
+           "perf": capture_perf(verdict),
+           "peak_allocated_gib": round(
+               torch.cuda.max_memory_allocated(device) / 2 ** 30, 3),
+           "peak_reserved_gib": round(
+               torch.cuda.max_memory_reserved(device) / 2 ** 30, 3),
            "wall_s": round(time.time() - t0, 3)}
     if verdict.get("metric") != "attn_blockwise_pct50_searched_n8192":
         raise AssertionError(f"attn driver metric {verdict.get('metric')!r}")
@@ -1238,6 +1321,7 @@ def phase_moe_driver(torch, device, want_y):
            "verified": verdict.get("verified"),
            "winner_label": verdict.get("winner_label"),
            "climbs": verdict.get("climbs"),
+           "perf": capture_perf(verdict),
            "diverged": verdict.get("diverged"),
            "demoted_label": verdict.get("demoted_label"),
            "wall_s": round(time.time() - t0, 3)}
@@ -2653,7 +2737,8 @@ def main() -> int:
     print(result.to_json_line(), flush=True)
     emit({"phase": "driver", "launches": launches,
           "verified": verdict.get("verified"), "climbs": verdict.get("climbs"),
-          "wall_s": round(time.time() - t0, 3)})
+          "perf": capture_perf(verdict), "wall_s": round(time.time() - t0, 3)})
+    check_prefetch(verdict, "driver")
     check_warm_start(verdict, "driver")
     check_attrib(verdict, halo_trace, halo_metrics)
     if verdict.get("metric") != "halo_iter_pct50_searched_n512":
@@ -2727,6 +2812,13 @@ def main() -> int:
     t0 = time.time()
     spmv_ex = phase_spmv_executor(torch, device)
     emit({"phase": "spmv_executor", **spmv_ex,
+          "wall_s": round(time.time() - t0, 3)})
+    t0 = time.time()
+    graph_rows = phase_graphs(torch, device)
+    emit({"phase": "graphs_summary", "schedules": len(graph_rows),
+          "slower_with_graphs": [f"{r['workload']}/{r['order']}"
+                                 for r in graph_rows
+                                 if r["wall_us"] > r["eager"]["wall_us"]],
           "wall_s": round(time.time() - t0, 3)})
     t0 = time.time()
     fused_rows, fused_timing = phase_fused(torch, device, timer)

@@ -119,9 +119,13 @@ class BenchResult:
 
 def fence_overhead_s(device) -> float:
     """Median wall time of the fence alone on ``device``: one trivial launch
-    followed by ``torch.cuda.synchronize()`` on the card (a trivial op on the
-    CPU), over 7 calls after a first one excluded."""
+    followed by the executor's device sync on the card
+    (runtime/graphs.py ``device_sync``: ``torch.cuda.synchronize`` unless a
+    capture is in progress), a trivial op on the CPU, over 7 calls after a
+    first one excluded."""
     import torch
+
+    from tenzing_tpu_torch.runtime.graphs import device_sync
 
     device = torch.device(device)
     x = torch.zeros((), device=device)
@@ -129,7 +133,7 @@ def fence_overhead_s(device) -> float:
     def fence() -> None:
         x.add_(1.0)
         if device.type == "cuda":
-            torch.cuda.synchronize(device)
+            device_sync(device)
 
     fence()  # first launch excluded
     ts = []

@@ -177,9 +177,8 @@ def check_request(req: DriverRequest) -> None:
         if getattr(req, name) != getattr(_DEFAULTS, name):
             flag = "--" + name.replace("_", "-")
             raise DriverConfigError(f"{flag}: not yet ported")
-    # the default 2 is accepted: CUDA has no compile step to prefetch
-    if req.prefetch_compiles not in (0, _DEFAULTS.prefetch_compiles):
-        raise DriverConfigError("--prefetch-compiles > 0: not yet ported")
+    if req.prefetch_compiles < 0:
+        raise DriverConfigError("--prefetch-compiles must be >= 0")
     if req.climb_budget < 0:
         raise DriverConfigError("--climb-budget must be >= 0")
     if req.halo_n < 1:
@@ -518,7 +517,7 @@ def climb_configs(args, plat, recorded=()):
 
 
 def warm_start(pattern: str, topk: int, g, bench, verifier, opts, with_tile1,
-               log):
+               log, prefetcher=None):
     """The recorded warm start (the reference's bench/driver.py:1275-1340):
     rank the rows of the databases ``pattern`` matches (a glob, relative to
     :data:`REPO_ROOT` unless absolute) by their in-file ratio
@@ -530,7 +529,9 @@ def warm_start(pattern: str, topk: int, g, bench, verifier, opts, with_tile1,
     Row 0 of a database is its naive anchor and is never picked (it never
     beats itself).  A picked row the verifier rejects is counted and
     skipped; a row that does not resolve against the graph was skipped by
-    the reader and is counted too.  A measurement that fails raises."""
+    the reader and is counted too.  A measurement that fails raises.  The
+    picked rows are hinted to ``prefetcher`` (or None) before the first is
+    measured."""
     import glob
 
     from tenzing_tpu_torch.bench.recorded import rank_recorded
@@ -544,6 +545,8 @@ def warm_start(pattern: str, topk: int, g, bench, verifier, opts, with_tile1,
     block: Dict[str, Any] = {"glob": pattern}
     picked = rank_recorded(paths, g, topk, log=log, stats=block)
     block.update(picked=len(picked), rejected=0, measured=[])
+    if prefetcher is not None:
+        prefetcher.prefetch([with_tile1(s) for s, _ in picked])
     sims = []
     for ri, (seq, ratio) in enumerate(picked):
         seq = with_tile1(seq)
@@ -757,7 +760,21 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         return Sequence(ops_[:at] + [FuseTile(1)] + ops_[at:])
 
     emp = EmpiricalBenchmarker(measure_ex)
-    bench = CachingBenchmarker(emp)
+    # the measurement stack (the reference's bench/driver.py:898-968):
+    # CachingBenchmarker over PrefetchingBenchmarker (--prefetch-compiles N
+    # capture workers, bench/pipeline.py) over the EmpiricalBenchmarker
+    prefetcher = None
+    if args.prefetch_compiles > 0:
+        import atexit
+
+        from tenzing_tpu_torch.bench.pipeline import PrefetchingBenchmarker
+
+        prefetcher = PrefetchingBenchmarker(emp, executor=measure_ex,
+                                            workers=args.prefetch_compiles)
+        # should the run raise, queued captures are cancelled at exit
+        # rather than drained (close() is idempotent)
+        atexit.register(prefetcher.close)
+    bench = CachingBenchmarker(prefetcher if prefetcher is not None else emp)
     verifier = None if args.no_verify else ScheduleVerifier(g)
     gate_verifier = verifier if verifier is not None else ScheduleVerifier(g)
 
@@ -779,6 +796,11 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
     else:  # attn: the same walk, which picks the all-.xla chain
         naive_seq = fixed_order(g, naive_plat)
     naive_seq = with_tile1(naive_seq)
+    if prefetcher is not None:
+        # hint the baseline itself: its capture starts on a worker and the
+        # foreground join consumes it (every run exercises the pipeline's
+        # hit path on the real executor)
+        prefetcher.prefetch([naive_seq])
     t0 = time.time()
     naive = bench.benchmark(naive_seq, opts)
     log(f"naive: pct50={naive.pct50*1e6:.1f}us (wall {time.time()-t0:.0f}s)")
@@ -807,6 +829,10 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
     else:
         greedy_seqs = []
     greedy_seqs = [(label, with_tile1(seq)) for label, seq in greedy_seqs]
+    if prefetcher is not None:
+        # the incumbent grid is known up front: incumbent k+1 captures in
+        # the background while incumbent k measures
+        prefetcher.prefetch([s for _, s in greedy_seqs])
     for label, seq in greedy_seqs:
         t0 = time.time()
         res_i = bench.benchmark(seq, search_opts)
@@ -827,7 +853,7 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
             args.seed_csv is not None or not args.smoke):
         rec_sims, recorded_block = warm_start(
             seed_glob, args.seed_topk, g, bench, gate_verifier, search_opts,
-            with_tile1, log)
+            with_tile1, log, prefetcher)
         for sim, entry in zip(rec_sims, recorded_block["measured"]):
             labels[id(sim)] = entry["label"]
             incumbents.append(sim)
@@ -845,7 +871,8 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         g, plat, bench,
         MctsOpts(n_iters=args.mcts_iters, bench_opts=mcts_confirm,
                  screen_opts=mcts_screen, confirm_topk=4, seed=0,
-                 rollout_policy=rollout_policy, verify=verifier),
+                 rollout_policy=rollout_policy, verify=verifier,
+                 prefetch=prefetcher),
         strategy=FastMin, seeds=seed_paths,
     )
     confirmed = [s for s in res.sims if s.fidelity == "full"]
@@ -868,7 +895,7 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         lres = hill_climb(g, cplat, bench, cphases, prefer=cprefer,
                           opts=LocalOpts(budget=cbudget, bench_opts=climb_opts,
                                          seed=2 + ci, paired=True,
-                                         verify=verifier))
+                                         verify=verifier, prefetch=prefetcher))
         log(f"hill-climb[{ci}] ({clabel}, {len(cplat.lanes)} lanes): "
             f"{len(lres.sims)} candidates, {lres.accepted} moves accepted, "
             f"best pct50={lres.best().result.pct50*1e6:.1f}us "
@@ -883,6 +910,17 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         labels[id(lres.final)] = "climb-tip"
         incumbents.append(lres.final)
         sims += lres.sims + [lres.final]
+    # the search is done: close the pipeline (joins the workers, finalizes
+    # the wasted tally) before the screen, the gate and the profiles
+    if prefetcher is not None:
+        prefetcher.close()
+        atexit.unregister(prefetcher.close)
+    log(f"compiled programs: {ex.compile_count} ({ex.compile_secs:.1f}s "
+        "capture wall)")
+    if prefetcher is not None:
+        log("prefetch: %(issued)d issued / %(hits)d hits / %(wasted)d "
+            "wasted / %(failed)d failed / %(dropped)d dropped"
+            % prefetcher.stats())
 
     def batch_paired(seqs, bopts, seed):
         times = emp.benchmark_batch_times([naive_seq] + list(seqs), bopts,
@@ -1008,7 +1046,17 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
             (finals[0].pct50 if finals else naive.pct50) * 1e6, cost,
             args.profile_repeats, args.trace_out, attrib_extra, fin_res, log)
 
-    perf: Dict[str, Any] = {}
+    # capture provenance (the reference's perf block, bench/driver.py:
+    # 2318-2330): schedules captured as CUDA graphs and the capture wall,
+    # the pipeline's tallies
+    perf: Dict[str, Any] = {
+        "compiled_programs": ex.compile_count,
+        "compile_secs": round(ex.compile_secs, 3),
+        "prefetch": (prefetcher.stats() if prefetcher is not None else
+                     {"workers": 0, "issued": 0, "hits": 0, "wasted": 0,
+                      "failed": 0, "surfaced": 0, "dropped": 0}),
+        "graphs": ex.graph_stats(),
+    }
     if args.fuse_winner:
         perf["fused"] = fuse_reported(
             ex, reported_seq, stepped_out, opts, value_us, args.verify_tol,
@@ -1057,8 +1105,7 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         meta["verdict"] = verdict.witness()
     if mismatched:
         meta["diverged"] = mismatched
-    if perf:
-        meta["perf"] = perf
+    meta["perf"] = perf
     write_telemetry()
     return DriverResult(verdict={
         "metric": metric,
@@ -1327,6 +1374,7 @@ def fuse_reported(ex, seq, stepped_out, opts, stepped_us: float, tol: float,
     from tenzing_tpu_torch.runtime.fused import FusedExecutor, fused_summary
 
     t0 = time.time()
+    compiled0 = ex.compile_count
     menu = FusedExecutor(ex).plan(seq).tile_menu
     by_tiles: Dict[str, float] = {}
     best_t, best_us, best_fex = 1, None, None
@@ -1368,8 +1416,8 @@ def fuse_reported(ex, seq, stepped_out, opts, stepped_us: float, tol: float,
                   "by_tiles_us": by_tiles},
         "measured_us": {"stepped": round(stepped_us, 2),
                         "fused": round(best_us, 2)},
-        # CUDA has no per-schedule compile: the region kernel is built once
-        "compiled_programs": 0,
+        # the fused orders captured for this block (one per tile count)
+        "compiled_programs": ex.compile_count - compiled0,
         "verified": bool(re_verdict.ok and not mismatched),
         "dispatch_overhead_us": {
             "before": round(at_b.dispatch_overhead_us, 3),

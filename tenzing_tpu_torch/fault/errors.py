@@ -1,0 +1,151 @@
+"""Failure taxonomy of the measurement loop.
+
+Counterpart of ``tenzing_tpu/fault/errors.py`` (:35-200), without the
+serving plane's store errors.  A measurement — capture a candidate schedule
+as CUDA graphs, replay it fenced on the card, reduce across ranks — fails in
+three ways, and each calls for a different response:
+
+* **transient** — *the measurement* failed, not the schedule: a process
+  group timed out or lost a connection, the mesh shift's hand-off missed
+  its host-side deadline (ops/rdma.py ``await_shift``, which releases the
+  stuck wait, so the context stays usable).  Retrying is correct.
+* **deterministic** — the *schedule* is broken: it cannot be captured, it
+  does not fit in device memory, a shape contract is violated.  Retrying
+  pays the same failure again.
+* **device_lost** — the card's context is gone.  A *sticky* CUDA error (an
+  illegal address or instruction, a launch failure or timeout, a
+  misaligned address, a device-side assert, an uncorrectable ECC error)
+  leaves every later call in the process failing; no retry can help.
+
+:func:`classify_error` maps an exception to one of these classes: the
+marker types below by ``isinstance``, everything else by message
+patterns, checked in the order device lost, capture, deterministic,
+transient.  On the card:
+
+* a capture error is **deterministic for that schedule** — the stream
+  capture rejected one of its operations: ``cudaErrorStreamCaptureUnsupported``
+  ("operation not permitted when stream is capturing"),
+  ``cudaErrorStreamCaptureInvalidated``, ``cudaErrorStreamCaptureUnjoined``,
+  ``cudaErrorStreamCaptureIsolation``, ``cudaErrorStreamCaptureImplicit``,
+  ``cudaErrorCapturedEvent``, ``cudaErrorStreamCaptureWrongThread`` and
+  ``runtime/executor.py``'s ``CaptureError``;
+* the sticky errors above are **device_lost**;
+* what is **transient**: process-group timeouts and connection errors
+  (gloo, NCCL's watchdog), the shift's missed deadline ("timed out"), and
+  ``OSError`` / ``TimeoutError`` / ``ConnectionError``.
+
+Unknown errors default to **deterministic**: mistaking a transient for a
+deterministic failure costs one candidate, the reverse costs a retry of a
+failing schedule at every encounter.
+"""
+
+from __future__ import annotations
+
+
+class FaultClass:
+    """The three failure classes, ordered by severity (a rank-agreement
+    protocol takes the maximum code over the ranks)."""
+
+    OK = "ok"
+    TRANSIENT = "transient"
+    DETERMINISTIC = "deterministic"
+    DEVICE_LOST = "device_lost"
+
+    CODES = {OK: 0, TRANSIENT: 1, DETERMINISTIC: 2, DEVICE_LOST: 3}
+    FROM_CODE = {v: k for k, v in CODES.items()}
+
+
+class TransientError(RuntimeError):
+    """A measurement attempt failed for reasons unrelated to the schedule;
+    retry."""
+
+
+class DeterministicScheduleError(RuntimeError):
+    """The schedule itself is broken (capture, shape, memory)."""
+
+
+class DeviceLostError(RuntimeError):
+    """The device is unrecoverable; escalate (degrade or abort)."""
+
+
+# message fragments, checked lowercase, in this order (a sticky error
+# message may also say "timed out": a launch timeout is a loss)
+_DEVICE_LOST_PATTERNS = (
+    "device lost",
+    "device_lost",
+    "illegal memory access",
+    "illegal address",
+    "illegal instruction",
+    "unspecified launch failure",
+    "launch failure",
+    "launch timed out",
+    "misaligned address",
+    "device-side assert",
+    "uncorrectable ecc",
+    "hardware stack error",
+    "invalid program counter",
+    "gpu has fallen off the bus",
+    "no cuda-capable device",
+)
+_CAPTURE_PATTERNS = (
+    "streamcapture",
+    "stream is capturing",
+    "during capture",
+    "capture sequence",
+    "capturing stream",
+    "capturing blocking stream",
+    "uncaptured work",
+    "capturedevent",
+    "cannot capture",
+)
+_DETERMINISTIC_PATTERNS = (
+    "out of memory",
+    "invalid argument",
+    "invalid_argument",
+    "unimplemented",
+    "not yet ported",
+    "shape",
+)
+_TRANSIENT_PATTERNS = (
+    "timed out",
+    "timeout",
+    "deadline",
+    "connection reset",
+    "connection refused",
+    "connection closed",
+    "broken pipe",
+    "socket closed",
+    "unavailable",
+    "transient",
+    "temporarily",
+)
+
+
+def classify_error(exc: BaseException) -> str:
+    """Map an exception to a :class:`FaultClass` string (module docstring)."""
+    if isinstance(exc, DeviceLostError):
+        return FaultClass.DEVICE_LOST
+    if isinstance(exc, DeterministicScheduleError):
+        return FaultClass.DETERMINISTIC
+    if isinstance(exc, TransientError):
+        return FaultClass.TRANSIENT
+    msg = str(exc).lower()
+    for pat in _DEVICE_LOST_PATTERNS:
+        if pat in msg:
+            return FaultClass.DEVICE_LOST
+    for pat in _CAPTURE_PATTERNS + _DETERMINISTIC_PATTERNS:
+        if pat in msg:
+            return FaultClass.DETERMINISTIC
+    if isinstance(exc, (ConnectionError, TimeoutError, InterruptedError)):
+        return FaultClass.TRANSIENT
+    for pat in _TRANSIENT_PATTERNS:
+        if pat in msg:
+            return FaultClass.TRANSIENT
+    if isinstance(exc, OSError):
+        return FaultClass.TRANSIENT
+    return FaultClass.DETERMINISTIC
+
+
+def fault_code(exc: BaseException) -> int:
+    """Numeric severity code of an exception's class."""
+    return FaultClass.CODES[classify_error(exc)]

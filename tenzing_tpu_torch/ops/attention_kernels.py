@@ -56,8 +56,9 @@ import torch
 from tenzing_tpu_torch.ops import kernel_lib
 
 # kernel launches (CUDA path only; plain versions and CPU tensors do not count)
-LAUNCHES = {"attn_block": 0, "attn_fused": 0, "attn_block_bf16": 0,
-            "attn_fused_bf16": 0}
+LAUNCHES = kernel_lib.LaunchCounts("attention", {
+    "attn_block": 0, "attn_fused": 0, "attn_block_bf16": 0,
+    "attn_fused_bf16": 0})
 
 # head dims the CUDA kernel is instantiated for (csrc/attn_fold.cu)
 KERNEL_HEAD_DIMS = (128,)
@@ -296,7 +297,7 @@ def attn_block(q, k, v, acc, m, l, scale: float, bf16_inputs: bool = False,
         raise ValueError(f"attn_block: unsupported device {q.device}")
     _launch("tz_attn_block", q, k, v, acc, m, l, scale, bf16_inputs,
             kv_scratch=kv_scratch)
-    LAUNCHES["attn_block_bf16" if bf16_inputs else "attn_block"] += 1
+    LAUNCHES.hit("attn_block_bf16" if bf16_inputs else "attn_block")
 
 
 def attn_fused(q, k, v, acc, m, l, scale: float, bkv: int = 1024,
@@ -321,7 +322,7 @@ def attn_fused(q, k, v, acc, m, l, scale: float, bkv: int = 1024,
         raise ValueError(f"attn_fused: unsupported device {q.device}")
     _launch("tz_attn_fused", q, k, v, acc, m, l, scale, bf16_inputs, bkv_eff,
             kv_scratch)
-    LAUNCHES["attn_fused_bf16" if bf16_inputs else "attn_fused"] += 1
+    LAUNCHES.hit("attn_fused_bf16" if bf16_inputs else "attn_fused")
 
 
 def attention_flops(b: int, n: int, nkv: int, d: int) -> float:

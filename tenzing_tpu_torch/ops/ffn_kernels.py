@@ -51,7 +51,8 @@ from tenzing_tpu_torch.ops import kernel_lib
 
 # kernel launches (CUDA path only; the plain version and CPU tensors do not
 # count)
-LAUNCHES = {"ffn_batched": 0, "ffn_rows": 0, "ffn_rows_bf16": 0}
+LAUNCHES = kernel_lib.LaunchCounts("ffn", {
+    "ffn_batched": 0, "ffn_rows": 0, "ffn_rows_bf16": 0})
 
 # d_model values the CUDA kernels are instantiated for (csrc/ffn_tile.cuh)
 KERNEL_D_MODELS = (512,)
@@ -263,7 +264,7 @@ def ffn_batched(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
         work.data_ptr(), e, c, d, dff,
         torch.cuda.current_stream(x.device).cuda_stream)
     kernel_lib.check_launch("ffn_batched", err)
-    LAUNCHES["ffn_batched"] += 1
+    LAUNCHES.hit("ffn_batched")
     return out
 
 
@@ -355,7 +356,7 @@ def ffn_rows(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
                 work.data_ptr(), n, d, dff,
                 torch.cuda.current_stream(x.device).cuda_stream)
     kernel_lib.check_launch("ffn_rows", err)
-    LAUNCHES["ffn_rows"] += 1
+    LAUNCHES.hit("ffn_rows")
     if bf16:
-        LAUNCHES["ffn_rows_bf16"] += 1
+        LAUNCHES.hit("ffn_rows_bf16")
     return out

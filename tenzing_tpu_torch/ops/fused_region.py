@@ -56,7 +56,7 @@ from tenzing_tpu_torch.ops import attention_kernels as ak
 from tenzing_tpu_torch.ops import kernel_lib
 from tenzing_tpu_torch.ops.spmv_kernels import ELL_TOL, ell_spmv_plain
 
-LAUNCHES = {"fused_region": 0}
+LAUNCHES = kernel_lib.LaunchCounts("fused_region", {"fused_region": 0})
 
 BODIES = {"ell": 0, "gather": 1, "add": 2, "copy": 3, "attn_fold": 4,
           "attn_finalize": 5}
@@ -382,4 +382,4 @@ def fused_region(table: RegionTable, bufs: Dict[str, torch.Tensor],
             ctypes.addressof(t), table.counters.data_ptr(),
             table.blocks_per_group, stream)
         kernel_lib.check_launch("fused_region", err)
-        LAUNCHES["fused_region"] += 1
+        LAUNCHES.hit("fused_region")

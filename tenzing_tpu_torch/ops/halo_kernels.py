@@ -63,8 +63,9 @@ from tenzing_tpu_torch.ops import kernel_lib
 
 # kernel launches (CUDA path only; plain versions and CPU tensors do not count),
 # in total and by body
-LAUNCHES = {"halo_pack": 0, "halo_unpack": 0, "halo_pack.simt": 0,
-            "halo_unpack.tma": 0, "halo_unpack.simt": 0}
+LAUNCHES = kernel_lib.LaunchCounts("halo", {
+    "halo_pack": 0, "halo_unpack": 0, "halo_pack.simt": 0,
+    "halo_unpack.tma": 0, "halo_unpack.simt": 0})
 
 # csrc/halo_copy.cuh's launch constants (tests/test_torch_halo_plan.py reads
 # them from the source)
@@ -358,9 +359,10 @@ def halo_pack(u: torch.Tensor, out: torch.Tensor, starts: Seq[int],
     if u.device.type != "cuda":
         raise ValueError(f"halo_pack: unsupported device {u.device}")
     _launch("tz_halo_pack", u, out, starts, sizes, rows_per_block)
-    LAUNCHES["halo_pack"] += 1
+    LAUNCHES.hit("halo_pack")
     key = ("pack", out.data_ptr(), sizes[3])
-    LAUNCHES[_LAUNCHED.get(key) or _launched(key, u, out, starts, sizes)] += 1
+    LAUNCHES.hit(_LAUNCHED.get(key)
+                 or _launched(key, u, out, starts, sizes))
 
 
 def halo_unpack(u: torch.Tensor, face: torch.Tensor, starts: Seq[int],
@@ -376,10 +378,10 @@ def halo_unpack(u: torch.Tensor, face: torch.Tensor, starts: Seq[int],
     if u.device.type != "cuda":
         raise ValueError(f"halo_unpack: unsupported device {u.device}")
     _launch("tz_halo_unpack", u, face, starts, sizes, rows_per_block)
-    LAUNCHES["halo_unpack"] += 1
+    LAUNCHES.hit("halo_unpack")
     key = ("unpack", face.data_ptr(), sizes[3])
-    LAUNCHES[_LAUNCHED.get(key) or _launched(key, u, face, starts,
-                                             sizes)] += 1
+    LAUNCHES.hit(_LAUNCHED.get(key)
+                 or _launched(key, u, face, starts, sizes))
 
 
 # -- ops + choice menu ---------------------------------------------------------

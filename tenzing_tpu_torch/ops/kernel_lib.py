@@ -21,9 +21,12 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
+from collections import Counter
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tenzing_tpu_torch"
@@ -214,3 +217,50 @@ def check_launch(name: str, err: int) -> None:
     """Raise when a C entry point reported a CUDA error for its launch."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+# -- launch counts ---------------------------------------------------------------
+
+_TABLES: Dict[str, "LaunchCounts"] = {}
+_COUNT_LOCK = threading.Lock()
+_RECORDING = threading.local()
+
+
+class LaunchCounts(dict):
+    """A module's kernel launch counts (``LAUNCHES``), one key per kernel
+    body.  A wrapper calls :meth:`hit` where it launches its kernel.  While
+    the calling thread captures a CUDA graph (:func:`recording_launches`)
+    the launch goes into the capture's tally instead: the graph holds it,
+    and each replay adds it (runtime/graphs.py ``CapturedSchedule``)."""
+
+    def __init__(self, table: str, counts: Dict[str, int]):
+        super().__init__(counts)
+        self.table = table
+        _TABLES[table] = self
+
+    def hit(self, key: str, n: int = 1) -> None:
+        tally = getattr(_RECORDING, "tally", None)
+        if tally is not None:
+            tally[(self.table, key)] += n
+            return
+        with _COUNT_LOCK:
+            self[key] = self.get(key, 0) + n
+
+
+@contextmanager
+def recording_launches() -> Iterator[Counter]:
+    """Divert this thread's launch counts into the yielded tally, keyed by
+    (table, key), for the duration of a capture."""
+    prev = getattr(_RECORDING, "tally", None)
+    tally: Counter = Counter()
+    _RECORDING.tally = tally
+    try:
+        yield tally
+    finally:
+        _RECORDING.tally = prev
+
+
+def add_launches(tally: Counter, times: int = 1) -> None:
+    """Count the launches of ``tally`` ``times`` times over (a replay)."""
+    for (table, key), n in tally.items():
+        _TABLES[table].hit(key, n * times)

@@ -47,7 +47,8 @@ from tenzing_tpu_torch.ops.comm_ops import CommStart, p2p_tag, shift_exchange
 
 # kernel launches (CUDA path only; the plain versions and CPU tensors do not
 # count)
-LAUNCHES = {"device_copy": 0, "rdma_shift_post": 0, "rdma_shift_wait": 0}
+LAUNCHES = kernel_lib.LaunchCounts("rdma", {
+    "device_copy": 0, "rdma_shift_post": 0, "rdma_shift_wait": 0})
 
 
 def device_copy_plain(src: torch.Tensor, dst: torch.Tensor) -> None:
@@ -82,7 +83,7 @@ def device_copy(src: torch.Tensor, dst: torch.Tensor) -> None:
         src.data_ptr(), dst.data_ptr(), src.numel() * src.element_size(),
         torch.cuda.current_stream(src.device).cuda_stream)
     kernel_lib.check_launch("device_copy", err)
-    LAUNCHES["device_copy"] += 1
+    LAUNCHES.hit("device_copy")
 
 
 # -- the mesh shift -------------------------------------------------------------
@@ -179,7 +180,7 @@ def rdma_shift_post(x: torch.Tensor, peer_y: int, flags: torch.Tensor,
         fwd_flags, bwd_flags, cid, epoch, err.data_ptr(), _spin(handoff),
         torch.cuda.current_stream(x.device).cuda_stream)
     kernel_lib.check_launch("rdma_shift_post", rc)
-    LAUNCHES["rdma_shift_post"] += 1
+    LAUNCHES.hit("rdma_shift_post")
 
 
 def rdma_shift_wait(flags: torch.Tensor, cid: int, epoch: int,
@@ -192,7 +193,7 @@ def rdma_shift_wait(flags: torch.Tensor, cid: int, epoch: int,
         flags.data_ptr(), cid, epoch, err.data_ptr(), _spin(handoff),
         torch.cuda.current_stream(flags.device).cuda_stream)
     kernel_lib.check_launch("rdma_shift_wait", rc)
-    LAUNCHES["rdma_shift_wait"] += 1
+    LAUNCHES.hit("rdma_shift_wait")
 
 
 def rdma_shift_barrier(flags: torch.Tensor, fwd_flags: int, bwd_flags: int,

@@ -31,7 +31,7 @@ from tenzing_tpu_torch.ops import kernel_lib
 
 # kernel launches (CUDA path only; the plain version and CPU tensors do not
 # count)
-LAUNCHES = {"ell_spmv": 0}
+LAUNCHES = kernel_lib.LaunchCounts("spmv", {"ell_spmv": 0})
 
 LANES = 128
 # n/128 vregs above which the reference's masked-gather sweep loses to the
@@ -160,7 +160,7 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
         vals.data_ptr(), cols.data_ptr(), x.data_ptr(), out.data_ptr(), m, w,
         x.shape[0], torch.cuda.current_stream(vals.device).cuda_stream)
     kernel_lib.check_launch("ell_spmv", err)
-    LAUNCHES["ell_spmv"] += 1
+    LAUNCHES.hit("ell_spmv")
     return out
 
 

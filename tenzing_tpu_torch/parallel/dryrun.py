@@ -200,7 +200,10 @@ def build_layer(mesh, device, args: MoEArgs, seed: int = 0,
                  for k, t in local.items()}
         want_t = want_t.to(torch.bfloat16)
     plat = Platform.make_n_lanes(2, mesh=mesh, specs=specs)
-    ex = StreamExecutor(plat, local, device=torch.device(device).type)
+    # a mesh schedule runs without CUDA graphs: its collectives and the mesh
+    # shift wait from the host (runtime/executor.py CaptureContext)
+    ex = StreamExecutor(plat, local, device=torch.device(device).type,
+                        graphs=False)
     return Layer(args=args, mesh=mesh, graph=layer_graph(args, **graph_kw),
                  platform=plat, executor=ex, specs=specs, want=want_t)
 
@@ -451,7 +454,8 @@ def build_halo(mesh, device, args, seed: int = 0, lanes: int = 2,
     del bufs
     plat = Platform.make_n_lanes(lanes, mesh=mesh,
                                  specs={k: HALO_SPEC for k in local})
-    ex = StreamExecutor(plat, local, device=torch.device(device).type)
+    ex = StreamExecutor(plat, local, device=torch.device(device).type,
+                        graphs=False)
     return HaloMesh(args=args, mesh=mesh, platform=plat, executor=ex,
                     want=torch.from_numpy(want).to(device))
 
@@ -692,7 +696,8 @@ def comm_cases(mesh, device, cases: List[Dict[str, Any]]) -> List[np.ndarray]:
         local = shard_buffers({"src": c["x"], "dst": np.zeros_like(c["x"])},
                               specs, mesh, device)
         plat = Platform.make_n_lanes(1, mesh=mesh, specs=specs)
-        ex = StreamExecutor(plat, local, device=torch.device(device).type)
+        ex = StreamExecutor(plat, local, device=torch.device(device).type,
+                            graphs=False)
         got = ex.run(first_decision_order(g, plat))["dst"]
         if c["kind"] == "psum":
             # the sum is replicated along the axis: gather the other axes

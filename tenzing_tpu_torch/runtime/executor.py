@@ -79,9 +79,23 @@ profiler's timed mode, obs/attrib/timeline.py) runs a schedule one unit at a
 time from a copy of the initial buffers, each unit alone on an idle device;
 see the method.
 
-``prepare_n`` runs the schedule n times back to back on the persistent
-streams and synchronizes the device once; there is no CUDA-graph capture,
-since LaneSync, AwaitTransfer and the host ops' pending syncs block the host.
+**CUDA graphs** (runtime/graphs.py), the counterpart of the reference's
+compile step: with ``graphs`` on (the default on CUDA), :meth:`precompile
+<StreamExecutor.precompile>` captures each *segment* of a schedule — the
+device work between two points where the host blocks (an AwaitTransfer, a
+LaneSync, a flush of the pending syncs, a blocking EventSync, the end) —
+once, against the executor's own buffers, as a ``torch.cuda.CUDAGraph``,
+and caches them under the schedule's JSON (LRU, bounded by count and by the
+graphs' pool bytes).  ``prepare_n`` then replays the graphs n times with
+the plan's host waits between them, and synchronizes the device once.  A
+capture runs through a :class:`CaptureContext`: streams and internal events
+of its own, so a capture on a background thread (bench/pipeline.py) never
+touches the streams the foreground runs on; every host block becomes a
+recorded wait.  A schedule that cannot be captured (a collective or a mesh
+shift: a host-side wait or a host counter would be frozen into the graph)
+raises from ``precompile`` naming its op; such a schedule runs on an
+executor built with ``graphs=False``, which runs every op from Python as
+before.  :meth:`op_stepped <StreamExecutor.op_stepped>` stays eager.
 
 With ``device="cpu"`` — only when asked, as the tests do — sync ops are no-ops
 and ops run in sequence order, so outputs stay checkable without a card.
@@ -89,7 +103,9 @@ and ops run in sequence order, so outputs stay checkable without a card.
 
 from __future__ import annotations
 
+import threading
 import time
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 
@@ -101,8 +117,10 @@ from tenzing_tpu_torch.core.platform import Platform
 from tenzing_tpu_torch.core.resources import Event, Lane
 from tenzing_tpu_torch.core.sequence import Sequence
 from tenzing_tpu_torch.core.serdes import sequence_to_json_str
-from tenzing_tpu_torch.core.sync_ops import EventRecord, SyncOp
+from tenzing_tpu_torch.core.sync_ops import EventRecord
+from tenzing_tpu_torch.fault.errors import DeterministicScheduleError
 from tenzing_tpu_torch.ops.comm_ops import Done
+from tenzing_tpu_torch.runtime import graphs
 
 
 def resolve_device(device: Optional[str] = None) -> torch.device:
@@ -286,10 +304,7 @@ class RunContext:
             if isinstance(op, BoundDeviceOp):
                 for lane in op.lanes():
                     self.wait_pending(lane)
-            elif isinstance(op, EventRecord):
-                if any(e.id == op.event().id for e in self.pending):
-                    self.flush_pending()  # re-recording a pending event
-            elif not isinstance(op, SyncOp) and (op.reads() or op.writes()):
+            elif graphs.flushes_pending(op, {e.id for e in self.pending}):
                 self.flush_pending()
         op.execute(self)
 
@@ -464,6 +479,193 @@ class RunContext:
         if self.on_cuda:
             self.lane_stream(waiter).wait_stream(self.lane_stream(waitee))
 
+    def streams(self) -> List[Any]:
+        """Every lane and transfer stream created so far."""
+        return list(self._lanes.values()) + list(self._channels.values())
+
+
+class CaptureError(DeterministicScheduleError):
+    """A schedule that cannot be captured as CUDA graphs; the message names
+    the op."""
+
+
+class CaptureContext(RunContext):
+    """What ops see while :meth:`StreamExecutor.precompile` captures a
+    schedule (module docstring; runtime/graphs.py).  It runs the ops the way
+    :class:`RunContext` does, over the executor's buffers and scratch, with
+
+    * streams of its own (``graphs.STREAMS``), one per lane and channel,
+      each joining a segment's capture at its first use there: it waits on
+      the segment's origin stream and on its own external tail event;
+    * internal events of its own, for the orders inside one segment, and
+      the schedule's *external* events (created before the capture, in
+      :meth:`prepare`): one per schedule event id, re-recorded at each
+      ``EventRecord``; one per transfer destination, recorded after its
+      post; one tail per stream, recorded at the end of each segment that
+      touches it;
+    * host blocks recorded in :attr:`waits` as ``(kind, what, events)``
+      (graphs.HostWait's kinds) instead of performed.
+
+    A collective or a mesh shift raises :class:`CaptureError`: its host
+    wait (an NCCL work, the shift's flag deadline) and its host-side epoch
+    cannot live in a graph."""
+
+    def __init__(self, owner: RunContext, bufs: Dict[str, torch.Tensor]):
+        super().__init__(owner.device, plain_kernels=owner.plain_kernels,
+                         mesh=owner.mesh,
+                         defer_host_syncs=owner.defer_host_syncs)
+        self.bufs, self.scratch = bufs, owner.scratch
+        self.host_names = owner.host_names
+        self.origin = None
+        self.waits: List[Tuple[str, Tuple, List[Any]]] = []
+        self._joined: Dict[Tuple[str, Any], Any] = {}
+        self._recorded: set = set()
+        self.ext_events: Dict[int, Any] = {}
+        self.posts: Dict[str, Any] = {}
+        self.tails: Dict[Tuple[str, Any], Any] = {}
+
+    def prepare(self, ops: List[OpBase], keys: Iterable) -> None:
+        """Before the capture: take a stream for each of the stream
+        ``keys`` (graphs.op_streams over ``ops``) and warm its library
+        handles (graphs.warm_stream), and create the external events of
+        ``ops`` and the keys' tails, each recorded once on a stream of its
+        own, so the capture finds every one made (a wait on an event never
+        recorded would add no node)."""
+        setup = graphs.STREAMS.take(self.device)
+
+        def ext(table, key):
+            if key not in table:
+                ev = table[key] = torch.cuda.Event(external=True)
+                ev.record(setup)
+
+        for op in ops:
+            if isinstance(op, EventRecord):
+                ext(self.ext_events, op.event().id)
+            elif getattr(unbound(op), "DST_SPACE", None) == "device":
+                ext(self.posts, op.dst())
+        for key in keys:
+            ext(self.tails, key)
+            table = self._lanes if key[0] == "lane" else self._channels
+            s = table[key[1]] = graphs.STREAMS.take(self.device)
+            graphs.warm_stream(s)
+        setup.synchronize()
+        graphs.STREAMS.give([setup])
+
+    def release(self) -> None:
+        """Give the capture streams back to the pool."""
+        graphs.STREAMS.give(list(self._lanes.values())
+                            + list(self._channels.values()))
+        self._lanes, self._channels = {}, {}
+
+    def begin_segment(self, origin) -> None:
+        self.origin, self.waits = origin, []
+        self._joined, self._recorded = {}, set()
+
+    def end_segment(self) -> None:
+        """Inside the capture: record each joined stream's tail and join it
+        back to the origin."""
+        for key, s in self._joined.items():
+            self.tails[key].record(s)
+            self.origin.wait_stream(s)
+
+    def segment_waits(self) -> List[Tuple[str, Tuple, List[Any]]]:
+        """The segment's host waits, a lane wait resolved to the lane's
+        tail (its last record so far; none where the lane never runs)."""
+        return [(kind, what, evs if kind != "lane" else
+                 [self.tails.get(("lane", what[0]))])
+                for kind, what, evs in self.waits]
+
+    def _join(self, key, table: Dict[Any, Any], name) -> Any:
+        s = self._joined.get(key)
+        if s is not None:
+            return s
+        if self.origin is None:
+            raise CaptureError(f"stream {key} used outside a capture")
+        s = table.get(name)
+        if s is None:
+            raise CaptureError(f"stream {key} is not in the capture plan")
+        s.wait_stream(self.origin)
+        self.tails[key].wait(s)
+        self._joined[key] = s
+        return s
+
+    def lane_stream(self, lane: Lane):
+        return self._join(("lane", lane.id), self._lanes, lane.id)
+
+    def channel_stream(self, channel: str):
+        return self._join(("channel", channel), self._channels, channel)
+
+    def record_event(self, lane: Lane, event: Event) -> None:
+        s = self.lane_stream(lane)
+        self.event(event).record(s)
+        self.ext_events[event.id].record(s)
+        self._recorded.add(event.id)
+
+    def wait_event(self, lane: Lane, event: Event) -> None:
+        s = self.lane_stream(lane)
+        if event.id in self._recorded:
+            s.wait_event(self.event(event))
+        elif event.id in self.ext_events:
+            self.ext_events[event.id].wait(s)
+
+    def _host_events(self, ids) -> List[Any]:
+        return [self.ext_events[i] for i in ids if i in self.ext_events]
+
+    def flush_pending(self) -> None:
+        if not self.pending:
+            return
+        ids = tuple(e.id for e in self.pending)
+        self.waits.append(("flush", ids, self._host_events(ids)))
+        self.pending = []
+        self._pending_waited = set()
+
+    def sync_event_host(self, event: Event) -> None:
+        if self.defer_host_syncs:
+            super().sync_event_host(event)
+            return
+        self.waits.append(("event", (event.id,),
+                           self._host_events([event.id])))
+
+    def sync_lane_host(self, lane: Lane) -> None:
+        self.waits.append(("lane", (lane.id,), []))
+
+    def post_transfer(self, op) -> None:
+        dst = op.dst()
+        awaited = op.DST_SPACE != "host"
+        if awaited and dst in self.inflight:
+            raise RuntimeError(f"{op.name()}: a transfer into {dst!r} is "
+                               "already in flight")
+        stream = self.channel_stream(op.channel())
+        with torch.cuda.stream(stream):
+            op.apply(self.bufs, self)
+        if awaited:
+            self.posts[dst].record(stream)
+            self.inflight[dst] = self.posts[dst]
+
+    def await_transfer(self, buf: str) -> None:
+        if buf in self.host_names:
+            return
+        if buf not in self.inflight:
+            raise RuntimeError(f"await on {buf!r}: no transfer in flight")
+        self.waits.append(("transfer", (buf,), [self.inflight.pop(buf)]))
+
+    def post_collective(self, op) -> None:
+        raise CaptureError(
+            f"{op.name()}: a collective cannot be captured (its await waits "
+            "on the process group's work from the host); run this schedule "
+            "on an executor with graphs=False")
+
+    def post_shift(self, op) -> None:
+        size = (self.mesh.size(op.axis())
+                if self.mesh is not None and op.axis() in self.mesh.axes
+                else 1)
+        if size > 1:
+            raise CaptureError(
+                f"{op.name()}: the mesh shift cannot be captured (its epoch "
+                "is a host counter and its await a host-side deadline); run "
+                "this schedule on an executor with graphs=False")
+        self.post_transfer(op)
+
 
 def _is_sync(op: OpBase) -> bool:
     return getattr(op, "is_sync", lambda: False)()
@@ -526,11 +728,27 @@ class StreamExecutor:
     parallel/mesh.py ``shard_buffers``); timed runs update them in place.  A copy of
     their initial contents is kept so :meth:`run` can start every validation
     run from the same state.  ``device`` defaults to ``cuda``.
+
+    ``graphs`` (default True) captures each schedule as CUDA graphs on CUDA
+    (module docstring); False runs every op from Python, for the
+    before/after measurement, the plain-kernel reference executor and the
+    mesh schedules.  On the CPU nothing is captured.  The graph cache holds
+    at most :attr:`MAX_GRAPHS` schedules and, past the first, at most
+    1/:attr:`POOL_SHARE` of the card's memory in their pools (the
+    attention naive chain's score temporaries are large, and a search
+    captures hundreds of schedules); the least recently used schedule goes
+    first (``graph_evictions`` counts them).  ``compile_count`` and
+    ``compile_secs`` tally the captures (the reference's compile tallies,
+    tenzing_tpu/runtime/executor.py:324-337), under a lock: the prefetch
+    pipeline captures on background threads.
     """
+
+    MAX_GRAPHS = 256
+    POOL_SHARE = 4
 
     def __init__(self, platform: Platform, init_bufs: Dict[str, torch.Tensor],
                  device: Optional[str] = None, plain_kernels: bool = False,
-                 defer_host_syncs: bool = True):
+                 defer_host_syncs: bool = True, graphs: bool = True):
         self.platform = platform
         self.device = resolve_device(device)
         self.init_bufs = dict(init_bufs)
@@ -551,6 +769,19 @@ class StreamExecutor:
                                and self.device.type == "cuda"}
         self._initial = _copy_buffers(self.init_bufs)
         self._prepared: set = set()
+        self.graphs = bool(graphs) and self.ctx.on_cuda
+        self.graph_bytes = (torch.cuda.get_device_properties(
+            self.device).total_memory // self.POOL_SHARE
+            if self.graphs else None)
+        self._graphs: "OrderedDict[str, graphs.CapturedSchedule]" = \
+            OrderedDict()
+        self._capturing: Dict[str, threading.Event] = {}
+        self._launch_streams: List[Any] = []
+        self._lock = threading.Lock()
+        self._provision_lock = threading.Lock()
+        self.compile_count = 0
+        self.compile_secs = 0.0
+        self.graph_evictions = 0
 
     @property
     def host_names(self) -> set:
@@ -560,23 +791,25 @@ class StreamExecutor:
     # -- provisioning -------------------------------------------------------
     def _provision(self, ops: List[OpBase]) -> None:
         """Allocate the scratch the ops declare (on the current stream, before
-        any run), then wait for the device: the lane streams do not order
-        themselves after the default stream."""
+        any run), then wait for that stream: the lane streams do not order
+        themselves after it."""
         shapes = {k: tuple(t.shape) for k, t in self.init_bufs.items()}
-        for op in ops:
-            declared = (op.scratch_for(shapes) if hasattr(op, "scratch_for")
-                        else {})
-            for name, (shape, dtype) in declared.items():
-                have = self.ctx.scratch.get(name)
-                if have is not None and tuple(have.shape) == tuple(shape):
-                    continue
-                if have is not None:
-                    raise ValueError(f"scratch {name!r} declared with shapes "
-                                     f"{tuple(have.shape)} and {tuple(shape)}")
-                self.ctx.scratch[name] = torch.zeros(
-                    shape, dtype=getattr(torch, dtype), device=self.device)
-        if self.ctx.on_cuda:
-            torch.cuda.synchronize(self.device)
+        with self._provision_lock:
+            for op in ops:
+                declared = (op.scratch_for(shapes)
+                            if hasattr(op, "scratch_for") else {})
+                for name, (shape, dtype) in declared.items():
+                    have = self.ctx.scratch.get(name)
+                    if have is not None and tuple(have.shape) == tuple(shape):
+                        continue
+                    if have is not None:
+                        raise ValueError(
+                            f"scratch {name!r} declared with shapes "
+                            f"{tuple(have.shape)} and {tuple(shape)}")
+                    self.ctx.scratch[name] = torch.zeros(
+                        shape, dtype=getattr(torch, dtype), device=self.device)
+            if self.ctx.on_cuda:
+                torch.cuda.current_stream(self.device).synchronize()
 
     def _run_ops(self, ops: List[OpBase], bufs: Dict[str, torch.Tensor]) -> None:
         ctx = self.ctx
@@ -595,34 +828,209 @@ class StreamExecutor:
                 f"{sorted(ctx.inflight)}; every post needs a matching await")
 
     def _fence(self) -> None:
+        """Wait for everything this executor enqueued (runtime/graphs.py
+        ``device_sync``: the device, or, while a capture is in progress,
+        each of the executor's streams)."""
         if self.ctx.on_cuda:
-            torch.cuda.synchronize(self.device)
+            graphs.device_sync(self.device,
+                               self.ctx.streams() + self._launch_streams)
 
-    # -- ScheduleRunner surface -------------------------------------------
-    def is_compiled(self, order: Sequence) -> bool:
-        """True once :meth:`precompile` (or a prepare) provisioned ``order``."""
-        return sequence_to_json_str(order) in self._prepared
+    # -- capture (the compile stage) ------------------------------------------
+    def _launch_stream(self, k: int):
+        with self._lock:
+            while len(self._launch_streams) <= k:
+                self._launch_streams.append(graphs.STREAMS.take(self.device))
+            return self._launch_streams[k]
 
-    def precompile(self, order: Sequence) -> bool:
-        """Provision ``order``'s scratch, streams and events ahead of its first
-        run; returns True when this call did the work.  There is nothing to
-        compile: the kernels are built once per process (ops/kernel_lib.py).
-        An ``executor.build`` span records the provisioning."""
+    def _capture(self, order: Sequence) -> "graphs.CapturedSchedule":
+        """Capture ``order``'s segments (module docstring).  Raises
+        :class:`CaptureError` naming the op a capture failed at."""
+        from collections import Counter
+
+        from tenzing_tpu_torch.ops import kernel_lib
+
+        ops = order.vector()
+        plan = graphs.plan_segments(ops, self.ctx.host_names,
+                                    self.ctx.defer_host_syncs)
+        cap = CaptureContext(self.ctx, self.init_bufs)
+        cap.prepare(ops, set().union(*(seg.streams for seg in plan)))
+        origin = graphs.STREAMS.take(self.device)
+        reserved0 = torch.cuda.memory_reserved(self.device)
+        segments: List[graphs.CapturedSegment] = []
+        launches: Counter = Counter()
+        try:
+            for k, seg in enumerate(plan):
+                cap.begin_segment(origin)
+                graph = None
+                with kernel_lib.recording_launches() as tally:
+                    if seg.streams:
+                        graph = self._capture_segment(cap, origin, ops, seg)
+                    else:  # host waits only: nothing to capture
+                        self._run_segment(cap, ops, seg)
+                launches.update(tally)
+                waits = cap.segment_waits()
+                got = [(kind, what) for kind, what, _ in waits]
+                want = [(w.kind, w.what) for w in seg.waits]
+                if got != want:
+                    raise RuntimeError(
+                        f"capture plan disagrees with the executor at segment "
+                        f"{k}: planned waits {want}, executed {got}")
+                handles = [ev._as_parameter_.value  # the cudaEvent_t
+                           for _, _, evs in waits for ev in evs
+                           if ev is not None]
+                segments.append(graphs.CapturedSegment(
+                    graph, graph.raw_cuda_graph_exec() if graph is not None
+                    else None,
+                    self._launch_stream(k) if graph is not None else None,
+                    handles))
+        finally:
+            cap.release()
+            graphs.STREAMS.give([origin])
+        events = (list(cap.ext_events.values()) + list(cap.posts.values())
+                  + list(cap.tails.values()))
+        pool = max(0, torch.cuda.memory_reserved(self.device) - reserved0)
+        return graphs.CapturedSchedule(segments, events, launches, pool,
+                                       graphs.n_host_syncs(plan))
+
+    @staticmethod
+    def _run_segment(cap: "CaptureContext", ops: List[OpBase],
+                     seg: "graphs.Segment") -> None:
+        """Run one segment's ops through the capture context, naming the op
+        that fails, then the flush its waits end with."""
+        for p in seg.positions:
+            try:
+                cap.run(ops[p])
+            except CaptureError:
+                raise
+            except Exception as e:
+                raise CaptureError(
+                    f"cannot capture op {ops[p].name()!r} (position {p}): "
+                    f"{type(e).__name__}: {e}") from e
+        if any(w.kind == "flush" for w in seg.waits):
+            cap.flush_pending()
+
+    def _capture_segment(self, cap: "CaptureContext", origin, ops, seg):
+        """One segment as a CUDA graph, captured from ``origin`` in
+        ``thread_local`` mode (a device-wide sync on another thread would
+        otherwise invalidate it; graphs.capturing() holds those off)."""
+        graph = torch.cuda.CUDAGraph()
+        with graphs.capturing(), torch.cuda.stream(origin):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self._run_segment(cap, ops, seg)
+                cap.end_segment()
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except Exception:
+                    pass  # the capture was invalidated: the op's error stands
+                raise
+            try:
+                graph.capture_end()
+            except Exception as e:
+                raise CaptureError(
+                    f"capture of ops {seg.positions[0]}-{seg.positions[-1]} "
+                    f"({ops[seg.positions[0]].name()!r} .. "
+                    f"{ops[seg.positions[-1]].name()!r}) failed: {e}") from e
+        return graph
+
+    def _compile(self, order: Sequence, aot: bool) -> bool:
+        """Provision ``order`` and, with graphs, capture it into the cache;
+        True when this call did the work.  Another thread capturing the
+        same schedule is waited for."""
         key = sequence_to_json_str(order)
-        if key in self._prepared:
+        with self._lock:
+            if key in self._graphs or (not self.graphs
+                                       and key in self._prepared):
+                if key in self._graphs:
+                    self._graphs.move_to_end(key)
+                return False
+            waiter = self._capturing.get(key)
+            mine = waiter is None
+            if mine:
+                waiter = self._capturing[key] = threading.Event()
+        if not mine:
+            waiter.wait()
             return False
         from tenzing_tpu_torch.obs.tracer import get_tracer, short_digest
 
-        with get_tracer().span("executor.build", schedule=short_digest(key),
-                               n_ops=len(order)):
-            self._provision(order.vector())
-        self._prepared.add(key)
-        return True
+        try:
+            t0 = time.perf_counter()
+            with get_tracer().span(
+                    "executor.compile" if self.graphs else "executor.build",
+                    schedule=short_digest(key), n_ops=len(order),
+                    aot=aot) as sp:
+                self._provision(order.vector())
+                entry = self._capture(order) if self.graphs else None
+                if entry is not None:
+                    sp.set("segments", len(entry.segments))
+                    sp.set("graphs", entry.n_graphs)
+            secs = time.perf_counter() - t0
+            with self._lock:
+                if entry is None:
+                    self._prepared.add(key)
+                    return True
+                self.compile_count += 1
+                self.compile_secs += secs
+                self._graphs[key] = entry
+                self._evict()
+            return True
+        finally:
+            with self._lock:
+                self._capturing.pop(key).set()
+
+    def _evict(self) -> None:
+        """Drop least recently used schedules past the cache's bounds (held
+        under the lock; a schedule a caller still replays stays alive
+        through its reference until that caller's fence)."""
+        from tenzing_tpu_torch.obs.metrics import get_metrics
+
+        def over() -> bool:
+            if len(self._graphs) > self.MAX_GRAPHS:
+                return True
+            total = sum(e.pool_bytes for e in self._graphs.values())
+            return (self.graph_bytes is not None and len(self._graphs) > 1
+                    and total > self.graph_bytes)
+
+        while over():
+            self._graphs.popitem(last=False)
+            self.graph_evictions += 1
+            get_metrics().counter("executor.graph_evictions").inc()
+
+    def _entry(self, order: Sequence) -> "graphs.CapturedSchedule":
+        """``order``'s captured graphs, captured now when missing."""
+        key = sequence_to_json_str(order)
+        while True:
+            self._compile(order, aot=False)
+            with self._lock:
+                entry = self._graphs.get(key)
+            if entry is not None:
+                return entry
+
+    # -- ScheduleRunner surface -------------------------------------------
+    def is_compiled(self, order: Sequence) -> bool:
+        """True once :meth:`precompile` (or a prepare) captured ``order``
+        (provisioned it, without graphs)."""
+        key = sequence_to_json_str(order)
+        return key in self._graphs if self.graphs else key in self._prepared
+
+    def precompile(self, order: Sequence) -> bool:
+        """Capture ``order`` as CUDA graphs ahead of its first run (with
+        ``graphs`` off, or on the CPU: provision its scratch); returns True
+        when this call did the work.  Thread-safe: the prefetch pipeline
+        calls it on background threads, and a capture there runs on
+        streams of its own and records no event the foreground waits on
+        before the graphs replay (the reference's promise that a
+        speculative precompile touches no platform state).  An
+        ``executor.compile`` span (``executor.build`` without graphs)
+        records it, ``aot=True``.  A schedule that cannot be captured
+        raises :class:`CaptureError` naming the op."""
+        return self._compile(order, aot=True)
 
     def compile(self, order: Sequence) -> Callable[[], Dict[str, torch.Tensor]]:
-        """No compile step exists on CUDA: provisions ``order`` and returns a
-        runner that executes it once from the initial state (:meth:`run`)."""
-        self.precompile(order)
+        """Precompile ``order`` and return a runner that executes it once
+        from the initial state (:meth:`run`)."""
+        self._compile(order, aot=False)
         return lambda: self.run(order)
 
     def prepare(self, order: Sequence) -> Callable[[], None]:
@@ -631,10 +1039,22 @@ class StreamExecutor:
         return lambda: run_n(1)
 
     def prepare_n(self, order: Sequence) -> Callable[[int], None]:
-        """``run_n(n)``: the schedule n times back to back on the persistent
-        streams over the executor's buffers, then one device synchronize."""
+        """``run_n(n)``: the schedule n times back to back over the
+        executor's buffers — its graphs replayed, or every op dispatched on
+        the persistent streams without graphs — then one device
+        synchronize."""
+        if self.graphs:
+            entry = self._entry(order)
+            ctx = self.ctx
+
+            def replay_n(n: int) -> None:
+                entry.replay(n)
+                ctx.host_syncs += entry.n_syncs * n
+                self._fence()
+
+            return replay_n
         ops = order.vector()
-        self.precompile(order)
+        self._compile(order, aot=False)
         bufs = self.init_bufs
 
         def run_n(n: int) -> None:
@@ -643,6 +1063,23 @@ class StreamExecutor:
             self._fence()
 
         return run_n
+
+    def _restore(self) -> None:
+        """The executor's buffers back to their initial contents (on the
+        current stream, then waited for)."""
+        for name, t in self.init_bufs.items():
+            t.copy_(self._initial[name])
+        torch.cuda.current_stream(self.device).synchronize()
+
+    def graph_stats(self) -> Dict[str, int]:
+        """The graph cache: schedules held, their graphs and pool bytes, the
+        evictions so far."""
+        with self._lock:
+            held = list(self._graphs.values())
+        return {"schedules": len(held),
+                "graphs": sum(e.n_graphs for e in held),
+                "pool_bytes": sum(e.pool_bytes for e in held),
+                "evictions": self.graph_evictions}
 
     # -- timed execution mode (the attribution profiler's entry point) ------
     def op_stepped(self, order: Sequence) -> List[Tuple[Tuple[int, ...],
@@ -674,7 +1111,7 @@ class StreamExecutor:
             raise RuntimeError(
                 "op_stepped: per-op stepped profiling is single-device only "
                 "(obs/attrib/xplane.py's profiler capture works on a mesh)")
-        self.precompile(order)
+        self._provision(order.vector())
         ops = order.vector()
         ctx = self.ctx
         ctx.bufs = _copy_buffers(self._initial)
@@ -732,9 +1169,25 @@ class StreamExecutor:
         return fn
 
     def run(self, order: Sequence) -> Dict[str, torch.Tensor]:
-        """Execute once from the initial buffer contents, on fresh copies, and
-        return them (the integrity gate compares two schedules this way)."""
-        self.precompile(order)
+        """Execute once from the initial buffer contents and return copies of
+        the outputs (the integrity gate compares two schedules this way).
+        With graphs, the executor's buffers are restored from the initial
+        contents, the graphs the measurement replayed run on them (a graph
+        is bound to the buffers it was captured on), and the buffers are
+        restored again after the copies (an executor sharing them, built
+        after this call, starts from the same state); without, the
+        schedule runs on fresh copies and the buffers are left alone."""
+        if self.graphs:
+            entry = self._entry(order)
+            self._fence()
+            self._restore()
+            entry.replay(1)
+            self.ctx.host_syncs += entry.n_syncs
+            self._fence()
+            out = _copy_buffers(self.init_bufs)
+            self._restore()
+            return out
+        self._compile(order, aot=False)
         bufs = _copy_buffers(self._initial)
         self._fence()
         self._run_ops(order.vector(), bufs)

@@ -18,9 +18,13 @@ in the reference).  A measurement that raises propagates (as in the port's
 MCTS: on CUDA no compile step can legitimately fail) after a
 ``search.candidate_failed`` record.  Telemetry: ``dfs.explore``,
 ``dfs.enumerate``, ``dfs.enumerate_variant`` and a ``dfs.iter`` span per
-schedule measured one at a time, as in the reference.  Not ported yet, and
-refused when set: the learned ``prescreen``, ``checkpoint``, compile
-``prefetch`` and fleet ``subtree`` slicing.
+schedule measured one at a time, as in the reference.  Compile prefetching
+is the reference's: with ``prefetch`` (a bench/pipeline.py
+``PrefetchingBenchmarker``) the next ``prefetch_lookahead`` terminals are
+hinted while terminal i measures (the batch path needs no hint: a
+prefetcher in the benchmark stack hints the whole batch itself).  Not
+ported yet, and refused when set: the learned ``prescreen``,
+``checkpoint`` and fleet ``subtree`` slicing.
 """
 
 from __future__ import annotations
@@ -56,8 +60,10 @@ class DfsOpts:
     a fresh random order (reference batch benchmark, benchmarker.cpp:21-76) —
     so slow drift decorrelates from schedule identity.  ``verify`` (a
     ``verify.ScheduleVerifier``) checks every terminal before it is
-    measured; an unsound one is skipped.  The remaining fields are the
-    reference's and must stay unset: not yet ported."""
+    measured; an unsound one is skipped.  ``prefetch`` hints the next
+    ``prefetch_lookahead`` terminals to a capture prefetcher.  The
+    remaining fields are the reference's and must stay unset: not yet
+    ported."""
 
     max_seqs: int = 15000
     bench_opts: BenchOpts = field(default_factory=BenchOpts)
@@ -78,7 +84,7 @@ class DfsOpts:
                 "batch": self.batch, "batch_seed": self.batch_seed}
 
 
-_UNPORTED = ("prescreen", "checkpoint", "prefetch", "subtree")
+_UNPORTED = ("prescreen", "checkpoint", "subtree")
 
 
 @dataclass
@@ -233,10 +239,17 @@ def explore(graph: Graph, platform, benchmarker,
 
 
 def _measure_one(benchmarker, order, opts: DfsOpts, counters: Counters,
-                 i: int, result: DfsResult) -> None:
-    """Measure one schedule under a ``dfs.iter`` span."""
+                 i: int, result: DfsResult, ahead=()) -> None:
+    """Measure one schedule under a ``dfs.iter`` span, first hinting the
+    schedules ``ahead`` to the prefetcher."""
     tr = get_tracer()
     with tr.span("dfs.iter", i=i) as sp:
+        if opts.prefetch is not None and ahead:
+            # frontier slice: the next terminals are known — capture them
+            # while this one measures.  Re-offering the window each
+            # iteration is cheap (id dedup) and lets hints dropped at a
+            # full queue resubmit.
+            opts.prefetch.prefetch(ahead)
         with counters.phase("BENCHMARK"):
             try:
                 res = benchmarker.benchmark(order, opts.bench_opts)
@@ -280,7 +293,8 @@ def _explore(graph: Graph, platform, benchmarker, opts: DfsOpts, cp,
                 payload = cp.bcast_json(
                     sequence_to_json(orders[i]) if lead else None)
             o = orders[i] if lead else sequence_from_json(payload, graph)
-            _measure_one(benchmarker, o, opts, counters, i, result)
+            _measure_one(benchmarker, o, opts, counters, i, result,
+                         _window(orders, i, opts) if lead else ())
         return
     batch_times = getattr(benchmarker, "benchmark_batch_times", None)
     if opts.batch and batch_times is None:
@@ -293,4 +307,10 @@ def _explore(graph: Graph, platform, benchmarker, opts: DfsOpts, cp,
                        for o, ts in zip(orders, times)]
     else:
         for i, o in enumerate(orders):
-            _measure_one(benchmarker, o, opts, counters, i, result)
+            _measure_one(benchmarker, o, opts, counters, i, result,
+                         _window(orders, i, opts))
+
+
+def _window(orders, i: int, opts: DfsOpts) -> list:
+    """The ``prefetch_lookahead`` terminals after terminal ``i``."""
+    return list(orders[i + 1:i + 1 + opts.prefetch_lookahead])

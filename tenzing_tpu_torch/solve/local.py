@@ -11,12 +11,15 @@ rest by following the original plan where it still applies
 benchmark budget, on a paired comparison with the incumbent when asked.
 
 The climb draws from ``random.Random(seed)`` in the reference's order, so the
-two packages climb the same chain for the same measurements.  Left out, with
-their subsystems: the learned prescreen, checkpointing, compile prefetching
-and the fleet's shared claim registry.  A measurement that raises propagates,
-as in the port's MCTS (after a ``search.candidate_failed`` record): on CUDA
-there is no compile step that can legitimately fail, so a failure is not a
-neighbor's verdict.
+two packages climb the same chain for the same measurements.  With
+``LocalOpts.prefetch`` (a bench/pipeline.py ``PrefetchingBenchmarker``)
+each step's neighbour batch is built before the measure loop and hinted, so
+neighbour k+1 captures while neighbour k measures; the replay is
+deterministic and RNG-free, so the climb is the same either way.  Left out,
+with their subsystems: the learned prescreen, checkpointing and the fleet's
+shared claim registry.  A measurement that raises (a schedule that cannot
+be captured among them) propagates, as in the port's MCTS (after a
+``search.candidate_failed`` record).
 """
 
 from __future__ import annotations
@@ -190,7 +193,10 @@ class LocalOpts:
 
     ``verify`` (a ``verify.ScheduleVerifier``) checks the incumbent and every
     neighbor before it is measured; an unsound neighbor is rejected without
-    device time."""
+    device time.
+
+    ``prefetch`` (a capture prefetcher) gets each step's neighbour batch as
+    hints; None (the default) gives the same climb."""
 
     budget: int = 24
     bench_opts: BenchOpts = field(default_factory=BenchOpts)
@@ -198,6 +204,7 @@ class LocalOpts:
     max_alts_per_step: int = 3
     paired: bool = False
     verify: Optional[object] = None
+    prefetch: Optional[object] = None
 
 
 @dataclass
@@ -315,13 +322,27 @@ def hill_climb(
             ds = st.get_decisions(platform)
             alts = [d for d in ds if d.key() != decisions[i].key()]
             rng.shuffle(alts)
-            # replayed lazily: a first-improvement break pays for no
-            # neighbor it never visits
-            neighbors = (
-                (alt, *replay_with_substitution(
-                    graph, platform, decisions, i, alt, fresh()))
-                for alt in alts[: opts.max_alts_per_step]
-            )
+            if opts.prefetch is not None:
+                # the whole neighbour batch is built before the measure
+                # loop (the replay is deterministic and RNG-free, so
+                # building neighbour k+1 early changes nothing) and hinted,
+                # so it captures while neighbour k measures
+                neighbors = [
+                    (alt, *replay_with_substitution(
+                        graph, platform, decisions, i, alt, fresh()))
+                    for alt in alts[: opts.max_alts_per_step]
+                ]
+                opts.prefetch.prefetch(
+                    [cs for _, cs, _ in neighbors
+                     if canonical_key(cs) not in seen])
+            else:
+                # replayed lazily: a first-improvement break pays for no
+                # neighbor it never visits
+                neighbors = (
+                    (alt, *replay_with_substitution(
+                        graph, platform, decisions, i, alt, fresh()))
+                    for alt in alts[: opts.max_alts_per_step]
+                )
             for alt, cand_seq, cand_dec in neighbors:
                 key = canonical_key(cand_seq)
                 if key in seen:

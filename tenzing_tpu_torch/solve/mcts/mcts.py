@@ -11,11 +11,15 @@ split, and the multi-rank protocol (reference mcts.py:264-530, mcts.hpp:129-152,
 244): with a ``control_plane`` of more than one rank, rank 0 owns the tree,
 and the stop flag and every schedule to measure are broadcast as JSON; every
 rank measures every schedule (the benchmarker's barrier and max-reduction
-keep their times equal).  At world size 1 no broadcast runs.  Checkpointing,
-compile prefetching and fleet sub-tree slicing are absent; a measurement
-that raises is not a search verdict on CUDA (there is no compile step that
-can legitimately fail) and propagates, on every rank, after a
-``search.candidate_failed`` record.
+keep their times equal).  At world size 1 no broadcast runs.  Compile
+prefetching is the reference's (``MctsOpts.prefetch``, a
+bench/pipeline.py ``PrefetchingBenchmarker``): the seeds' terminal
+schedules before the first iteration, ``prefetch_rollouts`` speculative
+completions of each expanded node's other children (throwaway States, a
+forked RNG: the search is the same with the pipeline on and off), and the
+confirm queue.  Checkpointing and fleet sub-tree slicing are absent.  A
+measurement that raises (a schedule that cannot be captured among them)
+propagates, on every rank, after a ``search.candidate_failed`` record.
 
 Telemetry (obs/): an ``mcts.explore`` span around the search and an
 ``mcts.iter`` span per iteration (``seeded``, ``selected``, ``schedule``,
@@ -70,6 +74,13 @@ class MctsOpts:
     # independent soundness gate (verify.ScheduleVerifier): an unsound
     # rollout is rejected with a penalty backprop and never measured
     verify: Optional[object] = None
+    # capture prefetcher (bench.pipeline.PrefetchingBenchmarker): candidate
+    # hints — the seeds' terminal schedules up front, ``prefetch_rollouts``
+    # speculative completions of each expanded node's other children, the
+    # confirm queue — are captured in the background.  Hints consume no
+    # search RNG: None (the default) gives the same search.
+    prefetch: Optional[object] = None
+    prefetch_rollouts: int = 2
 
 
 @dataclass
@@ -135,6 +146,45 @@ def _materialize_seed(root: Node, path) -> tuple:
     return node, st
 
 
+def _seed_orders(graph, seeds, limit: int) -> list:
+    """The terminal schedules of the first ``limit`` seed paths, known
+    before the first iteration, so their captures can prefetch while the
+    first measurements run: pure replay on fresh States, no tree, no RNG.
+    ``limit`` (the prefetcher's queue bound) caps the replay work."""
+    orders = []
+    for path in seeds:
+        if len(orders) >= limit:
+            break
+        st = State(graph)
+        for d in path:
+            st = st.apply(d)
+        if st.is_terminal():
+            orders.append(st.sequence)
+    return orders
+
+
+def _speculative_completions(node: Node, platform, prng, k: int,
+                             skip: Optional[Node] = None) -> list:
+    """Up to ``k`` plausible future rollouts for the prefetcher: the
+    unplayed children of the just-expanded node completed to terminal
+    schedules on throwaway States with a forked RNG (``prng``).  The tree,
+    the search RNG and the (possibly stateful) rollout policy are never
+    touched — uniform-random completion only."""
+    hints = []
+    kids = [c for c in node.children
+            if c.n_ == 0 and c is not skip] or [node]
+    for child in kids[:k]:
+        st = child.state
+        while not st.is_terminal():
+            ds = st.get_decisions(platform)
+            if not ds:
+                break
+            st = st.apply(prng.choice(ds))
+        if st.is_terminal():
+            hints.append(remove_redundant_syncs(st.sequence))
+    return hints
+
+
 def explore(
     graph,
     platform,
@@ -179,6 +229,11 @@ def _explore(graph, platform, benchmarker, opts: MctsOpts, strategy, seeds,
     root = Node(State(graph), strategy) if lead else None
     ctx.root = root
     seed_iter = iter(seeds if seeds is not None else ())
+    if opts.prefetch is not None and lead and seeds:
+        # the seed queue's terminal schedules are known now: capture them
+        # in the background while the first iterations measure
+        opts.prefetch.prefetch(_seed_orders(
+            graph, seeds, getattr(opts.prefetch, "depth", 8)))
     failed_keys: set = set()  # negative cache for unsound schedules
     ropts = opts.screen_opts if opts.screen_opts is not None else opts.bench_opts
     fidelity = "screen" if opts.screen_opts is not None else "full"
@@ -212,6 +267,15 @@ def _explore(graph, platform, benchmarker, opts: MctsOpts, strategy, seeds,
                             policy_eps=opts.rollout_eps)
                     with counters.phase("REDUNDANT_SYNC"):
                         order = remove_redundant_syncs(order)
+                    if opts.prefetch is not None:
+                        # speculative completions of the leaf's other
+                        # unplayed children capture in the background while
+                        # this rollout measures (forked RNG, throwaway
+                        # States: the search itself is untouched)
+                        opts.prefetch.prefetch(_speculative_completions(
+                            leaf, platform,
+                            _random.Random(f"prefetch:{opts.seed}:{it}"),
+                            opts.prefetch_rollouts, skip=child))
                     if tr.enabled and child.decision is not None:
                         it_sp.set("selected", child.decision.desc())
             if multi:  # stop-flag + schedule broadcast (mcts.hpp:129-152, 244)
@@ -273,6 +337,10 @@ def _explore(graph, platform, benchmarker, opts: MctsOpts, strategy, seeds,
             finals.append(s.order)
             if len(finals) >= opts.confirm_topk:
                 break
+        if opts.prefetch is not None:
+            # confirm-queue lookahead: finalists were captured when they
+            # were screened, unless evicted since
+            opts.prefetch.prefetch(finals)
         for order in finals:
             with counters.phase("CONFIRM"):
                 try:

@@ -120,10 +120,20 @@ def test_explore_verifies_and_refuses_unported_options():
                                   bench_opts=BenchOpts(n_iters=2, target_secs=0.0002)))
     assert len(res.sims) == 4
     for name, value in (("prescreen", object()), ("checkpoint", object()),
-                        ("prefetch", object()), ("subtree", (0, 2))):
+                        ("subtree", (0, 2))):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             dfs.explore(g, Platform.make_n_lanes(2), EmpiricalBenchmarker(ex),
                         dfs.DfsOpts(max_seqs=2, **{name: value}))
+    # prefetch is ported: the next terminals are hinted while one measures
+    from tenzing_tpu_torch.bench.pipeline import PrefetchingBenchmarker
+
+    fresh, _ = _executor()  # nothing provisioned yet: the hints issue
+    with PrefetchingBenchmarker(EmpiricalBenchmarker(fresh),
+                                executor=fresh) as p:
+        res = dfs.explore(g, Platform.make_n_lanes(2), p, dfs.DfsOpts(
+            max_seqs=3, prefetch=p,
+            bench_opts=BenchOpts(n_iters=2, target_secs=0.0002)))
+    assert len(res.sims) == 3 and p.issued >= 1
     assert dfs.DfsOpts().to_json() == ref_dfs.DfsOpts().to_json()
 
 

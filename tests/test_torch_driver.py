@@ -70,12 +70,36 @@ def test_metric_and_lanes_equal_reference(workload):
     dict(synth_collectives=True), dict(learn_screen=True),
     dict(checkpoint="ckpt"), dict(inject_faults="flaky:0.1"),
     dict(search_workers=2), dict(measure_batch=4),
-    dict(prefetch_compiles=4), dict(workload="moe", learn_model="m.json"),
+    dict(workload="spmv", resume=True),
+    dict(workload="moe", learn_model="m.json"),
     dict(learn_train=["a.csv"]), dict(workload="spmv", learn_trace=["t"]),
 ])
 def test_unported_flags_raise(override):
     with pytest.raises(driver.DriverConfigError, match="not yet ported"):
         driver.run(driver.DriverRequest(smoke=True, **override), device="cpu")
+
+
+@pytest.mark.parametrize("n", [0, 1, 3])
+def test_prefetch_compiles_any_n(n):
+    """--prefetch-compiles N runs for any N >= 0 (bench/pipeline.py under
+    the cache; 0 leaves it out) and stamps the reference's perf keys; a
+    negative N is refused."""
+    r = driver.run(driver.DriverRequest(prefetch_compiles=n, **FAST),
+                   device="cpu").verdict
+    pf = r["perf"]["prefetch"]
+    assert set(pf) == {"workers", "issued", "hits", "wasted", "failed",
+                       "surfaced", "dropped"}
+    assert pf["workers"] == n and (pf["issued"] > 0) == (n > 0)
+    assert pf["hits"] > 0 or n == 0
+    # the CPU captures nothing: compiled_programs counts CUDA graphs
+    assert r["perf"]["compiled_programs"] == 0
+    assert r["perf"]["compile_secs"] >= 0.0
+
+
+def test_prefetch_compiles_negative_refused():
+    with pytest.raises(driver.DriverConfigError, match=">= 0"):
+        driver.run(driver.DriverRequest(smoke=True, prefetch_compiles=-1),
+                   device="cpu")
 
 
 def test_default_device_is_cuda_and_refuses_without_it():

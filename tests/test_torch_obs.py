@@ -549,12 +549,9 @@ REFERENCE_SMOKE_COUNTERS = {
 REFERENCE_SMOKE_GAUGES = {"bench.cache.hit_rate", "pipeline.queue_depth"}
 # the records of layers the port does not have
 NOT_IN_PORT = {
-    # no compile step on CUDA: the kernels are built once per process
+    # the compile stage is a CUDA-graph capture: on the CPU nothing is
+    # captured and the executor records executor.build only
     "executor.compile",
-    # the compile-prefetch pipeline (ROADMAP Queue 1 item 4)
-    "pipeline.precompile", "pipeline.prefetch.hits",
-    "pipeline.prefetch.issued", "pipeline.prefetch.wasted",
-    "pipeline.queue_depth",
     # the port's MCTS broadcasts only with more than one rank
     "mcts.phase.BCAST",
 }
