@@ -68,15 +68,18 @@ before the last line:
               ``.pallas_bf16``, ``.fused``, ``.fused_bf16`` and a mixed order
               at full width through ``StreamExecutor``, each against the same
               order with plain kernels and against the dense float64 expected
-              O (the same tolerances); timed runs must keep every
-              ``data_ptr``;
+              O (the same tolerances); each bf16 order's O with a bias of
+              ``O_BIAS_CONTROL`` in every element (under ``BF16_O_TOL``'s
+              largest error, over its relative rms) must fail; timed runs
+              must keep every ``data_ptr``;
 8. attn driver   — ``run`` with ``workload="attn"`` at full width and a small
               budget: the metric must be ``attn_blockwise_pct50_searched_n8192``,
-              both attention kernels must launch > 0 times, and the result is
-              verified or its winner was demoted with only ``acc``/``O``
-              diverging (bf16 rounding against the f32 naive chain; the
-              demoted schedule's O must then be within ``BF16_O_TOL`` of the
-              expected);
+              both attention kernels must launch > 0 times (both bf16 ones,
+              which the incumbents run, each), and the result
+              must be verified: the integrity gate holds the winner's and
+              naive's O to the dense float64 attention at ``F32_O_TOL`` /
+              ``BF16_O_TOL`` by the precision each ran (bench/gate.py); its
+              ``gate`` block (largest error, relative rms, limit) is printed;
 9.  moe kernels  — ``ffn_batched`` (split-TF32 ``wgmma``,
               csrc/ffn_tile.cuh) at the main path's shapes (chunk 0's slot
               table of the full-width pipeline: 8 experts x 304 slots, d 512,
@@ -102,10 +105,10 @@ before the last line:
               budget with climbs: the metric must be
               ``moe_pipe_pct50_searched_t8192``, ``ffn_batched`` and
               ``device_copy`` must launch > 0 times, the climb must have
-              spent budget, and the result is verified or its winner was
-              demoted with only Y / Y_c diverging and the demoted schedule's
-              Y within ``BF16_Y_TOL`` of the expected; the warm start checked
-              as in phase 5;
+              spent budget, and the result must be verified (the gate holds
+              Y and each Y_c to the float64 routed result at ``F32_Y_TOL`` /
+              ``BF16_Y_TOL``; its ``gate`` block printed); the warm start
+              checked as in phase 5;
 12. spmv kernels — ``ell_spmv`` at the ``--m 8192`` path's ``spmv_remote``
               shapes (a (8192, 22) slab, x of 4093) and at ragged ones (m not
               a multiple of a warp's 32 rows, w = 1, n = 1, n = 4096, w above
@@ -263,7 +266,27 @@ except the mesh phases' (11e-11g, parallel/dryrun.py builds them with
 driver phases run with the default ``--prefetch-compiles 2``; the halo
 driver's ``perf.prefetch`` must show hits > 0 and its captures counted
 (``compiled_programs``), and the attn driver's row carries the peak device
-memory of its run.
+memory of its run.  Every driver phase runs with no fault flag, so none of
+its measurements may fail: its verdict must have no ``fault`` block (which
+would count a failure the solvers searched past).
+Last, the ``fault`` phase (the fault layer on the ``--m 8192`` spmv path,
+``ell_spmv`` launched), each step in fresh processes, the chains run side
+by side: (1) a chaos run (``--checkpoint``, ``--inject-faults`` with all four
+kinds the driver splits, ``--measure-timeout T``, a hang longer than T)
+must be verified with transient, deterministic and corrupt faults injected,
+a quarantine, and no quarantined (mutated) schedule among the journal's
+measured rows; (2) its ``--resume`` must restore every journaled row,
+append no measured line and report the same schedule and value; (3) a
+clean checkpointed run is sent SIGINT once its journal holds 5 lines
+(``state.json`` must read ``interrupted``), and its ``--resume`` finishes
+verified without measuring any schedule journaled before the kill, and
+with no failed measurement in either run; (4) a
+checkpointed MCTS through the library whose inner benchmarker indexes a
+CUDA tensor out of range at its k-th measurement (a device-side assert,
+this script's ``--sticky-child``): the resilient layer must classify it
+``device_lost`` and ``DeviceLostError`` must leave the search with k-1
+measured rows journaled, and a fresh child resumes and finishes without
+measuring them again.
 The halo and attn driver phases run with ``climb_budget=4`` (the halo climbs
 run; the reference runs none for attn).  Each driver and example phase sets
 every kernel's launch count to 0 just before it and reads the counts just
@@ -297,21 +320,15 @@ TF32_SPLIT = 3
 # SPMV_REGION_SLACK above it
 SPMV_REGION_RECORDED_MS = 0.0620
 SPMV_REGION_SLACK = 0.03
-# O against the dense float64 attention: f32 inputs at the reference's f32
-# tolerance (tests/test_ring_attention.py:76); bf16 inputs at twice the
-# error that rounding q/k/v and p gives at this size (PERF.md, PR 2).  The
-# rounding itself dominates there, so the faults the bf16 state tolerance
-# catches do not show in this check: it catches gross ones.
-F32_O_TOL = dict(rtol=2e-4, atol=2e-5)
-BF16_O_TOL = dict(rtol=0.0, atol=1e-3)
-# Y of the MoE pipeline against the float64 dense expected output.  f32
-# staging: within 8.2e-6 of float64 at full width on an H100 (PERF.md).
-# bf16 staging rounds the dispatched tokens and the expert outputs: there Y
-# read a relative rms error of 2.4e-3 and a largest error of 1.2e-2
-# (PERF.md); the limits sit at about 2x and 2.5x those, and a control with
-# one expert's gate weights dropped (rel rms ~0.38) must fail them.
-F32_Y_TOL = dict(rtol=1e-4, atol=2e-5)
-BF16_Y_TOL = {"rel_rms": 5e-3, "max_abs": 3e-2}
+# O against the dense float64 attention (F32_O_TOL / BF16_O_TOL) and Y of
+# the MoE pipeline against the float64 routed result (F32_Y_TOL /
+# BF16_Y_TOL) are the package's limits, which the driver's integrity gate
+# uses too (ops/attention_kernels.py, ops/ffn_kernels.py), and ``within``
+# (bench/gate.py) is its check; main() imports them before any phase runs.
+# A bf16 O with a bias of O_BIAS_CONTROL in every element: under
+# BF16_O_TOL's largest-error limit, over its relative rms one, so the
+# attention executor phase holds it as the control that must fail.
+O_BIAS_CONTROL = 2e-4
 # Y of one order with kernels against the same order with plain kernels:
 # f32 at the kernel's tolerance; bf16 within one bf16 ulp of the expert
 # outputs (an f32 summation difference can flip an output's rounding)
@@ -758,16 +775,11 @@ def attn_full_args():
 
 
 def dense_o(torch, q, k, v, scale):
-    """Softmax attention of (b, n, d) q/k/v in float64 on the card, one batch
-    element at a time (the reference's dense expected O,
-    ring_attention.py:593-598)."""
-    outs = []
-    for i in range(q.shape[0]):
-        qi, ki, vi = (t[i].to(torch.float64) for t in (q, k, v))
-        p = torch.softmax((qi @ ki.T) * scale, dim=-1)
-        outs.append((p @ vi).float())
-        del qi, ki, vi, p
-    return torch.stack(outs)
+    """The dense float64 attention the driver's gate holds O to
+    (bench/gate.py ``dense_attention64``), as float32."""
+    from tenzing_tpu_torch.bench.gate import dense_attention64
+
+    return dense_attention64(q, k, v, scale).float()
 
 
 CONTROLS = ("p_unrounded", "v_truncated", "f32")
@@ -909,10 +921,8 @@ def phase_attn_kernels(torch, device, timer):
         if kernel == "attn_fused":  # from the initial state: O = acc / l
             row["o_vs_expected"] = {}
             for who, (acc, _, l) in states.items():
-                o = acc / l
-                row["o_vs_expected"][who] = {
-                    "max_abs": float((o - want_o).abs().max()),
-                    "within_tol": torch.allclose(o, want_o, **o_tol)}
+                o_ok, o_errs = within(acc / l, want_o, o_tol)
+                row["o_vs_expected"][who] = {**o_errs, "within_tol": o_ok}
             row["o_tolerance"] = o_tol
         del states
         row.update({
@@ -985,8 +995,14 @@ def phase_attn_executor(torch, device):
                                         [out_p[x] for x in names], tol)
         ok_plain = ok_plain and torch.allclose(out_k["O"], out_p["O"],
                                                **tol["acc/l"])
-        err_o = float((out_k["O"] - want_o).abs().max())
-        ok_want = torch.allclose(out_k["O"], want_o, **o_tol)
+        ok_want, o_errs = within(out_k["O"], want_o, o_tol)
+        control = None
+        if not f32:  # a bias spread thin: only the relative rms catches it
+            c_ok, c_errs = within(out_k["O"] + O_BIAS_CONTROL, want_o, o_tol)
+            control = {"bias": O_BIAS_CONTROL, "errors": c_errs,
+                       "within_tol": c_ok,
+                       "under_max_abs": c_errs["max_abs"] <= o_tol["max_abs"]}
+            ok_want = ok_want and not c_ok
         del out_k, out_p
         ptrs = {k: v.data_ptr() for k, v in kern.init_bufs.items()}
         run_n = kern.prepare_n(order)
@@ -998,8 +1014,9 @@ def phase_attn_executor(torch, device):
         ptrs_ok = ptrs == {k: v.data_ptr() for k, v in kern.init_bufs.items()}
         row = {"phase": "attn_executor", "order": label, "ops": len(order),
                "tolerance": tol, "vs_plain": errs, "within_tol_plain": ok_plain,
-               "o_tolerance": o_tol, "o_vs_expected_max_abs_err": err_o,
-               "within_tol_expected": ok_want, "data_ptr_unchanged": ptrs_ok,
+               "o_tolerance": o_tol, "o_vs_expected": o_errs,
+               "bias_control": control, "within_tol_expected": ok_want,
+               "data_ptr_unchanged": ptrs_ok,
                "allocations_in_3_timed_runs": allocs,
                "wall_s": round(time.time() - t0, 3)}
         emit(row)
@@ -1013,12 +1030,21 @@ def phase_attn_executor(torch, device):
     return want_o, {"setup_s": round(setup_s, 3), "orders": len(rows)}
 
 
+def check_no_failures(verdict, phase: str) -> None:
+    """A driver run with no fault flag: every measurement must have
+    succeeded, so the verdict has no ``fault`` block (it would count the
+    failures the solvers searched past, bench/driver.py
+    ``FAILURE_COUNTERS``)."""
+    if "fault" in verdict:
+        raise AssertionError(f"{phase}: a measurement failed in a run with no "
+                             f"fault flag: {verdict['fault']}")
+
+
 def phase_attn_driver(torch, device, want_o):
-    """The attention search at full width; returns the launch counts."""
+    """The attention search at full width; returns the launch counts.  The
+    result must be verified: the gate holds O to the dense float64
+    attention at the precision each run took (bench/gate.py)."""
     from tenzing_tpu_torch.bench import driver
-    from tenzing_tpu_torch.core.platform import Platform
-    from tenzing_tpu_torch.models.ring_attention import make_blocked_buffers
-    from tenzing_tpu_torch.runtime.executor import StreamExecutor, buffers_from_numpy
 
     t0 = time.time()
     req = driver.DriverRequest(workload="attn", mcts_iters=12, iters=3,
@@ -1032,37 +1058,31 @@ def phase_attn_driver(torch, device, want_o):
     print(result.to_json_line(), flush=True)
     row = {"phase": "attn_driver", "launches": launches,
            "verified": verdict.get("verified"),
+           "value": verdict.get("value"),
+           "vs_baseline": verdict.get("vs_baseline"),
+           "winner_label": verdict.get("winner_label"),
            "diverged": verdict.get("diverged"),
            "demoted_label": verdict.get("demoted_label"),
+           "gate": verdict.get("gate"),
            "perf": capture_perf(verdict),
            "peak_allocated_gib": round(
                torch.cuda.max_memory_allocated(device) / 2 ** 30, 3),
            "peak_reserved_gib": round(
                torch.cuda.max_memory_reserved(device) / 2 ** 30, 3),
            "wall_s": round(time.time() - t0, 3)}
+    emit(row)
     if verdict.get("metric") != "attn_blockwise_pct50_searched_n8192":
         raise AssertionError(f"attn driver metric {verdict.get('metric')!r}")
-    missing = [k for k in ("attn_block", "attn_fused")
-               if launches[k] + launches[k + "_bf16"] <= 0]
+    # the bf16 incumbents run both bf16 kernels; the search, the f32 ones
+    missing = [k for k in ("attn_block_bf16", "attn_fused_bf16")
+               if launches[k] <= 0]
+    missing += [k for k in ("attn_block", "attn_fused")
+                if launches[k] + launches[k + "_bf16"] <= 0]
     if missing:
         raise AssertionError(f"the attn path never launched {missing}")
-    if verdict.get("verified") is not True:
-        diverged = set(verdict.get("diverged") or ())
-        if result.demoted is None or not diverged or not diverged <= {"acc", "O"}:
-            raise AssertionError(f"attn driver result not verified: {verdict}")
-        # the demoted winner: its O against the dense expected, at the bf16
-        # tolerance (the gate compared it with the f32 naive chain)
-        bufs, _ = make_blocked_buffers(driver.attn_args(req), seed=0,
-                                       with_expected=False)
-        ex = StreamExecutor(Platform.make_n_lanes(driver.search_lanes(req)),
-                            buffers_from_numpy(bufs, device))
-        o = ex.run(result.demoted)["O"]
-        row["demoted_o_vs_expected_max_abs_err"] = float((o - want_o).abs().max())
-        row["demoted_o_within_tol"] = torch.allclose(o, want_o, **BF16_O_TOL)
-        del ex, o, bufs
-        if not row["demoted_o_within_tol"]:
-            raise AssertionError(f"the demoted attn winner's O is wrong: {row}")
-    emit(row)
+    check_no_failures(verdict, "attn driver")
+    if verdict.get("verified") is not True or not verdict.get("gate"):
+        raise AssertionError(f"attn driver result not verified: {verdict}")
     torch.cuda.empty_cache()
     return launches
 
@@ -1099,23 +1119,6 @@ def dense_moe_y(torch, bufs, a):
                                             * (h + 0.044715 * h ** 3)))
             want[c * tc + rows] = w[e][real, None] * (h @ w2[e])
     return want
-
-
-def y_check(got, want, bf16: bool):
-    """Y against the float64 expected: (ok, errors) at ``BF16_Y_TOL`` (largest
-    error and relative rms error) or ``F32_Y_TOL`` (allclose)."""
-    import torch
-
-    d = got.double() - want
-    errs = {"max_abs": float(d.abs().max()),
-            "rel_rms": float(d.square().mean().sqrt()
-                             / want.square().mean().sqrt())}
-    if bf16:
-        ok = (errs["rel_rms"] <= BF16_Y_TOL["rel_rms"]
-              and errs["max_abs"] <= BF16_Y_TOL["max_abs"])
-    else:
-        ok = bool(torch.allclose(got.double(), want, **F32_Y_TOL))
-    return ok, errs
 
 
 def dropped_expert(bufs, y, a, expert: int = 0):
@@ -1262,15 +1265,16 @@ def phase_moe_executor(torch, device):
         ok_plain = all(torch.allclose(out_k[n], out_p[n], **tol)
                        for n in ["Y"] + [f"Y_{c}" for c in range(a.n_chunks)])
         err_plain = float((out_k["Y"] - out_p["Y"]).abs().max())
-        ok_want, errs = y_check(out_k["Y"], want, bf16)
+        y_tol = BF16_Y_TOL if bf16 else F32_Y_TOL
+        ok_want, errs = within(out_k["Y"], want, y_tol)
         row = {"phase": "moe_executor", "order": label, "ops": len(order),
                "bf16_staging": bf16, "plain_tolerance": tol,
                "vs_plain_max_abs_err": err_plain, "within_tol_plain": ok_plain,
-               "y_tolerance": BF16_Y_TOL if bf16 else F32_Y_TOL,
+               "y_tolerance": y_tol,
                "vs_expected": errs, "within_tol_expected": ok_want}
         if bf16:  # the tolerance must reject one expert's tokens dropped
-            c_ok, c_errs = y_check(dropped_expert(tbufs, out_k["Y"], a), want,
-                                   True)
+            c_ok, c_errs = within(dropped_expert(tbufs, out_k["Y"], a), want,
+                                  y_tol)
             row["dropped_expert_control"] = {"errors": c_errs,
                                              "within_tol": c_ok}
             ok_want = ok_want and not c_ok
@@ -1283,7 +1287,7 @@ def phase_moe_executor(torch, device):
         allocs = (torch.cuda.memory_stats(device)["allocation.all.allocated"]
                   - allocs0)
         ptrs_ok = ptrs == {k: v.data_ptr() for k, v in kern.init_bufs.items()}
-        timed_ok, _ = y_check(kern.init_bufs["Y"], want, bf16)
+        timed_ok, _ = within(kern.init_bufs["Y"], want, y_tol)
         row.update({"data_ptr_unchanged": ptrs_ok,
                     "allocations_in_3_timed_runs": allocs,
                     "timed_runs_within_tol": timed_ok,
@@ -1300,14 +1304,10 @@ def phase_moe_executor(torch, device):
 
 
 def phase_moe_driver(torch, device, want_y):
-    """The MoE search at full width with climbs; returns the launch counts."""
+    """The MoE search at full width with climbs; returns the launch counts.
+    The result must be verified: the gate holds Y and each Y_c to the
+    float64 routed result at the precision each run staged through."""
     from tenzing_tpu_torch.bench import driver
-    from tenzing_tpu_torch.core.platform import Platform
-    from tenzing_tpu_torch.models.moe_pipeline import (
-        host_buffer_names,
-        make_pipe_buffers,
-    )
-    from tenzing_tpu_torch.runtime.executor import StreamExecutor, buffers_from_numpy
 
     t0 = time.time()
     req = driver.DriverRequest(workload="moe", mcts_iters=12, iters=3,
@@ -1319,12 +1319,16 @@ def phase_moe_driver(torch, device, want_y):
     print(result.to_json_line(), flush=True)
     row = {"phase": "moe_driver", "launches": launches,
            "verified": verdict.get("verified"),
+           "value": verdict.get("value"),
+           "vs_baseline": verdict.get("vs_baseline"),
            "winner_label": verdict.get("winner_label"),
            "climbs": verdict.get("climbs"),
            "perf": capture_perf(verdict),
            "diverged": verdict.get("diverged"),
            "demoted_label": verdict.get("demoted_label"),
+           "gate": verdict.get("gate"),
            "wall_s": round(time.time() - t0, 3)}
+    emit(row)
     if verdict.get("metric") != "moe_pipe_pct50_searched_t8192":
         raise AssertionError(f"moe driver metric {verdict.get('metric')!r}")
     missing = [k for k in ("ffn_batched", "device_copy") if launches[k] <= 0]
@@ -1333,27 +1337,9 @@ def phase_moe_driver(torch, device, want_y):
     if not verdict.get("climbs") or verdict["climbs"][0]["spent"] <= 0:
         raise AssertionError(f"the moe climb did not run: {verdict}")
     check_warm_start(verdict, "moe_driver")
-    if verdict.get("verified") is not True:
-        diverged = set(verdict.get("diverged") or ())
-        outputs = {"Y"} | {f"Y_{c}" for c in range(4)}
-        if result.demoted is None or not diverged or not diverged <= outputs:
-            raise AssertionError(f"moe driver result not verified: {verdict}")
-        # the demoted winner: its Y against the dense expected, at the bf16
-        # staging tolerance (the gate compared it with the f32 naive chain)
-        a = driver.moe_args(req)
-        bufs, _, _ = make_pipe_buffers(a, seed=0, with_expected=False,
-                                       staging="choice")
-        ex = StreamExecutor(Platform.make_n_lanes(driver.search_lanes(req)),
-                            buffers_from_numpy(bufs, device,
-                                               host_buffer_names(a, "choice")))
-        y = ex.run(result.demoted)["Y"]
-        ok, errs = y_check(y, want_y, True)
-        row["demoted_y_vs_expected"] = errs
-        row["demoted_y_within_tol"] = ok
-        del ex, y, bufs
-        if not ok:
-            raise AssertionError(f"the demoted moe winner's Y is wrong: {row}")
-    emit(row)
+    check_no_failures(verdict, "moe driver")
+    if verdict.get("verified") is not True or not verdict.get("gate"):
+        raise AssertionError(f"moe driver result not verified: {verdict}")
     torch.cuda.empty_cache()
     return launches
 
@@ -1720,6 +1706,7 @@ def phase_spmv_driver(torch, device):
         emit(row)
         if verdict.get("metric") != f"spmv_iter_pct50_searched_m{m}":
             raise AssertionError(f"spmv driver metric {verdict.get('metric')!r}")
+        check_no_failures(verdict, f"spmv driver m={m}")
         if verdict.get("verified") is not True:
             raise AssertionError(f"spmv driver result not verified: {verdict}")
         if flags:
@@ -1916,10 +1903,9 @@ def phase_attn_fused_driver(torch, device):
     if fused.get("verified") is not True and not fused.get("diverged"):
         raise AssertionError(f"attn fused driver: fused block not verified "
                              f"and no divergence reported: {fused}")
-    if verdict.get("verified") is not True:
-        diverged = set(verdict.get("diverged") or ())
-        if result.demoted is None or not diverged or not diverged <= {"acc", "O"}:
-            raise AssertionError(f"attn fused driver not verified: {verdict}")
+    check_no_failures(verdict, "attn fused driver")
+    if verdict.get("verified") is not True or not verdict.get("gate"):
+        raise AssertionError(f"attn fused driver not verified: {verdict}")
     if launches["fused_region"] <= 0:
         raise AssertionError("the fused attn path never launched fused_region")
     torch.cuda.empty_cache()
@@ -2024,7 +2010,7 @@ def phase_chunk(torch, device, timer, want_o, want_y):
             y = ex.run(seq)["Y"]
             tol = BF16_PLAIN_Y_TOL if bf16 else F32_PLAIN_Y_TOL
             ok = torch.allclose(y, y0, **tol)
-            ok_want, errs = y_check(y, want_y, bf16)
+            ok_want, errs = within(y, want_y, BF16_Y_TOL if bf16 else F32_Y_TOL)
             verified = ScheduleVerifier(gm)(seq).ok
             row = {"phase": "chunk", "workload": "moe", "staging": staging,
                    "chunks": n,
@@ -2111,12 +2097,9 @@ def phase_chunk_driver(torch, device):
         if not isinstance(hidden, float) or hidden < 0:
             raise AssertionError(f"{workload} --chunk: perf.chunked lacks the "
                                  f"measured hidden comm: {chunked}")
-        allowed = {"acc", "O"} if workload == "attn" else \
-            {"Y"} | {f"Y_{c}" for c in range(4)}
-        if verdict.get("verified") is not True:
-            diverged = set(verdict.get("diverged") or ())
-            if result.demoted is None or not diverged or not diverged <= allowed:
-                raise AssertionError(f"{workload} --chunk not verified: {verdict}")
+        check_no_failures(verdict, f"{workload} --chunk driver")
+        if verdict.get("verified") is not True or not verdict.get("gate"):
+            raise AssertionError(f"{workload} --chunk not verified: {verdict}")
         runs[workload] = launches
         torch.cuda.empty_cache()
     return runs
@@ -2679,6 +2662,377 @@ def phase_examples(torch, halo_db: str):
         raise AssertionError(f"the replay example failed: {row}")
 
 
+# -- the fault phase ---------------------------------------------------------------
+
+# the spmv search at m=8192 (ell_spmv on its menu), run by each step
+FAULT_CMD = ["-m", "tenzing_tpu_torch.bench", "--workload", "spmv",
+             "--m", "8192", "--mcts-iters", "12", "--iters", "3",
+             "--search-iters", "2"]
+FAULT_SPEC = "transient:0.2:1,hang:0.1:2,deterministic:0.1:3,corrupt:0.1:4"
+# the chaos step searches longer: the identity-keyed kinds (deterministic,
+# corrupt) fire on a rate 0.1 of the distinct candidates, and 12 MCTS
+# iterations reach about 14 of them (no fault at all in 0.9^14 = 23% of runs)
+FAULT_CHAOS_ITERS = 48
+# T: the watchdog's slack beyond each measurement's own floor (T per
+# schedule in a batch; bench/benchmarker.py measurement_floor_s), a few times
+# the slowest measurement's capture, warm-up and fence.  H > T: an injected
+# hang outlasts it
+FAULT_TIMEOUT_S = 4.0
+FAULT_HANG_S = 6.0
+FAULT_KILL_LINES = 5  # step 3 sends SIGINT once the journal holds this many
+STICKY_AT = 4  # step 4: the k-th measurement triggers the device-side assert
+
+
+def _run_bench(args, name, fault_dir, popen=False):
+    """Run the driver CLI with ``args`` in a fresh process (stderr to
+    ``fault_dir/name.err``); returns the completed process, or the Popen."""
+    cmd = [sys.executable, *FAULT_CMD, *args]
+    err = open(os.path.join(fault_dir, f"{name}.err"), "w")
+    if popen:
+        return subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                stderr=err, text=True)
+    try:
+        return subprocess.run(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=err, text=True, timeout=900)
+    finally:
+        err.close()
+
+
+def _json_tail(text: str, what: str):
+    lines = [ln for ln in text.strip().splitlines() if ln.startswith("{")]
+    if not lines:
+        raise AssertionError(f"{what}: no JSON line in its output")
+    return json.loads(lines[-1])
+
+
+def _journal(ckdir: str):
+    """(measured rows as (schedule id, opts key), all lines) of a journal,
+    read through the package against the m=8192 spmv graph."""
+    from tenzing_tpu_torch.bench import driver
+    from tenzing_tpu_torch.bench.benchmarker import schedule_id
+    from tenzing_tpu_torch.fault import SearchCheckpoint
+
+    g = driver.build_spmv(driver.DriverRequest(workload="spmv", m=8192),
+                          "cpu")[0]
+    ck = SearchCheckpoint(ckdir)
+    with open(ck.journal_path) as f:
+        n_lines = sum(1 for ln in f if ln.strip())
+    rows = [(schedule_id(seq), None if o is None else
+             (o.n_iters, o.max_retries, o.target_secs))
+            for seq, o, _, prov in ck.load_measurements(g)
+            if prov == "measured"]
+    return rows, n_lines
+
+
+def _restored(err_path: str) -> int:
+    with open(err_path) as f:
+        for ln in f:
+            if ln.startswith("resume: "):
+                return int(ln.split()[1])
+    raise AssertionError(f"{err_path}: no resume line")
+
+
+def fault_chaos_and_resume(fault_dir: str) -> dict:
+    """Steps 1 and 2: the chaos run, then its --resume."""
+    from tenzing_tpu_torch.fault import Quarantine
+
+    d1 = os.path.join(fault_dir, "d1")
+    chaos = ["--checkpoint", d1, "--inject-faults", FAULT_SPEC,
+             "--measure-timeout", str(FAULT_TIMEOUT_S),
+             "--inject-hang-secs", str(FAULT_HANG_S)]
+    t0 = time.time()
+    p = _run_bench(chaos + ["--mcts-iters", str(FAULT_CHAOS_ITERS)], "chaos",
+                   fault_dir)
+    chaos_s = time.time() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"fault chaos run failed (rc {p.returncode}); "
+                             f"see {fault_dir}/chaos.err")
+    v = _json_tail(p.stdout, "fault chaos run")
+    fault = v.get("fault") or {}
+    injected = fault.get("injected", {})
+    rows, n_lines = _journal(d1)
+    quarantined = set(Quarantine(os.path.join(d1, "quarantine.json")).entries)
+    out = {"chaos": {"verified": v.get("verified"), "value": v.get("value"),
+                     "winner_label": v.get("winner_label"),
+                     "reported_schedule": v.get("reported_schedule"),
+                     "fault": fault, "journal_lines": n_lines,
+                     "measured_rows": len(rows),
+                     "quarantined": len(quarantined),
+                     "wall_s": round(chaos_s, 3)}}
+    if v.get("verified") is not True:
+        raise AssertionError(f"fault chaos run not verified: {v}")
+    missing = [k for k in ("transient", "deterministic", "corrupt")
+               if injected.get(k, 0) <= 0]
+    if missing or fault.get("quarantined", 0) < 1:
+        raise AssertionError(f"fault chaos run injected no {missing} or "
+                             f"quarantined nothing: {fault}")
+    leaked = {sid for sid, _ in rows} & quarantined
+    if leaked:
+        raise AssertionError(f"quarantined (mutated or broken) schedules "
+                             f"among the journal's measured rows: {leaked}")
+
+    t0 = time.time()
+    p = _run_bench(chaos + ["--mcts-iters", str(FAULT_CHAOS_ITERS),
+                            "--resume"], "resume_finished", fault_dir)
+    resume_s = time.time() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"fault resume of a finished run failed (rc "
+                             f"{p.returncode}); see {fault_dir}/"
+                             "resume_finished.err")
+    r = _json_tail(p.stdout, "fault resume of a finished run")
+    rows2, n_lines2 = _journal(d1)
+    restored = _restored(os.path.join(fault_dir, "resume_finished.err"))
+    out["resume_finished"] = {
+        "resumed": (r.get("fault") or {}).get("resumed"),
+        "restored": restored, "measured_rows_after": len(rows2),
+        "journal_lines_after": n_lines2, "value": r.get("value"),
+        "reported_schedule": r.get("reported_schedule"),
+        "verified": r.get("verified"), "wall_s": round(resume_s, 3)}
+    if (r.get("fault") or {}).get("resumed") is not True:
+        raise AssertionError(f"the resume did not report resumed: {r}")
+    if restored != len(rows) or len(rows2) != len(rows):
+        raise AssertionError(f"resume restored {restored} of {len(rows)} "
+                             f"journaled rows and left {len(rows2)}")
+    for key in ("value", "vs_baseline", "reported_schedule", "winner_label",
+                "naive_us"):
+        if r.get(key) != v.get(key):
+            raise AssertionError(f"the resumed run reports {key} "
+                                 f"{r.get(key)!r}, the run {v.get(key)!r}")
+    return out
+
+
+def fault_kill_and_resume(fault_dir: str) -> dict:
+    """Step 3: SIGINT a clean checkpointed run, then resume it."""
+    import signal
+
+    from tenzing_tpu_torch.fault import read_checked_json
+
+    d2 = os.path.join(fault_dir, "d2")
+    journal = os.path.join(d2, "measurements.jsonl")
+    t0 = time.time()
+    p = _run_bench(["--checkpoint", d2], "killed", fault_dir, popen=True)
+    lines = 0
+    while p.poll() is None and time.time() - t0 < 600:
+        if os.path.exists(journal):
+            with open(journal) as f:
+                lines = sum(1 for ln in f if ln.endswith("\n"))
+            if lines >= FAULT_KILL_LINES:
+                break
+        time.sleep(0.05)
+    if p.poll() is not None:
+        raise AssertionError(f"the run to kill ended first (rc "
+                             f"{p.returncode}, {lines} journal lines)")
+    p.send_signal(signal.SIGINT)
+    p.communicate(timeout=120)
+    kill_s = time.time() - t0
+    state = read_checked_json(os.path.join(d2, "state.json"))
+    before, n_before = _journal(d2)
+    out = {"killed": {"rc": p.returncode, "lines_at_signal": lines,
+                      "journal_lines": n_before, "measured_rows": len(before),
+                      "interrupted": state.get("interrupted"),
+                      "wall_s": round(kill_s, 3)}}
+    if state.get("interrupted") is not True:
+        raise AssertionError(f"state.json after SIGINT: {state}")
+    t0 = time.time()
+    r = _run_bench(["--checkpoint", d2, "--resume"], "resume_killed",
+                   fault_dir)
+    if r.returncode != 0:
+        raise AssertionError(f"the resume after the kill failed (rc "
+                             f"{r.returncode}); see {fault_dir}/"
+                             "resume_killed.err")
+    v = _json_tail(r.stdout, "resume after the kill")
+    after, n_after = _journal(d2)
+    again = set(after[len(before):]) & set(before)
+    out["resume_killed"] = {
+        "verified": v.get("verified"), "resumed": (v.get("fault") or {}).get(
+            "resumed"), "restored": _restored(os.path.join(
+                fault_dir, "resume_killed.err")),
+        "new_measured_rows": len(after) - len(before),
+        "remeasured": len(again),
+        "failures": (v.get("fault") or {}).get("failures"),
+        "wall_s": round(time.time() - t0, 3)}
+    # no fault was injected: no measurement of either run may have failed
+    if (v.get("verified") is not True or again
+            or out["resume_killed"]["failures"]):
+        raise AssertionError(f"the resume after the kill: {out}")
+    return out
+
+
+class StickyAt:
+    """Test-only: wraps an inner benchmarker and, at its ``k``-th
+    measurement, indexes a CUDA tensor out of range — a device-side assert,
+    the sticky error that leaves the process's context unusable.  Records
+    the (schedule id, opts) of each measurement it passes on."""
+
+    def __init__(self, inner, k: int, device):
+        self.inner = inner
+        self.k = k
+        self.device = device
+        self.calls = 0
+        self.measured = []
+
+    def benchmark(self, order, opts=None):
+        import torch
+
+        from tenzing_tpu_torch.bench.benchmarker import schedule_id
+
+        self.calls += 1
+        if self.calls == self.k:
+            x = torch.zeros(4, device=self.device)
+            idx = torch.full((1,), 1 << 20, dtype=torch.long,
+                             device=self.device)
+            x[idx].sum().item()
+        res = self.inner.benchmark(order, opts)
+        self.measured.append([schedule_id(order), None if opts is None else
+                              [opts.n_iters, opts.max_retries,
+                               opts.target_secs]])
+        return res
+
+
+def sticky_child(ckdir: str, k: int) -> int:
+    """``chip_smoke.py --sticky-child DIR K``: a checkpointed MCTS of the
+    m=8192 spmv search through the library, the inner benchmarker wrapped
+    in :class:`StickyAt` (K = 0: never), resuming from DIR's journal.
+    Prints one JSON line; exits 3 naming the error class when the search
+    raises."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from tenzing_tpu_torch.bench import driver
+    from tenzing_tpu_torch.bench.benchmarker import (
+        BenchOpts,
+        CachingBenchmarker,
+        EmpiricalBenchmarker,
+    )
+    from tenzing_tpu_torch.core.platform import Platform
+    from tenzing_tpu_torch.fault import (
+        JournalingBenchmarker,
+        Quarantine,
+        ResilientBenchmarker,
+        SearchCheckpoint,
+    )
+    from tenzing_tpu_torch.runtime.executor import StreamExecutor
+    from tenzing_tpu_torch.runtime.graphs import device_sync
+    from tenzing_tpu_torch.solve.local import first_decision_order
+    from tenzing_tpu_torch.solve.mcts import MctsOpts, explore
+
+    dev = torch.device("cuda", 0)
+    g, bufs, _, _ = driver.build_spmv(
+        driver.DriverRequest(workload="spmv", m=8192), dev)
+    plat = Platform.make_n_lanes(2)
+    ex = StreamExecutor(plat, bufs, device=str(dev))
+    inner = StickyAt(EmpiricalBenchmarker(ex), k, dev)
+    ckpt = SearchCheckpoint(ckdir)
+    bench = CachingBenchmarker(JournalingBenchmarker(ResilientBenchmarker(
+        inner, quarantine=Quarantine(ckpt.quarantine_path),
+        quiesce=lambda: device_sync(dev)), ckpt))
+    restored = ckpt.restore_into(bench, g)
+    opts = BenchOpts(n_iters=3, max_retries=2, target_secs=0.01)
+    reset_launches()
+    out = {"child": "sticky", "k": k, "restored": restored}
+    try:
+        # the ell_spmv walk first (the driver's spmv incumbent), then MCTS
+        bench.benchmark(first_decision_order(g, plat, ".pallas"), opts)
+        res = explore(g, plat, bench, MctsOpts(n_iters=8, bench_opts=opts,
+                                               seed=0, checkpoint=ckpt))
+    except Exception as e:  # reported, then the process ends
+        out.update(error=type(e).__name__,
+                   cause=type(e.__cause__).__name__ if e.__cause__ else None,
+                   message=str(e)[:300], measured=inner.measured,
+                   launches={"ell_spmv": all_launches()["ell_spmv"]})
+        print(json.dumps(out), flush=True)
+        os._exit(3)  # no exit handler may touch the broken context
+    out.update(ok=True, sims=len(res.sims), measured=inner.measured,
+               launches={"ell_spmv": all_launches()["ell_spmv"]})
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def fault_sticky(fault_dir: str) -> dict:
+    """Step 4: a real sticky error in a child, then a child that resumes."""
+    d3 = os.path.join(fault_dir, "d3")
+    runs, rows = {}, None
+    for name, k in (("sticky", STICKY_AT), ("sticky_resume", 0)):
+        if k == 0:  # the journal the failed child left, before the resume
+            rows, _ = _journal(d3)
+        t0 = time.time()
+        with open(os.path.join(fault_dir, f"{name}.err"), "w") as err:
+            p = subprocess.run([sys.executable, os.path.join(REPO,
+                                                             "chip_smoke.py"),
+                                "--sticky-child", d3, str(k)], cwd=REPO,
+                               stdout=subprocess.PIPE, stderr=err, text=True,
+                               timeout=600)
+        with open(os.path.join(fault_dir, f"{name}.out"), "w") as f:
+            f.write(p.stdout)
+        runs[name] = (p.returncode, _json_tail(p.stdout, name),
+                      round(time.time() - t0, 3))
+    (rc1, c1, s1), (rc2, c2, s2) = runs["sticky"], runs["sticky_resume"]
+
+    def key(m):  # (schedule id, opts) as the journal reader gives them
+        return (m[0], tuple(m[1]) if m[1] is not None else None)
+
+    journaled = [key(m) for m in c1.get("measured", [])]
+    remeasured = {key(m) for m in c2.get("measured", [])} & set(journaled)
+    out = {"sticky": {"rc": rc1, "error": c1.get("error"),
+                      "cause": c1.get("cause"), "k": STICKY_AT,
+                      "journaled_rows": len(rows),
+                      "ell_spmv_launches": c1.get("launches", {}).get(
+                          "ell_spmv"), "wall_s": s1},
+           "sticky_resume": {"rc": rc2, "ok": c2.get("ok"),
+                             "restored": c2.get("restored"),
+                             "measured": len(c2.get("measured", [])),
+                             "remeasured": len(remeasured), "wall_s": s2}}
+    if rc1 == 0 or c1.get("error") != "DeviceLostError" \
+            or "device-side assert" not in c1.get("message", ""):
+        raise AssertionError(f"the sticky child: {c1}")
+    if len(rows) != STICKY_AT - 1 or sorted(rows) != sorted(journaled):
+        raise AssertionError(f"the sticky child journaled {len(rows)} rows, "
+                             f"want {STICKY_AT - 1}: {c1}")
+    if (c1.get("launches") or {}).get("ell_spmv", 0) <= 0:
+        raise AssertionError(f"the sticky child never launched ell_spmv: {c1}")
+    if rc2 != 0 or not c2.get("ok") or c2.get("restored") != STICKY_AT - 1 \
+            or remeasured:
+        raise AssertionError(f"the resuming child: {c2}")
+    return out
+
+
+def phase_fault(torch) -> dict:
+    """The fault phase (module docstring): steps 1-2, 3 and 4 as three
+    chains of fresh processes, side by side."""
+    import shutil
+    import threading
+
+    torch.cuda.empty_cache()
+    fault_dir = os.path.join(OUT_DIR, "fault")
+    shutil.rmtree(fault_dir, ignore_errors=True)
+    os.makedirs(fault_dir)
+    t0 = time.time()
+    results, errors = {}, {}
+
+    def chain(name, fn):
+        try:
+            results.update(fn(fault_dir))
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors[name] = e
+
+    threads = [threading.Thread(target=chain, args=(n, f), name=n)
+               for n, f in (("chaos", fault_chaos_and_resume),
+                            ("kill", fault_kill_and_resume),
+                            ("sticky", fault_sticky))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    row = {"phase": "fault", **results, "errors": {
+        k: f"{type(e).__name__}: {e}"[:500] for k, e in errors.items()},
+        "timeout_s": FAULT_TIMEOUT_S, "hang_s": FAULT_HANG_S,
+        "wall_s": round(time.time() - t0, 3)}
+    emit(row)
+    if errors:
+        raise next(iter(errors.values()))
+    return row
+
+
 def main() -> int:
     global _log
     import torch
@@ -2687,8 +3041,12 @@ def main() -> int:
         sys.stderr.write("chip_smoke: no CUDA device available\n")
         return 2
     sys.path.insert(0, REPO)
+    global F32_O_TOL, BF16_O_TOL, F32_Y_TOL, BF16_Y_TOL, within
     from tenzing_tpu_torch.bench import driver
+    from tenzing_tpu_torch.bench.gate import within
     from tenzing_tpu_torch.ops import kernel_lib
+    from tenzing_tpu_torch.ops.attention_kernels import BF16_O_TOL, F32_O_TOL
+    from tenzing_tpu_torch.ops.ffn_kernels import BF16_Y_TOL, F32_Y_TOL
 
     os.makedirs(OUT_DIR, exist_ok=True)
     _log = open(os.path.join(OUT_DIR, "chip_smoke.jsonl"), "w")
@@ -2743,6 +3101,7 @@ def main() -> int:
     check_attrib(verdict, halo_trace, halo_metrics)
     if verdict.get("metric") != "halo_iter_pct50_searched_n512":
         raise AssertionError(f"driver metric {verdict.get('metric')!r}")
+    check_no_failures(verdict, "halo driver")
     if verdict.get("verified") is not True:
         raise AssertionError(f"driver result not verified: {verdict}")
     if not verdict.get("climbs") or not all(c["spent"] > 0
@@ -2831,6 +3190,7 @@ def main() -> int:
     spmv_launches = phase_spmv_driver(torch, device)
     phase_dfs_example(torch)
     phase_examples(torch, halo_db)
+    phase_fault(torch)
 
     # one halo iteration's six faces at the batched blocking, per kernel
     def six_faces(rows, blocking):
@@ -3076,4 +3436,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--sticky-child":
+        sys.exit(sticky_child(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

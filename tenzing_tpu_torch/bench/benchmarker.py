@@ -72,16 +72,29 @@ def schedule_id(order) -> str:
 def candidate_failed(where: str, order, exc: BaseException) -> None:
     """Record a candidate schedule whose measurement raised: a
     ``search.candidate_failed`` event (schedule id, exception class,
-    message) and counter.  The reference then rejects the candidate and
-    searches on; in the port the caller re-raises (a failed launch is a
-    fault, not a search verdict), so the record is the last thing the trace
-    shows before the run ends."""
+    message) and counter.  The caller then rejects the candidate and
+    searches on where the benchmarker classified the failure
+    (:func:`rejects_failures`), and re-raises otherwise."""
     get_metrics().counter("search.candidate_failed").inc()
     tr = get_tracer()
     if tr.enabled:
         tr.event("search.candidate_failed", where=where,
                  schedule=schedule_id(order), error=type(exc).__name__,
                  message=str(exc)[:200])
+
+
+def rejects_failures(benchmarker, exc: BaseException) -> bool:
+    """True when a search may take ``exc``, raised by ``benchmarker``, as a
+    rejected candidate and search on: the benchmarker is rank-coherent
+    (fault/resilient.py classified, agreed on and quarantined the failure)
+    and the failure is not a device loss (``DeviceLostError``, or any CUDA
+    error, fault/errors.py), which always leaves the search.  Any other
+    failure propagates: without the resilient layer nothing established
+    that the device is still usable."""
+    from tenzing_tpu_torch.fault.errors import FaultClass, classify_error
+
+    return (bool(getattr(benchmarker, "rank_coherent", False))
+            and classify_error(exc) != FaultClass.DEVICE_LOST)
 
 
 @dataclass
@@ -115,6 +128,19 @@ class BenchResult:
             stddev=stddev(s),
             times=list(times),
         )
+
+    def to_json(self) -> dict:
+        """The reference's JSON form (the checkpoint journal's ``result``):
+        the percentiles, and ``times`` / ``fetch_overhead`` where present.
+        Floats round-trip through JSON exactly."""
+        out = {"pct01": self.pct01, "pct10": self.pct10, "pct50": self.pct50,
+               "pct90": self.pct90, "pct99": self.pct99,
+               "stddev": self.stddev}
+        if self.times is not None:
+            out["times"] = list(self.times)
+        if self.fetch_overhead is not None:
+            out["fetch_overhead"] = self.fetch_overhead
+        return out
 
 
 def fence_overhead_s(device) -> float:
@@ -152,6 +178,21 @@ class BenchOpts:
     n_iters: int = 1000
     max_retries: int = 10
     target_secs: float = 0.01  # adaptive floor per measurement (benchmarker.cpp:85)
+
+
+def measurement_floor_s(opts: Optional["BenchOpts"], n_series: int = 1,
+                        batch: bool = False) -> float:
+    """About twice the wall time a measurement at ``opts`` takes by design:
+    ``n_series`` series (a batch's schedules) of ``n_iters`` measurements of
+    at least ``target_secs`` each, and for a single schedule up to
+    ``max_retries`` series (the runs test re-measures).  The watchdog adds
+    it to each attempt's bound (fault/resilient.py), so the bound catches a
+    hang without cutting a measurement that is long by its options (a
+    final batch measures 15 iterations of 0.4 s per schedule)."""
+    if opts is None:
+        return 0.0
+    series = n_series if batch else max(1, opts.max_retries) * n_series
+    return 2.0 * series * opts.n_iters * opts.target_secs
 
 
 class EmpiricalBenchmarker:
@@ -289,6 +330,9 @@ class CachingBenchmarker:
         self._cache: dict = {}
         self.hits = 0
         self.misses = 0
+        # a cache in front of a rank-coherent benchmarker (fault/resilient.py)
+        # is rank-coherent too: its hits agree rank to rank
+        self.rank_coherent = getattr(inner, "rank_coherent", False)
 
     @staticmethod
     def _key(order: Sequence, opts: Optional[BenchOpts]) -> Tuple:

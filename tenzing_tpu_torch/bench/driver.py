@@ -36,8 +36,10 @@ row, the x exchange a host round trip, the SpMV kernel menu) — then
 5. ranks the distinct candidates against naive in a paired decorrelated
    screen, then re-measures naive and the top 3 in a longer paired final;
 6. re-runs the winner beside naive from the same initial buffers as an
-   integrity gate: outputs must agree and the independent verifier must pass
-   it; with ``profile_winner`` the reported schedule (and naive) run unit by
+   integrity gate: the independent verifier must pass it, the result buffers
+   of both runs (attention's O, the MoE pipeline's Y) must lie within the
+   tolerance of their precision of the float64 result, and every other
+   buffer must agree with naive's (bench/gate.py); with ``profile_winner`` the reported schedule (and naive) run unit by
    unit for the attribution block (``attrib``: sum of parts, critical path,
    dispatch overhead, overlap efficiency, the decision diff; obs/attrib);
 7. with ``fuse_winner``, lowers the reported schedule into fused regions
@@ -52,18 +54,42 @@ row, the x exchange a host round trip, the SpMV kernel menu) — then
 9. with ``dump_csv`` writes the run's search database (naive as row 0, the
    final batch's numbers first), which ``seed_csv`` reads back;
 10. returns the JSON line (``metric``, ``value``, ``unit``, ``vs_baseline``,
-    ``verified``, plus the measurement regime), and with ``trace_out`` /
-    ``metrics_json`` writes the telemetry bundle (obs/).
+    ``verified``, the ``gate`` block, the ``fault`` block, plus the
+    measurement regime), and with ``trace_out`` / ``metrics_json`` writes the
+    telemetry bundle (obs/).
+
+Every measurement goes through the reference's fault stack (fault/), from
+the inside out: the ``EmpiricalBenchmarker``; with ``--inject-faults`` a
+``FaultInjectingBenchmarker`` for the measurement kinds; the
+``PrefetchingBenchmarker`` (``--prefetch-compiles``, off under
+``--resume``); the ``ResilientBenchmarker`` (the soundness gate, the
+``--measure-timeout`` watchdog, classified retry, the quarantine); an
+injector for ``corrupt`` above it, where the verifier sees its mutations;
+with ``--checkpoint DIR`` the ``JournalingBenchmarker``; and the
+``CachingBenchmarker``, which ``--resume`` fills from the journal.  A lost
+device raises ``DeviceLostError`` out of the run (the reference's learned
+fallback waits for ROADMAP Queue 1 item 7): the journal and the quarantine
+are on disk, and ``--resume`` in a new process is the recovery.  Every
+error of the CUDA runtime counts as a lost device (fault/errors.py), so no
+run goes on in a process after one.  A failure the solvers search past (a
+quarantined schedule, a retried attempt) is counted in the ``fault`` block's
+``failures``, which a run whose every measurement succeeded does not have.
 
 :class:`DriverRequest` is a copy of the reference's, field for field, with the
 same defaults.  A request that sets a flag this port does not implement yet
 raises :exc:`DriverConfigError` ("... not yet ported"); nothing is silently
-ignored.  Three deviations from the reference: a recorded row is measured
-only after the port's verifier passes it (a rejected row is counted in the
-``recorded`` block); a failed measurement or profile raises (the reference
-retries, drops or catches it into an error field); and the smoke reads a
+ignored.  Deviations from the reference: a recorded row is measured only
+after the port's verifier passes it (a rejected row is counted in the
+``recorded`` block); a failed recorded row or profile raises (the reference
+retries, drops or catches it into an error field); the smoke reads a
 database it is given (``--seed-csv``) and climbs from it, where the
-reference's smoke ignores the flag.
+reference's smoke ignores the flag; the integrity gate holds result buffers
+to the float64 result (bench/gate.py, ROADMAP Queue 3 item 4); an
+incumbent whose measurement the resilient layer rejects is dropped, as the
+reference drops attention's; and with ``--checkpoint`` the screen and final
+batches are journaled too, so a resumed run that had finished reports the
+same verdict bit for bit (the integrity gate re-runs both schedules every
+time).
 
 Entry point: ``python -m tenzing_tpu_torch.bench`` (``--device cpu`` runs on
 the CPU; the default is the card).
@@ -72,12 +98,20 @@ the CPU; the default is the card).
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import sys
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
+
+from tenzing_tpu_torch.bench.gate import (
+    attn_gate,
+    gate_outputs,
+    mismatched_outputs,
+    moe_gate,
+)
 
 
 class DriverConfigError(ValueError):
@@ -146,9 +180,10 @@ class DriverResult:
 
 # fields whose non-default values select features this port does not have
 # yet; ``run`` raises on them instead of ignoring them
-_UNPORTED = ("learn_train", "learn_trace", "learn_model", "learn_screen",
-             "checkpoint", "resume", "measure_timeout", "inject_faults",
-             "synth_collectives", "search_workers", "measure_batch")
+_UNPORTED = {"learn_train": "item 7", "learn_trace": "item 7",
+             "learn_model": "item 7", "learn_screen": "item 7",
+             "synth_collectives": "item 6.7", "search_workers": "item 8",
+             "measure_batch": "item 8"}
 _DEFAULTS = DriverRequest()
 
 
@@ -173,10 +208,29 @@ def check_request(req: DriverRequest) -> None:
     if req.workload not in WORKLOADS:
         raise DriverConfigError(
             f"--workload {req.workload}: not yet ported (have {WORKLOADS})")
-    for name in _UNPORTED:
+    for name, item in _UNPORTED.items():
         if getattr(req, name) != getattr(_DEFAULTS, name):
             flag = "--" + name.replace("_", "-")
-            raise DriverConfigError(f"{flag}: not yet ported")
+            raise DriverConfigError(
+                f"{flag}: not yet ported (ROADMAP Queue 1 {item})")
+    if req.resume and not req.checkpoint:
+        # resuming nothing would re-measure the search while the JSON
+        # claims a resume
+        raise DriverConfigError("--resume requires --checkpoint DIR")
+    if req.measure_timeout is not None and req.measure_timeout <= 0:
+        raise DriverConfigError("--measure-timeout must be positive")
+    if req.inject_faults:
+        from tenzing_tpu_torch.fault.inject import parse_inject_specs
+
+        try:
+            specs = parse_inject_specs(req.inject_faults)
+        except ValueError as e:
+            raise DriverConfigError(str(e)) from e
+        if req.no_verify and any(s.kind == "corrupt" for s in specs):
+            # corruption without the verifier would measure broken schedules
+            raise DriverConfigError(
+                "--inject-faults corrupt: requires the soundness verifier "
+                "(drop --no-verify)")
     if req.prefetch_compiles < 0:
         raise DriverConfigError("--prefetch-compiles must be >= 0")
     if req.climb_budget < 0:
@@ -326,9 +380,11 @@ def moe_staging(args) -> str:
 
 
 def build_moe(args, device):
-    """(graph, placed buffers, metric, (MoEPipeArgs, capacity)) at the
-    request's size: the staging and expert-MLP menus on at full size, off for
-    the smoke (the reference's build_moe, bench/driver.py:354-378)."""
+    """(graph, placed buffers, metric, (MoEPipeArgs, capacity, float64
+    expected Y)) at the request's size: the staging and expert-MLP menus on
+    at full size, off for the smoke (the reference's build_moe,
+    bench/driver.py:354-378); the expected Y is what the integrity gate
+    holds the result to (bench/gate.py ``moe_gate``)."""
     from tenzing_tpu_torch.models.moe_pipeline import (
         build_graph,
         host_buffer_names,
@@ -337,14 +393,14 @@ def build_moe(args, device):
     from tenzing_tpu_torch.runtime.executor import buffers_from_numpy
 
     margs, staging = moe_args(args), moe_staging(args)
-    bufs, _, cap = make_pipe_buffers(margs, seed=0, with_expected=False,
-                                     staging=staging)
+    bufs, want64, cap = make_pipe_buffers(margs, seed=0, staging=staging,
+                                          expected_float64=True)
     tbufs = buffers_from_numpy(bufs, device,
                                host_buffer_names(margs, staging=staging))
     del bufs
     g = build_graph(margs, cap, impl_choice=not args.smoke, staging=staging,
                     chunk=args.chunk, chunk_relax=args.smoke)
-    return g, tbufs, metric_for("moe", args), (margs, cap)
+    return g, tbufs, metric_for("moe", args), (margs, cap, want64)
 
 
 def spmv_m(args) -> int:
@@ -643,29 +699,178 @@ def halo_incumbents(g, plat, hargs, smoke: bool):
     return greedy_seqs, seed_paths, rollout_policy
 
 
-def mismatched_outputs(out_a, out_b, tol: float, skip=()) -> List[str]:
-    """The integrity gate's agreement policy: names (shared by both output
-    dicts, minus ``skip``) whose tensors differ in shape or fail
-    ``allclose(rtol=tol, atol=tol*1e-3, equal_nan=True)`` in float64.
+# the counters of failed measurement attempts and rejected candidates: none
+# moves in a run whose every measurement succeeded, and the ``fault`` block
+# reports each that moved, so a failure the solvers searched past is seen
+FAILURE_COUNTERS = ("fault.errors.transient", "fault.errors.deterministic",
+                    "fault.errors.device_lost", "fault.retries",
+                    "fault.watchdog.fired", "fault.quarantine_hits",
+                    "search.candidate_failed")
 
-    The driver skips the pinned host staging buffers: they are the host
-    engine's transport scratch, which a device-engine schedule never
-    touches, so comparing them would fail every winner whose engine differs
-    from naive's (the reference's gate compares them and does;
-    ROADMAP.md, Queue 3).  For moe it also skips the device-side staging
-    buffers of both staging sets (``transport_buffer_names``): a schedule
-    leaves the set its chains did not pick untouched, and a bf16 set holds
-    rounded copies — transport, not results."""
-    import torch
 
-    bad = []
-    for name in sorted((set(out_a) & set(out_b)) - set(skip)):
-        a, b = out_a[name], out_b[name]
-        if a.shape != b.shape or not torch.allclose(
-                a.double(), b.double(), rtol=tol, atol=tol * 1e-3,
-                equal_nan=True):
-            bad.append(name)
-    return bad
+def failure_counts() -> Dict[str, int]:
+    """The :data:`FAILURE_COUNTERS` as they stand now."""
+    from tenzing_tpu_torch.obs.metrics import get_metrics
+
+    reg = get_metrics()
+    return {n: reg.counter(n).value for n in FAILURE_COUNTERS}
+
+
+@dataclass
+class FaultStack:
+    """The run's measurement stack (:func:`fault_stack`): ``bench`` is the
+    cache every search measures through; ``batcher`` runs the screen and
+    final batches (the journal, else the resilient layer)."""
+
+    bench: Any
+    batcher: Any
+    resilient: Any
+    prefetcher: Any
+    quarantine: Any
+    ckpt: Any
+    injectors: List[Any]
+
+
+def fault_stack(args: DriverRequest, g, metric: str, emp, measure_ex,
+                verifier, dev, scope: "_RunScope", log) -> FaultStack:
+    """Build the reference's measurement stack around ``emp``
+    (bench/driver.py:893-1031 there), from the inside out:
+    ``[FaultInjectingBenchmarker]`` for the measurement kinds,
+    ``[PrefetchingBenchmarker]`` (off under ``--resume``: journaled answers
+    capture nothing), ``ResilientBenchmarker``, ``[FaultInjectingBenchmarker]``
+    for ``corrupt`` (above the verifier gate), ``[JournalingBenchmarker]``,
+    ``CachingBenchmarker``; with ``--checkpoint``, load the state (refusing a
+    resume under another ``--inject-faults`` spec), restore the journal on
+    ``--resume`` and register the done and interrupted snapshots."""
+    from tenzing_tpu_torch.bench.benchmarker import CachingBenchmarker
+    from tenzing_tpu_torch.fault import (
+        FaultInjectingBenchmarker,
+        JournalingBenchmarker,
+        Quarantine,
+        ResilientBenchmarker,
+        SearchCheckpoint,
+        parse_inject_specs,
+    )
+
+    specs = parse_inject_specs(args.inject_faults) if args.inject_faults else []
+    inner_specs = [s for s in specs if s.kind != "corrupt"]
+    corrupt_specs = [s for s in specs if s.kind == "corrupt"]
+    if specs:
+        log(f"chaos: injecting {args.inject_faults}")
+    injectors = []
+    measured = emp
+    if inner_specs:
+        measured = FaultInjectingBenchmarker(emp, inner_specs,
+                                             hang_secs=args.inject_hang_secs)
+        injectors.append(measured)
+    prefetcher = None
+    if args.prefetch_compiles > 0 and args.resume:
+        log("prefetch: disabled under --resume (journaled answers never "
+            "compile)")
+    elif args.prefetch_compiles > 0:
+        from tenzing_tpu_torch.bench.pipeline import PrefetchingBenchmarker
+
+        measured = prefetcher = PrefetchingBenchmarker(
+            measured, executor=measure_ex, workers=args.prefetch_compiles)
+        # should the run raise, queued captures are cancelled rather than
+        # drained (close() is idempotent)
+        scope.on_exit(prefetcher.close)
+    ckpt = SearchCheckpoint(args.checkpoint) if args.checkpoint else None
+    quar = Quarantine(ckpt.quarantine_path if ckpt else None, log=log)
+    if len(quar):
+        log(f"quarantine: {len(quar)} schedule(s) carried from earlier runs "
+            "will not be measured")
+    quiesce = None
+    if dev.type == "cuda":
+        from tenzing_tpu_torch.runtime.graphs import device_sync
+
+        def quiesce() -> None:
+            device_sync(dev)
+    resilient = ResilientBenchmarker(
+        measured, timeout_secs=args.measure_timeout, quarantine=quar,
+        fallback=None, verifier=verifier, quiesce=quiesce)
+    guarded = resilient
+    if corrupt_specs:
+        guarded = FaultInjectingBenchmarker(
+            resilient, corrupt_specs,
+            unsound_check=lambda o: not verifier(o).ok)
+        injectors.append(guarded)
+    journal = JournalingBenchmarker(guarded, ckpt) if ckpt else None
+    bench = CachingBenchmarker(journal if journal is not None else guarded)
+    if ckpt is not None:
+        config = {"workload": args.workload, "metric": metric,
+                  "smoke": bool(args.smoke), "seed_topk": args.seed_topk}
+        prior = None
+        try:
+            prior = ckpt.load_state()
+        except Exception as e:  # a corrupt snapshot: the journal still applies
+            log(f"checkpoint: state unreadable ({e}); journal and quarantine "
+                "still apply")
+        if prior is not None and prior.get("config") not in (None, config):
+            log(f"checkpoint: recorded config differs from this run "
+                f"({prior.get('config')} vs {config}); journal rows that do "
+                "not resolve against this workload are skipped")
+        want_inject = args.inject_faults or None
+        if args.resume and prior is not None and prior.get("inject") != want_inject:
+            # journaled answers from another fault universe would diverge
+            # from both the original run and a clean one
+            raise DriverConfigError(
+                f"--resume: this run's --inject-faults ({want_inject!r}) "
+                "disagrees with the checkpoint's recorded spec "
+                f"({prior.get('inject')!r}); use the same spec or a fresh "
+                "checkpoint directory")
+        if args.resume:
+            restored = ckpt.restore_into(bench, g, log=log)
+            log(f"resume: {restored} recorded measurement(s) restored — "
+                "schedules measured before will not touch the device")
+        ckpt.save_state(config=config, inject=want_inject)
+        scope.on_exit(lambda: ckpt.save_state(done=True))
+        scope.on_trap(lambda: ckpt.save_state(interrupted=True))
+        scope.on_exit(ckpt.close)
+    return FaultStack(bench=bench,
+                      batcher=journal if journal is not None else resilient,
+                      resilient=resilient, prefetcher=prefetcher,
+                      quarantine=quar, ckpt=ckpt, injectors=injectors)
+
+
+class _RunScope:
+    """The run's exit and interrupt handlers (the reference's): each exit
+    handler runs once when :func:`run` returns or raises (and at interpreter
+    exit should the process end first), each interrupt handler on
+    SIGINT/SIGABRT while the run is live; all are unregistered on close."""
+
+    def __init__(self):
+        self._finalizers: list = []
+        self._traps: list = []
+
+    def on_exit(self, fn) -> None:
+        import atexit
+
+        atexit.register(fn)
+        self._finalizers.append(fn)
+
+    def on_trap(self, fn) -> None:
+        from tenzing_tpu_torch.utils import trap
+
+        trap.register_handler(fn)
+        self._traps.append(fn)
+
+    def close(self) -> None:
+        import atexit
+
+        from tenzing_tpu_torch.utils import trap
+
+        for fn in reversed(self._finalizers):
+            try:
+                fn()
+            except Exception as e:  # must not mask the run's own outcome
+                sys.stderr.write(f"driver: finalizer failed "
+                                 f"({type(e).__name__}: {str(e)[:120]})\n")
+            atexit.unregister(fn)
+        for fn in self._traps:
+            trap.unregister_handler(fn)
+        self._finalizers.clear()
+        self._traps.clear()
 
 
 def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
@@ -677,6 +882,20 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
     from tenzing_tpu_torch.runtime.executor import resolve_device
 
     dev = resolve_device(device)
+    scope = _RunScope()
+    try:
+        return _run(args, dev, scope)
+    finally:
+        scope.close()
+        # the run's executor, graphs and pinned buffers sit in reference
+        # cycles (the benchmarkers keep bound methods of themselves):
+        # collect them now, with no capture running, not at some collection
+        # during a later run's captures (runtime/graphs.py)
+        gc.collect()
+
+
+def _run(args: DriverRequest, dev, scope: _RunScope) -> DriverResult:
+    """The body of :func:`run` on the resolved device ``dev``."""
     import torch
 
     log = lambda m: sys.stderr.write(m + "\n")  # noqa: E731
@@ -699,8 +918,9 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
     from tenzing_tpu_torch.bench.benchmarker import (
         BenchOpts,
         BenchResult,
-        CachingBenchmarker,
         EmpiricalBenchmarker,
+        rejects_failures,
+        schedule_id,
     )
     from tenzing_tpu_torch.core.platform import Platform
     from tenzing_tpu_torch.core.sequence import canonical_key
@@ -760,23 +980,12 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         return Sequence(ops_[:at] + [FuseTile(1)] + ops_[at:])
 
     emp = EmpiricalBenchmarker(measure_ex)
-    # the measurement stack (the reference's bench/driver.py:898-968):
-    # CachingBenchmarker over PrefetchingBenchmarker (--prefetch-compiles N
-    # capture workers, bench/pipeline.py) over the EmpiricalBenchmarker
-    prefetcher = None
-    if args.prefetch_compiles > 0:
-        import atexit
-
-        from tenzing_tpu_torch.bench.pipeline import PrefetchingBenchmarker
-
-        prefetcher = PrefetchingBenchmarker(emp, executor=measure_ex,
-                                            workers=args.prefetch_compiles)
-        # should the run raise, queued captures are cancelled at exit
-        # rather than drained (close() is idempotent)
-        atexit.register(prefetcher.close)
-    bench = CachingBenchmarker(prefetcher if prefetcher is not None else emp)
     verifier = None if args.no_verify else ScheduleVerifier(g)
     gate_verifier = verifier if verifier is not None else ScheduleVerifier(g)
+    stack = fault_stack(args, g, metric, emp, measure_ex, verifier, dev,
+                        scope, log)
+    bench, resilient, prefetcher = stack.bench, stack.resilient, stack.prefetcher
+    failures0 = failure_counts()
 
     # the reference's measurement floors (bench/driver.py:1037-1047)
     opts = BenchOpts(n_iters=max(5, args.iters), max_retries=2,
@@ -788,7 +997,7 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
     if halo:
         naive_seq = halo_pipeline.naive_order(wargs, naive_plat)
     elif moe:
-        naive_seq = moe_pipeline.naive_order(*wargs, naive_plat)
+        naive_seq = moe_pipeline.naive_order(*wargs[:2], naive_plat)
     elif spmv:  # the first decision at every step (reference driver.py:1060-1064)
         from tenzing_tpu_torch.solve.local import first_decision_order
 
@@ -796,6 +1005,11 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
     else:  # attn: the same walk, which picks the all-.xla chain
         naive_seq = fixed_order(g, naive_plat)
     naive_seq = with_tile1(naive_seq)
+    # the baseline is not a search candidate: spared the identity-keyed
+    # kinds (deterministic, corrupt), which would end the run under a rate
+    # of the seeds before the search starts
+    for inj in stack.injectors:
+        inj.exempt_ids.add(schedule_id(naive_seq))
     if prefetcher is not None:
         # hint the baseline itself: its capture starts on a worker and the
         # foreground join consumes it (every run exercises the pipeline's
@@ -814,7 +1028,7 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
             g, plat, wargs, args.smoke)
     elif moe:
         greedy_seqs, seed_paths, rollout_policy = moe_incumbents(
-            g, plat, *wargs, args.smoke)
+            g, plat, *wargs[:2], args.smoke)
     elif spmv:
         greedy_seqs = spmv_incumbents(g, plat)
     elif not args.smoke:
@@ -835,7 +1049,14 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         prefetcher.prefetch([s for _, s in greedy_seqs])
     for label, seq in greedy_seqs:
         t0 = time.time()
-        res_i = bench.benchmark(seq, search_opts)
+        try:
+            res_i = bench.benchmark(seq, search_opts)
+        except Exception as e:
+            if not rejects_failures(bench, e):
+                raise
+            log(f"{label} incumbent rejected ({type(e).__name__}: "
+                f"{str(e)[:160]})")
+            continue
         log(f"{label} incumbent: pct50={res_i.pct50*1e6:.1f}us "
             f"(wall {time.time()-t0:.0f}s)")
         sim = SimResult(order=seq, result=res_i)
@@ -872,7 +1093,7 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         MctsOpts(n_iters=args.mcts_iters, bench_opts=mcts_confirm,
                  screen_opts=mcts_screen, confirm_topk=4, seed=0,
                  rollout_policy=rollout_policy, verify=verifier,
-                 prefetch=prefetcher),
+                 prefetch=prefetcher, checkpoint=stack.ckpt),
         strategy=FastMin, seeds=seed_paths,
     )
     confirmed = [s for s in res.sims if s.fidelity == "full"]
@@ -895,7 +1116,8 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         lres = hill_climb(g, cplat, bench, cphases, prefer=cprefer,
                           opts=LocalOpts(budget=cbudget, bench_opts=climb_opts,
                                          seed=2 + ci, paired=True,
-                                         verify=verifier, prefetch=prefetcher))
+                                         verify=verifier, prefetch=prefetcher,
+                                         checkpoint=stack.ckpt))
         log(f"hill-climb[{ci}] ({clabel}, {len(cplat.lanes)} lanes): "
             f"{len(lres.sims)} candidates, {lres.accepted} moves accepted, "
             f"best pct50={lres.best().result.pct50*1e6:.1f}us "
@@ -914,7 +1136,6 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
     # the wasted tally) before the screen, the gate and the profiles
     if prefetcher is not None:
         prefetcher.close()
-        atexit.unregister(prefetcher.close)
     log(f"compiled programs: {ex.compile_count} ({ex.compile_secs:.1f}s "
         "capture wall)")
     if prefetcher is not None:
@@ -923,8 +1144,11 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
             % prefetcher.stats())
 
     def batch_paired(seqs, bopts, seed):
-        times = emp.benchmark_batch_times([naive_seq] + list(seqs), bopts,
-                                          seed=seed)
+        """Naive and ``seqs`` as one decorrelated batch through the resilient
+        layer (the watchdog and transient retries), and the journal where
+        there is one."""
+        times = stack.batcher.benchmark_batch_times(
+            [naive_seq] + list(seqs), bopts, seed=seed)
         results = [BenchResult.from_times(ts) for ts in times]
         paired = [paired_speedup(times[0], ts, seed=seed + 1) for ts in times[1:]]
         return results, paired
@@ -1006,6 +1230,11 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
     t0 = time.time()
     out_w = ex.run(winner_seq)
     out_n = out_w if winner_seq is naive_seq else ex.run(naive_seq)
+    result_gate = None
+    if args.workload == "attn":
+        result_gate = attn_gate(out_n, wargs.scale)
+    elif moe:
+        result_gate = moe_gate(wargs[2], wargs[0].n_chunks, dev)
     skip = set(ex.host_names)
     if moe:  # the staging sets' transport scratch, host and device side
         staging = moe_staging(args)
@@ -1015,8 +1244,9 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         from tenzing_tpu_torch.models.spmv import spmv_host_buffer_names
 
         skip.update(spmv_host_buffer_names())
-    mismatched = mismatched_outputs(out_n, out_w, args.verify_tol, skip=skip)
-    del out_n
+    mismatched, gate_block = gate_outputs(out_n, out_w, naive_seq, winner_seq,
+                                          args.verify_tol, skip, result_gate)
+    del out_n, result_gate
     verified = bool(verdict.ok and not mismatched)
     log("integrity gate: winner-vs-naive outputs "
         f"{'DIVERGE on ' + str(mismatched[:4]) if mismatched else 'agree'}, "
@@ -1090,6 +1320,9 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         "final_floor_s": fin_opts.target_secs,
         "mcts_screen_floor_s": mcts_screen.target_secs,
         "winner_label": label_of(winner) if winner is not None else None,
+        # the id (bench/benchmarker.py schedule_id) of the schedule whose
+        # number this reports: a resumed run names the same one
+        "reported_schedule": schedule_id(reported_seq),
         "mcts": {"iters": args.mcts_iters, "tree_size": res.tree_size,
                  "sims": len(res.sims), "seeded": len(seed_paths)},
         "climbs": climbs,
@@ -1105,7 +1338,25 @@ def run(req: DriverRequest, device: Optional[str] = None) -> DriverResult:
         meta["verdict"] = verdict.witness()
     if mismatched:
         meta["diverged"] = mismatched
+    if gate_block is not None:
+        meta["gate"] = gate_block
     meta["perf"] = perf
+    injected: Dict[str, int] = {}
+    for inj in stack.injectors:
+        for k, v in inj.injected.items():
+            if v:
+                injected[k] = injected.get(k, 0) + v
+    failures = {n: v - failures0[n] for n, v in failure_counts().items()
+                if v != failures0[n]}
+    if (resilient.degraded or len(stack.quarantine) or args.resume or injected
+            or failures):
+        # the reference's fault block (bench/driver.py:2376-2397), and the
+        # attempts that failed in this run
+        meta["fault"] = {"degraded": resilient.degraded,
+                         "quarantined": len(stack.quarantine),
+                         "resumed": bool(args.resume),
+                         **({"injected": injected} if injected else {}),
+                         **({"failures": failures} if failures else {})}
     write_telemetry()
     return DriverResult(verdict={
         "metric": metric,

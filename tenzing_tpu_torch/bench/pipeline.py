@@ -73,7 +73,7 @@ class PrefetchingBenchmarker:
         if rank is not None:
             raise NotImplementedError(
                 "PrefetchingBenchmarker(rank=...): the learned surrogate is "
-                "not yet ported")
+                "not yet ported (ROADMAP Queue 1 item 7)")
         self.inner = inner
         self.executor = executor
         self.workers = max(1, int(workers))
@@ -98,6 +98,7 @@ class PrefetchingBenchmarker:
         # offers it
         if hasattr(inner, "benchmark_batch_times"):
             self.benchmark_batch_times = self._batch_times
+        self.rank_coherent = getattr(inner, "rank_coherent", False)
         self._wasted_counted = False
         self._trap_registered = True
         trap.register_handler(self._trap_cancel)

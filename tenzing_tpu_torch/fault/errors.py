@@ -1,7 +1,8 @@
 """Failure taxonomy of the measurement loop.
 
 Counterpart of ``tenzing_tpu/fault/errors.py`` (:35-200), without the
-serving plane's store errors.  A measurement — capture a candidate schedule
+serving plane's store errors (``StoreLockTimeout``, ``FencedWriteError``,
+``StoreReadonlyError``: ROADMAP Queue 1 item 8).  A measurement — capture a candidate schedule
 as CUDA graphs, replay it fenced on the card, reduce across ranks — fails in
 three ways, and each calls for a different response:
 
@@ -17,10 +18,11 @@ three ways, and each calls for a different response:
   misaligned address, a device-side assert, an uncorrectable ECC error)
   leaves every later call in the process failing; no retry can help.
 
-:func:`classify_error` maps an exception to one of these classes: the
-marker types below by ``isinstance``, everything else by message
-patterns, checked in the order device lost, capture, deterministic,
-transient.  On the card:
+:func:`classify_error` maps an exception to one of these classes: a
+device loss first (the marker type, or a loss's message anywhere in the
+chain of causes), then the marker types below by ``isinstance``, then
+message patterns in the order capture, deterministic, transient.  On the
+card:
 
 * a capture error is **deterministic for that schedule** — the stream
   capture rejected one of its operations: ``cudaErrorStreamCaptureUnsupported``
@@ -29,7 +31,14 @@ transient.  On the card:
   ``cudaErrorStreamCaptureIsolation``, ``cudaErrorStreamCaptureImplicit``,
   ``cudaErrorCapturedEvent``, ``cudaErrorStreamCaptureWrongThread`` and
   ``runtime/executor.py``'s ``CaptureError``;
-* the sticky errors above are **device_lost**;
+* the sticky errors above are **device_lost**, and so is **every other
+  error of the CUDA runtime or its libraries** ("CUDA error: ...",
+  ``CUBLAS_STATUS_*``) that is not a capture error, wherever it sits in the
+  chain of causes (an op's error that ``CaptureError`` wraps included): the
+  port never goes on in a process after one, however sticky it is, so a
+  fault is never taken for a slow or a broken schedule;
+* ``CUDA out of memory`` (the caching allocator's own error, raised
+  before anything launches; the context stays usable) is deterministic;
 * what is **transient**: process-group timeouts and connection errors
   (gloo, NCCL's watchdog), the shift's missed deadline ("timed out"), and
   ``OSError`` / ``TimeoutError`` / ``ConnectionError``.
@@ -60,8 +69,24 @@ class TransientError(RuntimeError):
     retry."""
 
 
+class MeasurementTimeout(TransientError):
+    """The watchdog's wall-clock bound fired (fault/resilient.py): the
+    measurement hung.  Transient: the retry starts once the abandoned
+    attempt has drained off the card."""
+
+
 class DeterministicScheduleError(RuntimeError):
     """The schedule itself is broken (capture, shape, memory)."""
+
+
+class QuarantinedScheduleError(DeterministicScheduleError):
+    """Raised instead of measuring a schedule already quarantined."""
+
+
+class UnsoundScheduleError(DeterministicScheduleError):
+    """The independent soundness verifier (verify/) rejected the schedule:
+    a data dependency is unordered or lanes race.  Quarantined and never
+    measured."""
 
 
 class DeviceLostError(RuntimeError):
@@ -86,6 +111,14 @@ _DEVICE_LOST_PATTERNS = (
     "invalid program counter",
     "gpu has fallen off the bus",
     "no cuda-capable device",
+)
+# the CUDA runtime's and its libraries' own errors, as torch words them
+_CUDA_ERROR_PATTERNS = (
+    "cuda error",
+    "cudaerror",
+    "cublas_status",
+    "cusparse_status",
+    "cusolver_status",
 )
 _CAPTURE_PATTERNS = (
     "streamcapture",
@@ -121,18 +154,31 @@ _TRANSIENT_PATTERNS = (
 )
 
 
+def _cuda_loss(exc: BaseException) -> bool:
+    """True when ``exc`` or an exception in its chain of causes carries a
+    device-lost message or a CUDA error that is not a capture error."""
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        seen.add(id(exc))
+        msg = str(exc).lower()
+        if any(p in msg for p in _DEVICE_LOST_PATTERNS):
+            return True
+        if (any(p in msg for p in _CUDA_ERROR_PATTERNS)
+                and not any(p in msg for p in _CAPTURE_PATTERNS)):
+            return True
+        exc = exc.__cause__ or exc.__context__
+    return False
+
+
 def classify_error(exc: BaseException) -> str:
     """Map an exception to a :class:`FaultClass` string (module docstring)."""
-    if isinstance(exc, DeviceLostError):
+    if isinstance(exc, DeviceLostError) or _cuda_loss(exc):
         return FaultClass.DEVICE_LOST
     if isinstance(exc, DeterministicScheduleError):
         return FaultClass.DETERMINISTIC
     if isinstance(exc, TransientError):
         return FaultClass.TRANSIENT
     msg = str(exc).lower()
-    for pat in _DEVICE_LOST_PATTERNS:
-        if pat in msg:
-            return FaultClass.DEVICE_LOST
     for pat in _CAPTURE_PATTERNS + _DETERMINISTIC_PATTERNS:
         if pat in msg:
             return FaultClass.DETERMINISTIC

@@ -21,7 +21,7 @@ of ``U`` into ``buf_<dir>``, ``Unpack`` copies ``recv_<dir>`` into the ghost
 shell on the opposite side.  Both are single PyTorch indexing copies; the
 staged pipeline (models/halo_pipeline.py) and the kernel menu
 (ops/halo_kernels.py) build on them.  Not ported yet: ``synth=True``, the
-synthesized chunk-routed shifts (ROADMAP Queue 1 item 5), which raises.
+synthesized chunk-routed shifts (ROADMAP Queue 1 item 6.7), which raises.
 """
 
 from __future__ import annotations
@@ -180,7 +180,7 @@ def exchange_post(d: Tuple[int, int, int], engine: str = "xla"):
 def _unported_synth(what: str):
     return NotImplementedError(
         f"not yet ported: synthesized collectives ({what} synth=True; "
-        "ROADMAP Queue 1 item 5)")
+        "ROADMAP Queue 1 item 6.7)")
 
 
 class ExchangeChoice(ChoiceOp):

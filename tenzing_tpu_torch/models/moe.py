@@ -33,7 +33,7 @@ Ops write in place into their output buffers or declared scratch, so a
 timed run allocates nothing.  Op names, kind tags and schedule JSON are the
 reference's; its specs become the port's (``"ep"`` for every buffer: each is
 split along dim 0).  Not ported yet: ``synth=True``, the synthesized ring
-all-to-all (ROADMAP Queue 1 item 5), which raises.
+all-to-all (ROADMAP Queue 1 item 6.7), which raises.
 """
 
 from __future__ import annotations
@@ -378,7 +378,7 @@ class MoELayer(CompoundOp):
         if synth or synth_relax:
             raise NotImplementedError(
                 "not yet ported: synthesized collectives (MoELayer synth=True;"
-                " ROADMAP Queue 1 item 5)")
+                " ROADMAP Queue 1 item 6.7)")
         self._args = args
         self._impl_choice = impl_choice
         self._chunk = chunk
@@ -440,7 +440,7 @@ def make_moe_buffers(args: MoEArgs, seed: int = 0, synth: bool = False
     if synth:
         raise NotImplementedError(
             "not yet ported: synthesized collectives (make_moe_buffers "
-            "synth=True; ROADMAP Queue 1 item 5)")
+            "synth=True; ROADMAP Queue 1 item 6.7)")
     rng = np.random.default_rng(seed)
     n, t, d, dff = args.n_ep, args.tokens_per_shard, args.d_model, args.d_ff
     tc_ = args.chunk_tokens

@@ -581,13 +581,15 @@ _SUFFIXES = {"f32": ("",), "bf16": ("16",), "choice": ("", "16")}
 
 def make_pipe_buffers(
     args: MoEPipeArgs, seed: int = 0, with_expected: bool = True,
-    staging: str = "f32"
+    staging: str = "f32", expected_float64: bool = False
 ) -> Tuple[Dict[str, Union[np.ndarray, ZerosSpec]], Optional[np.ndarray], int]:
     """(buffers, expected Y or None, capacity): the reference's buffers for
     the same seed — the same numpy generator calls, so X, the weights and
     the routing tables are bit-identical — with each bfloat16 staging buffer
     given as a :class:`ZerosSpec` (``runtime.executor.buffers_from_numpy``
-    creates it).  The expected Y is the dense routed evaluation in float64.
+    creates it).  The expected Y is the dense routed evaluation in float64,
+    returned in the workload dtype (the reference's), or in float64 with
+    ``expected_float64`` (the integrity gate's, bench/gate.py).
     ``staging`` declares the transfer buffer set(s) to match
     :func:`build_graph`: "f32", "bf16", or "choice" (both)."""
     rng = np.random.default_rng(seed)
@@ -622,7 +624,7 @@ def make_pipe_buffers(
             sel = expert == e
             h = gelu_tanh(x[sel].astype(np.float64) @ w1[e].astype(np.float64))
             want64[sel] = gate[sel, None] * (h @ w2[e].astype(np.float64))
-        want = want64.astype(dt)  # the workload dtype
+        want = want64 if expected_float64 else want64.astype(dt)
     return bufs, want, cap
 
 

@@ -367,6 +367,22 @@ BF16_STATE_TOL = {"acc/l": dict(rtol=0.0, atol=1e-3),
                   "m": dict(rtol=2e-5, atol=2e-5),
                   "l": dict(rtol=2e-5, atol=0.0), "rel_rms": 2e-4}
 
+# O against the dense float64 attention (what the integrity gate holds a
+# driver run to, bench/gate.py, and chip_smoke.py each fixed order): f32
+# inputs at the reference's f32 tolerance (tests/test_ring_attention.py:76);
+# bf16 inputs at about twice the error that rounding q/k/v and p gives at
+# full width on an H100 (PERF.md: largest 4.87e-4, relative rms 3.37e-3),
+# held on both: the largest error catches a gross fault in a few elements,
+# the relative rms one spread thin over all of them (a bias of 2e-4 in
+# every element stays under the largest-error limit and fails this one;
+# chip_smoke.py holds that control).  The rounding itself dominates there,
+# so the faults the bf16 state tolerance catches do not show in this check.
+# The state tolerances above hold a kernel against its plain version on the
+# same rounded inputs and do not fit this comparison: bf16 rounding of q
+# and k alone moves m by about 2^-9 of itself.
+F32_O_TOL = dict(rtol=2e-4, atol=2e-5)
+BF16_O_TOL = {"rel_rms": 7e-3, "max_abs": 1e-3}
+
 
 def state_check(got, want, tol) -> tuple:
     """Hold the state ``got`` = (acc, m, l) against ``want`` at ``tol`` (one of

@@ -5,7 +5,7 @@ cpu] [--shared-card]``.
 The port's counterpart of ``__graft_entry__.py``'s ``dryrun_multichip`` (its
 ``_agree_schedules`` protocol, :23-47): the MoE stages and the halo stages
 (the distributed SpMV stage waits for ``models/spmv_dist.py``, ROADMAP
-Queue 1 item 5).
+Queue 1 item 6.1).
 
 **MoE** (``--model moe``, the default).  Each rank
 builds ``models/moe.py``'s ``MoELayer(impl_choice=True)`` and its block of

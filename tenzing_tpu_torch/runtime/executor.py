@@ -118,6 +118,7 @@ from tenzing_tpu_torch.core.resources import Event, Lane
 from tenzing_tpu_torch.core.sequence import Sequence
 from tenzing_tpu_torch.core.serdes import sequence_to_json_str
 from tenzing_tpu_torch.core.sync_ops import EventRecord
+from tenzing_tpu_torch.fault.cancel import check as check_cancelled
 from tenzing_tpu_torch.fault.errors import DeterministicScheduleError
 from tenzing_tpu_torch.ops.comm_ops import Done
 from tenzing_tpu_torch.runtime import graphs
@@ -1059,6 +1060,7 @@ class StreamExecutor:
 
         def run_n(n: int) -> None:
             for _ in range(n):
+                check_cancelled()  # fault/cancel.py: a cancelled attempt stops
                 self._run_ops(ops, bufs)
             self._fence()
 

@@ -59,6 +59,17 @@ on background threads while the foreground measures.  Every device-wide
 sync of the measurement path goes through :func:`device_sync`: with no
 capture in progress it synchronizes the device (and holds off new captures
 meanwhile); during one it synchronizes the streams the caller names.
+
+**Graphs freed during a capture.**  Destroying a CUDA graph on a thread
+that is capturing is not permitted (``cudaGraphExecDestroy`` fails with
+"operation not permitted when stream is capturing") and invalidates that
+thread's capture; a later allocator call then fails inside a destructor
+and aborts the process.  The garbage collector runs wherever Python
+allocates, so an unreachable executor's graphs can be freed on a prefetch
+worker mid-capture (seen on the H100 in a driver run right after another).
+A :class:`CapturedSchedule` finalized on a capturing thread therefore
+hands its graphs and events to :data:`_DEFERRED`, and the thread releases
+them when its last capture ends.
 """
 
 from __future__ import annotations
@@ -214,6 +225,27 @@ def n_host_syncs(segments: List[Segment]) -> int:
 # -- the device-sync guard -------------------------------------------------------
 
 
+# the graphs and events of schedules finalized on a capturing thread,
+# released when that thread's last capture ends (module docstring)
+_DEFERRED: List[Any] = []
+_THREAD = threading.local()
+
+
+def capturing_here() -> bool:
+    """True while the calling thread is inside :func:`capturing`."""
+    return getattr(_THREAD, "depth", 0) > 0
+
+
+def _release_deferred() -> None:
+    """Drop the deferred graphs and events, one at a time (``pop`` is
+    atomic, so two threads never release the same one)."""
+    while _DEFERRED:
+        try:
+            _DEFERRED.pop()
+        except IndexError:
+            break
+
+
 class _SyncGuard:
     """Keeps device-wide syncs and captures apart (module docstring)."""
 
@@ -228,12 +260,16 @@ class _SyncGuard:
             while self._syncing:
                 self._cv.wait()
             self._captures += 1
+        _THREAD.depth = getattr(_THREAD, "depth", 0) + 1
         try:
             yield
         finally:
+            _THREAD.depth -= 1
             with self._cv:
                 self._captures -= 1
                 self._cv.notify_all()
+            if _THREAD.depth == 0:
+                _release_deferred()
 
     def device_sync(self, device, streams: Iterable = ()) -> None:
         import torch
@@ -395,13 +431,23 @@ class CapturedSchedule:
         self.pool_bytes = pool_bytes
         self.n_syncs = n_syncs
 
+    def __del__(self):
+        # on a capturing thread the graphs may not be destroyed: they wait
+        # for the end of its capture (module docstring)
+        if capturing_here():
+            _DEFERRED.append((self.segments, self.events))
+
     @property
     def n_graphs(self) -> int:
         return sum(1 for s in self.segments if s.graph is not None)
 
     def replay(self, n: int) -> None:
         """Run the schedule ``n`` times: launch each segment's graph, then
-        block the host on its waits' events (no fence at the end)."""
+        block the host on its waits' events (no fence at the end).  Each
+        segment's launch first checks the thread's cancel token
+        (fault/cancel.py): an attempt the watchdog abandoned launches
+        nothing more."""
+        from tenzing_tpu_torch.fault.cancel import check
         from tenzing_tpu_torch.ops.kernel_lib import add_launches
 
         rt = cudart()
@@ -409,17 +455,23 @@ class CapturedSchedule:
         plan = [(s.exec_handle, s.stream.cuda_stream if s.graph is not None
                  else None, [w for w in s.waits if w is not None])
                 for s in self.segments]
-        for _ in range(n):
-            for handle, stream, waits in plan:
-                if handle is not None:
-                    _check("cudaGraphLaunch", launch(handle, stream))
-                for ev in waits:
-                    _check("cudaEventSynchronize", sync(ev))
-        add_launches(self.launches, n)
+        done = 0
+        try:
+            for done in range(n):
+                for handle, stream, waits in plan:
+                    check()
+                    if handle is not None:
+                        _check("cudaGraphLaunch", launch(handle, stream))
+                    for ev in waits:
+                        _check("cudaEventSynchronize", sync(ev))
+            done = n
+        finally:
+            add_launches(self.launches, done)
 
 
 __all__ = [
     "HostWait", "Segment", "flushes_pending", "op_streams", "plan_segments",
-    "n_host_syncs", "capturing", "device_sync", "cudart", "new_stream",
+    "n_host_syncs", "capturing", "capturing_here", "device_sync", "cudart",
+    "new_stream",
     "StreamPool", "STREAMS", "CapturedSegment", "CapturedSchedule",
 ]

@@ -14,17 +14,20 @@ is the same; a port of it comes later.  With a ``control_plane`` of more than
 one rank, rank 0 enumerates and verifies, and the count and every schedule
 are broadcast as JSON (reference dfs.py:289-370, dfs.hpp:50-70, 145-167);
 every rank measures every schedule, one at a time (``batch`` is ignored, as
-in the reference).  A measurement that raises propagates (as in the port's
-MCTS: on CUDA no compile step can legitimately fail) after a
-``search.candidate_failed`` record.  Telemetry: ``dfs.explore``,
+in the reference).  A measurement that raises is recorded
+(``search.candidate_failed``) and skips the terminal where the benchmarker
+is rank-coherent (the resilient layer classified it) and the device was not
+lost; otherwise it propagates, as in the port's MCTS.  With ``checkpoint``
+rank 0 snapshots the cursor (every 25 terminals, after a batch, and on an
+interrupt), as the reference does.  Telemetry: ``dfs.explore``,
 ``dfs.enumerate``, ``dfs.enumerate_variant`` and a ``dfs.iter`` span per
 schedule measured one at a time, as in the reference.  Compile prefetching
 is the reference's: with ``prefetch`` (a bench/pipeline.py
 ``PrefetchingBenchmarker``) the next ``prefetch_lookahead`` terminals are
 hinted while terminal i measures (the batch path needs no hint: a
 prefetcher in the benchmark stack hints the whole batch itself).  Not
-ported yet, and refused when set: the learned ``prescreen``,
-``checkpoint`` and fleet ``subtree`` slicing.
+ported yet, and refused when set: the learned ``prescreen`` (ROADMAP
+Queue 1 item 7) and fleet ``subtree`` slicing (item 8).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from tenzing_tpu_torch.bench.benchmarker import (
     BenchOpts,
     BenchResult,
     candidate_failed,
+    rejects_failures,
     result_row,
     schedule_id,
 )
@@ -47,6 +51,7 @@ from tenzing_tpu_torch.core.serdes import sequence_from_json, sequence_to_json
 from tenzing_tpu_torch.core.state import State
 from tenzing_tpu_torch.obs.tracer import get_tracer
 from tenzing_tpu_torch.parallel.control_plane import ControlPlane, default_control_plane
+from tenzing_tpu_torch.utils import trap
 from tenzing_tpu_torch.utils.counters import Counters
 
 
@@ -61,9 +66,10 @@ class DfsOpts:
     so slow drift decorrelates from schedule identity.  ``verify`` (a
     ``verify.ScheduleVerifier``) checks every terminal before it is
     measured; an unsound one is skipped.  ``prefetch`` hints the next
-    ``prefetch_lookahead`` terminals to a capture prefetcher.  The
-    remaining fields are the reference's and must stay unset: not yet
-    ported."""
+    ``prefetch_lookahead`` terminals to a capture prefetcher.
+    ``checkpoint`` (a ``fault.checkpoint.SearchCheckpoint``) gets the
+    cursor.  ``prescreen`` and ``subtree`` are the reference's and must stay
+    unset: not yet ported."""
 
     max_seqs: int = 15000
     bench_opts: BenchOpts = field(default_factory=BenchOpts)
@@ -84,7 +90,7 @@ class DfsOpts:
                 "batch": self.batch, "batch_seed": self.batch_seed}
 
 
-_UNPORTED = ("prescreen", "checkpoint", "subtree")
+_UNPORTED = {"prescreen": "item 7", "subtree": "item 8"}
 
 
 @dataclass
@@ -226,22 +232,37 @@ def explore(graph: Graph, platform, benchmarker,
     opts = opts if opts is not None else DfsOpts()
     for name in _UNPORTED:
         if getattr(opts, name) is not None:
-            raise NotImplementedError(f"DfsOpts.{name}: not yet ported")
+            raise NotImplementedError(f"DfsOpts.{name}: not yet ported "
+                                      f"(ROADMAP Queue 1 {_UNPORTED[name]})")
     cp = control_plane if control_plane is not None else default_control_plane()
     counters = Counters(prefix="dfs.phase")
     result = DfsResult(counters=counters)
-    with get_tracer().span("dfs.explore", max_seqs=opts.max_seqs,
-                           batch=opts.batch):
-        _explore(graph, platform, benchmarker, opts, cp, counters, result)
+    mark = opts.checkpoint is not None and cp.rank() == 0
+
+    def interrupted() -> None:
+        opts.checkpoint.save_state(
+            dfs={"n_sims": len(result.sims), "interrupted": True})
+
+    if mark:
+        trap.register_handler(interrupted)
+    try:
+        with get_tracer().span("dfs.explore", max_seqs=opts.max_seqs,
+                               batch=opts.batch):
+            _explore(graph, platform, benchmarker, opts, cp, counters, result)
+    finally:
+        if mark:
+            trap.unregister_handler(interrupted)
     if opts.dump_csv_path and cp.rank() == 0:
         result.dump_csv(opts.dump_csv_path)
     return result
 
 
 def _measure_one(benchmarker, order, opts: DfsOpts, counters: Counters,
-                 i: int, result: DfsResult, ahead=()) -> None:
+                 i: int, result: DfsResult, ahead=(), n: int = 0,
+                 lead: bool = True) -> None:
     """Measure one schedule under a ``dfs.iter`` span, first hinting the
-    schedules ``ahead`` to the prefetcher."""
+    schedules ``ahead`` to the prefetcher; then snapshot the cursor (terminal
+    ``i`` of ``n``) every 25 terminals and at the last."""
     tr = get_tracer()
     with tr.span("dfs.iter", i=i) as sp:
         if opts.prefetch is not None and ahead:
@@ -255,11 +276,19 @@ def _measure_one(benchmarker, order, opts: DfsOpts, counters: Counters,
                 res = benchmarker.benchmark(order, opts.bench_opts)
             except Exception as e:
                 candidate_failed("dfs.benchmark", order, e)
-                raise
-        if tr.enabled:
-            sp.set("schedule", schedule_id(order))
-            sp.set("pct50", res.pct50)
-    result.sims.append(SimResult(order=order, result=res))
+                if not rejects_failures(benchmarker, e):
+                    raise
+                sys.stderr.write(f"dfs: terminal rejected ({type(e).__name__}:"
+                                 f" {str(e)[:200]})\n")
+                res = None
+        if res is not None:
+            if tr.enabled:
+                sp.set("schedule", schedule_id(order))
+                sp.set("pct50", res.pct50)
+            result.sims.append(SimResult(order=order, result=res))
+    if opts.checkpoint is not None and lead and (i % 25 == 0 or i == n - 1):
+        opts.checkpoint.save_state(dfs={"i": i, "n": n,
+                                        "n_sims": len(result.sims)})
 
 
 def _explore(graph: Graph, platform, benchmarker, opts: DfsOpts, cp,
@@ -294,7 +323,7 @@ def _explore(graph: Graph, platform, benchmarker, opts: DfsOpts, cp,
                     sequence_to_json(orders[i]) if lead else None)
             o = orders[i] if lead else sequence_from_json(payload, graph)
             _measure_one(benchmarker, o, opts, counters, i, result,
-                         _window(orders, i, opts) if lead else ())
+                         _window(orders, i, opts) if lead else (), n, lead)
         return
     batch_times = getattr(benchmarker, "benchmark_batch_times", None)
     if opts.batch and batch_times is None:
@@ -305,10 +334,13 @@ def _explore(graph: Graph, platform, benchmarker, opts: DfsOpts, cp,
             times = batch_times(orders, opts.bench_opts, seed=opts.batch_seed)
         result.sims = [SimResult(order=o, result=BenchResult.from_times(ts))
                        for o, ts in zip(orders, times)]
+        if opts.checkpoint is not None:
+            opts.checkpoint.save_state(
+                dfs={"batch_done": True, "n_sims": len(result.sims)})
     else:
         for i, o in enumerate(orders):
             _measure_one(benchmarker, o, opts, counters, i, result,
-                         _window(orders, i, opts))
+                         _window(orders, i, opts), len(orders))
 
 
 def _window(orders, i: int, opts: DfsOpts) -> list:

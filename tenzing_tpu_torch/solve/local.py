@@ -15,11 +15,15 @@ two packages climb the same chain for the same measurements.  With
 ``LocalOpts.prefetch`` (a bench/pipeline.py ``PrefetchingBenchmarker``)
 each step's neighbour batch is built before the measure loop and hinted, so
 neighbour k+1 captures while neighbour k measures; the replay is
-deterministic and RNG-free, so the climb is the same either way.  Left out,
-with their subsystems: the learned prescreen, checkpointing and the fleet's
-shared claim registry.  A measurement that raises (a schedule that cannot
-be captured among them) propagates, as in the port's MCTS (after a
-``search.candidate_failed`` record).
+deterministic and RNG-free, so the climb is the same either way.  With
+``LocalOpts.checkpoint`` the climb's cursor (spent, accepted) is snapshotted
+after each accepted move and at the end, and a paired batch the journal
+answers (a resumed climb) charges no budget.  Left out, with their
+subsystems: the learned prescreen and the fleet's shared claim registry.  A
+measurement that raises is recorded (``search.candidate_failed``) and
+rejects the neighbour where the benchmarker is rank-coherent (the resilient
+layer classified it) and the device was not lost; otherwise it propagates,
+as in the port's MCTS.
 """
 
 from __future__ import annotations
@@ -28,7 +32,11 @@ import random as _random
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Sequence as Seq, Tuple
 
-from tenzing_tpu_torch.bench.benchmarker import BenchOpts, candidate_failed
+from tenzing_tpu_torch.bench.benchmarker import (
+    BenchOpts,
+    candidate_failed,
+    rejects_failures,
+)
 from tenzing_tpu_torch.core.graph import Graph
 from tenzing_tpu_torch.core.sequence import Sequence
 from tenzing_tpu_torch.core.state import (
@@ -196,7 +204,10 @@ class LocalOpts:
     device time.
 
     ``prefetch`` (a capture prefetcher) gets each step's neighbour batch as
-    hints; None (the default) gives the same climb."""
+    hints; None (the default) gives the same climb.
+
+    ``checkpoint`` (a ``fault.checkpoint.SearchCheckpoint``) snapshots the
+    climb's cursor."""
 
     budget: int = 24
     bench_opts: BenchOpts = field(default_factory=BenchOpts)
@@ -205,6 +216,7 @@ class LocalOpts:
     paired: bool = False
     verify: Optional[object] = None
     prefetch: Optional[object] = None
+    checkpoint: Optional[object] = None
 
 
 @dataclass
@@ -258,7 +270,11 @@ def hill_climb(
             res = benchmarker.benchmark(seq_, opts.bench_opts)
         except Exception as e:
             candidate_failed("local.measure", seq_, e)
-            raise
+            if not rejects_failures(benchmarker, e):
+                raise
+            sys.stderr.write("hill-climb: schedule rejected (failed: "
+                             f"{type(e).__name__}: {str(e)[:200]})\n")
+            return None, True
         result.sims.append(SimResult(order=seq_, result=res))
         return res, pre_hits is None or benchmarker.hits == pre_hits
 
@@ -279,25 +295,40 @@ def hill_climb(
         pair_seed = rng.randrange(1 << 30)
         if unsound(cand_seq):
             return None, False, False
+        pre_hits = getattr(batch_owner, "batch_hits", None)
         try:
             times = batcher([cur_seq, cand_seq], opts.bench_opts,
                             seed=pair_seed)
         except Exception as e:
             candidate_failed("local.paired", cand_seq, e)
-            raise
+            if not rejects_failures(batch_owner, e):
+                raise
+            sys.stderr.write("hill-climb: neighbor rejected (failed: "
+                             f"{type(e).__name__}: {str(e)[:200]})\n")
+            return None, False, True
+        # a batch the journal answered (a resumed climb) is free
+        charge = pre_hits is None or batch_owner.batch_hits == pre_hits
         m, lo, _ = paired_speedup(times[0], times[1], seed=pair_seed + 1)
         res = BenchResult.from_times(times[1])
         result.sims.append(SimResult(order=cand_seq, result=res))
-        return res, (m > 1.0 and lo > 1.0), True
+        return res, (m > 1.0 and lo > 1.0), charge
 
     seq, decisions = drive(graph, platform, fresh())
     cur, charge = measured(seq)
     if cur is None:
-        raise RuntimeError("hill-climb incumbent schedule is unsound — "
-                           "nothing to climb from")
+        raise RuntimeError("hill-climb incumbent schedule is unsound or "
+                           "failed — nothing to climb from")
     seen = {canonical_key(seq)}
     spent = 1 if charge else 0
     accepted = 0
+
+    def save_cursor():
+        if opts.checkpoint is not None:
+            opts.checkpoint.save_state(
+                climb={"spent": spent, "accepted": accepted,
+                       "n_sims": len(result.sims)})
+
+    save_cursor()
 
     def sweep_order(decs):
         """Shuffled positions, structural decisions (implementation choices,
@@ -362,11 +393,13 @@ def hill_climb(
                     cur, seq, decisions = res, cand_seq, cand_dec
                     improved = True
                     accepted += 1
+                    save_cursor()
                     break
                 if spent >= opts.budget:
                     break
             if improved or spent >= opts.budget:
                 break
+    save_cursor()
     result.final = SimResult(order=seq, result=cur)
     result.spent, result.accepted = spent, accepted
     return result

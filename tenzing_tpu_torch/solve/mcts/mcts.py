@@ -17,9 +17,13 @@ bench/pipeline.py ``PrefetchingBenchmarker``): the seeds' terminal
 schedules before the first iteration, ``prefetch_rollouts`` speculative
 completions of each expanded node's other children (throwaway States, a
 forked RNG: the search is the same with the pipeline on and off), and the
-confirm queue.  Checkpointing and fleet sub-tree slicing are absent.  A
-measurement that raises (a schedule that cannot be captured among them)
-propagates, on every rank, after a ``search.candidate_failed`` record.
+confirm queue.  Checkpointing is the reference's (``MctsOpts.checkpoint``:
+rank 0 snapshots the cursor after every measured iteration, and the trap
+marks an interrupt); fleet sub-tree slicing is absent.  A measurement that
+raises is recorded (``search.candidate_failed``); where the benchmarker is
+rank-coherent (the resilient layer classified the failure) the candidate is
+rejected with a penalty and the search goes on, as in the reference, unless
+the device was lost; otherwise the failure propagates on every rank.
 
 Telemetry (obs/): an ``mcts.explore`` span around the search and an
 ``mcts.iter`` span per iteration (``seeded``, ``selected``, ``schedule``,
@@ -38,6 +42,7 @@ from tenzing_tpu_torch.bench.benchmarker import (
     BenchResult,
     CachingBenchmarker,
     candidate_failed,
+    rejects_failures,
     schedule_id,
 )
 from tenzing_tpu_torch.core.schedule import remove_redundant_syncs
@@ -48,6 +53,7 @@ from tenzing_tpu_torch.obs.tracer import get_tracer
 from tenzing_tpu_torch.solve.mcts.node import Node
 from tenzing_tpu_torch.solve.mcts.strategies import FastMin
 from tenzing_tpu_torch.parallel.control_plane import ControlPlane, default_control_plane
+from tenzing_tpu_torch.utils import trap
 from tenzing_tpu_torch.utils.counters import Counters
 
 
@@ -71,6 +77,11 @@ class MctsOpts:
     expand_rollout: bool = False
     seed: int = 0
     cache_benchmarks: bool = True
+    # fault.checkpoint.SearchCheckpoint: rank 0 snapshots the cursor
+    # (iteration, sims, tree size) after every measured iteration, and the
+    # trap writes an interrupted snapshot; resume re-runs the seeded search
+    # against the journal-restored cache, rebuilding the tree exactly
+    checkpoint: Optional[object] = None
     # independent soundness gate (verify.ScheduleVerifier): an unsound
     # rollout is rejected with a penalty backprop and never measured
     verify: Optional[object] = None
@@ -212,11 +223,26 @@ def explore(
         # them, so hits and misses agree rank to rank
         benchmarker = CachingBenchmarker(benchmarker)
     tr = get_tracer()
-    with tr.span("mcts.explore", n_iters=opts.n_iters, seed=opts.seed) as sp:
-        _explore(graph, platform, benchmarker, opts, strategy, seeds, cp,
-                 rng, counters, result, tr)
-        sp.set("n_sims", len(result.sims))
-        sp.set("tree_size", result.tree_size)
+
+    def interrupted() -> None:
+        # the SIGINT snapshot: the journal already holds every completed
+        # measurement; this stamps how far the run got
+        opts.checkpoint.save_state(
+            mcts={"n_sims": len(result.sims), "interrupted": True})
+
+    mark = opts.checkpoint is not None and cp.rank() == 0
+    if mark:
+        trap.register_handler(interrupted)
+    try:
+        with tr.span("mcts.explore", n_iters=opts.n_iters,
+                     seed=opts.seed) as sp:
+            _explore(graph, platform, benchmarker, opts, strategy, seeds, cp,
+                     rng, counters, result, tr)
+            sp.set("n_sims", len(result.sims))
+            sp.set("tree_size", result.tree_size)
+    finally:
+        if mark:
+            trap.unregister_handler(interrupted)
     return result
 
 
@@ -313,7 +339,22 @@ def _explore(graph, platform, benchmarker, opts: MctsOpts, strategy, seeds,
                     res = benchmarker.benchmark(order, ropts)
                 except Exception as e:
                     candidate_failed("mcts.rollout", order, e)
-                    raise
+                    if not rejects_failures(benchmarker, e):
+                        raise
+                    res = None
+            if res is None:
+                # a failed candidate (quarantined or unsound, on every
+                # rank): a penalty as for an unsound one, never measured
+                # again in this search
+                failed_keys.add(key)
+                it_sp.set("rejected", True)
+                if lead:
+                    worst = max((s.result.pct50 for s in result.sims),
+                                default=1.0)
+                    with counters.phase("BACKPROP"):
+                        endpoint.backprop(
+                            ctx, BenchResult.from_times([2.0 * worst]))
+                continue
             if tr.enabled:
                 it_sp.set("pct50", res.pct50)
                 it_sp.set("fidelity", fidelity)
@@ -324,6 +365,10 @@ def _explore(graph, platform, benchmarker, opts: MctsOpts, strategy, seeds,
                     endpoint.backprop(ctx, res)
                 if tr.enabled:
                     it_sp.set("tree_size", root.size())
+                if opts.checkpoint is not None:
+                    opts.checkpoint.save_state(
+                        mcts={"it": it, "n_sims": len(result.sims),
+                              "tree_size": root.size()})
     # multi-fidelity confirm: the top-k distinct screened schedules are
     # re-measured at the full bench_opts floor, on every rank
     if opts.screen_opts is not None and result.sims:
@@ -347,7 +392,9 @@ def _explore(graph, platform, benchmarker, opts: MctsOpts, strategy, seeds,
                     res = benchmarker.benchmark(order, opts.bench_opts)
                 except Exception as e:
                     candidate_failed("mcts.confirm", order, e)
-                    raise
+                    if not rejects_failures(benchmarker, e):
+                        raise
+                    continue
             result.sims.append(SimResult(order=order, result=res,
                                          fidelity="full"))
     result.tree_size = root.size() if lead else 0

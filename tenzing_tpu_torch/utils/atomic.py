@@ -1,0 +1,100 @@
+"""The atomic file-write helper (tmp + fsync + rename).
+
+Counterpart of ``tenzing_tpu/utils/atomic.py``: one definition shared by
+every persistent-state writer of the port — the checkpoint's state
+snapshots (fault/checkpoint.py) and the quarantine file
+(fault/quarantine.py).  Readers see either the previous complete file or
+the new complete file, never a torn write, and the rename lands only after
+the bytes are on disk.
+
+Every durable writer goes through here, so this module is also the
+injectable I/O seam: an installed backend (:func:`set_io_backend`) gets a
+check before each write, fsync and replace.  With none installed — the
+default — every hook is a branch on a None global.  The reference installs
+its filesystem-chaos backend from ``$TENZING_FSINJECT``; that backend
+(``fault/fsinject.py``) and the serving store's sealed publish, stale reads
+and mtime seams are not ported yet (ROADMAP Queue 1 item 8), so a set
+variable raises rather than injecting nothing.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import tempfile
+from typing import Any, Dict, Optional
+
+FSINJECT_ENV = "TENZING_FSINJECT"
+
+_io_backend: Optional[Any] = None
+_env_checked = False
+
+
+def set_io_backend(backend: Optional[Any]) -> None:
+    """Install (or with None, remove) a fault-injecting I/O backend."""
+    global _io_backend, _env_checked
+    _io_backend = backend
+    _env_checked = True
+
+
+def io_backend() -> Optional[Any]:
+    """The active backend.  ``$TENZING_FSINJECT`` is read once: a chaos run
+    that silently injected nothing would prove nothing, so a set variable
+    raises until the filesystem-chaos backend is ported."""
+    global _env_checked
+    if not _env_checked:
+        if os.environ.get(FSINJECT_ENV):
+            raise NotImplementedError(
+                f"${FSINJECT_ENV}: the filesystem-chaos backend "
+                "(fault/fsinject.py) is not yet ported (ROADMAP Queue 1 "
+                "item 8)")
+        _env_checked = True
+    return _io_backend
+
+
+def _check(op: str, path: str) -> None:
+    b = io_backend()
+    if b is not None:
+        b.check(op, path)
+
+
+def fsync_dir(path: str) -> None:
+    """fsync a directory so a rename or link inside it is durable;
+    best-effort where the platform refuses to open or fsync a directory."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
+
+
+def atomic_dump_json(path: str, doc: Dict[str, Any],
+                     prefix: str = ".atomic.") -> None:
+    """Write ``doc`` as sorted-key JSON to ``path`` atomically: the temp file
+    lives in the destination directory (a rename must not cross
+    filesystems), is fsynced before the rename and unlinked on any failure;
+    the directory is fsynced after the rename."""
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    _check("write", path)
+    fd, tmp = tempfile.mkstemp(dir=d, prefix=prefix, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "w") as f:
+            json.dump(doc, f, sort_keys=True)
+            f.flush()
+            _check("fsync", path)
+            os.fsync(f.fileno())
+        _check("replace", path)
+        os.replace(tmp, path)
+        fsync_dir(d)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise

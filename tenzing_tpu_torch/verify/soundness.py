@@ -417,3 +417,19 @@ class ScheduleVerifier:
                 self.unsound += 1
         return got
 
+
+
+def report_unsound(where: str, order, verdict: Soundness) -> None:
+    """The one ``verify.unsound`` record every guard shares (the
+    reference's): a counter and a trace event with the schedule id and the
+    witness."""
+    from tenzing_tpu_torch.bench.benchmarker import schedule_id
+    from tenzing_tpu_torch.obs.metrics import get_metrics
+    from tenzing_tpu_torch.obs.tracer import get_tracer
+
+    get_metrics().counter("verify.unsound").inc()
+    tr = get_tracer()
+    if tr.enabled:
+        tr.event("verify.unsound", where=where, schedule=schedule_id(order),
+                 witness=verdict.witness(),
+                 n_violations=len(verdict.violations))

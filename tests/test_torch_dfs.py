@@ -110,17 +110,21 @@ def test_explore_measures_every_terminal(batch, tmp_path):
                                    rtol=1e-5, atol=1e-6)
 
 
-def test_explore_verifies_and_refuses_unported_options():
+def test_explore_verifies_and_refuses_unported_options(tmp_path):
+    from tenzing_tpu_torch.fault import SearchCheckpoint
     from tenzing_tpu_torch.verify import ScheduleVerifier
 
     g, _ = _graphs("local")
     ex, _ = _executor()
+    ckpt = SearchCheckpoint(str(tmp_path / "ckpt"))
     res = dfs.explore(g, Platform.make_n_lanes(2), EmpiricalBenchmarker(ex),
                       dfs.DfsOpts(max_seqs=4, verify=ScheduleVerifier(g),
+                                  checkpoint=ckpt,
                                   bench_opts=BenchOpts(n_iters=2, target_secs=0.0002)))
     assert len(res.sims) == 4
-    for name, value in (("prescreen", object()), ("checkpoint", object()),
-                        ("subtree", (0, 2))):
+    # checkpoint is ported: rank 0 snapshots the cursor at the last terminal
+    assert ckpt.load_state()["dfs"] == {"i": 3, "n": 4, "n_sims": 4}
+    for name, value in (("prescreen", object()), ("subtree", (0, 2))):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             dfs.explore(g, Platform.make_n_lanes(2), EmpiricalBenchmarker(ex),
                         dfs.DfsOpts(max_seqs=2, **{name: value}))

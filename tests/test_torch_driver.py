@@ -66,17 +66,137 @@ def test_metric_and_lanes_equal_reference(workload):
 
 
 @pytest.mark.parametrize("override", [
-    dict(workload="attn", resume=True), dict(measure_timeout=5.0),
+    dict(workload="attn", search_workers=2), dict(workload="moe",
+                                                   measure_batch=2),
     dict(synth_collectives=True), dict(learn_screen=True),
-    dict(checkpoint="ckpt"), dict(inject_faults="flaky:0.1"),
+    dict(workload="attn", synth_collectives=True),
+    dict(workload="spmv", learn_screen=True),
     dict(search_workers=2), dict(measure_batch=4),
-    dict(workload="spmv", resume=True),
+    dict(workload="spmv", learn_model="m.json"),
     dict(workload="moe", learn_model="m.json"),
     dict(learn_train=["a.csv"]), dict(workload="spmv", learn_trace=["t"]),
 ])
 def test_unported_flags_raise(override):
-    with pytest.raises(driver.DriverConfigError, match="not yet ported"):
+    """The flags still to port raise, naming their ROADMAP item (the fault
+    flags are ported: ``test_fault_flag_refusals``)."""
+    with pytest.raises(driver.DriverConfigError,
+                       match=r"not yet ported \(ROADMAP Queue 1 item"):
         driver.run(driver.DriverRequest(smoke=True, **override), device="cpu")
+
+
+@pytest.mark.parametrize("override,match", [
+    (dict(resume=True), "requires --checkpoint"),
+    (dict(workload="spmv", resume=True), "requires --checkpoint"),
+    (dict(inject_faults="corrupt:0.5:1", no_verify=True),
+     "requires the soundness verifier"),
+    (dict(inject_faults="flaky:0.1"), "kind:rate:seed"),
+    (dict(inject_faults="bogus:0.1:1"), "want one of"),
+    (dict(measure_timeout=0.0), "positive"),
+])
+def test_fault_flag_refusals(override, match):
+    """The reference's refusals of the fault flags (bench/driver.py:652-655,
+    :930-934): a resume with nothing to resume, corruption without the
+    verifier, a malformed chaos spec; and a watchdog bound that is not
+    positive."""
+    with pytest.raises(driver.DriverConfigError, match=match):
+        driver.run(driver.DriverRequest(**{**FAST, **override}), device="cpu")
+
+
+SPMV_CHAOS = dict(workload="spmv", measure_timeout=30.0,
+                  inject_faults="transient:0.3:1,deterministic:0.2:3,"
+                                "corrupt:0.3:4")
+
+
+def _measured_lines(ckdir):
+    with open(f"{ckdir}/measurements.jsonl") as f:
+        return [line for line in f if '"batch"' not in line]
+
+
+def test_fault_block_checkpoint_and_resume(tmp_path):
+    """--checkpoint with --inject-faults: the reference's fault block
+    (degraded, quarantined, resumed, injected), a journal and a quarantine
+    on disk.  --resume of the finished run restores every journaled row,
+    measures nothing (no measured line is appended) and reports the same
+    schedule and value; a resume under another chaos spec is refused."""
+    ckdir = str(tmp_path / "ckpt")
+    first = driver.run(driver.DriverRequest(checkpoint=ckdir, **FAST,
+                                            **SPMV_CHAOS), device="cpu").verdict
+    fault = first["fault"]
+    assert set(fault) == {"degraded", "quarantined", "resumed", "injected",
+                          "failures"}
+    assert fault["degraded"] is False and fault["resumed"] is False
+    assert fault["injected"]["transient"] > 0
+    assert fault["failures"]["fault.errors.transient"] > 0
+    assert fault["failures"]["fault.retries"] > 0
+    assert fault["quarantined"] >= 1 and first["verified"] is True
+    lines = _measured_lines(ckdir)
+    state = json.load(open(f"{ckdir}/state.json"))["payload"]
+    assert state["done"] is True and state["inject"] == SPMV_CHAOS[
+        "inject_faults"]
+    assert state["config"]["metric"] == first["metric"]
+
+    again = driver.run(driver.DriverRequest(checkpoint=ckdir, resume=True,
+                                            **FAST, **SPMV_CHAOS),
+                       device="cpu").verdict
+    assert again["fault"]["resumed"] is True
+    assert _measured_lines(ckdir) == lines
+    for key in ("value", "vs_baseline", "winner_label", "naive_us",
+                "verified"):
+        assert again[key] == first[key], key
+    assert again["perf"]["prefetch"]["workers"] == 0  # off under --resume
+
+    with pytest.raises(driver.DriverConfigError, match="disagrees"):
+        driver.run(driver.DriverRequest(
+            checkpoint=ckdir, resume=True, **FAST,
+            **{**SPMV_CHAOS, "inject_faults": "transient:0.3:2"}),
+            device="cpu")
+
+
+def test_no_fault_block_on_a_clean_run():
+    r = driver.run(driver.DriverRequest(**FAST), device="cpu").verdict
+    assert "fault" not in r and "gate" not in r
+
+
+def _fail_at(monkeypatch, k: int, exc: BaseException):
+    """Make the k-th measurement of the run raise ``exc`` (no fault flag)."""
+    from tenzing_tpu_torch.bench.benchmarker import EmpiricalBenchmarker
+
+    real, calls = EmpiricalBenchmarker.benchmark, [0]
+
+    def benchmark(self, order, opts=None):
+        calls[0] += 1
+        if calls[0] == k:
+            raise exc
+        return real(self, order, opts)
+
+    monkeypatch.setattr(EmpiricalBenchmarker, "benchmark", benchmark)
+    return calls
+
+
+def test_a_failure_searched_past_is_reported(monkeypatch):
+    """A measurement that fails in a run with no fault flag: the schedule is
+    quarantined and the search goes on, and the ``fault`` block counts the
+    failure, so the run is not taken for a clean one."""
+    _fail_at(monkeypatch, 3, ValueError("operand shape mismatch"))
+    r = driver.run(driver.DriverRequest(**FAST), device="cpu").verdict
+    fault = r["fault"]
+    assert fault["quarantined"] == 1 and "injected" not in fault
+    assert fault["failures"]["fault.errors.deterministic"] == 1
+    assert fault["failures"]["search.candidate_failed"] >= 1
+
+
+@pytest.mark.parametrize("message", [
+    "CUDA error: invalid argument",
+    "CUDA error: an illegal memory access was encountered"])
+def test_a_cuda_error_ends_the_run(monkeypatch, message):
+    """Any CUDA error, sticky or not, leaves the run as ``DeviceLostError``:
+    no search goes on in the process after one."""
+    from tenzing_tpu_torch.fault import DeviceLostError
+
+    calls = _fail_at(monkeypatch, 3, RuntimeError(message))
+    with pytest.raises(DeviceLostError, match="CUDA error"):
+        driver.run(driver.DriverRequest(**FAST), device="cpu")
+    assert calls[0] == 3
 
 
 @pytest.mark.parametrize("n", [0, 1, 3])

@@ -16,6 +16,7 @@ schedule that cannot be captured raising with its op named."""
 
 import threading
 import time
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -248,6 +249,56 @@ def test_launch_counts_lose_no_update_under_threads():
     for tally in tallies:
         kernel_lib.add_launches(tally)
     assert counts["k"] == n_threads * n_hits
+
+
+class _Graph:
+    """Stands in for a CUDA graph: records whether its owner thread was
+    capturing when it was destroyed."""
+
+    destroyed: list = []
+
+    def __del__(self):
+        _Graph.destroyed.append(graphs.capturing_here())
+
+
+def _schedule():
+    seg = graphs.CapturedSegment(graph=_Graph(), exec_handle=None,
+                                 stream=None, waits=[])
+    return graphs.CapturedSchedule([seg], [], Counter(), 0, 0)
+
+
+@pytest.mark.parametrize("where", ["outside", "capturing", "nested",
+                                   "other_thread"])
+def test_schedule_freed_on_a_capturing_thread_is_released_after_capture(where):
+    """A captured schedule finalized on a thread that is capturing (the
+    garbage collector runs wherever Python allocates) keeps its graphs until
+    that thread's last capture ends: destroying a graph mid-capture is not
+    permitted and invalidates the capture.  Elsewhere it is freed at once."""
+    _Graph.destroyed.clear()
+    sched = _schedule()
+    if where == "outside":
+        del sched
+        assert _Graph.destroyed == [False]
+    elif where == "other_thread":
+        with graphs.capturing():
+            box = [sched]
+            del sched
+            worker = threading.Thread(target=box.clear)
+            worker.start()
+            worker.join(timeout=10)
+            assert not worker.is_alive()
+        assert _Graph.destroyed == [False]
+    else:
+        with graphs.capturing():
+            if where == "nested":
+                with graphs.capturing():
+                    del sched
+                assert _Graph.destroyed == []  # still inside the outer one
+            else:
+                del sched
+            assert _Graph.destroyed == []
+            assert graphs._DEFERRED
+        assert _Graph.destroyed == [False] and not graphs._DEFERRED
 
 
 def test_op_streams():
