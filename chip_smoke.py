@@ -229,7 +229,8 @@ Run after the moe driver (phase 11):
               NCCL group made here: the dryrun's agreement protocol
               (parallel/dryrun.py; an all-``.xla``, an all-``.pallas`` and a
               mixed schedule within ``rtol=2e-4, atol=2e-5`` of the float64
-              Y, ``ffn_rows`` launched), a dropped-expert control that must
+              Y, ``ffn_rows`` launched, the layer's all-to-alls posted
+              through the NCCL group), a dropped-expert control that must
               be rejected, the self all-to-all's time per chunk, and a
               12-iteration ``explore`` through ``DistControlPlane``; then
               the same layer in bf16: the agreement within
@@ -258,10 +259,35 @@ Run after the moe driver (phase 11):
               the barrier alone, the copy kernel alone, for the kept
               hand-off, CUDA stream memory operations, and the spin
               kernels', in turns; the plain host-staged shift) and held
-              against ``torch.roll`` of the gathered faces.
+              against ``torch.roll`` of the gathered faces;
+11h. irregular spmv shared — ``IrregularSpMV(impl_choice=True)`` on the spmv
+              workload's band matrix (m 150000, half-bandwidth 18750, 1.5M
+              nonzeros, batch 1) on 2 and on 4 ranks sharing GPU 0 (steps
+              [1] and [1, 3]), and on a uniform random matrix of the same
+              size on 4 ranks (steps [1, 2, 3]): only the ``exchange.rdma``
+              schedules (up to 3 each), Y on every rank within the
+              reference dryrun's ``rtol=2e-3`` of the host product, both
+              shift kernels launched on every rank once per distance and
+              schedule, and each distance's shift timed alone per rank;
+11i. models — at world size 1 over NCCL and the repo's widths: the
+              distributed SpMV (150000 rows of 10 nonzeros; both exchanges
+              zero fills), the ring (4 x 8192 x 128: one step folds all
+              8192 keys; every step on ``.xla``, on ``.pallas`` and on
+              ``.pallas_bf16``, O against the dense float64 O at
+              ``F32_O_TOL`` / ``BF16_O_TOL``, ``attn_block`` and
+              ``attn_block_bf16`` launched), the TP MLP (the MoE layer's
+              widths: 4 chunks of 2048 rows, d 512, d_ff 2048; up to 3 DFS
+              schedules and one with every layer split in 2), the pipeline
+              and its training step (8 microbatches of 2048 rows, d 512, 2
+              chains), each held to its float64 result at the reference
+              dryrun's tolerance (dW at ``dryrun.train_tol``, which two
+              wrong dW, one microbatch dropped and float16-rounded, must
+              fail); then the ring step's fold kernel on the
+              8192-key block (f32 and bf16 inputs) against its plain
+              version, timed beside its bound.
 
 Every executor captures its schedules as CUDA graphs (runtime/graphs.py),
-except the mesh phases' (11e-11g, parallel/dryrun.py builds them with
+except the mesh phases' (11e-11i, parallel/dryrun.py builds them with
 ``graphs=False``: a collective or the mesh shift waits from the host).  The
 driver phases run with the default ``--prefetch-compiles 2``; the halo
 driver's ``perf.prefetch`` must show hits > 0 and its captures counted
@@ -296,6 +322,7 @@ CUDA device it prints nothing and exits 2.  Times are CUDA-event times on the
 card this runs on.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -2329,6 +2356,25 @@ def _drop_expert(torch, y, bufs, a, expert: int = 0):
     return out
 
 
+@contextlib.contextmanager
+def count_calls(module, name: str):
+    """Count the calls of ``module.<name>`` made inside the block (a list
+    of one count, read after it): the executor's collective posts through
+    ``torch.distributed``, so this shows a path went through the process
+    group."""
+    real, count = getattr(module, name), [0]
+
+    def counted(*args, **kwargs):
+        count[0] += 1
+        return real(*args, **kwargs)
+
+    setattr(module, name, counted)
+    try:
+        yield count
+    finally:
+        setattr(module, name, real)
+
+
 def phase_moe_layer(torch, device, timer):
     """The expert-parallel MoE layer (models/moe.py) at full width on a
     world-size-1 NCCL group initialised here through a ``file://``
@@ -2337,7 +2383,9 @@ def phase_moe_layer(torch, device, timer):
     Y within ``dryrun.Y_TOL`` of the float64 expected, ``ffn_rows`` launched
     by the .pallas ones), a control with expert 0's output dropped that
     must be rejected, the self all-to-all's time per chunk, and a short
-    ``explore`` through ``DistControlPlane``.  Returns the launch counts of
+    ``explore`` through ``DistControlPlane``; the agreement and the search
+    must post the layer's all-to-alls through the NCCL group
+    (``dist.all_to_all_single`` counted).  Returns the launch counts of
     the agreement and the search."""
     import tempfile
 
@@ -2359,8 +2407,9 @@ def phase_moe_layer(torch, device, timer):
                                        impl_choice=True)
             setup_s = time.time() - t0
             reset_launches()
-            rows, orders = dryrun.agree_schedules(layer, cp)
-            search = dryrun.explore_layer(layer, cp, MOE_LAYER_ITERS)
+            with count_calls(dist, "all_to_all_single") as a2a_calls:
+                rows, orders = dryrun.agree_schedules(layer, cp)
+                search = dryrun.explore_layer(layer, cp, MOE_LAYER_ITERS)
             launches = all_launches()
             for r in rows:
                 emit({"phase": "moe_layer", "y_tolerance": dryrun.Y_TOL, **r})
@@ -2385,6 +2434,7 @@ def phase_moe_layer(torch, device, timer):
                    "dropped_expert_control": {
                        "max_abs_err": float((ctl - layer.want).abs().max()),
                        "within_tol": ctl_ok},
+                   "layer_nccl_all_to_all_calls": a2a_calls[0],
                    "self_a2a_per_chunk_ms": a2a_ms, "copy_per_chunk_ms": copy_ms,
                    "a2a_bytes": nbytes, "a2a_bound_ms": bound_ms(nbytes),
                    "explore": {k: v for k, v in search.items() if k != "pct50_s"},
@@ -2423,6 +2473,9 @@ def phase_moe_layer(torch, device, timer):
         finally:
             close_mesh()
     torch.cuda.empty_cache()
+    if a2a_calls[0] <= 0:
+        raise AssertionError("the moe layer posted no all-to-all through "
+                             "the NCCL group")
     if ctl_ok or ctl16_ok:
         raise AssertionError("a dropped-expert control passed the Y "
                              f"tolerance (f32 {ctl_ok}, bf16 {ctl16_ok})")
@@ -2522,6 +2575,120 @@ def phase_mesh_halo_shared(torch):
     if bad:
         raise AssertionError(f"the shared-card mesh halo failed on ranks {bad}")
     return ranks
+
+
+def phase_irregular_shared(torch):
+    """The irregular SpMV on ranks sharing GPU 0 (parallel/dryrun.py
+    ``models_main`` with ``shared_card``): per stage and rank, every
+    ``exchange.rdma`` schedule's Y within the tolerance, both shift kernels
+    launched once per distance and schedule, and each distance's shift
+    timed; returns the stages' rank rows."""
+    from tenzing_tpu_torch.parallel import dryrun
+
+    out, bad = [], []
+    for nproc in (2, 4):
+        t0 = time.time()
+        summary = dryrun.models_main("spmv_irregular", nproc, "cuda",
+                                     shared_card=True)
+        for stage in summary["stages"]:
+            for r in stage["ranks"]:
+                steps = sorted(int(d) for d in r["timing"])
+                sched = r["schedules"]
+                n_posts = len(sched) * len(steps)
+                ok = (sched and all(x["within_tol"] and x["exchange"] == "rdma"
+                                    for x in sched)
+                      and r["launches"]["rdma_shift_post"] == n_posts
+                      and r["launches"]["rdma_shift_wait"] == n_posts)
+                emit({"phase": "irregular_spmv_shared", "stage": stage["stage"],
+                      "steps": steps, "ok": bool(ok), **r})
+                if not ok:
+                    bad.append((stage["stage"], r["rank"]))
+            out.append(stage)
+        emit({"phase": "irregular_spmv_shared_summary", "nproc": nproc,
+              "stages": [s["stage"] for s in summary["stages"]],
+              "nvidia_smi": nvidia_smi(),
+              "wall_s": round(time.time() - t0, 3)})
+    if bad:
+        raise AssertionError(f"the shared-card irregular SpMV failed on "
+                             f"(stage, rank) {bad}")
+    return out
+
+
+def phase_models(torch, device, timer):
+    """The other multi-device models at world size 1 over NCCL (module
+    docstring, 11i): each stage of ``dryrun.full_cases``, every count set
+    to 0 just before it and read just after; then the ring step's fold
+    kernel on its 8192-key block against the plain version.  Returns
+    (the launches by model, the fold rows)."""
+    from tenzing_tpu_torch.models.ring_attention import RingAttnArgs
+    from tenzing_tpu_torch.ops import attention_kernels as ak
+    from tenzing_tpu_torch.parallel import dryrun
+
+    launches, bad = {}, []
+    for model in ("spmv_dist", "ring", "tp_mlp", "pipeline",
+                  "pipeline_train"):
+        t0 = time.time()
+        reset_launches()
+        summary = dryrun.models_main(model, 1, "cuda")
+        launches[model] = {k: v for k, v in all_launches().items() if v}
+        rows = [r for st in summary["stages"] for r in st["schedules"]]
+        emit({"phase": "models", "model": model, "stages": summary["stages"],
+              "launches": launches[model], "nvidia_smi": nvidia_smi(),
+              "wall_s": round(time.time() - t0, 3)})
+        if not rows or not all(r["within_tol"] for r in rows):
+            bad.append(model)
+    ring = launches["ring"]
+    if ring.get("attn_block", 0) <= 0 or ring.get("attn_block_bf16", 0) <= 0:
+        bad.append("ring launches")
+    # two wrong dW at the card's width that dW's limit must reject (host)
+    controls = dryrun.train_controls(dryrun.PIPE_FULL)
+    emit({"phase": "models_train_controls", "args": dryrun.PIPE_FULL,
+          "controls": controls})
+    bad += [f"train control {k} passed" for k, c in controls.items()
+            if c["within_tol"]]
+    if bad:
+        raise AssertionError(f"the models phase failed on {bad}")
+    torch.cuda.empty_cache()
+    # the ring step's fold at world size 1: all 8192 keys in one block
+    a = RingAttnArgs(**{k: v for k, v in dryrun.RING_FULL.items()})
+    b, n, d = a.batch, a.seq_local, a.head_dim
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    q, k, v = (torch.randn(b, n, d, device=device, generator=gen)
+               for _ in range(3))
+    fold_rows = []
+    for bf16 in (False, True):
+        st = [torch.zeros(b, n, d, device=device),
+              torch.full((b, n, d), -1e30, device=device),
+              torch.zeros(b, n, d, device=device)]
+        got, want = [t.clone() for t in st], [t.clone() for t in st]
+        ak.attn_block(q, k, v, *got, a.scale, bf16_inputs=bf16)
+        ak.attn_block_plain(q, k, v, *want, a.scale, bf16)
+        torch.cuda.synchronize()
+        tol = ak.BF16_STATE_TOL if bf16 else ak.F32_STATE_TOL
+        ok, errs = ak.state_check(got, want, tol)
+        bound, bound_by = attn_bound(ak.fold_bytes(b, n, n, d),
+                                     ak.attention_flops(b, n, n, d), bf16)
+        row = {"phase": "ring_fold", "bf16_inputs": bf16,
+               "shape": [b, n, n, d], "within_tol": ok, "errors": errs,
+               "max_abs_err": max(e["max_abs"] for e in errs.values()),
+               "ms": timer.ms(lambda: ak.attn_block(
+                   q, k, v, *got, a.scale, bf16_inputs=bf16)),
+               "plain_ms": timer.ms(lambda: ak.attn_block_plain(
+                   q, k, v, *want, a.scale, bf16)),
+               "bound_ms": bound, "bound_by": bound_by,
+               "nvidia_smi": nvidia_smi()}
+        row["tflops"] = ak.attention_flops(b, n, n, d) / (row["ms"] * 1e-3) / 1e12
+        emit(row)
+        fold_rows.append(row)
+        del got, want, st
+        if not ok:
+            bad.append(f"ring fold bf16={bf16}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"the models phase failed on {bad}")
+    return launches, fold_rows
 
 
 def phase_dfs_example(torch):
@@ -3163,6 +3330,8 @@ def main() -> int:
         torch, device, timer)
     mesh_launches, mesh_summary = phase_mesh_halo(torch, device)
     shared_ranks = phase_mesh_halo_shared(torch)
+    irr_stages = phase_irregular_shared(torch)
+    model_launches, ring_folds = phase_models(torch, device, timer)
 
     t0 = time.time()
     spmv_rows = phase_spmv_kernels(torch, device, timer)
@@ -3284,6 +3453,15 @@ def main() -> int:
                 "max_abs_err": max(r["max_abs_err"] for r in attn_rows
                                    if r["kernel"] == name and r["bf16_inputs"])},
         })
+    # the ring step at world size 1 folds all 8192 keys as one block
+    block = next(k for k in kernels if k["name"] == "attn_block")
+    block["launches_ring"] = {
+        "f32": model_launches["ring"].get("attn_block", 0),
+        "bf16": model_launches["ring"].get("attn_block_bf16", 0)}
+    block["ring_fold"] = {
+        ("bf16" if r["bf16_inputs"] else "f32"): {key: r[key] for key in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by", "tflops",
+            "max_abs_err")} for r in ring_folds}
     # the expert MLP at the main path's shapes (one chunk's slot table)
     full = next(r for r in moe_rows if r["case"] == "full")
     e, c, d, dff = full["shape"]
@@ -3359,6 +3537,18 @@ def main() -> int:
                     "between two ranks sharing one card through CUDA IPC "
                     "(time-sliced contexts, not NVLink)",
         })
+    # the irregular SpMV's .rdma exchange: shifts 1-3 between 2 and 4 ranks
+    # sharing the card, several collective ids in flight
+    for name in ("rdma_shift_post", "rdma_shift_wait"):
+        row = next(k for k in kernels if k["name"] == name)
+        row["launches_irregular"] = {
+            s["stage"]: sum(r["launches"][name] for r in s["ranks"])
+            for s in irr_stages}
+        key = "post_ms" if name == "rdma_shift_post" else "wait_ms"
+        row["irregular_ms_by_distance"] = {
+            s["stage"]: {d: max(r["timing"][d][key] for r in s["ranks"])
+                         for d in s["ranks"][0]["timing"]}
+            for s in irr_stages}
     next(k for k in kernels if k["name"] == "device_copy")[
         "launches_mesh_halo"] = mesh_launches["device_copy"]
     # the SpMV kernel at the --m 8192 path's spmv_remote shapes

@@ -41,6 +41,7 @@ from tenzing_tpu_torch.core.operation import (
     OpBase,
     register_kind,
 )
+from tenzing_tpu_torch.ops.comm_ops import ICI_KINDS, PCIE_KINDS
 
 # the directive marker: a ChunkDirective is named f"{base}{CHUNK_MARK}{n}"
 CHUNK_MARK = ".chunk.c"
@@ -179,11 +180,9 @@ def chunks_of(order) -> Dict[str, int]:
 
 
 # the op kinds whose units move data between devices or through the host
-# (the reference's ICI_KINDS and PCIE_KINDS, bench/model.py) and the awaits
-COMM_KINDS = frozenset({
-    "permute_start", "all_to_all_start", "psum_start", "rdma_copy_start",
-    "rdma_shift_start", "host_spill_start", "host_fetch_start",
-    "await_transfer", "multi_await"})
+# (ops/comm_ops.py ICI_KINDS and PCIE_KINDS) and the awaits
+COMM_KINDS = frozenset(ICI_KINDS + PCIE_KINDS
+                       + ("await_transfer", "multi_await"))
 
 
 def hidden_comm_measured_us(ops, attrib) -> float:

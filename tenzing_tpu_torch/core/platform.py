@@ -16,8 +16,9 @@ each rank on its own shard of the buffers.  Ranks lie on the mesh in
 row-major order over its axes, as ``Mesh(devs.reshape(shape), names)`` lays
 out devices in the reference.  ``specs`` are the port's own too: for each
 buffer, the mesh axis that splits its dim 0, or a tuple with one entry per
-leading dim (an axis name or ``None``, as a ``PartitionSpec`` lists them),
-or ``None`` for a replicated buffer.
+leading dim (an axis name, a tuple of axis names that split the dim
+together, major first, or ``None``, as a ``PartitionSpec`` lists them), or
+``None`` for a replicated buffer.
 """
 
 from __future__ import annotations

@@ -1,23 +1,40 @@
-"""Blocked (flash) attention on one device as a searchable op DAG.
+"""Attention as searchable op DAGs: the ring over a mesh axis, and blocked
+(flash) attention on one device.
 
-Counterpart of the single-device part of ``tenzing_tpu/models/ring_attention.py``:
-queries Q and the whole K/V are resident; ``args.n_devices`` K/V blocks of
-``seq_local`` keys fold one after another into the online-softmax state
-(acc, m_run, l_run), and ``attn_finalize`` writes O = acc / l_run.
+Counterpart of ``tenzing_tpu/models/ring_attention.py``.
 
-The searched freedom: the lane of every op, which fold implementation each
-block uses (``attn_<s>.xla`` / ``.pallas`` / ``.pallas_bf16``), and the
-granularity (``attn_blocks.chain`` of per-block folds vs the fused
-single-kernel ``attn_blocks.fused`` / ``.fused_bf16``).  Op names, menu
-suffixes and kind tags are the reference's, so a schedule JSON written by the
-JAX package deserializes and runs here.
+**The ring** (:class:`RingAttention`).  The sequence is split over mesh
+axis ``"sp"``: each rank holds its queries Q and one K/V block.  At step s
+the block in ``K<s%2>`` / ``V<s%2>`` folds into the online-softmax state
+(acc, m_run, l_run), and ``rotate_s`` sends it one hop round the ring into
+the other pair (double buffering: ``attn_s`` and ``rotate_s`` are
+independent, and the write-after-read edge ``attn_{s-1} -> rotate_s``
+keeps the pair being overwritten free).  The rotate is an in-op exchange
+(ops/comm_ops.py ``lane_permute``, the cyclic permutation) on the op's
+lane.  On an axis of size 1 the ring is one fold and no rotate.  Each
+step's implementation is a menu with ``impl_choice`` (:class:`AttnStepChoice`:
+``.xla``, ``.pallas``, ``.pallas_bf16``).
+
+**Blocked attention** (:class:`BlockedAttention`): queries Q and the whole
+K/V are resident; ``args.n_devices`` K/V blocks of ``seq_local`` keys fold
+one after another into the state, and ``attn_finalize`` writes
+O = acc / l_run.  Its searched freedom: the lane of every op, which fold
+implementation each block uses (``attn_<s>.xla`` / ``.pallas`` /
+``.pallas_bf16``), and the granularity (``attn_blocks.chain`` of per-block
+folds vs the fused single-kernel ``attn_blocks.fused`` / ``.fused_bf16``).
+
+Op names, menu suffixes and kind tags are the reference's, so a schedule
+JSON written by the JAX package deserializes and runs here.
 
 Buffers are torch tensors updated in place; no op allocates while a schedule
 runs.  The ``.xla`` fold's (b, n, seq_local) score matrix and its two small
 work buffers are declared op scratch (``DeviceOp.scratch``): the folds of a
 chain are serialized by the state, so they share one set (the sub-folds of
-one key count share another).  A block's K/V is a view of the resident K/V.
-The bf16 slots cast that block's K/V into a bf16 copy per launch
+one key count share another).  A block's K/V is a view of the resident K/V
+(blocked) or the ring's current pair.  The ``.pallas`` slots run the fold
+kernel ``tz_attn_block`` (ops/attention_kernels.py, csrc/attn_fold.cu; its
+plain version under ``plain_kernels`` and on the CPU).  The bf16 slots cast
+the block's K/V into a bf16 copy per launch
 (``ops/attention_kernels.cast_kv_bf16``) held in op scratch (``attn_kv_bf16``
 for the chain's folds, serialized by the state like the ``.xla`` set;
 ``attn_kv_bf16_all`` for the fused fold), and the kernel rounds Q as it
@@ -26,13 +43,10 @@ loads it: no bf16 copy of Q exists.
 With ``chunk=True`` each block's ``.xla`` fold also offers its chunked
 expansions (core/chunking.py): ``n`` :class:`BlockAttnSubFold` s of
 ``seq_local / n`` keys each, chained through the state, priced and pruned by
-:func:`fold_chunk_menu`.  The ``.xla`` folds (sub-folds included) and the
-finalize declare fused-region bodies (``FUSED_BODY``, ``fused_operands``,
-``fused_params``): runtime/fused.py lowers them into members of the
-``fused_region`` kernel.
-
-Left for the multi-device slice: the mesh ring (``RingAttention``,
-``RotateKV``, ``AttnStepChoice``).
+:func:`fold_chunk_menu`.  The blocked ``.xla`` folds (sub-folds included)
+and the finalize declare fused-region bodies (``FUSED_BODY``,
+``fused_operands``, ``fused_params``): runtime/fused.py lowers them into
+members of the ``fused_region`` kernel.
 """
 
 from __future__ import annotations
@@ -46,6 +60,9 @@ from tenzing_tpu_torch.core.graph import Graph
 from tenzing_tpu_torch.core.operation import ChoiceOp, CompoundOp, DeviceOp, OpBase
 from tenzing_tpu_torch.core.sequence import Sequence
 from tenzing_tpu_torch.ops import attention_kernels as ak
+from tenzing_tpu_torch.ops.comm_ops import cyclic_shift, lane_permute
+
+AXIS = "sp"
 
 
 @dataclass(frozen=True)
@@ -61,20 +78,36 @@ class RingAttnArgs:
         return 1.0 / float(np.sqrt(self.head_dim))
 
 
+def _kv(s: int) -> Tuple[str, str]:
+    """Buffer names holding the K/V block the ring folds at step ``s``."""
+    return f"K{s % 2}", f"V{s % 2}"
+
+
 class AttnStep(DeviceOp):
-    """Fold K/V block ``s`` into the online-softmax state with plain PyTorch
-    (the reference's XLA einsum fold, ``AttnStep._update``; the ``.xla``
-    slot).  Subclasses say which block and how many query rows:
-    :class:`BlockAttnStep` here; the mesh ring's step comes with the
-    multi-device slice."""
+    """Ring step ``s``: fold the K/V pair ``_kv(s)`` into the local queries'
+    online-softmax state with plain PyTorch (the reference's XLA einsum
+    fold, ``AttnStep._update``; the ``.xla`` slot).  :class:`BlockAttnStep`
+    folds a block of the resident K/V instead."""
 
     def __init__(self, name: str, s: int, args: RingAttnArgs):
         super().__init__(name)
         self._s = s
         self._args = args
 
+    def reads(self):
+        k, v = _kv(self._s)
+        return ["Q", k, v, "acc", "m_run", "l_run"]
+
     def writes(self):
         return ["acc", "m_run", "l_run"]
+
+    def _queries(self) -> int:
+        """The local queries fold against each block."""
+        return self._args.seq_local
+
+    def _kv_block(self, bufs):
+        k, v = _kv(self._s)
+        return bufs[k], bufs[v]
 
     def _tag(self) -> str:
         """Suffix of this fold's scratch names ("": the full-block set)."""
@@ -140,6 +173,121 @@ class FinalizeAttn(DeviceOp):
 
     def fused_operands(self):
         return ("acc", "l_run", "O")
+
+
+class AttnStepPallas(AttnStep):
+    """The ring step through the fold kernel (reference: the Pallas MXU
+    kernel ``attn_block_pallas``) on float32 inputs; its plain version
+    under ``ctx.plain_kernels``."""
+
+    BF16 = False
+
+    def scratch(self):
+        return {}
+
+    def uses_pallas(self) -> bool:
+        return True
+
+    def chunkable(self) -> bool:
+        return False  # the kernel owns its blocking
+
+    def _update(self, q, k, v, acc, m, l, ctx) -> None:
+        if ctx.plain_kernels:
+            ak.attn_block_plain(q, k, v, acc, m, l, self._args.scale, self.BF16)
+            return
+        ak.attn_block(q, k, v, acc, m, l, self._args.scale,
+                      bf16_inputs=self.BF16,
+                      kv_scratch=ctx.scratch.get("attn_kv_bf16"))
+
+
+class AttnStepPallasBf16(AttnStepPallas):
+    """The ring step through the fold kernel on bfloat16-rounded q/k/v (the
+    reference casts them before its bf16 Pallas call); the kernel reads the
+    pair cast into the ``attn_kv_bf16`` scratch."""
+
+    BF16 = True
+
+    def scratch(self):
+        a = self._args
+        return {"attn_kv_bf16": ak.kv_scratch_spec(a.batch, a.seq_local,
+                                                   a.head_dim)}
+
+
+class AttnStepChoice(ChoiceOp):
+    """The implementation menu of one ring step: plain PyTorch, or the fold
+    kernel on float32 or bfloat16 inputs."""
+
+    def __init__(self, name: str, s: int, args: RingAttnArgs):
+        super().__init__(name)
+        self._s = s
+        self._args = args
+
+    def choices(self) -> List[OpBase]:
+        return [
+            AttnStep(self.name() + ".xla", self._s, self._args),
+            AttnStepPallas(self.name() + ".pallas", self._s, self._args),
+            AttnStepPallasBf16(self.name() + ".pallas_bf16", self._s,
+                               self._args),
+        ]
+
+
+class RotateKV(DeviceOp):
+    """Send step ``s``'s K/V pair one hop round the ring into the other pair
+    (rank i's goes to rank i + 1): an in-op exchange of the cyclic
+    permutation on the op's lane (reference ``RotateKV``, a ``lax.ppermute``
+    in the op).  On an axis of size 1 it is a copy."""
+
+    def __init__(self, name: str, s: int):
+        super().__init__(name)
+        self._s = s
+
+    def reads(self):
+        return list(_kv(self._s))
+
+    def writes(self):
+        return list(_kv(self._s + 1))
+
+    def apply(self, bufs, ctx):
+        lane_permute(ctx, self, AXIS, cyclic_shift,
+                     list(zip(_kv(self._s), _kv(self._s + 1))))
+
+
+class RingAttention(CompoundOp):
+    """The whole ring as one compound op: n_devices steps chained through
+    the softmax state, n_devices - 1 rotates chained through the K/V pairs,
+    the write-after-read edges attn_{s-1} -> rotate_s, the finalize last.
+    With ``impl_choice`` each step is an :class:`AttnStepChoice`."""
+
+    def __init__(self, args: RingAttnArgs, name: str = "ring_attention",
+                 impl_choice: bool = False):
+        super().__init__(name)
+        self._args = args
+        self._impl_choice = impl_choice
+
+    def args(self) -> RingAttnArgs:
+        return self._args
+
+    def graph(self) -> Graph:
+        g = Graph()
+        n = self._args.n_devices
+        mk = AttnStepChoice if self._impl_choice else AttnStep
+        attns = [mk(f"attn_{s}", s, self._args) for s in range(n)]
+        rots = [RotateKV(f"rotate_{s}", s) for s in range(n - 1)]
+        g.start_then(attns[0])
+        for s in range(1, n):
+            g.then(attns[s - 1], attns[s])
+            g.then(rots[s - 1], attns[s])
+        for s in range(1, n - 1):
+            g.then(rots[s - 1], rots[s])
+        if rots:
+            g.start_then(rots[0])
+        for s in range(1, n - 1):
+            # WAR: rotate_s overwrites the pair attn_{s-1} reads
+            g.then(attns[s - 1], rots[s])
+        fin = FinalizeAttn()
+        g.then(attns[-1], fin)
+        g.then_finish(fin)
+        return g
 
 
 class BlockAttnStep(AttnStep):
@@ -219,23 +367,10 @@ class BlockAttnStepPallas(BlockAttnStep):
     attn_block_pallas) on float32 inputs."""
 
     BF16 = False
-
-    def scratch(self):
-        return {}
-
-    def uses_pallas(self) -> bool:
-        return True
-
-    def chunkable(self) -> bool:
-        return False  # the kernel owns its blocking
-
-    def _update(self, q, k, v, acc, m, l, ctx) -> None:
-        if ctx.plain_kernels:
-            ak.attn_block_plain(q, k, v, acc, m, l, self._args.scale, self.BF16)
-            return
-        ak.attn_block(q, k, v, acc, m, l, self._args.scale,
-                      bf16_inputs=self.BF16,
-                      kv_scratch=ctx.scratch.get("attn_kv_bf16"))
+    scratch = AttnStepPallas.scratch
+    uses_pallas = AttnStepPallas.uses_pallas
+    chunkable = AttnStepPallas.chunkable
+    _update = AttnStepPallas._update
 
 
 class BlockAttnStepPallasBf16(BlockAttnStepPallas):
@@ -519,15 +654,15 @@ def fixed_orders(g: Graph, n_blocks: int) -> Dict[str, Sequence]:
     }
 
 
-def make_blocked_buffers(
+def make_ring_buffers(
     args: RingAttnArgs, seed: int = 0, with_expected: bool = True
-) -> Tuple[Dict[str, np.ndarray], Optional[np.ndarray]]:
-    """(buffers, expected O) for single-device blockwise attention: the
-    reference's arrays for the same seed, bit for bit (its
-    ``make_blocked_buffers`` via ``make_ring_buffers``).  The expected O is
-    dense softmax attention in float64 on the host; ``with_expected=False``
-    skips it (at 8k context it builds two (b, n, n) float64 arrays) and
-    returns None."""
+) -> Tuple[Dict[str, np.ndarray], Dict[str, object], Optional[np.ndarray]]:
+    """(buffers, specs, expected O) for a ring over ``args.n_devices`` ranks:
+    the reference's arrays for the same seed, bit for bit.  Every buffer is
+    split along its sequence axis (spec ``(None, "sp", None)``).  The
+    expected O is dense softmax attention in float64 on the host, in the
+    same sequence order; ``with_expected=False`` skips it (at 8k context it
+    builds two (b, n, n) float64 arrays) and returns None."""
     rng = np.random.default_rng(seed)
     b, nl, d, nsp = args.batch, args.seq_local, args.head_dim, args.n_devices
     n = nl * nsp
@@ -547,11 +682,27 @@ def make_blocked_buffers(
     shape = (b, n, d)
     bufs = {
         "Q": q,
-        "K": k,
-        "V": v,
+        "K0": k,
+        "V0": v,
+        "K1": np.zeros_like(k),
+        "V1": np.zeros_like(v),
         "acc": np.zeros(shape, np.float32),
         "m_run": np.full(shape, -1e30, np.float32),
         "l_run": np.zeros(shape, np.float32),
         "O": np.zeros(shape, np.float32),
     }
+    spec = (None, AXIS, None)
+    return bufs, {name: spec for name in bufs}, want
+
+
+def make_blocked_buffers(
+    args: RingAttnArgs, seed: int = 0, with_expected: bool = True
+) -> Tuple[Dict[str, np.ndarray], Optional[np.ndarray]]:
+    """(buffers, expected O) for single-device blockwise attention: the
+    reference's arrays for the same seed, bit for bit (its
+    ``make_blocked_buffers`` via ``make_ring_buffers``): the ring's first
+    K/V pair as the resident K/V."""
+    ring, _specs, want = make_ring_buffers(args, seed, with_expected)
+    bufs = {"Q": ring["Q"], "K": ring["K0"], "V": ring["V0"]}
+    bufs.update({k: ring[k] for k in ("acc", "m_run", "l_run", "O")})
     return bufs, want

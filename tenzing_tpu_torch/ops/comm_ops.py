@@ -23,7 +23,18 @@ A **collective** start (``AllToAllStart``, ``PermuteStart``, ``PsumStart``)
 is posted the same way, over the ``torch.distributed`` process group of its
 mesh axis (``RunContext.post_collective``): the work it returns is in flight
 until its AwaitTransfer, which blocks the host until it has finished.  A
-collective's ``launch`` takes the buffers, the axis group and the axis size.
+collective's ``launch`` takes the buffers, the axis group, the axis size and
+the executor's scratch.  A size-1 axis of a larger mesh has no group of
+its own (the default group would reach the ranks of the other axes): there
+the psum and the all-to-all are what their definitions say for one rank (a
+copy), posted without a message.  A world of one rank keeps its group, so
+they go through the process group as at any size.
+
+An **in-op exchange** (:func:`lane_permute`) is a ``lax.ppermute`` inside a
+device op's ``apply`` (the reference's ``ExchangeLeft`` / ``ExchangeRight``
+of models/spmv_dist.py and ``RotateKV`` of models/ring_attention.py): its
+sends and receives are issued on the op's lane stream and the lane waits
+for them there, with no host wait.
 """
 
 from __future__ import annotations
@@ -32,6 +43,14 @@ import zlib
 from typing import Any, Dict, List, Optional, Sequence as Seq
 
 from tenzing_tpu_torch.core.operation import CpuOp, register_kind
+
+# The transfer posts by the engine that carries them (bench/model.py's cost
+# model; the chunk layer's COMM_KINDS, core/chunking.py): "ici" moves data
+# between ranks (the collectives and the mesh shifts of ops/rdma.py), "pcie"
+# through pinned host memory.
+ICI_KINDS = ("permute_start", "all_to_all_start", "psum_start",
+             "rdma_copy_start", "rdma_shift_start")
+PCIE_KINDS = ("host_spill_start", "host_fetch_start")
 
 
 class CommStart(CpuOp):
@@ -155,9 +174,11 @@ class Collective(CommStart):
         raise TypeError(f"{self.name()}: a collective is posted through "
                         "RunContext.post_collective, not applied")
 
-    def launch(self, bufs: Dict[str, Any], group, size: int):
+    def launch(self, bufs: Dict[str, Any], group, size: int,
+               scratch: Optional[Dict[str, Any]] = None):
         """Start the collective on the current stream; returns its work
-        (anything with a ``wait()``)."""
+        (anything with a ``wait()``).  ``scratch`` is the executor's (what
+        :meth:`scratch_for` declared)."""
         raise NotImplementedError
 
 
@@ -177,6 +198,19 @@ class Done:
 
     def wait(self) -> None:
         return None
+
+
+class Then:
+    """A work followed by a step the host runs after it: ``wait()`` waits the
+    work, then calls ``after`` (on CUDA under the stream the wait was issued
+    on, so the step is ordered after the collective there)."""
+
+    def __init__(self, work, after):
+        self.work, self.after = work, after
+
+    def wait(self) -> None:
+        self.work.wait()
+        self.after()
 
 
 def p2p_tag(name: str) -> int:
@@ -199,6 +233,65 @@ def shift_exchange(src, dst, group, size: int, shift: int, tag: int):
     return Works(dist.batch_isend_irecv([
         dist.P2POp(dist.isend, src, fwd, group, tag),
         dist.P2POp(dist.irecv, dst, bwd, group, tag)]))
+
+
+def lane_permute(ctx, op, axis: str, perm_of, pairs) -> None:
+    """The in-op exchange: a ``lax.ppermute`` of each ``(src, dst)`` buffer
+    name pair of ``pairs`` over mesh axis ``axis`` with the permutation
+    ``perm_of(n)`` (a list of ``(from, to)`` axis indices for an axis of
+    size n), written into ``ctx.bufs`` in place.  A rank that no pair sends
+    to gets zeros (an open permutation's edge), as ``lax.ppermute`` gives.
+
+    The group, size and index come from ``ctx.exchange_group``, which
+    refuses a shared card and a capture on an axis of size > 1.  A pair
+    whose source and destination are this rank is a copy; the rest is one
+    ``dist.batch_isend_irecv`` whose works are waited on the current stream:
+    on CUDA that is the op's lane stream, so NCCL orders after the lane's
+    work and the lane after NCCL's with no host wait; on gloo the wait
+    blocks.  Each destination has its own tag (:func:`p2p_tag`)."""
+    import torch.distributed as dist
+
+    group, size, me = ctx.exchange_group(op, axis)
+    perm = list(perm_of(size))
+    sends = [t for f, t in perm if f == me]
+    recvs = [f for f, t in perm if t == me]
+    p2p = []
+    for src_name, dst_name in pairs:
+        src, dst = ctx.bufs[src_name], ctx.bufs[dst_name]
+        if not recvs:
+            dst.zero_()
+        tag = p2p_tag(dst_name)
+        for t in sends:
+            if t == me:
+                dst.copy_(src)
+            else:
+                p2p.append(dist.P2POp(dist.isend, src,
+                                      dist.get_global_rank(group, t), group,
+                                      tag))
+        for f in recvs:
+            if f != me:
+                p2p.append(dist.P2POp(dist.irecv, dst,
+                                      dist.get_global_rank(group, f), group,
+                                      tag))
+    if p2p:
+        for w in dist.batch_isend_irecv(p2p):
+            w.wait()
+
+
+def open_shift(step: int):
+    """The open permutation of a neighbour exchange, ``step`` = +1: index i
+    sends to i + 1 (``[(i, i + 1) for i in range(n - 1)]``, the reference's
+    ``ExchangeLeft``); -1: i + 1 sends to i (``ExchangeRight``)."""
+    if step == 1:
+        return lambda n: [(i, i + 1) for i in range(n - 1)]
+    if step == -1:
+        return lambda n: [(i + 1, i) for i in range(n - 1)]
+    raise ValueError(f"open_shift: step {step} is not +1 or -1")
+
+
+def cyclic_shift(n: int):
+    """The cyclic permutation ``[(i, (i + 1) % n)]`` (``RotateKV``)."""
+    return [(i, (i + 1) % n) for i in range(n)]
 
 
 @register_kind("permute_start")
@@ -224,7 +317,8 @@ class PermuteStart(Collective):
     def shift(self) -> int:
         return self._shift
 
-    def launch(self, bufs: Dict[str, Any], group, size: int):
+    def launch(self, bufs: Dict[str, Any], group, size: int,
+               scratch: Optional[Dict[str, Any]] = None):
         src, dst = bufs[self._src], bufs[self._dst]
         if size == 1:
             dst.copy_(src, non_blocking=True)
@@ -243,13 +337,17 @@ class PsumStart(Collective):
     """Post an all-reduce (sum) of ``src`` over mesh axis ``axis`` into
     ``dst`` (reference ``PsumStart``, tenzing_tpu/ops/comm_ops.py:194, a
     ``lax.psum``): ``dst <- src``, then ``dist.all_reduce(dst,
-    async_op=True)`` over the axis group."""
+    async_op=True)`` over the axis group; the copy alone on an axis with
+    no group of its own (a size-1 axis of a larger mesh)."""
 
-    def launch(self, bufs: Dict[str, Any], group, size: int):
+    def launch(self, bufs: Dict[str, Any], group, size: int,
+               scratch: Optional[Dict[str, Any]] = None):
         import torch.distributed as dist
 
         dst = bufs[self._dst]
         dst.copy_(bufs[self._src], non_blocking=True)
+        if group is None:
+            return Done()
         return dist.all_reduce(dst, group=group, async_op=True)
 
     def to_json(self) -> Dict[str, Any]:
@@ -261,12 +359,20 @@ class PsumStart(Collective):
 @register_kind("all_to_all_start")
 class AllToAllStart(Collective):
     """Post a width-padded all-to-all of ``src`` into ``dst`` over mesh axis
-    ``axis`` (reference ``AllToAllStart``, tenzing_tpu/ops/comm_ops.py:164;
-    the original tenzing's ``Ialltoallv``, ops_mpi.hpp:82-119).  The per-rank
-    buffers' ``split_axis`` indexes the peer rank: ``dst``'s block q is what
-    rank q sent here.  For ``split_axis=0`` that is
-    ``dist.all_to_all_single(dst, src, group, async_op=True)``; other split
-    axes are not on a ported path and raise."""
+    ``axis`` (reference ``AllToAllStart``, tenzing_tpu/ops/comm_ops.py:164, a
+    ``lax.all_to_all`` with ``split_axis`` as both split and concat axis;
+    the original tenzing's ``Ialltoallv``, ops_mpi.hpp:82-119).  The
+    per-rank buffers' ``split_axis`` indexes the peer rank: ``src``'s block
+    q along it goes to rank q, and ``dst``'s block q is what rank q sent
+    here.
+
+    For ``split_axis=0`` that is ``dist.all_to_all_single(dst, src, group,
+    async_op=True)``.  For another split axis the post copies ``src`` with
+    that axis moved to the front into contiguous staging scratch
+    (:meth:`scratch_for`), exchanges it into a second staging buffer, and
+    the await's wait moves the axis back into ``dst`` (:class:`Then`, on
+    the transfer stream on CUDA).  On an axis with no group of its own (a
+    size-1 axis of a larger mesh) the post is the copy ``dst <- src``."""
 
     def __init__(self, name: str, src: str, dst: str, axis: str,
                  split_axis: int = 1):
@@ -276,16 +382,41 @@ class AllToAllStart(Collective):
     def split_axis(self) -> int:
         return self._split
 
-    def launch(self, bufs: Dict[str, Any], group, size: int):
+    def _stage_names(self):
+        return f"a2a_stage_in_{self._dst}", f"a2a_stage_out_{self._dst}"
+
+    def scratch_for(self, shapes):
+        """The two staging buffers of a split axis other than 0: ``src``'s
+        shape with that axis first, in ``src``'s dtype (``shapes.dtypes``,
+        which the executor passes)."""
+        if self._split == 0:
+            return {}
+        shape = list(shapes[self._src])
+        shape.insert(0, shape.pop(self._split))
+        dtype = shapes.dtypes[self._src]
+        return {n: (tuple(shape), dtype) for n in self._stage_names()}
+
+    def launch(self, bufs: Dict[str, Any], group, size: int,
+               scratch: Optional[Dict[str, Any]] = None):
         """Start the exchange on the current stream; returns its work."""
         import torch.distributed as dist
 
-        if self._split != 0:
-            raise NotImplementedError(
-                f"not yet ported: all_to_all_start with split_axis="
-                f"{self._split} ({self.name()})")
-        return dist.all_to_all_single(bufs[self._dst], bufs[self._src],
-                                      group=group, async_op=True)
+        src, dst = bufs[self._src], bufs[self._dst]
+        if group is None:
+            dst.copy_(src, non_blocking=True)
+            return Done()
+        if self._split == 0:
+            return dist.all_to_all_single(dst, src, group=group,
+                                          async_op=True)
+        names = self._stage_names()
+        if scratch is None or names[0] not in scratch:
+            raise RuntimeError(f"{self.name()}: the staging scratch of "
+                               f"split_axis={self._split} was not provisioned")
+        stage_in, stage_out = scratch[names[0]], scratch[names[1]]
+        stage_in.copy_(src.movedim(self._split, 0))
+        work = dist.all_to_all_single(stage_out, stage_in, group=group,
+                                      async_op=True)
+        return Then(work, lambda: dst.copy_(stage_out.movedim(0, self._split)))
 
     def to_json(self) -> Dict[str, Any]:
         j = super().to_json()

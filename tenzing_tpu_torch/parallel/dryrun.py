@@ -1,11 +1,11 @@
 """The multi-device models on N ranks: ``python -m
-tenzing_tpu_torch.parallel.dryrun [--model moe|halo] --nproc N [--device
-cpu] [--shared-card]``.
+tenzing_tpu_torch.parallel.dryrun [--model M] --nproc N [--device cpu]
+[--shared-card]``, M one of ``moe`` (the default), ``halo``,
+``spmv_dist``, ``spmv_irregular``, ``ring``, ``pipeline``,
+``pipeline_train``, ``tp_mlp`` and ``modeled``.
 
 The port's counterpart of ``__graft_entry__.py``'s ``dryrun_multichip`` (its
-``_agree_schedules`` protocol, :23-47): the MoE stages and the halo stages
-(the distributed SpMV stage waits for ``models/spmv_dist.py``, ROADMAP
-Queue 1 item 6.1).
+``_agree_schedules`` protocol, :23-47), stage by stage.
 
 **MoE** (``--model moe``, the default).  Each rank
 builds ``models/moe.py``'s ``MoELayer(impl_choice=True)`` and its block of
@@ -43,12 +43,30 @@ With ``--shared-card`` (``cuda`` only) the N ranks share GPU 0 over gloo
 whose every post is ``.rdma`` run, and the shift kernel carries the faces
 along every axis of size > 1 (:func:`halo_shared_main`).
 
+**The other models** (:data:`MODELS`; reference :262-276, :353-462): the
+distributed SpMV on the ``("dp", "sp")`` mesh (:func:`sp_mesh_shape`), the
+irregular SpMV on the same mesh (its DFS schedules, then one schedule per
+exchange of its menu: permute, padded all-to-all, shift), the ring
+attention (DFS, then every step on ``.xla`` and every step on ``.pallas``),
+the pipeline and its training step on ``("pp",)``, and the TP MLP on
+``("tp",)`` and on ``("dp", "tp")``.  Each stage is the agreement above
+(:func:`agree_model`), its output held to the reference dryrun's tolerance.
+``--shared-card`` runs the irregular SpMV with only its ``exchange.rdma``
+schedules, every distance's shift between ranks on GPU 0, and times each
+distance's shift (:func:`model_shared_main`).
+
+**Modeled** (``--model modeled``; reference :318-351): the one-lane naive
+order against a short MCTS on two lanes, both scored by the analytic model
+(bench/model.py), on the halo graph and the MoE layer; the searched must
+beat the naive (no ranks, no device).
+
 It runs on ``cuda`` over NCCL (rank r on GPU r; more ranks than visible
 GPUs are refused) unless ``--device cpu`` is given, which runs over gloo.
 ``--nproc 1`` runs in this process; more start one process per rank
 (parallel/launch.py).  The width is the reference dryrun's on the CPU
-(``DRYRUN_ARGS``, ``HALO_DRYRUN_ARGS``) and the full one on the card
-(``FULL_ARGS``, ``HALO_FULL_ARGS``), which ``chip_smoke.py`` drives too.
+(``DRYRUN_ARGS``, ``HALO_DRYRUN_ARGS``, :func:`model_cases`) and the full one
+on the card (``FULL_ARGS``, ``HALO_FULL_ARGS``, :func:`full_cases`), which
+``chip_smoke.py`` drives too.
 """
 
 from __future__ import annotations
@@ -355,17 +373,24 @@ def rank_main(mesh, device, args: Dict[str, Any],
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--model", choices=("moe", "halo"), default="moe")
+    p.add_argument("--model", choices=("moe", "halo") + MODELS
+                   + ("modeled",), default="moe")
     p.add_argument("--nproc", type=int, default=1)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--mcts-iters", type=int, default=8)
     p.add_argument("--shared-card", action="store_true",
-                   help="halo: all ranks on GPU 0, joined over gloo")
+                   help="halo, spmv_irregular: all ranks on GPU 0, joined "
+                        "over gloo")
     a = p.parse_args(argv)
-    if a.shared_card and (a.model != "halo" or a.device != "cuda"):
-        p.error("--shared-card runs the halo model on cuda")
+    if a.shared_card and (a.model not in ("halo", "spmv_irregular")
+                          or a.device != "cuda"):
+        p.error("--shared-card runs the halo or the irregular SpMV on cuda")
     if a.model == "halo":
         summary = halo_main(a.nproc, a.device, a.mcts_iters, a.shared_card)
+    elif a.model == "modeled":
+        summary = modeled_main(a.nproc)
+    elif a.model in MODELS:
+        summary = models_main(a.model, a.nproc, a.device, a.shared_card)
     else:
         width = DRYRUN_ARGS if a.device == "cpu" else FULL_ARGS
         kwargs = {"args": dict(n_ep=a.nproc, **width),
@@ -665,14 +690,20 @@ def comm_cases(mesh, device, cases: List[Dict[str, Any]]) -> List[np.ndarray]:
     """Launch task: for each case, post one transfer of this rank's block of
     the global ``x`` (split by ``spec``) over mesh axis ``axis`` and await
     it, through the stream executor: ``kind`` is ``"permute"``
-    (``PermuteStart``), ``"rdma"`` (``RdmaShiftStart``) or ``"psum"``
-    (``PsumStart``), with ``shift`` (default 1); returns the gathered
+    (``PermuteStart``), ``"rdma"`` (``RdmaShiftStart``), ``"psum"``
+    (``PsumStart``) or ``"a2a"`` (``AllToAllStart``), with ``shift``
+    (default 1) and ``split_axis`` (default 1); returns the gathered
     destinations (numpy) on every rank."""
     import torch
 
     from tenzing_tpu_torch.core.graph import Graph
     from tenzing_tpu_torch.core.platform import Platform
-    from tenzing_tpu_torch.ops.comm_ops import AwaitTransfer, PermuteStart, PsumStart
+    from tenzing_tpu_torch.ops.comm_ops import (
+        AllToAllStart,
+        AwaitTransfer,
+        PermuteStart,
+        PsumStart,
+    )
     from tenzing_tpu_torch.ops.rdma import RdmaShiftStart
     from tenzing_tpu_torch.parallel.mesh import gather_buffer, shard_buffers
     from tenzing_tpu_torch.runtime.executor import StreamExecutor
@@ -685,7 +716,9 @@ def comm_cases(mesh, device, cases: List[Dict[str, Any]]) -> List[np.ndarray]:
                                                 shift),
                 "rdma": lambda: RdmaShiftStart("post", "src", "dst", axis,
                                                shift, i % 16),
-                "psum": lambda: PsumStart("post", "src", "dst", axis)
+                "psum": lambda: PsumStart("post", "src", "dst", axis),
+                "a2a": lambda: AllToAllStart("post", "src", "dst", axis,
+                                             c.get("split_axis", 1)),
                 }[c["kind"]]()
         g = Graph()
         g.start_then(post)
@@ -865,17 +898,15 @@ def war_check(mesh, device, args, cp, seed: int = 0, runs: int = 3,
             "acc_max_abs_err": err}
 
 
-def _time_handoff(peers, x, peer_y, stream, handoff: str, reps: int,
-                  times: Dict[str, list]) -> None:
-    """One round of ``time_shift`` with the hand-off ``handoff``: ``reps``
-    posts and waits, ``reps`` barriers alone (their own collective id) and
-    ``reps`` copies alone, each timed with CUDA events on ``stream``; the
-    milliseconds go into ``times``' lists."""
+def _time_post_wait(peers, x, peer_y, stream, handoff: str, reps: int,
+                    shift: int, cid: int, times: Dict[str, list]) -> None:
+    """``reps`` posts and waits of the shift by ``shift`` on collective id
+    ``cid`` with the hand-off ``handoff``, each timed with CUDA events on
+    ``stream``; the milliseconds of the post, the wait and both go into
+    ``times``' lists ``post``, ``wait`` and ``both``."""
     import torch
 
     from tenzing_tpu_torch.ops import rdma
-
-    cid, bar_cid = 0, rdma.MAX_COLLECTIVE_IDS - 1
 
     def ev():
         return torch.cuda.Event(enable_timing=True)
@@ -885,8 +916,9 @@ def _time_handoff(peers, x, peer_y, stream, handoff: str, reps: int,
         t0, t1, t2 = ev(), ev(), ev()
         with torch.cuda.stream(stream):
             t0.record(stream)
-            rdma.rdma_shift_post(x, peer_y, peers.flags, peers.flag_block(1),
-                                 peers.flag_block(-1), cid, e, peers.err,
+            rdma.rdma_shift_post(x, peer_y, peers.flags,
+                                 peers.flag_block(shift),
+                                 peers.flag_block(-shift), cid, e, peers.err,
                                  handoff)
             t1.record(stream)
             rdma.rdma_shift_wait(peers.flags, cid, e, peers.err, handoff)
@@ -895,6 +927,25 @@ def _time_handoff(peers, x, peer_y, stream, handoff: str, reps: int,
         times["post"].append(t0.elapsed_time(t1))
         times["wait"].append(t1.elapsed_time(t2))
         times["both"].append(t0.elapsed_time(t2))
+
+
+def _time_handoff(peers, x, peer_y, stream, handoff: str, reps: int,
+                  times: Dict[str, list]) -> None:
+    """One round of ``time_shift`` with the hand-off ``handoff``: ``reps``
+    posts and waits (:func:`_time_post_wait`, shift 1 on collective id 0),
+    ``reps`` barriers alone (their own collective id) and ``reps`` copies
+    alone, each timed with CUDA events on ``stream``; the milliseconds go
+    into ``times``' lists."""
+    import torch
+
+    from tenzing_tpu_torch.ops import rdma
+
+    bar_cid = rdma.MAX_COLLECTIVE_IDS - 1
+
+    def ev():
+        return torch.cuda.Event(enable_timing=True)
+
+    _time_post_wait(peers, x, peer_y, stream, handoff, reps, 1, 0, times)
     for _ in range(reps):
         e = peers.next_epoch(bar_cid)
         t0, t1 = ev(), ev()
@@ -1037,6 +1088,633 @@ def halo_main(nproc: int, device: str, mcts_iters: int,
                   device, kwargs, timeout_s=600.0, mesh_axes=HALO_AXES,
                   mesh_shape=shape)[0]
 
+
+
+# -- the other multi-device models --------------------------------------------
+#
+# The distributed and irregular SpMV, the ring attention, the pipeline and its
+# training step, and the TP MLP, each on the reference dryrun's protocol
+# (``_agree_schedules``, __graft_entry__.py:23-47): rank 0 picks schedules and
+# broadcasts their JSON, every rank verifies and runs each on its block, the
+# gathered output must be within the reference's tolerance of the expected.
+
+# the models of ``--model`` beside moe and halo
+MODELS = ("spmv_dist", "spmv_irregular", "ring", "pipeline", "pipeline_train",
+          "tp_mlp")
+# the reference dryrun's tolerances against the expected output
+# (__graft_entry__.py:274-276, :362-366, :408-433, :460-462)
+SPMV_TOL = dict(rtol=2e-3, atol=0.0)
+ACT_TOL = dict(rtol=2e-4, atol=2e-5)
+TRAIN_TOL = dict(rtol=2e-3, atol=2e-5)
+# dW's rms error relative to its rms: the card's float32 training step read
+# 1.7e-7 at 8 x 2048 rows and d 512 (PERF.md); a dW rounded through
+# float16 reads about 3e-4, one microbatch's gradient dropped far more
+TRAIN_REL_RMS = 2e-6
+
+
+def train_tol(args: Dict[str, Any], want: np.ndarray) -> Dict[str, float]:
+    """dW's tolerance: ``TRAIN_TOL``, its atol raised to the rounding of
+    float32 sums at this width, and ``TRAIN_REL_RMS`` over the whole
+    tensor.  Each element of dW sums k = mb_size * n_microbatches products
+    whose partial sums reach max|dW|; float32 rounds each addition by up to
+    u max|dW| (u = 2^-24), and k of them random in sign move the sum by
+    about sqrt(k) u max|dW|.  At the reference dryrun's width that is below
+    2e-5 and the atol is the reference's; at 8 x 2048 rows and d 512
+    (max|dW| 1716) it is 1.3e-2, where an element that cancels to near
+    zero carries errors far above 2e-5 in any float32 summation order.
+    That bounds each element, not the tensor; the relative rms holds the
+    tensor (the wrong dW of :func:`train_controls` must fail it)."""
+    k = args["mb_size"] * args["n_microbatches"]
+    atol = float(np.sqrt(k) * 2.0 ** -24 * np.abs(want).max())
+    return dict(TRAIN_TOL, atol=max(TRAIN_TOL["atol"], atol),
+                rel_rms=TRAIN_REL_RMS)
+
+
+def train_controls(args: Dict[str, Any], seed: int = 0) -> Dict[str, dict]:
+    """Two wrong dW that :func:`train_tol` must reject, each held to it
+    against the expected dW of ``args`` (a ``PipelineArgs`` dict): the
+    expected without microbatch 0's gradient (``dropped_microbatch``), and
+    the expected rounded through float16 (``f16_rounded``: each element
+    within 2^-11 of its value, so inside ``TRAIN_TOL``'s allclose alone; a
+    bf16 rounding errs 8 times more).  Host float64; returns ``{name:
+    {"within_tol", "max_abs", "rel_rms"}}``."""
+    import torch
+
+    from tenzing_tpu_torch.bench.gate import within
+    from tenzing_tpu_torch.models import pipeline as pp
+
+    bufs, _, want = pp.make_train_buffers(pp.PipelineArgs(**args), seed=seed)
+    tol = train_tol(args, want)
+    w64 = bufs["W"].astype(np.float64)
+    mb0 = pp.microbatch_dw64(bufs["X_0"][0], w64, bufs["target_0"][0])
+    want_t = torch.from_numpy(want)
+    wrong = {"dropped_microbatch": torch.from_numpy(want - mb0),
+             "f16_rounded": want_t.to(torch.float16).double()}
+    out = {}
+    for name, got in wrong.items():
+        ok, errs = within(got, want_t, tol)
+        out[name] = {"within_tol": ok, **errs}
+    return out
+# a model stage's executor lanes, its schedules per stage (the most DFS or
+# rdma schedules picked), and the timed shifts per distance on a shared card
+MODEL_LANES = 2
+N_SCHED = 3
+DISTANCE_REPS = 10
+# the card's full widths (PERF.md section 4's configurations; chip_smoke.py)
+SPMV_DIST_FULL = dict(n_sp=1, batch=1, rows_per_shard=150_000, nnz_per_row=10)
+# the spmv workload's band matrix (bench/driver.py build_spmv), and a
+# uniform random one of the same size and nonzeros
+IRR_BAND_FULL = dict(kind="band", m=150_000, bw=18_750, nnz=1_500_000, seed=0)
+IRR_RANDOM_FULL = dict(kind="random", m=150_000, n=150_000, nnz=1_500_000,
+                       seed=0)
+RING_FULL = dict(n_devices=1, batch=4, seq_local=8192, head_dim=128)
+TP_FULL = dict(n_tp=1, n_layers=2, n_chunks=4, mb_size=2048, d_model=512,
+               d_ff=2048)
+PIPE_FULL = dict(n_pp=1, n_microbatches=8, n_chains=2, mb_size=2048,
+                 d_model=512)
+
+
+def sp_mesh_shape(nproc: int) -> Tuple[int, int]:
+    """The reference dryrun's ``("dp", "sp")`` mesh: dp 2 when N is even and
+    at least 4, else 1 (__graft_entry__.py:262-264)."""
+    dp = 2 if nproc % 2 == 0 and nproc >= 4 else 1
+    return dp, nproc // dp
+
+
+def model_cases(nproc: int, model: str) -> List[Dict[str, Any]]:
+    """The reference dryrun's stages of ``model`` on N ranks at its CPU
+    widths: each a dict of the model, its mesh axes and shape, its args and
+    the schedules to run (``"dfs"``: up to 3 DFS schedules; ``"menu"``: one
+    per alternative of its menu)."""
+    dp, sp = sp_mesh_shape(nproc)
+    dp2 = 2 if nproc % 2 == 0 else 1
+    tp2 = nproc // dp2
+    if model == "spmv_dist":
+        return [dict(model=model, axes=("dp", "sp"), shape=(dp, sp),
+                     args=dict(n_sp=sp, batch=2 * dp, rows_per_shard=64,
+                               nnz_per_row=4), pick="dfs")]
+    if model == "spmv_irregular":
+        # the menu needs a distance to exchange: none at sp = 1
+        mat = dict(kind="random", m=16 * sp, n=16 * sp, nnz=40 * sp, seed=2)
+        return [dict(model=model, axes=("dp", "sp"), shape=(dp, sp),
+                     args=dict(matrix=mat, batch=2 * dp), pick="dfs")] + [
+                dict(model=model, axes=("dp", "sp"), shape=(dp, sp),
+                     args=dict(matrix=mat, batch=2 * dp, impl_choice=True),
+                     pick="menu")] * (sp > 1)
+    if model == "ring":
+        args = dict(n_devices=nproc, batch=2, seq_local=8, head_dim=8)
+        return [dict(model=model, axes=("sp",), shape=(nproc,), args=args,
+                     pick="dfs"),
+                dict(model=model, axes=("sp",), shape=(nproc,),
+                     args=dict(args, impl_choice=True), pick="f32_slots")]
+    if model in ("pipeline", "pipeline_train"):
+        return [dict(model=model, axes=("pp",), shape=(nproc,),
+                     args=dict(n_pp=nproc, n_microbatches=4, n_chains=2,
+                               mb_size=2, d_model=8), pick="dfs")]
+    if model == "tp_mlp":
+        return [dict(model=model, axes=("tp",), shape=(nproc,),
+                     args=dict(n_tp=nproc, n_layers=2, n_chunks=2, mb_size=2,
+                               d_model=8, d_ff=16), pick="dfs"),
+                dict(model=model, axes=("dp", "tp"), shape=(dp2, tp2),
+                     args=dict(n_tp=tp2, n_layers=2, n_chunks=2,
+                               mb_size=2 * dp2, d_model=8, d_ff=16 * tp2,
+                               n_dp=dp2), pick="dfs")]
+    raise ValueError(f"unknown model {model!r} (have {MODELS})")
+
+
+def irregular_matrix(spec: Dict[str, Any]):
+    """The CSR matrix a ``matrix`` args entry names."""
+    from tenzing_tpu_torch.models.spmv import random_band_matrix, random_matrix
+
+    if spec["kind"] == "band":
+        return random_band_matrix(spec["m"], spec["bw"], spec["nnz"],
+                                  seed=spec["seed"])
+    return random_matrix(spec["m"], spec["n"], spec["nnz"], seed=spec["seed"])
+
+
+def model_setup(model: str, args: Dict[str, Any], n_ranks: Dict[str, int],
+                seed: int = 0, with_expected: bool = True):
+    """(graph, global buffers, specs, expected output or None, output name,
+    tolerance) of ``model`` with ``args`` (``n_ranks``: the mesh's axis
+    sizes, for the models whose args do not carry them).  Besides the
+    model's own fields ``args`` may hold ``impl_choice`` (the irregular
+    SpMV's exchange menu, the ring's step menu) and ``chunk`` (the TP MLP's
+    and the pipeline forward's chunk menus, every valid count kept)."""
+    from tenzing_tpu_torch.core.graph import Graph
+
+    a = dict(args)
+    impl = a.pop("impl_choice", False)
+    chunk = a.pop("chunk", False)
+    g = Graph()
+    if model == "spmv_dist":
+        from tenzing_tpu_torch.models.spmv_dist import DistSpMV, make_dist_spmv_buffers
+
+        bufs, specs, want = make_dist_spmv_buffers(**a, seed=seed)
+        comp, out, tol = DistSpMV(), "Y", SPMV_TOL
+    elif model == "spmv_irregular":
+        from tenzing_tpu_torch.models.spmv_irregular import (
+            IrregularSpMV,
+            make_irregular_spmv_buffers,
+        )
+
+        bufs, specs, want, plan = make_irregular_spmv_buffers(
+            irregular_matrix(a["matrix"]), n_sp=n_ranks["sp"],
+            batch=a["batch"], seed=seed, impl_choice=impl)
+        comp = IrregularSpMV(plan.steps, widths=plan.widths,
+                             impl_choice=impl)
+        out, tol = "Y", SPMV_TOL
+    elif model == "ring":
+        from tenzing_tpu_torch.models.ring_attention import (
+            RingAttention,
+            RingAttnArgs,
+            make_ring_buffers,
+        )
+
+        ra = RingAttnArgs(**a)
+        bufs, specs, want = make_ring_buffers(ra, seed=seed,
+                                              with_expected=with_expected)
+        comp, out, tol = RingAttention(ra, impl_choice=impl), "O", ACT_TOL
+    elif model in ("pipeline", "pipeline_train"):
+        from tenzing_tpu_torch.models import pipeline as pp
+
+        pa = pp.PipelineArgs(**a)
+        if model == "pipeline":
+            bufs, specs, want = pp.make_pipeline_buffers(pa, seed=seed)
+            comp = pp.Pipeline(pa, chunk=chunk, chunk_relax=chunk)
+            out, tol = "Y", ACT_TOL
+        else:
+            bufs, specs, want = pp.make_train_buffers(pa, seed=seed)
+            comp, out, tol = pp.PipelineTrain(pa), "dW", train_tol(a, want)
+    elif model == "tp_mlp":
+        from tenzing_tpu_torch.models.tp_mlp import TpMlp, TpMlpArgs, make_tp_mlp_buffers
+
+        n_dp = a.pop("n_dp", 1)
+        ta = TpMlpArgs(**a)
+        bufs, specs, want = make_tp_mlp_buffers(ta, seed=seed, n_dp=n_dp)
+        comp = TpMlp(ta, chunk=chunk, chunk_relax=chunk)
+        out, tol = "Y", ACT_TOL
+    else:
+        raise ValueError(f"unknown model {model!r} (have {MODELS})")
+    g.start_then(comp)
+    g.then_finish(comp)
+    return g, bufs, specs, want, out, tol
+
+
+@dataclass
+class ModelRun:
+    """One rank's model: its graph, platform, executor, specs, the output's
+    name, its expected value (global, on the device) and tolerance."""
+
+    model: str
+    mesh: Any
+    graph: Any
+    platform: Any
+    executor: Any
+    specs: Dict[str, Any]
+    out: str
+    want: Any
+    tol: Dict[str, float]
+
+
+def build_model(mesh, device, model: str, args: Dict[str, Any],
+                seed: int = 0) -> ModelRun:
+    """This rank's executor on ``MODEL_LANES`` lanes over its block of the model's
+    buffers (float buffers placed as float32: the reference's float64
+    weights are placed as float32, as jax does with x64 off).  A ring built
+    without an expected O gets the dense float64 O on the device
+    (bench/gate.py ``dense_attention64``), which at 8k context the host
+    cannot hold."""
+    import torch
+
+    from tenzing_tpu_torch.core.platform import Platform
+    from tenzing_tpu_torch.parallel.mesh import shard_buffers
+    from tenzing_tpu_torch.runtime.executor import StreamExecutor
+
+    sizes = {n: mesh.size(n) for n in mesh.axis_names}
+    big_ring = model == "ring" and torch.device(device).type == "cuda"
+    g, bufs, specs, want, out, tol = model_setup(
+        model, args, sizes, seed, with_expected=not big_ring)
+    bufs = {k: v.astype(np.float32) if v.dtype == np.float64 else v
+            for k, v in bufs.items()}
+    if want is None:
+        from tenzing_tpu_torch.bench.gate import dense_attention64
+        from tenzing_tpu_torch.models.ring_attention import RingAttnArgs
+
+        ra = RingAttnArgs(**{k: v for k, v in args.items()
+                             if k != "impl_choice"})
+        qkv = [torch.from_numpy(bufs[k]).to(device) for k in ("Q", "K0", "V0")]
+        want_t = dense_attention64(*qkv, ra.scale)
+        del qkv
+    else:
+        want_t = torch.from_numpy(want).to(device)
+    local = shard_buffers(bufs, specs, mesh, device)
+    del bufs
+    plat = Platform.make_n_lanes(MODEL_LANES, mesh=mesh, specs=specs)
+    # collectives and in-op exchanges wait from the host: no CUDA graphs
+    ex = StreamExecutor(plat, local, device=torch.device(device).type,
+                        graphs=False)
+    return ModelRun(model=model, mesh=mesh, graph=g, platform=plat,
+                    executor=ex, specs=specs, out=out, want=want_t, tol=tol)
+
+
+def run_model(m: ModelRun, order):
+    """Run ``order`` once from the initial buffers; the gathered output (a
+    collective)."""
+    from tenzing_tpu_torch.parallel.mesh import gather_buffer
+
+    got = m.executor.run(order)[m.out]
+    return gather_buffer(m.out, got, m.specs, m.mesh)
+
+
+def exchange_of(order) -> str:
+    """The irregular SpMV exchange a schedule runs: permute, a2a or rdma."""
+    names = [op.name() for op in order]
+    if any(n.startswith("a2a_") for n in names):
+        return "a2a"
+    if any(n.startswith("rdma_") for n in names):
+        return "rdma"
+    return "permute"
+
+
+def step_slots(order) -> List[str]:
+    """The slot of each ring step a schedule runs, in step order."""
+    slots = {}
+    for op in order:
+        name = op.name()
+        if name.startswith("attn_") and "." in name:
+            step, slot = name.split(".", 1)
+            slots[int(step[5:])] = "." + slot
+    return [slots[k] for k in sorted(slots)]
+
+
+def pick_model_schedules(graph, platform, pick: str):
+    """The schedules of a stage: ``"dfs"``, up to ``N_SCHED`` DFS schedules
+    of the graph; ``"menu"``, per exchange of the irregular SpMV's menu the
+    first DFS schedule; ``"rdma"``, up to ``N_SCHED`` DFS schedules whose
+    exchange is ``exchange.rdma``; ``"f32_slots"`` / ``"slots"``, one
+    schedule per ring step slot (``.xla``, ``.pallas``, and with
+    ``"slots"`` ``.pallas_bf16``) with every step on it; ``"chunked"``, the
+    first-decision order with every TP layer split in 2."""
+    from tenzing_tpu_torch.solve.dfs import (
+        enumerate_schedules,
+        get_all_sequences,
+        structural_variants,
+    )
+
+    if pick == "dfs":
+        return [st.sequence for st in
+                get_all_sequences(graph, platform, N_SCHED)]
+    if pick in ("menu", "rdma"):
+        nv = len(structural_variants(graph))
+        orders = [st.sequence for st in enumerate_schedules(
+            graph, platform, max_seqs=nv * N_SCHED,
+            log=lambda msg: None)]
+        if pick == "rdma":
+            return [o for o in orders if exchange_of(o) == "rdma"][:N_SCHED]
+        out = []
+        for kind in ("permute", "a2a", "rdma"):
+            hit = next((o for o in orders if exchange_of(o) == kind), None)
+            if hit is None:
+                raise AssertionError(f"no {kind} schedule enumerated")
+            out.append(hit)
+        return out
+    if pick in ("slots", "f32_slots"):
+        slots = (".xla", ".pallas") + ((".pallas_bf16",) if pick == "slots"
+                                       else ())
+        return [engine_order(graph, platform, lambda n, s=s: s)
+                for s in slots]
+    if pick == "chunked":
+        return [engine_order(graph, platform, lambda n: ".chunked.c2")]
+    raise ValueError(f"unknown pick {pick!r}")
+
+
+def model_tol(m: ModelRun, order) -> Dict[str, float]:
+    """The tolerance a schedule's output is held to: the model's, or for a
+    ring schedule with a bf16 step ``BF16_O_TOL`` (ops/attention_kernels.py)."""
+    if m.model == "ring" and any(op.name().endswith(".pallas_bf16")
+                                 for op in order):
+        from tenzing_tpu_torch.ops.attention_kernels import BF16_O_TOL
+
+        return BF16_O_TOL
+    return m.tol
+
+
+def agree_model(m: ModelRun, cp, pick: str = "dfs",
+                label: str = "") -> List[dict]:
+    """The agreement stage of one model: rank 0 picks the schedules
+    (:func:`pick_model_schedules`) and broadcasts them; every rank verifies
+    and runs each; the gathered output must be within the tolerance of the
+    expected on every schedule.  Raises on an unsound schedule or an
+    output out of tolerance; returns one row per schedule (its ops, largest
+    error and relative rms, kernel launches on this rank, wall seconds)."""
+    import time
+
+    from tenzing_tpu_torch.bench.gate import within
+    from tenzing_tpu_torch.core.serdes import sequence_from_json, sequence_to_json
+    from tenzing_tpu_torch.ops import attention_kernels as ak
+    from tenzing_tpu_torch.ops import rdma
+    from tenzing_tpu_torch.verify import ScheduleVerifier
+
+    picked = (pick_model_schedules(m.graph, m.platform, pick)
+              if cp.rank() == 0 else [])
+    jsons = cp.bcast_json([sequence_to_json(o) for o in picked]
+                          if cp.rank() == 0 else None)
+    if not jsons:
+        raise AssertionError(f"{m.model} {label}: no schedule picked")
+    verifier = ScheduleVerifier(m.graph)
+    rows = []
+    for i, js in enumerate(jsons):
+        order = sequence_from_json(js, m.graph)
+        verdict = verifier(order)
+        if not verdict.ok:
+            raise AssertionError(f"{m.model} {label} schedule {i} is "
+                                 f"unsound: {verdict.witness()}")
+        before = {**dict(ak.LAUNCHES), **dict(rdma.LAUNCHES)}
+        t0 = time.perf_counter()
+        got = run_model(m, order)
+        wall = time.perf_counter() - t0
+        after = {**dict(ak.LAUNCHES), **dict(rdma.LAUNCHES)}
+        tol = model_tol(m, order)
+        ok, errs = within(got, m.want, tol)
+        del got
+        row = {"stage": label, "schedule": i, "ops": len(order),
+               "max_abs_err": errs["max_abs"], "rel_rms_err": errs["rel_rms"],
+               "tol": tol, "within_tol": ok, "wall_s": wall,
+               "launches": {k: after[k] - before[k] for k in after
+                            if after[k] != before[k]}}
+        if m.model == "spmv_irregular":
+            row["exchange"] = exchange_of(order)
+        if m.model == "ring":
+            row["slots"] = step_slots(order)
+        rows.append(row)
+        if not ok:
+            raise AssertionError(f"{m.model} {label} schedule {i}: "
+                                 f"{m.out} is not within {tol} of the "
+                                 f"expected: {row}")
+    return rows
+
+
+def model_rank_main(mesh, device, model: str, args: Dict[str, Any],
+                    pick: str = "dfs", seed: int = 0,
+                    label: str = "") -> Optional[dict]:
+    """One rank of a model stage (the launch task): the agreement; rank 0
+    returns its rows, the others None."""
+    from tenzing_tpu_torch.parallel.control_plane import DistControlPlane
+    from tenzing_tpu_torch.parallel.mesh import control_group
+
+    cp = DistControlPlane(control_group())
+    m = build_model(mesh, device, model, args, seed=seed)
+    rows = agree_model(m, cp, pick, label)
+    if cp.rank() != 0:
+        return None
+    return {"model": model, "stage": label, "mesh": dict(
+        zip(mesh.axis_names, mesh.shape)), "args": args, "schedules": rows}
+
+
+def model_shared_main(mesh, device, model: str, args: Dict[str, Any],
+                      seed: int = 0, label: str = "") -> dict:
+    """One rank of the irregular SpMV on ranks sharing one card (the launch
+    task): only the ``exchange.rdma`` schedules, each held to the expected
+    Y; then each distance's shift timed alone on this rank (post, wait and
+    both, CUDA events, every rank running the same loop).  Every rank
+    returns its row, with the shift kernels it launched."""
+    from tenzing_tpu_torch.ops import rdma
+    from tenzing_tpu_torch.parallel.control_plane import DistControlPlane
+    from tenzing_tpu_torch.parallel.mesh import control_group
+
+    cp = DistControlPlane(control_group())
+    m = build_model(mesh, device, model, args, seed=seed)
+    for k in rdma.LAUNCHES:
+        rdma.LAUNCHES[k] = 0
+    rows = agree_model(m, cp, "rdma", label)
+    launches = dict(rdma.LAUNCHES)
+    timing = time_distances(m, cp)
+    return {"rank": cp.rank(), "mesh": dict(zip(mesh.axis_names, mesh.shape)),
+            "args": args, "schedules": rows, "launches": launches,
+            "timing": timing}
+
+
+def time_distances(m: ModelRun, cp) -> Dict[str, dict]:
+    """Each kept distance's shift of ``send_<d>`` into ``recv_<d>`` timed on
+    this rank with CUDA events (:func:`_time_post_wait`, ``DISTANCE_REPS``
+    times; median post, wait, post + wait in ms), collective id d for
+    distance d, every rank running the same loop; the timing launches are
+    not counted."""
+    import torch
+
+    from tenzing_tpu_torch.ops import rdma
+
+    mesh, bufs = m.mesh, m.executor.init_bufs
+    n, group = mesh.size("sp"), mesh.group("sp")
+    peers = rdma.ShiftPeers("sp", group, n, m.executor.device)
+    stream = torch.cuda.Stream(device=m.executor.device)
+    before = dict(rdma.LAUNCHES)
+    out = {}
+    steps = sorted(int(k[5:]) for k in bufs if k.startswith("send_")
+                   and k[5:].isdigit())
+    for d in steps:
+        x, y = bufs[f"send_{d}"], bufs[f"recv_{d}"]
+        peer_y = peers.peer_recv(f"timing_{d}", y, d, 0)
+        times = {"post": [], "wait": [], "both": []}
+        cp.barrier()
+        _time_post_wait(peers, x, peer_y, stream, rdma.HANDOFF,
+                        DISTANCE_REPS, d, d, times)
+        out[str(d)] = {k + "_ms": sorted(v)[len(v) // 2]
+                       for k, v in times.items()}
+        out[str(d)]["bytes"] = x.numel() * x.element_size()
+    for k in rdma.LAUNCHES:
+        rdma.LAUNCHES[k] = before[k]
+    cp.barrier()
+    return out
+
+
+def model_schedules(mesh, device, model: str, args: Dict[str, Any],
+                    schedules: List[list], seed: int = 0,
+                    poison: Tuple[str, ...] = ()) -> Optional[list]:
+    """Launch task: run each schedule JSON of ``model`` once from the
+    initial buffers; rank 0 returns the gathered output of each (numpy),
+    the others None.  ``poison`` names buffers whose initial contents are
+    NaN on every rank (the pipeline's dead-slot check: what only a dead
+    slot reads must not reach the output)."""
+    from tenzing_tpu_torch.core.serdes import sequence_from_json
+
+    m = build_model(mesh, device, model, args, seed=seed)
+    for name in poison:
+        for bufs in (m.executor.init_bufs, m.executor._initial):
+            bufs[name].fill_(float("nan"))
+    out = [run_model(m, sequence_from_json(js, m.graph)).cpu().numpy()
+           for js in schedules]
+    return out if mesh.coords == (0,) * len(mesh.coords) else None
+
+
+def models_main(model: str, nproc: int, device: str,
+                shared_card: bool = False) -> dict:
+    """The dryrun of ``model`` on ``nproc`` ranks: every stage of
+    :func:`model_cases` on the CPU, or at the card's widths
+    (:func:`full_cases`) on CUDA; one summary."""
+    from tenzing_tpu_torch.parallel.launch import launch
+
+    if shared_card:
+        cases = shared_cases(nproc)
+        stages = []
+        for c in cases:
+            ranks = launch("tenzing_tpu_torch.parallel.dryrun:"
+                           "model_shared_main", nproc, "cuda",
+                           {"model": c["model"], "args": c["args"],
+                            "label": c["label"]}, timeout_s=600.0,
+                           mesh_axes=c["axes"], mesh_shape=c["shape"],
+                           shared_card=True)
+            stages.append({"stage": c["label"], "ranks": ranks})
+        return {"dryrun": model, "nproc": nproc, "shared_card": True,
+                "stages": stages}
+    cases = (model_cases(nproc, model) if device == "cpu"
+             else full_cases(nproc, model))
+    stages = []
+    for c in cases:
+        kwargs = {"model": c["model"], "args": c["args"], "pick": c["pick"],
+                  "label": f"{c['model']}/{c['pick']}"}
+        if nproc == 1:
+            stages.append(world_one(device, kwargs, fn=model_rank_main,
+                                    axes=c["axes"]))
+        else:
+            stages.append(launch("tenzing_tpu_torch.parallel.dryrun:"
+                                 "model_rank_main", nproc, device, kwargs,
+                                 timeout_s=600.0, mesh_axes=c["axes"],
+                                 mesh_shape=c["shape"])[0])
+    return {"dryrun": model, "nproc": nproc, "device": device,
+            "stages": stages}
+
+
+def full_cases(nproc: int, model: str) -> List[Dict[str, Any]]:
+    """The card's stages of ``model`` (world size 1 over NCCL): the full
+    widths (module constants), the picks chip_smoke.py runs."""
+    if nproc != 1:
+        raise ValueError("on the card the models run at world size 1 (or "
+                         "the irregular SpMV with --shared-card)")
+    one = dict(axes=("sp",), shape=(1,))
+    if model == "spmv_dist":
+        return [dict(model=model, axes=("dp", "sp"), shape=(1, 1),
+                     args=SPMV_DIST_FULL, pick="dfs")]
+    if model == "spmv_irregular":
+        return [dict(model=model, axes=("dp", "sp"), shape=(1, 1),
+                     args=dict(matrix=IRR_BAND_FULL, batch=1), pick="dfs")]
+    if model == "ring":
+        return [dict(model=model, **one,
+                     args=dict(RING_FULL, impl_choice=True), pick="slots")]
+    if model in ("pipeline", "pipeline_train"):
+        return [dict(model=model, axes=("pp",), shape=(1,), args=PIPE_FULL,
+                     pick="dfs")]
+    if model == "tp_mlp":
+        return [dict(model=model, axes=("tp",), shape=(1,), args=TP_FULL,
+                     pick="dfs"),
+                dict(model=model, axes=("tp",), shape=(1,),
+                     args=dict(TP_FULL, chunk=True), pick="chunked")]
+    raise ValueError(f"unknown model {model!r} (have {MODELS})")
+
+
+def shared_cases(nproc: int) -> List[Dict[str, Any]]:
+    """The irregular SpMV on ranks sharing one card: the spmv workload's
+    band matrix, and on 4 ranks also the uniform random matrix (every
+    distance)."""
+    out = [dict(model="spmv_irregular", axes=("dp", "sp"), shape=(1, nproc),
+                args=dict(matrix=IRR_BAND_FULL, batch=1, impl_choice=True),
+                label=f"band/{nproc}")]
+    if nproc >= 3:
+        out.append(dict(model="spmv_irregular", axes=("dp", "sp"),
+                        shape=(1, nproc),
+                        args=dict(matrix=IRR_RANDOM_FULL, batch=1,
+                                  impl_choice=True),
+                        label=f"random/{nproc}"))
+    return out
+
+
+# -- the modeled stage --------------------------------------------------------
+
+
+def modeled_ratio(label: str, graph, nbytes: Dict[str, int],
+                  n_iters: int = 24) -> dict:
+    """The reference dryrun's modeled stage (__graft_entry__.py:318-351):
+    the first-decision order on one lane against an MCTS (FastMin) on two
+    lanes, both scored by the analytic model (bench/model.py, the card's
+    defaults); raises unless the searched beats the naive."""
+    from tenzing_tpu_torch.bench.benchmarker import BenchOpts
+    from tenzing_tpu_torch.bench.model import AnalyticBenchmarker
+    from tenzing_tpu_torch.core.platform import Platform
+    from tenzing_tpu_torch.solve.local import first_decision_order
+    from tenzing_tpu_torch.solve.mcts import MctsOpts, explore
+    from tenzing_tpu_torch.solve.mcts.strategies import FastMin
+
+    bench = AnalyticBenchmarker(nbytes)
+    naive = bench.makespan(first_decision_order(graph,
+                                                Platform.make_n_lanes(1)))
+    res = explore(graph, Platform.make_n_lanes(2), bench,
+                  MctsOpts(n_iters=n_iters, bench_opts=BenchOpts(n_iters=1),
+                           seed=0),
+                  strategy=FastMin)
+    best = min(s.result.pct50 for s in res.sims)
+    if not best < naive:
+        raise AssertionError(f"modeled {label}: the searched schedule "
+                             f"({best}) does not beat naive ({naive})")
+    return {"workload": label, "naive_us": naive * 1e6,
+            "searched_us": best * 1e6, "ratio": naive / best,
+            "rollouts": len(res.sims)}
+
+
+def modeled_main(nproc: int) -> dict:
+    """The modeled stage on the halo graph of an N-rank mesh and the MoE
+    layer of N experts, at the reference dryrun's widths."""
+    from tenzing_tpu_torch.core.graph import Graph
+    from tenzing_tpu_torch.models.halo import HaloArgs, add_to_graph, make_halo_buffers
+
+    hargs = HaloArgs(**HALO_DRYRUN_ARGS)
+    hbufs, _, _ = make_halo_buffers(halo_mesh_shape(nproc), hargs, seed=0)
+    halo = modeled_ratio("halo", add_to_graph(Graph(), hargs),
+                         {k: v.nbytes for k, v in hbufs.items()})
+    margs = MoEArgs(n_ep=nproc, **DRYRUN_ARGS)
+    mbufs, _, _ = make_moe_buffers(margs, seed=0)
+    moe = modeled_ratio("moe", layer_graph(margs),
+                        {k: v.nbytes for k, v in mbufs.items()})
+    return {"dryrun": "modeled", "nproc": nproc, "stages": [halo, moe]}
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -142,29 +142,43 @@ def close_mesh() -> None:
         dist.destroy_process_group()
 
 
-def _dim_axes(spec: Any) -> Tuple[Optional[str], ...]:
-    """A spec as one entry per leading dim: an axis name or None."""
+def _dim_axes(spec: Any) -> Tuple[Optional[Tuple[str, ...]], ...]:
+    """A spec as one entry per leading dim: None, or the axes that split it
+    (one name, or several as a ``PartitionSpec`` entry ``("tp", "dp")``
+    lists them: the first the major one)."""
     if spec is None:
         return ()
     if isinstance(spec, str):
-        return (spec,)
-    return tuple(spec)
+        spec = (spec,)
+    return tuple(None if a is None or a == () else
+                 ((a,) if isinstance(a, str) else tuple(a)) for a in spec)
+
+
+def _block(axes: Tuple[str, ...], coords: Dict[str, int],
+           mesh: Mesh) -> Tuple[int, int]:
+    """(block count, this rank's block) of a dim split over ``axes``:
+    row-major over them, at ``coords`` (axis name -> index)."""
+    n, i = 1, 0
+    for a in axes:
+        n, i = n * mesh.size(a), i * mesh.size(a) + coords[a]
+    return n, i
 
 
 def shard_of(arr: np.ndarray, spec: Any, mesh: Mesh) -> np.ndarray:
-    """This rank's block of a global array: along each dim its spec names an
-    axis of (size n, index i), rows ``[i*L/n, (i+1)*L/n)``; the whole array
-    for a replicated buffer."""
+    """This rank's block of a global array: along each dim its spec splits
+    over axes of (block count n, this rank's block i), rows
+    ``[i*L/n, (i+1)*L/n)``; the whole array for a replicated buffer."""
+    coords = dict(zip(mesh.axis_names, mesh.coords))
     idx = []
-    for dim, axis in enumerate(_dim_axes(spec)):
-        if axis is None:
+    for dim, axes in enumerate(_dim_axes(spec)):
+        if axes is None:
             idx.append(slice(None))
             continue
-        n, i = mesh.size(axis), mesh.index(axis)
+        n, i = _block(axes, coords, mesh)
         ext = arr.shape[dim]
         if ext % n:
             raise ValueError(f"dim {dim} of extent {ext} does not split {n} "
-                             f"ways along {axis!r}")
+                             f"ways along {axes}")
         idx.append(slice(i * ext // n, (i + 1) * ext // n))
     return arr[tuple(idx)]
 
@@ -191,26 +205,26 @@ def gather_buffer(name: str, local, specs: Dict[str, Any], mesh: Mesh):
     dims = _dim_axes(specs.get(name))
     if not any(a is not None for a in dims):
         return local.clone()
-    if len(dims) == 1:
-        if mesh.size(dims[0]) == 1:
+    if len(dims) == 1 and len(dims[0]) == 1:
+        axis = dims[0][0]
+        if mesh.size(axis) == 1:
             return local.clone()
-        group = mesh.group(dims[0])
-        parts = _all_gather(local, mesh.size(dims[0]), group)
+        parts = _all_gather(local, mesh.size(axis), mesh.group(axis))
         return torch.cat(parts, 0)
     names = mesh.axis_names
     parts = _all_gather(local, dist.get_world_size(), None)
     out_shape = list(local.shape)
-    for dim, axis in enumerate(dims):
-        if axis is not None:
-            out_shape[dim] *= mesh.size(axis)
+    for dim, axes in enumerate(dims):
+        if axes is not None:
+            out_shape[dim] *= _block(axes, dict.fromkeys(axes, 0), mesh)[0]
     out = torch.empty(out_shape, dtype=local.dtype, device=local.device)
     for r, part in enumerate(parts):
         c = dict(zip(names, coords_of(r, mesh.shape)))
         idx = [slice(None)] * local.dim()
-        for dim, axis in enumerate(dims):
-            if axis is not None:
-                ext = local.shape[dim]
-                idx[dim] = slice(c[axis] * ext, (c[axis] + 1) * ext)
+        for dim, axes in enumerate(dims):
+            if axes is not None:
+                ext, i = local.shape[dim], _block(axes, c, mesh)[1]
+                idx[dim] = slice(i * ext, (i + 1) * ext)
         out[tuple(idx)] = part
     return out
 

@@ -185,6 +185,16 @@ def _copy_buffers(bufs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
+class BufferShapes(dict):
+    """Buffer name -> shape, what ``scratch_for`` receives; ``dtypes`` maps
+    each name to its torch dtype name, for scratch in a buffer's type."""
+
+    def __init__(self, shapes: Dict[str, Tuple[int, ...]],
+                 dtypes: Dict[str, str]):
+        super().__init__(shapes)
+        self.dtypes = dtypes
+
+
 class _Collective:
     """An in-flight collective: its ``async_op`` work and, on CUDA, the
     transfer stream it was posted under."""
@@ -362,10 +372,11 @@ class RunContext:
             self.inflight[dst] = ev
 
     def post_collective(self, op) -> None:
-        """Post ``op``'s collective (``op.launch(bufs, group)``, which returns
-        the ``async_op`` work) over the process group of its mesh axis; on
-        CUDA under the channel's transfer stream, which NCCL's stream waits
-        on at the call.  The work is in flight until its await."""
+        """Post ``op``'s collective (``op.launch(bufs, group, size,
+        scratch)``, which returns the ``async_op`` work) over the process
+        group of its mesh axis; on CUDA under the channel's transfer stream,
+        which NCCL's stream waits on at the call.  The work is in flight
+        until its await."""
         dst = op.dst()
         if dst in self.inflight:
             raise RuntimeError(f"{op.name()}: a transfer into {dst!r} is "
@@ -381,12 +392,29 @@ class RunContext:
         group, size = self.mesh.group(op.axis()), self.mesh.size(op.axis())
         if not self.on_cuda:
             self.inflight[dst] = _Collective(
-                op.launch(self.bufs, group, size), None)
+                op.launch(self.bufs, group, size, self.scratch), None)
             return
         stream = self.channel_stream(op.channel())
         with torch.cuda.stream(stream):
-            work = op.launch(self.bufs, group, size)
+            work = op.launch(self.bufs, group, size, self.scratch)
         self.inflight[dst] = _Collective(work, stream)
+
+    def exchange_group(self, op, axis: str):
+        """(group, size, this rank's index) of mesh axis ``axis`` for an
+        in-op exchange (ops/comm_ops.py ``lane_permute``): it needs a mesh,
+        and on an axis of size > 1 it refuses ranks that share one card
+        (gloo cannot move device tensors; only the ``.rdma`` shift exchanges
+        data between them)."""
+        if self.mesh is None:
+            raise RuntimeError(f"{op.name()}: an exchange over axis {axis!r} "
+                               "needs a platform mesh")
+        size = self.mesh.size(axis)
+        if size > 1 and self.mesh.shared_card:
+            raise RuntimeError(
+                f"{op.name()}: the ranks share one card over gloo, which "
+                "cannot move device tensors; only the .rdma shift exchanges "
+                "data between them")
+        return self.mesh.group(axis), size, self.mesh.index(axis)
 
     def post_shift(self, op) -> None:
         """Post a mesh shift (ops/rdma.py ``RdmaShiftStart``; module
@@ -656,6 +684,16 @@ class CaptureContext(RunContext):
             "on the process group's work from the host); run this schedule "
             "on an executor with graphs=False")
 
+    def exchange_group(self, op, axis: str):
+        got = super().exchange_group(op, axis)
+        if got[1] > 1:
+            raise CaptureError(
+                f"{op.name()}: an exchange inside a device op cannot be "
+                "captured (its sends and receives are issued from the host "
+                "at the op); run this schedule on an executor with "
+                "graphs=False")
+        return got
+
     def post_shift(self, op) -> None:
         size = (self.mesh.size(op.axis())
                 if self.mesh is not None and op.axis() in self.mesh.axes
@@ -794,7 +832,10 @@ class StreamExecutor:
         """Allocate the scratch the ops declare (on the current stream, before
         any run), then wait for that stream: the lane streams do not order
         themselves after it."""
-        shapes = {k: tuple(t.shape) for k, t in self.init_bufs.items()}
+        shapes = BufferShapes(
+            {k: tuple(t.shape) for k, t in self.init_bufs.items()},
+            {k: str(t.dtype).replace("torch.", "")
+             for k, t in self.init_bufs.items()})
         with self._provision_lock:
             for op in ops:
                 declared = (op.scratch_for(shapes)

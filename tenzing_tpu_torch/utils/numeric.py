@@ -59,6 +59,19 @@ def gelu_tanh(x):
     return 0.5 * x * (1.0 + np.tanh(np.sqrt(2.0 / np.pi) * (x + 0.044715 * x**3)))
 
 
+def gelu_tanh_grad(x):
+    """The derivative of :func:`gelu_tanh` on a numpy array: the host
+    float64 reference for the backward of the tanh gelu (the pipeline
+    training step's expected gradient)."""
+    import numpy as np
+
+    c = np.sqrt(2.0 / np.pi)
+    u = c * (x + 0.044715 * x**3)
+    th = np.tanh(u)
+    return (0.5 * (1.0 + th)
+            + 0.5 * x * (1.0 - th**2) * c * (1.0 + 3 * 0.044715 * x**2))
+
+
 def percentile(sorted_xs: Sequence[float], pct: float) -> float:
     """Nearest-rank percentile over a pre-sorted series (reference
     benchmarker.cpp:157-166 indexing convention)."""

@@ -102,3 +102,34 @@ def test_mesh_dryrun_leaves_jax_unloaded():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_model_dryruns_leave_jax_unloaded():
+    """Every other model's dryrun stage and the modeled stage on the CPU, at
+    one rank in the interpreter that runs them and (the distributed SpMV,
+    the ring) at two ranks through the launcher: every schedule agrees, and
+    neither jax nor tenzing_tpu is loaded where they run."""
+    code = (
+        "import sys, json, io, contextlib\n"
+        "from tenzing_tpu_torch.parallel import dryrun\n"
+        "runs = [(m, '1') for m in dryrun.MODELS + ('modeled',)]\n"
+        "runs += [('spmv_dist', '2'), ('ring', '2')]\n"
+        "for m, n in runs:\n"
+        "    buf = io.StringIO()\n"
+        "    with contextlib.redirect_stdout(buf):\n"
+        "        dryrun.main(['--model', m, '--nproc', n, '--device', 'cpu'])\n"
+        "    s = json.loads(buf.getvalue().strip().splitlines()[-1])\n"
+        "    assert s['dryrun'] == m, s\n"
+        "    for st in s['stages']:\n"
+        "        assert all(r['within_tol'] for r in st.get('schedules', [])),"
+        " st\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'tenzing_tpu'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
