@@ -295,6 +295,23 @@ driver's ``perf.prefetch`` must show hits > 0 and its captures counted
 memory of its run.  Every driver phase runs with no fault flag, so none of
 its measurements may fail: its verdict must have no ``fault`` block (which
 would count a failure the solvers searched past).
+Then the synthesized collectives and the learned screen: ``synth_spmv``
+(the spmv driver at m=150000 with ``--synth-collectives``, verified, its
+``synth`` block listing the exchange's menu and each instantiation the
+card's constants prune with its reason; then at m=150000 and 8192 through
+the stream executor with graphs the fixed host round trip and the pipe in
+2 and 4 chunks: every pipe schedule's y and x_remote bit-identical to the
+fixed one's, y within ``ELL_TOL`` of the float64 product, ``ell_spmv``
+launched on every m=8192 schedule, each schedule's graph wall and segment
+count), ``synth_halo`` (the mesh halo at world size 1 built with
+``synth=True``: all-``.xla``, all-``neighbor.c1`` and a mix with the
+``.rdma`` engine at nQ 3, all-``.xla`` and all-``neighbor.c2`` at nQ 2, U
+bit-exact on each, ``device_copy`` launched under the ``.rdma`` faces) and
+``learn`` (``--learn-train`` on the halo driver phase's own database and
+trace, a screened full-size halo search (its screen answers and
+escalations, the climbs' prescreen prunes, the model's predictions)
+verified, then the same search with an injected device loss: the degraded
+verdict, no launch after the loss).
 Last, the ``fault`` phase (the fault layer on the ``--m 8192`` spmv path,
 ``ell_spmv`` launched), each step in fresh processes, the chains run side
 by side: (1) a chaos run (``--checkpoint``, ``--inject-faults`` with all four
@@ -1371,10 +1388,12 @@ def phase_moe_driver(torch, device, want_y):
     return launches
 
 
-def spmv_setup(torch, device, m: int, exchange: str = "host"):
+def spmv_setup(torch, device, m: int, exchange: str = "host",
+               synth: bool = False):
     """(graph, placed buffers, float64 expected y on the card) of the spmv
     iteration at m rows: the driver's graph (``exchange="host"``, kernel
-    menu) or the examples' (``exchange="local"``, no menu)."""
+    menu; with ``synth`` the exchange's pipe menu, every instantiation kept)
+    or the examples' (``exchange="local"``, no menu)."""
     import numpy as np
 
     from tenzing_tpu_torch.bench import driver
@@ -1383,8 +1402,10 @@ def spmv_setup(torch, device, m: int, exchange: str = "host"):
     from tenzing_tpu_torch.runtime.executor import buffers_from_numpy
 
     if exchange == "host":
+        # smoke=True only keeps every pipe instantiation (synth_relax)
         g, tbufs, _, _ = driver.build_spmv(
-            driver.DriverRequest(workload="spmv", m=m), device)
+            driver.DriverRequest(workload="spmv", m=m, smoke=synth,
+                                 synth_collectives=synth), device)
     else:
         bufs, _ = spmv.make_spmv_buffers(m=m, nnz_per_row=10, seed=0)
         tbufs = buffers_from_numpy(bufs, device)
@@ -2829,6 +2850,309 @@ def phase_examples(torch, halo_db: str):
         raise AssertionError(f"the replay example failed: {row}")
 
 
+# -- the synthesized collectives and the learned screen ------------------------------
+
+# the halo widths of the synth_halo phase: the flagship (nQ 3 splits one way
+# only, so its menu is neighbor.c1) and the same grid at nQ 2, where the
+# face also splits in two (neighbor.c2)
+SYNTH_HALO_NQ2 = dict(nq=2, lx=512, ly=512, lz=512, radius=3)
+# the injected device loss of the learn phase's step (c): at the full-size
+# halo this spec fires on the fourth incumbent's first attempt (the naive
+# baseline and the first three incumbents measure; fault/inject.py draws by
+# schedule id and attempt, the same on every machine)
+LEARN_LOSS_SPEC = "device_lost:0.15:6"
+
+
+def _pick_suffixes(g, plat, prefer):
+    """The first decision at every step, each choice taking the alternative
+    ``prefer(choice name, alternative names)`` names."""
+    from tenzing_tpu_torch.core.state import ChooseOp, State
+
+    st = State(g)
+    while not st.is_terminal():
+        ds = st.get_decisions(plat)
+        chosen = ds[0]
+        alts = [d for d in ds if isinstance(d, ChooseOp)]
+        if alts:
+            want = prefer(alts[0].op.name(), [d.choice.name() for d in alts])
+            chosen = next((d for d in alts if d.choice.name() == want), ds[0])
+        st = st.apply(chosen)
+    return st.sequence
+
+
+def phase_synth_spmv(torch, device, smi):
+    """(a) The spmv driver at m=150000 with ``--synth-collectives`` (the
+    roofline's prune on, as at full size in the reference): verified, no
+    ``fault`` block, the ``synth`` block with the menu and each pruned
+    instantiation's reason under the card's constants.  (b) Through the
+    stream executor with graphs at m=150000 and m=8192: the fixed host round
+    trip and each pipe instantiation (every instantiation kept), the kernel
+    slot where the menu offers it; every pipe schedule's y and x_remote
+    equal the fixed one's bit for bit and y passes the spmv check against
+    the host product; at m=8192 ``ell_spmv`` is launched on every schedule;
+    each schedule's graph wall and segment count.  Returns the ``ell_spmv``
+    launches counted under the pipe schedules."""
+    from tenzing_tpu_torch.bench import breakdown, driver
+    from tenzing_tpu_torch.collectives.synth import synths_of
+    from tenzing_tpu_torch.core.platform import Platform
+    from tenzing_tpu_torch.ops.spmv_kernels import ELL_TOL
+    from tenzing_tpu_torch.runtime import graphs
+    from tenzing_tpu_torch.runtime.executor import StreamExecutor
+
+    t0 = time.time()
+    req = driver.DriverRequest(workload="spmv", m=150_000, mcts_iters=12,
+                               iters=3, search_iters=2,
+                               synth_collectives=True)
+    reset_launches()
+    result = driver.run(req, device="cuda")
+    launches = all_launches()
+    verdict = result.verdict
+    print(result.to_json_line(), flush=True)
+    synth = verdict.get("perf", {}).get("synth")
+    emit({"phase": "synth_spmv_driver", "m": 150_000, "card": smi,
+          "verified": verdict.get("verified"), "synth": synth,
+          "launches": {k: v for k, v in launches.items() if v},
+          "wall_s": round(time.time() - t0, 3)})
+    check_no_failures(verdict, "synth spmv driver")
+    if verdict.get("verified") is not True:
+        raise AssertionError(f"synth spmv driver not verified: {verdict}")
+    menu = (synth or {}).get("menus", {}).get("x_exchange")
+    if not menu or menu["menu"][0] != "fixed" or not menu["est_us"]:
+        raise AssertionError(f"the synth block lacks the exchange menu: {synth}")
+    kept = set(menu["menu"][1:])
+    if set(menu["pruned"]) | kept != set(menu["est_us"]) or not all(
+            menu["pruned"].values()):
+        raise AssertionError(f"an instantiation is neither kept nor pruned "
+                             f"with a reason: {menu}")
+    torch.cuda.empty_cache()
+
+    synth_launches = 0
+    for m in (150_000, 8192):
+        t1 = time.time()
+        g, tb, want = spmv_setup(torch, device, m, synth=True)
+        plat = Platform.make_n_lanes(2)
+        ex = StreamExecutor(plat, tb, device="cuda", graphs=True)
+        rows, outs = [], {}
+        for label in ("fixed", "pipe.c2", "pipe.c4"):
+            def prefer(name, alts, label=label):
+                sfx = ".fixed" if label == "fixed" else label
+                return next((a for a in alts if a.endswith(sfx)),
+                            next((a for a in alts if a.endswith(".pallas")),
+                                 next((a for a in alts if a.endswith(".xla")),
+                                      None)))
+            order = _pick_suffixes(g, plat, prefer)
+            chosen = synths_of(order.vector())
+            if (label == "fixed") != (not chosen):
+                raise AssertionError(f"m={m} {label}: chose {chosen}")
+            before = all_launches()
+            out = ex.run(order)
+            after = all_launches()
+            outs[label] = {k: out[k].clone() for k in ("y", "x_remote")}
+            ell = after["ell_spmv"] - before["ell_spmv"]
+            if label != "fixed":
+                synth_launches += ell
+            meas = breakdown.measure(ex, order, 20, profile=False)
+            segs = graphs.plan_segments(order.vector(), ex.host_names,
+                                        ex.ctx.defer_host_syncs)
+            rows.append({"schedule": label, "ops": len(order),
+                         "wall_us": meas["wall_us"],
+                         "host_syncs_per_iter": meas["host_syncs_per_iter"],
+                         "segments": len(segs), "ell_spmv_launches": ell,
+                         "kernel_slot": any(op.name().endswith(".pallas")
+                                            for op in order.vector())})
+            if m == 8192 and ell <= 0:
+                raise AssertionError(f"m=8192 {label}: ell_spmv not launched")
+        ok = y_close(torch, outs["fixed"]["y"], want, ELL_TOL)
+        same = {k: all(torch.equal(outs[k][n], outs["fixed"][n])
+                       for n in ("y", "x_remote"))
+                for k in ("pipe.c2", "pipe.c4")}
+        emit({"phase": "synth_spmv", "m": m, "card": smi, "schedules": rows,
+              "y_within_tol": ok, "bit_identical_to_fixed": same,
+              "wall_s": round(time.time() - t1, 3)})
+        if not ok or not all(same.values()):
+            raise AssertionError(f"synth spmv m={m}: y {ok}, pipes equal to "
+                                 f"fixed {same}")
+        del ex, tb, outs
+        torch.cuda.empty_cache()
+    return synth_launches
+
+
+def phase_synth_halo(torch, device, smi):
+    """The mesh halo at the flagship width per rank on a world-size-1 NCCL
+    group and a 1x1x1 mesh, built with ``synth=True, synth_relax=True``:
+    every face on ``.xla``, every face on ``neighbor.c1``, and a mix (x
+    faces ``.rdma``, y ``neighbor.c1``, z ``.xla``); then the same grid at
+    nQ 2, where a face splits in two: every face on ``.xla`` and every face
+    on ``neighbor.c2``.  U bit-exact against the expected array (and so
+    against the all-``.xla`` order) on every schedule; ``device_copy``
+    launched where an ``.rdma`` face runs."""
+    import tempfile
+
+    from tenzing_tpu_torch.collectives.synth import synths_of
+    from tenzing_tpu_torch.models.halo import HaloArgs
+    from tenzing_tpu_torch.parallel import dryrun
+    from tenzing_tpu_torch.parallel.control_plane import DistControlPlane
+    from tenzing_tpu_torch.parallel.mesh import close_mesh, control_group, init_mesh
+
+    picks = {
+        "xla": lambda n: ".xla",
+        "neighbor.c1": lambda n: ".synthed.neighbor.c1",
+        "neighbor.c2": lambda n: ".synthed.neighbor.c2",
+        "mixed": lambda n: {"x": ".rdma", "y": ".synthed.neighbor.c1",
+                            "z": ".xla"}[n[-1]],
+    }
+    cases = ((dryrun.HALO_FULL_ARGS, ("xla", "neighbor.c1", "mixed")),
+             (SYNTH_HALO_NQ2, ("xla", "neighbor.c2")))
+    rows = []
+    torch.cuda.set_device(device)
+    with tempfile.TemporaryDirectory(prefix="tz_synth_halo_") as d:
+        mesh = init_mesh(dryrun.HALO_AXES, "nccl",
+                         "file://" + os.path.join(d, "rv"), 0, 1,
+                         shape=(1, 1, 1))
+        try:
+            cp = DistControlPlane(control_group())
+            for args, labels in cases:
+                t0 = time.time()
+                h = dryrun.build_halo(mesh, device, HaloArgs(**args), seed=0,
+                                      synth=True)
+                g = dryrun.halo_graph(h.args, synth=True)
+                for label in labels:
+                    order = dryrun.engine_order(g, h.platform, picks[label])
+                    reset_launches()
+                    row = dryrun.run_checked(h, order, cp, label)
+                    row.update(args=args, card=smi,
+                               synths=sorted({f"{v['sketch']}.c{v['chunks']}"
+                                              for v in synths_of(
+                                                  order.vector()).values()}),
+                               device_copy=all_launches()["device_copy"])
+                    emit({"phase": "synth_halo", **row})
+                    rows.append(row)
+                    if not row["u_exact"]:
+                        raise AssertionError(f"synth halo {label}: U differs")
+                    if "rdma" in row["engines"] and row["device_copy"] <= 0:
+                        raise AssertionError(f"synth halo {label}: the .rdma "
+                                             "faces never launched device_copy")
+                    if label.startswith("neighbor") and row["synths"] != [label]:
+                        raise AssertionError(f"synth halo {label}: ran "
+                                             f"{row['synths']}")
+                emit({"phase": "synth_halo_summary", "args": args, "card": smi,
+                      "wall_s": round(time.time() - t0, 3)})
+                del h
+                torch.cuda.empty_cache()
+        finally:
+            close_mesh()
+    return rows
+
+
+def phase_learn(torch, smi, halo_db: str, halo_trace: str):
+    """(a) ``--learn-train`` on the halo driver phase's own database and
+    trace bundle (the card's measurements; no TPU database): rows >= 4 and a
+    ``train_spearman``.  (b) The halo driver at full size with
+    ``--learn-screen`` and that model, ``--prefetch-compiles 2``: the screen
+    escalated queries to the card and its answers, the climbs' prescreen
+    prunes and the prefetcher's ranked hints are reported, the winner
+    verified by the gate, no ``fault`` block.  (The surrogate may answer
+    none: every rollout of the alias discipline can lie within the screen's
+    band of the four best measured; PERF.md §6.)  (c) The same search with an injected
+    device loss (``LEARN_LOSS_SPEC``): the degraded verdict (``vs_baseline``
+    1.0, ``verified: false``, ``fault.degraded``) and no kernel launched
+    after the loss (the counts when the loss was injected equal those at the
+    end), the run returning normally."""
+    from tenzing_tpu_torch.bench import driver
+    from tenzing_tpu_torch.fault import inject
+
+    model = os.path.join(OUT_DIR, "halo_model.json")
+    t0 = time.time()
+    train = driver.run(driver.DriverRequest(
+        learn_train=[halo_db], learn_trace=[os.path.join(halo_trace,
+                                                         "*.jsonl")],
+        learn_model=model), device="cuda").verdict
+    print(json.dumps(train), flush=True)
+    emit({"phase": "learn_train", **train, "card": smi,
+          "wall_s": round(time.time() - t0, 3)})
+    if train.get("rows", 0) < 4 or "train_spearman" not in train:
+        raise AssertionError(f"learn-train: {train}")
+    torch.cuda.empty_cache()
+
+    # the halo driver phase's budget
+    base = dict(mcts_iters=12, iters=3, search_iters=2, climb_budget=4,
+                prefetch_compiles=2, learn_screen=True, learn_model=model)
+    from tenzing_tpu_torch.obs.metrics import get_metrics
+
+    counters = ("learn.screen.surrogate_hits", "learn.screen.escalations",
+                "learn.screen.escalations.warmup",
+                "learn.screen.escalations.topk",
+                "learn.screen.escalations.fidelity",
+                "learn.prune.local_skipped", "learn.surrogate.predictions")
+    reg = get_metrics()
+    before = {c: reg.counter(c).value for c in counters}
+    t0 = time.time()
+    reset_launches()
+    result = driver.run(driver.DriverRequest(**base), device="cuda")
+    launches = all_launches()
+    verdict = result.verdict
+    print(result.to_json_line(), flush=True)
+    emit({"phase": "learn_screen", "card": smi, "learn": verdict.get("learn"),
+          "counters": {c: reg.counter(c).value - before[c] for c in counters},
+          "verified": verdict.get("verified"),
+          "vs_baseline": verdict.get("vs_baseline"),
+          "winner_label": verdict.get("winner_label"),
+          "launches": {k: v for k, v in launches.items() if v},
+          "wall_s": round(time.time() - t0, 3)})
+    check_no_failures(verdict, "learn screen")
+    learn = verdict.get("learn") or {}
+    if verdict.get("verified") is not True:
+        raise AssertionError(f"the screened halo search is not verified: "
+                             f"{verdict}")
+    if learn.get("escalations", 0) <= 0 or (
+            reg.counter("learn.surrogate.predictions").value
+            <= before["learn.surrogate.predictions"]):
+        raise AssertionError(f"the learned screen predicted or escalated "
+                             f"nothing: {learn}")
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    at_loss = {}
+    record = inject.FaultInjectingBenchmarker._record
+
+    def snapshot(self, kind, sid):
+        if kind == "device_lost" and not at_loss:
+            at_loss.update(all_launches())
+        record(self, kind, sid)
+
+    reset_launches()
+    inject.FaultInjectingBenchmarker._record = snapshot
+    try:
+        result = driver.run(driver.DriverRequest(
+            inject_faults=LEARN_LOSS_SPEC, **base), device="cuda")
+    finally:
+        inject.FaultInjectingBenchmarker._record = record
+    end = all_launches()
+    verdict = result.verdict
+    print(result.to_json_line(), flush=True)
+    fault = verdict.get("fault") or {}
+    row = {"phase": "learn_degraded", "card": smi, "spec": LEARN_LOSS_SPEC,
+           "value": verdict.get("value"), "naive_us": verdict.get("naive_us"),
+           "vs_baseline": verdict.get("vs_baseline"),
+           "verified": verdict.get("verified"), "fault": fault,
+           "launches_at_loss": {k: v for k, v in at_loss.items() if v},
+           "launches_after_loss": {k: end[k] - at_loss.get(k, 0) for k in end
+                                   if end[k] != at_loss.get(k, 0)},
+           "wall_s": round(time.time() - t0, 3)}
+    emit(row)
+    if not at_loss:
+        raise AssertionError("learn degraded: the device loss never fired")
+    if (verdict.get("vs_baseline") != 1.0 or verdict.get("verified") is not False
+            or fault.get("degraded") is not True):
+        raise AssertionError(f"learn degraded: not the degraded verdict: "
+                             f"{verdict}")
+    if row["launches_after_loss"]:
+        raise AssertionError(f"learn degraded: kernels launched after the "
+                             f"loss: {row['launches_after_loss']}")
+    torch.cuda.empty_cache()
+    return row
+
+
 # -- the fault phase ---------------------------------------------------------------
 
 # the spmv search at m=8192 (ell_spmv on its menu), run by each step
@@ -3359,6 +3683,19 @@ def main() -> int:
     spmv_launches = phase_spmv_driver(torch, device)
     phase_dfs_example(torch)
     phase_examples(torch, halo_db)
+    t0 = time.time()
+    synth_launches = phase_synth_spmv(torch, device, smi)
+    emit({"phase": "synth_spmv_summary", "card": smi,
+          "ell_spmv_launches_synth": synth_launches,
+          "wall_s": round(time.time() - t0, 3)})
+    t0 = time.time()
+    phase_synth_halo(torch, device, smi)
+    emit({"phase": "synth_halo_done", "card": smi,
+          "wall_s": round(time.time() - t0, 3)})
+    t0 = time.time()
+    phase_learn(torch, smi, halo_db, halo_trace)
+    emit({"phase": "learn_done", "card": smi,
+          "wall_s": round(time.time() - t0, 3)})
     phase_fault(torch)
 
     # one halo iteration's six faces at the batched blocking, per kernel
@@ -3558,6 +3895,8 @@ def main() -> int:
         "source": "tenzing_tpu_torch/csrc/ell_spmv.cu",
         "replaces": "tenzing_tpu/ops/spmv_pallas.py:78",
         "launches": spmv_launches[8192]["ell_spmv"],
+        # under the synthesized host pipe's schedules at m=8192 (synth_spmv)
+        "launches_synth": synth_launches,
         "max_abs_err": max(r["max_abs_err"] for r in spmv_rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

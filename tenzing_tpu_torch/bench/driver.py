@@ -50,7 +50,11 @@ row, the x exchange a host round trip, the SpMV kernel menu) — then
 8. with ``chunk``, the attn and moe menus offer the chunked expansions of
    the ``.xla`` fold and expert MLP (core/chunking.py), and ``perf.chunked``
    reports the pruned menus, what the search visited and what it chose, and
-   the comm measured hidden under the partials;
+   the comm measured hidden under the partials; with ``synth_collectives``
+   the spmv exchange is also offered as a host pipeline in chunks
+   (collectives/synth.py), and ``perf.synth`` reports the priced and pruned
+   menus, what the search visited and chose, the estimated comm and, with
+   ``profile_winner``, the comm measured hidden;
 9. with ``dump_csv`` writes the run's search database (naive as row 0, the
    final batch's numbers first), which ``seed_csv`` reads back;
 10. returns the JSON line (``metric``, ``value``, ``unit``, ``vs_baseline``,
@@ -66,10 +70,19 @@ the inside out: the ``EmpiricalBenchmarker``; with ``--inject-faults`` a
 ``--measure-timeout`` watchdog, classified retry, the quarantine); an
 injector for ``corrupt`` above it, where the verifier sees its mutations;
 with ``--checkpoint DIR`` the ``JournalingBenchmarker``; and the
-``CachingBenchmarker``, which ``--resume`` fills from the journal.  A lost
-device raises ``DeviceLostError`` out of the run (the reference's learned
-fallback waits for ROADMAP Queue 1 item 7): the journal and the quarantine
-are on disk, and ``--resume`` in a new process is the recovery.  Every
+``CachingBenchmarker``, which ``--resume`` fills from the journal.  Without a
+learned model a lost device raises ``DeviceLostError`` out of the run: the
+journal and the quarantine are on disk, and ``--resume`` in a new process is
+the recovery.  With ``--learn-screen --learn-model PATH`` the model
+(learn/) is the resilient layer's fallback: after a device loss every query
+is a model answer tagged ``degraded``, the driver touches the device no
+more (no climbs, no paired screen or final batch, no gate, no profile, no
+fused run) and reports the pre-loss naive pct50 with ``vs_baseline`` 1.0 and
+``verified: false`` (``fault.error``: "degraded: no device").  The same
+model screens the MCTS rollouts (learn/surrogate.py
+``ScreeningBenchmarker``), prunes the climbs' neighbours and orders the
+prefetcher's hints; ``--learn-train`` trains it offline from search
+databases.  Every
 error of the CUDA runtime counts as a lost device (fault/errors.py), so no
 run goes on in a process after one.  A failure the solvers search past (a
 quarantined schedule, a retried attempt) is counted in the ``fault`` block's
@@ -89,7 +102,11 @@ incumbent whose measurement the resilient layer rejects is dropped, as the
 reference drops attention's; and with ``--checkpoint`` the screen and final
 batches are journaled too, so a resumed run that had finished reports the
 same verdict bit for bit (the integrity gate re-runs both schedules every
-time).
+time); the ``perf.synth`` block raises where it fails (the reference's
+catches the failure into an ``error`` field, ROADMAP Queue 3); and
+``--learn-screen`` without ``--learn-model``, or ``--learn-trace`` without
+``--learn-train``, is refused (the reference runs without the screen, or
+ignores the traces).
 
 Entry point: ``python -m tenzing_tpu_torch.bench`` (``--device cpu`` runs on
 the CPU; the default is the card).
@@ -180,10 +197,7 @@ class DriverResult:
 
 # fields whose non-default values select features this port does not have
 # yet; ``run`` raises on them instead of ignoring them
-_UNPORTED = {"learn_train": "item 7", "learn_trace": "item 7",
-             "learn_model": "item 7", "learn_screen": "item 7",
-             "synth_collectives": "item 6.7", "search_workers": "item 8",
-             "measure_batch": "item 8"}
+_UNPORTED = {"search_workers": "item 8", "measure_batch": "item 8"}
 _DEFAULTS = DriverRequest()
 
 
@@ -213,6 +227,10 @@ def check_request(req: DriverRequest) -> None:
             flag = "--" + name.replace("_", "-")
             raise DriverConfigError(
                 f"{flag}: not yet ported (ROADMAP Queue 1 {item})")
+    if req.learn_screen and not req.learn_model:
+        raise DriverConfigError("--learn-screen requires --learn-model PATH")
+    if req.learn_trace and not req.learn_train:
+        raise DriverConfigError("--learn-trace requires --learn-train GLOB")
     if req.resume and not req.checkpoint:
         # resuming nothing would re-measure the search while the JSON
         # claims a resume
@@ -412,8 +430,9 @@ def spmv_m(args) -> int:
 def build_spmv(args, device):
     """(graph, placed buffers, metric, m) at the request's size: a band
     matrix of m rows and 10 nonzeros a row (band ``--spmv-bw``, default
-    m/8), the host round trip as the x exchange and the kernel menu with the
-    x sizes known (the reference's build_spmv, bench/driver.py:319-351).
+    m/8), the host round trip as the x exchange (with ``synth_collectives``
+    its pipe menu too) and the kernel menu with the x sizes known (the
+    reference's build_spmv, bench/driver.py:319-351).
     The graph is the reference's: Start -> SpMVCompound -> Finish, the two
     equal compounds it adds being one vertex."""
     from tenzing_tpu_torch.core.graph import Graph
@@ -425,14 +444,21 @@ def build_spmv(args, device):
     from tenzing_tpu_torch.runtime.executor import buffers_from_numpy
 
     m = spmv_m(args)
-    bufs, _ = make_spmv_buffers(m=m, nnz_per_row=10, bw=args.spmv_bw, seed=0)
+    synth = bool(args.synth_collectives)
+    bufs, _ = make_spmv_buffers(m=m, nnz_per_row=10, bw=args.spmv_bw, seed=0,
+                                synth=synth)
     x_sizes = {"x_local": int(bufs["x_local"].shape[0]),
                "x_remote": int(bufs["x_remote"].shape[0])}
-    tbufs = buffers_from_numpy(bufs, device, spmv_host_buffer_names())
+    tbufs = buffers_from_numpy(bufs, device, spmv_host_buffer_names(
+        x_sizes["x_remote"], synth=synth))
     del bufs
 
     def mk():
-        return SpMVCompound(impl_choice=True, x_sizes=x_sizes, exchange="host")
+        # --synth-collectives: the exchange's pipe menu, every instantiation
+        # kept for the smoke, the roofline's prune at full size (the
+        # reference's synth_relax=args.smoke)
+        return SpMVCompound(impl_choice=True, x_sizes=x_sizes, exchange="host",
+                            synth=synth, synth_relax=args.smoke)
 
     g = Graph()
     g.start_then(mk())
@@ -732,7 +758,8 @@ class FaultStack:
 
 
 def fault_stack(args: DriverRequest, g, metric: str, emp, measure_ex,
-                verifier, dev, scope: "_RunScope", log) -> FaultStack:
+                verifier, dev, scope: "_RunScope", log,
+                surrogate=None) -> FaultStack:
     """Build the reference's measurement stack around ``emp``
     (bench/driver.py:893-1031 there), from the inside out:
     ``[FaultInjectingBenchmarker]`` for the measurement kinds,
@@ -741,7 +768,10 @@ def fault_stack(args: DriverRequest, g, metric: str, emp, measure_ex,
     for ``corrupt`` (above the verifier gate), ``[JournalingBenchmarker]``,
     ``CachingBenchmarker``; with ``--checkpoint``, load the state (refusing a
     resume under another ``--inject-faults`` spec), restore the journal on
-    ``--resume`` and register the done and interrupted snapshots."""
+    ``--resume`` and register the done and interrupted snapshots.  A
+    ``surrogate`` (``--learn-screen``) orders the prefetcher's hints and is
+    the resilient layer's fallback after a device loss, when the prefetcher
+    is closed so that no capture touches the device again."""
     from tenzing_tpu_torch.bench.benchmarker import CachingBenchmarker
     from tenzing_tpu_torch.fault import (
         FaultInjectingBenchmarker,
@@ -771,7 +801,8 @@ def fault_stack(args: DriverRequest, g, metric: str, emp, measure_ex,
         from tenzing_tpu_torch.bench.pipeline import PrefetchingBenchmarker
 
         measured = prefetcher = PrefetchingBenchmarker(
-            measured, executor=measure_ex, workers=args.prefetch_compiles)
+            measured, executor=measure_ex, workers=args.prefetch_compiles,
+            rank=surrogate)
         # should the run raise, queued captures are cancelled rather than
         # drained (close() is idempotent)
         scope.on_exit(prefetcher.close)
@@ -788,7 +819,8 @@ def fault_stack(args: DriverRequest, g, metric: str, emp, measure_ex,
             device_sync(dev)
     resilient = ResilientBenchmarker(
         measured, timeout_secs=args.measure_timeout, quarantine=quar,
-        fallback=None, verifier=verifier, quiesce=quiesce)
+        fallback=surrogate, verifier=verifier, quiesce=quiesce,
+        on_degrade=prefetcher.close if prefetcher is not None else None)
     guarded = resilient
     if corrupt_specs:
         guarded = FaultInjectingBenchmarker(
@@ -924,6 +956,7 @@ def _run(args: DriverRequest, dev, scope: _RunScope) -> DriverResult:
     )
     from tenzing_tpu_torch.core.platform import Platform
     from tenzing_tpu_torch.core.sequence import canonical_key
+    from tenzing_tpu_torch.fault.errors import DeviceLostError
     from tenzing_tpu_torch.models import halo_pipeline, moe_pipeline
     from tenzing_tpu_torch.models.ring_attention import fixed_order
     from tenzing_tpu_torch.runtime.executor import StreamExecutor
@@ -938,6 +971,26 @@ def _run(args: DriverRequest, dev, scope: _RunScope) -> DriverResult:
     build = {"halo": build_halo, "attn": build_attn, "moe": build_moe,
              "spmv": build_spmv}[args.workload]
     g, bufs, metric, wargs = build(args, dev)
+    # the buffers' sizes feed the surrogate's byte and makespan features,
+    # the same map for training and for the screen (learn/features.py)
+    learn_nbytes = {k: int(getattr(v, "nbytes", 0)) for k, v in bufs.items()}
+    if args.learn_train:
+        del bufs
+        return DriverResult(verdict=learn_train(args, g, learn_nbytes, log,
+                                                write_telemetry))
+    surrogate = None
+    if args.learn_screen:
+        from tenzing_tpu_torch.learn import (
+            FEATURE_NAMES,
+            RidgeEnsemble,
+            SurrogateBenchmarker,
+        )
+
+        model = RidgeEnsemble.load(args.learn_model,
+                                   expect_features=list(FEATURE_NAMES))
+        surrogate = SurrogateBenchmarker(model, nbytes=learn_nbytes)
+        log(f"learn screen: {args.learn_model} ({model.n_train} training "
+            "rows)")
     plat = Platform.make_n_lanes(search_lanes(args))
     if args.smoke:
         args.mcts_iters = min(args.mcts_iters, 12)
@@ -983,7 +1036,7 @@ def _run(args: DriverRequest, dev, scope: _RunScope) -> DriverResult:
     verifier = None if args.no_verify else ScheduleVerifier(g)
     gate_verifier = verifier if verifier is not None else ScheduleVerifier(g)
     stack = fault_stack(args, g, metric, emp, measure_ex, verifier, dev,
-                        scope, log)
+                        scope, log, surrogate=surrogate)
     bench, resilient, prefetcher = stack.bench, stack.resilient, stack.prefetcher
     failures0 = failure_counts()
 
@@ -1017,6 +1070,11 @@ def _run(args: DriverRequest, dev, scope: _RunScope) -> DriverResult:
         prefetcher.prefetch([naive_seq])
     t0 = time.time()
     naive = bench.benchmark(naive_seq, opts)
+    if resilient.degraded:
+        # the verdict's number is the pre-loss naive measurement: a model
+        # answer must never stand in for it
+        raise DeviceLostError("device lost while the naive baseline was "
+                              "measured: no measurement to report")
     log(f"naive: pct50={naive.pct50*1e6:.1f}us (wall {time.time()-t0:.0f}s)")
 
     incumbents: List[SimResult] = []
@@ -1088,14 +1146,32 @@ def _run(args: DriverRequest, dev, scope: _RunScope) -> DriverResult:
                             target_secs=0.0005 if args.smoke else 0.001)
     mcts_confirm = BenchOpts(n_iters=max(5, args.iters), max_retries=2,
                              target_secs=search_opts.target_secs * 10)
+    search_bench = bench
+    if surrogate is not None:
+        # the learned screen: rollouts at the screen floor may be answered
+        # by the model, the confirm pass and every other query always
+        # reach the device (the reference's bench/driver.py:1374-1398)
+        from tenzing_tpu_torch.learn import ScreeningBenchmarker
+
+        search_bench = ScreeningBenchmarker(
+            surrogate, bench, escalate_topk=max(4, args.seed_topk + 1),
+            screen_only_opts=mcts_screen)
     res = explore(
-        g, plat, bench,
+        g, plat, search_bench,
         MctsOpts(n_iters=args.mcts_iters, bench_opts=mcts_confirm,
                  screen_opts=mcts_screen, confirm_topk=4, seed=0,
                  rollout_policy=rollout_policy, verify=verifier,
                  prefetch=prefetcher, checkpoint=stack.ckpt),
         strategy=FastMin, seeds=seed_paths,
     )
+    learn_block = None
+    if surrogate is not None:
+        learn_block = {"model": args.learn_model,
+                       "train_rows": surrogate.model.n_train,
+                       "surrogate_hits": search_bench.hits,
+                       "escalations": search_bench.escalations}
+        log(f"learn screen: {search_bench.hits} surrogate answers / "
+            f"{search_bench.escalations} escalations")
     confirmed = [s for s in res.sims if s.fidelity == "full"]
     log(f"mcts wall {time.time()-t0:.0f}s, tree={res.tree_size}, "
         f"{len(res.sims)} rollouts ({len(seed_paths)} seeded, "
@@ -1112,12 +1188,25 @@ def _run(args: DriverRequest, dev, scope: _RunScope) -> DriverResult:
     climbs = []
     for ci, (clabel, cplat, cphases, cprefer, cbudget) in enumerate(
             climb_configs(args, plat, recorded)):
+        if resilient.degraded:
+            # a climb compares paired batches on the device
+            log(f"hill-climb[{ci}] ({clabel}): skipped (device lost)")
+            continue
         t0 = time.time()
-        lres = hill_climb(g, cplat, bench, cphases, prefer=cprefer,
-                          opts=LocalOpts(budget=cbudget, bench_opts=climb_opts,
-                                         seed=2 + ci, paired=True,
-                                         verify=verifier, prefetch=prefetcher,
-                                         checkpoint=stack.ckpt))
+        try:
+            lres = hill_climb(
+                g, cplat, bench, cphases, prefer=cprefer,
+                opts=LocalOpts(budget=cbudget, bench_opts=climb_opts,
+                               seed=2 + ci, paired=True, prescreen=surrogate,
+                               verify=verifier, prefetch=prefetcher,
+                               checkpoint=stack.ckpt))
+        except DeviceLostError:
+            if not resilient.degraded:
+                raise
+            # the device was lost inside the climb: its paired batch cannot
+            # degrade, and the climbs end with it
+            log(f"hill-climb[{ci}] ({clabel}): ended (device lost)")
+            continue
         log(f"hill-climb[{ci}] ({clabel}, {len(cplat.lanes)} lanes): "
             f"{len(lres.sims)} candidates, {lres.accepted} moves accepted, "
             f"best pct50={lres.best().result.pct50*1e6:.1f}us "
@@ -1190,6 +1279,16 @@ def _run(args: DriverRequest, dev, scope: _RunScope) -> DriverResult:
             seen.add(key)
             cands.append(s)
     cands = cands[: max(8, len(incumbents) + 4) if not args.smoke else 4]
+    degraded = resilient.degraded
+    if degraded:
+        # the device was lost and the model answered since (the reference's
+        # bench/driver.py:1704-1713): no paired screen or final batch, no
+        # gate, no profile, no fused run; the verdict is the pre-loss naive
+        # measurement, never a predicted number
+        log("degraded: device lost mid-search — skipping the paired "
+            "screen/final, the gate and every later device phase; "
+            "reporting no-win with degraded provenance")
+        cands = []
 
     screen_opts = dataclasses.replace(opts, target_secs=5 * opts.target_secs)
     fin_opts = dataclasses.replace(opts, n_iters=3 * opts.n_iters,
@@ -1227,31 +1326,36 @@ def _run(args: DriverRequest, dev, scope: _RunScope) -> DriverResult:
     winner = top[best_i] if top and finals and vs > 1.0 else None
     winner_seq = winner.order if winner is not None else naive_seq
     verdict = gate_verifier(winner_seq)
-    t0 = time.time()
-    out_w = ex.run(winner_seq)
-    out_n = out_w if winner_seq is naive_seq else ex.run(naive_seq)
-    result_gate = None
-    if args.workload == "attn":
-        result_gate = attn_gate(out_n, wargs.scale)
-    elif moe:
-        result_gate = moe_gate(wargs[2], wargs[0].n_chunks, dev)
     skip = set(ex.host_names)
     if moe:  # the staging sets' transport scratch, host and device side
         staging = moe_staging(args)
         skip.update(moe_pipeline.host_buffer_names(wargs[0], staging))
         skip.update(moe_pipeline.transport_buffer_names(wargs[0], staging))
-    if spmv:  # the host round trip's pinned staging buffer
+    if spmv:  # the host round trip's pinned staging buffers
         from tenzing_tpu_torch.models.spmv import spmv_host_buffer_names
 
-        skip.update(spmv_host_buffer_names())
-    mismatched, gate_block = gate_outputs(out_n, out_w, naive_seq, winner_seq,
-                                          args.verify_tol, skip, result_gate)
-    del out_n, result_gate
-    verified = bool(verdict.ok and not mismatched)
-    log("integrity gate: winner-vs-naive outputs "
-        f"{'DIVERGE on ' + str(mismatched[:4]) if mismatched else 'agree'}, "
-        f"verifier {'ok' if verdict.ok else 'UNSOUND'} "
-        f"(wall {time.time()-t0:.0f}s)")
+        skip.update(spmv_host_buffer_names(
+            int(ex.init_bufs["x_remote"].shape[0]),
+            synth=args.synth_collectives))
+    mismatched, gate_block, out_w = [], None, None
+    if not degraded:
+        t0 = time.time()
+        out_w = ex.run(winner_seq)
+        out_n = out_w if winner_seq is naive_seq else ex.run(naive_seq)
+        result_gate = None
+        if args.workload == "attn":
+            result_gate = attn_gate(out_n, wargs.scale)
+        elif moe:
+            result_gate = moe_gate(wargs[2], wargs[0].n_chunks, dev)
+        mismatched, gate_block = gate_outputs(out_n, out_w, naive_seq,
+                                              winner_seq, args.verify_tol,
+                                              skip, result_gate)
+        del out_n, result_gate
+        log("integrity gate: winner-vs-naive outputs "
+            f"{'DIVERGE on ' + str(mismatched[:4]) if mismatched else 'agree'}"
+            f", verifier {'ok' if verdict.ok else 'UNSOUND'} "
+            f"(wall {time.time()-t0:.0f}s)")
+    verified = bool(verdict.ok and not mismatched and not degraded)
     demoted = None
     if not verified and vs > 1.0:
         log("integrity gate FAILED — demoting the winner to no-win")
@@ -1268,7 +1372,9 @@ def _run(args: DriverRequest, dev, scope: _RunScope) -> DriverResult:
     # 1878-1960); a failure raises (the reference catches it into the block)
     cost = workload_cost(args.workload, wargs)
     attrib_block, profiled = None, None
-    if args.profile_winner:
+    if args.profile_winner and degraded:
+        log("profile-winner: skipped (device lost)")
+    elif args.profile_winner:
         fin_res = (finals[1 + best_i] if winner is not None
                    else (finals[0] if finals else naive))
         attrib_block, profiled = profile_reported(
@@ -1287,7 +1393,10 @@ def _run(args: DriverRequest, dev, scope: _RunScope) -> DriverResult:
                       "failed": 0, "surfaced": 0, "dropped": 0}),
         "graphs": ex.graph_stats(),
     }
-    if args.fuse_winner:
+    if args.fuse_winner and degraded:
+        log("fuse-winner: skipped (device lost)")
+        perf["fused"] = {"error": "degraded: no device"}
+    elif args.fuse_winner:
         perf["fused"] = fuse_reported(
             ex, reported_seq, stepped_out, opts, value_us, args.verify_tol,
             skip, gate_verifier, log,
@@ -1303,11 +1412,20 @@ def _run(args: DriverRequest, dev, scope: _RunScope) -> DriverResult:
                                      "chosen": tiles_of(reported_seq)}
     if args.chunk:
         perf["chunked"] = chunked_block(g, res.sims, reported_seq, log)
-        perf["chunked"]["hidden_comm_us"]["measured"] = round(
-            chunked_hidden_measured(ex, reported_seq, value_us, profiled,
-                                    args.profile_repeats, log), 2)
+        if not degraded:
+            perf["chunked"]["hidden_comm_us"]["measured"] = round(
+                chunked_hidden_measured(ex, reported_seq, value_us, profiled,
+                                        args.profile_repeats, log), 2)
+    if args.synth_collectives:
+        perf["synth"] = synth_block(
+            g, res.sims, reported_seq, verified,
+            None if degraded else (ex, value_us, profiled,
+                                   args.profile_repeats), log)
     if args.dump_csv:
-        dump_database(args.dump_csv, naive_seq, naive, sims, finals, top, log)
+        dump_database(args.dump_csv, naive_seq, naive, sims, finals, top, log,
+                      predicted=(search_bench.was_predicted
+                                 if surrogate is not None else None),
+                      degraded=resilient.was_degraded)
 
     meta = {
         "verified": verified,
@@ -1332,6 +1450,8 @@ def _run(args: DriverRequest, dev, scope: _RunScope) -> DriverResult:
         meta["recorded"] = recorded_block
     if attrib_block is not None:
         meta["attrib"] = attrib_block
+    if learn_block is not None:
+        meta["learn"] = learn_block
     if demoted is not None:
         meta["demoted_label"] = label_of(demoted)
     if not verdict.ok:
@@ -1356,7 +1476,10 @@ def _run(args: DriverRequest, dev, scope: _RunScope) -> DriverResult:
                          "quarantined": len(stack.quarantine),
                          "resumed": bool(args.resume),
                          **({"injected": injected} if injected else {}),
-                         **({"failures": failures} if failures else {})}
+                         **({"failures": failures} if failures else {}),
+                         **({"verified": False,
+                             "error": "degraded: no device"}
+                            if degraded else {})}
     write_telemetry()
     return DriverResult(verdict={
         "metric": metric,
@@ -1495,13 +1618,18 @@ def chunked_hidden_measured(ex, seq, measured_us: float, profiled, repeats: int,
     return measured
 
 
-def dump_database(path, naive_seq, naive, sims, finals, top, log) -> None:
+def dump_database(path, naive_seq, naive, sims, finals, top, log,
+                  predicted=None, degraded=None) -> None:
     """``--dump-csv``: the run's search database (the reference's
     bench/driver.py:2257-2315), one row per measured schedule, naive as row
     0 at full fidelity.  The final batch's results supersede the search-time
     rows of naive and the finalists (``CsvBenchmarker`` answers from the
     first full row, so the verdict is replayable); MCTS rollouts measured at
-    the screen floor carry ``fid=screen``."""
+    the screen floor carry ``fid=screen``.  A screen row the learned screen
+    answered from its model (``predicted(order)``) carries ``fid=model``,
+    and a row the fallback answered after a device loss (``degraded(order)``)
+    ``fid=degraded``: every reader passes over both, so no prediction is
+    archived as a measurement."""
     from tenzing_tpu_torch.bench.benchmarker import result_row
 
     results = [naive] + [s.result for s in sims]
@@ -1513,12 +1641,121 @@ def dump_database(path, naive_seq, naive, sims, finals, top, log) -> None:
             idx = next(i for i, s2 in enumerate(sims) if s2 is s)
             results[1 + idx] = r
             fids[1 + idx] = "full"
+    for i, s in enumerate(sims):
+        if predicted is not None and fids[1 + i] == "screen" and predicted(
+                s.order):
+            fids[1 + i] = "model"
+        if degraded is not None and degraded(s.order):
+            fids[1 + i] = "degraded"
     orders = [naive_seq] + [s.order for s in sims]
     rows = [result_row(i, r, o, fidelity=None if f == "full" else f)
             for i, (r, o, f) in enumerate(zip(results, orders, fids))]
     with open(path, "w") as f:
         f.write("\n".join(rows) + "\n")
     log(f"csv: {path} ({len(rows)} rows)")
+
+
+def learn_train(args, g, nbytes, log, write_telemetry) -> Dict[str, Any]:
+    """``--learn-train GLOB... [--learn-trace GLOB...] [--learn-model
+    PATH]``: train the surrogate offline on the databases the globs match,
+    against the workload's graph and buffer sizes, save it, and return the
+    verdict (``metric: learn_train_<workload>``, files, rows, and the
+    in-sample Spearman; the reference's bench/driver.py:772-802).  Nothing
+    is measured."""
+    import glob
+
+    from tenzing_tpu_torch import obs
+    from tenzing_tpu_torch.learn import train_from_corpus
+
+    paths = sorted(p for pat in args.learn_train for p in glob.glob(pat))
+    with obs.get_tracer().span("learn.train", n_files=len(paths)):
+        tpaths = (sorted(p for pat in args.learn_trace
+                         for p in glob.glob(pat))
+                  if args.learn_trace else None)
+        model, info = train_from_corpus(paths, g, nbytes=nbytes,
+                                        trace_paths=tpaths, log=log)
+        out = {"metric": f"learn_train_{args.workload}", **info}
+        if model is not None and args.learn_model:
+            model.save(args.learn_model)
+            out["model"] = args.learn_model
+            log(f"learn model: {args.learn_model} ({info['rows']} rows, "
+                f"train spearman {out['train_spearman']})")
+    write_telemetry()
+    return out
+
+
+def synth_block(g, sims, seq, verified: bool, measure, log) -> Dict[str, Any]:
+    """The ``perf.synth`` block (the reference's bench/driver.py:2165-2256):
+    the priced and pruned sketch menus the graph offers, the sketches the
+    search visited, how many candidates were synthesized, what the reported
+    schedule ``seq`` chose, its estimated comm and the gate's verdict.
+    ``measure`` is ``(executor, measured µs, the --profile-winner
+    attribution or None, repeats)``, or None after a device loss: where
+    ``seq`` chose a decomposition, its comm measured hidden under the other
+    work (collectives/synth.py ``synth_hidden_comm_measured_us``) on the
+    stepped timeline.  A failure raises (the reference catches it into an
+    ``error`` field)."""
+    from tenzing_tpu_torch.collectives.synth import (
+        synth_hidden_comm_measured_us,
+        synth_menus,
+        synths_of,
+    )
+
+    menus = synth_menus(g)
+    chosen = synths_of(seq.vector())
+    searched, n_synth = set(), 0
+    for sim in sims:
+        sm = synths_of(sim.order.vector())
+        if sm:
+            n_synth += 1
+            searched.update(f"{v['sketch']}.c{v['chunks']}" for v in sm.values())
+    est = sum(float(menus[b].get("est_us", {}).get(
+        f"{v['sketch']}.c{v['chunks']}", 0.0))
+        for b, v in chosen.items() if b in menus)
+    block: Dict[str, Any] = {
+        "menus": {b: {"menu": list(m["menu"]),
+                      "est_us": {k: round(float(v), 3)
+                                 for k, v in m.get("est_us", {}).items()},
+                      "pruned": dict(m.get("pruned", {})),
+                      "note": m.get("note", "")}
+                  for b, m in sorted(menus.items())},
+        "searched_sketches": sorted(searched),
+        "n_candidates_synth": n_synth,
+        "chosen": {b: f"{v['sketch']}.c{v['chunks']}"
+                   for b, v in sorted(chosen.items())},
+        "est_comm_us": round(est, 3),
+        "measured_hidden_us": None,
+        "verified": bool(verified),
+    }
+    if not menus:
+        block["note"] = ("workload offers no synthesized-collective menus "
+                         "(--synth-collectives is a no-op for it)")
+    elif all(len(m.get("menu", [])) <= 1 for m in menus.values()):
+        block["note"] = ("roofline pruned every sketch instantiation: no "
+                         "decomposition whose alpha-beta estimate beats the "
+                         "fixed engine's one-post floor on this "
+                         "workload/hardware (bench/roofline.py::"
+                         "prune_sketches)")
+    else:
+        block["note"] = "; ".join(f"{b}: {m.get('note', '')}"
+                                  for b, m in sorted(menus.items()))
+    if chosen and measure is not None:
+        from tenzing_tpu_torch.obs import attrib
+
+        ex, value_us, profiled, repeats = measure
+        t0 = time.time()
+        at = profiled
+        if at is None:
+            at = attrib.analyze(seq.vector(), attrib.stepped_timeline(
+                ex, seq, repeats=repeats), measured_us=value_us)
+        hidden = synth_hidden_comm_measured_us(seq.vector(), at)
+        block["measured_hidden_us"] = round(hidden, 2)
+        log("synth: winner uses %s; est comm %.1fus / hidden measured %.1fus "
+            "(wall %.0fs)" % (block["chosen"], est, hidden, time.time() - t0))
+    else:
+        log(f"synth: {len(menus)} menu(s), {n_synth} synthesized "
+            "candidate(s) searched, winner fixed-engine")
+    return block
 
 
 def chunked_block(g, sims, seq, log) -> Dict[str, Any]:

@@ -40,9 +40,11 @@ leaked threads); a SIGINT/SIGABRT trap handler (utils/trap.py) only flips
 the closed flag — it must not touch pool locks the interrupted thread may
 hold.
 
-Left out for now: ``rank``, the reference's ordering of a hint batch by a
-learned surrogate's prediction (ROADMAP Queue 1 item 7); the argument keeps
-its place and must be None.
+``rank`` (a learn/surrogate.py ``SurrogateBenchmarker``, the driver's
+``--learn-screen`` model) orders each new hint batch by its predicted time,
+fastest first, so the captures most likely to be measured start first.
+Unlike the reference, which ignores a failed prediction there, the port
+lets it raise (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -70,10 +72,6 @@ class PrefetchingBenchmarker:
 
     def __init__(self, inner, executor, workers: int = 2,
                  depth: Optional[int] = None, rank=None):
-        if rank is not None:
-            raise NotImplementedError(
-                "PrefetchingBenchmarker(rank=...): the learned surrogate is "
-                "not yet ported (ROADMAP Queue 1 item 7)")
         self.inner = inner
         self.executor = executor
         self.workers = max(1, int(workers))
@@ -166,6 +164,8 @@ class PrefetchingBenchmarker:
         cands = [o for o in cands if schedule_id(o) not in self._seen]
         if not cands:
             return 0
+        if self.rank is not None and len(cands) > 1:
+            cands = sorted(cands, key=lambda o: self.rank.predict(o)[0])
         reg = get_metrics()
         is_compiled = getattr(self.executor, "is_compiled", None)
         issued = 0

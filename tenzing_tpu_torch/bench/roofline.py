@@ -7,7 +7,8 @@ fraction-of-peak report (``Cost.utilization``), the per-workload cost models
 reference's FLOP and byte counts, one iteration each), ``prune_tilings``
 (the reference's without its working-set ceiling), and the chunk-menu
 sketch constraint ``op_roofline_us``, ``hidden_comm_bound_us``,
-``prune_chunkings`` and ``chunk_menu``.
+``prune_chunkings`` and ``chunk_menu``, and the synthesized collectives'
+``prune_sketches`` (collectives/synth.py).
 
 On the card a fused region's tile is the row share of one group of thread
 blocks (csrc/fused_region.cu), and every group is resident at once: the
@@ -239,3 +240,41 @@ def chunk_menu(counts, cost: Cost, comm_us=None, combine_bytes: float = 0.0,
     est = {n: hidden_comm_bound_us(cost, n, comm_us or 0.0)
            for n in pruned if n > 1}
     return pruned, est
+
+
+def prune_sketches(cands: Dict[str, Dict], fixed_floor_us: float,
+                   overlap_us: float = 0.0,
+                   dispatch_us: float = CHUNK_DISPATCH_US):
+    """The sketch instantiations of a synthesized collective
+    (collectives/synth.py) that could beat the fixed collective, from the
+    priced candidates ``cands`` (the reference's rule,
+    tenzing_tpu/bench/roofline.py:250-292).
+
+    ``cands`` maps a label (``"ring.c2"``) to its alpha-beta census:
+    ``est_us`` (the serial wire cost over the topology's links), ``steps``
+    (separately posted transfers) and ``chunks``.  ``fixed_floor_us`` is
+    the fixed engine's one-post floor for the same payload; ``overlap_us``
+    the neighbouring work a pipelined decomposition could hide under.
+
+    Each post after the first pays a dispatch (``dispatch_us``, by default
+    the card's measured per-op dispatch, :data:`CHUNK_DISPATCH_US`), and a
+    ``k``-chunk pipeline earns back at most ``min(overlap_us, est_us *
+    (k-1)/k)``.  An instantiation survives iff that effective cost beats
+    ``fixed_floor_us``.  Returns ``(kept labels, {label: prune reason})``.
+    """
+    kept, pruned = [], {}
+    for label, c in cands.items():
+        est = float(c.get("est_us", 0.0))
+        steps = max(1, int(c.get("steps", 1)))
+        k = max(1, int(c.get("chunks", 1)))
+        credit = min(float(overlap_us), est * (k - 1) / k)
+        eff = est + (steps - 1) * float(dispatch_us) - credit
+        if eff < float(fixed_floor_us):
+            kept.append(label)
+        else:
+            pruned[label] = (
+                f"effective {eff:.1f}us (wire {est:.1f} + "
+                f"{steps - 1} extra dispatch @ {dispatch_us:.0f} - "
+                f"overlap credit {credit:.1f}) cannot beat the fixed "
+                f"one-post floor {float(fixed_floor_us):.1f}us")
+    return kept, pruned

@@ -18,7 +18,9 @@ reference's fault policy:
   ranks retry, quarantine and escalate together;
 * **degradation** — with a ``fallback`` benchmarker, a lost device turns
   every later query into a fallback answer (:meth:`was_degraded` marks
-  them; the journal tags them ``degraded`` and never restores them).
+  them; the journal tags them ``degraded`` and never restores them), and
+  ``on_degrade`` runs once (the driver closes the capture prefetcher, so
+  nothing touches the device again).
 
 Two things differ on the card, where a measurement holds the executor (its
 buffers, its lanes' streams, its captured graphs):
@@ -136,6 +138,7 @@ class ResilientBenchmarker:
         seed: int = 0,
         verifier=None,
         quiesce: Optional[Callable[[], None]] = None,
+        on_degrade: Optional[Callable[[], None]] = None,
     ):
         self.inner = inner
         self.cp = control_plane if control_plane is not None else (
@@ -146,6 +149,7 @@ class ResilientBenchmarker:
         self.fallback = fallback
         self.verifier = verifier
         self.quiesce = quiesce
+        self.on_degrade = on_degrade
         self._sleep = sleep
         self._rng = _random.Random(seed)
         self._worker: Optional[_MeasureThread] = None
@@ -242,6 +246,8 @@ class ResilientBenchmarker:
         if not self.degraded:
             self.degraded = True
             get_metrics().counter("fault.degraded").inc()
+            if self.on_degrade is not None:
+                self.on_degrade()
             tr = get_tracer()
             if tr.enabled:
                 tr.event("fault.degraded",

@@ -20,8 +20,10 @@ Buffers are torch tensors written in place: ``Pack`` copies the interior edge
 of ``U`` into ``buf_<dir>``, ``Unpack`` copies ``recv_<dir>`` into the ghost
 shell on the opposite side.  Both are single PyTorch indexing copies; the
 staged pipeline (models/halo_pipeline.py) and the kernel menu
-(ops/halo_kernels.py) build on them.  Not ported yet: ``synth=True``, the
-synthesized chunk-routed shifts (ROADMAP Queue 1 item 6.7), which raises.
+(ops/halo_kernels.py) build on them.  With ``synth=True`` each direction's
+menu also offers the chunked neighbour shifts of collectives/synth.py
+(:func:`halo_synth_plans`: the face split along ``nq`` into k single-hop
+shifts), in the same choice as the engines.
 """
 
 from __future__ import annotations
@@ -177,27 +179,68 @@ def exchange_post(d: Tuple[int, int, int], engine: str = "xla"):
     raise ValueError(f"unknown exchange engine {engine!r}")
 
 
-def _unported_synth(what: str):
-    return NotImplementedError(
-        f"not yet ported: synthesized collectives ({what} synth=True; "
-        "ROADMAP Queue 1 item 6.7)")
+# -- synthesized exchange (collectives/synth.py) ------------------------------
+
+
+def halo_synth_counts(args: HaloArgs) -> List[int]:
+    """The chunk counts that split a face's ``nq`` quantities: {1, 2} where
+    they divide."""
+    return [k for k in (1, 2) if 1 <= k <= args.nq and args.nq % k == 0]
+
+
+def halo_synth_plans(args: HaloArgs, d: Tuple[int, int, int]):
+    """The chunked neighbour-shift instantiations of one direction: the face
+    split along ``nq`` into k single-hop shifts whose awaits interleave
+    (collectives/synth.py ``plan_neighbor_shift``)."""
+    from tenzing_tpu_torch.collectives.synth import plan_neighbor_shift
+
+    name = dir_name(d)
+    axis, sign = _dir_axis_sign(d)
+    _, sizes = _face_slices(args, d, "pack")
+    return [
+        plan_neighbor_shift(f"exchange_{name}", f"buf_{name}", f"recv_{name}",
+                            axis, sign, tuple(sizes), k,
+                            itemsize=args.itemsize())
+        for k in halo_synth_counts(args)
+    ]
 
 
 class ExchangeChoice(ChoiceOp):
     """``.xla`` (``PermuteStart``) vs ``.rdma`` (``RdmaShiftStart``) for one
     direction's exchange: the transfer-engine half of the searched menu.
     Either way the chosen op only posts; the graph's AwaitTransfer is the
-    separate wait."""
+    separate wait.
+
+    With ``synth=True`` the menu also offers the synthesized chunked shifts
+    of :func:`halo_synth_plans`, priced and pruned (collectives/synth.py;
+    ``synth_relax`` keeps every one), so the engine and the decomposition
+    are one decision."""
 
     def __init__(self, d: Tuple[int, int, int], args: Optional[HaloArgs] = None,
                  synth: bool = False, synth_relax: bool = False):
         super().__init__(f"exchange_{dir_name(d)}")
-        if synth or synth_relax:
-            raise _unported_synth("ExchangeChoice")
         self._d = tuple(d)
+        self._variants: List = []
+        if synth:
+            if args is None:
+                raise ValueError("ExchangeChoice(synth=True) needs HaloArgs")
+            from tenzing_tpu_torch.collectives.synth import sketch_menu
+            from tenzing_tpu_torch.collectives.topology import mesh_topology
+
+            axis, _ = _dir_axis_sign(self._d)
+            _, sizes = _face_slices(args, self._d, "pack")
+            face_bytes = float(np.prod(sizes)) * args.itemsize()
+            # a single-hop shift costs the same on any ring length, so a
+            # ring of 2 prices it without the mesh's shape
+            self._variants, self.synth_menu = sketch_menu(
+                halo_synth_plans(args, self._d),
+                mesh_topology({axis: 2}, host=False),
+                fixed_bytes=face_bytes, relax=synth_relax,
+                collective="shift")
 
     def choices(self):
-        return [exchange_post(self._d, "xla"), exchange_post(self._d, "rdma")]
+        return ([exchange_post(self._d, "xla"), exchange_post(self._d, "rdma")]
+                + list(self._variants))
 
 
 class HaloExchange(CompoundOp):
@@ -222,16 +265,21 @@ def add_to_graph(g: Graph, args: HaloArgs, preds: Optional[List] = None,
     HaloExchange::add_to_graph, ops_halo_exchange.cu:33-257).  With
     ``xfer_choice`` each post is an :class:`ExchangeChoice`, else the
     ``engine`` post (:func:`exchange_post`; ranks sharing one card exchange
-    only through ``"rdma"``)."""
+    only through ``"rdma"``).  ``synth=True`` (which implies the choice)
+    appends each direction's synthesized shifts to its menu."""
     from tenzing_tpu_torch.ops.comm_ops import AwaitTransfer
 
-    if synth or synth_relax:
-        raise _unported_synth("add_to_graph")
     preds = preds if preds is not None else [g.start()]
     succs = succs if succs is not None else [g.finish()]
     for d in DIRECTIONS:
         name = dir_name(d)
-        exch = ExchangeChoice(d) if xfer_choice else exchange_post(d, engine)
+        if synth:
+            exch = ExchangeChoice(d, args=args, synth=True,
+                                  synth_relax=synth_relax)
+        elif xfer_choice:
+            exch = ExchangeChoice(d)
+        else:
+            exch = exchange_post(d, engine)
         await_ = AwaitTransfer(f"await_{name}", f"recv_{name}")
         pack, unpack = Pack(args, d), Unpack(args, d)
         for p in preds:
@@ -296,9 +344,9 @@ def make_halo_buffers(mesh_shape: Tuple[int, int, int], args: HaloArgs,
     """(global buffers, specs, expected U after one exchange): the
     reference's arrays for the same seed, bit for bit.  The global interior
     grid is periodic; the expected array has every rank's ghost faces filled
-    from its periodic neighbours."""
-    if synth:
-        raise _unported_synth("make_halo_buffers")
+    from its periodic neighbours.  With ``synth`` the buffers include the
+    staging of every direction's :func:`halo_synth_plans`, tiled over the
+    mesh as the face buffers they slice."""
     mx, my, mz = mesh_shape
     G = _halo_global(mesh_shape, args, seed)
     locs = np.zeros((mx, my, mz) + args.local_shape(), dtype=np.float32)
@@ -324,11 +372,19 @@ def make_halo_buffers(mesh_shape: Tuple[int, int, int], args: HaloArgs,
         bufs[f"recv_{dir_name(d)}"] = buf.copy()
         specs[f"buf_{dir_name(d)}"] = HALO_SPEC
         specs[f"recv_{dir_name(d)}"] = HALO_SPEC
+        if synth:
+            for plan in halo_synth_plans(args, d):
+                for decl in plan.buffers:
+                    s = decl.shape
+                    bufs[decl.name] = np.zeros(
+                        (s[0], mx * s[1], my * s[2], mz * s[3]),
+                        dtype=np.float32)
+                    specs[decl.name] = HALO_SPEC
     return bufs, specs, assemble(want)
 
 
 def make_local_halo_buffers(mesh_shape: Tuple[int, int, int], coords,
-                            args: HaloArgs, seed: int = 0
+                            args: HaloArgs, seed: int = 0, synth: bool = False
                             ) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
     """One rank's blocks of :func:`make_halo_buffers`' buffers and expected
     U, equal to them bit for bit, without assembling the global grids: at
@@ -347,4 +403,8 @@ def make_local_halo_buffers(mesh_shape: Tuple[int, int, int], coords,
         _, sz = _face_slices(args, d, "pack")
         bufs[f"buf_{dir_name(d)}"] = np.zeros(sz, dtype=np.float32)
         bufs[f"recv_{dir_name(d)}"] = np.zeros(sz, dtype=np.float32)
+        if synth:
+            for plan in halo_synth_plans(args, d):
+                for decl in plan.buffers:
+                    bufs[decl.name] = np.zeros(decl.shape, dtype=np.float32)
     return bufs, want

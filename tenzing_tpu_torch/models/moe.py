@@ -32,8 +32,10 @@ microbatch chunk ``c`` the chain is::
 Ops write in place into their output buffers or declared scratch, so a
 timed run allocates nothing.  Op names, kind tags and schedule JSON are the
 reference's; its specs become the port's (``"ep"`` for every buffer: each is
-split along dim 0).  Not ported yet: ``synth=True``, the synthesized ring
-all-to-all (ROADMAP Queue 1 item 6.7), which raises.
+split along dim 0).  With ``synth=True`` and ``n_ep >= 2`` each exchange
+is also offered as a ring all-to-all of ``n_ep - 1`` single-hop shifts
+(collectives/synth.py, :func:`moe_synth_plans`); at ``n_ep = 1`` there is no
+menu.
 """
 
 from __future__ import annotations
@@ -50,6 +52,11 @@ from tenzing_tpu_torch.utils.numeric import gelu_tanh as _gelu
 from tenzing_tpu_torch.utils.numeric import round_bf16
 
 AXIS = "ep"
+
+
+def _itemsize(dtype: str) -> int:
+    """Bytes per element of a layer dtype (numpy has no bfloat16 here)."""
+    return 2 if dtype == "bfloat16" else np.dtype(dtype).itemsize
 
 
 @dataclass(frozen=True)
@@ -263,7 +270,7 @@ def ffn_chunk_menu(args: MoEArgs, relax: bool = False):
     count."""
     from tenzing_tpu_torch.bench import roofline
 
-    bpe = np.dtype(args.dtype).itemsize
+    bpe = _itemsize(args.dtype)
     cap = args.chunk_tokens  # capacity upper bound per (src, dst) pair
     slots = float(args.n_ep * cap)
     d, dff = args.d_model, args.d_ff
@@ -341,6 +348,27 @@ class CombineScatter(DeviceOp):
         y.index_add_(0, idx, wv)
 
 
+# -- synthesized all-to-all (collectives/synth.py) ----------------------------
+
+
+def moe_synth_plans(args: MoEArgs, c: int, site: str, cap: int = None):
+    """The ring all-to-all instantiations of chunk ``c``'s dispatch or
+    combine exchange (``site`` in ``{"disp", "comb"}``): ``n_ep - 1``
+    single-hop rotations in place of the fused ``AllToAllStart``; none at
+    ``n_ep < 2``.  ``cap`` is the slot-table width: the graph prices at its
+    bound ``chunk_tokens``, the buffer builder passes the routed capacity."""
+    from tenzing_tpu_torch.collectives.synth import plan_ring_all_to_all
+
+    if args.n_ep < 2:
+        return []
+    cap = int(args.chunk_tokens if cap is None else cap)
+    src = f"send_disp_{c}" if site == "disp" else f"ffn_out_{c}"
+    dst = f"recv_disp_{c}" if site == "disp" else f"recv_comb_{c}"
+    return [plan_ring_all_to_all(
+        f"a2a_{site}_{c}", src, dst, AXIS, args.n_ep,
+        (cap, args.d_model), itemsize=_itemsize(args.dtype))]
+
+
 class ConcatChunks(DeviceOp):
     """Stitch the per-chunk outputs back into the token-order output."""
 
@@ -367,22 +395,21 @@ class MoELayer(CompoundOp):
     ``impl_choice`` each chunk's MLP kernel is searched; ``chunk=True``
     adds chunked expert-MLP alternatives to the menus (pruned by
     :func:`ffn_chunk_menu`; ``chunk_relax`` skips the pruning, the tests'
-    mode).  ``synth=True`` (synthesized ring all-to-alls) is not ported
-    yet and raises."""
+    mode).  ``synth=True`` puts the ring all-to-all of
+    :func:`moe_synth_plans` beside each chunk's fused exchange in one choice
+    (``n_ep >= 2``; ``synth_relax`` keeps what the prune drops)."""
 
     def __init__(self, args: MoEArgs, name: str = "moe",
                  impl_choice: bool = False, chunk: bool = False,
                  chunk_relax: bool = False, synth: bool = False,
                  synth_relax: bool = False):
         super().__init__(name)
-        if synth or synth_relax:
-            raise NotImplementedError(
-                "not yet ported: synthesized collectives (MoELayer synth=True;"
-                " ROADMAP Queue 1 item 6.7)")
         self._args = args
         self._impl_choice = impl_choice
         self._chunk = chunk
         self._chunk_relax = chunk_relax
+        self._synth = synth
+        self._synth_relax = synth_relax
 
     def args(self) -> MoEArgs:
         return self._args
@@ -406,9 +433,14 @@ class MoELayer(CompoundOp):
         else:
             mk = ExpertFFN
 
-        def a2a(base, src, dst, prev, nxt):
+        def a2a(base, src, dst, prev, nxt, c):
             start = AllToAllStart(base, src, dst, AXIS, split_axis=0)
             await_ = AwaitTransfer(f"await_{base[4:]}", dst)
+            node = self._synth_choice(base, c, start, await_)
+            if node is not None:
+                g.then(prev, node)
+                g.then(node, nxt)
+                return
             g.then(prev, start)
             g.then(start, await_)
             g.then(await_, nxt)
@@ -418,11 +450,39 @@ class MoELayer(CompoundOp):
             ffn = mk(f"ffn_{c}", c, self._args)
             scat = CombineScatter(f"combine_{c}", c, self._args)
             g.start_then(pack)
-            a2a(f"a2a_disp_{c}", f"send_disp_{c}", f"recv_disp_{c}", pack, ffn)
-            a2a(f"a2a_comb_{c}", f"ffn_out_{c}", f"recv_comb_{c}", ffn, scat)
+            a2a(f"a2a_disp_{c}", f"send_disp_{c}", f"recv_disp_{c}", pack,
+                ffn, c)
+            a2a(f"a2a_comb_{c}", f"ffn_out_{c}", f"recv_comb_{c}", ffn, scat,
+                c)
             g.then(scat, cat)
         g.then_finish(cat)
         return g
+
+    def _synth_choice(self, base: str, c: int, start, await_):
+        """The exchange's ``SynthCollectiveChoice``, or None without
+        ``synth``, at ``n_ep < 2`` or where no instantiation survives."""
+        a = self._args
+        if not self._synth or a.n_ep < 2:
+            return None
+        from tenzing_tpu_torch.collectives.synth import (
+            FixedCollective,
+            SynthCollectiveChoice,
+            sketch_menu,
+        )
+        from tenzing_tpu_torch.collectives.topology import mesh_topology
+
+        bpe = _itemsize(a.dtype)
+        site = "disp" if "disp" in base else "comb"
+        variants, menu = sketch_menu(
+            moe_synth_plans(a, c, site),
+            mesh_topology({AXIS: a.n_ep}, host=False),
+            # the capacity's bound prices the fused post
+            fixed_bytes=float(a.n_ep * a.chunk_tokens * a.d_model * bpe),
+            relax=self._synth_relax, collective="all_to_all")
+        if not variants:
+            return None
+        return SynthCollectiveChoice(base, FixedCollective(base, [start, await_]),
+                                     variants, menu)
 
 
 def make_moe_buffers(args: MoEArgs, seed: int = 0, synth: bool = False
@@ -436,11 +496,9 @@ def make_moe_buffers(args: MoEArgs, seed: int = 0, synth: bool = False
     layer's dtype (as the reference's).  numpy has no bfloat16 here, so for
     ``dtype="bfloat16"`` each array the reference holds in bf16 is a float32
     array of the same values (``round_bf16``); the caller places it as
-    bf16 (parallel/dryrun.py ``build_layer``)."""
-    if synth:
-        raise NotImplementedError(
-            "not yet ported: synthesized collectives (make_moe_buffers "
-            "synth=True; ROADMAP Queue 1 item 6.7)")
+    bf16 (parallel/dryrun.py ``build_layer``).  With ``synth`` the buffers
+    include the ring all-to-alls' staging at the routed capacity
+    (:func:`moe_synth_plans`)."""
     rng = np.random.default_rng(seed)
     n, t, d, dff = args.n_ep, args.tokens_per_shard, args.d_model, args.d_ff
     tc_ = args.chunk_tokens
@@ -485,6 +543,14 @@ def make_moe_buffers(args: MoEArgs, seed: int = 0, synth: bool = False
                    f"recv_comb_{c}"):
             bufs[nm] = np.zeros((n * n, cap, d), dt)
         bufs[f"Y_{c}"] = np.zeros((n * tc_, d), dt)
+        if not synth:
+            continue
+        for site in ("disp", "comb"):
+            for plan in moe_synth_plans(args, c, site, cap=cap):
+                for decl in plan.buffers:
+                    if decl.name not in bufs:
+                        bufs[decl.name] = np.zeros(
+                            (n * decl.shape[0],) + tuple(decl.shape[1:]), dt)
     specs: Dict[str, Optional[str]] = {k: AXIS for k in bufs}
 
     x64 = x.astype(np.float64)

@@ -28,8 +28,12 @@ Differences from the reference, on purpose:
   transfer channel, so the fetch never reads the pinned ``host_x`` before
   the spill has written it (the graph has no await between them).
 
-Not in this slice: ``synth=True`` and the ``spmv_synth_*`` helpers (the
-synthesized collectives come with the multi-device layer); they raise.
+With ``synth=True`` (``exchange="host"`` only) the round trip is one
+alternative of a ``SynthCollectiveChoice`` whose others pipe the payload
+through the host in 2 or 4 chunks (collectives/synth.py, the ``pipe``
+sketch; :func:`spmv_synth_plans` is the one source of the graph's chains
+and the buffers' staging, whose ``.hst`` pieces live in pinned host
+memory).
 """
 
 from __future__ import annotations
@@ -459,6 +463,30 @@ class LocalExchange(DeviceOp):
         return {self._src: 0, self._dst: 0}
 
 
+# -- synthesized exchange (collectives/synth.py) -------------------------------
+
+#: The synth site of the host x exchange: its directive runs as
+#: ``x_exchange.synth.pipe.c<K>``.
+SPMV_SYNTH_BASE = "x_exchange"
+
+
+def spmv_synth_counts(n_remote: Optional[int]) -> List[int]:
+    """The pipe chunk counts of an ``n_remote``-entry payload: 2 and 4 where
+    they fit (one chunk is the fixed round trip).  An unknown payload has
+    none."""
+    return [k for k in (2, 4) if 2 <= k <= int(n_remote or 0)]
+
+
+def spmv_synth_plans(n_remote: Optional[int]):
+    """The pipe instantiations of the host x exchange: the one source of the
+    graph's chains and the buffer builder's staging."""
+    from tenzing_tpu_torch.collectives.synth import plan_host_pipe
+
+    return [plan_host_pipe(SPMV_SYNTH_BASE, "send_buf", "x_remote",
+                           int(n_remote), k)
+            for k in spmv_synth_counts(n_remote)]
+
+
 class SpMVCompound(CompoundOp):
     """The whole SpMV iteration as one compound op (reference SpMV CompoundOp,
     ops_spmv.cuh:306-436): start -> {local spmv, scatter -> exchange}; exchange
@@ -475,7 +503,15 @@ class SpMVCompound(CompoundOp):
       (spill_x -> fetch_x -> await_x) over ops/comm_ops.py, both posts on
       one transfer channel; the search can hide it behind the local SpMV.
 
-    ``synth=True`` (the synthesized exchange) is not ported yet and raises."""
+    ``synth=True`` (with ``exchange="host"``) makes the round trip one
+    alternative of a ``SynthCollectiveChoice`` whose others pipe the payload
+    through the host in chunks (:func:`spmv_synth_plans`); the remote x
+    length must be known (``x_sizes["x_remote"]``), an unknown payload is
+    never synthesized.  ``synth_relax`` keeps every instantiation, those the
+    roofline prune drops too (the tests, the smoke).  The compound carries
+    the site's ``synth_menu`` itself, so where the prune drops every
+    instantiation (no choice is built) the menu and its reasons still reach
+    ``perf.synth``; the reference loses them there."""
 
     def __init__(self, name: str = "spmv", impl_choice: bool = False,
                  x_sizes: Optional[Dict[str, int]] = None,
@@ -487,11 +523,14 @@ class SpMVCompound(CompoundOp):
         self._x_sizes = dict(x_sizes) if x_sizes else {}
         if exchange not in ("local", "host"):
             raise ValueError(f"exchange must be 'local' or 'host', got {exchange!r}")
-        if synth:
-            raise NotImplementedError(
-                "SpMVCompound(synth=True): not yet ported (the synthesized "
-                "collectives come with the multi-device layer)")
+        if synth and exchange != "host":
+            raise ValueError("synth=True needs the exchange='host' round trip "
+                             "(the host link is what the pipe sketch routes)")
         self._exchange = exchange
+        self._synth = synth
+        self._synth_relax = synth_relax
+        if synth:
+            self.synth_menu = self._synth_menu()[1]
 
     def graph(self) -> Graph:
         g = Graph()
@@ -519,10 +558,15 @@ class SpMVCompound(CompoundOp):
             spill = HostSpillStart("spill_x", "send_buf", "host_x", channel="x")
             fetch = HostFetchStart("fetch_x", "host_x", "x_remote", channel="x")
             await_ = AwaitTransfer("await_x", "x_remote")
-            g.then(scatter, spill)
-            g.then(spill, fetch)
-            g.then(fetch, await_)
-            g.then(await_, yr)
+            choice = self._synth_choice(spill, fetch, await_)
+            if choice is not None:
+                g.then(scatter, choice)
+                g.then(choice, yr)
+            else:
+                g.then(scatter, spill)
+                g.then(spill, fetch)
+                g.then(fetch, await_)
+                g.then(await_, yr)
         else:
             exch = LocalExchange("exchange", "send_buf", "x_remote")
             g.then(scatter, exch)
@@ -531,6 +575,39 @@ class SpMVCompound(CompoundOp):
         g.then(yr, add)
         g.then_finish(add)
         return g
+
+
+    def _synth_choice(self, spill, fetch, await_):
+        """The exchange's ``SynthCollectiveChoice``, or None without
+        ``synth`` or where no instantiation survives."""
+        if not self._synth:
+            return None
+        from tenzing_tpu_torch.collectives.synth import (
+            FixedCollective,
+            SynthCollectiveChoice,
+        )
+
+        variants, menu = self._synth_menu()
+        if not variants:
+            return None
+        return SynthCollectiveChoice(
+            SPMV_SYNTH_BASE,
+            FixedCollective(SPMV_SYNTH_BASE, [spill, fetch, await_]),
+            variants, menu)
+
+
+    def _synth_menu(self):
+        """(surviving pipe alternatives, the site's ``synth_menu``)."""
+        from tenzing_tpu_torch.collectives.synth import sketch_menu
+        from tenzing_tpu_torch.collectives.topology import host_topology
+
+        n_rem = self._x_sizes.get("x_remote")
+        return sketch_menu(
+            spmv_synth_plans(n_rem), host_topology(),
+            # the fixed floor: the round trip's bytes in one post (spill and
+            # fetch move them twice)
+            fixed_bytes=2.0 * 4 * int(n_rem or 0),
+            relax=self._synth_relax, collective="exchange")
 
 
 # the phase order of the fixed 2-lane schedules: the exchange is posted first
@@ -579,10 +656,8 @@ def make_spmv_buffers(
     midpoint to mimic the distributed local/remote structure (reference
     spmv_run_strategy.cuh:44-47: m rows, nnz=10*m, band bw).  Pass ``matrix``
     (e.g. from ``read_matrix_market``) to use a concrete input instead of the
-    random band matrix (reference spmv.cu:35-37).  ``synth=True`` raises: not
-    yet ported."""
-    if synth:
-        raise NotImplementedError("make_spmv_buffers(synth=True): not yet ported")
+    random band matrix (reference spmv.cu:35-37).  ``synth=True`` adds the
+    pipe sketch's staging (:func:`spmv_synth_plans`)."""
     if matrix is not None:
         if matrix.m != matrix.n:
             raise ValueError(f"SpMV slice needs a square matrix, got {matrix.m}x{matrix.n}")
@@ -616,6 +691,10 @@ def make_spmv_buffers(
         "y_remote": np.zeros(m, dtype=np.float32),
         "y": np.zeros(m, dtype=np.float32),
     }
+    if synth:
+        for plan in spmv_synth_plans(len(send_idx)):
+            for d in plan.buffers:
+                bufs[d.name] = np.zeros(d.shape, dtype=np.float32)
     want = a.matvec(x)
     return bufs, want
 
@@ -623,8 +702,12 @@ def make_spmv_buffers(
 def spmv_host_buffer_names(n_remote: Optional[int] = None,
                            synth: bool = False) -> List[str]:
     """Buffers that live in pinned host memory for ``exchange="host"``
-    (``buffers_from_numpy``'s ``host_names``).  ``synth=True`` raises: not yet
-    ported."""
+    (``buffers_from_numpy``'s ``host_names``).  With ``synth=True`` the pipe
+    sketch's ``.hst`` pieces too (``n_remote``: the ``send_idx`` extent the
+    buffers were built with), so every spill is an asynchronous copy into
+    pinned memory."""
+    out = ["host_x"]
     if synth:
-        raise NotImplementedError("spmv_host_buffer_names(synth=True): not yet ported")
-    return ["host_x"]
+        for plan in spmv_synth_plans(n_remote):
+            out += [d.name for d in plan.buffers if d.space == "host"]
+    return out

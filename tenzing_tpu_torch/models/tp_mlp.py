@@ -22,8 +22,11 @@ layer's partials are serial, chains may run side by side) and the tanh gelu
 (``jax.nn.gelu``'s default) applied in place.  Float32 products run in full
 float32 (no TF32).  With ``n_dp > 1`` (:func:`make_tp_mlp_buffers`) the
 mesh is ``("dp", "tp")``: batch rows split over ``dp``, the all-reduce stays
-on ``tp``.  Op names, kind tags and schedule JSON are the reference's;
-``synth=True`` (the synthesized all-reduces) is not ported yet and raises.
+on ``tp``.  With ``synth=True`` each layer's all-reduce is also offered
+as ring, reverse-ring and recursive halving/doubling decompositions
+(collectives/synth.py, :func:`tp_mlp_synth_plans`); at ``n_tp < 2`` there is
+nothing to decompose and no menu.  Op names, kind tags and schedule JSON are
+the reference's.
 """
 
 from __future__ import annotations
@@ -50,12 +53,6 @@ class TpMlpArgs:
     d_model: int = 8
     d_ff: int = 16  # global hidden width (sharded n_tp ways)
     dtype: str = "float32"
-
-
-def _unported_synth(what: str):
-    return NotImplementedError(
-        f"not yet ported: synthesized collectives ({what} synth=True; "
-        "ROADMAP Queue 1 item 6.7)")
 
 
 class TpLayerPartial(DeviceOp):
@@ -167,6 +164,45 @@ def mlp_chunk_menu(args: TpMlpArgs, relax: bool = False):
         combine_bytes=2.0 * part, relax=relax)
 
 
+# -- synthesized all-reduce (collectives/synth.py) ---------------------------
+
+
+def tp_mlp_synth_counts(args: TpMlpArgs, n_dp: int = 1) -> List[int]:
+    """Ring chunk counts that split one chunk's rows on a rank: {1, 2}
+    where they divide (c1 is the classic ring, c2 two interleaving
+    chains)."""
+    rows = args.mb_size // max(1, n_dp)
+    return [k for k in (1, 2) if 1 <= k <= rows and rows % k == 0]
+
+
+def tp_mlp_synth_plans(args: TpMlpArgs, c: int, layer: int, n_dp: int = 1):
+    """Every sketch instantiation of layer ``layer``'s all-reduce for chunk
+    ``c``: ``ring.c{k}`` forward, ``ringr.c1`` reverse, and ``rhd.c1`` where
+    the tp extent is a power of two; none at ``n_tp < 2``.  Shapes are a
+    rank's: ``mb_size // n_dp`` rows of ``d_model``."""
+    from tenzing_tpu_torch.collectives.synth import (
+        plan_rhd_all_reduce,
+        plan_ring_all_reduce,
+    )
+
+    if args.n_tp < 2:
+        return []
+    rows = args.mb_size // max(1, n_dp)
+    shape = (rows, args.d_model)
+    bpe = int(np.dtype(args.dtype).itemsize)
+    base = f"psum_{c}_{layer}"
+    src, dst = f"part_{c}_{layer}", f"sum_{c}_{layer}"
+    plans = [plan_ring_all_reduce(base, src, dst, AXIS, args.n_tp, shape, k,
+                                  itemsize=bpe)
+             for k in tp_mlp_synth_counts(args, n_dp)]
+    plans.append(plan_ring_all_reduce(base, src, dst, AXIS, args.n_tp, shape,
+                                      1, itemsize=bpe, reverse=True))
+    if args.n_tp & (args.n_tp - 1) == 0:
+        plans.append(plan_rhd_all_reduce(base, src, dst, AXIS, args.n_tp,
+                                         shape, itemsize=bpe))
+    return plans
+
+
 class ConcatOut(DeviceOp):
     """Stack the chunks' final reduced outputs back into batch order."""
 
@@ -192,18 +228,24 @@ class TpMlp(CompoundOp):
     (partial -> psum post -> await per layer), joined by the concat.
     ``chunk=True`` wraps each layer's local half in a ``ChunkChoice`` of its
     batch-row splits (pruned by :func:`mlp_chunk_menu`; ``chunk_relax``
-    keeps every valid count, the tests' mode).  ``synth=True`` raises."""
+    keeps every valid count, the tests' mode).  ``synth=True`` wraps each
+    layer's all-reduce in a ``SynthCollectiveChoice``: the fixed ``PsumStart
+    -> AwaitTransfer`` chain against the decompositions of
+    :func:`tp_mlp_synth_plans` over the tp ring, priced per link and pruned
+    against the psum's one-post floor (``synth_relax`` keeps every one);
+    ``synth_dp`` is the dp extent the rows are split over."""
 
     def __init__(self, args: TpMlpArgs, name: str = "tp_mlp",
                  chunk: bool = False, chunk_relax: bool = False,
                  synth: bool = False, synth_relax: bool = False,
                  synth_dp: int = 1):
         super().__init__(name)
-        if synth or synth_relax:
-            raise _unported_synth("TpMlp")
         self._args = args
         self._chunk = chunk
         self._chunk_relax = chunk_relax
+        self._synth = synth
+        self._synth_relax = synth_relax
+        self._synth_dp = max(1, synth_dp)
 
     def args(self) -> TpMlpArgs:
         return self._args
@@ -236,12 +278,46 @@ class TpMlp(CompoundOp):
                     g.start_then(mlp)
                 else:
                     g.then(prev, mlp)
-                g.then(mlp, post)
-                g.then(post, await_)
-                prev = await_
+                choice = self._synth_choice(c, layer, post, await_)
+                if choice is not None:
+                    g.then(mlp, choice)
+                    prev = choice
+                else:
+                    g.then(mlp, post)
+                    g.then(post, await_)
+                    prev = await_
             g.then(prev, cat)
         g.then_finish(cat)
         return g
+
+
+    def _synth_choice(self, c: int, layer: int, post, await_):
+        """The layer's ``SynthCollectiveChoice``, or None without ``synth``
+        or where no instantiation survives."""
+        if not self._synth:
+            return None
+        from tenzing_tpu_torch.collectives.synth import (
+            FixedCollective,
+            SynthCollectiveChoice,
+            sketch_menu,
+        )
+        from tenzing_tpu_torch.collectives.topology import mesh_topology
+
+        a = self._args
+        bpe = np.dtype(a.dtype).itemsize
+        part_bytes = (a.mb_size // self._synth_dp) * a.d_model * bpe
+        variants, menu = sketch_menu(
+            tp_mlp_synth_plans(a, c, layer, n_dp=self._synth_dp),
+            mesh_topology({AXIS: a.n_tp}, host=False),
+            # the psum's floor: a ring all-reduce moves about twice the
+            # partial's bytes in one post
+            fixed_bytes=2.0 * part_bytes,
+            relax=self._synth_relax, collective="all_reduce")
+        if not variants:
+            return None
+        base = f"psum_{c}_{layer}"
+        return SynthCollectiveChoice(base, FixedCollective(base, [post, await_]),
+                                     variants, menu)
 
 
 def make_tp_mlp_buffers(
@@ -255,9 +331,10 @@ def make_tp_mlp_buffers(
     ``("dp", "tp")`` mesh: each chunk's rows split over ``dp`` as well,
     weights replicated over it.  The expected Y is the float64 layer stack,
     laid out as the device blocks are (per tp copy, each dp rank's rows of
-    every chunk in chunk order), in the workload's dtype."""
-    if synth:
-        raise _unported_synth("make_tp_mlp_buffers")
+    every chunk in chunk order), in the workload's dtype.  With ``synth``
+    the buffers include the staging of every sketch of
+    :func:`tp_mlp_synth_plans`, stacked over ``(tp, dp)`` as the other
+    written activations."""
     rng = np.random.default_rng(seed)
     L, v = args.n_layers, args.n_chunks
     b, d, dff = args.mb_size, args.d_model, args.d_ff
@@ -291,6 +368,16 @@ def make_tp_mlp_buffers(
             for nm in (f"part_{c}_{layer}", f"sum_{c}_{layer}"):
                 bufs[nm] = np.zeros((args.n_tp * b, d), dt)
                 specs[nm] = ((AXIS,) + dp, None)
+            if not synth:
+                continue
+            for plan in tp_mlp_synth_plans(args, c, layer, n_dp=n_dp):
+                for decl in plan.buffers:
+                    if decl.name in bufs:
+                        continue
+                    bufs[decl.name] = np.zeros(
+                        (args.n_tp * n_dp * decl.shape[0],)
+                        + tuple(decl.shape[1:]), dt)
+                    specs[decl.name] = ((AXIS,) + dp, None)
     bs = b // n_dp
     per_tp = np.concatenate([
         np.concatenate([y[c * b + j * bs:c * b + (j + 1) * bs]

@@ -2,7 +2,7 @@
 tenzing_tpu_torch.parallel.dryrun [--model M] --nproc N [--device cpu]
 [--shared-card]``, M one of ``moe`` (the default), ``halo``,
 ``spmv_dist``, ``spmv_irregular``, ``ring``, ``pipeline``,
-``pipeline_train``, ``tp_mlp`` and ``modeled``.
+``pipeline_train``, ``tp_mlp``, ``tp_mlp_synth`` and ``modeled``.
 
 The port's counterpart of ``__graft_entry__.py``'s ``dryrun_multichip`` (its
 ``_agree_schedules`` protocol, :23-47), stage by stage.
@@ -51,6 +51,13 @@ attention (DFS, then every step on ``.xla`` and every step on ``.pallas``),
 the pipeline and its training step on ``("pp",)``, and the TP MLP on
 ``("tp",)`` and on ``("dp", "tp")``.  Each stage is the agreement above
 (:func:`agree_model`), its output held to the reference dryrun's tolerance.
+``tp_mlp_synth`` (reference :466-505; two or more ranks) is the TP MLP
+with its all-reduces offered as synthesized ring, reverse-ring and
+recursive halving/doubling decompositions (collectives/synth.py): the
+agreement, then a mesh MCTS of 5 iterations (FastMin, seed 1) through the
+control plane whose every rollout's Y must be within the same tolerance,
+and which must visit at least two sketch labels (``fixed`` counts as one;
+:func:`synth_explore`).
 ``--shared-card`` runs the irregular SpMV with only its ``exchange.rdma``
 schedules, every distance's shift between ranks on GPU 0, and times each
 distance's shift (:func:`model_shared_main`).
@@ -194,14 +201,16 @@ def build_layer(mesh, device, args: MoEArgs, seed: int = 0,
                 **graph_kw) -> Layer:
     """This rank's executor on 2 lanes over its block of
     ``make_moe_buffers(args, seed)``, and the layer's graph (``graph_kw``:
-    ``MoELayer`` options)."""
+    ``MoELayer`` options; with ``synth`` the buffers carry the ring
+    all-to-alls' staging)."""
     import torch
 
     from tenzing_tpu_torch.core.platform import Platform
     from tenzing_tpu_torch.parallel.mesh import shard_buffers
     from tenzing_tpu_torch.runtime.executor import StreamExecutor
 
-    bufs, specs, want = make_moe_buffers(args, seed=seed)
+    bufs, specs, want = make_moe_buffers(args, seed=seed,
+                                         synth=graph_kw.get("synth", False))
     # W1 / W2 come out float64 under NumPy 2's promotion (float32 array /
     # numpy float64 scalar), as the reference's do; JAX places them as
     # float32 (x64 off), and so does the port.  A bf16 layer places every
@@ -374,7 +383,7 @@ def rank_main(mesh, device, args: Dict[str, Any],
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model", choices=("moe", "halo") + MODELS
-                   + ("modeled",), default="moe")
+                   + MULTI_RANK_MODELS + ("modeled",), default="moe")
     p.add_argument("--nproc", type=int, default=1)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--mcts-iters", type=int, default=8)
@@ -389,7 +398,7 @@ def main(argv=None) -> int:
         summary = halo_main(a.nproc, a.device, a.mcts_iters, a.shared_card)
     elif a.model == "modeled":
         summary = modeled_main(a.nproc)
-    elif a.model in MODELS:
+    elif a.model in MODELS + MULTI_RANK_MODELS:
         summary = models_main(a.model, a.nproc, a.device, a.shared_card)
     else:
         width = DRYRUN_ARGS if a.device == "cpu" else FULL_ARGS
@@ -464,16 +473,19 @@ class HaloMesh:
 
 
 def build_halo(mesh, device, args, seed: int = 0, lanes: int = 2,
-               extra: Optional[Dict[str, np.ndarray]] = None) -> HaloMesh:
+               extra: Optional[Dict[str, np.ndarray]] = None,
+               synth: bool = False) -> HaloMesh:
     """This rank's executor on ``lanes`` lanes over its block of
-    ``make_halo_buffers(mesh shape, args, seed)`` (plus ``extra`` buffers)."""
+    ``make_halo_buffers(mesh shape, args, seed)`` (plus ``extra`` buffers;
+    with ``synth`` the synthesized shifts' staging)."""
     import torch
 
     from tenzing_tpu_torch.core.platform import Platform
     from tenzing_tpu_torch.models.halo import HALO_SPEC, make_local_halo_buffers
     from tenzing_tpu_torch.runtime.executor import StreamExecutor, buffers_from_numpy
 
-    bufs, want = make_local_halo_buffers(mesh.shape, mesh.coords, args, seed)
+    bufs, want = make_local_halo_buffers(mesh.shape, mesh.coords, args, seed,
+                                         synth=synth)
     bufs.update(extra or {})
     local = buffers_from_numpy(bufs, device)
     del bufs
@@ -485,13 +497,17 @@ def build_halo(mesh, device, args, seed: int = 0, lanes: int = 2,
                     want=torch.from_numpy(want).to(device))
 
 
-def halo_graph(args, xfer_choice: bool = False):
+def halo_graph(args, xfer_choice: bool = False, synth: bool = False):
     """Start -> the halo exchange -> Finish: the ``HaloExchange`` compound,
     or with ``xfer_choice`` the chains with the engine menu (the
-    reference's ``add_to_graph(Graph(), args, xfer_choice=True)``)."""
+    reference's ``add_to_graph(Graph(), args, xfer_choice=True)``), with
+    ``synth`` the engine menu and every synthesized shift (``synth_relax``:
+    none pruned)."""
     from tenzing_tpu_torch.core.graph import Graph
     from tenzing_tpu_torch.models.halo import HaloExchange, add_to_graph
 
+    if synth:
+        return add_to_graph(Graph(), args, synth=True, synth_relax=True)
     if xfer_choice:
         return add_to_graph(Graph(), args, xfer_choice=True)
     g = Graph()
@@ -658,7 +674,8 @@ def halo_rank_main(mesh, device, args: Dict[str, Any], mcts_iters: int,
 
 def halo_schedules(mesh, device, args: Dict[str, Any], schedules: List[list],
                    seed: int = 0, xfer_choice: bool = False,
-                   fail_rank: Optional[int] = None) -> Optional[list]:
+                   fail_rank: Optional[int] = None,
+                   synth: bool = False) -> Optional[list]:
     """Launch task: run each schedule JSON of the halo graph once on the
     mesh, from the initial buffers; rank 0 returns the gathered U of each
     (numpy), the others None.  ``fail_rank`` runs only the first schedule's
@@ -668,8 +685,8 @@ def halo_schedules(mesh, device, args: Dict[str, Any], schedules: List[list],
     from tenzing_tpu_torch.models.halo import HALO_SPEC, HaloArgs
     from tenzing_tpu_torch.parallel.mesh import coords_of, gather_buffer
 
-    h = build_halo(mesh, device, HaloArgs(**args), seed=seed)
-    g = halo_graph(h.args, xfer_choice=xfer_choice)
+    h = build_halo(mesh, device, HaloArgs(**args), seed=seed, synth=synth)
+    g = halo_graph(h.args, xfer_choice=xfer_choice, synth=synth)
     if fail_rank is not None and mesh.coords == coords_of(fail_rank,
                                                           mesh.shape):
         order = sequence_from_json(schedules[0], g)
@@ -1101,6 +1118,10 @@ def halo_main(nproc: int, device: str, mcts_iters: int,
 # the models of ``--model`` beside moe and halo
 MODELS = ("spmv_dist", "spmv_irregular", "ring", "pipeline", "pipeline_train",
           "tp_mlp")
+# the models that need two or more ranks
+MULTI_RANK_MODELS = ("tp_mlp_synth",)
+# the synth stage's mesh MCTS (the reference's n_iters=5, seed=1)
+SYNTH_MCTS_ITERS = 5
 # the reference dryrun's tolerances against the expected output
 # (__graft_entry__.py:274-276, :362-366, :408-433, :460-462)
 SPMV_TOL = dict(rtol=2e-3, atol=0.0)
@@ -1219,7 +1240,15 @@ def model_cases(nproc: int, model: str) -> List[Dict[str, Any]]:
                      args=dict(n_tp=tp2, n_layers=2, n_chunks=2,
                                mb_size=2 * dp2, d_model=8, d_ff=16 * tp2,
                                n_dp=dp2), pick="dfs")]
-    raise ValueError(f"unknown model {model!r} (have {MODELS})")
+    if model == "tp_mlp_synth":
+        if nproc < 2:
+            raise ValueError("tp_mlp_synth needs 2 or more ranks: at tp=1 "
+                             "the all-reduce has no decomposition")
+        return [dict(model=model, axes=("tp",), shape=(nproc,),
+                     args=dict(n_tp=nproc, n_layers=2, n_chunks=2, mb_size=2,
+                               d_model=8, d_ff=16), pick="dfs")]
+    raise ValueError(f"unknown model {model!r} (have "
+                     f"{MODELS + MULTI_RANK_MODELS})")
 
 
 def irregular_matrix(spec: Dict[str, Any]):
@@ -1285,13 +1314,16 @@ def model_setup(model: str, args: Dict[str, Any], n_ranks: Dict[str, int],
         else:
             bufs, specs, want = pp.make_train_buffers(pa, seed=seed)
             comp, out, tol = pp.PipelineTrain(pa), "dW", train_tol(a, want)
-    elif model == "tp_mlp":
+    elif model in ("tp_mlp", "tp_mlp_synth"):
         from tenzing_tpu_torch.models.tp_mlp import TpMlp, TpMlpArgs, make_tp_mlp_buffers
 
+        synth = model == "tp_mlp_synth"
         n_dp = a.pop("n_dp", 1)
         ta = TpMlpArgs(**a)
-        bufs, specs, want = make_tp_mlp_buffers(ta, seed=seed, n_dp=n_dp)
-        comp = TpMlp(ta, chunk=chunk, chunk_relax=chunk)
+        bufs, specs, want = make_tp_mlp_buffers(ta, seed=seed, n_dp=n_dp,
+                                                synth=synth)
+        comp = TpMlp(ta, chunk=chunk, chunk_relax=chunk, synth=synth,
+                     synth_relax=synth)
         out, tol = "Y", ACT_TOL
     else:
         raise ValueError(f"unknown model {model!r} (have {MODELS})")
@@ -1505,10 +1537,49 @@ def model_rank_main(mesh, device, model: str, args: Dict[str, Any],
     cp = DistControlPlane(control_group())
     m = build_model(mesh, device, model, args, seed=seed)
     rows = agree_model(m, cp, pick, label)
+    search = synth_explore(m, cp) if model == "tp_mlp_synth" else None
     if cp.rank() != 0:
         return None
-    return {"model": model, "stage": label, "mesh": dict(
+    out = {"model": model, "stage": label, "mesh": dict(
         zip(mesh.axis_names, mesh.shape)), "args": args, "schedules": rows}
+    if search is not None:
+        out["explore"] = search
+    return out
+
+
+def synth_explore(m: ModelRun, cp, iters: int = SYNTH_MCTS_ITERS) -> dict:
+    """The synth stage's search (reference __graft_entry__.py:487-505): an
+    MCTS of ``iters`` iterations (FastMin, seed 1) on the mesh through the
+    control plane; every rollout is run again from the initial buffers and
+    its Y held to the model's tolerance, and the rollouts must visit at
+    least two sketch labels (``fixed`` for a rollout with none).  Raises
+    otherwise; returns the labels seen, the rollouts and the tree size."""
+    from tenzing_tpu_torch.bench.benchmarker import BenchOpts, EmpiricalBenchmarker
+    from tenzing_tpu_torch.bench.gate import within
+    from tenzing_tpu_torch.collectives.synth import synths_of
+    from tenzing_tpu_torch.solve.mcts import MctsOpts, explore
+    from tenzing_tpu_torch.solve.mcts.strategies import FastMin
+
+    bench = EmpiricalBenchmarker(m.executor, control_plane=cp)
+    res = explore(m.graph, m.platform, bench,
+                  MctsOpts(n_iters=iters, seed=1,
+                           bench_opts=BenchOpts(n_iters=1, target_secs=1e-4)),
+                  strategy=FastMin, control_plane=cp)
+    seen = set()
+    for i, sim in enumerate(res.sims):
+        chosen = synths_of(sim.order.vector())
+        seen.update(f"{v['sketch']}.c{v['chunks']}" for v in chosen.values())
+        if not chosen:
+            seen.add("fixed")
+        ok, errs = within(run_model(m, sim.order), m.want, m.tol)
+        if not ok:
+            raise AssertionError(f"synth rollout {i}: {m.out} is not within "
+                                 f"{m.tol} of the expected: {errs}")
+    if len(seen) < 2:
+        raise AssertionError(f"the synth MCTS visited {sorted(seen)}: fewer "
+                             "than two sketch labels")
+    return {"rollouts": len(res.sims), "tree_size": res.tree_size,
+            "sketches": sorted(seen)}
 
 
 def model_shared_main(mesh, device, model: str, args: Dict[str, Any],
@@ -1644,6 +1715,9 @@ def full_cases(nproc: int, model: str) -> List[Dict[str, Any]]:
     if model in ("pipeline", "pipeline_train"):
         return [dict(model=model, axes=("pp",), shape=(1,), args=PIPE_FULL,
                      pick="dfs")]
+    if model == "tp_mlp_synth":
+        raise ValueError("tp_mlp_synth has no menu at world size 1 (tp=1); "
+                         "its decompositions run over gloo on the CPU")
     if model == "tp_mlp":
         return [dict(model=model, axes=("tp",), shape=(1,), args=TP_FULL,
                      pick="dfs"),

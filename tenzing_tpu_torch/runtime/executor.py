@@ -74,6 +74,15 @@ arrival flag shows they landed.  On an axis of size 1 the shift is the
 loopback copy, posted like any transfer.  With ``device="cpu"``, or under
 ``plain_kernels``, the shift is its plain version over the axis group.
 
+**An await with nothing in flight** raises, except on a buffer that a
+device op wrote since its last post (:func:`graphs.track_landed`): a
+synthesized exchange (collectives/synth.py) delivers the destination with
+its own posts, awaits and a final device step, and the graph keeps the
+site's await after it (the halo's ``await_<dir>`` after an
+``ExchangeChoice`` alternative, as in the reference, whose await of such a
+buffer is a no-op).  The synchronizer has ordered that await after the
+device step, so there is nothing left to wait for.
+
 **Stepped execution** (:meth:`StreamExecutor.op_stepped`, the attribution
 profiler's timed mode, obs/attrib/timeline.py) runs a schedule one unit at a
 time from a copy of the initial buffers, each unit alone on an idle device;
@@ -263,6 +272,9 @@ class RunContext:
         self.scratch: Dict[str, torch.Tensor] = {}
         self.host_names: set = set()
         self.inflight: Dict[str, Any] = {}
+        # the buffers a device op wrote since their last post
+        # (graphs.track_landed; module docstring)
+        self.landed: set = set()
         # events of EventSyncs not waited on yet, and the (lane, event)
         # stream waits already issued for them (module docstring)
         self.pending: List[Event] = []
@@ -318,6 +330,7 @@ class RunContext:
             elif graphs.flushes_pending(op, {e.id for e in self.pending}):
                 self.flush_pending()
         op.execute(self)
+        graphs.track_landed(op, self.landed)
 
     def wait_pending(self, lane: Lane) -> None:
         """Make ``lane``'s stream wait on every pending event."""
@@ -465,6 +478,8 @@ class RunContext:
         if buf in self.host_names:
             return
         if buf not in self.inflight:
+            if buf in self.landed:
+                return
             raise RuntimeError(f"await on {buf!r}: no transfer in flight")
         entry = self.inflight.pop(buf)
         self.host_syncs += 1
@@ -675,6 +690,8 @@ class CaptureContext(RunContext):
         if buf in self.host_names:
             return
         if buf not in self.inflight:
+            if buf in self.landed:
+                return
             raise RuntimeError(f"await on {buf!r}: no transfer in flight")
         self.waits.append(("transfer", (buf,), [self.inflight.pop(buf)]))
 
@@ -859,7 +876,7 @@ class StreamExecutor:
             # a new buffer dict: the mesh shift maps its peers' anew
             ctx.generation += 1
         ctx.bufs = bufs
-        ctx.inflight = {}
+        ctx.inflight, ctx.landed = {}, set()
         ctx.pending, ctx._pending_waited = [], set()
         for op in ops:
             ctx.run(op)
@@ -1159,7 +1176,7 @@ class StreamExecutor:
         ctx = self.ctx
         ctx.bufs = _copy_buffers(self._initial)
         ctx.generation += 1
-        ctx.inflight = {}
+        ctx.inflight, ctx.landed = {}, set()
         self._fence()
         steps: List[Tuple[Tuple[int, ...], Optional[Callable]]] = []
         for positions in step_units(ops):

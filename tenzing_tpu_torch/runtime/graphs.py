@@ -151,6 +151,16 @@ def op_streams(op: OpBase) -> FrozenSet[StreamKey]:
     return frozenset()
 
 
+def track_landed(op: OpBase, landed: set) -> None:
+    """Keep ``landed``, the buffers a device op wrote since their last
+    post, up to date after ``op``: an await of one of them, with nothing in
+    flight, is a no-op (runtime/executor.py's module docstring)."""
+    if isinstance(op, BoundDeviceOp):
+        landed.update(op.writes())
+    elif getattr(unbound(op), "DST_SPACE", None) == "device":
+        landed.discard(op.dst())
+
+
 def plan_segments(ops: List[OpBase], host_names: Iterable[str] = (),
                   defer_host_syncs: bool = True) -> List[Segment]:
     """Split ``ops`` into capture segments (module docstring).
@@ -162,6 +172,7 @@ def plan_segments(ops: List[OpBase], host_names: Iterable[str] = (),
     segments: List[Segment] = []
     pending: List[int] = []
     inflight: set = set()
+    landed: set = set()
     cur: List[int] = []
     streams: set = set()
 
@@ -194,7 +205,7 @@ def plan_segments(ops: List[OpBase], host_names: Iterable[str] = (),
             bufs = [op.buf()] if kind == "await_transfer" else op.bufs()
             waits = []
             for b in bufs:
-                if b in host:
+                if b in host or (b not in inflight and b in landed):
                     continue
                 if b not in inflight:
                     raise RuntimeError(f"await on {b!r}: no transfer in "
@@ -209,6 +220,7 @@ def plan_segments(ops: List[OpBase], host_names: Iterable[str] = (),
                 raise RuntimeError(f"{op.name()}: a transfer into {dst!r} "
                                    "is already in flight")
             inflight.add(dst)
+        track_landed(op, landed)
     close((HostWait("flush", len(ops), tuple(pending)),) if pending else ())
     if inflight:
         raise ValueError("schedule ended with un-awaited transfers into "

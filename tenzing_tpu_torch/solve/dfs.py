@@ -25,9 +25,12 @@ schedule measured one at a time, as in the reference.  Compile prefetching
 is the reference's: with ``prefetch`` (a bench/pipeline.py
 ``PrefetchingBenchmarker``) the next ``prefetch_lookahead`` terminals are
 hinted while terminal i measures (the batch path needs no hint: a
-prefetcher in the benchmark stack hints the whole batch itself).  Not
-ported yet, and refused when set: the learned ``prescreen`` (ROADMAP
-Queue 1 item 7) and fleet ``subtree`` slicing (item 8).
+prefetcher in the benchmark stack hints the whole batch itself).  With
+``prescreen`` (a learn/surrogate.py ``SurrogateBenchmarker``) and
+``prescreen_keep`` > 0, rank 0 measures only the ``prescreen_keep``
+terminals the surrogate ranks fastest (``learn.prune.dfs_skipped`` counts
+the rest), as the reference does.  Not ported yet, and refused when set:
+fleet ``subtree`` slicing (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -49,6 +52,8 @@ from tenzing_tpu_torch.core.operation import ChoiceOp, CompoundOp
 from tenzing_tpu_torch.core.sequence import Sequence, canonical_key
 from tenzing_tpu_torch.core.serdes import sequence_from_json, sequence_to_json
 from tenzing_tpu_torch.core.state import State
+from tenzing_tpu_torch.obs.metrics import get_metrics
+from tenzing_tpu_torch.obs.progress import get_reporter
 from tenzing_tpu_torch.obs.tracer import get_tracer
 from tenzing_tpu_torch.parallel.control_plane import ControlPlane, default_control_plane
 from tenzing_tpu_torch.utils import trap
@@ -68,8 +73,9 @@ class DfsOpts:
     measured; an unsound one is skipped.  ``prefetch`` hints the next
     ``prefetch_lookahead`` terminals to a capture prefetcher.
     ``checkpoint`` (a ``fault.checkpoint.SearchCheckpoint``) gets the
-    cursor.  ``prescreen`` and ``subtree`` are the reference's and must stay
-    unset: not yet ported."""
+    cursor.  ``prescreen`` (a surrogate with ``predict(order) -> (mean,
+    std)``) keeps the ``prescreen_keep`` terminals it predicts fastest.
+    ``subtree`` is the reference's and must stay unset: not yet ported."""
 
     max_seqs: int = 15000
     bench_opts: BenchOpts = field(default_factory=BenchOpts)
@@ -90,7 +96,7 @@ class DfsOpts:
                 "batch": self.batch, "batch_seed": self.batch_seed}
 
 
-_UNPORTED = {"prescreen": "item 7", "subtree": "item 8"}
+_UNPORTED = {"subtree": "item 8"}
 
 
 @dataclass
@@ -300,6 +306,7 @@ def _explore(graph: Graph, platform, benchmarker, opts: DfsOpts, cp,
         with get_tracer().span("dfs.enumerate"):
             states = enumerate_schedules(graph, platform, opts.max_seqs,
                                          counters=counters)
+        states = _prescreened(states, opts)
     orders = [st.sequence for st in states]
     if opts.verify is not None:
         kept = []
@@ -341,6 +348,26 @@ def _explore(graph: Graph, platform, benchmarker, opts: DfsOpts, cp,
         for i, o in enumerate(orders):
             _measure_one(benchmarker, o, opts, counters, i, result,
                          _window(orders, i, opts), len(orders))
+
+
+def _prescreened(states, opts: DfsOpts):
+    """The learned triage (reference dfs.py:331-350): the
+    ``prescreen_keep`` terminals the surrogate predicts fastest, a stable
+    sort keeping the enumeration order among equal predictions."""
+    if (opts.prescreen is None or opts.prescreen_keep <= 0
+            or len(states) <= opts.prescreen_keep):
+        return states
+    with get_tracer().span("learn.prescreen", n_in=len(states),
+                           keep=opts.prescreen_keep):
+        ranked = sorted(range(len(states)), key=lambda i: opts.prescreen.predict(
+            states[i].sequence)[0])
+        kept = [states[i] for i in ranked[:opts.prescreen_keep]]
+    skipped = len(states) - len(kept)
+    get_metrics().counter("learn.prune.dfs_skipped").inc(skipped)
+    get_reporter().info(f"tenzing-tpu: dfs prescreen kept {len(kept)}/"
+                        f"{len(states)} terminals", kept=len(kept),
+                        skipped=skipped)
+    return kept
 
 
 def _window(orders, i: int, opts: DfsOpts) -> list:

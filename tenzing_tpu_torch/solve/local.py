@@ -18,8 +18,11 @@ neighbour k+1 captures while neighbour k measures; the replay is
 deterministic and RNG-free, so the climb is the same either way.  With
 ``LocalOpts.checkpoint`` the climb's cursor (spent, accepted) is snapshotted
 after each accepted move and at the end, and a paired batch the journal
-answers (a resumed climb) charges no budget.  Left out, with their
-subsystems: the learned prescreen and the fleet's shared claim registry.  A
+answers (a resumed climb) charges no budget.  With ``LocalOpts.prescreen``
+(a learn/surrogate.py ``SurrogateBenchmarker``) a neighbour whose optimistic
+prediction is still worse than the incumbent's is skipped unmeasured and
+uncharged (``learn.prune.local_skipped``).  Left out, with its subsystem:
+the fleet's shared claim registry (ROADMAP Queue 1 item 8).  A
 measurement that raises is recorded (``search.candidate_failed``) and
 rejects the neighbour where the benchmarker is rank-coherent (the resilient
 layer classified it) and the device was not lost; otherwise it propagates,
@@ -36,6 +39,7 @@ from tenzing_tpu_torch.bench.benchmarker import (
     BenchOpts,
     candidate_failed,
     rejects_failures,
+    schedule_id,
 )
 from tenzing_tpu_torch.core.graph import Graph
 from tenzing_tpu_torch.core.sequence import Sequence
@@ -47,6 +51,8 @@ from tenzing_tpu_torch.core.state import (
     ExpandOp,
     State,
 )
+from tenzing_tpu_torch.obs.metrics import get_metrics
+from tenzing_tpu_torch.obs.tracer import get_tracer
 
 
 def phase_policy(platform, phases: Seq[str],
@@ -207,16 +213,40 @@ class LocalOpts:
     hints; None (the default) gives the same climb.
 
     ``checkpoint`` (a ``fault.checkpoint.SearchCheckpoint``) snapshots the
-    climb's cursor."""
+    climb's cursor.
+
+    ``prescreen`` (a surrogate with ``predict(order) -> (mean, std)``)
+    prunes neighbours before they are measured: one whose optimistic
+    prediction ``mu - prescreen_z * (sigma_cand + sigma_incumbent)`` is
+    still worse than the incumbent's prediction is skipped without charging
+    the budget."""
 
     budget: int = 24
     bench_opts: BenchOpts = field(default_factory=BenchOpts)
     seed: int = 0
     max_alts_per_step: int = 3
     paired: bool = False
+    prescreen: Optional[object] = None
+    prescreen_z: float = 2.0
     verify: Optional[object] = None
     prefetch: Optional[object] = None
     checkpoint: Optional[object] = None
+
+
+def _pruned(opts: LocalOpts, cand_seq, seq) -> bool:
+    """True when the prescreen rules ``cand_seq`` out against the incumbent
+    ``seq`` (the reference's rule, solve/local.py:421-432)."""
+    if opts.prescreen is None:
+        return False
+    mu_c, s_c = opts.prescreen.predict(cand_seq)
+    mu_i, s_i = opts.prescreen.predict(seq)
+    if mu_c - opts.prescreen_z * (s_c + s_i) <= mu_i:
+        return False
+    get_metrics().counter("learn.prune.local_skipped").inc()
+    tr = get_tracer()
+    if tr.enabled:
+        tr.event("learn.prune", where="local", schedule=schedule_id(cand_seq))
+    return True
 
 
 @dataclass
@@ -382,6 +412,8 @@ def hill_climb(
                     # without charging the budget
                     continue
                 seen.add(key)
+                if _pruned(opts, cand_seq, seq):
+                    continue
                 if use_paired:
                     res, accept, charge = paired_step(seq, cand_seq)
                 else:

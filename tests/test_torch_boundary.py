@@ -76,6 +76,38 @@ def test_moe_smoke_driver_leaves_jax_unloaded():
     assert bad == []
 
 
+def test_synth_and_learn_drivers_leave_jax_unloaded(tmp_path):
+    """The spmv smoke with ``--synth-collectives`` (collectives/), then a
+    halo smoke's database trained into a model (``--learn-train``) and a
+    search screened by it (``--learn-screen``; learn/): neither jax nor
+    tenzing_tpu is loaded where they run."""
+    db, model = tmp_path / "h.csv", tmp_path / "m.json"
+    code = (
+        "import sys, json\n"
+        "from tenzing_tpu_torch.bench.driver import DriverRequest, run\n"
+        "small = dict(smoke=True, mcts_iters=4, iters=3, search_iters=2)\n"
+        "r = run(DriverRequest(workload='spmv', synth_collectives=True,"
+        " **small), device='cpu')\n"
+        "assert r.verdict['perf']['synth']['menus'], r.verdict\n"
+        f"run(DriverRequest(dump_csv={str(db)!r}, **small), device='cpu')\n"
+        f"t = run(DriverRequest(smoke=True, learn_train=[{str(db)!r}],"
+        f" learn_model={str(model)!r}), device='cpu')\n"
+        "assert t.verdict['rows'] >= 4, t.verdict\n"
+        f"s = run(DriverRequest(learn_screen=True, learn_model={str(model)!r},"
+        " **small), device='cpu')\n"
+        "assert s.verdict['learn']['escalations'] > 0, s.verdict\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'tenzing_tpu'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 def test_mesh_dryrun_leaves_jax_unloaded():
     """``python -m tenzing_tpu_torch.parallel.dryrun`` on the CPU: at one
     rank in the interpreter that runs it, at two ranks through the
@@ -107,13 +139,13 @@ def test_mesh_dryrun_leaves_jax_unloaded():
 def test_model_dryruns_leave_jax_unloaded():
     """Every other model's dryrun stage and the modeled stage on the CPU, at
     one rank in the interpreter that runs them and (the distributed SpMV,
-    the ring) at two ranks through the launcher: every schedule agrees, and
+    the ring, the synthesized TP MLP) at two ranks through the launcher: every schedule agrees, and
     neither jax nor tenzing_tpu is loaded where they run."""
     code = (
         "import sys, json, io, contextlib\n"
         "from tenzing_tpu_torch.parallel import dryrun\n"
         "runs = [(m, '1') for m in dryrun.MODELS + ('modeled',)]\n"
-        "runs += [('spmv_dist', '2'), ('ring', '2')]\n"
+        "runs += [('spmv_dist', '2'), ('ring', '2'), ('tp_mlp_synth', '2')]\n"
         "for m, n in runs:\n"
         "    buf = io.StringIO()\n"
         "    with contextlib.redirect_stdout(buf):\n"

@@ -124,10 +124,25 @@ def test_explore_verifies_and_refuses_unported_options(tmp_path):
     assert len(res.sims) == 4
     # checkpoint is ported: rank 0 snapshots the cursor at the last terminal
     assert ckpt.load_state()["dfs"] == {"i": 3, "n": 4, "n_sims": 4}
-    for name, value in (("prescreen", object()), ("subtree", (0, 2))):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            dfs.explore(g, Platform.make_n_lanes(2), EmpiricalBenchmarker(ex),
-                        dfs.DfsOpts(max_seqs=2, **{name: value}))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        dfs.explore(g, Platform.make_n_lanes(2), EmpiricalBenchmarker(ex),
+                    dfs.DfsOpts(max_seqs=2, subtree=(0, 2)))
+    # prescreen is ported (tests/test_torch_learn.py): a surrogate keeps the
+    # terminals it predicts fastest, here the first two in a tie
+
+    from tenzing_tpu_torch.core.sequence import canonical_key
+
+    class Flat:
+        def predict(self, order):
+            return 0.0, 0.0
+
+    kept = dfs.explore(g, Platform.make_n_lanes(2), EmpiricalBenchmarker(ex),
+                       dfs.DfsOpts(max_seqs=4, prescreen=Flat(),
+                                   prescreen_keep=2,
+                                   bench_opts=BenchOpts(n_iters=2,
+                                                        target_secs=0.0002)))
+    assert [canonical_key(s.order) for s in kept.sims] == [
+        canonical_key(s.order) for s in res.sims[:2]]
     # prefetch is ported: the next terminals are hinted while one measures
     from tenzing_tpu_torch.bench.pipeline import PrefetchingBenchmarker
 

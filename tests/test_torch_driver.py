@@ -68,17 +68,22 @@ def test_metric_and_lanes_equal_reference(workload):
 @pytest.mark.parametrize("override", [
     dict(workload="attn", search_workers=2), dict(workload="moe",
                                                    measure_batch=2),
-    dict(synth_collectives=True), dict(learn_screen=True),
-    dict(workload="attn", synth_collectives=True),
-    dict(workload="spmv", learn_screen=True),
+    dict(synth_collectives=True, search_workers=2),
+    dict(learn_screen=True, learn_model="m.json", measure_batch=2),
+    dict(workload="attn", synth_collectives=True, measure_batch=4),
+    dict(workload="spmv", learn_screen=True, learn_model="m.json",
+         search_workers=2),
     dict(search_workers=2), dict(measure_batch=4),
-    dict(workload="spmv", learn_model="m.json"),
-    dict(workload="moe", learn_model="m.json"),
-    dict(learn_train=["a.csv"]), dict(workload="spmv", learn_trace=["t"]),
+    dict(workload="spmv", learn_model="m.json", search_workers=4),
+    dict(workload="moe", learn_model="m.json", measure_batch=2),
+    dict(learn_train=["a.csv"], search_workers=2),
+    dict(workload="spmv", learn_train=["a.csv"], learn_trace=["t"],
+         measure_batch=2),
 ])
 def test_unported_flags_raise(override):
-    """The flags still to port raise, naming their ROADMAP item (the fault
-    flags are ported: ``test_fault_flag_refusals``)."""
+    """The flags still to port (the fleet's, ROADMAP Queue 1 item 8) raise,
+    naming their item, also beside the ported synth and learn flags (the
+    fault flags: ``test_fault_flag_refusals``)."""
     with pytest.raises(driver.DriverConfigError,
                        match=r"not yet ported \(ROADMAP Queue 1 item"):
         driver.run(driver.DriverRequest(smoke=True, **override), device="cpu")
@@ -515,3 +520,37 @@ def test_fuse_gate_reports_divergence_and_raises_on_member_tolerance():
     assert check(out, moved, set()) == ["acc", "m_run", "l_run"]
     bf16 = fixed_order(g, Platform.make_n_lanes(1), ".fused_bf16")
     assert driver.fused_member_check(req, bf16) is not check
+
+
+SYNTH_SMOKE = dict(smoke=True, workload="spmv", synth_collectives=True,
+                   mcts_iters=6, iters=3, search_iters=2)
+
+
+def test_synth_collectives_block():
+    """``--synth-collectives`` on the spmv smoke: the exchange's pipe menu
+    (every instantiation kept at the smoke, each with the reason the prune
+    would drop it for), what the search visited, the reference's keys."""
+    v = driver.run(driver.DriverRequest(**SYNTH_SMOKE), device="cpu").verdict
+    assert v["verified"] is True
+    block = v["perf"]["synth"]
+    assert set(block) == {"menus", "searched_sketches", "n_candidates_synth",
+                          "chosen", "est_comm_us", "measured_hidden_us",
+                          "verified", "note"}
+    menu = block["menus"]["x_exchange"]
+    assert menu["menu"] == ["fixed", "pipe.c2", "pipe.c4"]
+    assert set(menu["pruned"]) <= {"pipe.c2", "pipe.c4"}
+    assert "relax" in menu["note"] and block["n_candidates_synth"] >= 1
+    assert set(block["searched_sketches"]) <= {"pipe.c2", "pipe.c4"}
+
+
+def test_synth_block_raises_where_the_reference_catches(monkeypatch):
+    """A failure of the ``perf.synth`` block ends the run (the reference
+    catches it into ``{"error": ...}``; ROADMAP Queue 3 item 16)."""
+    from tenzing_tpu_torch.collectives import synth
+
+    def broken(graph):
+        raise RuntimeError("synth menus unreadable")
+
+    monkeypatch.setattr(synth, "synth_menus", broken)
+    with pytest.raises(RuntimeError, match="synth menus unreadable"):
+        driver.run(driver.DriverRequest(**SYNTH_SMOKE), device="cpu")

@@ -159,6 +159,48 @@ def test_plan_raises_on_await_without_post():
                               Finish()])
 
 
+class _Write(DeviceOp):
+    def __init__(self, name, buf):
+        super().__init__(name)
+        self._buf = buf
+
+    def writes(self):
+        return [self._buf]
+
+    def apply(self, bufs, ctx):
+        bufs[self._buf].fill_(1.0)
+
+
+def test_await_with_nothing_in_flight_still_raises():
+    """An await passes with nothing in flight only on a buffer a device op
+    wrote since its last post (a synthesized exchange's destination,
+    ``graphs.track_landed``), in the plan and in the executor alike; any
+    other, or one posted since, still raises."""
+    from tenzing_tpu_torch.core.sync_ops import EventRecord, EventSync
+    from tenzing_tpu_torch.core.resources import Event
+    from tenzing_tpu_torch.ops.comm_ops import AwaitTransfer, HostFetchStart
+
+    lane = Lane(0)
+    landed = [Start(), _Write("w", "x").bind(lane),
+              EventRecord(lane, Event(0)), EventSync(Event(0)),
+              AwaitTransfer("await_x", "x"), Finish()]
+    segs = graphs.plan_segments(landed)
+    assert not [w for s in segs for w in s.waits if w.kind == "transfer"]
+    ex = StreamExecutor(Platform.make_n_lanes(1),
+                        {"x": torch.zeros(4), "h": torch.zeros(4)},
+                        device="cpu")
+    ex.run(Sequence(landed))
+    for ops in ([Start(), AwaitTransfer("await_y", "x"), Finish()],
+                [Start(), _Write("w", "x").bind(lane),
+                 EventRecord(lane, Event(0)), EventSync(Event(0)),
+                 HostFetchStart("f", "h", "x"), AwaitTransfer("a", "x"),
+                 AwaitTransfer("again", "x"), Finish()]):
+        with pytest.raises(RuntimeError, match="no transfer in flight"):
+            graphs.plan_segments(ops)
+        with pytest.raises(RuntimeError, match="no transfer in flight"):
+            ex.run(Sequence(ops))
+
+
 @pytest.mark.parametrize("defer", [True, False])
 @pytest.mark.parametrize("label", ["naive", "alias-8l", "greedy-rdma-2l"])
 def test_plan_host_waits_equal_executor_host_syncs(label, defer):

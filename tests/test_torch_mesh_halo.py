@@ -191,12 +191,20 @@ def test_graph_and_variants_equal_reference(xfer_choice):
 
 
 def test_unported_synth_raises():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        halo.ExchangeChoice((1, 0, 0), args=halo.HaloArgs(), synth=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        halo.make_halo_buffers((1, 1, 1), halo.HaloArgs(), synth=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        halo.add_to_graph(Graph(), halo.HaloArgs(), synth=True)
+    """``synth=True`` is ported (tests/test_torch_collectives.py); what
+    still raises is a synthesized menu without the grid's extents, as in
+    the reference."""
+    with pytest.raises(ValueError, match="needs HaloArgs"):
+        halo.ExchangeChoice((1, 0, 0), synth=True)
+    names = [c.name() for c in halo.ExchangeChoice(
+        (1, 0, 0), args=halo.HaloArgs(**ARGS), synth=True,
+        synth_relax=True).choices()]
+    assert names[:2] == ["exchange_px.xla", "exchange_px.rdma"]
+    assert names[2:] == ["exchange_px.synthed.neighbor.c1",
+                         "exchange_px.synthed.neighbor.c2"]
+    bufs, _, _ = halo.make_halo_buffers((1, 1, 1), halo.HaloArgs(**ARGS),
+                                        synth=True)
+    assert "exchange_px.neighbor1.x0.snd" in bufs
 
 
 @pytest.mark.parametrize("mesh_shape,args", [

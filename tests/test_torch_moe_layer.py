@@ -152,10 +152,13 @@ def test_chunk_menu_and_unported_synth():
     a = _args(4)
     assert moe.ffn_chunk_menu(a, relax=True) == \
         ref.ffn_chunk_menu(ref.MoEArgs(**asdict(a)), relax=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        moe.MoELayer(a, synth=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        moe.make_moe_buffers(a, synth=True)
+    # at n_ep = 1 there is no ring all-to-all: no menu, no staging
+    one = _args(1)
+    assert moe.moe_synth_plans(one, 0, "disp") == []
+    assert (_shape(dryrun.layer_graph(one, synth=True))
+            == _shape(dryrun.layer_graph(one)))
+    assert (moe.make_moe_buffers(one, synth=True)[0].keys()
+            == moe.make_moe_buffers(one)[0].keys())
 
 
 @pytest.mark.parametrize("impl_choice", [False, True])

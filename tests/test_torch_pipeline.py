@@ -539,8 +539,49 @@ def test_sequence_memo_stable_and_invalidated_on_mutation(corpus):
 
 
 def test_rank_keeps_its_place_and_is_refused():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        PrefetchingBenchmarker(None, executor=FakeExecutor(), rank=object())
+    """``rank`` is ported: the hints of a batch are issued fastest
+    predicted first; a prediction that fails raises (the reference's
+    ``except: pass`` would hint in the given order; ROADMAP Queue 3)."""
+    from tenzing_tpu_torch.core.resources import Event
+    from tenzing_tpu_torch.core.sequence import Sequence
+    from tenzing_tpu_torch.core.sync_ops import EventSync
+
+    class Rank:
+        def __init__(self, order):
+            self.order = order
+
+        def predict(self, seq):
+            return float(self.order.index(schedule_id(seq))), 0.0
+
+    class Ordered(FakeExecutor):
+        def __init__(self):
+            super().__init__()
+            self.order = []
+
+        def precompile(self, order):
+            self.order.append(schedule_id(order))
+            return super().precompile(order)
+
+    seqs = [Sequence([EventSync(Event(i))]) for i in range(3)]
+    ids = [schedule_id(s) for s in seqs]
+    fake = Ordered()
+    with PrefetchingBenchmarker(None, executor=fake, workers=1,
+                                rank=Rank(ids[::-1])) as pf:
+        assert pf.prefetch(seqs) == 3
+        deadline = time.time() + 30
+        while len(fake.order) < 3 and time.time() < deadline:
+            time.sleep(0.01)
+    # one worker takes the hints in the order they were issued
+    assert fake.order == ids[::-1]
+
+    class Broken:
+        def predict(self, seq):
+            raise RuntimeError("no model")
+
+    with PrefetchingBenchmarker(None, executor=FakeExecutor(),
+                                rank=Broken()) as pf:
+        with pytest.raises(RuntimeError, match="no model"):
+            pf.prefetch(seqs)
     assert not _prefetch_threads()
 
 

@@ -367,12 +367,16 @@ def test_pallas_slot_raises_off_the_gate_where_the_reference_falls_back():
 
 
 def test_synth_is_refused():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        spmv.SpMVCompound(exchange="host", synth=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        spmv.make_spmv_buffers(m=64, synth=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        spmv.spmv_host_buffer_names(synth=True)
+    """The pipe sketch routes the host link: ``synth=True`` on the local
+    exchange is refused, as in the reference (the synthesized exchange
+    itself: tests/test_torch_collectives.py)."""
+    with pytest.raises(ValueError, match="exchange='host'"):
+        spmv.SpMVCompound(exchange="local", synth=True)
+    assert spmv.spmv_synth_counts(None) == [] and spmv.spmv_synth_counts(3) == [2]
+    assert spmv.spmv_host_buffer_names(8, synth=True) == [
+        "host_x", "x_exchange.pipe2.x0.hst", "x_exchange.pipe2.x1.hst",
+        "x_exchange.pipe4.x0.hst", "x_exchange.pipe4.x1.hst",
+        "x_exchange.pipe4.x2.hst", "x_exchange.pipe4.x3.hst"]
 
 
 # -- whole orders through both executors --------------------------------------

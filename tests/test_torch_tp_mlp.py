@@ -7,8 +7,9 @@ test_tp_mlp.py).
 * ``TpMlp``'s vertices and edges, and those of every structural variant
   with ``chunk=True``, are the reference's; reference schedule JSON
   round-trips; the chunk menu's counts are the reference's (its prices use
-  the card's NVLink figure, not a v5e's), and ``synth=True`` raises naming
-  ROADMAP Queue 1 item 6.7;
+  the card's NVLink figure, not a v5e's), and at ``n_tp=1`` ``synth=True``
+  offers no menu (tests/test_torch_collectives.py holds the synthesized
+  all-reduces);
 * over gloo at 1, 2 and 4 ``tp`` ranks, and on the 2 x 2 ``("dp", "tp")``
   mesh, the same DFS schedule JSONs run through the reference's
   ``TraceExecutor`` on the CPU mesh and through the port's ranks: Y agree
@@ -119,10 +120,13 @@ def test_chunk_menu_and_unported_synth():
     counts, est = tp_mlp.mlp_chunk_menu(tp_mlp.TpMlpArgs(**dryrun.TP_FULL))
     assert counts[0] == 1 and all(n in (1, 2, 4) for n in counts)
     assert set(est) == set(counts) - {1}
-    with pytest.raises(NotImplementedError, match="item 6.7"):
-        tp_mlp.TpMlp(a, synth=True)
-    with pytest.raises(NotImplementedError, match="item 6.7"):
-        tp_mlp.make_tp_mlp_buffers(a, synth=True)
+    # at tp = 1 the all-reduce has no decomposition: no menu, no staging
+    one = tp_mlp.TpMlpArgs(**_args(1))
+    assert tp_mlp.tp_mlp_synth_plans(one, 0, 0) == []
+    plain = _shape(_wrap(tp_mlp.TpMlp(one), Graph()))
+    assert _shape(_wrap(tp_mlp.TpMlp(one, synth=True), Graph())) == plain
+    assert (tp_mlp.make_tp_mlp_buffers(one, synth=True)[0].keys()
+            == tp_mlp.make_tp_mlp_buffers(one)[0].keys())
 
 
 def _ref_run(args, axes, shape, jsons, chunk=False):
