@@ -312,6 +312,27 @@ trace, a screened full-size halo search (its screen answers and
 escalations, the climbs' prescreen prunes, the model's predictions)
 verified, then the same search with an injected device loss: the degraded
 verdict, no launch after the loss).
+Then ``serve``, the serving plane's core loop (tenzing_tpu_torch/serve/) in
+fresh directories under ``chiprun_out/serve/``: (1) ``serve warm --platform
+cuda`` of the full-width halo request from the halo driver phase's database
+(at least one record admitted verified, every record's source that CSV) and
+(2) cold queries of the full-width halo request and the spmv ``--m 8192``
+one against fresh stores and queues (tier ``cold``, one work item each),
+both in a child process that never initializes CUDA (``--serve-child``);
+(3) the halo item drained in this process through ``DrainDaemon`` with
+``in_process=True, device="cuda"`` and the cut budget as overrides: the item,
+its lease and any ``fail-`` / ``poison-`` file gone, the verdict verified,
+records carrying the card's name, ``halo_pack``, ``halo_unpack`` and
+``device_copy`` launched; (4) after it, the card to itself, the spmv item
+drained by ``python -m tenzing_tpu_torch.serve.daemon --once`` (its
+subprocess runner): exit 0, the item gone, the child's verdict verified
+with ``ell_spmv`` among the launches it counted, the store's records what
+``scored_rows`` admits from the drain's own database (0 is allowed); (5) both requests re-queried: for each non-empty store the tier is
+``exact``, not predicted, verified, with no compile and no measurement, and
+the answer, deserialized against the driver's graph, runs on the card
+through the stream executor with graphs beside naive on the same buffers
+(halo's U bit-exact with naive's, spmv's y within ``ELL_TOL`` of the
+float64 product).
 Last, the ``fault`` phase (the fault layer on the ``--m 8192`` spmv path,
 ``ell_spmv`` launched), each step in fresh processes, the chains run side
 by side: (1) a chaos run (``--checkpoint``, ``--inject-faults`` with all four
@@ -3153,6 +3174,312 @@ def phase_learn(torch, smi, halo_db: str, halo_trace: str):
     return row
 
 
+# -- the serve phase ---------------------------------------------------------------
+
+# the two requests the serve phase queues cold: the driver's default (the
+# full-width halo, 8 lanes) and the spmv search at --m 8192 (ell_spmv on its
+# menu)
+SERVE_REQUESTS = {"halo": {}, "spmv": {"workload": "spmv", "m": 8192}}
+# the chip smoke's cut budget (the halo driver phase's) as the daemon's
+# overrides: budget fields only, which the daemon checks leave the item's
+# fingerprint as it is
+SERVE_OVERRIDES = dict(mcts_iters=12, iters=3, search_iters=2, climb_budget=4)
+
+
+def serve_admitted(csv: str, req, topk: int = 3) -> int:
+    """The records a re-warm from ``csv`` stores: the distinct schedules
+    among the rows the port's ``scored_rows`` admits, at most ``topk`` (the
+    drain's winners are verified, so none is stored flagged)."""
+    from tenzing_tpu_torch.bench.driver import graph_for
+    from tenzing_tpu_torch.bench.recorded import scored_rows
+    from tenzing_tpu_torch.serve.fingerprint import schedule_key
+
+    scored, _ = scored_rows([csv], graph_for(req)[0])
+    return min(topk, len({schedule_key(seq) for _, _, seq, _ in scored}))
+
+
+def serve_child(serve_dir: str, halo_db: str) -> int:
+    """``chip_smoke.py --serve-child DIR DB``: steps 1 and 2 of the serve
+    phase in a process that never touches the card.  (1) ``serve warm
+    --platform cuda`` of the full-width halo request from DB (the CLI's
+    ``main``) into ``DIR/warm``; (2) through the library, a cold query of
+    each of ``SERVE_REQUESTS`` against a fresh store and queue in
+    ``DIR/<workload>``.  Prints one JSON line: the warm summary, each
+    stored record's source, platform and admission stamp, each query's
+    tier, work items and resolve time, and whether CUDA was initialized."""
+    import io
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    from tenzing_tpu_torch.bench.driver import DriverRequest
+    from tenzing_tpu_torch.serve import __main__ as serve_cli
+    from tenzing_tpu_torch.serve.service import ScheduleService
+    from tenzing_tpu_torch.serve.store import ScheduleStore
+
+    warm_store = os.path.join(serve_dir, "warm", "store.json")
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        serve_cli.main(["warm", "--store", warm_store, "--platform", "cuda",
+                        "--workload", "halo", "--csv", halo_db])
+    out = {"child": "serve",
+           "warm": json.loads(buf.getvalue().strip().splitlines()[-1]),
+           "warm_wall_s": round(time.time() - t0, 3),
+           "warm_records": [
+               {"source": r["provenance"].get("source"),
+                "platform": r["fingerprint"]["platform"],
+                "verified": bool(r.get("verified_at_admission")),
+                "vs_naive": r["vs_naive"], "pct50_us": r["pct50_us"]}
+               for r in ScheduleStore(warm_store).records()],
+           "cold": {}}
+    for name, kw in SERVE_REQUESTS.items():
+        d = os.path.join(serve_dir, name)
+        svc = ScheduleService(os.path.join(d, "store.json"),
+                              queue_dir=os.path.join(d, "queue"),
+                              platform="cuda")
+        t0 = time.perf_counter()
+        res = svc.query(DriverRequest(**kw))
+        us = (time.perf_counter() - t0) * 1e6
+        out["cold"][name] = {"tier": res.tier, "work_item": res.work_item,
+                             "items": len(svc.queue.items()),
+                             "exact": res.fingerprint.exact_digest,
+                             "platform": res.fingerprint.platform,
+                             "resolve_us": round(us, 1),
+                             "phase_us": res.phase_us}
+    out["cuda_initialized"] = torch.cuda.is_initialized()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _serve_run(torch, device, name: str, record, req):
+    """Step 5 for one workload: the exact answer's schedule, deserialized
+    against the graph the driver searches, run on the card through the
+    stream executor (with graphs) beside naive on the same buffers.  Halo:
+    U bit-exact with naive's; spmv: y of both within ``ELL_TOL`` of the
+    float64 product."""
+    from tenzing_tpu_torch.bench import driver
+    from tenzing_tpu_torch.core.platform import Platform
+    from tenzing_tpu_torch.core.serdes import sequence_from_json
+    from tenzing_tpu_torch.models.halo_pipeline import naive_order
+    from tenzing_tpu_torch.models.spmv import fixed_orders
+    from tenzing_tpu_torch.ops.spmv_kernels import ELL_TOL
+    from tenzing_tpu_torch.runtime.executor import StreamExecutor
+    from tenzing_tpu_torch.verify import ScheduleVerifier
+
+    plat = Platform.make_n_lanes(driver.search_lanes(req))
+    if name == "halo":
+        g, tbufs, _, hargs = driver.build_halo(req, device)
+        naive, want = naive_order(hargs, plat), None
+    else:
+        g, tbufs, want = spmv_setup(torch, device, driver.spmv_m(req))
+        naive = fixed_orders(g)["naive"]
+    order = sequence_from_json(record["ops"], g)
+    if not ScheduleVerifier(g)(order).ok:
+        raise AssertionError(f"serve exact {name}: the answer is not sound")
+    ex = StreamExecutor(plat, tbufs, device="cuda")
+    t0 = time.time()
+    out_s, out_n = ex.run(order), ex.run(naive)
+    row = {"ops": len(order), "graphs": True,
+           "run_wall_s": round(time.time() - t0, 3)}
+    if name == "halo":
+        row["U_bit_exact_vs_naive"] = bool(torch.equal(out_s["U"],
+                                                       out_n["U"]))
+        ok = row["U_bit_exact_vs_naive"]
+    else:
+        row["y_max_abs_err"] = float((out_s["y"].double() - want).abs().max())
+        row["naive_y_max_abs_err"] = float(
+            (out_n["y"].double() - want).abs().max())
+        ok = (y_close(torch, out_s["y"], want, ELL_TOL)
+              and y_close(torch, out_n["y"], want, ELL_TOL))
+        row["within_ell_tol"] = ok
+    del ex, tbufs, out_s, out_n
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"serve exact {name}: the answered schedule's "
+                             f"outputs disagree: {row}")
+    return row
+
+
+def phase_serve(torch, device, smi, halo_db: str):
+    """The serving plane's core loop on the card (module docstring):
+    warm, cold, a drain in-process (halo), then one by the CLI's subprocess
+    runner (spmv), then exact answers run on the card.
+    Returns the row it prints, with each step's launches."""
+    import shutil
+
+    from tenzing_tpu_torch.bench.driver import DriverRequest
+    from tenzing_tpu_torch.serve.daemon import (
+        DaemonOpts,
+        DrainDaemon,
+        drain_checkpoint_of,
+        drain_csv_path,
+    )
+    from tenzing_tpu_torch.serve.service import ScheduleService
+    from tenzing_tpu_torch.serve.store import ScheduleStore, WorkQueue
+
+    torch.cuda.empty_cache()
+    serve_dir = os.path.join(OUT_DIR, "serve")
+    shutil.rmtree(serve_dir, ignore_errors=True)
+    os.makedirs(serve_dir)
+    t_phase = time.time()
+    card = torch.cuda.get_device_name(0)
+    reqs = {n: DriverRequest(**kw) for n, kw in SERVE_REQUESTS.items()}
+    steps = {}
+
+    # steps 1-2: warm and cold, in a process that never touches the card
+    t0 = time.time()
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--serve-child", serve_dir, halo_db],
+                       capture_output=True, text=True, timeout=600)
+    with open(os.path.join(serve_dir, "child.err"), "w") as f:
+        f.write(r.stderr)
+    if r.returncode != 0:
+        raise AssertionError(f"serve child rc={r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    child = _json_tail(r.stdout, "serve child")
+    warm = child["warm"]
+    steps["warm"] = {"added": warm["added"], "admission": warm["admission"],
+                     "rows": warm["rows"], "candidates": warm["candidates"],
+                     "records": child["warm_records"],
+                     "wall_s": child["warm_wall_s"]}
+    steps["cold"] = {**child["cold"],
+                     "cuda_initialized": child["cuda_initialized"],
+                     "wall_s": round(time.time() - t0, 3)}
+    db_name = os.path.basename(halo_db)
+    if not (warm["admission"]["verified"] or 0) >= 1 or not all(
+            w["source"] == db_name and w["platform"] == "cuda"
+            for w in child["warm_records"]):
+        raise AssertionError(f"serve warm: {steps['warm']}")
+    if child["cuda_initialized"] or any(
+            c["tier"] != "cold" or c["items"] != 1 or c["platform"] != "cuda"
+            for c in child["cold"].values()):
+        raise AssertionError(f"serve cold: {steps['cold']}")
+
+    dirs = {n: os.path.join(serve_dir, n) for n in reqs}
+    queues = {n: WorkQueue(os.path.join(d, "queue")) for n, d in dirs.items()}
+    stores = {n: os.path.join(d, "store.json") for n, d in dirs.items()}
+    items = {n: q.items()[0] for n, q in queues.items()}
+
+    # step 3: the halo item drained in this process on the card
+    t0 = time.time()
+    d = DrainDaemon(DaemonOpts(
+        queue_dir=queues["halo"].dir, store_path=stores["halo"],
+        owner="chip-smoke-halo", once=True, in_process=True,
+        device="cuda", handle_signals=False,
+        overrides=dict(SERVE_OVERRIDES)))
+    verdicts = []
+    inner = d._runner
+
+    def runner(path, payload, timeout):
+        verdicts.append(inner(path, payload, timeout))
+        return verdicts[-1]
+
+    d._runner = runner
+    reset_launches()
+    summary = d.run()
+    launches = all_launches()
+    path, payload = items["halo"]
+    exact = queues["halo"].exact_of(path)
+    left = sorted(n for n in os.listdir(queues["halo"].dir)
+                  if n.startswith(("work-", "lease-", "fail-", "poison-")))
+    st = ScheduleStore(stores["halo"])
+    steps["drain_halo"] = {
+        "runner": "in_process", "summary": summary["counters"],
+        "history": d.history[-1:], "left": left,
+        "verified": verdicts[-1].get("verified") if verdicts else None,
+        "value_us": verdicts[-1].get("value") if verdicts else None,
+        "vs_baseline": verdicts[-1].get("vs_baseline") if verdicts else None,
+        "records": len(st), "devices": sorted({
+            r["provenance"].get("device") for r in st.records()}),
+        "launches": {k: v for k, v in launches.items() if v},
+        "wall_s": round(time.time() - t0, 3)}
+    if (summary["counters"]["completed"] != 1 or left
+            or not verdicts or verdicts[-1].get("verified") is not True
+            or len(st) < 1 or steps["drain_halo"]["devices"] != [card]
+            or any(r["exact"] != exact for r in st.records())):
+        raise AssertionError(f"serve drain halo: {steps['drain_halo']}")
+    missing = [k for k in ("halo_pack", "halo_unpack", "device_copy")
+               if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"the halo drain never launched {missing}")
+    torch.cuda.empty_cache()
+
+    # step 4, once the halo drain is done (the card to itself): the CLI's
+    # default subprocess runner on spmv.  Its --exec-item child reports the
+    # kernels it launched (counted from 0 in that process) in its verdict
+    cmd = [sys.executable, "-m", "tenzing_tpu_torch.serve.daemon",
+           "--queue", queues["spmv"].dir, "--store", stores["spmv"], "--once",
+           "--owner", "chip-smoke-spmv"]
+    for k, v in SERVE_OVERRIDES.items():
+        cmd += ["--override", f"{k}={v}"]
+    t0 = time.time()
+    with open(os.path.join(serve_dir, "daemon_spmv.err"), "w") as err:
+        r = subprocess.run(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=err,
+                           text=True, timeout=600)
+    path, payload = items["spmv"]
+    ckpt = drain_checkpoint_of(payload, path)
+    spmv_sum = _json_tail(r.stdout, "serve spmv daemon")
+    with open(os.path.join(ckpt, "verdict.json")) as f:
+        verdict = json.load(f)
+    st = ScheduleStore(stores["spmv"])
+    want_records = serve_admitted(drain_csv_path(ckpt), reqs["spmv"])
+    left = sorted(n for n in os.listdir(queues["spmv"].dir)
+                  if n.startswith(("work-", "lease-", "fail-", "poison-")))
+    steps["drain_spmv"] = {
+        "runner": "subprocess", "rc": r.returncode,
+        "summary": spmv_sum["counters"], "left": left,
+        "verified": verdict.get("verified"), "value_us": verdict.get("value"),
+        "vs_baseline": verdict.get("vs_baseline"),
+        "device": (verdict.get("device") or {}).get("name"),
+        "records": len(st), "admitted_by_scored_rows": want_records,
+        "devices": sorted({r["provenance"].get("device")
+                           for r in st.records()}),
+        "launches": verdict.get("launches"),
+        "wall_s": round(time.time() - t0, 3)}
+    if (r.returncode != 0 or spmv_sum["counters"]["completed"] != 1
+            or left or verdict.get("verified") is not True
+            or len(st) != want_records
+            or any(dv != card for dv in steps["drain_spmv"]["devices"])):
+        raise AssertionError(f"serve drain spmv: {steps['drain_spmv']}")
+    if not (verdict.get("launches") or {}).get("ell_spmv", 0) > 0:
+        raise AssertionError(f"the spmv drain never launched ell_spmv: "
+                             f"{steps['drain_spmv']}")
+
+    # step 5: exact re-queries, each answer run on the card beside naive
+    steps["exact"] = {}
+    for name, req in reqs.items():
+        svc = ScheduleService(stores[name], platform="cuda")
+        if not len(svc.store):
+            steps["exact"][name] = {"records": 0, "tier": None}
+            continue
+        t0 = time.perf_counter()
+        res = svc.query(req)
+        us = (time.perf_counter() - t0) * 1e6
+        p = res.provenance
+        row = {"tier": res.tier, "resolve_us": round(us, 1),
+               "phase_us": res.phase_us, "records": len(svc.store),
+               "was_predicted": p.get("was_predicted"),
+               "verified": p.get("verified"), "compiles": p.get("compiles"),
+               "measurements": p.get("measurements"),
+               "device": p.get("device"), "vs_naive": res.vs_naive,
+               "pct50_us": res.pct50_us}
+        if (res.tier != "exact" or p.get("was_predicted") is not False
+                or p.get("verified") is not True or p.get("compiles") != 0
+                or p.get("measurements") != 0 or p.get("device") != card):
+            raise AssertionError(f"serve exact {name}: {row}")
+        t0 = time.time()
+        reset_launches()
+        row.update(_serve_run(torch, device, name, res.record, req))
+        row["launches"] = {k: v for k, v in all_launches().items() if v}
+        row["wall_s"] = round(time.time() - t0, 3)
+        steps["exact"][name] = row
+    result = {"phase": "serve", "card": smi, "steps": steps,
+              "wall_s": round(time.time() - t_phase, 3)}
+    emit(result)
+    return result
+
+
 # -- the fault phase ---------------------------------------------------------------
 
 # the spmv search at m=8192 (ell_spmv on its menu), run by each step
@@ -3696,6 +4023,7 @@ def main() -> int:
     phase_learn(torch, smi, halo_db, halo_trace)
     emit({"phase": "learn_done", "card": smi,
           "wall_s": round(time.time() - t0, 3)})
+    serve_row = phase_serve(torch, device, smi, halo_db)
     phase_fault(torch)
 
     # one halo iteration's six faces at the batched blocking, per kernel
@@ -3750,6 +4078,9 @@ def main() -> int:
                     + ("staging copies" if name == "device_copy"
                        else "batched blocking (one row per block on x)"),
         })
+        # the serve phase's in-process halo drain (not in "launches")
+        kernels[-1]["launches_serve"] = serve_row["steps"]["drain_halo"][
+            "launches"].get(name, 0)
         if name == "device_copy":
             kernels[-1]["launches_by_path"] = {"halo": launches[name],
                                                "moe": moe_launches[name]}
@@ -3897,6 +4228,12 @@ def main() -> int:
         "launches": spmv_launches[8192]["ell_spmv"],
         # under the synthesized host pipe's schedules at m=8192 (synth_spmv)
         "launches_synth": synth_launches,
+        # the serve phase's spmv drain (its --exec-item child's own count)
+        # and its exact answer run on the card
+        "launches_serve": serve_row["steps"]["drain_spmv"]["launches"][
+            "ell_spmv"],
+        "launches_serve_exact": serve_row["steps"]["exact"].get(
+            "spmv", {}).get("launches", {}).get("ell_spmv", 0),
         "max_abs_err": max(r["max_abs_err"] for r in spmv_rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -3967,4 +4304,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--sticky-child":
         sys.exit(sticky_child(sys.argv[2], int(sys.argv[3])))
+    if len(sys.argv) == 4 and sys.argv[1] == "--serve-child":
+        sys.exit(serve_child(sys.argv[2], sys.argv[3]))
     sys.exit(main())

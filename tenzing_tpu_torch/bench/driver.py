@@ -109,7 +109,9 @@ catches the failure into an ``error`` field, ROADMAP Queue 3); and
 ignores the traces).
 
 Entry point: ``python -m tenzing_tpu_torch.bench`` (``--device cpu`` runs on
-the CPU; the default is the card).
+the CPU; the default is the card).  The serving plane (serve/) keys and
+resolves requests with :func:`workload_shape` and :func:`graph_for`, which
+open no device.
 """
 
 from __future__ import annotations
@@ -197,8 +199,10 @@ class DriverResult:
 
 # fields whose non-default values select features this port does not have
 # yet; ``run`` raises on them instead of ignoring them
-_UNPORTED = {"search_workers": "item 8", "measure_batch": "item 8"}
+_UNPORTED = {"search_workers": "item 8d", "measure_batch": "item 8d"}
 _DEFAULTS = DriverRequest()
+# the spmv workload's nonzeros a row (the reference's)
+SPMV_NNZ_PER_ROW = 10
 
 
 WORKLOADS = ("halo", "attn", "moe", "spmv")
@@ -314,29 +318,127 @@ def search_lanes(req: DriverRequest) -> int:
     return 8 if req.workload == "halo" and not req.smoke else 2
 
 
+def workload_shape(req: DriverRequest) -> Dict[str, int]:
+    """The request's exact shape parameters, as the builders resolve them:
+    what the serving fingerprint keys on (serve/fingerprint.py; the
+    reference's, bench/driver.py:419-451).  Request arithmetic only: no
+    buffers, no device."""
+    w = req.workload
+    if w == "halo":
+        h = halo_args(req)
+        return {"nq": h.nq, "n": h.lx, "radius": h.radius}
+    if w == "spmv":
+        m = spmv_m(req)
+        # bw as make_spmv_buffers resolves it: a default request and an
+        # explicit --spmv-bw of that value build the same matrix
+        bw = req.spmv_bw if req.spmv_bw is not None else max(1, m // 8)
+        return {"m": m, "nnz_per_row": SPMV_NNZ_PER_ROW, "bw": bw}
+    if w == "moe":
+        if not req.smoke:
+            return {"tokens": req.moe_tokens}
+        a = moe_args(req)
+        return {"n_experts": a.n_experts, "tokens": a.tokens,
+                "d_model": a.d_model, "d_ff": a.d_ff, "n_chunks": a.n_chunks}
+    if w == "attn":
+        a = attn_args(req)
+        return {"n_devices": a.n_devices, "batch": a.batch,
+                "seq_local": a.seq_local, "head_dim": a.head_dim}
+    raise DriverConfigError(f"unknown workload {w!r}")
+
+
+def _host_nbytes(v) -> int:
+    """The bytes of a host buffer of a builder's dict; a ZerosSpec (the
+    bf16 staging) counts what its tensor will hold."""
+    from tenzing_tpu_torch.runtime.executor import ZerosSpec
+
+    if isinstance(v, ZerosSpec):
+        n = 1
+        for d in v.shape:
+            n *= int(d)
+        return n * (2 if v.dtype in ("bfloat16", "float16") else 4)
+    return int(getattr(v, "nbytes", 0))
+
+
+def graph_for(req: DriverRequest):
+    """``(graph, nbytes)`` for ``req`` without a device: the choice graph
+    :func:`run` searches (the same ``build_graph`` and menus as
+    :func:`build_halo`, :func:`build_spmv`, :func:`build_moe`,
+    :func:`build_attn`), which recorded and stored schedules deserialize
+    and verify against, and a buffer-size map for the surrogate's features
+    (the reference's, bench/driver.py:463-551).  ``nbytes`` is ``{}`` for
+    the full-size halo (its 2 GB grid is not built to read a size); the
+    other workloads build their host buffers once, because spmv's graph
+    depends on them (``x_sizes`` comes from the band matrix's split).
+    Opens no CUDA context."""
+    w = req.workload
+    if w == "halo":
+        from tenzing_tpu_torch.models.halo_pipeline import make_pipeline_buffers
+
+        hargs = halo_args(req)
+        nbytes: Dict[str, int] = {}
+        if req.smoke:
+            bufs, _ = make_pipeline_buffers(hargs, seed=0, with_expected=False)
+            nbytes = {k: _host_nbytes(v) for k, v in bufs.items()}
+        return halo_graph(hargs, req.smoke), nbytes
+    if w == "spmv":
+        bufs, x_sizes = spmv_host_buffers(req)
+        g = spmv_graph(x_sizes, bool(req.synth_collectives), req.smoke)
+        return g, {k: _host_nbytes(v) for k, v in bufs.items()}
+    if w == "moe":
+        from tenzing_tpu_torch.models.moe_pipeline import (
+            build_graph,
+            make_pipe_buffers,
+        )
+
+        margs, staging = moe_args(req), moe_staging(req)
+        bufs, _, cap = make_pipe_buffers(margs, seed=0, with_expected=False,
+                                         staging=staging)
+        g = build_graph(margs, cap, impl_choice=not req.smoke, staging=staging,
+                        chunk=req.chunk, chunk_relax=req.smoke)
+        return g, {k: _host_nbytes(v) for k, v in bufs.items()}
+    if w == "attn":
+        from tenzing_tpu_torch.models.ring_attention import make_blocked_buffers
+
+        aargs = attn_args(req)
+        bufs, _ = make_blocked_buffers(aargs, seed=0, with_expected=False)
+        g = attn_graph(aargs, chunk=req.chunk, chunk_relax=req.smoke)
+        return g, {k: _host_nbytes(v) for k, v in bufs.items()}
+    raise DriverConfigError(f"unknown workload {w!r}")
+
+
+def halo_args(args):
+    """The request's halo grid: the reference's full size (3 quantities,
+    ``halo_n`` cubed, radius 3) or its smoke."""
+    from tenzing_tpu_torch.models.halo import HaloArgs
+
+    if args.smoke:
+        return HaloArgs(nq=2, lx=4, ly=4, lz=4, radius=1)
+    n = args.halo_n
+    return HaloArgs(nq=3, lx=n, ly=n, lz=n, radius=3)
+
+
+def halo_graph(hargs, smoke: bool):
+    """The halo pipeline's graph with the menus as the reference offers
+    them: on for the full-size search, off for the smoke configuration."""
+    from tenzing_tpu_torch.models.halo_pipeline import build_graph
+
+    menus = not smoke
+    return build_graph(hargs, impl_choice=menus, xfer_choice=menus)
+
+
 def build_halo(args, device):
     """(graph, placed buffers, metric, HaloArgs) at the request's size."""
-    from tenzing_tpu_torch.models.halo import HaloArgs
     from tenzing_tpu_torch.models.halo_pipeline import (
-        build_graph,
         host_buffer_names,
         make_pipeline_buffers,
     )
     from tenzing_tpu_torch.runtime.executor import buffers_from_numpy
 
-    if args.smoke:
-        hargs = HaloArgs(nq=2, lx=4, ly=4, lz=4, radius=1)
-    else:
-        n = args.halo_n
-        hargs = HaloArgs(nq=3, lx=n, ly=n, lz=n, radius=3)
+    hargs = halo_args(args)
     bufs, _ = make_pipeline_buffers(hargs, seed=0, with_expected=False)
     tbufs = buffers_from_numpy(bufs, device, host_buffer_names())
     del bufs
-    # the menus as the reference offers them: on for the full-size search,
-    # off for the smoke configuration
-    menus = not args.smoke
-    g = build_graph(hargs, impl_choice=menus, xfer_choice=menus)
-    return g, tbufs, metric_for("halo", args), hargs
+    return halo_graph(hargs, args.smoke), tbufs, metric_for("halo", args), hargs
 
 
 def attn_args(args):
@@ -428,42 +530,52 @@ def spmv_m(args) -> int:
 
 
 def build_spmv(args, device):
-    """(graph, placed buffers, metric, m) at the request's size: a band
-    matrix of m rows and 10 nonzeros a row (band ``--spmv-bw``, default
-    m/8), the host round trip as the x exchange (with ``synth_collectives``
-    its pipe menu too) and the kernel menu with the x sizes known (the
-    reference's build_spmv, bench/driver.py:319-351).
-    The graph is the reference's: Start -> SpMVCompound -> Finish, the two
-    equal compounds it adds being one vertex."""
-    from tenzing_tpu_torch.core.graph import Graph
-    from tenzing_tpu_torch.models.spmv import (
-        SpMVCompound,
-        make_spmv_buffers,
-        spmv_host_buffer_names,
-    )
+    """(graph, placed buffers, metric, m) at the request's size: the band
+    matrix of :func:`spmv_host_buffers` placed, and :func:`spmv_graph` (the
+    reference's build_spmv, bench/driver.py:319-351)."""
+    from tenzing_tpu_torch.models.spmv import spmv_host_buffer_names
     from tenzing_tpu_torch.runtime.executor import buffers_from_numpy
 
-    m = spmv_m(args)
     synth = bool(args.synth_collectives)
-    bufs, _ = make_spmv_buffers(m=m, nnz_per_row=10, bw=args.spmv_bw, seed=0,
-                                synth=synth)
-    x_sizes = {"x_local": int(bufs["x_local"].shape[0]),
-               "x_remote": int(bufs["x_remote"].shape[0])}
+    bufs, x_sizes = spmv_host_buffers(args)
     tbufs = buffers_from_numpy(bufs, device, spmv_host_buffer_names(
         x_sizes["x_remote"], synth=synth))
     del bufs
+    g = spmv_graph(x_sizes, synth, args.smoke)
+    return g, tbufs, metric_for("spmv", args), spmv_m(args)
+
+
+def spmv_host_buffers(args):
+    """(host buffers, x sizes) of the request's band matrix: m rows of
+    ``SPMV_NNZ_PER_ROW`` nonzeros, band ``--spmv-bw`` (default m/8); the x
+    sizes come from the matrix's local/remote split."""
+    from tenzing_tpu_torch.models.spmv import make_spmv_buffers
+
+    bufs, _ = make_spmv_buffers(m=spmv_m(args), nnz_per_row=SPMV_NNZ_PER_ROW,
+                                bw=args.spmv_bw, seed=0,
+                                synth=bool(args.synth_collectives))
+    x_sizes = {"x_local": int(bufs["x_local"].shape[0]),
+               "x_remote": int(bufs["x_remote"].shape[0])}
+    return bufs, x_sizes
+
+
+def spmv_graph(x_sizes, synth: bool, relax: bool):
+    """Start -> SpMVCompound -> Finish (the reference's two equal compounds
+    being one vertex): the kernel menu with the x sizes known, the host
+    round trip as the x exchange, and with ``synth`` its pipe menu, every
+    instantiation kept under ``relax`` (the smoke), the roofline's prune
+    otherwise (the reference's ``synth_relax=args.smoke``)."""
+    from tenzing_tpu_torch.core.graph import Graph
+    from tenzing_tpu_torch.models.spmv import SpMVCompound
 
     def mk():
-        # --synth-collectives: the exchange's pipe menu, every instantiation
-        # kept for the smoke, the roofline's prune at full size (the
-        # reference's synth_relax=args.smoke)
         return SpMVCompound(impl_choice=True, x_sizes=x_sizes, exchange="host",
-                            synth=synth, synth_relax=args.smoke)
+                            synth=synth, synth_relax=relax)
 
     g = Graph()
     g.start_then(mk())
     g.then_finish(mk())
-    return g, tbufs, metric_for("spmv", args), m
+    return g
 
 
 def spmv_incumbents(g, plat):

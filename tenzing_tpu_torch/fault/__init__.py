@@ -4,7 +4,9 @@ one, a broken candidate, a lost device and a Ctrl-C without losing what it
 measured.
 
 * :mod:`~tenzing_tpu_torch.fault.errors` — the failure taxonomy
-  (transient / deterministic / device lost) and :func:`classify_error`;
+  (transient / deterministic / device lost) and :func:`classify_error`,
+  with the serving plane's store errors (``FencedWriteError``,
+  ``StoreReadonlyError``, ``StoreLockTimeout``);
 * :mod:`~tenzing_tpu_torch.fault.backoff` — the bounded-retry helper;
 * :mod:`~tenzing_tpu_torch.fault.quarantine` — the persistent quarantine of
   deterministically broken schedules;
@@ -17,8 +19,8 @@ measured.
 * :mod:`~tenzing_tpu_torch.fault.inject` — seeded chaos
   (``--inject-faults``).
 
-Not ported yet: the serving plane's store errors and the filesystem chaos
-(``fault/fsinject.py``, ``fault/fschaos.py``; ROADMAP Queue 1 item 8).
+Not ported yet: the filesystem chaos (``fault/fsinject.py``,
+``fault/fschaos.py``; ROADMAP Queue 1 item 8b).
 """
 
 from tenzing_tpu_torch.fault.backoff import BackoffPolicy, retry_call
@@ -33,12 +35,17 @@ from tenzing_tpu_torch.fault.errors import (
     DeterministicScheduleError,
     DeviceLostError,
     FaultClass,
+    FencedWriteError,
     MeasurementTimeout,
     QuarantinedScheduleError,
+    StoreLockTimeout,
+    StoreReadonlyError,
     TransientError,
     UnsoundScheduleError,
     classify_error,
     fault_code,
+    is_transient_io,
+    is_unwritable_io,
 )
 from tenzing_tpu_torch.fault.inject import (
     FaultInjectingBenchmarker,
@@ -58,6 +65,7 @@ __all__ = [
     "DeviceLostError",
     "FaultClass",
     "FaultInjectingBenchmarker",
+    "FencedWriteError",
     "InjectSpec",
     "InjectedDeterministicError",
     "InjectedTransientError",
@@ -67,12 +75,16 @@ __all__ = [
     "QuarantinedScheduleError",
     "ResilientBenchmarker",
     "SearchCheckpoint",
+    "StoreLockTimeout",
+    "StoreReadonlyError",
     "TransientError",
     "UnsoundScheduleError",
     "atomic_write_json",
     "classify_error",
     "corrupt_schedule",
     "fault_code",
+    "is_transient_io",
+    "is_unwritable_io",
     "parse_inject_specs",
     "read_checked_json",
     "retry_call",

@@ -28,9 +28,12 @@ and the search reaches the point of the failure exactly.
 Rows answered by a fallback (``degraded``) or a model are journaled with
 that provenance and never restored: only ``measured`` rows are.
 
-The reference's epoch fence (``$TENZING_FENCE``, a serving-plane lease)
-needs ``serve/lease.py``, which is not ported yet (ROADMAP Queue 1 item 8):
-a set variable raises.
+The drain daemon (serve/daemon.py) fences the journal with its lease's
+epoch, as the reference does: ``$TENZING_FENCE`` holds
+``<lease-path>:<epoch>``, and every journal append and state write first
+checks the lease's epoch registry (serve/lease.py ``check_epoch``), so a
+holder whose claim a rival superseded raises ``FencedWriteError`` instead
+of interleaving stale rows into the successor's journal.
 """
 
 from __future__ import annotations
@@ -59,13 +62,24 @@ class CheckpointError(RuntimeError):
 
 
 def _fence_from_env():
-    """The reference's lease fence; raises when ``$TENZING_FENCE`` is set,
-    since the lease it names (serve/lease.py) is not ported yet."""
-    if os.environ.get(FENCE_ENV):
-        raise NotImplementedError(
-            f"${FENCE_ENV}: the serving plane's lease fence (serve/lease.py) "
-            "is not yet ported (ROADMAP Queue 1 item 8)")
-    return None
+    """The fence check ``$TENZING_FENCE`` declares (``<lease-path>:<epoch>``),
+    or None when it declares none.  Read when a checkpoint is opened: the
+    daemon sets the variable around each drained item."""
+    spec = os.environ.get(FENCE_ENV)
+    if not spec or ":" not in spec:
+        return None
+    path, _, epoch_s = spec.rpartition(":")
+    try:
+        epoch = int(epoch_s)
+    except ValueError:
+        return None
+
+    def check() -> None:
+        from tenzing_tpu_torch.serve.lease import check_epoch
+
+        check_epoch(path, epoch)
+
+    return check
 
 
 def _digest(payload_text: str) -> str:

@@ -1,8 +1,9 @@
 """Failure taxonomy of the measurement loop.
 
-Counterpart of ``tenzing_tpu/fault/errors.py`` (:35-200), without the
+Counterpart of ``tenzing_tpu/fault/errors.py`` (:35-200), with the
 serving plane's store errors (``StoreLockTimeout``, ``FencedWriteError``,
-``StoreReadonlyError``: ROADMAP Queue 1 item 8).  A measurement — capture a candidate schedule
+``StoreReadonlyError``) and its I/O predicates (:func:`is_unwritable_io`,
+:func:`is_transient_io`).  A measurement — capture a candidate schedule
 as CUDA graphs, replay it fenced on the card, reduce across ranks — fails in
 three ways, and each calls for a different response:
 
@@ -50,6 +51,8 @@ failing schedule at every encounter.
 
 from __future__ import annotations
 
+import errno as _errno
+
 
 class FaultClass:
     """The three failure classes, ordered by severity (a rank-agreement
@@ -75,6 +78,12 @@ class MeasurementTimeout(TransientError):
     attempt has drained off the card."""
 
 
+class StoreLockTimeout(TransientError):
+    """The serving store's manifest lock stayed contended past the bounded
+    backoff (the segmented store, ROADMAP Queue 1 item 8b).  Transient: the
+    rival writer finishes, and the operation is retried later."""
+
+
 class DeterministicScheduleError(RuntimeError):
     """The schedule itself is broken (capture, shape, memory)."""
 
@@ -91,6 +100,42 @@ class UnsoundScheduleError(DeterministicScheduleError):
 
 class DeviceLostError(RuntimeError):
     """The device is unrecoverable; escalate (degrade or abort)."""
+
+
+class FencedWriteError(RuntimeError):
+    """A write refused by the lease epoch fence (serve/lease.py): a rival
+    claim with a newer epoch exists, so this holder is a zombie (reclaimed
+    during a stall) and its write would be stale.  Classified transient
+    (the item is in better hands, never evidence against the request); the
+    daemon abandons the item without retrying or poisoning it."""
+
+
+class StoreReadonlyError(TransientError):
+    """The schedule store is latched read-only (ENOSPC / EROFS / quota:
+    serve/store.py ``store_readonly``): a cold or near resolution would need
+    a durable write that cannot land.  Transient: the latch clears on a
+    successful probe write."""
+
+
+# errno values that mean "the filesystem takes no more bytes": not a flake,
+# not worth retries on a millisecond scale; the store latches read-only
+_UNWRITABLE_ERRNOS = frozenset(
+    getattr(_errno, name) for name in ("ENOSPC", "EDQUOT", "EROFS")
+    if hasattr(_errno, name))
+
+
+def is_unwritable_io(exc: BaseException) -> bool:
+    """True iff ``exc`` is an OSError of the full-disk family (ENOSPC,
+    EDQUOT, EROFS): the store degrades to read-only until a probe write
+    succeeds."""
+    return (isinstance(exc, OSError)
+            and getattr(exc, "errno", None) in _UNWRITABLE_ERRNOS)
+
+
+def is_transient_io(exc: BaseException) -> bool:
+    """The retry predicate of durable store writes (fault/backoff.py): an
+    I/O flake (EIO and the like) retries, the unwritable family does not."""
+    return isinstance(exc, OSError) and not is_unwritable_io(exc)
 
 
 # message fragments, checked lowercase, in this order (a sticky error
@@ -174,6 +219,9 @@ def classify_error(exc: BaseException) -> str:
     """Map an exception to a :class:`FaultClass` string (module docstring)."""
     if isinstance(exc, DeviceLostError) or _cuda_loss(exc):
         return FaultClass.DEVICE_LOST
+    if isinstance(exc, FencedWriteError):
+        # a zombie's refused write: the rival that fenced it drains the item
+        return FaultClass.TRANSIENT
     if isinstance(exc, DeterministicScheduleError):
         return FaultClass.DETERMINISTIC
     if isinstance(exc, TransientError):

@@ -1,7 +1,8 @@
 """Metrics registry: counters, gauges, histograms with percentile summaries.
 
-Counterpart of ``tenzing_tpu/obs/metrics.py`` without its serving half (the
-SLO configuration and the snapshot writer wait for the serve plane).  Where
+Counterpart of ``tenzing_tpu/obs/metrics.py`` with the drain daemon's
+snapshot writer (:class:`MetricsSnapshotWriter`) and without the listen
+loop's SLO configuration (ROADMAP Queue 1 item 8c).  Where
 the tracer answers "what happened when", the registry answers "how much /
 how often / how slow".  One process-global registry (:func:`get_metrics`)
 aggregates over a whole run — the solvers' phase timings (through
@@ -15,6 +16,7 @@ Histogram summaries use the nearest-rank percentile of ``BenchResult``
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from collections import deque
@@ -263,3 +265,58 @@ def set_metrics(registry: MetricsRegistry) -> MetricsRegistry:
     global _GLOBAL
     prev, _GLOBAL = _GLOBAL, registry
     return prev
+
+
+SNAPSHOT_VERSION = 1
+
+
+class MetricsSnapshotWriter:
+    """Periodic atomic metric-snapshot documents, a bounded ring per owner
+    (the reference's, less its SLO block).
+
+    Files are ``metrics-<owner>-<k>.json`` with ``k = seq % ring``: a
+    process that snapshots every heartbeat for a month leaves ``ring``
+    files.  Each document carries its monotonic ``seq``, so readers order
+    them without trusting mtimes.  Writes go through utils/atomic.py, and
+    every read in the document is non-blocking: the writer is safe on a
+    heartbeat thread."""
+
+    def __init__(self, directory: str, owner: str, ring: int = 8):
+        self.dir = directory
+        self.owner = owner
+        self.ring = max(1, int(ring))
+        self.seq = 0
+
+    def path_for(self, seq: int) -> str:
+        return os.path.join(
+            self.dir, f"metrics-{self.owner}-{seq % self.ring}.json")
+
+    def build(self, state: str = "serving",
+              extra: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        """The snapshot document, not written."""
+        from tenzing_tpu_torch.obs.tracer import get_tracer
+
+        doc: Dict[str, Any] = {
+            "version": SNAPSHOT_VERSION,
+            "kind": "metrics_snapshot",
+            "owner": self.owner,
+            "seq": self.seq,
+            "written_at": time.time(),
+            "state": state,
+            "metrics": get_metrics().to_json(block=False),
+            "tracer": get_tracer().retention(),
+        }
+        if extra:
+            doc.update(extra)
+        return doc
+
+    def write(self, state: str = "serving",
+              extra: Optional[Dict[str, Any]] = None) -> str:
+        from tenzing_tpu_torch.utils.atomic import atomic_dump_json
+
+        doc = self.build(state=state, extra=extra)
+        path = self.path_for(self.seq)
+        os.makedirs(self.dir, exist_ok=True)
+        atomic_dump_json(path, doc, prefix=".metrics.")
+        self.seq += 1
+        return path

@@ -264,3 +264,18 @@ def add_launches(tally: Counter, times: int = 1) -> None:
     """Count the launches of ``tally`` ``times`` times over (a replay)."""
     for (table, key), n in tally.items():
         _TABLES[table].hit(key, n * times)
+
+
+def launch_counts() -> Dict[str, int]:
+    """This process's launch counts of every loaded kernel module, one key
+    per kernel body (a module not imported yet launched nothing)."""
+    with _COUNT_LOCK:
+        return {k: n for t in _TABLES.values() for k, n in t.items()}
+
+
+def reset_launch_counts() -> None:
+    """Set every loaded module's launch counts to 0."""
+    with _COUNT_LOCK:
+        for t in _TABLES.values():
+            for k in t:
+                t[k] = 0

@@ -1,0 +1,54 @@
+"""Schedule serving: the searched schedules as a queryable service.
+
+Counterpart of ``tenzing_tpu/serve``, the serving plane's core loop
+(ROADMAP Queue 1 item 8a):
+
+* :mod:`~tenzing_tpu_torch.serve.fingerprint` — the stable workload
+  fingerprint (workload, shape and its power-of-two bucket, lanes, engine
+  kinds, and the platform the records are for) and the schedule key;
+* :mod:`~tenzing_tpu_torch.serve.lease` — the lease-file protocol with
+  epoch fencing;
+* :mod:`~tenzing_tpu_torch.serve.store` — the schema-versioned store with a
+  commutative, idempotent merge, and the checkpointed cold-request
+  :class:`~tenzing_tpu_torch.serve.store.WorkQueue`;
+* :mod:`~tenzing_tpu_torch.serve.resolver` — exact (from the store,
+  verified, zero compiles and measurements), near (the learned surrogate
+  under an uncertainty gate, ``was_predicted``) and cold (a work item);
+* :mod:`~tenzing_tpu_torch.serve.service` — the in-process API and
+  ``python -m tenzing_tpu_torch.serve`` (``warm`` / ``query`` / ``merge`` /
+  ``stats``);
+* :mod:`~tenzing_tpu_torch.serve.daemon` — the drain daemon
+  (``python -m tenzing_tpu_torch.serve.daemon``), which runs cold items
+  through the driver on the card and re-warms the store.
+
+Not ported yet: the segmented store and disaster recovery (item 8b), the
+listen loop, request log, replay, drain fleet and supervisor (item 8c;
+``FleetOpts``, ``measure_scaling`` and ``run_fleet`` wait for it).
+"""
+
+from tenzing_tpu_torch.serve.daemon import DaemonOpts, DrainDaemon
+from tenzing_tpu_torch.serve.fingerprint import (
+    WorkloadFingerprint,
+    fingerprint_of,
+    schedule_key,
+    shape_bucket,
+)
+from tenzing_tpu_torch.serve.resolver import Resolution, Resolver, fp_cache_key
+from tenzing_tpu_torch.serve.service import ScheduleService
+from tenzing_tpu_torch.serve.store import ScheduleStore, WorkQueue, merge_records
+
+__all__ = [
+    "DaemonOpts",
+    "DrainDaemon",
+    "Resolution",
+    "Resolver",
+    "fp_cache_key",
+    "ScheduleService",
+    "ScheduleStore",
+    "WorkQueue",
+    "WorkloadFingerprint",
+    "fingerprint_of",
+    "merge_records",
+    "schedule_key",
+    "shape_bucket",
+]

@@ -30,7 +30,7 @@ prefetcher in the benchmark stack hints the whole batch itself).  With
 ``prescreen_keep`` > 0, rank 0 measures only the ``prescreen_keep``
 terminals the surrogate ranks fastest (``learn.prune.dfs_skipped`` counts
 the rest), as the reference does.  Not ported yet, and refused when set:
-fleet ``subtree`` slicing (ROADMAP Queue 1 item 8).
+fleet ``subtree`` slicing (ROADMAP Queue 1 item 8d).
 """
 
 from __future__ import annotations
@@ -96,7 +96,7 @@ class DfsOpts:
                 "batch": self.batch, "batch_seed": self.batch_seed}
 
 
-_UNPORTED = {"subtree": "item 8"}
+_UNPORTED = {"subtree": "item 8d"}
 
 
 @dataclass

@@ -22,7 +22,7 @@ answers (a resumed climb) charges no budget.  With ``LocalOpts.prescreen``
 (a learn/surrogate.py ``SurrogateBenchmarker``) a neighbour whose optimistic
 prediction is still worse than the incumbent's is skipped unmeasured and
 uncharged (``learn.prune.local_skipped``).  Left out, with its subsystem:
-the fleet's shared claim registry (ROADMAP Queue 1 item 8).  A
+the fleet's shared claim registry (ROADMAP Queue 1 item 8d).  A
 measurement that raises is recorded (``search.candidate_failed``) and
 rejects the neighbour where the benchmarker is rank-coherent (the resilient
 layer classified it) and the device was not lost; otherwise it propagates,

@@ -9,12 +9,15 @@ the bytes are on disk.
 
 Every durable writer goes through here, so this module is also the
 injectable I/O seam: an installed backend (:func:`set_io_backend`) gets a
-check before each write, fsync and replace.  With none installed — the
-default — every hook is a branch on a None global.  The reference installs
-its filesystem-chaos backend from ``$TENZING_FSINJECT``; that backend
-(``fault/fsinject.py``) and the serving store's sealed publish, stale reads
-and mtime seams are not ported yet (ROADMAP Queue 1 item 8), so a set
-variable raises rather than injecting nothing.
+check before each write, fsync and replace, and may skew an observed mtime
+(:func:`io_getmtime`) or serve a file's previous content once
+(:func:`read_json`) — the clocks and reads the serving plane's lease
+protocol trusts (serve/lease.py).  With none installed — the default —
+every hook is a branch on a None global.  The reference installs its
+filesystem-chaos backend from ``$TENZING_FSINJECT``; that backend
+(``fault/fsinject.py``) and the segmented store's sealed publish are not
+ported yet (ROADMAP Queue 1 item 8b), so a set variable raises rather than
+injecting nothing.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ def io_backend() -> Optional[Any]:
             raise NotImplementedError(
                 f"${FSINJECT_ENV}: the filesystem-chaos backend "
                 "(fault/fsinject.py) is not yet ported (ROADMAP Queue 1 "
-                "item 8)")
+                "item 8b)")
         _env_checked = True
     return _io_backend
 
@@ -56,6 +59,27 @@ def _check(op: str, path: str) -> None:
     b = io_backend()
     if b is not None:
         b.check(op, path)
+
+
+def io_getmtime(path: str) -> float:
+    """``os.path.getmtime`` as observed through the seam: an installed
+    backend may skew or coarsen it (the lease protocol's expiry clock)."""
+    t = os.path.getmtime(path)
+    b = io_backend()
+    return b.observe_mtime(path, t) if b is not None else t
+
+
+def read_json(path: str):
+    """``json.load`` of ``path`` through the seam: an installed backend may
+    serve the file's previous complete content once (a stale read).  Raises
+    OSError / ValueError as the plain read does."""
+    b = io_backend()
+    if b is not None:
+        doc = b.maybe_stale_json(path)
+        if doc is not None:
+            return doc
+    with open(path) as f:
+        return json.load(f)
 
 
 def fsync_dir(path: str) -> None:

@@ -165,3 +165,44 @@ def test_model_dryruns_leave_jax_unloaded():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_serve_query_and_daemon_drain_leave_jax_unloaded(tmp_path):
+    """``python -m tenzing_tpu_torch.serve query`` (cold, then exact after the
+    drain) and a ``--once`` daemon drain on the CPU, run as their modules'
+    ``__main__`` in one interpreter (the drain in-process: the subprocess
+    runner's child runs the same ``exec_item``): neither loads jax or
+    tenzing_tpu."""
+    store, queue = str(tmp_path / "s.json"), str(tmp_path / "q")
+    query = ["query", "--store", store, "--queue", queue, "--platform",
+             "cpu", "--workload", "spmv", "--smoke"]
+    drain = ["--queue", queue, "--store", store, "--device", "cpu",
+             "--in-process", "--once", "--override", "mcts_iters=4",
+             "--override", "iters=3", "--override", "search_iters=2"]
+    code = (
+        "import sys, json, io, contextlib, runpy\n"
+        "def main(mod, argv):\n"
+        "    sys.argv = [mod] + argv\n"
+        "    buf = io.StringIO()\n"
+        "    try:\n"
+        "        with contextlib.redirect_stdout(buf):\n"
+        "            runpy.run_module(mod, run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert not e.code, e.code\n"
+        "    return json.loads(buf.getvalue().strip().splitlines()[-1])\n"
+        f"cold = main('tenzing_tpu_torch.serve', {query!r})\n"
+        "assert cold['tier'] == 'cold', cold\n"
+        f"s = main('tenzing_tpu_torch.serve.daemon', {drain!r})\n"
+        "assert s['counters']['completed'] == 1, s\n"
+        f"again = main('tenzing_tpu_torch.serve', {query!r})\n"
+        "assert again['tier'] in ('exact', 'cold'), again\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'tenzing_tpu'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

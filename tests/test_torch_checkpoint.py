@@ -146,12 +146,27 @@ def test_load_state_absent_is_none(tmp_path):
     assert SearchCheckpoint(str(tmp_path / "ckpt")).load_state() is None
 
 
-def test_fence_env_raises_until_the_lease_is_ported(tmp_path, monkeypatch):
+def test_fence_env_raises_until_the_lease_is_ported(tmp_path, monkeypatch,
+                                                    seqs):
+    """``$TENZING_FENCE`` (``<lease-path>:<epoch>``, serve/lease.py): a
+    write raises ``FencedWriteError`` unless the epoch is the newest the
+    lease's registry recorded — here none, then epoch 3."""
     from tenzing_tpu_torch.fault.checkpoint import FENCE_ENV
+    from tenzing_tpu_torch.fault.errors import FencedWriteError
+    from tenzing_tpu_torch.serve.lease import epoch_registry_of
 
-    monkeypatch.setenv(FENCE_ENV, str(tmp_path / "lease") + ":3")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        SearchCheckpoint(str(tmp_path / "ckpt"))
+    lease = str(tmp_path / "lease")
+    monkeypatch.setenv(FENCE_ENV, lease + ":3")
+    ck = SearchCheckpoint(str(tmp_path / "ckpt"))
+    with pytest.raises(FencedWriteError, match="registry newest: 0"):
+        ck.record(seqs[0], None, _res(1.0))
+    os.makedirs(epoch_registry_of(lease))
+    open(os.path.join(epoch_registry_of(lease), "c-3"), "w").close()
+    ck.record(seqs[0], None, _res(1.0))
+    ck.save_state({"mcts": {"it": 1}})
+    ck.close()
+    assert len(SearchCheckpoint(str(tmp_path / "ckpt")).load_measurements(
+        _graph())) == 1
 
 
 # -- the measurement journal ------------------------------------------------------
