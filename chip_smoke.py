@@ -320,7 +320,9 @@ cuda`` of the full-width halo request from the halo driver phase's database
 one against fresh stores and queues (tier ``cold``, one work item each),
 both in a child process that never initializes CUDA (``--serve-child``);
 (3) the halo item drained in this process through ``DrainDaemon`` with
-``in_process=True, device="cuda"`` and the cut budget as overrides: the item,
+``in_process=True, device="cuda"`` and the cut budget as overrides, into a
+segmented store directory (``halo/store.d``; spmv's store stays the
+monolithic ``store.json``, so both backends run): the item,
 its lease and any ``fail-`` / ``poison-`` file gone, the verdict verified,
 records carrying the card's name, ``halo_pack``, ``halo_unpack`` and
 ``device_copy`` launched; (4) after it, the card to itself, the spmv item
@@ -332,7 +334,28 @@ with ``ell_spmv`` among the launches it counted, the store's records what
 the answer, deserialized against the driver's graph, runs on the card
 through the stream executor with graphs beside naive on the same buffers
 (halo's U bit-exact with naive's, spmv's y within ``ELL_TOL`` of the
-float64 product).
+float64 product); (6) disaster recovery through ``python -m
+tenzing_tpu_torch.serve``: ``merge`` of the spmv store into the halo
+directory, ``compact``, ``backup``, the directory's ``segments/`` and
+``manifest.json`` deleted, ``restore`` from the generation, ``fsck``: exit
+0 with no checksum failure, orphan or missing segment, the same
+``record_digest`` set as before the loss, every record's ``device`` the
+card; (7) ``serve listen --platform cuda --record DIR --trace-out F`` on the
+restored directory and a fresh queue, in a child process that never
+initializes CUDA (``--listen-child``), spoken to over stdin and stdout:
+``ping``; the halo query twice, both ``exact`` with step 5's schedule, the
+second through the fast path (``serve.fp_cache.hits`` up by one in the
+``metrics`` verb's registry, and the trace's ``serve.query`` span of its
+trace id marked ``fast_path``); a ``batch`` of halo and spmv, both exact; an
+spmv ``--m 4096`` request, ``cold``, its work item queued and not drained;
+a burst of repeats; ``stats`` and ``metrics`` (the ``slo`` block's exact
+count and ``pct99_us``); then EOF: the status document ``stopped``, the
+request log one checksum-valid record per admitted request; (8) the halo
+and spmv schedules the loop answered, run on the card beside naive through
+``_serve_run`` (U bit-exact, y within ``ELL_TOL``), each answer's launches
+counted apart from naive's: an answer launches exactly the kernels its menu
+slots pick (``halo_pack`` only where a pack sits on a kernel slot), and
+``halo_unpack``, ``device_copy`` and ``ell_spmv`` are each launched.
 Last, the ``fault`` phase (the fault layer on the ``--m 8192`` spmv path,
 ``ell_spmv`` launched), each step in fresh processes, the chains run side
 by side: (1) a chaos run (``--checkpoint``, ``--inject-faults`` with all four
@@ -3184,6 +3207,13 @@ SERVE_REQUESTS = {"halo": {}, "spmv": {"workload": "spmv", "m": 8192}}
 # overrides: budget fields only, which the daemon checks leave the item's
 # fingerprint as it is
 SERVE_OVERRIDES = dict(mcts_iters=12, iters=3, search_iters=2, climb_budget=4)
+# each request's store: halo drains into a segmented store directory, spmv
+# into the monolithic file, so the card drives both backends
+SERVE_STORES = {"halo": "store.d", "spmv": "store.json"}
+# the listen loop's cold request: nothing stored answers it (its bucket
+# differs from --m 8192's, and the restored store has no near-tier model)
+SERVE_COLD = {"workload": "spmv", "m": 4096}
+SERVE_BURST = 16  # repeats of each exact request sent to the listen loop
 
 
 def serve_admitted(csv: str, req, topk: int = 3) -> int:
@@ -3235,7 +3265,7 @@ def serve_child(serve_dir: str, halo_db: str) -> int:
            "cold": {}}
     for name, kw in SERVE_REQUESTS.items():
         d = os.path.join(serve_dir, name)
-        svc = ScheduleService(os.path.join(d, "store.json"),
+        svc = ScheduleService(os.path.join(d, SERVE_STORES[name]),
                               queue_dir=os.path.join(d, "queue"),
                               platform="cuda")
         t0 = time.perf_counter()
@@ -3252,12 +3282,22 @@ def serve_child(serve_dir: str, halo_db: str) -> int:
     return 0
 
 
+def _launched(run):
+    """``run()``'s result and the kernel launches it made, counted as the
+    difference around it (the nonzero ones)."""
+    before = all_launches()
+    out = run()
+    return out, {k: v - before.get(k, 0) for k, v in all_launches().items()
+                 if v - before.get(k, 0)}
+
+
 def _serve_run(torch, device, name: str, record, req):
-    """Step 5 for one workload: the exact answer's schedule, deserialized
-    against the graph the driver searches, run on the card through the
-    stream executor (with graphs) beside naive on the same buffers.  Halo:
-    U bit-exact with naive's; spmv: y of both within ``ELL_TOL`` of the
-    float64 product."""
+    """Steps 5 and 8 for one workload: the exact answer's schedule,
+    deserialized against the graph the driver searches, run on the card
+    through the stream executor (with graphs) beside naive on the same
+    buffers, each run's launches counted apart (``launches`` the answer's,
+    ``launches_naive`` naive's).  Halo: U bit-exact with naive's; spmv: y of
+    both within ``ELL_TOL`` of the float64 product."""
     from tenzing_tpu_torch.bench import driver
     from tenzing_tpu_torch.core.platform import Platform
     from tenzing_tpu_torch.core.serdes import sequence_from_json
@@ -3279,9 +3319,12 @@ def _serve_run(torch, device, name: str, record, req):
         raise AssertionError(f"serve exact {name}: the answer is not sound")
     ex = StreamExecutor(plat, tbufs, device="cuda")
     t0 = time.time()
-    out_s, out_n = ex.run(order), ex.run(naive)
+    out_s, launches = _launched(lambda: ex.run(order))
+    out_n, launches_naive = _launched(lambda: ex.run(naive))
     row = {"ops": len(order), "graphs": True,
-           "run_wall_s": round(time.time() - t0, 3)}
+           "run_wall_s": round(time.time() - t0, 3),
+           "kernel_ops": answer_kernels(order), "launches": launches,
+           "launches_naive": launches_naive}
     if name == "halo":
         row["U_bit_exact_vs_naive"] = bool(torch.equal(out_s["U"],
                                                        out_n["U"]))
@@ -3301,10 +3344,31 @@ def _serve_run(torch, device, name: str, record, req):
     return row
 
 
+def answer_kernels(order):
+    """The hand-written kernels a schedule's ops launch, with the number of
+    ops that launch each: the menu slots the search picked (a pack or
+    unpack on a kernel slot, a transfer on ``.rdma``, an SpMV on
+    ``.pallas``).  Step 8 holds the answers' launches to it."""
+    from tenzing_tpu_torch.models.spmv import SpMVPallasOp
+    from tenzing_tpu_torch.ops.halo_kernels import _KernelPack, _KernelUnpack
+    from tenzing_tpu_torch.ops.rdma import RdmaCopyStart
+
+    kinds = ((_KernelPack, "halo_pack"), (_KernelUnpack, "halo_unpack"),
+             (RdmaCopyStart, "device_copy"), (SpMVPallasOp, "ell_spmv"))
+    out = {}
+    for op in order:
+        op = op.unbound() if hasattr(op, "unbound") else op
+        for cls, kernel in kinds:
+            if isinstance(op, cls):
+                out[kernel] = out.get(kernel, 0) + 1
+    return out
+
+
 def phase_serve(torch, device, smi, halo_db: str):
-    """The serving plane's core loop on the card (module docstring):
-    warm, cold, a drain in-process (halo), then one by the CLI's subprocess
-    runner (spmv), then exact answers run on the card.
+    """The serving plane on the card (module docstring): warm, cold, a
+    drain in-process (halo, into a segmented store), then one by the CLI's
+    subprocess runner (spmv), exact answers run on the card, disaster
+    recovery, the listen loop, and its answers run on the card.
     Returns the row it prints, with each step's launches."""
     import shutil
 
@@ -3316,7 +3380,7 @@ def phase_serve(torch, device, smi, halo_db: str):
         drain_csv_path,
     )
     from tenzing_tpu_torch.serve.service import ScheduleService
-    from tenzing_tpu_torch.serve.store import ScheduleStore, WorkQueue
+    from tenzing_tpu_torch.serve.store import ScheduleStore, WorkQueue, open_store
 
     torch.cuda.empty_cache()
     serve_dir = os.path.join(OUT_DIR, "serve")
@@ -3358,7 +3422,7 @@ def phase_serve(torch, device, smi, halo_db: str):
 
     dirs = {n: os.path.join(serve_dir, n) for n in reqs}
     queues = {n: WorkQueue(os.path.join(d, "queue")) for n, d in dirs.items()}
-    stores = {n: os.path.join(d, "store.json") for n, d in dirs.items()}
+    stores = {n: os.path.join(d, SERVE_STORES[n]) for n, d in dirs.items()}
     items = {n: q.items()[0] for n, q in queues.items()}
 
     # step 3: the halo item drained in this process on the card
@@ -3383,7 +3447,7 @@ def phase_serve(torch, device, smi, halo_db: str):
     exact = queues["halo"].exact_of(path)
     left = sorted(n for n in os.listdir(queues["halo"].dir)
                   if n.startswith(("work-", "lease-", "fail-", "poison-")))
-    st = ScheduleStore(stores["halo"])
+    st = open_store(stores["halo"])
     steps["drain_halo"] = {
         "runner": "in_process", "summary": summary["counters"],
         "history": d.history[-1:], "left": left,
@@ -3459,6 +3523,7 @@ def phase_serve(torch, device, smi, halo_db: str):
         p = res.provenance
         row = {"tier": res.tier, "resolve_us": round(us, 1),
                "phase_us": res.phase_us, "records": len(svc.store),
+               "key": res.record["key"] if res.record else None,
                "was_predicted": p.get("was_predicted"),
                "verified": p.get("verified"), "compiles": p.get("compiles"),
                "measurements": p.get("measurements"),
@@ -3471,13 +3536,328 @@ def phase_serve(torch, device, smi, halo_db: str):
         t0 = time.time()
         reset_launches()
         row.update(_serve_run(torch, device, name, res.record, req))
-        row["launches"] = {k: v for k, v in all_launches().items() if v}
         row["wall_s"] = round(time.time() - t0, 3)
         steps["exact"][name] = row
+    steps["dr"] = _serve_dr(serve_dir, stores, card)
+    steps["listen"] = _serve_listen(serve_dir, stores["halo"], card,
+                                    steps["exact"])
+    # step 8: the schedules the listen loop answered, on the card beside
+    # naive; the answers' own launches (the kernels line's launches_listen)
+    # must be the kernels their menu slots pick, each launched
+    t0 = time.time()
+    answered = steps["listen"].pop("ops")
+    run = steps["listen_run"] = {
+        name: _serve_run(torch, device, name, {"ops": answered[name]},
+                         reqs[name])
+        for name in reqs}
+    launches = {}
+    for name in reqs:
+        for k, v in run[name]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    run["launches"] = launches
+    run["wall_s"] = round(time.time() - t0, 3)
+    watched = ("halo_pack", "halo_unpack", "device_copy", "ell_spmv")
+    wrong = {name: run[name] for name in reqs
+             if sorted(run[name]["kernel_ops"])
+             != sorted(k for k in watched if run[name]["launches"].get(k))}
+    missing = [k for k in ("halo_unpack", "device_copy", "ell_spmv")
+               if not launches.get(k)]
+    if wrong or missing:
+        raise AssertionError(f"the listen loop's answers launched other "
+                             f"kernels than their slots pick ({wrong}) or "
+                             f"never launched {missing}: {run}")
     result = {"phase": "serve", "card": smi, "steps": steps,
               "wall_s": round(time.time() - t_phase, 3)}
     emit(result)
     return result
+
+
+def _serve_cli(serve_dir: str, *argv):
+    """One ``python -m tenzing_tpu_torch.serve`` subcommand; returns its exit
+    code and its JSON line (stderr appended to ``serve_dir/dr.err``)."""
+    r = subprocess.run([sys.executable, "-m", "tenzing_tpu_torch.serve",
+                        *argv], cwd=REPO, capture_output=True, text=True,
+                       timeout=300)
+    with open(os.path.join(serve_dir, "dr.err"), "a") as f:
+        f.write(f"$ serve {' '.join(argv)}\n{r.stderr}")
+    return r.returncode, _json_tail(r.stdout, f"serve {argv[0]}")
+
+
+def _serve_dr(serve_dir: str, stores, card: str):
+    """Step 6: merge, compact, back up, lose and restore the halo store
+    directory through the CLI, then fsck it."""
+    import shutil
+
+    from tenzing_tpu_torch.serve.segments import record_digest
+    from tenzing_tpu_torch.serve.store import open_store
+
+    t_step = time.time()
+    store = stores["halo"]
+    walls = {}
+
+    def cli(*argv):
+        t0 = time.time()
+        rc, doc = _serve_cli(serve_dir, *argv)
+        walls[argv[0]] = round(time.time() - t0, 3)
+        if rc != 0:
+            raise AssertionError(f"serve {argv[0]} rc={rc}: {doc}")
+        return doc
+
+    n_halo = len(open_store(store))
+    n_spmv = len(open_store(stores["spmv"]))
+    merged = cli("merge", "--store", store, "--from", stores["spmv"])
+    compact = cli("compact", "--store", store)
+    recs = open_store(store).records()
+    before = sorted(record_digest(r) for r in recs)
+    backup = cli("backup", "--store", store, "--note", "chip smoke")
+    lost = sorted(os.listdir(os.path.join(store, "segments")))
+    shutil.rmtree(os.path.join(store, "segments"))
+    os.unlink(os.path.join(store, "manifest.json"))
+    restore = cli("restore", "--store", store)
+    fsck = cli("fsck", "--store", store)
+    after_recs = open_store(store).records()
+    after = sorted(record_digest(r) for r in after_recs)
+    devices = sorted({r["provenance"].get("device") for r in after_recs})
+    out = {"records_halo": n_halo, "records_spmv": n_spmv,
+           "merged": merged["merged"], "records_after_merge": merged["records"],
+           "compact": {k: compact[k] for k in (
+               "buckets_compacted", "segments_reclaimed", "orphans_adopted",
+               "records", "skipped")},
+           "backup": {k: backup[k] for k in ("n_files", "bytes",
+                                            "captured")},
+           "segments_lost": len(lost),
+           "restore": {k: restore[k] for k in ("mode", "files_restored",
+                                               "damaged_skipped")},
+           "fsck": {k: fsck.get(k) for k in (
+               "rc", "records", "segments", "checksum_failed",
+               "orphan_segments", "missing_segments", "damaged_segments",
+               "errors", "warnings")},
+           "fsck_backups_ok": all(b["ok"] for b in fsck.get("backups", [])),
+           "records": len(after), "digests_equal": after == before,
+           "devices": devices, "wall_by_command_s": walls,
+           "wall_s": round(time.time() - t_step, 3)}
+    if (fsck["rc"] != 0 or fsck["checksum_failed"] or fsck["orphan_segments"]
+            or fsck["missing_segments"] or not out["fsck_backups_ok"]
+            or after != before or len(after) != n_halo + n_spmv
+            or restore["mode"] != "verbatim" or devices != [card]):
+        raise AssertionError(f"serve disaster recovery: {out}")
+    return out
+
+
+class _JsonLinesChild:
+    """A child process spoken to in JSON lines over its stdin and stdout:
+    :meth:`ask` writes requests and waits, with a timeout, for one response
+    per request ``id``."""
+
+    def __init__(self, cmd, err_path: str):
+        import queue
+        import threading
+
+        self._err = open(err_path, "w")
+        self.proc = subprocess.Popen(cmd, cwd=REPO, stdin=subprocess.PIPE,
+                                     stdout=subprocess.PIPE, stderr=self._err,
+                                     text=True, bufsize=1)
+        self.lines = queue.Queue()
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.put(line)
+        self.lines.put(None)
+
+    def _next(self, deadline: float):
+        line = self.lines.get(timeout=max(0.1, deadline - time.time()))
+        if line is None:
+            raise AssertionError("the listen child exited early (see "
+                                 f"{self._err.name})")
+        return line
+
+    def ask(self, docs, timeout: float = 120.0):
+        for d in docs:
+            self.proc.stdin.write(json.dumps(d) + "\n")
+        self.proc.stdin.flush()
+        deadline = time.time() + timeout
+        got = {}
+        while len(got) < len(docs):
+            doc = json.loads(self._next(deadline))
+            got[doc.get("id")] = doc
+        return got
+
+    def close(self, timeout: float = 120.0):
+        """EOF on stdin; returns the exit code and the remaining lines."""
+        self.proc.stdin.close()
+        rc = self.proc.wait(timeout=timeout)
+        rest = []
+        while True:
+            line = self.lines.get(timeout=30)
+            if line is None:
+                break
+            rest.append(line)
+        self._err.close()
+        return rc, rest
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+
+
+def _pct50_max(xs):
+    xs = sorted(xs)
+    return {"n": len(xs), "pct50_us": xs[(len(xs) - 1) // 2] if xs else None,
+            "max_us": xs[-1] if xs else None}
+
+
+def _serve_listen(serve_dir: str, store: str, card: str, exact_rows):
+    """Step 7: ``serve listen`` on the restored store in a child that never
+    initializes CUDA (module docstring).  Returns its row, with the
+    answered schedules' ops under ``ops`` for step 8."""
+    from tenzing_tpu_torch.obs.export import read_jsonl
+    from tenzing_tpu_torch.serve.reqlog import read_request_log
+    from tenzing_tpu_torch.serve.store import WorkQueue
+
+    t_step = time.time()
+    d = os.path.join(serve_dir, "listen")
+    paths = {k: os.path.join(d, k) for k in ("queue", "record")}
+    paths["status"] = os.path.join(d, "status.json")
+    paths["trace"] = os.path.join(d, "trace.jsonl")
+    os.makedirs(d)
+    child = _JsonLinesChild(
+        [sys.executable, os.path.abspath(__file__), "--listen-child", store,
+         paths["queue"], paths["record"], paths["status"], paths["trace"]],
+        os.path.join(d, "listen.err"))
+    halo, spmv = SERVE_REQUESTS["halo"], SERVE_REQUESTS["spmv"]
+
+    def q(rid, req):
+        return {"op": "query", "id": rid, "request": dict(req)}
+
+    def hits(m):
+        return m["metrics"]["metrics"]["counters"].get("serve.fp_cache.hits",
+                                                       0)
+
+    admitted = 0
+    try:
+        got = child.ask([{"op": "ping", "id": "ping"},
+                         {"op": "metrics", "id": "m0"}])
+        got.update(child.ask([q("h1", halo)]))
+        got.update(child.ask([{"op": "metrics", "id": "m1"}]))
+        got.update(child.ask([q("h2", halo)]))
+        got.update(child.ask([{"op": "metrics", "id": "m2"}]))
+        got.update(child.ask([{"op": "batch", "id": "b",
+                               "requests": [dict(halo), dict(spmv)]}]))
+        got.update(child.ask([q("cold", SERVE_COLD)]))
+        burst = [q(f"f{i}", (halo, spmv)[i % 2])
+                 for i in range(2 * SERVE_BURST)]
+        got.update(child.ask(burst))
+        got.update(child.ask([{"op": "stats", "id": "s"},
+                              {"op": "metrics", "id": "m3"}]))
+        admitted = 2 + 2 + 1 + len(burst)
+        rc, rest = child.close()
+    finally:
+        child.kill()
+    tail = [json.loads(x) for x in rest if x.startswith("{")]
+    summary, verdict = tail[-2], tail[-1]
+    results = {"h1": got["h1"]["result"], "h2": got["h2"]["result"],
+               "b_halo": got["b"]["results"][0],
+               "b_spmv": got["b"]["results"][1],
+               "cold": got["cold"]["result"]}
+    bursts = [got[f"f{i}"]["result"] for i in range(2 * SERVE_BURST)]
+    exact = [results[k] for k in ("h1", "h2", "b_halo", "b_spmv")] + bursts
+    log = read_request_log(paths["record"])
+    status = json.load(open(paths["status"]))
+    trace = [r for r in read_jsonl(paths["trace"]) if r.get("kind") == "span"
+             and r.get("name") == "serve.query"]
+    # a batch's members share its trace id: a resolution is its trace id
+    # and its exact digest
+    fast_ids = {((r.get("attrs") or {}).get("trace_id"),
+                 (r.get("attrs") or {}).get("exact")) for r in trace
+                if (r.get("attrs") or {}).get("fast_path")}
+
+    def is_fast(r):
+        return (r["trace_id"], r["fingerprint"]["exact"]) in fast_ids
+
+    walked = [r for r in exact if not is_fast(r)]
+    fast = [r for r in exact if is_fast(r)]
+    slo = got["m3"]["metrics"].get("slo") or {}
+    queued = WorkQueue(paths["queue"]).items()
+    row = {
+        "pong": got["ping"].get("pong"),
+        "tiers": {k: v["tier"] for k, v in results.items()},
+        "burst_tiers": sorted({r["tier"] for r in bursts}),
+        "h2_cache_hit": results["h2"]["provenance"].get("cache_hit"),
+        "fp_cache_hits": [hits(got[m]) for m in ("m0", "m1", "m2", "m3")],
+        "h2_fast_path": is_fast(results["h2"]),
+        "h1_fast_path": is_fast(results["h1"]),
+        "keys_as_step5": {
+            "halo": results["h1"]["key"] == exact_rows["halo"]["key"],
+            "spmv": results["b_spmv"]["key"] == exact_rows["spmv"].get(
+                "key")},
+        "devices": sorted({r["provenance"].get("device") for r in exact}),
+        "cold_items": len(queued),
+        # the first exact answer of each workload walks the store (and
+        # builds its graph); the rest come from the fast path
+        "resolve_us_walk": {"halo": results["h1"]["resolve_us"],
+                            "spmv": results["b_spmv"]["resolve_us"]},
+        "resolve_us_fast": {
+            w: _pct50_max([r["resolve_us"] for r in fast
+                           if r["fingerprint"]["workload"] == w])
+            for w in ("halo", "spmv")},
+        "resolve_us_cold": results["cold"]["resolve_us"],
+        "walked": len(walked), "fast": len(fast),
+        "stats_queue_depth": got["s"]["stats"].get("queue", {}).get("depth"),
+        "slo": {k: slo.get(k) for k in ("histogram", "count", "pct99_us",
+                                        "target_us", "baseline_pct99_us")},
+        "rc": rc, "cuda_initialized": verdict.get("cuda_initialized"),
+        "summary_counters": summary.get("counters"),
+        "status_state": status.get("state"),
+        "reqlog": {"records": len(log["records"]), "admitted": admitted,
+                   "segments": log["segments"], "damaged": log["damaged"],
+                   "checksum_failed": log["checksum_failed"]},
+        "wall_s": round(time.time() - t_step, 3)}
+    ok = (row["pong"] is True and verdict.get("child") == "listen"
+          and rc == 0 and verdict.get("cuda_initialized") is False
+          and all(row["tiers"][k] == "exact" for k in (
+              "h1", "h2", "b_halo", "b_spmv"))
+          and row["tiers"]["cold"] == "cold" and row["burst_tiers"] == [
+              "exact"]
+          and row["h2_cache_hit"] is True and row["h2_fast_path"]
+          and not row["h1_fast_path"]
+          and row["fp_cache_hits"][2] == row["fp_cache_hits"][1] + 1
+          and all(row["keys_as_step5"].values()) and row["devices"] == [card]
+          and row["cold_items"] == 1 and os.path.exists(
+              results["cold"]["work_item"])
+          and slo.get("count", 0) >= len(exact)
+          and slo.get("pct99_us") is not None
+          and row["status_state"] == "stopped"
+          and row["reqlog"]["records"] == admitted
+          and not row["reqlog"]["checksum_failed"]
+          and not row["reqlog"]["damaged"])
+    if not ok:
+        raise AssertionError(f"serve listen: {row}")
+    row["ops"] = {"halo": results["h1"]["ops"],
+                  "spmv": results["b_spmv"]["ops"]}
+    return row
+
+
+def listen_child(store: str, queue: str, record: str, status: str,
+                 trace: str) -> int:
+    """``chip_smoke.py --listen-child STORE QUEUE RECORD STATUS TRACE``: step
+    7's ``serve listen --platform cuda`` (the CLI's ``main``) over this
+    process's stdin and stdout, in a process that never touches the card.
+    After EOF it prints one JSON line: whether CUDA was initialized."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from tenzing_tpu_torch.serve import __main__ as serve_cli
+
+    rc = serve_cli.main([
+        "listen", "--store", store, "--queue", queue, "--platform", "cuda",
+        "--workers", "1", "--owner", "chip-smoke-listen", "--status", status,
+        "--record", record, "--trace-out", trace])
+    print(json.dumps({"child": "listen", "rc": rc,
+                      "cuda_initialized": torch.cuda.is_initialized()}),
+          flush=True)
+    return rc
 
 
 # -- the fault phase ---------------------------------------------------------------
@@ -4078,8 +4458,11 @@ def main() -> int:
                     + ("staging copies" if name == "device_copy"
                        else "batched blocking (one row per block on x)"),
         })
-        # the serve phase's in-process halo drain (not in "launches")
+        # the serve phase's in-process halo drain (not in "launches"), and
+        # the schedules its listen loop answered, run on the card
         kernels[-1]["launches_serve"] = serve_row["steps"]["drain_halo"][
+            "launches"].get(name, 0)
+        kernels[-1]["launches_listen"] = serve_row["steps"]["listen_run"][
             "launches"].get(name, 0)
         if name == "device_copy":
             kernels[-1]["launches_by_path"] = {"halo": launches[name],
@@ -4234,6 +4617,8 @@ def main() -> int:
             "ell_spmv"],
         "launches_serve_exact": serve_row["steps"]["exact"].get(
             "spmv", {}).get("launches", {}).get("ell_spmv", 0),
+        "launches_listen": serve_row["steps"]["listen_run"]["launches"].get(
+            "ell_spmv", 0),
         "max_abs_err": max(r["max_abs_err"] for r in spmv_rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -4306,4 +4691,6 @@ if __name__ == "__main__":
         sys.exit(sticky_child(sys.argv[2], int(sys.argv[3])))
     if len(sys.argv) == 4 and sys.argv[1] == "--serve-child":
         sys.exit(serve_child(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) == 7 and sys.argv[1] == "--listen-child":
+        sys.exit(listen_child(*sys.argv[2:7]))
     sys.exit(main())

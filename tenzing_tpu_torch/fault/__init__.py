@@ -17,10 +17,12 @@ measured.
 * :mod:`~tenzing_tpu_torch.fault.checkpoint` — the measurement journal and
   solver cursors (``--checkpoint DIR --resume``);
 * :mod:`~tenzing_tpu_torch.fault.inject` — seeded chaos
-  (``--inject-faults``).
+  (``--inject-faults``);
+* :mod:`~tenzing_tpu_torch.fault.fsinject` — seeded hostile-filesystem
+  faults behind utils/atomic.py's seam (``$TENZING_FSINJECT``).
 
-Not ported yet: the filesystem chaos (``fault/fsinject.py``,
-``fault/fschaos.py``; ROADMAP Queue 1 item 8b).
+Not ported yet: the filesystem chaos drill (``fault/fschaos.py``; ROADMAP
+Queue 1 item 8c).
 """
 
 from tenzing_tpu_torch.fault.backoff import BackoffPolicy, retry_call

@@ -80,7 +80,7 @@ class MeasurementTimeout(TransientError):
 
 class StoreLockTimeout(TransientError):
     """The serving store's manifest lock stayed contended past the bounded
-    backoff (the segmented store, ROADMAP Queue 1 item 8b).  Transient: the
+    backoff (the segmented store, serve/segments.py).  Transient: the
     rival writer finishes, and the operation is retried later."""
 
 

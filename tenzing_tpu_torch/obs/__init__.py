@@ -9,7 +9,8 @@ Counterpart of ``tenzing_tpu/obs/__init__.py``, the single-process part:
   every record while it is ambient;
 * :mod:`~tenzing_tpu_torch.obs.metrics` — counters, gauges and histograms
   with percentile summaries (``utils/counters.py`` mirrors the solvers'
-  phase timings into it);
+  phase timings into it), and the ring of metric snapshots a long-lived
+  process writes (with its SLO block);
 * :mod:`~tenzing_tpu_torch.obs.progress` — progress lines that also go to
   the tracer's event stream;
 * :mod:`~tenzing_tpu_torch.obs.export` — JSONL and Chrome trace-event sinks.
@@ -33,8 +34,12 @@ from tenzing_tpu_torch.obs.metrics import (
     Gauge,
     Histogram,
     MetricsRegistry,
+    MetricsSnapshotWriter,
+    SloConfig,
     get_metrics,
+    latest_snapshots,
     set_metrics,
+    snapshot_history,
 )
 from tenzing_tpu_torch.obs.progress import ProgressReporter, get_reporter, set_reporter
 from tenzing_tpu_torch.obs.tracer import Event, Span, Tracer, configure, get_tracer, set_tracer
@@ -45,7 +50,9 @@ __all__ = [
     "Gauge",
     "Histogram",
     "MetricsRegistry",
+    "MetricsSnapshotWriter",
     "ProgressReporter",
+    "SloConfig",
     "Span",
     "TraceContext",
     "Tracer",
@@ -54,11 +61,13 @@ __all__ = [
     "get_metrics",
     "get_reporter",
     "get_tracer",
+    "latest_snapshots",
     "new_trace",
     "read_jsonl",
     "set_metrics",
     "set_reporter",
     "set_tracer",
+    "snapshot_history",
     "to_jsonl",
     "write_chrome_trace",
     "write_jsonl",

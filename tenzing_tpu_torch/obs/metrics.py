@@ -1,10 +1,8 @@
 """Metrics registry: counters, gauges, histograms with percentile summaries.
 
-Counterpart of ``tenzing_tpu/obs/metrics.py`` with the drain daemon's
-snapshot writer (:class:`MetricsSnapshotWriter`) and without the listen
-loop's SLO configuration (ROADMAP Queue 1 item 8c).  Where
-the tracer answers "what happened when", the registry answers "how much /
-how often / how slow".  One process-global registry (:func:`get_metrics`)
+Counterpart of ``tenzing_tpu/obs/metrics.py``.  Where the tracer answers
+"what happened when", the registry answers "how much / how often / how
+slow".  One process-global registry (:func:`get_metrics`)
 aggregates over a whole run — the solvers' phase timings (through
 ``utils/counters.py``), the benchmark cache's hit rate, measurement counts —
 and serializes to one JSON document
@@ -12,15 +10,25 @@ and serializes to one JSON document
 
 Histogram summaries use the nearest-rank percentile of ``BenchResult``
 (utils/numeric.py ``percentile``) and keep raw observations up to a cap.
+
+The streaming exporter (:class:`MetricsSnapshotWriter`) serves the
+long-lived processes (the listen loop, the drain daemon): it writes atomic
+metric-snapshot documents into a bounded ring of files beside the process's
+``status-<owner>.json``, each with the whole registry read without
+blocking, the tracer's retention tallies and, where configured, an SLO
+block (:class:`SloConfig`: the exact tier's pct99 against a target and a
+baseline, with the direction it burns).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
 from collections import deque
 from contextlib import contextmanager
+from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
 from tenzing_tpu_torch.utils.numeric import percentile
@@ -267,12 +275,67 @@ def set_metrics(registry: MetricsRegistry) -> MetricsRegistry:
     return prev
 
 
+# -- the streaming snapshot exporter ------------------------------------------
+
 SNAPSHOT_VERSION = 1
 
 
+@dataclass
+class SloConfig:
+    """What healthy means for one latency series.  ``target_us`` is the
+    operator's objective for the exact tier's pct99; ``baseline_pct99_us``
+    anchors the burn direction, read from a serve-replay result with
+    :func:`baseline_pct99_from` (a run of the same system on the same
+    hardware: left unset, the block reports no direction)."""
+
+    target_us: Optional[float] = None
+    baseline_pct99_us: Optional[float] = None
+    histogram: str = "serve.resolve_us.exact"
+    # past this relative drift from the baseline the direction stops
+    # reading "flat"
+    drift_tol: float = 0.05
+
+    def block(self, registry: "MetricsRegistry") -> Dict[str, Any]:
+        """The SLO block of one snapshot: the configured histogram's current
+        pct99 against the target and the baseline."""
+        hist = registry.histograms().get(self.histogram)
+        summary = hist.summary(block=False) if hist is not None else {}
+        pct99 = summary.get("p99")
+        out: Dict[str, Any] = {
+            "histogram": self.histogram,
+            "count": summary.get("count", 0),
+            "pct99_us": pct99,
+            "target_us": self.target_us,
+            "baseline_pct99_us": self.baseline_pct99_us,
+        }
+        if pct99 is not None and self.target_us:
+            out["within_target"] = bool(pct99 <= self.target_us)
+        if pct99 is not None and self.baseline_pct99_us:
+            ratio = pct99 / self.baseline_pct99_us
+            out["vs_baseline"] = round(ratio, 4)
+            out["burn"] = ("improving" if ratio < 1.0 - self.drift_tol
+                           else "degrading" if ratio > 1.0 + self.drift_tol
+                           else "flat")
+        return out
+
+
+def baseline_pct99_from(path: str) -> Optional[float]:
+    """The exact tier's pct99 in a serve-replay result document (the
+    reference's ``SERVE_BENCH_r*.json`` format); None when the file is
+    unreadable or of another kind."""
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+        exact = (doc.get("segmented") or {}).get("resolve_us", {}).get(
+            "exact") or {}
+        v = exact.get("pct99_us")
+        return float(v) if v is not None else None
+    except (OSError, ValueError, TypeError, AttributeError):
+        return None
+
+
 class MetricsSnapshotWriter:
-    """Periodic atomic metric-snapshot documents, a bounded ring per owner
-    (the reference's, less its SLO block).
+    """Periodic atomic metric-snapshot documents, a bounded ring per owner.
 
     Files are ``metrics-<owner>-<k>.json`` with ``k = seq % ring``: a
     process that snapshots every heartbeat for a month leaves ``ring``
@@ -281,10 +344,12 @@ class MetricsSnapshotWriter:
     every read in the document is non-blocking: the writer is safe on a
     heartbeat thread."""
 
-    def __init__(self, directory: str, owner: str, ring: int = 8):
+    def __init__(self, directory: str, owner: str, ring: int = 8,
+                 slo: Optional[SloConfig] = None):
         self.dir = directory
         self.owner = owner
         self.ring = max(1, int(ring))
+        self.slo = slo
         self.seq = 0
 
     def path_for(self, seq: int) -> str:
@@ -293,9 +358,11 @@ class MetricsSnapshotWriter:
 
     def build(self, state: str = "serving",
               extra: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-        """The snapshot document, not written."""
+        """The snapshot document, not written: also the listen protocol's
+        ``metrics`` answer."""
         from tenzing_tpu_torch.obs.tracer import get_tracer
 
+        registry = get_metrics()
         doc: Dict[str, Any] = {
             "version": SNAPSHOT_VERSION,
             "kind": "metrics_snapshot",
@@ -303,9 +370,11 @@ class MetricsSnapshotWriter:
             "seq": self.seq,
             "written_at": time.time(),
             "state": state,
-            "metrics": get_metrics().to_json(block=False),
+            "metrics": registry.to_json(block=False),
             "tracer": get_tracer().retention(),
         }
+        if self.slo is not None:
+            doc["slo"] = self.slo.block(registry)
         if extra:
             doc.update(extra)
         return doc
@@ -320,3 +389,43 @@ class MetricsSnapshotWriter:
         atomic_dump_json(path, doc, prefix=".metrics.")
         self.seq += 1
         return path
+
+
+def _snapshot_key(doc) -> tuple:
+    try:
+        at = float(doc.get("written_at", 0))
+    except (TypeError, ValueError):
+        at = 0.0
+    return (at, doc.get("seq", -1))
+
+
+def snapshot_history(directory: str) -> Dict[str, List[Dict[str, Any]]]:
+    """Every readable snapshot document in ``directory``, grouped by owner
+    and ordered oldest first by ``(written_at, seq)``: the ring as a short
+    time series.  Wall clock first and seq second, since a restarted
+    process starts over at seq 0 while the dead one's documents still hold
+    the other slots.  Unreadable or foreign files are skipped."""
+    out: Dict[str, List[Dict[str, Any]]] = {}
+    if not os.path.isdir(directory):
+        return out
+    for name in sorted(os.listdir(directory)):
+        if not (name.startswith("metrics-") and name.endswith(".json")):
+            continue
+        try:
+            with open(os.path.join(directory, name)) as f:
+                doc = json.load(f)
+        except (OSError, ValueError):
+            continue
+        if doc.get("kind") != "metrics_snapshot":
+            continue
+        out.setdefault(doc.get("owner", "?"), []).append(doc)
+    for docs in out.values():
+        docs.sort(key=_snapshot_key)
+    return out
+
+
+def latest_snapshots(directory: str) -> Dict[str, Dict[str, Any]]:
+    """The newest snapshot document per owner in ``directory`` (the largest
+    ``(written_at, seq)``; :func:`snapshot_history`)."""
+    return {owner: docs[-1]
+            for owner, docs in snapshot_history(directory).items() if docs}

@@ -1,7 +1,6 @@
 """Schedule serving: the searched schedules as a queryable service.
 
-Counterpart of ``tenzing_tpu/serve``, the serving plane's core loop
-(ROADMAP Queue 1 item 8a):
+Counterpart of ``tenzing_tpu/serve``:
 
 * :mod:`~tenzing_tpu_torch.serve.fingerprint` — the stable workload
   fingerprint (workload, shape and its power-of-two bucket, lanes, engine
@@ -19,11 +18,17 @@ Counterpart of ``tenzing_tpu/serve``, the serving plane's core loop
   ``stats``);
 * :mod:`~tenzing_tpu_torch.serve.daemon` — the drain daemon
   (``python -m tenzing_tpu_torch.serve.daemon``), which runs cold items
-  through the driver on the card and re-warms the store.
+  through the driver on the card and re-warms the store;
+* :mod:`~tenzing_tpu_torch.serve.segments` — the segmented store (sealed
+  segments per bucket, a manifest, the compactor), which ``open_store``
+  opens for any path that is not ``*.json``;
+* :mod:`~tenzing_tpu_torch.serve.dr` — backup, restore and fsck;
+* :mod:`~tenzing_tpu_torch.serve.reqlog` — the request log and exemplars;
+* :mod:`~tenzing_tpu_torch.serve.listen` — the long-lived listen loop
+  (``serve listen``), the resolver's fast path's caller.
 
-Not ported yet: the segmented store and disaster recovery (item 8b), the
-listen loop, request log, replay, drain fleet and supervisor (item 8c;
-``FleetOpts``, ``measure_scaling`` and ``run_fleet`` wait for it).
+Not ported yet: replay, the drain fleet and the supervisor (ROADMAP Queue 1
+item 8c; ``FleetOpts``, ``measure_scaling`` and ``run_fleet`` wait for it).
 """
 
 from tenzing_tpu_torch.serve.daemon import DaemonOpts, DrainDaemon

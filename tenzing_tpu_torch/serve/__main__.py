@@ -12,18 +12,26 @@ one JSON line on stdout:
 * ``merge`` — fold other stores in:
   ``python -m tenzing_tpu_torch.serve merge --store S.json --from O.json``
 * ``stats`` — store and queue occupancy.
+* ``listen`` — the long-lived service loop (serve/listen.py): JSONL queries
+  over stdin or a unix socket, a bounded queue that sheds, a watchdog per
+  request, a graceful drain on SIGTERM, ``status-<owner>.json``.
+  ``python -m tenzing_tpu_torch.serve --listen ...`` is the same mode.
+* ``compact`` — one compaction pass over a segmented store directory
+  (serve/segments.py): merge buckets of several segments, adopt orphans,
+  reclaim; safe against a crash at any instant, exclusive by lease.
+* ``backup`` / ``restore`` / ``fsck`` — disaster recovery (serve/dr.py):
+  hard-linked point-in-time generations with a checksummed catalog, a
+  restore that merges into a live store, and a read-only integrity walk
+  whose exit code is 0 clean, 1 damaged, 2 unreadable.
 
 ``--platform {cuda,cpu}`` names the device the store's records are for and
 enters every fingerprint, so a record stored for one platform never answers
 another's query exact.  ``query``, ``merge`` and ``stats`` default to
 ``cuda``; ``warm`` requires it, because a recorded database does not say
 which device measured it (a driver JSON given with ``--bench`` does, and
-one of another platform is refused).  ``--store`` takes a ``*.json`` path
-(the segmented store's directory raises: ROADMAP Queue 1 item 8b).
-
-``listen`` (serve/listen.py, item 8c) and ``compact``, ``backup``,
-``restore``, ``fsck`` (serve/segments.py and serve/dr.py, item 8b) take the
-reference's flags and raise: not yet ported.
+one of another platform is refused).  ``--store`` takes both backends: a
+``*.json`` path is the monolithic store, any other path a segmented store
+directory (serve/store.py ``open_store``).
 
 The shape flags (``--halo-n`` / ``--m`` / ``--spmv-bw`` / ``--moe-tokens`` /
 ``--lanes`` / ``--smoke``) mirror the driver CLI: a query is a
@@ -40,13 +48,6 @@ from typing import List, Optional
 
 from tenzing_tpu_torch.bench.driver import DriverRequest
 from tenzing_tpu_torch.serve.service import ScheduleService
-
-# the subcommands whose modules are not ported yet, and their ROADMAP items
-_UNPORTED = {"listen": ("serve/listen.py", "8c"),
-             "compact": ("serve/segments.py", "8b"),
-             "backup": ("serve/dr.py", "8b"),
-             "restore": ("serve/dr.py", "8b"),
-             "fsck": ("serve/dr.py", "8b")}
 
 
 def _request_of(args) -> DriverRequest:
@@ -81,7 +82,8 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     def common(p, platform_required: bool = False):
         p.add_argument("--store", required=True,
-                       help="store JSON path (created on first flush)")
+                       help="store path: *.json (monolithic) or a "
+                            "directory (segmented); created on first flush")
         p.add_argument("--queue", default=None, metavar="DIR",
                        help="cold/refinement work-queue directory")
         p.add_argument("--model", default=None,
@@ -267,11 +269,43 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="skip the backup-generation census")
 
     args = ap.parse_args(argv)
-    if args.cmd in _UNPORTED:
-        module, item = _UNPORTED[args.cmd]
-        raise NotImplementedError(
-            f"serve {args.cmd}: {module} is not yet ported (ROADMAP Queue 1 "
-            f"item {item})")
+    if args.cmd in ("backup", "restore", "fsck"):
+        from tenzing_tpu_torch.serve import dr
+
+        log = lambda m: sys.stderr.write(m + "\n")  # noqa: E731
+        try:
+            if args.cmd == "backup":
+                _emit(dr.backup_store(args.store, out_dir=args.out,
+                                      note=args.note, log=log))
+                return 0
+            if args.cmd == "restore":
+                gen = args.generation or dr.latest_generation(
+                    args.out or dr.backups_root(args.store))
+                if gen is None:
+                    raise dr.DrError(
+                        f"no backup generations found for {args.store}")
+                _emit(dr.restore_store(args.store, gen,
+                                       force=args.force, log=log))
+                return 0
+            doc = dr.fsck_store(args.store, adopt=args.adopt,
+                                stamp=args.stamp,
+                                check_backups=not args.no_backups,
+                                log=log)
+            _emit(doc)
+            return doc["rc"]
+        except dr.DrError as e:
+            sys.stderr.write(f"serve {args.cmd}: {e}\n")
+            return 2
+    if args.cmd == "compact":
+        from tenzing_tpu_torch.serve.segments import Compactor
+
+        _emit(Compactor(args.store, owner=args.owner or "",
+                        min_segments=args.min_segments,
+                        lease_ttl_secs=args.lease_ttl,
+                        grace_secs=args.grace,
+                        log=lambda m: sys.stderr.write(m + "\n"),
+                        crash_after=args.crash_after).run())
+        return 0
     trace_out = getattr(args, "trace_out", None)
     if trace_out:
         from tenzing_tpu_torch import obs
@@ -289,6 +323,31 @@ def main(argv: Optional[List[str]] = None) -> int:
         _emit({"merged": out, "records": len(svc.store)})
     elif args.cmd == "stats":
         _emit(svc.stats())
+    elif args.cmd == "listen":
+        from tenzing_tpu_torch.serve.listen import ListenOpts, ServeLoop
+
+        opts = ListenOpts(
+            max_pending=args.max_pending, workers=args.workers,
+            tenant_max_pending=args.tenant_max_pending,
+            request_timeout_secs=args.request_timeout or 0.0,
+            shed_retry_after_secs=args.shed_retry_after,
+            busy_poll_us=args.busy_poll_us,
+            heartbeat_secs=args.heartbeat,
+            idle_exit_secs=args.idle_exit, owner=args.owner or "",
+            status_path=args.status, socket_path=args.socket,
+            slo_target_us=args.slo_target_us,
+            slo_baseline=args.slo_baseline,
+            metrics_ring=args.metrics_ring, trace_out=trace_out,
+            record_dir=args.record, record_sample=args.record_sample,
+            record_retain=args.record_retain,
+            exemplar_k=args.exemplar_k, exemplar_cap=args.exemplar_cap)
+        loop = ServeLoop(svc, opts,
+                         log=lambda m: sys.stderr.write(m + "\n"))
+        if args.socket:
+            _emit(loop.serve_socket(args.socket))
+        else:
+            _emit(loop.serve_stdin())
+        return 0
     if trace_out:
         # one-shot subcommands archive their bundle after the verdict
         # line (the listen loop writes its own on drain)

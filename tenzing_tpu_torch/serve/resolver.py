@@ -336,7 +336,7 @@ class Resolver:
         """The lock-free exact tier: fingerprint-cache probe + snapshot
         probe + memoized response, **no lock, no store access beyond one
         generation read** — safe to call from any number of threads
-        concurrently (a listen loop's workers would, ROADMAP Queue 1 item 8c).  ``None`` means
+        concurrently (serve/listen.py's workers do).  ``None`` means
         "not servable lock-free" (cold fingerprint cache, stale
         snapshot, non-exact tier): the caller falls through to
         :meth:`resolve` under its exclusive lock, which repopulates

@@ -69,8 +69,8 @@ class ScheduleService:
                  platform: str = "cuda"):
         self._log = log
         self.platform = platform
-        # .json paths open the monolithic store; anything else names the
-        # segmented store, which raises (serve/store.py open_store)
+        # .json paths open the monolithic store; anything else opens the
+        # segmented store (serve/store.py open_store)
         self.store = open_store(store_path, tenant=tenant, log=log)
         self.queue = WorkQueue(queue_dir) if queue_dir else None
         self.verify = verify

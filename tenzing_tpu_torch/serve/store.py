@@ -35,8 +35,8 @@ until a probe write lands.
 :func:`migrate_record` upgrades schema 1 on load, and a record of a newer
 schema is skipped loudly.
 
-Only the monolithic ``*.json`` store is ported; :func:`open_store` raises
-for the segmented store's directory (ROADMAP Queue 1 item 8b).
+This is the monolithic ``*.json`` store; :func:`open_store` opens any
+other path as the segmented store (serve/segments.py).
 """
 
 from __future__ import annotations
@@ -538,17 +538,17 @@ class ScheduleStore:
 
 def open_store(path: Optional[str], **kwargs) -> "ScheduleStore":
     """The store-backend dispatcher: a ``*.json`` path opens the monolithic
-    :class:`ScheduleStore`.  Any other path — a directory, existing or not —
-    names the reference's segmented store (serve/segments.py), which is
-    not ported yet (ROADMAP Queue 1 item 8b): it raises, and never falls
-    back to a monolithic file."""
+    :class:`ScheduleStore`; any other path — a directory, existing or not —
+    opens the segmented store (serve/segments.py).  One rule for the
+    service, the CLI and disaster recovery (serve/dr.py), so no two entry
+    points disagree about what a store path means."""
     if path is None:
         return ScheduleStore(None, **kwargs)
     if path.endswith(".json") and not os.path.isdir(path):
         return ScheduleStore(path, **kwargs)
-    raise NotImplementedError(
-        f"store {path!r}: the segmented store (serve/segments.py) is not "
-        "yet ported (ROADMAP Queue 1 item 8b); pass a *.json path")
+    from tenzing_tpu_torch.serve.segments import SegmentedStore
+
+    return SegmentedStore(path, **kwargs)
 
 
 class WorkQueue:

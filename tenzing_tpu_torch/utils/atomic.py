@@ -2,22 +2,23 @@
 
 Counterpart of ``tenzing_tpu/utils/atomic.py``: one definition shared by
 every persistent-state writer of the port — the checkpoint's state
-snapshots (fault/checkpoint.py) and the quarantine file
-(fault/quarantine.py).  Readers see either the previous complete file or
-the new complete file, never a torn write, and the rename lands only after
-the bytes are on disk.
+snapshots (fault/checkpoint.py), the quarantine file (fault/quarantine.py),
+the schedule store and work queue (serve/store.py), and the sealed files of
+the segmented store and the request log (:func:`publish_sealed`;
+serve/segments.py, serve/reqlog.py).  Readers see either the previous
+complete file or the new complete file, never a torn write, and the rename
+lands only after the bytes are on disk.
 
 Every durable writer goes through here, so this module is also the
-injectable I/O seam: an installed backend (:func:`set_io_backend`) gets a
-check before each write, fsync and replace, and may skew an observed mtime
+injectable I/O seam: an installed backend (:func:`set_io_backend`;
+fault/fsinject.py is the one that injects) gets a check before each write,
+fsync, link and replace, and may skew an observed mtime
 (:func:`io_getmtime`) or serve a file's previous content once
 (:func:`read_json`) — the clocks and reads the serving plane's lease
 protocol trusts (serve/lease.py).  With none installed — the default —
-every hook is a branch on a None global.  The reference installs its
-filesystem-chaos backend from ``$TENZING_FSINJECT``; that backend
-(``fault/fsinject.py``) and the segmented store's sealed publish are not
-ported yet (ROADMAP Queue 1 item 8b), so a set variable raises rather than
-injecting nothing.
+every hook is a branch on a None global.  ``$TENZING_FSINJECT`` installs
+the filesystem-chaos backend lazily, once, at the first use of the seam, so
+a subprocess inherits a chaos run's faults without arguments.
 """
 
 from __future__ import annotations
@@ -34,24 +35,24 @@ _env_checked = False
 
 
 def set_io_backend(backend: Optional[Any]) -> None:
-    """Install (or with None, remove) a fault-injecting I/O backend."""
+    """Install (or with None, remove) a fault-injecting I/O backend —
+    fault/fsinject.py is the one that injects."""
     global _io_backend, _env_checked
     _io_backend = backend
     _env_checked = True
 
 
 def io_backend() -> Optional[Any]:
-    """The active backend.  ``$TENZING_FSINJECT`` is read once: a chaos run
-    that silently injected nothing would prove nothing, so a set variable
-    raises until the filesystem-chaos backend is ported."""
+    """The active backend, installed from ``$TENZING_FSINJECT`` at the first
+    call.  A malformed spec raises at the first write: a chaos run that
+    silently injected nothing would prove nothing."""
     global _env_checked
     if not _env_checked:
-        if os.environ.get(FSINJECT_ENV):
-            raise NotImplementedError(
-                f"${FSINJECT_ENV}: the filesystem-chaos backend "
-                "(fault/fsinject.py) is not yet ported (ROADMAP Queue 1 "
-                "item 8b)")
         _env_checked = True
+        if os.environ.get(FSINJECT_ENV):
+            from tenzing_tpu_torch.fault.fsinject import install_from_env
+
+            install_from_env()
     return _io_backend
 
 
@@ -95,6 +96,42 @@ def fsync_dir(path: str) -> None:
         pass
     finally:
         os.close(fd)
+
+
+def publish_sealed(directory: str, make_name, text: str) -> str:
+    """Publish one complete, immutable file into ``directory``: a private
+    temp file, fsynced, hard-linked to the name ``make_name()`` returns
+    (called again when a rival publisher took that name, so the maker must
+    stamp fresh names), the temp unlinked, the directory fsynced.  A reader
+    never sees a torn file that the writer acknowledged.  The segmented
+    store's segments and the request log's share it (serve/segments.py,
+    serve/reqlog.py).  Returns the published name."""
+    os.makedirs(directory, exist_ok=True)
+    while True:
+        name = make_name()
+        final = os.path.join(directory, name)
+        tmp = final + ".tmp"
+        _check("write", final)
+        with open(tmp, "w") as f:
+            f.write(text)
+            f.flush()
+            _check("fsync", final)
+            os.fsync(f.fileno())
+        try:
+            # the torn-rename point: the temp bytes durable, the link not
+            # landed yet — the crash the sealed formats must survive
+            _check("link", final)
+            os.link(tmp, final)
+        except FileExistsError:
+            continue
+        finally:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+        break
+    fsync_dir(directory)
+    return name
 
 
 def atomic_dump_json(path: str, doc: Dict[str, Any],

@@ -206,3 +206,64 @@ def test_serve_query_and_daemon_drain_leave_jax_unloaded(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_serve_listen_and_dr_leave_jax_unloaded(tmp_path):
+    """A segmented store made by a cold query and a ``--once`` daemon drain
+    on the CPU, then ``python -m tenzing_tpu_torch.serve listen --platform
+    cpu`` over stdin (ping, the query twice, a batch, stats) and the
+    store's ``compact``, ``backup`` and ``fsck``, all run as their modules'
+    ``__main__`` in one interpreter: neither jax nor tenzing_tpu is loaded
+    where they run."""
+    store, queue = str(tmp_path / "st.d"), str(tmp_path / "q")
+    query = ["query", "--store", store, "--queue", queue, "--platform",
+             "cpu", "--workload", "spmv", "--smoke"]
+    drain = ["--queue", queue, "--store", store, "--device", "cpu",
+             "--in-process", "--once", "--override", "mcts_iters=4",
+             "--override", "iters=3", "--override", "search_iters=2"]
+    req = {"workload": "spmv", "smoke": True}
+    lines = [{"op": "ping", "id": 0}, {"op": "query", "id": 1, "request": req},
+             {"op": "query", "id": 2, "request": req},
+             {"op": "batch", "id": 3, "requests": [req]},
+             {"op": "stats", "id": 4}]
+    stdin = "".join(json.dumps(x) + "\n" for x in lines)
+    listen = ["listen", "--store", store, "--queue", queue, "--platform",
+              "cpu", "--workers", "1", "--record", str(tmp_path / "rec")]
+    code = (
+        "import sys, json, io, contextlib, runpy\n"
+        "def main(mod, argv, stdin=''):\n"
+        "    sys.argv = [mod] + argv\n"
+        "    sys.stdin = io.StringIO(stdin)\n"
+        "    buf = io.StringIO()\n"
+        "    try:\n"
+        "        with contextlib.redirect_stdout(buf):\n"
+        "            runpy.run_module(mod, run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert not e.code, e.code\n"
+        "    return [json.loads(x) for x in buf.getvalue().splitlines()]\n"
+        f"assert main('tenzing_tpu_torch.serve', {query!r})[-1]['tier'] =="
+        " 'cold'\n"
+        f"main('tenzing_tpu_torch.serve.daemon', {drain!r})\n"
+        f"out = main('tenzing_tpu_torch.serve', {listen!r}, {stdin!r})\n"
+        "by_id = {d.get('id'): d for d in out[:-1]}\n"
+        "assert by_id[0]['pong'], by_id\n"
+        "tiers = [by_id[i]['result']['tier'] for i in (1, 2)]\n"
+        "assert tiers[0] == tiers[1] in ('exact', 'cold'), tiers\n"
+        "assert by_id[3]['results'][0]['tier'] == tiers[0], by_id\n"
+        "assert by_id[4]['stats']['store']['backend'] == 'segmented'\n"
+        "assert out[-1]['reqlog']['records'] == 3, out[-1]\n"
+        f"main('tenzing_tpu_torch.serve', ['compact', '--store', {store!r}])\n"
+        f"main('tenzing_tpu_torch.serve', ['backup', '--store', {store!r}])\n"
+        f"doc = main('tenzing_tpu_torch.serve', ['fsck', '--store', {store!r}"
+        "])[-1]\n"
+        "assert doc['rc'] == 0 and doc['backups'][0]['ok'], doc\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'tenzing_tpu'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

@@ -765,19 +765,33 @@ def test_exempt_ids_skip_identity_keyed_kinds_only():
         inj2.benchmark(fails)
 
 
-# -- the I/O seams that wait for later items -------------------------------------
+# -- the I/O seam -------------------------------------------------------------------
 
 def test_fsinject_env_raises_until_its_backend_is_ported(monkeypatch, tmp_path):
+    """``$TENZING_FSINJECT`` installs the filesystem-chaos backend at the
+    seam's first use (fault/fsinject.py): a malformed spec raises loudly, a
+    valid one injects its faults, and without the variable nothing does."""
+    from tenzing_tpu_torch.fault import fsinject
     from tenzing_tpu_torch.utils import atomic
 
     monkeypatch.setattr(atomic, "_env_checked", False)
     monkeypatch.setattr(atomic, "_io_backend", None)
     monkeypatch.setenv(atomic.FSINJECT_ENV, "seed=1")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="fsinject"):
         atomic.atomic_dump_json(str(tmp_path / "x.json"), {"a": 1})
+    monkeypatch.setattr(atomic, "_env_checked", False)
+    monkeypatch.setenv(atomic.FSINJECT_ENV, "enospc:1.0:3:1")
+    try:
+        with pytest.raises(OSError, match="injected enospc"):
+            atomic.atomic_dump_json(str(tmp_path / "x.json"), {"a": 1})
+        assert fsinject.installed().injected["enospc"] == 1
+    finally:
+        fsinject.uninstall()
     monkeypatch.delenv(atomic.FSINJECT_ENV)
+    monkeypatch.setattr(atomic, "_env_checked", False)
     atomic.atomic_dump_json(str(tmp_path / "x.json"), {"a": 1})
     assert json.loads((tmp_path / "x.json").read_text()) == {"a": 1}
+    assert atomic.io_backend() is None
 
 
 def test_set_io_backend_sees_every_write_step(tmp_path):

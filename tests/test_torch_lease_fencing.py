@@ -2,21 +2,20 @@
 reference tests test_lease_fencing.py), test for test.  A coarse or skewed
 observed mtime lets a rival reclaim a live lease (the first half shows the
 hole, which the protocol allows); the fencing registry catches the
-superseded holder before any fenced effect lands.  The reference injects the
-clocks through its filesystem-chaos backend (not ported: ROADMAP Queue 1
-item 8b); here a small backend on the same seam (utils/atomic.py
-``set_io_backend``) floors every observed mtime to the minute and skews it a
-minute back.  Then the checkpoint journal's fence: a holder whose lease a
-rival superseded cannot append (``$TENZING_FENCE``), and the reference
-agrees on the epochs and the files.
+superseded holder before any fenced effect lands.  The hostile clock comes
+from the filesystem-chaos backend (fault/fsinject.py), as in the
+reference: every observed mtime floored to the minute and skewed a minute
+back.  Then the checkpoint journal's fence: a holder whose lease a rival
+superseded cannot append (``$TENZING_FENCE``), and the reference agrees on
+the epochs and the files.
 """
 
 import json
-import math
 import os
 
 import pytest
 
+from tenzing_tpu_torch.fault import fsinject
 from tenzing_tpu_torch.fault.errors import FencedWriteError, classify_error
 from tenzing_tpu_torch.serve.lease import (
     EPOCH_KEEP,
@@ -28,29 +27,38 @@ from tenzing_tpu_torch.serve.lease import (
 from tenzing_tpu_torch.utils import atomic
 
 
-class HostileClock:
-    """Every observed mtime floored to the minute and a minute old: any TTL
-    under a minute sees every lease as expired.  ``stale`` maps a path to a
-    payload served once to the next read of it (a stale attribute cache)."""
+# every observed mtime floored to the minute and skewed a minute back: any
+# TTL under a minute sees every lease as expired, whatever the wall clock
+HOSTILE_CLOCK = "mtime_coarse:1.0:{s}:60,mtime_skew:1.0:{s}:60"
 
-    def __init__(self):
-        self.stale = {}
+
+@pytest.fixture
+def clock():
+    """Installs the hostile clock with ``clock(seed)``; the well-behaved
+    filesystem comes back after the test."""
+    fsinject.uninstall()
+    yield lambda seed: fsinject.install(HOSTILE_CLOCK.format(s=seed))
+    fsinject.uninstall()
+
+
+class _StaleOnce:
+    """Serves ``payload`` to one read of ``path`` (a stale attribute cache):
+    the seam's read check, canned as in the reference's test."""
+
+    def __init__(self, path, payload):
+        self.path, self.payload = path, payload
 
     def check(self, op, path):
         pass
 
     def observe_mtime(self, path, mtime):
-        return math.floor(mtime / 60.0) * 60.0 - 60.0
+        return mtime
 
     def maybe_stale_json(self, path):
-        return self.stale.pop(path, None)
-
-
-@pytest.fixture
-def clock():
-    c = HostileClock()
-    yield c
-    atomic.set_io_backend(None)
+        if path == self.path and self.payload is not None:
+            out, self.payload = self.payload, None
+            return out
+        return None
 
 
 def _lease(tmp_path, owner, ttl=30.0):
@@ -63,7 +71,7 @@ def test_coarse_clock_reclaims_a_live_lease(tmp_path, clock):
     a = _lease(tmp_path, "alice")
     info_a = a.claim()
     assert info_a is not None and not info_a.reclaimed
-    atomic.set_io_backend(clock)
+    clock(11)
     b = _lease(tmp_path, "bob")
     info_b = b.claim()
     assert info_b is not None and info_b.reclaimed  # a live lease taken
@@ -77,10 +85,10 @@ def test_stale_read_defeats_the_nonce_check_alone(tmp_path, clock):
     a.claim()
     with open(a.path) as f:
         stale_payload = json.load(f)
-    atomic.set_io_backend(clock)
+    clock(13)
     b = _lease(tmp_path, "bob")
     assert b.claim().reclaimed
-    clock.stale[a.path] = stale_payload
+    atomic.set_io_backend(_StaleOnce(a.path, stale_payload))
     assert a.owns()  # the lie: the nonce check passes on stale bytes
     with pytest.raises(FencedWriteError):
         a.check_fence()  # the fence is not fooled
@@ -91,10 +99,10 @@ def test_stale_read_defeats_the_nonce_check_alone(tmp_path, clock):
 def test_epoch_fences_zombie_and_passes_holder(tmp_path, clock):
     a = _lease(tmp_path, "alice")
     assert a.claim().epoch == 1
-    atomic.set_io_backend(clock)
+    clock(17)
     b = _lease(tmp_path, "bob")
     assert b.claim().epoch == 2
-    atomic.set_io_backend(None)
+    fsinject.uninstall()
     assert issued_epoch(a.path) == 2
     b.check_fence()
     with pytest.raises(FencedWriteError):
@@ -129,7 +137,7 @@ def test_unfenced_claim_degrades_to_nonce_checks(tmp_path):
 
 def test_registry_trims_to_epoch_keep(tmp_path, clock):
     path = str(tmp_path / "lease-item.json")
-    atomic.set_io_backend(clock)
+    clock(19)
     last = None
     for g in range(EPOCH_KEEP + 4):
         last = LeaseFile(path, f"gen-{g}", ttl_secs=30.0).claim()
@@ -168,9 +176,9 @@ def test_fenced_journal_append_raises_for_a_superseded_holder(
     res = BenchResult.from_times([1e-3, 1.1e-3, 0.9e-3])
     ck.record(seq, None, res)
     ck.save_state({"mcts": {"it": 1}})
-    atomic.set_io_backend(clock)
+    clock(23)
     assert _lease(tmp_path, "bob").claim().epoch == 2
-    atomic.set_io_backend(None)
+    fsinject.uninstall()
     with pytest.raises(FencedWriteError, match="epoch 1 fenced"):
         ck.record(seq, None, res)
     with pytest.raises(FencedWriteError):

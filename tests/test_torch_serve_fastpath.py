@@ -5,9 +5,8 @@ lock-free exact reads) against the reference's tests
 memoized response patched with the per-request fields serializes to the
 bytes of a fresh serialization; the memo dies with the store generation
 (records landing, flags) and on eviction; the lock-free path answers what
-the locked path answers while a writer bumps the generation.  The
-reference's listen-loop test becomes worker threads on the same split lock
-(the loop is ROADMAP Queue 1 item 8c).
+the locked path answers while a writer bumps the generation, and the listen
+loop's workers (serve/listen.py) serve exact hits through it concurrently.
 """
 
 import itertools
@@ -351,48 +350,37 @@ def test_concurrent_fast_reads_identical_under_mutating_writer(
 
 
 def test_worker_threads_serve_exact_hits_concurrently(corpus, tmp_path):
-    """The split lock a listen loop's workers use (the loop itself is
-    ROADMAP Queue 1 item 8c): four worker threads answer 32 queued requests,
-    each trying ``resolve_fast`` and falling back to the locked path; every
-    answer is exact, the steady state comes from the memo, and every hit
-    serializes to the same bytes."""
-    import queue as queue_mod
+    """The split lock through the real listen loop (serve/listen.py): four
+    workers answer 32 queued requests, each trying ``resolve_fast`` and
+    falling back to the locked path; every answer is exact, the steady
+    state comes from the memo, and every hit serializes to the same
+    bytes."""
+    from tenzing_tpu_torch.serve.listen import ListenOpts, ServeLoop
 
     svc = _service(tmp_path, corpus, train=False)
-    key = fp_cache_key(REQ_KW)
-    lock = threading.Lock()
-    todo = queue_mod.Queue()
+    loop = ServeLoop(svc, ListenOpts(
+        max_pending=64, workers=4, request_timeout_secs=30.0,
+        handle_signals=False, status_path=str(tmp_path / "status.json")))
+    loop.start()
+    docs, lock = [], threading.Lock()
+
+    def respond(doc):
+        with lock:
+            docs.append(doc)
+
     for i in range(32):
-        todo.put(i)
-    docs, errors = [], []
-
-    def worker():
-        while True:
-            try:
-                todo.get_nowait()
-            except queue_mod.Empty:
-                return
-            try:
-                res = svc.resolver.resolve_fast(key)
-                if res is None:
-                    with lock:
-                        res = svc.query(REQ, fp_key=key)
-                with lock:
-                    docs.append(res.to_json())
-            except Exception as e:  # pragma: no cover - the assertion
-                errors.append(repr(e))
-
-    ts = [threading.Thread(target=worker) for _ in range(4)]
-    for t in ts:
-        t.start()
-    for t in ts:
-        t.join(timeout=60)
-    assert not errors, errors[:3]
-    assert len(docs) == 32
-    assert {d["tier"] for d in docs} == {"exact"}
-    hits = [d for d in docs if d["provenance"].get("cache_hit")]
+        loop.submit({"op": "query", "id": i, "request": dict(REQ_KW)},
+                    respond)
+    assert loop.drain(timeout=30.0)
+    ok = [d for d in docs if d.get("ok")]
+    assert len(ok) == 32
+    assert {d["result"]["tier"] for d in ok} == {"exact"}
+    hits = [d for d in ok if d["result"]["provenance"].get("cache_hit")]
     assert len(hits) >= 30
-    assert len({json.dumps(_strip_request_fields(d)) for d in hits}) == 1
+    bodies = {json.dumps(_strip_request_fields(
+        {k: v for k, v in d["result"].items() if k != "resolve_us"}))
+        for d in hits}
+    assert len(bodies) == 1  # every concurrent hit: the same bytes
 
 
 def test_fp_cache_key_rejects_oversized_kwargs():

@@ -7,7 +7,7 @@ fatal, simultaneous flushes under the lock, the work queue's envelope,
 idempotence, torn items and concurrent writers.  Then across the packages: a
 store written by either loads in the other with the same records and
 ``stats``, merges commute and are idempotent across them, and
-``open_store`` refuses the segmented store's directory.
+``open_store`` opens a directory as the segmented store.
 """
 
 import json
@@ -506,11 +506,14 @@ def test_cross_package_merge_commutative_and_idempotent(tmp_path, spmv):
 
 
 def test_open_store_refuses_the_segmented_store(tmp_path):
-    """A directory (existing or not) names the segmented store, which is not
-    ported: ``open_store`` raises and never opens a monolithic file there."""
-    assert isinstance(open_store(str(tmp_path / "s.json")), ScheduleStore)
+    """A directory (existing or not) names the segmented store
+    (serve/segments.py): ``open_store`` opens it as one and never opens a
+    monolithic file there; a ``*.json`` path stays monolithic."""
+    from tenzing_tpu_torch.serve.segments import SegmentedStore
+
+    assert type(open_store(str(tmp_path / "s.json"))) is ScheduleStore
     assert open_store(None).path is None
     for path in (str(tmp_path), str(tmp_path / "segmented")):
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            open_store(path)
-    assert not os.path.exists(tmp_path / "segmented")
+        st = open_store(path)
+        assert isinstance(st, SegmentedStore) and st.dir == path
+    assert not os.path.exists(tmp_path / "segmented")  # made on flush
