@@ -317,17 +317,21 @@ fresh directories under ``chiprun_out/serve/``: (1) ``serve warm --platform
 cuda`` of the full-width halo request from the halo driver phase's database
 (at least one record admitted verified, every record's source that CSV) and
 (2) cold queries of the full-width halo request and the spmv ``--m 8192``
-one against fresh stores and queues (tier ``cold``, one work item each),
-both in a child process that never initializes CUDA (``--serve-child``);
+one against fresh stores and queues (tier ``cold``, one work item each,
+the item's envelope carrying the query's trace id), both in a child process
+that never initializes CUDA (``--serve-child``), traced into
+``serve_child.jsonl``;
 (3) the halo item drained in this process through ``DrainDaemon`` with
 ``in_process=True, device="cuda"`` and the cut budget as overrides, into a
 segmented store directory (``halo/store.d``; spmv's store stays the
 monolithic ``store.json``, so both backends run): the item,
 its lease and any ``fail-`` / ``poison-`` file gone, the verdict verified,
 records carrying the card's name, ``halo_pack``, ``halo_unpack`` and
-``device_copy`` launched; (4) after it, the card to itself, the spmv item
-drained by ``python -m tenzing_tpu_torch.serve.daemon --once`` (its
-subprocess runner): exit 0, the item gone, the child's verdict verified
+``device_copy`` launched, the drain traced by a tracer of its own into
+``daemon_halo.jsonl``; (4) after it, the card to itself, the spmv item
+drained by ``python -m tenzing_tpu_torch.serve.daemon --once --trace-out``
+(its subprocess runner; the ``--exec-item`` child archives its own
+bundle): exit 0, the item gone, the child's verdict verified
 with ``ell_spmv`` among the launches it counted, the store's records what
 ``scored_rows`` admits from the drain's own database (0 is allowed); (5) both requests re-queried: for each non-empty store the tier is
 ``exact``, not predicted, verified, with no compile and no measurement, and
@@ -355,7 +359,27 @@ and spmv schedules the loop answered, run on the card beside naive through
 ``_serve_run`` (U bit-exact, y within ``ELL_TOL``), each answer's launches
 counted apart from naive's: an answer launches exactly the kernels its menu
 slots pick (``halo_pack`` only where a pack sits on a kernel slot), and
-``halo_unpack``, ``device_copy`` and ``ell_spmv`` are each launched.
+``halo_unpack``, ``device_copy`` and ``ell_spmv`` are each launched; (9) in a
+child that never initializes CUDA (``--obs-child``): the bundles stitched
+(``obs.export``) and analyzed (``obs.causal``): each drained item's trace
+spans two or more processes, has ``search``, ``measure`` and ``merge`` above
+0 µs and its segments plus ``unattributed`` equal its window within 1 µs;
+``obs.alerts check`` on the restored halo directory (which holds the listen
+loop's status, snapshots and request log) and the listen queue fires none
+of ``stale_heartbeat``, ``poison``, ``store_unwritable``,
+``store_damage_rate`` and exits 1 exactly when a rule fires, and with
+``--set queue_age.max_s=0`` exits 1 with ``queue_age`` on the undrained cold
+item, in a ledger that loads as an ``AlertBook``; ``obs.report`` over the
+halo driver phase's database, verdict, trace and metrics, the spmv drain's
+database, both stores, the listen queue and the bundles (exit 0, every
+section present, ``chiprun_out/report.md``); ``--check`` of the halo
+verdict against itself ``ok``, and of the learn phase's screened verdict
+against it (printed, exit 2 fails); ``serve.replay --platform cuda
+--from-recorded`` of the listen loop's log: ``platform`` ``cuda``, a
+``host_noise`` block, every recorded halo request exact on the serving path
+(each one's tier read from the path's own request log, ``--record``) with no
+verifier call, the spmv requests' tiers printed, the document ``ok`` against
+itself.
 Last, the ``fault`` phase (the fault layer on the ``--m 8192`` spmv path,
 ``ell_spmv`` launched), each step in fresh processes, the chains run side
 by side: (1) a chaos run (``--checkpoint``, ``--inject-faults`` with all four
@@ -3101,7 +3125,8 @@ def phase_learn(torch, smi, halo_db: str, halo_trace: str):
     device loss (``LEARN_LOSS_SPEC``): the degraded verdict (``vs_baseline``
     1.0, ``verified: false``, ``fault.degraded``) and no kernel launched
     after the loss (the counts when the loss was injected equal those at the
-    end), the run returning normally."""
+    end), the run returning normally.  Returns the path of (b)'s verdict,
+    which the serve phase's regression check reads."""
     from tenzing_tpu_torch.bench import driver
     from tenzing_tpu_torch.fault import inject
 
@@ -3136,6 +3161,9 @@ def phase_learn(torch, smi, halo_db: str, halo_trace: str):
     launches = all_launches()
     verdict = result.verdict
     print(result.to_json_line(), flush=True)
+    screened = os.path.join(OUT_DIR, "learn_screen_verdict.json")
+    with open(screened, "w") as f:
+        f.write(result.to_json_line() + "\n")
     emit({"phase": "learn_screen", "card": smi, "learn": verdict.get("learn"),
           "counters": {c: reg.counter(c).value - before[c] for c in counters},
           "verified": verdict.get("verified"),
@@ -3194,7 +3222,7 @@ def phase_learn(torch, smi, halo_db: str, halo_trace: str):
         raise AssertionError(f"learn degraded: kernels launched after the "
                              f"loss: {row['launches_after_loss']}")
     torch.cuda.empty_cache()
-    return row
+    return screened
 
 
 # -- the serve phase ---------------------------------------------------------------
@@ -3234,15 +3262,21 @@ def serve_child(serve_dir: str, halo_db: str) -> int:
     --platform cuda`` of the full-width halo request from DB (the CLI's
     ``main``) into ``DIR/warm``; (2) through the library, a cold query of
     each of ``SERVE_REQUESTS`` against a fresh store and queue in
-    ``DIR/<workload>``.  Prints one JSON line: the warm summary, each
-    stored record's source, platform and admission stamp, each query's
-    tier, work items and resolve time, and whether CUDA was initialized."""
+    ``DIR/<workload>``, each under a trace context of its own with the
+    tracer on, as the listen loop runs a request; the tracer's bundle goes
+    to ``DIR/serve_child.jsonl``.  Prints one JSON line: the warm summary,
+    each stored record's source, platform and admission stamp, each
+    query's tier, trace id, work items and resolve time, the tracer's
+    drops, and whether CUDA was initialized."""
     import io
 
     import torch
 
     sys.path.insert(0, REPO)
     from tenzing_tpu_torch.bench.driver import DriverRequest
+    from tenzing_tpu_torch.obs import context as obs_context
+    from tenzing_tpu_torch.obs.export import write_jsonl
+    from tenzing_tpu_torch.obs.tracer import configure
     from tenzing_tpu_torch.serve import __main__ as serve_cli
     from tenzing_tpu_torch.serve.service import ScheduleService
     from tenzing_tpu_torch.serve.store import ScheduleStore
@@ -3263,20 +3297,29 @@ def serve_child(serve_dir: str, halo_db: str) -> int:
                 "vs_naive": r["vs_naive"], "pct50_us": r["pct50_us"]}
                for r in ScheduleStore(warm_store).records()],
            "cold": {}}
+    tracer = configure(enabled=True)
     for name, kw in SERVE_REQUESTS.items():
         d = os.path.join(serve_dir, name)
         svc = ScheduleService(os.path.join(d, SERVE_STORES[name]),
                               queue_dir=os.path.join(d, "queue"),
                               platform="cuda")
         t0 = time.perf_counter()
-        res = svc.query(DriverRequest(**kw))
+        with obs_context.use(obs_context.new_trace()):
+            res = svc.query(DriverRequest(**kw))
         us = (time.perf_counter() - t0) * 1e6
+        items = svc.queue.items()
         out["cold"][name] = {"tier": res.tier, "work_item": res.work_item,
-                             "items": len(svc.queue.items()),
+                             "items": len(items),
+                             "trace_id": res.trace_id,
+                             "envelope_trace_id": [
+                                 (p.get("trace") or {}).get("trace_id")
+                                 for _, p in items],
                              "exact": res.fingerprint.exact_digest,
                              "platform": res.fingerprint.platform,
                              "resolve_us": round(us, 1),
                              "phase_us": res.phase_us}
+    write_jsonl(tracer, os.path.join(serve_dir, "serve_child.jsonl"))
+    out["tracer"] = tracer.retention()
     out["cuda_initialized"] = torch.cuda.is_initialized()
     print(json.dumps(out), flush=True)
     return 0
@@ -3364,13 +3407,18 @@ def answer_kernels(order):
     return out
 
 
-def phase_serve(torch, device, smi, halo_db: str):
+def phase_serve(torch, device, smi, halo_db: str, inputs):
     """The serving plane on the card (module docstring): warm, cold, a
     drain in-process (halo, into a segmented store), then one by the CLI's
     subprocess runner (spmv), exact answers run on the card, disaster
-    recovery, the listen loop, and its answers run on the card.
-    Returns the row it prints, with each step's launches."""
+    recovery, the listen loop, its answers run on the card, and the
+    analysis of what they all wrote (step 9; ``inputs`` names the halo
+    driver phase's trace, metrics and verdict files and the learn phase's
+    screened verdict).  Returns the row it prints, with each step's
+    launches."""
     import shutil
+
+    from tenzing_tpu_torch.obs.tracer import Tracer, set_tracer
 
     from tenzing_tpu_torch.bench.driver import DriverRequest
     from tenzing_tpu_torch.serve.daemon import (
@@ -3409,6 +3457,7 @@ def phase_serve(torch, device, smi, halo_db: str):
                      "wall_s": child["warm_wall_s"]}
     steps["cold"] = {**child["cold"],
                      "cuda_initialized": child["cuda_initialized"],
+                     "tracer": child["tracer"],
                      "wall_s": round(time.time() - t0, 3)}
     db_name = os.path.basename(halo_db)
     if not (warm["admission"]["verified"] or 0) >= 1 or not all(
@@ -3417,6 +3466,7 @@ def phase_serve(torch, device, smi, halo_db: str):
         raise AssertionError(f"serve warm: {steps['warm']}")
     if child["cuda_initialized"] or any(
             c["tier"] != "cold" or c["items"] != 1 or c["platform"] != "cuda"
+            or not c["trace_id"] or c["envelope_trace_id"] != [c["trace_id"]]
             for c in child["cold"].values()):
         raise AssertionError(f"serve cold: {steps['cold']}")
 
@@ -3425,13 +3475,17 @@ def phase_serve(torch, device, smi, halo_db: str):
     stores = {n: os.path.join(d, SERVE_STORES[n]) for n, d in dirs.items()}
     items = {n: q.items()[0] for n, q in queues.items()}
 
-    # step 3: the halo item drained in this process on the card
+    # step 3: the halo item drained in this process on the card, traced
+    # into a tracer of its own, so the bundle holds the drain alone
     t0 = time.time()
+    bundles = {"serve_child": os.path.join(serve_dir, "serve_child.jsonl"),
+               "daemon_halo": os.path.join(serve_dir, "daemon_halo.jsonl"),
+               "daemon_spmv": os.path.join(serve_dir, "daemon_spmv.jsonl")}
     d = DrainDaemon(DaemonOpts(
         queue_dir=queues["halo"].dir, store_path=stores["halo"],
         owner="chip-smoke-halo", once=True, in_process=True,
         device="cuda", handle_signals=False,
-        overrides=dict(SERVE_OVERRIDES)))
+        overrides=dict(SERVE_OVERRIDES), trace_out=bundles["daemon_halo"]))
     verdicts = []
     inner = d._runner
 
@@ -3441,7 +3495,11 @@ def phase_serve(torch, device, smi, halo_db: str):
 
     d._runner = runner
     reset_launches()
-    summary = d.run()
+    outer_tracer = set_tracer(Tracer(enabled=False))
+    try:
+        summary = d.run()
+    finally:
+        drain_tracer = set_tracer(outer_tracer)
     launches = all_launches()
     path, payload = items["halo"]
     exact = queues["halo"].exact_of(path)
@@ -3457,6 +3515,7 @@ def phase_serve(torch, device, smi, halo_db: str):
         "records": len(st), "devices": sorted({
             r["provenance"].get("device") for r in st.records()}),
         "launches": {k: v for k, v in launches.items() if v},
+        "tracer": drain_tracer.retention(),
         "wall_s": round(time.time() - t0, 3)}
     if (summary["counters"]["completed"] != 1 or left
             or not verdicts or verdicts[-1].get("verified") is not True
@@ -3474,7 +3533,7 @@ def phase_serve(torch, device, smi, halo_db: str):
     # kernels it launched (counted from 0 in that process) in its verdict
     cmd = [sys.executable, "-m", "tenzing_tpu_torch.serve.daemon",
            "--queue", queues["spmv"].dir, "--store", stores["spmv"], "--once",
-           "--owner", "chip-smoke-spmv"]
+           "--owner", "chip-smoke-spmv", "--trace-out", bundles["daemon_spmv"]]
     for k, v in SERVE_OVERRIDES.items():
         cmd += ["--override", f"{k}={v}"]
     t0 = time.time()
@@ -3566,6 +3625,22 @@ def phase_serve(torch, device, smi, halo_db: str):
         raise AssertionError(f"the listen loop's answers launched other "
                              f"kernels than their slots pick ({wrong}) or "
                              f"never launched {missing}: {run}")
+    # step 9: the analysis of what steps 1-8 wrote, in one child that
+    # never initializes CUDA
+    spmv_ckpt = drain_checkpoint_of(items["spmv"][1], items["spmv"][0])
+    spec = {
+        "serve_dir": serve_dir,
+        "bundles": [bundles["serve_child"], bundles["daemon_halo"],
+                    bundles["daemon_spmv"],
+                    os.path.join(spmv_ckpt, "trace", "trace.jsonl"),
+                    os.path.join(serve_dir, "listen", "trace.jsonl")],
+        "drained": {n: child["cold"][n]["trace_id"] for n in reqs},
+        "halo_store": stores["halo"], "spmv_store": stores["spmv"],
+        "listen_queue": os.path.join(serve_dir, "listen", "queue"),
+        "listen_record": steps["listen"]["record_dir"],
+        "halo_db": halo_db, "spmv_db": drain_csv_path(spmv_ckpt),
+        "report": os.path.join(OUT_DIR, "report.md"), **inputs}
+    steps["obs"] = _serve_obs(serve_dir, spec, smi)
     result = {"phase": "serve", "card": smi, "steps": steps,
               "wall_s": round(time.time() - t_phase, 3)}
     emit(result)
@@ -3718,9 +3793,13 @@ def _serve_listen(serve_dir: str, store: str, card: str, exact_rows):
 
     t_step = time.time()
     d = os.path.join(serve_dir, "listen")
-    paths = {k: os.path.join(d, k) for k in ("queue", "record")}
-    paths["status"] = os.path.join(d, "status.json")
-    paths["trace"] = os.path.join(d, "trace.jsonl")
+    # the status document, its metric snapshots and the request log where
+    # the loop keeps them by default, in the store's directory, so step 9's
+    # report and alerts read them as part of the store
+    paths = {"queue": os.path.join(d, "queue"),
+             "record": os.path.join(store, "reqlog"),
+             "status": os.path.join(store, "status-chip-smoke-listen.json"),
+             "trace": os.path.join(d, "trace.jsonl")}
     os.makedirs(d)
     child = _JsonLinesChild(
         [sys.executable, os.path.abspath(__file__), "--listen-child", store,
@@ -3813,6 +3892,7 @@ def _serve_listen(serve_dir: str, store: str, card: str, exact_rows):
         "reqlog": {"records": len(log["records"]), "admitted": admitted,
                    "segments": log["segments"], "damaged": log["damaged"],
                    "checksum_failed": log["checksum_failed"]},
+        "record_dir": paths["record"],
         "wall_s": round(time.time() - t_step, 3)}
     ok = (row["pong"] is True and verdict.get("child") == "listen"
           and rc == 0 and verdict.get("cuda_initialized") is False
@@ -3858,6 +3938,270 @@ def listen_child(store: str, queue: str, record: str, status: str,
                       "cuda_initialized": torch.cuda.is_initialized()}),
           flush=True)
     return rc
+
+
+# the report sections step 9 gives inputs for, each of which must be present
+SERVE_REPORT_SECTIONS = (
+    "## Recorded search databases", "## Driver verdicts",
+    "### Device, reported schedule and result gate", "## Telemetry bundles",
+    "## Metrics", "## Schedule-serving stores", "#### segments",
+    "- service `chip-smoke-listen`", "- request log", "### work queue",
+    "## Causal analysis")
+# the rules that must not fire on step 9's tree: the listen loop stopped,
+# nothing was poisoned, the store stayed writable and fsck found no damage
+SERVE_QUIET_RULES = ("stale_heartbeat", "poison", "store_unwritable",
+                     "store_damage_rate")
+
+
+def obs_child(spec_path: str) -> int:
+    """``chip_smoke.py --obs-child SPEC``: step 9 of the serve phase in a
+    process that never touches the card, each tool through its CLI's
+    ``main``: (1) ``obs.export`` stitches the bundles SPEC names and
+    ``obs.causal`` analyzes them; (2) ``obs.alerts check`` on the restored
+    halo directory and the listen loop's queue, then again with
+    ``--set queue_age.max_s=0``, and the ledger loaded as an ``AlertBook``;
+    (3) ``obs.report`` over the halo driver phase's database, verdict,
+    trace and metrics, the spmv drain's database, both stores, the listen
+    queue and the bundles; (4) ``obs.report --check`` of that verdict
+    against itself and of the learn phase's screened verdict against it;
+    (5) ``serve.replay --platform cuda --from-recorded`` of the listen
+    loop's request log, and ``--check`` of its document against itself.
+    Prints one JSON line of what each returned, for the parent to check."""
+    import io
+    import re
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    from tenzing_tpu_torch.obs import alerts, causal, export, report
+    from tenzing_tpu_torch.serve import replay
+    from tenzing_tpu_torch.serve.reqlog import read_request_log
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    sd = spec["serve_dir"]
+    walls = {}
+
+    def cli(name, fn, argv):
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            rc = fn(argv)
+        walls[name] = round(time.time() - t0, 3)
+        return rc, buf.getvalue()
+
+    def last_json(text):
+        return json.loads(text.strip().splitlines()[-1])
+
+    def check(name, fresh, baseline, tol):
+        rc, text = cli(name, report.main, ["--check", fresh, "--baseline",
+                                           baseline, "--tol", str(tol)])
+        m = re.search(r"\*\*verdict: (\w+)\*\*", text)
+        return {"rc": rc, "verdict": m.group(1) if m else None,
+                "reasons": [ln[4:] for ln in text.splitlines()
+                            if ln.startswith("  - ")]}
+
+    t_all = time.time()
+    out = {"child": "obs"}
+    # (1) the bundles stitched, and the causal chain of each drained item
+    stitched = os.path.join(sd, "stitched.json")
+    rc, text = cli("export", export.main,
+                   [*spec["bundles"], "--out", stitched])
+    summary = last_json(text)
+    causal_path = os.path.join(sd, "causal.json")
+    rc_c, _ = cli("causal", causal.main,
+                  [*spec["bundles"], "--out", causal_path])
+    with open(causal_path) as f:
+        cdoc = json.load(f)
+    out["stitch"] = {"rc": rc, "bundles": summary["bundles"],
+                     "records": summary["records"],
+                     "traces": len(summary["traces"])}
+    out["causal"] = {"rc": rc_c, "n_traces": cdoc["n_traces"],
+                     "pct99_ranking": cdoc["aggregate"].get("pct99_ranking")}
+    out["drained"] = {}
+    for name, tid in spec["drained"].items():
+        st = summary["traces"].get(tid) or {}
+        t = cdoc["traces"].get(tid) or {}
+        segs = t.get("segments_us") or {}
+        out["drained"][name] = {
+            "trace_id": tid, "processes": st.get("processes"),
+            "n_processes": st.get("n_processes", 0),
+            "error": t.get("error"), "tier": t.get("tier"),
+            "servable": t.get("servable"), "window_us": t.get("window_us"),
+            "segments_us": segs, "unattributed_us": t.get("unattributed_us"),
+            "queue_wait_us": t.get("queue_wait_us"),
+            "coverage": t.get("coverage"),
+            "sum_minus_window_us": (
+                round(sum(segs.values()) + t["unattributed_us"]
+                      - t["window_us"], 3) if "window_us" in t else None)}
+    # (2) the alert rules over the restored store and the listen queue
+    state = os.path.join(sd, "alerts.json")
+    base = ["check", "--store", spec["halo_store"], "--queue-dir",
+            spec["listen_queue"], "--state", state]
+    rc, text = cli("alerts", alerts.main, base)
+    out["alerts"] = {"rc": rc, "firing": last_json(text)["firing"]}
+    rc, text = cli("alerts_queue_age", alerts.main,
+                   base + ["--set", "queue_age.max_s=0"])
+    book = alerts.AlertBook(state).load()
+    out["alerts_queue_age"] = {
+        "rc": rc, "firing": last_json(text)["firing"],
+        "ledger_firing": book.get("firing"),
+        "ledger_alerts": len(book.get("alerts") or {})}
+    # (3) the report over everything the card's runs wrote
+    rc, _ = cli("report", report.main, [
+        "--csv", spec["halo_db"], spec["spmv_db"],
+        "--bench", spec["halo_verdict"], "--trace", spec["halo_trace"],
+        "--metrics", spec["halo_metrics"],
+        "--store", spec["halo_store"], spec["spmv_store"],
+        "--queue-dir", spec["listen_queue"], "--causal", *spec["bundles"],
+        "--out", spec["report"]])
+    with open(spec["report"]) as f:
+        md = f.read()
+    out["report"] = {"rc": rc, "lines": len(md.splitlines()),
+                     "missing": [h for h in SERVE_REPORT_SECTIONS
+                                 if h not in md]}
+    # (4) the regression check, of the main path's verdict against itself
+    # and of the screened search's against it
+    out["check_self"] = check("check_self", spec["halo_verdict"],
+                              spec["halo_verdict"], 0.05)
+    out["check_learn"] = check("check_learn", spec["learn_verdict"],
+                               spec["halo_verdict"], 0.25)
+    # (5) the listen loop's recorded traffic replayed
+    replay_path = os.path.join(sd, "replay.json")
+    replay_log = os.path.join(sd, "replay_reqlog")
+    rc, _ = cli("replay", replay.main, [
+        "--platform", "cuda", "--from-recorded", spec["listen_record"],
+        "--halo-csv", spec["halo_db"], "--spmv-csv", spec["spmv_db"],
+        "--noise-samples", "64", "--record", replay_log,
+        "--out", replay_path])
+    with open(replay_path) as f:
+        doc = json.load(f)
+
+    def by_workload(directory):
+        """Each query record's tier (its outcome where it has none), by
+        the request's workload."""
+        out = {}
+        for r in read_request_log(directory)["records"]:
+            if r.get("op") in ("query", "batch"):
+                wl = r.get("workload") or (r.get("request") or {}).get(
+                    "workload", "halo")
+                out.setdefault(wl, []).append(r.get("tier")
+                                              or r.get("outcome"))
+        return out
+
+    recorded_tiers = by_workload(spec["listen_record"])
+    halo_recorded = len(recorded_tiers.get("halo", []))
+    # the segmented path's own record of what it served: each replayed
+    # request's tier, so the halo requests are held to exact one by one
+    replayed_tiers = by_workload(replay_log)
+
+    def tiers(path):
+        return {t: {k: v[k] for k in ("count", "pct50_us", "pct99_us")}
+                for t, v in doc[path]["resolve_us"].items()}
+
+    hn = doc.get("host_noise") or {}
+    out["replay"] = {
+        "rc": rc, "platform": doc.get("platform"),
+        "host_noise": bool(hn), "halo_recorded": halo_recorded,
+        "replayed_tiers": replayed_tiers,
+        "n": doc.get("n"), "qps": doc.get("qps"),
+        "pacing": doc.get("pacing", {}).get("source"),
+        "monolithic": tiers("monolithic"), "segmented": tiers("segmented"),
+        "verifier_calls": {p: doc[p]["verifier_calls"]
+                           for p in ("monolithic", "segmented")},
+        "shed": doc["segmented"]["shed"],
+        "timeouts": doc["segmented"]["timeouts"],
+        "qps_effective": doc["segmented"]["qps_effective"],
+        "exact_pct99_speedup": doc.get("exact_pct99_speedup"),
+        "floors_us": {k: {q: (hn.get(k) or {}).get(q)
+                          for q in ("p50_us", "p99_us", "iid")}
+                      for k in ("timer_wake_us", "hot_spin_us")}}
+    out["check_replay"] = check("check_replay", replay_path, replay_path,
+                                0.25)
+    out["walls_s"] = walls
+    out["wall_s"] = round(time.time() - t_all, 3)
+    out["cuda_initialized"] = torch.cuda.is_initialized()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _serve_obs(serve_dir: str, spec, smi):
+    """Step 9: ``--obs-child`` over what steps 1-8 wrote (module
+    docstring), checked here.  Returns its row."""
+    t0 = time.time()
+    spec_path = os.path.join(serve_dir, "obs_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f, indent=1)
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--obs-child", spec_path], capture_output=True,
+                       text=True, timeout=300)
+    with open(os.path.join(serve_dir, "obs.err"), "w") as f:
+        f.write(r.stderr)
+    if r.returncode != 0:
+        raise AssertionError(f"obs child rc={r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    row = _json_tail(r.stdout, "obs child")
+    row["card"] = smi
+    row["step_wall_s"] = round(time.time() - t0, 3)
+    bad = []
+    if row["cuda_initialized"]:
+        bad.append("the analysis initialized CUDA")
+    if row["stitch"]["rc"] != 0 or row["causal"]["rc"] != 0:
+        bad.append("stitch or causal exited non-zero")
+    for name, t in row["drained"].items():
+        segs = t["segments_us"]
+        if (t["error"] or t["n_processes"] < 2
+                or any(segs.get(k, 0) <= 0 for k in (
+                    "search", "measure", "merge"))
+                or t["sum_minus_window_us"] is None
+                or abs(t["sum_minus_window_us"]) > 1.0):
+            bad.append(f"the {name} drain's trace: {t}")
+    a, q = row["alerts"], row["alerts_queue_age"]
+    rules = sorted({f["rule"] for f in a["firing"]})
+    if (a["rc"] != (1 if a["firing"] else 0)
+            or set(rules) & set(SERVE_QUIET_RULES)):
+        bad.append(f"alerts on the restored tree: {a}")
+    if (q["rc"] != 1 or not any(f["rule"] == "queue_age"
+                                for f in q["firing"])
+            or not any(k.startswith("queue_age:")
+                       for k in q["ledger_firing"] or [])):
+        bad.append(f"alerts with queue_age.max_s=0: {q}")
+    if row["report"]["rc"] != 0 or row["report"]["missing"]:
+        bad.append(f"report: {row['report']}")
+    if row["check_self"] != {"rc": 0, "verdict": "ok", "reasons": []}:
+        bad.append(f"the verdict checked against itself: {row['check_self']}")
+    if row["check_learn"]["rc"] == 2 or row["check_learn"]["verdict"] is None:
+        bad.append(f"the screened verdict's check: {row['check_learn']}")
+    rp = row["replay"]
+    exact = rp["segmented"].get("exact") or {}
+    if (rp["rc"] != 0 or rp["platform"] != "cuda" or not rp["host_noise"]
+            or rp["verifier_calls"]["segmented"] != 0
+            or exact.get("count", 0) < rp["halo_recorded"]
+            or rp["halo_recorded"] < 1
+            or rp["replayed_tiers"].get("halo", []) != ["exact"]
+            * rp["halo_recorded"]):
+        bad.append(f"replay: {rp}")
+    if row["check_replay"] != {"rc": 0, "verdict": "ok", "reasons": []}:
+        bad.append(f"the replay checked against itself: "
+                   f"{row['check_replay']}")
+    emit({"phase": "serve_obs", "card": smi, "wall_s": row["wall_s"],
+          "step_wall_s": row["step_wall_s"],
+          "drained": {n: {k: t[k] for k in (
+              "n_processes", "window_us", "segments_us", "unattributed_us",
+              "queue_wait_us", "coverage")}
+              for n, t in row["drained"].items()},
+          "alerts": rules, "alerts_queue_age": sorted(
+              {f["rule"] for f in q["firing"]}),
+          "check_learn": row["check_learn"],
+          "replay": {p: {t: {k: v[k] for k in ("pct50_us", "pct99_us")}
+                         for t, v in rp[p].items()}
+                     for p in ("monolithic", "segmented")},
+          "replayed_tiers": {w: {t: ts.count(t) for t in sorted(set(ts))}
+                             for w, ts in rp["replayed_tiers"].items()},
+          "floors_us": rp["floors_us"]})
+    if bad:
+        raise AssertionError("serve step 9: " + "; ".join(bad))
+    return row
 
 
 # -- the fault phase ---------------------------------------------------------------
@@ -4291,6 +4635,10 @@ def main() -> int:
     launches = all_launches()
     verdict = result.verdict
     print(result.to_json_line(), flush=True)
+    # the serve phase's report and regression check read it back
+    halo_verdict = os.path.join(OUT_DIR, "halo_verdict.json")
+    with open(halo_verdict, "w") as f:
+        f.write(result.to_json_line() + "\n")
     emit({"phase": "driver", "launches": launches,
           "verified": verdict.get("verified"), "climbs": verdict.get("climbs"),
           "perf": capture_perf(verdict), "wall_s": round(time.time() - t0, 3)})
@@ -4400,10 +4748,13 @@ def main() -> int:
     emit({"phase": "synth_halo_done", "card": smi,
           "wall_s": round(time.time() - t0, 3)})
     t0 = time.time()
-    phase_learn(torch, smi, halo_db, halo_trace)
+    learn_verdict = phase_learn(torch, smi, halo_db, halo_trace)
     emit({"phase": "learn_done", "card": smi,
           "wall_s": round(time.time() - t0, 3)})
-    serve_row = phase_serve(torch, device, smi, halo_db)
+    serve_row = phase_serve(torch, device, smi, halo_db, {
+        "halo_trace": os.path.join(halo_trace, "trace.jsonl"),
+        "halo_metrics": halo_metrics, "halo_verdict": halo_verdict,
+        "learn_verdict": learn_verdict})
     phase_fault(torch)
 
     # one halo iteration's six faces at the batched blocking, per kernel
@@ -4693,4 +5044,6 @@ if __name__ == "__main__":
         sys.exit(serve_child(sys.argv[2], sys.argv[3]))
     if len(sys.argv) == 7 and sys.argv[1] == "--listen-child":
         sys.exit(listen_child(*sys.argv[2:7]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--obs-child":
+        sys.exit(obs_child(sys.argv[2]))
     sys.exit(main())

@@ -22,7 +22,7 @@ measured.
   faults behind utils/atomic.py's seam (``$TENZING_FSINJECT``).
 
 Not ported yet: the filesystem chaos drill (``fault/fschaos.py``; ROADMAP
-Queue 1 item 8c).
+Queue 1 item 8c-2).
 """
 
 from tenzing_tpu_torch.fault.backoff import BackoffPolicy, retry_call

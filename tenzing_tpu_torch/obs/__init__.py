@@ -1,6 +1,6 @@
 """Telemetry: span/event tracing, metrics, progress lines, export.
 
-Counterpart of ``tenzing_tpu/obs/__init__.py``, the single-process part:
+Counterpart of ``tenzing_tpu/obs/__init__.py``:
 
 * :mod:`~tenzing_tpu_torch.obs.tracer` — nested spans and instant events,
   thread-safe, a no-op while disabled; every record carries the control
@@ -13,7 +13,17 @@ Counterpart of ``tenzing_tpu/obs/__init__.py``, the single-process part:
   process writes (with its SLO block);
 * :mod:`~tenzing_tpu_torch.obs.progress` — progress lines that also go to
   the tracer's event stream;
-* :mod:`~tenzing_tpu_torch.obs.export` — JSONL and Chrome trace-event sinks.
+* :mod:`~tenzing_tpu_torch.obs.export` — JSONL and Chrome trace-event sinks,
+  and the cross-process stitcher (``python -m tenzing_tpu_torch.obs.export``);
+* :mod:`~tenzing_tpu_torch.obs.causal` — each request's critical path rebuilt
+  from the bundles, segment by segment (``python -m
+  tenzing_tpu_torch.obs.causal``);
+* :mod:`~tenzing_tpu_torch.obs.alerts` — the alert rules over status and
+  snapshot documents, and their firing/resolved ledger (``python -m
+  tenzing_tpu_torch.obs.alerts check``);
+* :mod:`~tenzing_tpu_torch.obs.noise` — the host's measured latency floors;
+* :mod:`~tenzing_tpu_torch.obs.report` — the corpus report and the
+  regression check (``python -m tenzing_tpu_torch.obs.report``).
 
 The driver writes them with ``--trace-out DIR`` (``trace.jsonl``,
 ``trace.json``) and ``--metrics-json PATH``.  Everything here is stdlib
@@ -25,6 +35,7 @@ from tenzing_tpu_torch.obs.context import TraceContext, new_trace
 from tenzing_tpu_torch.obs.export import (
     chrome_trace,
     read_jsonl,
+    stitch,
     to_jsonl,
     write_chrome_trace,
     write_jsonl,
@@ -68,6 +79,7 @@ __all__ = [
     "set_reporter",
     "set_tracer",
     "snapshot_history",
+    "stitch",
     "to_jsonl",
     "write_chrome_trace",
     "write_jsonl",

@@ -25,10 +25,13 @@ Counterpart of ``tenzing_tpu/serve``:
 * :mod:`~tenzing_tpu_torch.serve.dr` — backup, restore and fsck;
 * :mod:`~tenzing_tpu_torch.serve.reqlog` — the request log and exemplars;
 * :mod:`~tenzing_tpu_torch.serve.listen` — the long-lived listen loop
-  (``serve listen``), the resolver's fast path's caller.
+  (``serve listen``), the resolver's fast path's caller;
+* :mod:`~tenzing_tpu_torch.serve.replay` — the trace replay of the uncached
+  and the serving path (``python -m tenzing_tpu_torch.serve.replay
+  --platform {cuda,cpu}``).
 
-Not ported yet: replay, the drain fleet and the supervisor (ROADMAP Queue 1
-item 8c; ``FleetOpts``, ``measure_scaling`` and ``run_fleet`` wait for it).
+Not ported yet: the drain fleet and the supervisor (ROADMAP Queue 1 item
+8c-2; ``FleetOpts``, ``measure_scaling`` and ``run_fleet`` wait for it).
 """
 
 from tenzing_tpu_torch.serve.daemon import DaemonOpts, DrainDaemon

@@ -9,7 +9,7 @@ order and a moe order.  ``StreamExecutor.op_stepped`` cuts each into the
 same units as the reference's ``TraceExecutor.op_stepped``.  On the CPU the
 stepped timeline covers every position, and its units leave the buffers as
 one run of the schedule does.  Mirrors ``tests/test_attrib.py:62-305``; its
-report and regression tests wait for the port's ``obs/report.py``."""
+report and regression tests are mirrored in ``test_torch_obs_report.py``."""
 
 import json
 

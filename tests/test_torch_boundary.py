@@ -267,3 +267,67 @@ def test_serve_listen_and_dr_leave_jax_unloaded(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_obs_tools_and_replay_leave_jax_unloaded(tmp_path):
+    """``python -m tenzing_tpu_torch.serve.replay --platform cpu`` on a tiny
+    halo corpus (recording its traffic, keeping its stores), then
+    ``obs.report`` over that corpus, the stores, the queue and a bundle
+    with ``--check`` of the replay document against itself, ``obs.causal``
+    and ``obs.export`` over the bundle and ``obs.alerts check`` on the
+    segmented store and its queue, all run as their modules' ``__main__``
+    in one interpreter: neither jax nor tenzing_tpu is loaded where they
+    run."""
+    src = REPO / "experiments" / "halo_search_tpu_r5a.csv"
+    csv = tmp_path / "halo_tiny.csv"
+    csv.write_text("".join(src.read_text().splitlines(True)[:25]))
+    wd, out = str(tmp_path / "wd"), str(tmp_path / "replay.json")
+    bundle = str(tmp_path / "bundle.jsonl")
+    replay = ["--platform", "cpu", "--halo-csv", str(csv), "--spmv-csv",
+              "--n", "16", "--qps", "400", "--noise-samples", "8",
+              "--record", str(tmp_path / "rec"), "--workdir", wd,
+              "--out", out]
+    report = ["--csv", str(csv), "--store", wd + "/seg", wd + "/mono.json",
+              "--queue-dir", wd + "/q-seg", "--causal", bundle,
+              "--check", out, "--baseline", out,
+              "--out", str(tmp_path / "report.md")]
+    alerts = ["check", "--store", wd + "/seg", "--queue-dir", wd + "/q-seg",
+              "--state", str(tmp_path / "alerts.json")]
+    code = (
+        "import sys, json, io, contextlib, runpy\n"
+        "def main(mod, argv, ok=(0,)):\n"
+        "    sys.argv = [mod] + argv\n"
+        "    buf = io.StringIO()\n"
+        "    try:\n"
+        "        with contextlib.redirect_stdout(buf):\n"
+        "            runpy.run_module(mod, run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert (e.code or 0) in ok, (mod, e.code)\n"
+        "    return buf.getvalue()\n"
+        "from tenzing_tpu_torch.obs import context\n"
+        "from tenzing_tpu_torch.obs.export import write_jsonl\n"
+        "from tenzing_tpu_torch.obs.tracer import Tracer\n"
+        "tr = Tracer(enabled=True)\n"
+        "with context.use(context.new_trace()):\n"
+        "    with tr.span('serve.query', tier='exact'):\n"
+        "        pass\n"
+        f"write_jsonl(tr, {bundle!r})\n"
+        f"line = json.loads(main('tenzing_tpu_torch.serve.replay', {replay!r})"
+        ".splitlines()[-1])\n"
+        "assert line['platform'] == 'cpu', line\n"
+        f"main('tenzing_tpu_torch.obs.report', {report!r})\n"
+        f"text = open({str(tmp_path / 'report.md')!r}).read()\n"
+        "assert '**verdict: ok**' in text and '## Causal analysis' in text\n"
+        f"main('tenzing_tpu_torch.obs.causal', [{bundle!r}])\n"
+        f"main('tenzing_tpu_torch.obs.export', [{bundle!r}])\n"
+        f"main('tenzing_tpu_torch.obs.alerts', {alerts!r}, ok=(0, 1))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'tenzing_tpu'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

@@ -283,10 +283,13 @@ def test_override_identity_guard_and_parsing():
 
 
 def test_queue_stats_and_status_mine_daemon_state(tmp_path):
-    """What the reference's report CLI reads from a queue directory alone
-    (its queue section is ROADMAP Queue 1 item 8c): the poison set, live
-    leases with their owner and heartbeat age, the torn set, and the
-    daemon's status document with its per-item drain history."""
+    """What the report reads from a queue directory alone: the poison set,
+    live leases with their owner and heartbeat age, the torn set, and the
+    daemon's status document with its per-item drain history; then the
+    port's ``queue_section`` renders them as the reference's does."""
+    from tenzing_tpu.obs.report import queue_section as ref_queue_section
+    from tenzing_tpu_torch.obs.report import queue_section
+
     qdir = str(tmp_path / "q")
     q, fp = _enqueue(qdir)
 
@@ -313,6 +316,21 @@ def test_queue_stats_and_status_mine_daemon_state(tmp_path):
     assert status["history"][-1]["outcome"] == "poisoned"
     snaps = [n for n in os.listdir(qdir) if n.startswith("metrics-t-")]
     assert snaps  # the metric-snapshot ring beside the status document
+    text = "\n".join(queue_section(qdir))
+    assert "poisoned" in text and fp.exact_digest[:12] in text
+    assert "someone" in text  # the lease owner with its heartbeat age
+    assert "work-torn.json" in text
+    assert "daemon `t`" in text  # the status document
+    assert "| item | outcome |" in text  # per-item drain economics
+    # the reference renders the same lines, less the heartbeat ages
+    # (wall clock between the two reads)
+    def aged(lines):
+        import re
+
+        return [re.sub(r"\d+\.\d+s ago|\| \d+\.\d+ \|$", "AGE", ln)
+                for ln in lines]
+
+    assert aged(queue_section(qdir)) == aged(ref_queue_section(qdir))
 
 
 def test_torn_item_is_counted_and_visible(tmp_path):

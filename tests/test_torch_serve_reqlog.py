@@ -244,11 +244,12 @@ def test_exemplar_cap_eviction(tmp_path):
 
 
 def test_exemplar_bundle_carries_trace_spans_and_stitches(tmp_path):
-    """A bundle holds its header and only its trace's spans; the reference's
-    stitcher reads the port's bundle and finds the trace."""
-    from tenzing_tpu.obs.export import stitch_records
+    """A bundle holds its header and only its trace's spans; the port's
+    stitcher and the reference's read the port's bundle, find the trace
+    and return the same document and summary."""
+    from tenzing_tpu.obs.export import stitch_records as ref_stitch_records
     from tenzing_tpu_torch.obs import context as obs_context
-    from tenzing_tpu_torch.obs.export import read_jsonl
+    from tenzing_tpu_torch.obs.export import read_jsonl, stitch_records
     from tenzing_tpu_torch.obs.tracer import Tracer
 
     tracer = Tracer(enabled=True)
@@ -267,8 +268,9 @@ def test_exemplar_bundle_carries_trace_spans_and_stitches(tmp_path):
     assert [s["name"] for s in recs[1:] if s.get("kind") == "span"] == \
         ["serve.query"]
     assert read_exemplars(d)[0]["n_trace_records"] == 1
-    _, summary = stitch_records([("exemplar", recs)])
+    doc, summary = stitch_records([("exemplar", recs)])
     assert "serve.query" in summary["traces"][ctx.trace_id]["names"]
+    assert (doc, summary) == ref_stitch_records([("exemplar", recs)])
 
 
 # -- across the packages -------------------------------------------------------------
