@@ -163,11 +163,13 @@ before the last line:
               ``--matrix-m 150000`` with a cap of 12 schedules: it must measure
               at least one and print ``best:``, and the count of unique
               terminals the same enumeration gives is printed beside it;
-18. examples — ``moe_mcts`` at full width, ``halo_mcts`` at the flagship
+18. examples — ``moe_mcts`` at full width with ``--dump-tree`` (its
+              ``mcts_tree_*.dot`` dumps under ``chiprun_out/examples_tree/``
+              must exist and hold the tree), ``halo_mcts`` at the flagship
               width on a world-size-1 NCCL group and on two ranks sharing
               the card (every exchange ``.rdma``), each with a small budget:
-              CSV rows and ``best:``; then ``mcts_replay`` over phase 5's
-              database: a line per strategy.
+              CSV rows, ``best:`` and the reproduce stamp on stderr; then
+              ``mcts_replay`` over phase 5's database: a line per strategy.
 
 Run after the attn driver (phase 8):
 
@@ -263,10 +265,12 @@ Run after the moe driver (phase 11):
 11h. irregular spmv shared — ``IrregularSpMV(impl_choice=True)`` on the spmv
               workload's band matrix (m 150000, half-bandwidth 18750, 1.5M
               nonzeros, batch 1) on 2 and on 4 ranks sharing GPU 0 (steps
-              [1] and [1, 3]), and on a uniform random matrix of the same
-              size on 4 ranks (steps [1, 2, 3]): only the ``exchange.rdma``
-              schedules (up to 3 each), Y on every rank within the
-              reference dryrun's ``rtol=2e-3`` of the host product, both
+              [1] and [1, 3]; the 2 ranks are 11g's, after its halo), and
+              on a uniform random matrix of the same size on the same 4
+              ranks (steps [1, 2, 3], one launch with the 4-rank band):
+              only the ``exchange.rdma`` schedules (up to 3 each), Y on
+              every rank within the reference dryrun's ``rtol=2e-3`` of the
+              host product, both
               shift kernels launched on every rank once per distance and
               schedule, and each distance's shift timed alone per rank;
 11i. models — at world size 1 over NCCL and the repo's widths: the
@@ -329,11 +333,17 @@ its lease and any ``fail-`` / ``poison-`` file gone, the verdict verified,
 records carrying the card's name, ``halo_pack``, ``halo_unpack`` and
 ``device_copy`` launched, the drain traced by a tracer of its own into
 ``daemon_halo.jsonl``; (4) after it, the card to itself, the spmv item
-drained by ``python -m tenzing_tpu_torch.serve.daemon --once --trace-out``
-(its subprocess runner; the ``--exec-item`` child archives its own
-bundle): exit 0, the item gone, the child's verdict verified
-with ``ell_spmv`` among the launches it counted, the store's records what
-``scored_rows`` admits from the drain's own database (0 is allowed); (5) both requests re-queried: for each non-empty store the tier is
+drained through ``python -m tenzing_tpu_torch.serve.supervisor
+--min-daemons 1 --max-daemons 1 --drain-exit`` (0.2 s tick, compaction and
+GC off), whose one member, ``--member-argv``, is ``python -m
+tenzing_tpu_torch.serve.daemon --idle-exit 1 --trace-out`` (its subprocess
+runner; the ``--exec-item`` child archives its own bundle): the
+supervisor's exit 0, reason ``drained``, no restart, no double run, a
+complete audit naming the member, ``status-supervisor.json`` written and
+CUDA never initialized in the supervisor; the member's status one
+completion, the item gone, the child's verdict verified with ``ell_spmv``
+among the launches it counted, the store's records what ``scored_rows``
+admits from the drain's own database (0 is allowed); (5) both requests re-queried: for each non-empty store the tier is
 ``exact``, not predicted, verified, with no compile and no measurement, and
 the answer, deserialized against the driver's graph, runs on the card
 through the stream executor with graphs beside naive on the same buffers
@@ -379,7 +389,9 @@ against it (printed, exit 2 fails); ``serve.replay --platform cuda
 ``host_noise`` block, every recorded halo request exact on the serving path
 (each one's tier read from the path's own request log, ``--record``) with no
 verifier call, the spmv requests' tiers printed, the document ``ok`` against
-itself.
+itself; one ``obs.report --follow`` render of step 4's queue, which must
+show the supervisor ``stopped``, its member and no breaker, and ``obs.alerts
+check`` over that queue, where ``supervisor_crash_loop`` must not fire.
 Last, the ``fault`` phase (the fault layer on the ``--m 8192`` spmv path,
 ``ell_spmv`` launched), each step in fresh processes, the chains run side
 by side: (1) a chaos run (``--checkpoint``, ``--inject-faults`` with all four
@@ -397,7 +409,16 @@ CUDA tensor out of range at its k-th measurement (a device-side assert,
 this script's ``--sticky-child``): the resilient layer must classify it
 ``device_lost`` and ``DeviceLostError`` must leave the search with k-1
 measured rows journaled, and a fresh child resumes and finishes without
-measuring them again.
+measuring them again; (5) the serving plane's hostile-filesystem drill,
+``python -m tenzing_tpu_torch.fault.fschaos --quick --device cuda --seed
+777``: the supervisor and two members drain one halo smoke item on the
+card under the seeded fsinject spec (the drill's items there: the attn
+smoke items have no kernel at their head dimension, and naive would win),
+a member's process group is SIGKILLed mid-drain (no process of it may
+outlive the kill), then the ``store_unwritable`` drill: exit 0, every
+invariant true, at least one restart, at least one stored record and every
+record the drain acknowledged, every stored record naming the card, the
+drain child's verdict naming the card, its launches printed.
 The halo and attn driver phases run with ``climb_budget=4`` (the halo climbs
 run; the reference runs none for attn).  Each driver and example phase sets
 every kernel's launch count to 0 just before it and reads the counts just
@@ -2640,17 +2661,25 @@ def phase_mesh_halo_shared(torch):
     """Two ranks on GPU 0 over gloo, a 2x1x1 mesh, every exchange ``.rdma``
     (parallel/dryrun.py ``halo_shared_main``): per rank, U exact, both shift
     kernels launched, the write-after-read probe exact, and one x face's
-    shift timed and held against ``torch.roll``; returns the ranks' rows."""
+    shift timed and held against ``torch.roll``.  The same two ranks then
+    run the irregular SpMV's 2-rank shared-card stage on a 1x2 mesh
+    (``halo_then_models_shared_main``: one start of the ranks for both).
+    Returns the ranks' halo rows and that stage."""
     from tenzing_tpu_torch.parallel import dryrun
     from tenzing_tpu_torch.parallel.launch import launch
 
     t0 = time.time()
-    ranks = launch("tenzing_tpu_torch.parallel.dryrun:halo_shared_main", 2,
-                   "cuda", {"args": dryrun.HALO_FULL_ARGS, "time_reps": 20},
+    cases = [{k: c[k] for k in ("model", "args", "label", "axes", "shape")}
+             for c in dryrun.shared_cases(2)]
+    ranks = launch("tenzing_tpu_torch.parallel.dryrun:"
+                   "halo_then_models_shared_main", 2, "cuda",
+                   {"args": dryrun.HALO_FULL_ARGS, "time_reps": 20,
+                    "cases": cases},
                    timeout_s=600.0, mesh_axes=dryrun.HALO_AXES,
                    mesh_shape=(2, 1, 1), shared_card=True)
     bad = []
-    for r in ranks:
+    for rank in ranks:
+        r = rank["halo"]
         emit({"phase": "mesh_halo_shared", "args": dryrun.HALO_FULL_ARGS, **r})
         t = r["timing"]
         if not (all(s["u_exact"] for s in r["schedules"])
@@ -2660,47 +2689,54 @@ def phase_mesh_halo_shared(torch):
                 and t["plain_exact"]):
             bad.append(r["rank"])
     emit({"phase": "mesh_halo_shared_summary", "ranks": len(ranks),
+          "then": [c["label"] for c in cases],
           "wall_s": round(time.time() - t0, 3)})
     if bad:
         raise AssertionError(f"the shared-card mesh halo failed on ranks {bad}")
-    return ranks
+    stages = [{"stage": c["label"], "ranks": [r["models"][i] for r in ranks]}
+              for i, c in enumerate(cases)]
+    return [r["halo"] for r in ranks], stages
 
 
-def phase_irregular_shared(torch):
+IRREGULAR_SHARED_RANKS = 4  # the shared-card irregular SpMV's own launch
+
+
+def phase_irregular_shared(torch, stages_2):
     """The irregular SpMV on ranks sharing GPU 0 (parallel/dryrun.py
-    ``models_main`` with ``shared_card``): per stage and rank, every
+    ``models_main`` with ``shared_card``): the 2-rank band stage
+    ``stages_2`` (run by :func:`phase_mesh_halo_shared`'s ranks), then the
+    4-rank band and random stages in one launch.  Per stage and rank, every
     ``exchange.rdma`` schedule's Y within the tolerance, both shift kernels
     launched once per distance and schedule, and each distance's shift
     timed; returns the stages' rank rows."""
     from tenzing_tpu_torch.parallel import dryrun
 
-    out, bad = [], []
-    for nproc in (2, 4):
-        t0 = time.time()
-        summary = dryrun.models_main("spmv_irregular", nproc, "cuda",
-                                     shared_card=True)
-        for stage in summary["stages"]:
-            for r in stage["ranks"]:
-                steps = sorted(int(d) for d in r["timing"])
-                sched = r["schedules"]
-                n_posts = len(sched) * len(steps)
-                ok = (sched and all(x["within_tol"] and x["exchange"] == "rdma"
-                                    for x in sched)
-                      and r["launches"]["rdma_shift_post"] == n_posts
-                      and r["launches"]["rdma_shift_wait"] == n_posts)
-                emit({"phase": "irregular_spmv_shared", "stage": stage["stage"],
-                      "steps": steps, "ok": bool(ok), **r})
-                if not ok:
-                    bad.append((stage["stage"], r["rank"]))
-            out.append(stage)
-        emit({"phase": "irregular_spmv_shared_summary", "nproc": nproc,
-              "stages": [s["stage"] for s in summary["stages"]],
-              "nvidia_smi": nvidia_smi(),
-              "wall_s": round(time.time() - t0, 3)})
+    nproc = IRREGULAR_SHARED_RANKS
+    bad = []
+    t0 = time.time()
+    summary = dryrun.models_main("spmv_irregular", nproc, "cuda",
+                                 shared_card=True)
+    stages = list(stages_2) + summary["stages"]
+    for stage in stages:
+        for r in stage["ranks"]:
+            steps = sorted(int(d) for d in r["timing"])
+            sched = r["schedules"]
+            n_posts = len(sched) * len(steps)
+            ok = (sched and all(x["within_tol"] and x["exchange"] == "rdma"
+                                for x in sched)
+                  and r["launches"]["rdma_shift_post"] == n_posts
+                  and r["launches"]["rdma_shift_wait"] == n_posts)
+            emit({"phase": "irregular_spmv_shared", "stage": stage["stage"],
+                  "steps": steps, "ok": bool(ok), **r})
+            if not ok:
+                bad.append((stage["stage"], r["rank"]))
+    emit({"phase": "irregular_spmv_shared_summary", "nproc": [2, nproc],
+          "stages": [s["stage"] for s in stages],
+          "nvidia_smi": nvidia_smi(), "wall_s": round(time.time() - t0, 3)})
     if bad:
         raise AssertionError(f"the shared-card irregular SpMV failed on "
                              f"(stage, rank) {bad}")
-    return out
+    return stages
 
 
 def phase_models(torch, device, timer):
@@ -2878,27 +2914,52 @@ def phase_examples(torch, halo_db: str):
 
     from tenzing_tpu_torch.examples import halo_mcts, mcts_replay, moe_mcts
 
+    import glob
+    import shutil
+
     small = ["--mcts-iters", "4", "--benchmark-iters", "3"]
+    # the moe example dumps its tree (--dump-tree) into the working
+    # directory: run it from a directory of its own under chiprun_out
+    tree_dir = os.path.join(OUT_DIR, "examples_tree")
+    shutil.rmtree(tree_dir, ignore_errors=True)
+    os.makedirs(tree_dir)
     for name, module, argv in (
-            ("moe_mcts", moe_mcts, small),
+            ("moe_mcts", moe_mcts, small + ["--dump-tree"]),
             ("halo_mcts", halo_mcts, small),
             ("halo_mcts_shared", halo_mcts,
              small + ["--nproc", "2", "--shared-card"])):
         t0 = time.time()
         out, err = io.StringIO(), io.StringIO()
         reset_launches()
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            rc = module.main(argv)
+        cwd = os.getcwd()
+        if "--dump-tree" in argv:
+            os.chdir(tree_dir)
+        try:
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = module.main(argv)
+        finally:
+            os.chdir(cwd)
         launches = all_launches()
         rows = out.getvalue().strip().splitlines()
         best = [line for line in err.getvalue().splitlines()
                 if line.startswith("best:")]
+        stamp = [json.loads(line) for line in err.getvalue().splitlines()
+                 if line.startswith('{"tenzing_tpu_torch"')]
         row = {"phase": "examples", "example": name, "rc": rc,
                "schedules": len(rows), "best": best[0] if best else None,
                "launches": {k: v for k, v in launches.items() if v},
+               "stamp": stamp[0] if stamp else None,
                "wall_s": round(time.time() - t0, 3)}
+        if "--dump-tree" in argv:
+            dots = sorted(glob.glob(os.path.join(tree_dir, "mcts_tree_*.dot")))
+            row["tree_dumps"] = [os.path.basename(d) for d in dots]
+            if not dots or any("digraph mcts" not in open(d).read()
+                               for d in dots):
+                raise AssertionError(f"the {name} example dumped no tree: "
+                                     f"{row}")
         emit(row)
-        if rc != 0 or len(rows) < 1 or not best:
+        if rc != 0 or len(rows) < 1 or not best or not stamp:
             raise AssertionError(f"the {name} example failed: {row}")
         torch.cuda.empty_cache()
     t0 = time.time()
@@ -3242,6 +3303,7 @@ SERVE_STORES = {"halo": "store.d", "spmv": "store.json"}
 # differs from --m 8192's, and the restored store has no near-tier model)
 SERVE_COLD = {"workload": "spmv", "m": 4096}
 SERVE_BURST = 16  # repeats of each exact request sent to the listen loop
+SUPERVISOR_TICK_S = 0.2  # step 4's supervisor tick
 
 
 def serve_admitted(csv: str, req, topk: int = 3) -> int:
@@ -3528,21 +3590,38 @@ def phase_serve(torch, device, smi, halo_db: str, inputs):
         raise AssertionError(f"the halo drain never launched {missing}")
     torch.cuda.empty_cache()
 
-    # step 4, once the halo drain is done (the card to itself): the CLI's
-    # default subprocess runner on spmv.  Its --exec-item child reports the
-    # kernels it launched (counted from 0 in that process) in its verdict
-    cmd = [sys.executable, "-m", "tenzing_tpu_torch.serve.daemon",
-           "--queue", queues["spmv"].dir, "--store", stores["spmv"], "--once",
-           "--owner", "chip-smoke-spmv", "--trace-out", bundles["daemon_spmv"]]
+    # step 4, once the halo drain is done (the card to itself): the spmv
+    # item drained through the supervisor (serve/supervisor.py), whose one
+    # member is the daemon CLI with its default subprocess runner; the
+    # member's --exec-item child reports the kernels it launched (counted
+    # from 0 in that process) in its verdict, and the member writes the
+    # bundle step 9 reads
+    member = [sys.executable, "-m", "tenzing_tpu_torch.serve.daemon",
+              "--queue", queues["spmv"].dir, "--store", stores["spmv"],
+              "--owner", "{owner}", "--idle-exit", "1", "--poll", "0.2",
+              "--heartbeat", "0.5", "--trace-out", bundles["daemon_spmv"],
+              "--device", "cuda"]
     for k, v in SERVE_OVERRIDES.items():
-        cmd += ["--override", f"{k}={v}"]
+        member += ["--override", f"{k}={v}"]
+    cmd = [sys.executable, "-m", "tenzing_tpu_torch.serve.supervisor",
+           "--queue", queues["spmv"].dir, "--store", stores["spmv"],
+           "--owner", "chip-smoke-supervisor",
+           "--owner-prefix", "chip-smoke-spmv",
+           "--min-daemons", "1", "--max-daemons", "1", "--drain-exit",
+           "--compact-interval", "0", "--gc-interval", "0",
+           "--tick", str(SUPERVISOR_TICK_S), "--heartbeat", "0.5",
+           "--member-idle-exit", "1", "--member-argv", json.dumps(member)]
     t0 = time.time()
-    with open(os.path.join(serve_dir, "daemon_spmv.err"), "w") as err:
+    with open(os.path.join(serve_dir, "supervisor_spmv.err"), "w") as err:
         r = subprocess.run(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=err,
                            text=True, timeout=600)
     path, payload = items["spmv"]
+    exact = queues["spmv"].exact_of(path)
     ckpt = drain_checkpoint_of(payload, path)
-    spmv_sum = _json_tail(r.stdout, "serve spmv daemon")
+    sup = _json_tail(r.stdout, "serve spmv supervisor")
+    with open(os.path.join(queues["spmv"].dir,
+                           "status-chip-smoke-spmv-0.json")) as f:
+        member_status = json.load(f)
     with open(os.path.join(ckpt, "verdict.json")) as f:
         verdict = json.load(f)
     st = ScheduleStore(stores["spmv"])
@@ -3550,8 +3629,14 @@ def phase_serve(torch, device, smi, halo_db: str, inputs):
     left = sorted(n for n in os.listdir(queues["spmv"].dir)
                   if n.startswith(("work-", "lease-", "fail-", "poison-")))
     steps["drain_spmv"] = {
-        "runner": "subprocess", "rc": r.returncode,
-        "summary": spmv_sum["counters"], "left": left,
+        "runner": "supervisor", "rc": r.returncode,
+        "reason": sup.get("reason"),
+        "supervisor": {k: sup.get(k) for k in (
+            "counters", "members", "double_runs", "audit_complete",
+            "completed_by", "queue_after", "cuda_initialized", "wall_s")},
+        "status_written": os.path.exists(os.path.join(
+            queues["spmv"].dir, "status-supervisor.json")),
+        "summary": member_status.get("counters"), "left": left,
         "verified": verdict.get("verified"), "value_us": verdict.get("value"),
         "vs_baseline": verdict.get("vs_baseline"),
         "device": (verdict.get("device") or {}).get("name"),
@@ -3559,8 +3644,19 @@ def phase_serve(torch, device, smi, halo_db: str, inputs):
         "devices": sorted({r["provenance"].get("device")
                            for r in st.records()}),
         "launches": verdict.get("launches"),
+        # the member's own drain of the item (its status history), so the
+        # supervisor's share of the step is the rest
+        "item_wall_s": ((member_status.get("history") or [{}])[-1]
+                        .get("wall_s")),
         "wall_s": round(time.time() - t0, 3)}
-    if (r.returncode != 0 or spmv_sum["counters"]["completed"] != 1
+    restarts = sum(m.get("restarts", 0)
+                   for m in (sup.get("members") or {}).values())
+    if (r.returncode != 0 or sup.get("reason") != "drained" or restarts
+            or sup.get("double_runs") != {} or sup.get("audit_complete")
+            is not True or sup.get("cuda_initialized") is not False
+            or sup.get("completed_by") != {exact: ["chip-smoke-spmv-0"]}
+            or not steps["drain_spmv"]["status_written"]
+            or (member_status.get("counters") or {}).get("completed") != 1
             or left or verdict.get("verified") is not True
             or len(st) != want_records
             or any(dv != card for dv in steps["drain_spmv"]["devices"])):
@@ -3636,6 +3732,7 @@ def phase_serve(torch, device, smi, halo_db: str, inputs):
                     os.path.join(serve_dir, "listen", "trace.jsonl")],
         "drained": {n: child["cold"][n]["trace_id"] for n in reqs},
         "halo_store": stores["halo"], "spmv_store": stores["spmv"],
+        "spmv_queue": queues["spmv"].dir,
         "listen_queue": os.path.join(serve_dir, "listen", "queue"),
         "listen_record": steps["listen"]["record_dir"],
         "halo_db": halo_db, "spmv_db": drain_csv_path(spmv_ckpt),
@@ -3965,8 +4062,11 @@ def obs_child(spec_path: str) -> int:
     queue and the bundles; (4) ``obs.report --check`` of that verdict
     against itself and of the learn phase's screened verdict against it;
     (5) ``serve.replay --platform cuda --from-recorded`` of the listen
-    loop's request log, and ``--check`` of its document against itself.
-    Prints one JSON line of what each returned, for the parent to check."""
+    loop's request log, and ``--check`` of its document against itself;
+    (6) one ``obs.report --follow`` render of step 4's queue (the
+    supervisor's status block and its member) and ``obs.alerts check`` over
+    it.  Prints one JSON line of what each returned, for the parent to
+    check."""
     import io
     import re
 
@@ -4118,6 +4218,21 @@ def obs_child(spec_path: str) -> int:
                       for k in ("timer_wake_us", "hot_spin_us")}}
     out["check_replay"] = check("check_replay", replay_path, replay_path,
                                 0.25)
+    # (6) step 4's supervisor: the report's fleet view of its status block
+    # (one --follow render) and the alert rules over its queue
+    rc, text = cli("fleet", report.main, [
+        "--follow", "--max-ticks", "1", "--interval", "0",
+        "--queue-dir", spec["spmv_queue"]])
+    out["fleet"] = {"rc": rc, "lines": [
+        ln for ln in text.splitlines()
+        if ln.startswith("superv ") or ln.strip().startswith(
+            ("member ", "breaker "))]}
+    rc, text = cli("alerts_fleet", alerts.main, [
+        "check", "--store", os.path.dirname(spec["spmv_store"]),
+        "--queue-dir", spec["spmv_queue"],
+        "--state", os.path.join(sd, "alerts_fleet.json")])
+    out["alerts_fleet"] = {"rc": rc, "firing": sorted(
+        {f["rule"] for f in last_json(text)["firing"]})}
     out["walls_s"] = walls
     out["wall_s"] = round(time.time() - t_all, 3)
     out["cuda_initialized"] = torch.cuda.is_initialized()
@@ -4184,6 +4299,17 @@ def _serve_obs(serve_dir: str, spec, smi):
     if row["check_replay"] != {"rc": 0, "verdict": "ok", "reasons": []}:
         bad.append(f"the replay checked against itself: "
                    f"{row['check_replay']}")
+    fl = row["fleet"]["lines"]
+    if (row["fleet"]["rc"] != 0
+            or not any(ln.startswith("superv chip-smoke-supervisor: stopped")
+                       for ln in fl)
+            or not any("member chip-smoke-spmv-0" in ln for ln in fl)
+            or any(ln.strip().startswith("breaker ") for ln in fl)):
+        bad.append(f"the supervisor's fleet lines: {row['fleet']}")
+    af = row["alerts_fleet"]
+    if (af["rc"] != (1 if af["firing"] else 0)
+            or "supervisor_crash_loop" in af["firing"]):
+        bad.append(f"alerts on the supervisor's queue: {af}")
     emit({"phase": "serve_obs", "card": smi, "wall_s": row["wall_s"],
           "step_wall_s": row["step_wall_s"],
           "drained": {n: {k: t[k] for k in (
@@ -4198,7 +4324,8 @@ def _serve_obs(serve_dir: str, spec, smi):
                      for p in ("monolithic", "segmented")},
           "replayed_tiers": {w: {t: ts.count(t) for t in sorted(set(ts))}
                              for w, ts in rp["replayed_tiers"].items()},
-          "floors_us": rp["floors_us"]})
+          "floors_us": rp["floors_us"], "fleet_lines": fl,
+          "alerts_fleet": af["firing"]})
     if bad:
         raise AssertionError("serve step 9: " + "; ".join(bad))
     return row
@@ -4538,8 +4665,61 @@ def fault_sticky(fault_dir: str) -> dict:
     return out
 
 
+FSCHAOS_SEED = 777  # step 5: the hostile-filesystem drill's seed
+
+
+def fault_fschaos(fault_dir: str, card: str) -> dict:
+    """Step 5: ``python -m tenzing_tpu_torch.fault.fschaos --quick --device
+    cuda``: one fleet run of the supervisor and two members draining one
+    halo smoke item on the card under the seeded fsinject spec, a member's
+    process group SIGKILLed mid-drain, then the ``store_unwritable``
+    drill."""
+    work = os.path.join(fault_dir, "fschaos")
+    t0 = time.time()
+    with open(os.path.join(fault_dir, "fschaos.err"), "w") as err:
+        p = subprocess.run([sys.executable, "-m",
+                            "tenzing_tpu_torch.fault.fschaos", "--workdir",
+                            work, "--quick", "--device", "cuda", "--seed",
+                            str(FSCHAOS_SEED)],
+                           cwd=REPO, stdout=subprocess.PIPE, stderr=err,
+                           text=True, timeout=600)
+    v = _json_tail(p.stdout, "fschaos")
+    run = (v.get("runs") or [{}])[0]
+    drains = run.get("drains") or {}
+    records = run.get("records") or {}
+    counters = (run.get("summary") or {}).get("counters") or {}
+    out = {"fschaos": {
+        "rc": p.returncode, "seed": FSCHAOS_SEED,
+        "workload": v.get("workload"),
+        "invariants": v.get("invariants"), "ok": v.get("ok"),
+        "violations": run.get("violations"),
+        "member_sigkilled": run.get("member_sigkilled"),
+        "restarts": counters.get("restarts", 0), "counters": counters,
+        "records": records, "devices": run.get("devices"),
+        "probe": {k: (run.get("probe") or {}).get(k)
+                  for k in ("probes", "degraded")},
+        "fault_evidence": run.get("fault_evidence"),
+        "drill": {k: (v.get("drill") or {}).get(k) for k in (
+            "fired", "resolved", "probe_write_denials")},
+        "drains": drains, "wall_s": round(time.time() - t0, 3)}}
+    # every fingerprint holds a record the drain acknowledged, every stored
+    # record names the card, and so does the drain's verdict (the halo smoke
+    # runs no kernel slot: its launches are printed, not required)
+    if (p.returncode != 0 or v.get("device") != "cuda"
+            or v.get("workload") != "halo"
+            or not all((v.get("invariants") or {}).values())
+            or not run.get("member_sigkilled") or counters.get(
+                "restarts", 0) < 1 or not drains or not records
+            or any(r.get("stored", 0) < max(1, r.get("acknowledged", 0))
+                   for r in records.values())
+            or run.get("devices") != [card]
+            or any(d.get("device") != card for d in drains.values())):
+        raise AssertionError(f"the fschaos drill: {out['fschaos']}")
+    return out
+
+
 def phase_fault(torch) -> dict:
-    """The fault phase (module docstring): steps 1-2, 3 and 4 as three
+    """The fault phase (module docstring): steps 1-2, 3, 4 and 5 as four
     chains of fresh processes, side by side."""
     import shutil
     import threading
@@ -4557,10 +4737,12 @@ def phase_fault(torch) -> dict:
         except BaseException as e:  # noqa: BLE001 — re-raised below
             errors[name] = e
 
+    card = torch.cuda.get_device_name(0)
     threads = [threading.Thread(target=chain, args=(n, f), name=n)
                for n, f in (("chaos", fault_chaos_and_resume),
                             ("kill", fault_kill_and_resume),
-                            ("sticky", fault_sticky))]
+                            ("sticky", fault_sticky),
+                            ("fschaos", lambda d: fault_fschaos(d, card)))]
     for t in threads:
         t.start()
     for t in threads:
@@ -4708,8 +4890,8 @@ def main() -> int:
     layer_launches, _, layer_summary, layer16_launches = phase_moe_layer(
         torch, device, timer)
     mesh_launches, mesh_summary = phase_mesh_halo(torch, device)
-    shared_ranks = phase_mesh_halo_shared(torch)
-    irr_stages = phase_irregular_shared(torch)
+    shared_ranks, irr_stages_2 = phase_mesh_halo_shared(torch)
+    irr_stages = phase_irregular_shared(torch, irr_stages_2)
     model_launches, ring_folds = phase_models(torch, device, timer)
 
     t0 = time.time()

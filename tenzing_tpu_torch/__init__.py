@@ -5,3 +5,5 @@ module layout, op names and schedule JSON, and runs schedules on CUDA streams
 with hand-written kernels (``csrc/``).  It imports neither JAX nor the
 reference package.
 """
+
+__version__ = "0.1.0"

@@ -33,6 +33,7 @@ from typing import Dict, List, Tuple
 
 from tenzing_tpu_torch.bench import attn_common as common
 from tenzing_tpu_torch.bench.attn_common import HEAD_DIM, case_inputs
+from tenzing_tpu_torch.utils.cli import write_line
 
 KERNEL = "attn_fold_bf16"
 CONFIG_ENTRY = "tz_attn_bf16_config"
@@ -192,18 +193,18 @@ def main(argv=None) -> int:
     kernel_lib.lib()
     report = ptxas_report(str(kernel_lib.build_info.get("ptxas", "")))
     mismatch = config_mismatch(*common.MAIN_SHAPE)
-    print(json.dumps({"build_s": kernel_lib.build_info.get("seconds"),
-                      "ptxas": report, "config": library_config(),
-                      "config_mismatch": mismatch}), flush=True)
+    write_line(json.dumps({"build_s": kernel_lib.build_info.get("seconds"),
+                           "ptxas": report, "config": library_config(),
+                           "config_mismatch": mismatch}))
     device = torch.device("cuda", 0)
     failed = [] if not mismatch else ["config"]
     common.run_checks([(name, lambda name=name: run_case(torch, device, name))
                        for name in STRESS_CASES], failed)
-    print(json.dumps(x8qk_vs_f64(torch, device)), flush=True)
+    write_line(json.dumps(x8qk_vs_f64(torch, device)))
     if args.ablate:
         for row in ablate(torch, device):
-            print(json.dumps(row), flush=True)
-    print(json.dumps({"failed": failed}), flush=True)
+            write_line(json.dumps(row))
+    write_line(json.dumps({"failed": failed}))
     return 1 if failed else 0
 
 

@@ -15,6 +15,8 @@ import tempfile
 from pathlib import Path
 from typing import Callable, Dict, List, Sequence, Tuple
 
+from tenzing_tpu_torch.utils.cli import write_line
+
 HEAD_DIM = 128
 MAIN_SHAPE = (4, 8192, 8192, 1024)  # b, n, nkv, the block chain's keys
 CONFIG_KEYS = ("rows_per_cta", "key_tile", "k_stages", "v_stages", "threads",
@@ -241,8 +243,8 @@ def device_line(torch) -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    print(json.dumps({"device": smi, "torch": torch.__version__,
-                      "cuda": torch.version.cuda}), flush=True)
+    write_line(json.dumps({"device": smi, "torch": torch.__version__,
+                           "cuda": torch.version.cuda}))
 
 
 def apply_edits(text: str, edits: List[Tuple[str, str]], name: str) -> str:
@@ -355,6 +357,6 @@ def run_checks(checks: List[Tuple[str, Callable[[], Tuple[bool, dict]]]],
     ``failed``."""
     for name, check in checks:
         ok, info = check()
-        print(json.dumps({"case": name, "ok": ok, **info}), flush=True)
+        write_line(json.dumps({"case": name, "ok": ok, **info}))
         if not ok:
             failed.append(name)

@@ -45,6 +45,7 @@ from typing import Dict, List, Tuple
 
 from tenzing_tpu_torch.bench import attn_common as common
 from tenzing_tpu_torch.bench.attn_common import HEAD_DIM, MAIN_SHAPE, case_inputs
+from tenzing_tpu_torch.utils.cli import write_line
 
 # the dense and the strided instantiation of attn_fold_f32, and the fused
 # region's attention kernel, as their names appear in ptxas's and
@@ -353,12 +354,11 @@ def main(argv=None) -> int:
     kernel_lib.lib()
     report = ptxas_reports(str(kernel_lib.build_info.get("ptxas", "")))
     mismatch = config_mismatch(*MAIN_SHAPE[:3])
-    print(json.dumps({"build_s": kernel_lib.build_info.get("seconds"),
-                      "ptxas": report, "config": library_config(),
-                      "config_mismatch": mismatch}), flush=True)
+    write_line(json.dumps({"build_s": kernel_lib.build_info.get("seconds"),
+                           "ptxas": report, "config": library_config(),
+                           "config_mismatch": mismatch}))
     if args.sass:
-        print(json.dumps({"sass_spills": common.sass_spills(KERNELS)}),
-              flush=True)
+        write_line(json.dumps({"sass_spills": common.sass_spills(KERNELS)}))
     device = torch.device("cuda", 0)
     failed = [] if not mismatch else ["config"]
     common.run_checks(
@@ -368,10 +368,10 @@ def main(argv=None) -> int:
            ("main-shape", lambda: main_shape_check(torch, device))], failed)
     if args.ablate:
         for row in ablate(torch, device):
-            print(json.dumps(row), flush=True)
+            write_line(json.dumps(row))
             if row.get("check") and row["within_tol"]:
                 failed.append(f"ablation {row['ablation']} passed the check")
-    print(json.dumps({"failed": failed}), flush=True)
+    write_line(json.dumps({"failed": failed}))
     return 1 if failed else 0
 
 

@@ -12,6 +12,9 @@ Counterpart of ``tenzing_tpu/bench/benchmarker.py`` (reference
 * ``benchmark_batch_times`` — the decorrelated batch (benchmarker.cpp:21-76):
   iteration k visits every schedule once in a seeded random order, so paired
   per-iteration ratios cancel drift common to both schedules.
+* ``benchmark_batch`` — the batch's times as one ``BenchResult`` a schedule.
+* ``RepeatCallableRunner`` — named ``run_n(n)`` callables measured with the
+  same protocol (a library call or a kernel alone beside the schedules).
 * ``CachingBenchmarker`` — equivalence-keyed result cache.
 * ``CsvBenchmarker`` — answers queries from a recorded search database
   (``result_row``'s format), matching schedules by equivalence
@@ -42,7 +45,7 @@ import json
 import random as _random
 import time
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from tenzing_tpu_torch.bench.randomness import is_random
 from tenzing_tpu_torch.core.sequence import Sequence, canonical_key
@@ -315,6 +318,55 @@ class EmpiricalBenchmarker:
             get_metrics().counter("bench.measurements").inc(
                 opts.n_iters * len(orders))
         return times
+
+    def benchmark_batch(
+        self,
+        orders: List[Sequence],
+        opts: Optional[BenchOpts] = None,
+        seed: int = 0,
+    ) -> List[BenchResult]:
+        """One :class:`BenchResult` per schedule of the decorrelated batch
+        (:meth:`benchmark_batch_times`)."""
+        return [
+            BenchResult.from_times(ts)
+            for ts in self.benchmark_batch_times(orders, opts, seed)
+        ]
+
+
+class RepeatCallableRunner:
+    """A runner over named ``run_n(n)`` callables, for measuring something
+    that is not a schedule (one library call, a kernel alone) with the
+    schedules' protocol: the "order" is the callable's name.  Each
+    ``run_n(n)`` runs n samples back to back; :meth:`prepare_n` ends it in
+    the device sync the executor's ``run_n`` ends in (runtime/graphs.py
+    ``device_sync`` on the card), so the benchmarker's wall-minus-fence
+    measurement covers the device work.  The callable must keep the n
+    samples live (each one's result feeding the next, or written where the
+    next one reads)."""
+
+    def __init__(self, run_ns: Dict[str, Callable[[int], None]],
+                 device="cuda"):
+        import torch
+
+        self.run_ns = dict(run_ns)
+        self.device = torch.device(device)
+
+    def prepare_n(self, name: str) -> Callable[[int], None]:
+        from tenzing_tpu_torch.runtime.graphs import device_sync
+
+        fn = self.run_ns[name]
+        device = self.device
+
+        def run_n(n: int) -> None:
+            fn(n)
+            if device.type == "cuda":
+                device_sync(device)
+
+        return run_n
+
+    def prepare(self, name: str) -> Callable[[], None]:
+        run_n = self.prepare_n(name)
+        return lambda: run_n(1)
 
 
 class CachingBenchmarker:

@@ -56,6 +56,8 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+from tenzing_tpu_torch.utils.cli import write_line
+
 ITERS = 50
 
 
@@ -203,7 +205,7 @@ def _measure(workload: str, pair, orders, opts: Opts, wrap=None) -> None:
         if opts.emit is not None:
             opts.emit(row)
         else:
-            print(json.dumps(row), flush=True)
+            write_line(json.dumps(row))
 
 
 def _halo(dev, opts: Opts) -> None:
@@ -323,11 +325,11 @@ def main(argv=None) -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(smi, flush=True)
+    write_line(smi)
     for w in workloads:
         WORKLOADS[w](dev, Opts())
         torch.cuda.empty_cache()
-    print(smi, flush=True)
+    write_line(smi)
     return 0
 
 

@@ -46,6 +46,7 @@ from tenzing_tpu_torch.bench.halo_kernels import (
     bound_ms,
     host_stats,
 )
+from tenzing_tpu_torch.utils.cli import write_line
 
 # The bulk-copy ring: kStages stages of kStageBytes per block; the block's
 # one thread loads a chunk (global -> shared, mbarrier complete_tx), stores
@@ -187,7 +188,7 @@ def face_rows(torch, device, libs, parent, rounds: int) -> list:
     flush = torch.empty(FLUSH_FLOATS, device=device)
     floor = {"floor": "empty kernel", **both_ms(
         torch, lambda: torch.cuda._sleep(0), flush)}
-    print(json.dumps(floor), flush=True)
+    write_line(json.dumps(floor))
     rows = []
     for (name, src), rnd in itertools.product(staging_buffers(torch, device),
                                               range(rounds)):
@@ -209,7 +210,7 @@ def face_rows(torch, device, libs, parent, rounds: int) -> list:
             row[f"{label}_ms"], row[f"{label}_clean_ms"] = t["ms"], t["clean_ms"]
         row["bound_ms"] = bound_ms(2 * src.numel() * 4)
         rows.append(row)
-        print(json.dumps(row), flush=True)
+        write_line(json.dumps(row))
     return rows
 
 
@@ -238,7 +239,7 @@ def host_rows(torch, device, calls: int, parent) -> dict:
     row = {"host": "device_copy", "face": "x", "calls": calls}
     for (name, what), ts in times.items():
         row[f"{name}_{what}"] = host_stats(ts)
-    print(json.dumps(row), flush=True)
+    write_line(json.dumps(row))
     return row
 
 
@@ -267,13 +268,13 @@ def main(argv=None) -> int:
         "device_copy.cu", VARIANTS, "device_copy", source="device_copy.cu",
         entry_points=("tz_device_copy",))
     for r in reports:
-        print(json.dumps(r), flush=True)
+        write_line(json.dumps(r))
     del libs["kernel"]  # the wrapper's own library is timed as "kernel"
     rows = face_rows(torch, device, libs, parent, args.rounds)
     host_rows(torch, device, args.host_calls, parent)
     failed = [f"{r['face']} {k[:-6]}" for r in rows for k, v in r.items()
               if k.endswith("_exact") and not v]
-    print(json.dumps({"failed": failed}), flush=True)
+    write_line(json.dumps({"failed": failed}))
     return 1 if failed else 0
 
 

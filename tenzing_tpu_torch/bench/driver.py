@@ -131,6 +131,7 @@ from tenzing_tpu_torch.bench.gate import (
     mismatched_outputs,
     moe_gate,
 )
+from tenzing_tpu_torch.utils.cli import write_line
 
 
 class DriverConfigError(ValueError):
@@ -2066,5 +2067,5 @@ def main(argv: Optional[List[str]] = None) -> int:
         result = run(DriverRequest(**ns), device=device)
     except DriverConfigError as e:
         p.error(str(e))
-    print(result.to_json_line())
+    write_line(result.to_json_line())
     return 0

@@ -43,6 +43,7 @@ from typing import Dict, List, Tuple
 
 from tenzing_tpu_torch.bench import attn_common as common
 from tenzing_tpu_torch.bench.halo_kernels import FLUSH_FLOATS, both_ms
+from tenzing_tpu_torch.utils.cli import write_line
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 MAIN_M = 8192
@@ -217,9 +218,8 @@ def build(csrc: Path, ablations: Dict[str, List[Tuple[str, str, str]]],
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"{tag} {name} failed to build:\n{out}")
-        print(json.dumps({"version": tag, "variant": name,
-                          "ptxas": common.ptxas_report(out, "ell_spmv_kernel")}),
-              flush=True)
+        write_line(json.dumps({"version": tag, "variant": name,
+                               "ptxas": common.ptxas_report(out, "ell_spmv_kernel")}))
         lib = ctypes.CDLL(str(so))
         lib.tz_ell_spmv.argtypes = kernel_lib.SIGNATURES["tz_ell_spmv"]
         lib.tz_ell_spmv.restype = ctypes.c_int
@@ -263,7 +263,7 @@ def main(argv=None) -> int:
         xb = X_BATCH.get(tag.split("/")[-1], 8)
         for label, v, c, xx in inputs:
             row = {"version": tag, **check_case(torch, lib, label, v, c, xx, xb)}
-            print(json.dumps(row), flush=True)
+            write_line(json.dumps(row))
             main_bad = label.startswith("m8192") and not row["within_ell_tol"]
             bad = not (row["within_f64_bound"] and row["deterministic"]
                        and row["control_rejected"]) or main_bad
@@ -281,11 +281,10 @@ def main(argv=None) -> int:
         names = list(calls) if rnd % 2 == 0 else list(calls)[::-1]
         for name in names:
             t = both_ms(torch, calls[name], flush)
-            print(json.dumps({"round": rnd, "call": name, "shape": [m, w, int(x.shape[0])],
-                              **t, "warm_ms": warm_ms(torch, calls[name]),
-                              "bytes": nbytes, "bound_ms": bound_ms(nbytes)}),
-                  flush=True)
-    print(json.dumps({"failed": failed}), flush=True)
+            write_line(json.dumps({"round": rnd, "call": name, "shape": [m, w, int(x.shape[0])],
+                                   **t, "warm_ms": warm_ms(torch, calls[name]),
+                                   "bytes": nbytes, "bound_ms": bound_ms(nbytes)}))
+    write_line(json.dumps({"failed": failed}))
     return 1 if failed else 0
 
 

@@ -54,6 +54,7 @@ from typing import Dict, List, Tuple
 
 from tenzing_tpu_torch.bench import attn_common as common
 from tenzing_tpu_torch.bench.ffn_f32 import build
+from tenzing_tpu_torch.utils.cli import write_line
 
 SOURCE = "ffn_rows.cu"
 # the kernel's instantiations, by their mangled names' template argument
@@ -392,13 +393,13 @@ def main(argv=None) -> int:
     ptxas = str(kernel_lib.build_info.get("ptxas", ""))
     report = {k: common.ptxas_report(ptxas, m) for k, m in KERNELS.items()}
     mismatch = plan_mismatch()
-    print(json.dumps({"build_s": kernel_lib.build_info.get("seconds"),
-                      "ptxas": report, "plan": library_plan(*SHAPES[MAIN]),
-                      "plan_mismatch": mismatch}), flush=True)
+    write_line(json.dumps({"build_s": kernel_lib.build_info.get("seconds"),
+                           "ptxas": report, "plan": library_plan(*SHAPES[MAIN]),
+                           "plan_mismatch": mismatch}))
     failed = ["plan"] if mismatch else []
     if args.sass:
         sass = hmma_counts(KERNELS)
-        print(json.dumps({"sass": sass}), flush=True)
+        write_line(json.dumps({"sass": sass}))
         for k, v in sass.items():
             spills = sum(v.get("spills", {}).values())
             if not v.get("hgmma") or v.get("hmma") or spills:
@@ -407,7 +408,7 @@ def main(argv=None) -> int:
     common.run_checks([(label, lambda label=label: check(torch, device, label))
                        for label in SHAPES], failed)
     for row in variant_checks(torch, device):
-        print(json.dumps(row), flush=True)
+        write_line(json.dumps(row))
         if not row["within_tol"]:
             failed.append("tiles %dx%d" % tuple(row["tiles"]))
     parent = None
@@ -417,13 +418,13 @@ def main(argv=None) -> int:
         parent = build(Path(args.parent) / "tenzing_tpu_torch" / "csrc",
                        (SOURCE,), old, "parent_bf16")
     for row in times(torch, device, parent, args.rounds):
-        print(json.dumps(row), flush=True)
+        write_line(json.dumps(row))
     if args.ablate:
         for row in ablate(torch, device, args.rounds):
-            print(json.dumps(row), flush=True)
+            write_line(json.dumps(row))
             if row.get("check") and row["within_tol"] != row["must_pass"]:
                 failed.append(f"ablation {row['ablation']}")
-    print(json.dumps({"failed": failed}), flush=True)
+    write_line(json.dumps({"failed": failed}))
     return 1 if failed else 0
 
 

@@ -60,6 +60,7 @@ from typing import Dict, List, Tuple
 
 from tenzing_tpu_torch.bench import attn_common as common
 from tenzing_tpu_torch.bench.attn_f32 import split_tf32
+from tenzing_tpu_torch.utils.cli import write_line
 
 KERNELS = ("ffn_expert_kernel", "ffn_rows_kernel")
 # label -> (E, C, dff): rows 14 and 13 f32 of PERF.md's kernel table, and
@@ -556,13 +557,13 @@ def main(argv=None) -> int:
     report = {k: common.ptxas_report(str(kernel_lib.build_info.get("ptxas", "")), k)
               for k in KERNELS}
     mismatch = plan_mismatch()
-    print(json.dumps({"build_s": kernel_lib.build_info.get("seconds"),
-                      "ptxas": report, "plan": library_plan(*SHAPES["row14"]),
-                      "plan_mismatch": mismatch}), flush=True)
+    write_line(json.dumps({"build_s": kernel_lib.build_info.get("seconds"),
+                           "ptxas": report, "plan": library_plan(*SHAPES["row14"]),
+                           "plan_mismatch": mismatch}))
     failed = ["plan"] if mismatch else []
     if args.sass:
         sass = common.sass_spills(KERNELS)
-        print(json.dumps({"sass": sass}), flush=True)
+        write_line(json.dumps({"sass": sass}))
         failed += [f"no HGMMA in {k}" for k, v in sass.items()
                    if not v.get("hgmma")]
     device = torch.device("cuda", 0)
@@ -577,16 +578,16 @@ def main(argv=None) -> int:
         parent = build(Path(args.parent) / "tenzing_tpu_torch" / "csrc",
                        ("ffn_expert.cu", "ffn_rows.cu"), old, "parent")
     for row in times(torch, device, parent, args.rounds):
-        print(json.dumps(row), flush=True)
+        write_line(json.dumps(row))
     if args.ablate:
         for row in ablate(torch, device, args.rounds):
-            print(json.dumps(row), flush=True)
+            write_line(json.dumps(row))
             if row.get("check") and row["within_tol"] != row["must_pass"]:
                 failed.append(f"ablation {row['ablation']}")
     if args.cycles:
         for row in cycles(torch, device):
-            print(json.dumps({"cycles": row}), flush=True)
-    print(json.dumps({"failed": failed}), flush=True)
+            write_line(json.dumps({"cycles": row}))
+    write_line(json.dumps({"failed": failed}))
     return 1 if failed else 0
 
 

@@ -53,6 +53,7 @@ from typing import Dict, List, Tuple
 
 from tenzing_tpu_torch.bench import attn_common as common
 from tenzing_tpu_torch.bench.halo_kernels import FLUSH_FLOATS, both_ms
+from tenzing_tpu_torch.utils.cli import write_line
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 SIZES = (150_000, 8192)
@@ -182,8 +183,7 @@ def build(csrc: Path, ablate: bool, tag: str) -> Dict[str, ctypes.CDLL]:
         if proc.returncode != 0:
             raise RuntimeError(f"{tag} {name} failed to build:\n{out}")
         report = common.ptxas_report(out, "fused_region_kernel")
-        print(json.dumps({"version": tag, "variant": name, "ptxas": report}),
-              flush=True)
+        write_line(json.dumps({"version": tag, "variant": name, "ptxas": report}))
         lib = ctypes.CDLL(str(so))
         for fn in ENTRY_POINTS:
             getattr(lib, fn).argtypes = kernel_lib.SIGNATURES[fn]
@@ -315,7 +315,7 @@ def main(argv=None) -> int:
                     row = {"check": label, "m": m, "version": tag,
                            "variant": name, "members": members,
                            **check(torch, lib, table, bufs, device)}
-                    print(json.dumps(row), flush=True)
+                    write_line(json.dumps(row))
                     if not (row["within_tol"] and row["deterministic"]):
                         failed.append(f"{tag}/{name}/m{m}/{label}")
         for rnd in range(args.rounds):
@@ -328,15 +328,15 @@ def main(argv=None) -> int:
                         run = launcher(torch, lib, table.tables[0], 1, device)
                         t = both_ms(torch, run, flush)
                         b = bound_ms(nb)
-                        print(json.dumps({
+                        write_line(json.dumps({
                             "m": m, "round": rnd, "version": tag,
                             "variant": name, "region": label,
                             "members": members, "blocks": run.blocks, **t,
                             "bytes": nb, "bound_ms": b,
-                            "vs_bound": t["ms"] / b}), flush=True)
+                            "vs_bound": t["ms"] / b}))
         del kern, bufs, tables
         torch.cuda.empty_cache()
-    print(json.dumps({"failed": failed}), flush=True)
+    write_line(json.dumps({"failed": failed}))
     return 1 if failed else 0
 
 

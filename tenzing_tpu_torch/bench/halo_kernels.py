@@ -49,6 +49,7 @@ from typing import Dict, List
 import numpy as np
 
 from tenzing_tpu_torch.bench import attn_common as common  # device_line
+from tenzing_tpu_torch.utils.cli import write_line
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 SECTOR = 32  # bytes: the unit in which the card's L2 moves device memory
@@ -174,7 +175,7 @@ def face_rows(torch, device) -> List[dict]:
              **both_ms(torch, lambda: a.copy_(b), flush)}]
     del a, b
     for row in rows:
-        print(json.dumps(row), flush=True)
+        write_line(json.dumps(row))
     for d in DIRECTIONS:
         name = dir_name(d)
         pstarts, sizes = _face_slices(args, d, "pack")
@@ -229,7 +230,7 @@ def face_rows(torch, device) -> List[dict]:
                         u.shape, starts, sizes, kind == "pack",
                         face.data_ptr(), body, sms)))
                 rows.append(row)
-                print(json.dumps(row), flush=True)
+                write_line(json.dumps(row))
     return rows
 
 
@@ -299,7 +300,7 @@ def sweep_rows(torch, device) -> List[dict]:
                    "registers": ptxas[name].get("registers")}
             del got
             rows.append(row)
-            print(json.dumps(row), flush=True)
+            write_line(json.dumps(row))
     return rows
 
 
@@ -386,7 +387,7 @@ def host_rows(torch, device, calls: int, parent_root=None) -> List[dict]:
             for (name, what), ts in times.items():
                 row[f"{name}_{what}"] = host_stats(ts)
             rows.append(row)
-            print(json.dumps(row), flush=True)
+            write_line(json.dumps(row))
     return rows
 
 
@@ -422,7 +423,7 @@ def main(argv=None) -> int:
             failed += [f"sweep {r['variant']} {r['face']}"
                        for r in sweep_rows(torch, device) if not r["exact"]]
     host_rows(torch, device, args.host_calls, args.parent)
-    print(json.dumps({"failed": failed}), flush=True)
+    write_line(json.dumps({"failed": failed}))
     return 1 if failed else 0
 
 

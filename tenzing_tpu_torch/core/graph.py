@@ -14,6 +14,7 @@ but not its key.
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Dict, List, Optional, Sequence as Seq, Set, Tuple
 
 from tenzing_tpu_torch.core.operation import (
@@ -24,7 +25,7 @@ from tenzing_tpu_torch.core.operation import (
     OpBase,
     Start,
 )
-from tenzing_tpu_torch.core.resources import Equivalence
+from tenzing_tpu_torch.core.resources import Equivalence, Lane
 
 
 class Graph:
@@ -80,6 +81,9 @@ class Graph:
     # -- queries ----------------------------------------------------------
     def vertices(self) -> List[OpBase]:
         return list(self.succs_.keys())
+
+    def vertex_size(self) -> int:
+        return len(self.succs_)
 
     def __contains__(self, op: OpBase) -> bool:
         return op in self.succs_
@@ -180,7 +184,54 @@ class Graph:
         return g
 
     # -- whole-graph lane assignment (reference graph.cpp:42-234) ----------
+    def device_vertices(self) -> List[OpBase]:
+        return [
+            v
+            for v in self.succs_
+            if isinstance(v, (DeviceOp, BoundDeviceOp))
+        ]
+
+    def apply_lane_assignment(self, assignment: Dict[OpBase, Lane]) -> "Graph":
+        """Bind every DeviceOp per ``assignment`` (reference apply_assignment,
+        graph.cpp:200-234)."""
+
+        def fn(v: OpBase) -> OpBase:
+            if v in assignment:
+                lane = assignment[v]
+                if isinstance(v, BoundDeviceOp):
+                    return v.with_lane(lane)
+                if isinstance(v, DeviceOp):
+                    return v.bind(lane)
+            return v
+
+        return self._clone_mapped(fn)
+
+    def use_lanes(self, lanes: Seq[Lane]) -> List["Graph"]:
+        """Every total lane assignment of the graph's device ops (reference
+        use_streams/use_streams2, graph.cpp:42-199)."""
+        dops = self.device_vertices()
+        out: List[Graph] = []
+        for combo in itertools.product(lanes, repeat=len(dops)):
+            out.append(self.apply_lane_assignment(dict(zip(dops, combo))))
+        return out
+
     # -- visualization ----------------------------------------------------
+    def dump_graphviz(self, path: Optional[str] = None) -> str:
+        """Graphviz dot text (reference graph.cpp:13-40)."""
+        ids = {v: i for i, v in enumerate(self.succs_)}
+        lines = ["digraph G {"]
+        for v, i in ids.items():
+            lines.append(f'  n{i} [label="{v.desc()}"];')
+        for v, ss in self.succs_.items():
+            for s in ss:
+                lines.append(f"  n{ids[v]} -> n{ids[s]};")
+        lines.append("}")
+        text = "\n".join(lines) + "\n"
+        if path is not None:
+            with open(path, "w") as f:
+                f.write(text)
+        return text
+
 # -- graph equivalence under resource bijection (reference graph.cpp:236-420) ----
 
 
@@ -210,3 +261,8 @@ def get_equivalence(a: Graph, b: Graph, base: Optional[Equivalence] = None) -> E
         if {s.eq_key() for s in ss} != {s.eq_key() for s in bss}:
             return Equivalence.falsy()
     return e
+
+
+def is_equivalent_lane_mapping(a: Graph, b: Graph) -> bool:
+    """reference is_equivalent_stream_mapping, graph.cpp:236-346."""
+    return bool(get_equivalence(a, b))

@@ -24,7 +24,7 @@ separate one, so registering a kind here never touches the reference's serdes.
 from __future__ import annotations
 
 import copy
-from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Dict, Iterable, List, Optional, Sequence as Seq, Tuple
 
 from tenzing_tpu_torch.core.resources import Lane
 
@@ -331,8 +331,31 @@ class BoundDeviceOp(BoundOp):
 # -- helpers (reference operation.cpp:36-100) ------------------------------------
 
 
+def make_lane_variations(op: OpBase, lanes: Seq[Lane]) -> List[OpBase]:
+    """All lane bindings of ``op`` (reference make_platform_variations,
+    operation.cpp:36-49).  Non-device ops pass through unchanged."""
+    if isinstance(op, BoundDeviceOp):
+        return [op.with_lane(lane) for lane in lanes]
+    if isinstance(op, DeviceOp):
+        return [op.bind(lane) for lane in lanes]
+    return [op]
+
+
 def unbound(op: OpBase) -> OpBase:
     """Strip a lane binding if present (reference BoundGpuOp::unbound)."""
     if isinstance(op, BoundDeviceOp):
         return op.unbound()
     return op
+
+
+def keep_uniques(ops: Iterable[OpBase]) -> List[OpBase]:
+    """Order-preserving dedup by op equality (reference keep_uniques,
+    operation.cpp:51-62)."""
+    seen = set()
+    out: List[OpBase] = []
+    for op in ops:
+        k = op.eq_key()
+        if k not in seen:
+            seen.add(k)
+            out.append(op)
+    return out

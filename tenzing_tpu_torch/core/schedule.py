@@ -13,12 +13,19 @@ Counterpart of ``tenzing_tpu/core/schedule.py`` (reference
    same lane (247-306)
 
 A lane's "token" below is its stream's progress.
+
+Also the whole-space enumerators ``make_schedules`` (every topological
+order, schedule.cpp:327-390) and ``make_schedules_random`` (schedule.cpp:
+395-529), the latter with an explicit seeded PRNG where the reference drew
+from an unseeded ``rand()``.
 """
 
 from __future__ import annotations
 
+import random as _random
 from typing import Dict, List, Optional, Tuple
 
+from tenzing_tpu_torch.core.graph import Graph
 from tenzing_tpu_torch.core.operation import BoundDeviceOp, OpBase
 from tenzing_tpu_torch.core.resources import Event, Lane
 from tenzing_tpu_torch.core.sequence import Sequence
@@ -211,3 +218,44 @@ def remove_redundant_syncs(order: Sequence) -> Sequence:
                 changed = True
                 break
     return Sequence(ops)
+
+
+# -- whole-space enumerators (reference schedule.cpp:327-529) --------------------
+
+
+def make_schedules(g: Graph, max_schedules: Optional[int] = None) -> List[Sequence]:
+    """Every topological order of ``g`` (reference make_schedules,
+    schedule.cpp:327-390), depth first.  No lane assignment or sync
+    insertion: the raw order space."""
+    out: List[Sequence] = []
+    partials: List[List[OpBase]] = [[g.start()]]
+    while partials:
+        cur = partials.pop()
+        frontier = g.frontier(cur)
+        if not frontier:
+            out.append(Sequence(cur))
+            if max_schedules is not None and len(out) >= max_schedules:
+                return out
+            continue
+        for op in frontier:
+            partials.append(cur + [op])
+    return out
+
+
+def make_schedules_random(
+    g: Graph, n: int, seed: int = 0
+) -> List[Sequence]:
+    """``n`` random topological orders, each step a uniform draw from the
+    frontier through a PRNG seeded with ``seed`` (reference
+    make_schedules_random, schedule.cpp:395-529)."""
+    rng = _random.Random(seed)
+    out: List[Sequence] = []
+    for _ in range(n):
+        cur: List[OpBase] = [g.start()]
+        while True:
+            frontier = g.frontier(cur)
+            if not frontier:
+                break
+            cur.append(frontier[rng.randrange(len(frontier))])
+        out.append(Sequence(cur))
+    return out

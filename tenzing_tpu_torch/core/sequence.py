@@ -78,6 +78,22 @@ class Sequence(Generic[OpT]):
     def contains(self, op: OpBase) -> bool:
         return any(o == op for o in self._ops)
 
+    def contains_unbound(self, op: OpBase) -> bool:
+        """True if the sequence contains ``op`` or a lane-bound version of it
+        (reference contains_unbound; with resource-insensitive identity this is
+        plain equality)."""
+        target = unbound(op)
+        return any(unbound(o) == target for o in self._ops)
+
+    def find_unbound(self, op: OpBase) -> Optional[OpBase]:
+        """The sequence entry matching ``op`` modulo lane binding, or None
+        (reference find_unbound, sequence.cpp:140-167)."""
+        target = unbound(op)
+        for o in self._ops:
+            if unbound(o) == target:
+                return o
+        return None
+
     # -- event allocation (reference sequence.hpp:77-93) -------------------
     def new_unique_event(self) -> Event:
         """Smallest virtual Event id not used by any op in the sequence."""
@@ -123,6 +139,10 @@ def get_equivalence(a: Sequence, b: Sequence, base: Optional[Equivalence] = None
             if not e.check_or_insert_event(ea, eb):
                 return Equivalence.falsy()
     return e
+
+
+def is_equivalent(a: Sequence, b: Sequence) -> bool:
+    return bool(get_equivalence(a, b))
 
 
 def canonical_key(seq: Sequence) -> tuple:

@@ -4,8 +4,9 @@ Counterpart of ``examples/_driver.py`` (reference
 ``tenzing-mcts/examples/spmv_run_strategy.cuh``): argparse CLI, graph build,
 platform, solver run, pipe-delimited CSV to stdout and the best schedule to
 stderr.  ``--device`` picks where the schedules run (``cuda`` by default);
-``--cpu`` means ``--device cpu``.  The reference's init gate and reproduce
-stamp come with a later slice.
+``--cpu`` means ``--device cpu``.  Each example calls :func:`setup` first:
+the init gate's one-shot notice and the reproduce stamp, on stderr, as the
+reference's drivers do.
 """
 
 from __future__ import annotations
@@ -36,6 +37,20 @@ def add_mcts_args(ap: argparse.ArgumentParser) -> None:
                              and s not in ("StrategyBase", "_SiblingNormalized")])
     ap.add_argument("--no-expand-rollout", action="store_true",
                     help="do not materialize rollout paths in the tree")
+    ap.add_argument("--dump-tree", action="store_true",
+                    help="periodic graphviz dumps of the search tree "
+                         "(mcts_tree_<iteration>.dot in the working "
+                         "directory)")
+
+
+def setup(args) -> None:
+    """The init gate and the reproduce stamp (reference drivers call
+    tenzing::init + reproduce::dump_with_cli first,
+    halo_run_strategy.hpp:23-27), both on stderr."""
+    from tenzing_tpu_torch.utils import initgate, reproduce
+
+    initgate.init()
+    reproduce.dump_with_cli()
 
 
 def device_of(args) -> str:

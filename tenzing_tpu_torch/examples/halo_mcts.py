@@ -57,7 +57,7 @@ def halo_graph(hargs, engine: str):
 
 def rank_search(mesh, device, args, engine: str, lanes: int, mcts_iters: int,
                 benchmark_iters: int, strategy: str, expand_rollout: bool,
-                seed: int = 0):
+                seed: int = 0, dump_tree: bool = False):
     """One rank's search (a parallel/launch.py task): every rank measures
     every schedule through the control plane; rank 0 returns ``(CSV text,
     best pct10, best pct50, schedules)``, the others None."""
@@ -76,7 +76,8 @@ def rank_search(mesh, device, args, engine: str, lanes: int, mcts_iters: int,
         EmpiricalBenchmarker(h.executor, control_plane=cp),
         MctsOpts(n_iters=mcts_iters,
                  bench_opts=BenchOpts(n_iters=benchmark_iters),
-                 expand_rollout=expand_rollout, seed=seed),
+                 expand_rollout=expand_rollout, dump_tree=dump_tree,
+                 seed=seed),
         strategy=getattr(strategies, strategy), control_plane=cp)
     if cp.rank() != 0:
         return None
@@ -97,6 +98,7 @@ def main(argv=None) -> int:
     ap.add_argument("--shared-card", action="store_true",
                     help="every rank on GPU 0, every exchange the .rdma shift")
     args = ap.parse_args(argv)
+    _driver.setup(args)
 
     device = _driver.device_of(args)
     kwargs = dict(args={"nq": args.nq, "lx": args.cells, "ly": args.cells,
@@ -106,7 +108,8 @@ def main(argv=None) -> int:
                   mcts_iters=args.mcts_iters,
                   benchmark_iters=args.benchmark_iters,
                   strategy=args.strategy,
-                  expand_rollout=not args.no_expand_rollout, seed=args.seed)
+                  expand_rollout=not args.no_expand_rollout, seed=args.seed,
+                  dump_tree=args.dump_tree)
     if args.nproc == 1 and not args.shared_card:
         from tenzing_tpu_torch.parallel.dryrun import world_one
 

@@ -20,6 +20,7 @@ import argparse
 import sys
 
 from tenzing_tpu_torch.examples import _driver
+from tenzing_tpu_torch.utils.cli import write_line
 
 
 def replay_graph(workload: str):
@@ -89,6 +90,7 @@ def main(argv=None) -> int:
     ap.add_argument("--strategies", default="Random,FastMin,Coverage,AntiCorrelation",
                     help="comma-separated strategy names to compare")
     args = ap.parse_args(argv)
+    _driver.setup(args)
 
     from tenzing_tpu_torch.bench.benchmarker import BenchOpts, CsvBenchmarker
     from tenzing_tpu_torch.core.platform import Platform
@@ -117,9 +119,9 @@ def main(argv=None) -> int:
             if hit_at is None and best_so_far <= best:
                 hit_at = i
         miss = f", {replay.misses} unrecorded rollouts" if replay.misses else ""
-        print(f"{name}: best {best_so_far*1e6:.1f}us over {len(res.sims)} "
-              f"benchmarked rollouts{miss}; recorded optimum "
-              f"{'hit at iter %d' % hit_at if hit_at is not None else 'not reached'}")
+        write_line(f"{name}: best {best_so_far*1e6:.1f}us over {len(res.sims)} "
+                   f"benchmarked rollouts{miss}; recorded optimum "
+                   f"{'hit at iter %d' % hit_at if hit_at is not None else 'not reached'}")
     return 0
 
 

@@ -28,6 +28,7 @@ def main(argv=None) -> int:
     ap.add_argument("--no-impl-choice", action="store_true",
                     help="drop the expert-MLP kernel menu")
     args = ap.parse_args(argv)
+    _driver.setup(args)
 
     from tenzing_tpu_torch.bench.benchmarker import BenchOpts, EmpiricalBenchmarker
     from tenzing_tpu_torch.core.platform import Platform
@@ -55,7 +56,8 @@ def main(argv=None) -> int:
         g, plat, EmpiricalBenchmarker(ex),
         MctsOpts(n_iters=args.mcts_iters,
                  bench_opts=BenchOpts(n_iters=args.benchmark_iters),
-                 expand_rollout=not args.no_expand_rollout, seed=args.seed),
+                 expand_rollout=not args.no_expand_rollout,
+                 dump_tree=args.dump_tree, seed=args.seed),
         strategy=getattr(strategies, args.strategy),
     )
     _driver.emit(res, args.dump_csv)

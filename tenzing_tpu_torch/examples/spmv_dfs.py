@@ -26,6 +26,7 @@ def main(argv=None) -> int:
                          "visited once per iteration in random order "
                          "(reference benchmarker.cpp:21-76)")
     args = ap.parse_args(argv)
+    _driver.setup(args)
 
     from tenzing_tpu_torch.bench.benchmarker import BenchOpts, EmpiricalBenchmarker
     from tenzing_tpu_torch.solve.dfs import DfsOpts, explore

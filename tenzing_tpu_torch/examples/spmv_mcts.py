@@ -24,6 +24,7 @@ def main(argv=None) -> int:
                     help="MatrixMarket .mtx input instead of the random band "
                          "matrix (reference spmv.cu:35-37)")
     args = ap.parse_args(argv)
+    _driver.setup(args)
 
     from tenzing_tpu_torch.bench.benchmarker import BenchOpts, EmpiricalBenchmarker
     from tenzing_tpu_torch.solve.mcts import MctsOpts, explore, strategies
@@ -33,7 +34,8 @@ def main(argv=None) -> int:
         g, plat, EmpiricalBenchmarker(ex),
         MctsOpts(n_iters=args.mcts_iters,
                  bench_opts=BenchOpts(n_iters=args.benchmark_iters),
-                 expand_rollout=not args.no_expand_rollout, seed=args.seed),
+                 expand_rollout=not args.no_expand_rollout,
+                 dump_tree=args.dump_tree, seed=args.seed),
         strategy=getattr(strategies, args.strategy),
     )
     _driver.emit(res, args.dump_csv)

@@ -19,10 +19,9 @@ measured.
 * :mod:`~tenzing_tpu_torch.fault.inject` — seeded chaos
   (``--inject-faults``);
 * :mod:`~tenzing_tpu_torch.fault.fsinject` — seeded hostile-filesystem
-  faults behind utils/atomic.py's seam (``$TENZING_FSINJECT``).
-
-Not ported yet: the filesystem chaos drill (``fault/fschaos.py``; ROADMAP
-Queue 1 item 8c-2).
+  faults behind utils/atomic.py's seam (``$TENZING_FSINJECT``);
+* :mod:`~tenzing_tpu_torch.fault.fschaos` — the serving plane's
+  hostile-filesystem drill (``python -m tenzing_tpu_torch.fault.fschaos``).
 """
 
 from tenzing_tpu_torch.fault.backoff import BackoffPolicy, retry_call

@@ -90,6 +90,7 @@ import numpy as np
 
 from tenzing_tpu_torch.core.operation import DeviceOp
 from tenzing_tpu_torch.models.moe import MoEArgs, MoELayer, make_moe_buffers
+from tenzing_tpu_torch.utils.cli import write_line
 from tenzing_tpu_torch.utils.numeric import round_bf16
 
 # the reference dryrun's MoE width (__graft_entry__.py: tokens_per_shard=8,
@@ -411,7 +412,7 @@ def main(argv=None) -> int:
 
             summary = launch("tenzing_tpu_torch.parallel.dryrun:rank_main",
                              a.nproc, a.device, kwargs, timeout_s=600.0)[0]
-    print(json.dumps(summary), flush=True)
+    write_line(json.dumps(summary))
     return 0
 
 
@@ -1106,7 +1107,6 @@ def halo_main(nproc: int, device: str, mcts_iters: int,
                   mesh_shape=shape)[0]
 
 
-
 # -- the other multi-device models --------------------------------------------
 #
 # The distributed and irregular SpMV, the ring attention, the pipeline and its
@@ -1605,6 +1605,43 @@ def model_shared_main(mesh, device, model: str, args: Dict[str, Any],
             "timing": timing}
 
 
+def model_shared_cases_main(mesh, device, cases: List[Dict[str, Any]],
+                            seed: int = 0) -> List[dict]:
+    """One rank of several shared-card cases on one mesh (the launch task
+    of :func:`models_main` with ``shared_card``): :func:`model_shared_main`
+    for each case (``model``, ``args``, ``label``) in turn; returns this
+    rank's row per case."""
+    return [model_shared_main(mesh, device, c["model"], c["args"], seed=seed,
+                              label=c["label"])
+            for c in cases]
+
+
+def halo_then_models_shared_main(mesh, device, args: Dict[str, Any],
+                                 cases: List[Dict[str, Any]],
+                                 time_reps: int = 20,
+                                 seed: int = 0) -> dict:
+    """One rank of the shared-card halo (:func:`halo_shared_main`), then of
+    the shared-card model cases on the same ranks and process group, each
+    over its own mesh (``axes``, ``shape``; :func:`shared_cases`): the
+    ranks start and reach the card once for both.  Returns this rank's
+    ``halo`` row and its row per case (``models``)."""
+    import torch.distributed as dist
+
+    from tenzing_tpu_torch.parallel.mesh import init_mesh
+
+    halo = halo_shared_main(mesh, device, args, seed=seed,
+                            time_reps=time_reps)
+    rows = []
+    for c in cases:
+        # the process group is joined: init_mesh only lays the axes on it
+        m = init_mesh(c["axes"], "gloo", "", dist.get_rank(),
+                      dist.get_world_size(), shape=c["shape"],
+                      shared_card=True)
+        rows.append(model_shared_main(m, device, c["model"], c["args"],
+                                      seed=seed, label=c["label"]))
+    return {"halo": halo, "models": rows}
+
+
 def time_distances(m: ModelRun, cp) -> Dict[str, dict]:
     """Each kept distance's shift of ``send_<d>`` into ``recv_<d>`` timed on
     this rank with CUDA events (:func:`_time_post_wait`, ``DISTANCE_REPS``
@@ -1666,16 +1703,18 @@ def models_main(model: str, nproc: int, device: str,
     from tenzing_tpu_torch.parallel.launch import launch
 
     if shared_card:
+        # every case of one rank count shares its mesh: one launch runs them
+        # all, so the ranks start (and reach the card) once
         cases = shared_cases(nproc)
-        stages = []
-        for c in cases:
-            ranks = launch("tenzing_tpu_torch.parallel.dryrun:"
-                           "model_shared_main", nproc, "cuda",
-                           {"model": c["model"], "args": c["args"],
-                            "label": c["label"]}, timeout_s=600.0,
-                           mesh_axes=c["axes"], mesh_shape=c["shape"],
-                           shared_card=True)
-            stages.append({"stage": c["label"], "ranks": ranks})
+        ranks = launch("tenzing_tpu_torch.parallel.dryrun:"
+                       "model_shared_cases_main", nproc, "cuda",
+                       {"cases": [{k: c[k] for k in ("model", "args",
+                                                      "label")}
+                                  for c in cases]}, timeout_s=600.0,
+                       mesh_axes=cases[0]["axes"],
+                       mesh_shape=cases[0]["shape"], shared_card=True)
+        stages = [{"stage": c["label"], "ranks": [r[i] for r in ranks]}
+                  for i, c in enumerate(cases)]
         return {"dryrun": model, "nproc": nproc, "shared_card": True,
                 "stages": stages}
     cases = (model_cases(nproc, model) if device == "cpu"

@@ -24,6 +24,8 @@ import subprocess
 import sys
 import tempfile
 
+from tenzing_tpu_torch.utils.cli import write_line
+
 
 def _mapped(ptr: int, numel: int, device):
     """A float32 tensor over ``numel`` elements at device address ``ptr``
@@ -93,15 +95,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit,compute_mode",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
-    print(json.dumps({"check": "compute_mode", "nvidia_smi": mode}),
-          flush=True)
+    write_line(json.dumps({"check": "compute_mode", "nvidia_smi": mode}))
     from tenzing_tpu_torch.parallel.launch import launch
 
     rows = launch("tenzing_tpu_torch.parallel.ipc_probe:ipc_task", 2, "cuda",
                   timeout_s=300.0, shared_card=True)
-    print(json.dumps({"check": "ipc", "ranks": rows}), flush=True)
+    write_line(json.dumps({"check": "ipc", "ranks": rows}))
     nccl = nccl_self_permute()
-    print(json.dumps({"check": "nccl_self_permute", **nccl}), flush=True)
+    write_line(json.dumps({"check": "nccl_self_permute", **nccl}))
     ok = "Default" in mode and all(r["read_back_ok"] for r in rows)
     return 0 if ok else 1
 

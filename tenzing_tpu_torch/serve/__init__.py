@@ -28,10 +28,13 @@ Counterpart of ``tenzing_tpu/serve``:
   (``serve listen``), the resolver's fast path's caller;
 * :mod:`~tenzing_tpu_torch.serve.replay` — the trace replay of the uncached
   and the serving path (``python -m tenzing_tpu_torch.serve.replay
-  --platform {cuda,cpu}``).
-
-Not ported yet: the drain fleet and the supervisor (ROADMAP Queue 1 item
-8c-2; ``FleetOpts``, ``measure_scaling`` and ``run_fleet`` wait for it).
+  --platform {cuda,cpu}``);
+* :mod:`~tenzing_tpu_torch.serve.fleet` — N daemons work-stealing one queue
+  (``python -m tenzing_tpu_torch.serve.fleet``): the launcher, the
+  exactly-once audit and the drain-rate scaling harness;
+* :mod:`~tenzing_tpu_torch.serve.supervisor` — the controller that owns the
+  fleet (``python -m tenzing_tpu_torch.serve.supervisor``): restarts with
+  backoff, crash-loop breakers, autoscaling, adoption, retention GC.
 """
 
 from tenzing_tpu_torch.serve.daemon import DaemonOpts, DrainDaemon
@@ -41,6 +44,7 @@ from tenzing_tpu_torch.serve.fingerprint import (
     schedule_key,
     shape_bucket,
 )
+from tenzing_tpu_torch.serve.fleet import FleetOpts, measure_scaling, run_fleet
 from tenzing_tpu_torch.serve.resolver import Resolution, Resolver, fp_cache_key
 from tenzing_tpu_torch.serve.service import ScheduleService
 from tenzing_tpu_torch.serve.store import ScheduleStore, WorkQueue, merge_records
@@ -48,9 +52,12 @@ from tenzing_tpu_torch.serve.store import ScheduleStore, WorkQueue, merge_record
 __all__ = [
     "DaemonOpts",
     "DrainDaemon",
+    "FleetOpts",
     "Resolution",
     "Resolver",
     "fp_cache_key",
+    "measure_scaling",
+    "run_fleet",
     "ScheduleService",
     "ScheduleStore",
     "WorkQueue",

@@ -147,6 +147,52 @@ def drain_verdict_path(ckpt_dir: str) -> str:
     return os.path.join(ckpt_dir, "verdict.json")
 
 
+def visible_cards(visible: Optional[str], present: int) -> int:
+    """The cards the CUDA runtime exposes of ``present`` under
+    ``CUDA_VISIBLE_DEVICES`` = ``visible``: all of them when it is unset,
+    else the entries before the first one that names no card (an index
+    that is negative or out of range, or not an index: ``-1`` hides every
+    card); a UUID (``GPU-...``, ``MIG-...``) counts as one."""
+    if visible is None:
+        return present
+    n = 0
+    for entry in visible.split(","):
+        entry = entry.strip()
+        if not entry.startswith(("GPU-", "MIG-")):
+            try:
+                index = int(entry)
+            except ValueError:
+                break
+            if not 0 <= index < present:
+                break
+        n += 1
+    return min(n, present)
+
+
+def cuda_cards() -> int:
+    """The number of CUDA cards this process may use, without torch and
+    without a CUDA context (:func:`visible_cards` over NVML's count): a
+    launcher that only spawns and watches daemons leaves the card to them.
+    0 where the driver's library is absent (a machine with no card).  A
+    daemon itself checks its device with :meth:`DrainDaemon.check_device`."""
+    import ctypes
+
+    try:
+        nvml = ctypes.CDLL("libnvidia-ml.so.1")
+    except OSError:
+        return 0
+    count = ctypes.c_uint(0)
+    if nvml.nvmlInit_v2() != 0:
+        return 0
+    try:
+        if nvml.nvmlDeviceGetCount_v2(ctypes.byref(count)) != 0:
+            return 0
+    finally:
+        nvml.nvmlShutdown()
+    return visible_cards(os.environ.get("CUDA_VISIBLE_DEVICES"),
+                         int(count.value))
+
+
 def parse_override(spec: str) -> tuple:
     """``key=value`` → (key, typed value): values parse as JSON when they
     can (``8`` → int, ``true`` → bool, ``null`` → None) and stay strings

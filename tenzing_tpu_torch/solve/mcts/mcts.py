@@ -6,8 +6,10 @@ per iteration — select, expand, rollout to a complete schedule,
 ``remove_redundant_syncs``, verify, benchmark, backprop — stopping when the
 root is fully visited.  Kept from the reference: decision-path seeds consumed
 as the first iterations, informed (policy) rollouts, the equivalence-keyed
-benchmark cache, the soundness gate, and the multi-fidelity screen/confirm
-split, and the multi-rank protocol (reference mcts.py:264-530, mcts.hpp:129-152,
+benchmark cache, the soundness gate, the multi-fidelity screen/confirm
+split, the periodic graphviz tree dump (``dump_tree``, decaying cadence,
+mcts.hpp:52-127, 302-309) and the CSV dump (``dump_csv_path``), and the
+multi-rank protocol (reference mcts.py:264-530, mcts.hpp:129-152,
 244): with a ``control_plane`` of more than one rank, rank 0 owns the tree,
 and the stop flag and every schedule to measure are broadcast as JSON; every
 rank measures every schedule (the benchmarker's barrier and max-reduction
@@ -75,6 +77,13 @@ class MctsOpts:
     rollout_policy: Optional[object] = None
     rollout_eps: float = 0.15
     expand_rollout: bool = False
+    # graphviz dumps of the tree (Node.dump_graphviz) to
+    # ``<dump_tree_prefix>_<it>.dot`` at a decaying cadence (_dump_cadence)
+    dump_tree: bool = False
+    dump_tree_prefix: str = "mcts_tree"
+    # the result's CSV (MctsResult.dump_csv) written here at the end, and on
+    # an interrupt what was measured so far
+    dump_csv_path: Optional[str] = None
     seed: int = 0
     cache_benchmarks: bool = True
     # fault.checkpoint.SearchCheckpoint: rank 0 snapshots the cursor
@@ -92,6 +101,14 @@ class MctsOpts:
     # search RNG: None (the default) gives the same search.
     prefetch: Optional[object] = None
     prefetch_rollouts: int = 2
+
+    def to_json(self) -> dict:
+        return {
+            "n_iters": self.n_iters,
+            "expand_rollout": self.expand_rollout,
+            "seed": self.seed,
+            "cache_benchmarks": self.cache_benchmarks,
+        }
 
 
 @dataclass
@@ -127,6 +144,16 @@ class MctsResult:
         if not self.sims:
             return None
         return min(self.sims, key=lambda s: s.result.pct10)
+
+
+def _dump_cadence(it: int) -> bool:
+    """Decaying dump cadence (reference mcts.hpp:302-309): every iteration up
+    to 10, then every 10th up to 100, then every 100th."""
+    if it < 10:
+        return True
+    if it < 100:
+        return it % 10 == 0
+    return it % 100 == 0
 
 
 def _materialize_seed(root: Node, path) -> tuple:
@@ -225,12 +252,18 @@ def explore(
     tr = get_tracer()
 
     def interrupted() -> None:
-        # the SIGINT snapshot: the journal already holds every completed
-        # measurement; this stamps how far the run got
-        opts.checkpoint.save_state(
-            mcts={"n_sims": len(result.sims), "interrupted": True})
+        # the SIGINT snapshot: what was measured so far to dump_csv_path
+        # (reference mcts.hpp:174-179, which prints it to stdout without a
+        # path: here nothing is written where none was asked for), and the
+        # cursor, while the journal already holds every measurement
+        if opts.dump_csv_path:
+            result.dump_csv(opts.dump_csv_path)
+        if opts.checkpoint is not None:
+            opts.checkpoint.save_state(
+                mcts={"n_sims": len(result.sims), "interrupted": True})
 
-    mark = opts.checkpoint is not None and cp.rank() == 0
+    mark = (opts.checkpoint is not None or opts.dump_csv_path) \
+        and cp.rank() == 0
     if mark:
         trap.register_handler(interrupted)
     try:
@@ -240,6 +273,8 @@ def explore(
                      rng, counters, result, tr)
             sp.set("n_sims", len(result.sims))
             sp.set("tree_size", result.tree_size)
+        if opts.dump_csv_path and cp.rank() == 0:
+            result.dump_csv(opts.dump_csv_path)
     finally:
         if mark:
             trap.unregister_handler(interrupted)
@@ -365,6 +400,10 @@ def _explore(graph, platform, benchmarker, opts: MctsOpts, strategy, seeds,
                     endpoint.backprop(ctx, res)
                 if tr.enabled:
                     it_sp.set("tree_size", root.size())
+                if opts.dump_tree and _dump_cadence(it):
+                    path = f"{opts.dump_tree_prefix}_{it:06d}.dot"
+                    with open(path, "w") as f:
+                        f.write(root.dump_graphviz())
                 if opts.checkpoint is not None:
                     opts.checkpoint.save_state(
                         mcts={"it": it, "n_sims": len(result.sims),

@@ -171,3 +171,31 @@ class Node:
     # -- introspection ------------------------------------------------------
     def size(self) -> int:
         return 1 + sum(c.size() for c in self.children)
+
+    def dump_graphviz(self, max_nodes: int = 500) -> str:
+        """Tree dump with rollout counts (reference dump_graphviz,
+        mcts.hpp:52-127): visited children only, at most ``max_nodes``."""
+        lines = ["digraph mcts {"]
+        count = [0]
+
+        def walk(node: Node, nid: int) -> int:
+            my = nid
+            lines.append(
+                f'  n{my} [label="{node.label()}\\nn={node.n_}'
+                + ("\\nfull" if node.fully_visited_ else "")
+                + '"];'
+            )
+            nxt = my + 1
+            for c in node.children:
+                if count[0] >= max_nodes:
+                    break
+                if c.n_ == 0:
+                    continue
+                count[0] += 1
+                lines.append(f"  n{my} -> n{nxt};")
+                nxt = walk(c, nxt)
+            return nxt
+
+        walk(self, 0)
+        lines.append("}")
+        return "\n".join(lines) + "\n"

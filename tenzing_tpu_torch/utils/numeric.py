@@ -4,8 +4,8 @@ Counterpart of ``tenzing_tpu/utils/numeric.py`` (reference
 include/tenzing/numeric.hpp): avg/med/var/stddev, Pearson correlation (MCTS
 strategies), nearest-rank percentiles, the paired bootstrap speedup the
 driver's verdict is computed with, the tanh gelu of the host-side
-expected outputs, the prime factors of the halo's device grid, and bf16
-rounding without a bf16 numpy type."""
+expected outputs, the prime factors of the halo's device grid, bf16
+rounding without a bf16 numpy type, and ``round_up``."""
 
 from __future__ import annotations
 
@@ -129,3 +129,10 @@ def round_bf16(a) -> np.ndarray:
     bits = (bits + np.uint32(0x7FFF) + ((bits >> 16) & np.uint32(1))) \
         & np.uint32(0xFFFF0000)
     return bits.view(np.float32)
+
+
+def round_up(x: int, multiple: int) -> int:
+    """Smallest multiple of ``multiple`` >= x (reference numeric.cpp:35-42)."""
+    if multiple <= 0:
+        raise ValueError("multiple must be positive")
+    return ((x + multiple - 1) // multiple) * multiple

@@ -331,3 +331,61 @@ def test_obs_tools_and_replay_leave_jax_unloaded(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_fleet_supervisor_and_fschaos_leave_jax_unloaded(tmp_path):
+    """``python -m tenzing_tpu_torch.serve.fleet`` with stub members,
+    ``serve.supervisor`` with a crash-loop ``--member-argv`` and
+    ``fault.fschaos --skip-fleet``, all on the CPU and run as their modules'
+    ``__main__`` in one interpreter: neither jax nor tenzing_tpu is loaded
+    where they run, and the supervisor initializes no CUDA."""
+    queue = str(tmp_path / "q")
+    code = (
+        "import sys, json, io, contextlib, runpy\n"
+        "def main(mod, argv, ok=(0,)):\n"
+        "    sys.argv = [mod] + argv\n"
+        "    buf = io.StringIO()\n"
+        "    try:\n"
+        "        with contextlib.redirect_stdout(buf):\n"
+        "            runpy.run_module(mod, run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert (e.code or 0) in ok, (mod, e.code)\n"
+        "    return json.loads(buf.getvalue().strip().splitlines()[-1])\n"
+        "from tenzing_tpu_torch.bench.driver import DriverRequest\n"
+        "from tenzing_tpu_torch.serve.fingerprint import fingerprint_of\n"
+        "from tenzing_tpu_torch.serve.store import WorkQueue\n"
+        f"q = WorkQueue({queue!r})\n"
+        "for m in (512, 712):\n"
+        "    r = DriverRequest(workload='spmv', m=m)\n"
+        "    q.enqueue(fingerprint_of(r, platform='cpu'), r.to_json(),"
+        " reason='cold')\n"
+        f"f = main('tenzing_tpu_torch.serve.fleet', ['--queue', {queue!r},"
+        f" '--store', {str(tmp_path / 's.json')!r}, '--device', 'cpu',"
+        " '--n', '2', '--stub-drain-secs', '0.05', '--idle-exit', '0.25',"
+        " '--poll', '0.05'])\n"
+        "assert f['drained'] == 2 and f['double_runs'] == {}, f\n"
+        f"s = main('tenzing_tpu_torch.serve.supervisor', ['--queue',"
+        f" {str(tmp_path / 'sq')!r}, '--store', {str(tmp_path / 'ss')!r},"
+        " '--device', 'cpu', '--tick', '0.05', '--backoff-base', '0.05',"
+        " '--backoff-max', '0.1', '--breaker-max-restarts', '2',"
+        " '--compact-interval', '0', '--gc-interval', '0', '--drain-exit',"
+        " '--member-argv', json.dumps([sys.executable, '-c',"
+        " 'import sys; sys.exit(3)'])], ok=(1,))\n"
+        "assert s['breakers']['fleet-0']['state'] == 'open', s\n"
+        "assert s['cuda_initialized'] is False, s\n"
+        f"v = main('tenzing_tpu_torch.fault.fschaos', ['--workdir',"
+        f" {str(tmp_path / 'fc')!r}, '--skip-fleet', '--device', 'cpu'])\n"
+        "assert v['ok'], v\n"
+        "import torch\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'tenzing_tpu'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("TENZING_FSINJECT", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

@@ -388,3 +388,31 @@ def test_cuda_missing_peer_raises_within_the_deadline(cuda_device, stuck):
 @pytest.mark.needs_cuda
 def test_cuda_device_has_stream_memory_operations(cuda_device):
     rdma.check_memops()
+
+
+@pytest.mark.needs_cuda
+def test_cuda_halo_then_irregular_on_the_same_two_ranks(cuda_device):
+    """The shared-card halo, then the irregular SpMV on a 1x2 mesh over the
+    same two ranks and process group (one start of the ranks for both):
+    U exact, then every ``exchange.rdma`` schedule's Y within tolerance
+    with both shift kernels launched once per schedule at distance 1."""
+    case = dict(model="spmv_irregular", axes=("dp", "sp"), shape=(1, 2),
+                args=dict(matrix=dict(kind="band", m=256, bw=40, nnz=2048,
+                                      seed=0), batch=1, impl_choice=True),
+                label="band/2")
+    rows = launch("tenzing_tpu_torch.parallel.dryrun:"
+                  "halo_then_models_shared_main", 2, "cuda",
+                  dict(args=dict(nq=2, lx=16, ly=32, lz=64, radius=2),
+                       cases=[case], time_reps=3), timeout_s=240.0,
+                  mesh_axes=("x", "y", "z"), mesh_shape=(2, 1, 1),
+                  shared_card=True)
+    for r in rows:
+        assert all(s["u_exact"] for s in r["halo"]["schedules"])
+        (m,) = r["models"]
+        assert m["mesh"] == {"dp": 1, "sp": 2}
+        assert m["schedules"] and all(
+            s["within_tol"] and s["exchange"] == "rdma"
+            for s in m["schedules"])
+        n_posts = len(m["schedules"]) * len(m["timing"])
+        assert m["launches"]["rdma_shift_post"] == n_posts
+        assert m["launches"]["rdma_shift_wait"] == n_posts
