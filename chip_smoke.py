@@ -154,15 +154,25 @@ before the last line:
               region's kernel time beside its tile's share of the traffic
               (the rows ``bench/roofline.MIN_TILE_BYTES`` is set from);
 16. spmv driver — ``run`` with ``workload="spmv"`` at m=150000 with
-              ``fuse_winner`` and ``fuse_search_tiles``: verified, the fused
+              ``fuse_winner`` and ``fuse_search_tiles``, its climbs through
+              the search fleet (``search_workers=2, measure_batch=4,
+              climb_budget=8``: two worker processes, this one the
+              measurement owner): verified, the fused
               program verified with at least one region, its dispatch
               overhead and stepped sum of parts before and after fusing
-              present, ``fused_region`` launched > 0 times; then at
-              ``m=8192``: verified, ``ell_spmv`` launched > 0 times;
+              present, ``fused_region`` launched > 0 times; the
+              ``perf.distributed`` block with 2 workers, no failed job, at
+              least one fused round, an occupancy in (0, 1], the candidates
+              the jobs' sum, no restart and no worker with a CUDA context
+              (its longest round under the workers' 60 s heartbeat limit);
+              then at ``m=8192``: verified, ``ell_spmv`` launched > 0 times;
 17. dfs example — ``python -m tenzing_tpu_torch.examples.spmv_dfs`` at
-              ``--matrix-m 150000`` with a cap of 12 schedules: it must measure
-              at least one and print ``best:``, and the count of unique
-              terminals the same enumeration gives is printed beside it;
+              ``--matrix-m 150000`` with a cap of 12 schedules and
+              ``TENZING_TPU_NATIVE=1``: it must measure at least one and
+              print ``best:``; the terminals the native enumerator gives at
+              the cap must equal the Python path's (``TENZING_TPU_NATIVE=0``),
+              both enumerations timed (host time on the card's machine), and
+              whether the halo search graph's root state lowers is recorded;
 18. examples — ``moe_mcts`` at full width with ``--dump-tree`` (its
               ``mcts_tree_*.dot`` dumps under ``chiprun_out/examples_tree/``
               must exist and hold the tree), ``halo_mcts`` at the flagship
@@ -475,7 +485,12 @@ MOE_LAYER = dict(n_ep=1, tokens_per_shard=8192, d_model=512, d_ff=2048,
                  n_chunks=4)  # parallel/dryrun.py FULL_ARGS at n_ep 1
 MOE_LAYER_ITERS = 12  # the layer's explore through DistControlPlane
 MESH_HALO_ITERS = 12  # the mesh halo's MCTS on the engine menu
-HOST_SYNC_ITERS = 15  # iterations per measurement of the host_syncs phase
+HOST_SYNC_ITERS = 8  # iterations per measurement of the host_syncs phase
+# the MCTS depth of every driver run and serve drain the smoke drives (the
+# fault chains keep their own budget); 8 since the spmv driver's climbs
+# went through the search fleet, to keep the smoke inside its time limit
+DRIVER_MCTS_ITERS = 8
+HALO_PROFILE_REPEATS = 3  # the halo driver phase's --profile-repeats
 FLUSH_BYTES = 128 << 20  # > the 50 MB L2: each timed launch starts cold
 REPS = 15
 
@@ -1180,8 +1195,8 @@ def phase_attn_driver(torch, device, want_o):
     from tenzing_tpu_torch.bench import driver
 
     t0 = time.time()
-    req = driver.DriverRequest(workload="attn", mcts_iters=12, iters=3,
-                               search_iters=2, climb_budget=4)
+    req = driver.DriverRequest(workload="attn", mcts_iters=DRIVER_MCTS_ITERS,
+                               iters=3, search_iters=2, climb_budget=4)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
     reset_launches()
@@ -1443,8 +1458,8 @@ def phase_moe_driver(torch, device, want_y):
     from tenzing_tpu_torch.bench import driver
 
     t0 = time.time()
-    req = driver.DriverRequest(workload="moe", mcts_iters=12, iters=3,
-                               search_iters=2, climb_budget=4)
+    req = driver.DriverRequest(workload="moe", mcts_iters=DRIVER_MCTS_ITERS,
+                               iters=3, search_iters=2, climb_budget=4)
     reset_launches()
     result = driver.run(req, device="cuda")
     launches = all_launches()
@@ -1822,10 +1837,13 @@ def phase_spmv_driver(torch, device):
     from tenzing_tpu_torch.bench import driver
 
     runs = {}
-    for m, flags in ((150_000, dict(fuse_winner=True, fuse_search_tiles=True)),
+    for m, flags in ((150_000, dict(fuse_winner=True, fuse_search_tiles=True,
+                                    search_workers=2, measure_batch=4,
+                                    climb_budget=8)),
                      (8192, {})):
         t0 = time.time()
-        req = driver.DriverRequest(workload="spmv", m=m, mcts_iters=12, iters=3,
+        req = driver.DriverRequest(workload="spmv", m=m,
+                                   mcts_iters=DRIVER_MCTS_ITERS, iters=3,
                                    search_iters=2, **flags)
         reset_launches()
         result = driver.run(req, device="cuda")
@@ -1840,9 +1858,15 @@ def phase_spmv_driver(torch, device):
                "fused": fused, "fuse_search_tiles": verdict.get(
                    "perf", {}).get("fuse_search_tiles"),
                "wall_s": round(time.time() - t0, 3)}
+        dist = verdict.get("perf", {}).get("distributed")
+        if flags:
+            row["distributed"] = dist
+            row["card"] = nvidia_smi()
         emit(row)
         if verdict.get("metric") != f"spmv_iter_pct50_searched_m{m}":
             raise AssertionError(f"spmv driver metric {verdict.get('metric')!r}")
+        if flags:
+            check_fleet(dist)
         check_no_failures(verdict, f"spmv driver m={m}")
         if verdict.get("verified") is not True:
             raise AssertionError(f"spmv driver result not verified: {verdict}")
@@ -1863,6 +1887,29 @@ def phase_spmv_driver(torch, device):
         runs[m] = launches
         torch.cuda.empty_cache()
     return runs
+
+
+def check_fleet(dist) -> None:
+    """The spmv driver's search fleet: two workers, every job done, fused
+    rounds that fit the workers' heartbeat limit, no worker on the card."""
+    if not dist:
+        raise AssertionError("the spmv driver ran no search fleet")
+    problems = []
+    if dist["workers"] != 2 or dist["failed_jobs"] != 0 or dist["rounds"] < 1:
+        problems.append("workers, failed jobs or rounds")
+    if not 0 < (dist["batch_occupancy"] or 0) <= 1:
+        problems.append("batch occupancy")
+    if dist["candidates"] != sum(dist["job_candidates"]) or \
+            not all(n > 0 for n in dist["job_candidates"]):
+        problems.append("candidates against the jobs' sims")
+    if dist["worker_restarts"] != 0:
+        problems.append("worker restarts")
+    if dist["worker_cuda_initialized"] != {"0": False, "1": False}:
+        problems.append("a worker with a CUDA context (or no exit report)")
+    if not dist["longest_round_s"] < 60.0:
+        problems.append("a round past the workers' heartbeat limit")
+    if problems:
+        raise AssertionError(f"the search fleet failed ({problems}): {dist}")
 
 
 def phase_attn_fused(torch, device, timer, want_o):
@@ -2012,7 +2059,8 @@ def phase_attn_fused_driver(torch, device):
 
     t0 = time.time()
     req = driver.DriverRequest(workload="attn", fuse_winner=True,
-                               fuse_search_tiles=True, mcts_iters=12, iters=3,
+                               fuse_search_tiles=True,
+                               mcts_iters=DRIVER_MCTS_ITERS, iters=3,
                                search_iters=2)
     reset_launches()
     result = driver.run(req, device="cuda")
@@ -2213,7 +2261,8 @@ def phase_chunk_driver(torch, device):
     for workload in ("attn", "moe"):
         t0 = time.time()
         extra = dict(climb_budget=4) if workload == "moe" else {}
-        req = driver.DriverRequest(workload=workload, chunk=True, mcts_iters=12,
+        req = driver.DriverRequest(workload=workload, chunk=True,
+                                   mcts_iters=DRIVER_MCTS_ITERS,
                                    iters=3, search_iters=2, **extra)
         reset_launches()
         result = driver.run(req, device="cuda")
@@ -2827,27 +2876,65 @@ def phase_dfs_example(torch):
     from tenzing_tpu_torch.models.spmv import SpMVCompound
     from tenzing_tpu_torch.solve.dfs import enumerate_schedules
 
+    from tenzing_tpu_torch.bench import driver
+    from tenzing_tpu_torch.core.serdes import sequence_to_json
+    from tenzing_tpu_torch.core.state import State
+    from tenzing_tpu_torch.native import bridge
+
     t0 = time.time()
     cap = 12
     path = os.path.join(OUT_DIR, "spmv_dfs.csv")
     err = io.StringIO()
-    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err):
-        rc = spmv_dfs.main(["--matrix-m", "150000", "--max-seqs", str(cap),
-                            "--benchmark-iters", "10", "--dump-csv", path])
-        # the example's enumeration again (it is deterministic), for its count
+    prior = os.environ.get("TENZING_TPU_NATIVE")
+
+    def enumerated(mode):
+        """The example's enumeration (deterministic) with the native core on
+        or off; its schedules' JSON and its host time."""
+        os.environ["TENZING_TPU_NATIVE"] = mode
         g = Graph()
         g.start_then(SpMVCompound())
         g.then_finish(SpMVCompound())
-        n_terminals = len(enumerate_schedules(g, Platform.make_n_lanes(2), cap))
+        t = time.perf_counter()
+        states = enumerate_schedules(g, Platform.make_n_lanes(2), cap)
+        return ([json.dumps(sequence_to_json(st.sequence)) for st in states],
+                time.perf_counter() - t)
+
+    try:
+        os.environ["TENZING_TPU_NATIVE"] = "1"
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(err):
+            rc = spmv_dfs.main(["--matrix-m", "150000", "--max-seqs", str(cap),
+                                "--benchmark-iters", "10", "--dump-csv", path])
+            native, native_s = enumerated("1")
+            python, python_s = enumerated("0")
+        os.environ["TENZING_TPU_NATIVE"] = "1"
+        halo_g, _ = driver.graph_for(driver.DriverRequest())
+        halo_plat = Platform.make_n_lanes(driver.search_lanes(
+            driver.DriverRequest()))
+        halo_root_lowers = bridge.try_decisions(State(halo_g),
+                                                halo_plat) is not None
+    finally:
+        if prior is None:
+            os.environ.pop("TENZING_TPU_NATIVE", None)
+        else:
+            os.environ["TENZING_TPU_NATIVE"] = prior
     with open(path) as f:
         n_rows = sum(1 for line in f if line.strip())
     best = [line for line in err.getvalue().splitlines() if line.startswith("best:")]
     row = {"phase": "dfs_example", "rc": rc, "schedules_measured": n_rows,
-           "unique_terminals_enumerated": n_terminals, "cap": cap,
+           "unique_terminals_enumerated": len(native), "cap": cap,
+           "native_equals_python": native == python,
+           "native_library": os.path.relpath(str(bridge.library_path()), REPO),
+           "enumerate_native_host_s": round(native_s, 6),
+           "enumerate_python_host_s": round(python_s, 6),
+           "halo_root_lowers": halo_root_lowers, "card": nvidia_smi(),
            "best": best[0] if best else None, "wall_s": round(time.time() - t0, 3)}
     emit(row)
-    if rc != 0 or n_rows < 1 or n_terminals < n_rows or not best:
+    if rc != 0 or n_rows < 1 or len(native) < n_rows or not best:
         raise AssertionError(f"the dfs example failed: {row}")
+    if native != python:
+        raise AssertionError("the native enumeration differs from the Python "
+                             f"one at cap {cap}: {row}")
     torch.cuda.empty_cache()
     return row
 
@@ -3029,7 +3116,8 @@ def phase_synth_spmv(torch, device, smi):
     from tenzing_tpu_torch.runtime.executor import StreamExecutor
 
     t0 = time.time()
-    req = driver.DriverRequest(workload="spmv", m=150_000, mcts_iters=12,
+    req = driver.DriverRequest(workload="spmv", m=150_000,
+                               mcts_iters=DRIVER_MCTS_ITERS,
                                iters=3, search_iters=2,
                                synth_collectives=True)
     reset_launches()
@@ -3205,7 +3293,8 @@ def phase_learn(torch, smi, halo_db: str, halo_trace: str):
     torch.cuda.empty_cache()
 
     # the halo driver phase's budget
-    base = dict(mcts_iters=12, iters=3, search_iters=2, climb_budget=4,
+    base = dict(mcts_iters=DRIVER_MCTS_ITERS, iters=3, search_iters=2,
+                climb_budget=4,
                 prefetch_compiles=2, learn_screen=True, learn_model=model)
     from tenzing_tpu_torch.obs.metrics import get_metrics
 
@@ -3295,7 +3384,8 @@ SERVE_REQUESTS = {"halo": {}, "spmv": {"workload": "spmv", "m": 8192}}
 # the chip smoke's cut budget (the halo driver phase's) as the daemon's
 # overrides: budget fields only, which the daemon checks leave the item's
 # fingerprint as it is
-SERVE_OVERRIDES = dict(mcts_iters=12, iters=3, search_iters=2, climb_budget=4)
+SERVE_OVERRIDES = dict(mcts_iters=DRIVER_MCTS_ITERS, iters=3, search_iters=2,
+                       climb_budget=4)
 # each request's store: halo drains into a segmented store directory, spmv
 # into the monolithic file, so the card drives both backends
 SERVE_STORES = {"halo": "store.d", "spmv": "store.json"}
@@ -4808,8 +4898,10 @@ def main() -> int:
     halo_trace = os.path.join(OUT_DIR, "halo_trace")
     halo_metrics = os.path.join(OUT_DIR, "halo_metrics.json")
     halo_db = os.path.join(OUT_DIR, "halo_driver.csv")
-    req = driver.DriverRequest(mcts_iters=12, iters=3, search_iters=2,
-                               climb_budget=4, profile_winner=True,
+    req = driver.DriverRequest(mcts_iters=DRIVER_MCTS_ITERS, iters=3,
+                               search_iters=2, climb_budget=4,
+                               profile_winner=True,
+                               profile_repeats=HALO_PROFILE_REPEATS,
                                trace_out=halo_trace,
                                metrics_json=halo_metrics, dump_csv=halo_db)
     reset_launches()

@@ -290,17 +290,39 @@ class EmpiricalBenchmarker:
         orders: List[Sequence],
         opts: Optional[BenchOpts] = None,
         seed: int = 0,
+        group_seeds: Optional[List[Tuple[int, int]]] = None,
     ) -> List[List[float]]:
         """Raw per-iteration times, aligned by iteration index: ``times[i][k]``
         is schedule i's secs-per-sample in iteration k, and iteration k visits
         every schedule once (shuffled by a seeded RNG) — so
         ``times[a][k] / times[b][k]`` is a *paired* comparison in which
-        common-mode drift cancels (utils.numeric.paired_speedup)."""
+        common-mode drift cancels (utils.numeric.paired_speedup).
+
+        ``group_seeds`` (``[(n_orders, seed), ...]``, the reference's) cuts
+        ``orders`` into consecutive non-empty groups, each shuffled within
+        its own span by its own persistent ``Random(seed)``: a group's visit
+        order is the one a solo call on ``(group_orders, seed)`` makes,
+        whatever shares the round.  The search fleet's owner fuses
+        candidates of several workers into one round this way
+        (search/fleet.py).  ``None`` is one group ``(len(orders), seed)``."""
         opts = opts if opts is not None else BenchOpts()
-        rng = _random.Random(seed)
+        groups = (list(group_seeds) if group_seeds is not None
+                  else [(len(orders), seed)])
+        if (any(n <= 0 for n, _ in groups)
+                or sum(n for n, _ in groups) != len(orders)):
+            raise ValueError(
+                "group_seeds must partition orders into non-empty runs: "
+                f"{groups} vs {len(orders)} orders")
+        rngs = [_random.Random(s) for _, s in groups]
+        spans: List[range] = []
+        at = 0
+        for n, _ in groups:
+            spans.append(range(at, at + n))
+            at += n
         tr = get_tracer()
         with tr.span("bench.batch", n_orders=len(orders),
-                     n_iters=opts.n_iters, seed=seed) as sp:
+                     n_iters=opts.n_iters, seed=seed,
+                     n_groups=len(groups)) as sp:
             runners = [self.runner.prepare_n(o) for o in orders]
             with tr.span("bench.batch_warm", n_orders=len(orders)):
                 for r in runners:
@@ -308,12 +330,13 @@ class EmpiricalBenchmarker:
             n_samples = [1] * len(orders)
             times: List[List[float]] = [[] for _ in orders]
             for _ in range(opts.n_iters):
-                perm = list(range(len(orders)))
-                rng.shuffle(perm)
-                for i in perm:
-                    t, n_samples[i] = self._measure(runners[i], n_samples[i],
-                                                    opts)
-                    times[i].append(t)
+                for span, rng in zip(spans, rngs):
+                    perm = list(span)
+                    rng.shuffle(perm)
+                    for i in perm:
+                        t, n_samples[i] = self._measure(runners[i],
+                                                        n_samples[i], opts)
+                        times[i].append(t)
             sp.set("fetch_overhead", self._overhead)
             get_metrics().counter("bench.measurements").inc(
                 opts.n_iters * len(orders))

@@ -32,7 +32,12 @@ row, the x exchange a host round trip, the SpMV kernel menu) — then
    4:3; moe: the bf16-rdma discipline over the whole budget; with recorded
    rows, first a climb from the best one's menu choices, on a third of the
    halo budget or half the moe budget), paired, at 10x the search floor;
-   the climbs' candidates and chain tips join the pool;
+   the climbs' candidates and chain tips join the pool.  With
+   ``--search-workers N --measure-batch K`` the same climbs run as jobs of
+   the search fleet (search/fleet.py; where a workload has none, two
+   ``generic_xla`` jobs split the budget): inline at ``(1, 1)``, else over
+   N worker processes measured in fused rounds of up to K candidates, the
+   stats in ``perf.distributed``;
 5. ranks the distinct candidates against naive in a paired decorrelated
    screen, then re-measures naive and the top 3 in a longer paired final;
 6. re-runs the winner beside naive from the same initial buffers as an
@@ -89,9 +94,9 @@ quarantined schedule, a retried attempt) is counted in the ``fault`` block's
 ``failures``, which a run whose every measurement succeeded does not have.
 
 :class:`DriverRequest` is a copy of the reference's, field for field, with the
-same defaults.  A request that sets a flag this port does not implement yet
-raises :exc:`DriverConfigError` ("... not yet ported"); nothing is silently
-ignored.  Deviations from the reference: a recorded row is measured only
+same defaults, and every field runs; a workload the port does not have
+raises :exc:`DriverConfigError` ("... not yet ported"), so nothing is
+silently ignored.  Deviations from the reference: a recorded row is measured only
 after the port's verifier passes it (a rejected row is counted in the
 ``recorded`` block); a failed recorded row or profile raises (the reference
 retries, drops or catches it into an error field); the smoke reads a
@@ -198,9 +203,6 @@ class DriverResult:
         return json.dumps(self.verdict)
 
 
-# fields whose non-default values select features this port does not have
-# yet; ``run`` raises on them instead of ignoring them
-_UNPORTED = {"search_workers": "item 8d", "measure_batch": "item 8d"}
 _DEFAULTS = DriverRequest()
 # the spmv workload's nonzeros a row (the reference's)
 SPMV_NNZ_PER_ROW = 10
@@ -227,11 +229,6 @@ def check_request(req: DriverRequest) -> None:
     if req.workload not in WORKLOADS:
         raise DriverConfigError(
             f"--workload {req.workload}: not yet ported (have {WORKLOADS})")
-    for name, item in _UNPORTED.items():
-        if getattr(req, name) != getattr(_DEFAULTS, name):
-            flag = "--" + name.replace("_", "-")
-            raise DriverConfigError(
-                f"{flag}: not yet ported (ROADMAP Queue 1 {item})")
     if req.learn_screen and not req.learn_model:
         raise DriverConfigError("--learn-screen requires --learn-model PATH")
     if req.learn_trace and not req.learn_train:
@@ -274,6 +271,12 @@ def alias_unpack_choice(op_name, choices):
     when it is off-menu."""
     want = ALIAS_UNPACK[op_name[-1]]
     return next((c for c in choices if c.endswith(want)), None)
+
+
+def generic_xla_prefer(op_name, choices):
+    """The workload-agnostic policy: the ``.xla`` alternative where the menu
+    has one (the reference's; the fleet's synthesized climb jobs use it)."""
+    return next((c for c in choices if c.endswith(".xla")), None)
 
 
 def halo_alias_prefer(op_name, choices):
@@ -653,10 +656,9 @@ def recorded_prefer(chosen: Dict[str, str]):
     return prefer
 
 
-def recorded_prefer_and_lanes(seq):
-    """(prefer, lanes) of the climb seeded from a recorded schedule: its
-    menu choices (:func:`recorded_prefer`) on as many lanes as it used
-    (2 when it binds none; the reference's ``recorded_prefer_and_lanes``)."""
+def recorded_chosen_and_lanes(seq):
+    """(chosen, lanes) of a recorded schedule: its menu choices (base op name
+    -> ``".suffix"``) and the lanes it used (2 when it binds none)."""
     from tenzing_tpu_torch.core.serdes import sequence_to_json
 
     js = sequence_to_json(seq)
@@ -667,7 +669,15 @@ def recorded_prefer_and_lanes(seq):
             base, suffix = n.rsplit(".", 1)
             chosen.setdefault(base, "." + suffix)
     lanes_used = [j.get("lane") for j in js if j.get("lane") is not None]
-    return recorded_prefer(chosen), (max(lanes_used) + 1 if lanes_used else 2)
+    return chosen, (max(lanes_used) + 1 if lanes_used else 2)
+
+
+def recorded_prefer_and_lanes(seq):
+    """(prefer, lanes) of the climb seeded from a recorded schedule: its
+    menu choices (:func:`recorded_prefer`) on as many lanes as it used
+    (the reference's ``recorded_prefer_and_lanes``)."""
+    chosen, lanes = recorded_chosen_and_lanes(seq)
+    return recorded_prefer(chosen), lanes
 
 
 def climb_configs(args, plat, recorded=()):
@@ -709,6 +719,72 @@ def climb_configs(args, plat, recorded=()):
         out.insert(0, ("recorded", Platform.make_n_lanes(n_lanes), phases,
                        prefer, b_rec))
     return out
+
+
+def fleet_jobs(args, plat, cfgs, recorded=()):
+    """The fleet's jobs (search/fleet.py ``FleetJob``) for the climb
+    configurations ``cfgs`` (:func:`climb_configs`), each with its label as
+    the prefer policy's name and the recorded schedule's choices where it
+    climbs from one.  Where there are none but a climb budget (the smoke,
+    attn, spmv), two ``generic_xla`` jobs split the budget, as the
+    reference's do: the jobs depend on the request only, never on N or K."""
+    from tenzing_tpu_torch.search.fleet import FleetJob
+
+    if args.climb_budget <= 0:
+        return []
+    if not cfgs:
+        if args.workload == "halo":
+            from tenzing_tpu_torch.models.halo_pipeline import HALO_PHASES as ph
+        elif args.workload == "moe":
+            from tenzing_tpu_torch.models.moe_pipeline import PHASES as ph
+        else:
+            ph = ("",)
+        half = max(1, args.climb_budget // 2)
+        cfgs = [("generic_xla", plat, ph, generic_xla_prefer, half)] * 2
+    chosen = recorded_chosen_and_lanes(recorded[0])[0] if recorded else None
+    return [FleetJob(index=ci, budget=cbudget, seed=2 + ci,
+                     lanes=len(cplat.lanes), phases=tuple(cphases),
+                     prefer=clabel,
+                     chosen=chosen if clabel == "recorded" else None)
+            for ci, (clabel, cplat, cphases, _, cbudget) in enumerate(cfgs)]
+
+
+def run_climb_fleet(args, g, jobs, bench, climb_opts, surrogate, ckpt,
+                    verifier, prefetcher, tile_menu, resilient, log):
+    """Run ``jobs`` inline (``(1, 1)``: search/fleet.py ``run_serialized``)
+    or over ``--search-workers`` processes with fused rounds of up to
+    ``--measure-batch`` candidates (``run_fleet``); logs the reference's
+    ``fleet:`` line.  Returns the ``FleetResult``, or None where the device
+    was lost inside the climbs (the resilient layer then degraded)."""
+    from tenzing_tpu_torch.fault.errors import DeviceLostError
+    from tenzing_tpu_torch.search.fleet import run_fleet, run_serialized
+
+    n_w = max(1, int(args.search_workers))
+    k_fuse = max(1, int(args.measure_batch))
+    t0 = time.time()
+    try:
+        if n_w == 1 and k_fuse == 1:
+            fres = run_serialized(g, jobs, bench, climb_opts,
+                                  surrogate=surrogate, ckpt=ckpt,
+                                  verifier=verifier, prefetcher=prefetcher)
+        else:
+            fres = run_fleet(g, args.to_json(), jobs, bench, climb_opts, n_w,
+                             k_fuse, prefetcher=prefetcher,
+                             verify=not args.no_verify, tile_menu=tile_menu,
+                             log=log)
+    except DeviceLostError:
+        if not resilient.degraded:
+            raise
+        log("fleet: ended (device lost)")
+        return None
+    st = fres.stats
+    log(f"fleet: {st['workers']}w K={st['measure_batch']}: "
+        f"{st['candidates']} candidates / {st['jobs']} jobs in "
+        f"{st['wall_s']}s ({st['rounds']} fused rounds, occupancy "
+        f"{st['batch_occupancy']}, {st['singles']} singles, "
+        f"{st['reclaimed_subtrees']} reclaimed, scaling "
+        f"{st['scaling_factor']}x, wall {time.time()-t0:.0f}s)")
+    return fres
 
 
 def warm_start(pattern: str, topk: int, g, bench, verifier, opts, with_tile1,
@@ -1299,41 +1375,71 @@ def _run(args: DriverRequest, dev, scope: _RunScope) -> DriverResult:
     climb_opts = dataclasses.replace(search_opts, n_iters=8,
                                      target_secs=10 * search_opts.target_secs)
     climbs = []
-    for ci, (clabel, cplat, cphases, cprefer, cbudget) in enumerate(
-            climb_configs(args, plat, recorded)):
-        if resilient.degraded:
-            # a climb compares paired batches on the device
-            log(f"hill-climb[{ci}] ({clabel}): skipped (device lost)")
-            continue
-        t0 = time.time()
-        try:
-            lres = hill_climb(
-                g, cplat, bench, cphases, prefer=cprefer,
-                opts=LocalOpts(budget=cbudget, bench_opts=climb_opts,
-                               seed=2 + ci, paired=True, prescreen=surrogate,
-                               verify=verifier, prefetch=prefetcher,
-                               checkpoint=stack.ckpt))
-        except DeviceLostError:
-            if not resilient.degraded:
-                raise
-            # the device was lost inside the climb: its paired batch cannot
-            # degrade, and the climbs end with it
-            log(f"hill-climb[{ci}] ({clabel}): ended (device lost)")
-            continue
-        log(f"hill-climb[{ci}] ({clabel}, {len(cplat.lanes)} lanes): "
-            f"{len(lres.sims)} candidates, {lres.accepted} moves accepted, "
-            f"best pct50={lres.best().result.pct50*1e6:.1f}us "
-            f"(wall {time.time()-t0:.0f}s)")
-        climbs.append({"seed": clabel, "lanes": len(cplat.lanes),
-                       "budget": cbudget,
-                       "spent": lres.spent, "accepted": lres.accepted,
-                       "candidates": len(lres.sims)})
-        for s in lres.sims:
-            labels[id(s)] = "climb"
-        # the accepted chain tip always advances to the paired screen
-        labels[id(lres.final)] = "climb-tip"
-        incumbents.append(lres.final)
-        sims += lres.sims + [lres.final]
+    cfgs = climb_configs(args, plat, recorded)
+    distributed_stats = None
+    if args.search_workers > 0 or args.measure_batch > 0:
+        # the search fleet (--search-workers N --measure-batch K, the
+        # reference's bench/driver.py:1496-1580): (1, 1) runs the same jobs
+        # inline, anything larger spawns N workers measuring through fused
+        # rounds of up to K candidates; (0, 0) is the loop below
+        jobs = fleet_jobs(args, plat, cfgs, recorded)
+        fres = None
+        if jobs and resilient.degraded:
+            log("fleet: skipped (device lost)")
+        elif jobs:
+            fres = run_climb_fleet(
+                args, g, jobs, bench, climb_opts, surrogate, stack.ckpt,
+                verifier, prefetcher, tile_menu if tile_planted else None,
+                resilient, log)
+        if fres is not None:
+            distributed_stats = fres.stats
+            for jr in fres.jobs:
+                if jr.failed:
+                    log(f"fleet job {jr.index}: FAILED ({jr.failed})")
+                    continue
+                for s in jr.sims:
+                    labels[id(s)] = "climb"
+                sims += jr.sims
+                if jr.final is not None:
+                    # the chain tip always advances to the paired screen
+                    labels[id(jr.final)] = "climb-tip"
+                    incumbents.append(jr.final)
+                    sims += [jr.final]
+    else:
+        for ci, (clabel, cplat, cphases, cprefer, cbudget) in enumerate(cfgs):
+            if resilient.degraded:
+                # a climb compares paired batches on the device
+                log(f"hill-climb[{ci}] ({clabel}): skipped (device lost)")
+                continue
+            t0 = time.time()
+            try:
+                lres = hill_climb(
+                    g, cplat, bench, cphases, prefer=cprefer,
+                    opts=LocalOpts(budget=cbudget, bench_opts=climb_opts,
+                                   seed=2 + ci, paired=True,
+                                   prescreen=surrogate, verify=verifier,
+                                   prefetch=prefetcher, checkpoint=stack.ckpt))
+            except DeviceLostError:
+                if not resilient.degraded:
+                    raise
+                # the device was lost inside the climb: its paired batch
+                # cannot degrade, and the climbs end with it
+                log(f"hill-climb[{ci}] ({clabel}): ended (device lost)")
+                continue
+            log(f"hill-climb[{ci}] ({clabel}, {len(cplat.lanes)} lanes): "
+                f"{len(lres.sims)} candidates, {lres.accepted} moves "
+                f"accepted, best pct50={lres.best().result.pct50*1e6:.1f}us "
+                f"(wall {time.time()-t0:.0f}s)")
+            climbs.append({"seed": clabel, "lanes": len(cplat.lanes),
+                           "budget": cbudget,
+                           "spent": lres.spent, "accepted": lres.accepted,
+                           "candidates": len(lres.sims)})
+            for s in lres.sims:
+                labels[id(s)] = "climb"
+            # the accepted chain tip always advances to the paired screen
+            labels[id(lres.final)] = "climb-tip"
+            incumbents.append(lres.final)
+            sims += lres.sims + [lres.final]
     # the search is done: close the pipeline (joins the workers, finalizes
     # the wasted tally) before the screen, the gate and the profiles
     if prefetcher is not None:
@@ -1506,6 +1612,10 @@ def _run(args: DriverRequest, dev, scope: _RunScope) -> DriverResult:
                       "failed": 0, "surfaced": 0, "dropped": 0}),
         "graphs": ex.graph_stats(),
     }
+    if distributed_stats is not None:
+        # the fleet's block (the reference's perf.distributed): present iff
+        # --search-workers / --measure-batch ran it
+        perf["distributed"] = distributed_stats
     if args.fuse_winner and degraded:
         log("fuse-winner: skipped (device lost)")
         perf["fused"] = {"error": "degraded: no device"}
@@ -2041,6 +2151,23 @@ def fuse_reported(ex, seq, stepped_out, opts, stepped_us: float, tol: float,
     return block
 
 
+# the reference's help text of the fleet's flags (bench.py there)
+FLAG_HELP = {
+    "search_workers": dict(metavar="N", help=(
+        "distributed search fleet (docs/performance.md, 'Distributed "
+        "search'): run the climb jobs across N solver worker processes over "
+        "the file control plane, with this process as the single "
+        "measurement owner; 1 (with --measure-batch 1) is the serialized "
+        "inline path, bit-identical to the legacy climb loop; 0 disables "
+        "the fleet entirely")),
+    "measure_batch": dict(metavar="K", help=(
+        "fuse up to K candidate schedules from distinct workers into one "
+        "device measurement round (grouped batch seeds keep each worker's "
+        "paired permutation stream intact), with prefetch hints compiling "
+        "round i+1 during round i; 0 disables the fleet")),
+}
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     """CLI: ``python -m tenzing_tpu_torch.bench [--smoke] [--halo-n N] ...``
     prints the driver's JSON line."""
@@ -2060,7 +2187,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             typ = {"m": int, "spmv_bw": int, "lanes": int,
                    "measure_timeout": float}.get(f.name, type(default)
                                                  if default is not None else str)
-            p.add_argument(flag, type=typ, default=default)
+            p.add_argument(flag, type=typ, default=default,
+                           **FLAG_HELP.get(f.name, {}))
     ns = vars(p.parse_args(argv))
     device = ns.pop("device")
     try:

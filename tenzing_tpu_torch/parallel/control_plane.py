@@ -13,14 +13,17 @@ over ``torch.distributed``; it needs an initialized default process group
 ``parallel/mesh.py`` ``control_group`` gives a gloo group, so the control
 plane waits on the host even when the data plane runs over NCCL.  Every rank
 must call its methods in the same order from one host thread.
-``FileControlPlane`` (the search fleet's) is not ported yet (ROADMAP Queue
-1).
+:class:`FileControlPlane` is the search fleet's (search/fleet.py): processes
+on one host exchanging snapshots and claims through a shared directory.
 """
 
 from __future__ import annotations
 
 import json
+import os
 from typing import Any
+
+from tenzing_tpu_torch.utils.atomic import atomic_dump_json, read_json
 
 
 class ControlPlane:
@@ -94,6 +97,95 @@ class DistControlPlane(ControlPlane):
         t = torch.tensor([float(x)], dtype=torch.float64, device=dev)
         self._dist.all_reduce(t, op=self._dist.ReduceOp.MAX, group=self._group)
         return float(t.item())
+
+
+class FileControlPlane(ControlPlane):
+    """The search fleet's control plane over a shared directory (the
+    reference's ``FileControlPlane``): N worker processes and one
+    measurement owner on one host, in no process group.
+
+    Two non-blocking primitives:
+
+    * ``publish`` / ``gather``: each rank atomically replaces its own
+      generation-stamped ``<tag>.r<rank>.json``, and ``gather`` reads the
+      snapshots that exist now; the reader reduces (the best incumbent).
+    * ``claim``: a winner-takes-all registry (an ``O_EXCL`` create): the
+      first rank to claim a key owns it, every later claim is refused.
+
+    The lockstep collectives keep the identity semantics of
+    :class:`ControlPlane`: a fleet member can be killed and its job adopted
+    mid-run, so a blocking rendezvous would hang the survivors."""
+
+    def __init__(self, root: str, rank: int, size: int):
+        self.root = root
+        self._rank = int(rank)
+        self._size = int(size)
+        self._gen = 0
+        os.makedirs(root, exist_ok=True)
+
+    def rank(self) -> int:
+        return self._rank
+
+    def size(self) -> int:
+        return self._size
+
+    def publish(self, tag: str, obj: Any) -> None:
+        """Atomically replace this rank's snapshot under ``tag``."""
+        self._gen += 1
+        atomic_dump_json(os.path.join(self.root, f"{tag}.r{self._rank}.json"),
+                         {"gen": self._gen, "rank": self._rank, "data": obj})
+
+    def gather(self, tag: str, include_self: bool = True) -> dict:
+        """``{rank: data}`` of every snapshot of ``tag`` there is now; a
+        missing or unreadable file is skipped (a snapshot is a hint)."""
+        out = {}
+        prefix, suffix = f"{tag}.r", ".json"
+        try:
+            names = os.listdir(self.root)
+        except OSError:
+            return out
+        for name in names:
+            if not (name.startswith(prefix) and name.endswith(suffix)):
+                continue
+            try:
+                rank = int(name[len(prefix):-len(suffix)])
+            except ValueError:
+                continue
+            if not include_self and rank == self._rank:
+                continue
+            try:
+                out[rank] = read_json(os.path.join(self.root, name))["data"]
+            except (OSError, ValueError, KeyError, TypeError):
+                continue
+        return out
+
+    def claim(self, tag: str, key: str) -> bool:
+        """True iff this rank is the first to claim ``key`` under ``tag``.
+        Where the registry cannot be written the claim is granted: a double
+        measurement costs budget, a wrongly skipped candidate coverage."""
+        d = os.path.join(self.root, f"claims-{tag}")
+        try:
+            os.makedirs(d, exist_ok=True)
+            fd = os.open(os.path.join(d, key),
+                         os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+        except FileExistsError:
+            return False
+        except OSError:
+            return True
+        try:
+            os.write(fd, str(self._rank).encode())
+        except OSError:
+            pass
+        finally:
+            os.close(fd)
+        return True
+
+    def claim_count(self, tag: str) -> int:
+        """How many keys the fleet has claimed under ``tag``."""
+        try:
+            return len(os.listdir(os.path.join(self.root, f"claims-{tag}")))
+        except OSError:
+            return 0
 
 
 def default_control_plane() -> ControlPlane:

@@ -7,14 +7,14 @@ dfs.hpp/dfs.cpp): ``get_all_sequences`` is a worklist DFS over
 resource bijection (dfs.hpp:88-113), benchmarks each one and collects the
 results.
 
-The port enumerates with the Python worklist (:func:`_dfs_terminals`).  The
-reference's native C++ enumerator (``tenzing_tpu/native``) has the same cap
-semantics (unique terminals count against ``max_seqs``), so the terminal set
-is the same; a port of it comes later.  With a ``control_plane`` of more than
-one rank, rank 0 enumerates and verifies, and the count and every schedule
-are broadcast as JSON (reference dfs.py:289-370, dfs.hpp:50-70, 145-167);
-every rank measures every schedule, one at a time (``batch`` is ignored, as
-in the reference).  A measurement that raises is recorded
+Each structural variant's order x lane space is enumerated by the native
+C++ core (native/bridge.py) where the variant lowers, else by the Python
+worklist (:func:`_dfs_terminals`); both count unique terminals against
+``max_seqs``, so the terminal set is the same.  With a ``control_plane``
+of more than one rank, rank 0 enumerates and verifies, and the count and
+every schedule are broadcast as JSON (reference dfs.py:289-370,
+dfs.hpp:50-70, 145-167); every rank measures every schedule, one at a time
+(``batch`` is ignored, as in the reference).  A measurement that raises is recorded
 (``search.candidate_failed``) and skips the terminal where the benchmarker
 is rank-coherent (the resilient layer classified it) and the device was not
 lost; otherwise it propagates, as in the port's MCTS.  With ``checkpoint``
@@ -29,8 +29,9 @@ prefetcher in the benchmark stack hints the whole batch itself).  With
 ``prescreen`` (a learn/surrogate.py ``SurrogateBenchmarker``) and
 ``prescreen_keep`` > 0, rank 0 measures only the ``prescreen_keep``
 terminals the surrogate ranks fastest (``learn.prune.dfs_skipped`` counts
-the rest), as the reference does.  Not ported yet, and refused when set:
-fleet ``subtree`` slicing (ROADMAP Queue 1 item 8d).
+the rest), as the reference does.  With ``subtree`` ``(k, n)`` (the search
+fleet's) rank 0 keeps every n-th terminal from the k-th, as the reference
+does.
 """
 
 from __future__ import annotations
@@ -75,7 +76,9 @@ class DfsOpts:
     ``checkpoint`` (a ``fault.checkpoint.SearchCheckpoint``) gets the
     cursor.  ``prescreen`` (a surrogate with ``predict(order) -> (mean,
     std)``) keeps the ``prescreen_keep`` terminals it predicts fastest.
-    ``subtree`` is the reference's and must stay unset: not yet ported."""
+    ``subtree`` ``(k, n)`` keeps the terminals ``k % n, k % n + n, ...``
+    after the prescreen (the fleet's slice; an empty slice keeps terminal
+    ``k % len``)."""
 
     max_seqs: int = 15000
     bench_opts: BenchOpts = field(default_factory=BenchOpts)
@@ -94,9 +97,6 @@ class DfsOpts:
         """Provenance stamp of the options (reference dfs.cpp:11-14)."""
         return {"max_seqs": self.max_seqs, "n_iters": self.bench_opts.n_iters,
                 "batch": self.batch, "batch_seed": self.batch_seed}
-
-
-_UNPORTED = {"subtree": "item 8d"}
 
 
 @dataclass
@@ -207,7 +207,10 @@ def enumerate_schedules(graph: Graph, platform, max_seqs: int = 15000,
     Structural decisions are resolved eagerly into graph variants, and each
     variant's order x lane space is enumerated in turn; the ``max_seqs``
     budget is fair-shared across variants (unused share flows to later
-    ones)."""
+    ones).  A variant the native core lowers is enumerated there (its wall
+    counted as the ``SELECT`` phase, as in the reference)."""
+    from tenzing_tpu_torch.native import bridge
+
     log = log if log is not None else (lambda m: sys.stderr.write(m + "\n"))
     variants = structural_variants(graph)
     out: List[State] = []
@@ -220,7 +223,14 @@ def enumerate_schedules(graph: Graph, platform, max_seqs: int = 15000,
         share = -(-remaining // (len(variants) - k))  # ceil fair share
         with get_tracer().span("dfs.enumerate_variant", variant=k,
                                share=share) as sp:
-            nat = get_unique_sequences(g, platform, share, counters=counters)
+            c = counters if counters is not None else Counters(
+                mirror_global=False)
+            with c.phase("SELECT", span=False):
+                nat = bridge.try_enumerate(g, platform, share,
+                                           dedup_terminals=True)
+            if nat is None:
+                nat = get_unique_sequences(g, platform, share,
+                                           counters=counters)
             sp.set("n_terminals", len(nat))
         if len(nat) >= share and k + 1 < len(variants):
             log(f"dfs: variant {k} truncated at its fair share ({share} "
@@ -236,10 +246,6 @@ def explore(graph: Graph, platform, benchmarker,
     dfs.hpp:78-178).  ``control_plane`` defaults to
     ``default_control_plane()``."""
     opts = opts if opts is not None else DfsOpts()
-    for name in _UNPORTED:
-        if getattr(opts, name) is not None:
-            raise NotImplementedError(f"DfsOpts.{name}: not yet ported "
-                                      f"(ROADMAP Queue 1 {_UNPORTED[name]})")
     cp = control_plane if control_plane is not None else default_control_plane()
     counters = Counters(prefix="dfs.phase")
     result = DfsResult(counters=counters)
@@ -307,6 +313,9 @@ def _explore(graph: Graph, platform, benchmarker, opts: DfsOpts, cp,
             states = enumerate_schedules(graph, platform, opts.max_seqs,
                                          counters=counters)
         states = _prescreened(states, opts)
+        if opts.subtree is not None and states:
+            sk, sn = int(opts.subtree[0]), max(1, int(opts.subtree[1]))
+            states = states[sk % sn::sn] or [states[sk % len(states)]]
     orders = [st.sequence for st in states]
     if opts.verify is not None:
         kept = []

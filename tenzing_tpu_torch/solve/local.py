@@ -21,8 +21,10 @@ after each accepted move and at the end, and a paired batch the journal
 answers (a resumed climb) charges no budget.  With ``LocalOpts.prescreen``
 (a learn/surrogate.py ``SurrogateBenchmarker``) a neighbour whose optimistic
 prediction is still worse than the incumbent's is skipped unmeasured and
-uncharged (``learn.prune.local_skipped``).  Left out, with its subsystem:
-the fleet's shared claim registry (ROADMAP Queue 1 item 8d).  A
+uncharged (``learn.prune.local_skipped``).  With ``LocalOpts.shared`` (the
+search fleet's ``SharedSearchState``, search/fleet.py) a neighbour another
+worker already claimed is skipped uncharged, and the incumbent is published
+at the start and after each accepted move.  A
 measurement that raises is recorded (``search.candidate_failed``) and
 rejects the neighbour where the benchmarker is rank-coherent (the resilient
 layer classified it) and the device was not lost; otherwise it propagates,
@@ -231,6 +233,11 @@ class LocalOpts:
     verify: Optional[object] = None
     prefetch: Optional[object] = None
     checkpoint: Optional[object] = None
+    # the fleet's exchange (search/fleet.py SharedSearchState): ``claim(seq)``
+    # False means another worker measures that neighbour (skipped, free),
+    # ``note_incumbent(cost_s, seq)`` publishes each incumbent.  None: a solo
+    # climb, the same as without the fleet.
+    shared: Optional[object] = None
 
 
 def _pruned(opts: LocalOpts, cand_seq, seq) -> bool:
@@ -351,6 +358,8 @@ def hill_climb(
     seen = {canonical_key(seq)}
     spent = 1 if charge else 0
     accepted = 0
+    if opts.shared is not None:
+        opts.shared.note_incumbent(cur.pct50, seq)
 
     def save_cursor():
         if opts.checkpoint is not None:
@@ -412,6 +421,10 @@ def hill_climb(
                     # without charging the budget
                     continue
                 seen.add(key)
+                if opts.shared is not None and not opts.shared.claim(cand_seq):
+                    # another worker claimed this schedule: skipped, free,
+                    # as a no-op neighbour is
+                    continue
                 if _pruned(opts, cand_seq, seq):
                     continue
                 if use_paired:
@@ -425,6 +438,8 @@ def hill_climb(
                     cur, seq, decisions = res, cand_seq, cand_dec
                     improved = True
                     accepted += 1
+                    if opts.shared is not None:
+                        opts.shared.note_incumbent(cur.pct50, seq)
                     save_cursor()
                     break
                 if spent >= opts.budget:

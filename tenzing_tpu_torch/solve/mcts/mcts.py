@@ -21,7 +21,8 @@ completions of each expanded node's other children (throwaway States, a
 forked RNG: the search is the same with the pipeline on and off), and the
 confirm queue.  Checkpointing is the reference's (``MctsOpts.checkpoint``:
 rank 0 snapshots the cursor after every measured iteration, and the trap
-marks an interrupt); fleet sub-tree slicing is absent.  A measurement that
+marks an interrupt).  The fleet's subtree slicing is the reference's
+(``MctsOpts.subtree``, :func:`prune_to_subtree`).  A measurement that
 raises is recorded (``search.candidate_failed``); where the benchmarker is
 rank-coherent (the resilient layer classified the failure) the candidate is
 rejected with a penalty and the search goes on, as in the reference, unless
@@ -37,7 +38,7 @@ from __future__ import annotations
 
 import random as _random
 from dataclasses import dataclass, field
-from typing import List, Optional, Type
+from typing import List, Optional, Tuple, Type
 
 from tenzing_tpu_torch.bench.benchmarker import (
     BenchOpts,
@@ -101,6 +102,10 @@ class MctsOpts:
     # search RNG: None (the default) gives the same search.
     prefetch: Optional[object] = None
     prefetch_rollouts: int = 2
+    # the fleet's slice ``(k, n)`` (search/fleet.py): search only the k-th
+    # of n slices of the root's children (:func:`prune_to_subtree`).  None
+    # searches the whole tree.
+    subtree: Optional[Tuple[int, int]] = None
 
     def to_json(self) -> dict:
         return {
@@ -223,6 +228,21 @@ def _speculative_completions(node: Node, platform, prng, k: int,
     return hints
 
 
+def prune_to_subtree(root: Node, platform, subtree: Tuple[int, int]) -> None:
+    """Keep the k-th of n slices of ``root``'s children (``MctsOpts.subtree``,
+    the reference's): the children's enumeration is deterministic, so n
+    workers agree on the slices from their ranks alone; child i stays where
+    ``i % n == k % n``.  An empty slice keeps the one child
+    ``k % len(children)``, so no worker is left with nothing to search."""
+    k, n = int(subtree[0]), max(1, int(subtree[1]))
+    root.ensure_children(platform)
+    kids = root.children
+    if not kids:
+        return
+    keep = [c for i, c in enumerate(kids) if i % n == k % n]
+    root.children = keep if keep else [kids[k % len(kids)]]
+
+
 def explore(
     graph,
     platform,
@@ -289,6 +309,8 @@ def _explore(graph, platform, benchmarker, opts: MctsOpts, strategy, seeds,
     ctx = strategy.Context(seed=opts.seed)
     root = Node(State(graph), strategy) if lead else None
     ctx.root = root
+    if root is not None and opts.subtree is not None:
+        prune_to_subtree(root, platform, opts.subtree)
     seed_iter = iter(seeds if seeds is not None else ())
     if opts.prefetch is not None and lead and seeds:
         # the seed queue's terminal schedules are known now: capture them

@@ -12,7 +12,10 @@ calls the strategy up the chain (mcts_node.hpp:326-350).
 
 Counterpart of ``tenzing_tpu/solve/mcts/node.py``: each node stores its full SDP
 ``State`` (graph + sequence); clone surgery shares op objects so snapshots are
-cheap.
+cheap.  Decisions and policy-free playouts go through the native enumerator
+(native/bridge.py) where the state lowers, as in the reference; a playout
+draws its native seed from the search RNG either way, so the two packages
+consume the RNG alike.
 """
 
 from __future__ import annotations
@@ -23,6 +26,15 @@ from typing import List, Optional, Tuple
 
 from tenzing_tpu_torch.core.sequence import Sequence
 from tenzing_tpu_torch.core.state import Decision, State
+
+
+def _decisions(state: State, platform) -> List[Decision]:
+    """The native core's decisions where the state lowers, else the Python
+    layer's (the two agree exactly: tests/test_torch_native.py)."""
+    from tenzing_tpu_torch.native import bridge
+
+    nat = bridge.try_decisions(state, platform)
+    return nat if nat is not None else state.get_decisions(platform)
 
 
 class Node:
@@ -60,7 +72,7 @@ class Node:
             self.expanded_ = True
             return
         have = {c.decision.key() for c in self.children if c.decision is not None}
-        for d in self.state.get_decisions(platform):
+        for d in _decisions(self.state, platform):
             if d.key() not in have:
                 self.children.append(Node(self.state.apply(d), self.strategy, d, self))
         self.expanded_ = True
@@ -143,9 +155,15 @@ class Node:
                 else:
                     node = rng.choice(node.children)
             return node, node.state.sequence
+        if policy is None:
+            from tenzing_tpu_torch.native import bridge
+
+            nat = bridge.try_rollout(self.state, platform, rng.getrandbits(63))
+            if nat is not None:
+                return self, nat
         state = self.state
         while not state.is_terminal():
-            ds = state.get_decisions(platform)
+            ds = _decisions(state, platform)
             if not ds:
                 break
             if policy is not None and rng.random() >= policy_eps:

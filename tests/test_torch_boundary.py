@@ -389,3 +389,97 @@ def test_fleet_supervisor_and_fschaos_leave_jax_unloaded(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+class _OwnerBench:
+    """Deterministic answers for the owner's side of a fleet."""
+
+    def benchmark(self, order, opts=None):
+        from tenzing_tpu_torch.bench.benchmarker import BenchResult
+
+        return BenchResult.from_times([1e-3 + 1e-6 * len(order)] * 3)
+
+    def benchmark_batch_times(self, orders, opts=None, seed=0,
+                              group_seeds=None):
+        return [[1e-3 + 1e-6 * len(o)] * opts.n_iters for o in orders]
+
+
+def test_fleet_worker_and_native_enumeration_leave_jax_unloaded(tmp_path):
+    """A fleet worker (``search.fleet.worker_main``, served by an owner in
+    this process) and a DFS enumeration through the native core, each in a
+    fresh interpreter: neither loads jax or tenzing_tpu, and the worker
+    initializes no CUDA."""
+    import time
+
+    from tenzing_tpu_torch.bench.benchmarker import BenchOpts
+    from tenzing_tpu_torch.bench.driver import DriverRequest, graph_for
+    from tenzing_tpu_torch.search.fleet import (
+        FleetJob,
+        MeasureOwner,
+        _opts_to_json,
+    )
+    from tenzing_tpu_torch.utils.atomic import atomic_dump_json
+
+    req = DriverRequest(workload="spmv", smoke=True)
+    g, _ = graph_for(req)
+    d = str(tmp_path / "fleet")
+    for sub in ("jobs", "mq", "ctrl"):
+        os.makedirs(os.path.join(d, sub))
+    atomic_dump_json(os.path.join(d, "spec.json"), {
+        "request": req.to_json(),
+        "bench_opts": _opts_to_json(BenchOpts(n_iters=3, max_retries=1)),
+        "n_workers": 1, "measure_batch": 2, "lease_ttl": 5.0,
+        "verify": True})
+    atomic_dump_json(os.path.join(d, "jobs", "job-0.json"),
+                     FleetJob(index=0, budget=2, seed=2).to_json())
+    owner = MeasureOwner(d, g, _OwnerBench(), measure_batch=2)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    bad_of = ("bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'tenzing_tpu'))\n"
+              "print(json.dumps(bad))\n")
+    worker = subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys, json, torch\n"
+         "from tenzing_tpu_torch.search.fleet import worker_main\n"
+         f"assert worker_main({d!r}, 0) == 0\n"
+         "assert not torch.cuda.is_initialized()\n" + bad_of],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    deadline = time.time() + 120
+    while worker.poll() is None and time.time() < deadline:
+        owner.heartbeat()
+        owner.drain(busy_workers=1)
+        time.sleep(0.005)
+    out, err = worker.communicate(timeout=5)
+    assert worker.returncode == 0, err[-2000:]
+    assert json.loads(out.strip().splitlines()[-1]) == []
+    with open(os.path.join(d, "jobs", "job-0.done.json")) as f:
+        done = json.load(f)
+    assert "failed" not in done and done["sims"], done
+    assert done["cuda_initialized"] is False
+    enum = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, json\n"
+         "from tenzing_tpu_torch.core.graph import Graph\n"
+         "from tenzing_tpu_torch.core.platform import Platform\n"
+         "from tenzing_tpu_torch.models.spmv import SpMVCompound\n"
+         "from tenzing_tpu_torch.native import bridge\n"
+         "from tenzing_tpu_torch.solve.dfs import enumerate_schedules\n"
+         "g = Graph(); c = SpMVCompound(); g.start_then(c); "
+         "g.then_finish(c)\n"
+         "assert bridge.native_available()\n"
+         "assert len(enumerate_schedules(g, Platform.make_n_lanes(2), 50,"
+         " log=lambda m: None)) == 50\n" + bad_of],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert enum.returncode == 0, enum.stderr[-2000:]
+    assert json.loads(enum.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
+def test_no_port_file_names_the_reference_native_build(path):
+    """The port builds its own native library: no file of it names the JAX
+    package's library or the make rules that write it."""
+    text = path.read_text()
+    assert "_tznative" not in text and "Makefile" not in text, path

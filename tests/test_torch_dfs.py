@@ -124,9 +124,18 @@ def test_explore_verifies_and_refuses_unported_options(tmp_path):
     assert len(res.sims) == 4
     # checkpoint is ported: rank 0 snapshots the cursor at the last terminal
     assert ckpt.load_state()["dfs"] == {"i": 3, "n": 4, "n_sims": 4}
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        dfs.explore(g, Platform.make_n_lanes(2), EmpiricalBenchmarker(ex),
-                    dfs.DfsOpts(max_seqs=2, subtree=(0, 2)))
+    # the fleet's subtree option, once refused, is ported: (k, n) keeps the
+    # terminals k, k + n, ... of the enumeration
+    half = [dfs.explore(g, Platform.make_n_lanes(2), EmpiricalBenchmarker(ex),
+                        dfs.DfsOpts(max_seqs=4, subtree=(k, 2),
+                                    bench_opts=BenchOpts(
+                                        n_iters=2, target_secs=0.0002)))
+            for k in (0, 1)]
+    assert [len(h.sims) for h in half] == [2, 2]
+    assert [sequence_to_json(s.order) for s in half[0].sims] == [
+        sequence_to_json(s.order) for s in res.sims[0::2]]
+    assert [sequence_to_json(s.order) for s in half[1].sims] == [
+        sequence_to_json(s.order) for s in res.sims[1::2]]
     # prescreen is ported (tests/test_torch_learn.py): a surrogate keeps the
     # terminals it predicts fastest, here the first two in a tie
 

@@ -81,12 +81,41 @@ def test_metric_and_lanes_equal_reference(workload):
          measure_batch=2),
 ])
 def test_unported_flags_raise(override):
-    """The flags still to port (the fleet's, ROADMAP Queue 1 item 8) raise,
-    naming their item, also beside the ported synth and learn flags (the
-    fault flags: ``test_fault_flag_refusals``)."""
-    with pytest.raises(driver.DriverConfigError,
-                       match=r"not yet ported \(ROADMAP Queue 1 item"):
-        driver.run(driver.DriverRequest(smoke=True, **override), device="cpu")
+    """The fleet's flags, once refused as not yet ported, now pass the
+    request check, also beside the synth and learn flags (the refusals that
+    remain: ``test_fault_flag_refusals``); the fleet itself runs in
+    ``test_fleet_flags_run_on_cpu``."""
+    driver.check_request(driver.DriverRequest(smoke=True, **override))
+    assert not hasattr(driver, "_UNPORTED")
+
+
+@pytest.mark.parametrize("workers,batch", [(1, 1), (2, 4)])
+def test_fleet_flags_run_on_cpu(workers, batch):
+    """``--search-workers N --measure-batch K`` on the spmv smoke: with no
+    climb configs the two ``generic_xla`` jobs split the climb budget;
+    ``(1, 1)`` runs them inline, ``(2, 4)`` over two workers with fused
+    rounds; ``perf.distributed`` carries the fleet's block."""
+    res = driver.run(driver.DriverRequest(
+        workload="spmv", climb_budget=4, search_workers=workers,
+        measure_batch=batch, **FAST), device="cpu")
+    v = res.verdict
+    st = v["perf"]["distributed"]
+    assert v["verified"] is True
+    assert (st["workers"], st["measure_batch"]) == (workers, batch)
+    assert st["jobs"] == 2 and st["failed_jobs"] == 0
+    assert st["candidates"] >= 2
+    if workers > 1:
+        assert st["rounds"] >= 1 and 0 < st["batch_occupancy"] <= 1
+        assert st["worker_cuda_initialized"] == {"0": False, "1": False}
+    else:
+        assert st["rounds"] == 0 and st["batch_occupancy"] is None
+
+
+def test_no_fleet_block_without_the_flags():
+    """(0, 0) keeps the climb loop: no ``perf.distributed``."""
+    v = driver.run(driver.DriverRequest(workload="spmv", climb_budget=4,
+                                        **FAST), device="cpu").verdict
+    assert "distributed" not in v["perf"]
 
 
 @pytest.mark.parametrize("override,match", [

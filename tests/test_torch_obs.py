@@ -315,6 +315,12 @@ class _FakeBench:
 
 
 def test_dfs_explore_emits_counters_and_spans(tracer, registry, monkeypatch):
+    """The tiny graph lowers, so its enumeration runs in the native core,
+    whose whole wall is SELECT (it dedups inside): the phases equal the
+    reference's with its native core on.  The Python walk's DEDUP phase:
+    ``test_dfs_python_walk_counts_dedup``."""
+    from tenzing_tpu.solve.dfs import DfsOpts as RefDfsOpts
+    from tenzing_tpu.solve.dfs import explore as ref_explore
     from tenzing_tpu_torch.solve.dfs import DfsOpts, explore
 
     res = explore(_tiny_graph(), _FakePlatform(1), _FakeBench(),
@@ -323,7 +329,11 @@ def test_dfs_explore_emits_counters_and_spans(tracer, registry, monkeypatch):
     assert res.counters is not None
     assert "BENCHMARK" in res.counters.seconds
     assert "SELECT" in res.counters.seconds
-    assert "DEDUP" in res.counters.seconds
+    ref = ref_explore(_ref_tiny_graph(), _RefFakePlatform(1), _RefFakeBench(),
+                      RefDfsOpts(max_seqs=4))
+    # the reference also times its broadcast at world size 1 (BCAST), which
+    # the port runs only over several ranks
+    assert set(res.counters.seconds) == set(ref.counters.seconds) - {"BCAST"}
     names = [s.name for s in tracer.spans()]
     assert "dfs.explore" in names and "dfs.iter" in names
     iter_spans = [s for s in tracer.spans() if s.name == "dfs.iter"]
@@ -331,6 +341,44 @@ def test_dfs_explore_emits_counters_and_spans(tracer, registry, monkeypatch):
                for s in iter_spans)
     doc = get_metrics().to_json()
     assert doc["histograms"]["dfs.phase.BENCHMARK.seconds"]["count"] >= 1
+
+
+def _ref_tiny_graph():
+    from tenzing_tpu.core.graph import Graph
+    from tenzing_tpu.core.operation import NoOp
+
+    g = Graph()
+    a, b = NoOp("a"), NoOp("b")
+    g.start_then(a)
+    g.then(a, b)
+    g.then_finish(b)
+    return g
+
+
+class _RefFakePlatform:
+    def __init__(self, n=2):
+        from tenzing_tpu.core.resources import Lane
+
+        self.lanes = [Lane(i) for i in range(n)]
+
+
+class _RefFakeBench:
+    def benchmark(self, order, opts=None):
+        from tenzing_tpu.bench.benchmarker import BenchResult
+
+        return BenchResult.from_times([1.0, 1.0, 1.0])
+
+
+def test_dfs_python_walk_counts_dedup(registry):
+    """The Python worklist (the path of a variant the native core does not
+    take) times its dedup under DEDUP and its expansion under SELECT."""
+    from tenzing_tpu_torch.solve.dfs import get_unique_sequences
+    from tenzing_tpu_torch.utils.counters import Counters
+
+    c = Counters(prefix="dfs.phase")
+    assert get_unique_sequences(_tiny_graph(), _FakePlatform(1), 4,
+                                counters=c)
+    assert {"SELECT", "DEDUP"} <= set(c.seconds)
 
 
 def test_mcts_explore_emits_iteration_spans(tracer, registry):
